@@ -7,23 +7,31 @@ slice end to end at full width through the entry points a user calls:
     FeatureBuilder -> transmogrify -> SanityChecker -> OpXGBoostClassifier
     -> OpWorkflow.train() -> score_and_evaluate(AuPR)
 
-Phases (one JSON line each):
-  1. build      nvcc for sm_90a of csrc/seg_hist.cu
-  2. seg_hist   kernel vs plain at the slice's level shapes (N=1M, d=500,
-                B=32, nchan=2, M=1..32, and a level with empty slots):
-                error, determinism, kernel/plain/library/bound ms
-  3. tree       grow_tree at 50 000 x 64, depth 6, through the kernel, the
+Phases (one JSON line each, after a ``device`` line that also derives the
+card's aggregate shared-memory rate):
+  1. build      nvcc for sm_90a of csrc/seg_hist.cu; the ptxas report, which
+                must show no register spills
+  2. tree       grow_tree at 50 000 x 64, depth 6, through the kernel, the
                 plain version on the card and the plain version on the CPU:
                 identical splits; growth through the kernel raises nothing
                 under torch.cuda's sync debug mode "error" (a prototype that
                 does not catch every synchronising op)
-  4. slice      1 000 000 train + 100 000 held-out rows x 500 Real
+  3. slice      1 000 000 train + 100 000 held-out rows x 500 Real
                 features (the recipe of examples/bench_scale.py, seed 11),
                 XGBoost defaults with max_depth=6; per-phase walls, rounds,
                 ms per round, holdout AuPR, kernel launches, peak memory
+  4. seg_hist   kernel vs plain at the slice's level shapes (N=1M, d=500,
+                B=32, nchan=2, M=1..32, a level with empty slots), the level
+                shapes of depths 7 and 10 (M=64, 512), d=497 through
+                apply_bins' padded rows and one level of unpadded rows
+                (the 4-byte row copies): error, determinism, kernel/plain/
+                library/bound ms, the layout's share, the groups and
+                reduce passes' device ms and the shared-memory floor
   5. profile    an 8-round fit at the same width under torch.profiler:
                 binning and boosting walls, the card's busy time and idle
                 share, the boosting's heaviest device ops per round
+The phases that run torch.profiler come after the slice, so no profiler
+session runs in the process before the slice's walls are taken.
 Then the ``kernels`` summary line, the card's name and power limit, and
 the result line.  Any failed check exits non-zero.  Without a CUDA device
 the script exits with code 1 and prints no result.
@@ -33,6 +41,7 @@ Usage: python3 chip_smoke.py [--rows N] [--holdout N] [--cols D]
 """
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -65,6 +74,14 @@ FULL_ROUNDS = 200
 PROFILE_ROUNDS = 8
 
 
+def _smi(query: str) -> str:
+    """The first card's line of ``nvidia-smi --query-gpu=<query>``."""
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -92,6 +109,42 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
+def device_ms(fn, reps: int = 5, tries: int = 10) -> dict:
+    """Device milliseconds per call of ``fn``, by kernel name, over
+    ``reps`` calls under torch.profiler (the card's own time, free of the
+    host's launch gaps).  The profiler can drop device events, sometimes
+    in several sessions running: a session in which some kernel ran a
+    number of times that is not a multiple of ``reps``, or none ran, lost
+    some, and is taken again half a second later (a ``profiler_retry``
+    line says so), at most ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(0.5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_time_total > 0]
+        counts = {e.key: e.count for e in evs}
+        if evs and all(c % reps == 0 for c in counts.values()):
+            return {e.key: e.device_time_total / reps / 1e3 for e in evs}
+        emit({"phase": "profiler_retry", "attempt": attempt + 1,
+              "reps": reps, "counts": counts})
+    raise RuntimeError(f"check failed: the profiler dropped device events "
+                       f"in {tries} sessions")
+
+
+def pass_ms(by_kernel: dict, name: str) -> float:
+    """The device ms of the ``seg_hist_<name>`` pass in ``device_ms``'s
+    result."""
+    ms = [t for k, t in by_kernel.items() if f"seg_hist_{name}" in k]
+    check(len(ms) == 1, f"no single seg_hist_{name} pass in {by_kernel}")
+    return ms[0]
+
+
 def make_data(rows: int, cols: int, seed: int = 11):
     """examples/bench_scale.py's ``make_data`` recipe, as numpy arrays."""
     rng = np.random.default_rng(seed)
@@ -108,70 +161,129 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _, log = build("seg_hist")
     ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+             if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+    spills = [int(x) for ln in ptxas
+              for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "source": SEG_HIST_SOURCE, "ptxas": ptxas})
+    check(spills, "build: the ptxas report shows no spill counts")
+    check(not any(spills), "build: ptxas reports register spills")
 
 
-def phase_seg_hist(dev, n: int, d: int, reps: int, bw: float, f32: float):
-    """Kernel vs plain at every level shape of a depth-6 round (M = 1..32)
-    plus an M=32 level whose odd slots are empty."""
+def _level_binned(dev, n: int, d: int, B: int, gen):
+    """Random bins in the main path's row layout (rows padded as
+    ``apply_bins`` pads them)."""
+    binned = gk.binned_empty(n, d, dev)
+    binned.copy_(torch.randint(0, B, (n, d), dtype=torch.uint8, device=dev,
+                               generator=gen))
+    return binned
+
+
+def _apply_bins_497(dev, n: int, B: int, gen):
+    """A binned matrix of d=497 columns (not a multiple of 4) made by
+    ``apply_bins`` from normal columns, with the normal law's B-quantiles
+    as every column's edges."""
+    d = 497
+    X = torch.randn(n, d, device=dev, generator=gen)
+    qs = [statistics.NormalDist().inv_cdf(k / B) for k in range(1, B)]
+    binned = gk.apply_bins(X, np.tile(np.asarray(qs, np.float32), (d, 1)))
+    del X
+    check(binned.stride() == (512, 1), f"apply_bins rows {binned.stride()}")
+    return binned
+
+
+def _compare(args) -> dict:
+    """Two launches and the plain version on the same inputs."""
+    k1 = gk.seg_level_hists(*args)
+    k2 = gk.seg_level_hists(*args)
+    plain = gk.seg_level_hists_plain(*args)
+    torch.cuda.synchronize()
+    diff = (k1 - plain).abs()
+    out = {"max_abs_err": float(diff.max()),
+           "max_rel_err": float((diff / plain.abs().clamp(min=1.0)).max()),
+           "tol_ratio": float((diff / (ATOL + RTOL * plain.abs())).max()),
+           "deterministic": bool(torch.equal(k1, k2)),
+           "odd_slots_zero": bool((k1[:, 1::2] == 0).all())}
+    return out
+
+
+def phase_seg_hist(dev, n: int, d: int, reps: int, bw: float, f32: float,
+                   smem_bw: float):
+    """Kernel vs plain at every level shape of a depth-6 round (M = 1..32),
+    an M=32 level whose odd slots are empty, the level shapes of depths 7
+    and 10 (M=64, 512), d=497 through apply_bins' padded rows, and an
+    M=32 level of unpadded rows (stride 500: 4-byte row copies).  Rows
+    with ``in_mean`` make the ``kernels`` line's means."""
     B, nchan = 32, 2
     gen = torch.Generator(device=dev).manual_seed(0)
-    binned = torch.randint(0, B, (n, d), dtype=torch.uint8, device=dev,
-                           generator=gen)
+    binned = _level_binned(dev, n, d, B, gen)
     ch = torch.stack([torch.rand(n, device=dev, generator=gen) * 2 - 1,
                       torch.rand(n, device=dev, generator=gen) * 0.25],
                      dim=1).contiguous()
-    cols = torch.arange(d, device=dev)
+    cases = [(M, False, "main") for M in (1, 2, 4, 8, 16, 32)]
+    cases += [(32, True, "main"), (64, False, "main"), (512, False, "main"),
+              (32, False, "d497"), (32, False, "dense")]
     rows = []
-    for M, even in [(1, False), (2, False), (4, False), (8, False),
-                    (16, False), (32, False), (32, True)]:
+    for M, even, which in cases:
+        if which == "main":
+            b = binned
+        elif which == "d497":
+            b = _apply_bins_497(dev, n, B, gen)
+        else:   # unpadded rows (stride d): the kernel's 4-byte row copies
+            b = binned.contiguous()
+        dd = b.shape[1]
+        cols = torch.arange(dd, device=dev)
         hi = M // 2 if even else M
         slot = torch.randint(0, hi, (n,), dtype=torch.int32, device=dev,
                              generator=gen)
         if even:
             slot = (2 * slot).contiguous()
-        args = (binned, slot, ch, M, B)
-        k1 = gk.seg_level_hists(*args)
-        k2 = gk.seg_level_hists(*args)
-        plain = gk.seg_level_hists_plain(*args)
-        torch.cuda.synchronize()
-        diff = (k1 - plain).abs()
-        max_abs = float(diff.max())
-        max_rel = float((diff / plain.abs().clamp(min=1.0)).max())
-        tol_ratio = float((diff / (ATOL + RTOL * plain.abs())).max())
-        deterministic = bool(torch.equal(k1, k2))
-        empty_zero = bool((k1[:, 1::2] == 0).all()) if even else None
-        del k1, k2, plain, diff
+        args = (b, slot, ch, M, B)
+        cmp = _compare(args)
         kernel_ms = time_ms(lambda: gk.seg_level_hists(*args), reps)
+        # the layout alone is a few small ops: timed by events, the host's
+        # launch gaps between them would count, so take its device time
+        layout_ms = sum(device_ms(lambda: gk.seg_layout(slot, M)).values())
+        passes = device_ms(lambda: gk.seg_level_hists(*args))
         plain_ms = time_ms(lambda: gk.seg_level_hists_plain(*args), 3, 1)
-        flat = ((slot.long()[:, None] * B + binned.long()) * d
+        flat = ((slot.long()[:, None] * B + b.long()) * dd
                 + cols[None, :]).reshape(-1)
-        ws = [ch[:, c:c + 1].expand(n, d).reshape(-1) for c in range(nchan)]
+        ws = [ch[:, c:c + 1].expand(n, dd).reshape(-1) for c in range(nchan)]
         library_ms = time_ms(lambda: [torch.bincount(flat, weights=w,
-                                                     minlength=M * B * d)
+                                                     minlength=M * B * dd)
                                       for w in ws], 3, 1)
         del flat, ws
-        nbytes = n * d + n * 4 + n * nchan * 4 + M * nchan * B * d * 4
-        ops = n * d * nchan
+        nbytes = n * dd + n * 4 + n * nchan * 4 + M * nchan * B * dd * 4
+        ops = n * dd * nchan
         bound_ms = max(nbytes / bw, ops / f32) * 1e3
-        row = {"phase": "seg_hist", "N": n, "d": d, "B": B, "nchan": nchan,
-               "M": M, "empty_slots": even, "max_abs_err": max_abs,
-               "max_rel_err": max_rel,
-               "tol_ratio": tol_ratio, "deterministic": deterministic,
-               "empty_slots_zero": empty_zero, "kernel_ms": kernel_ms,
+        row = {"phase": "seg_hist", "N": n, "d": dd, "B": B, "nchan": nchan,
+               "M": M, "empty_slots": even,
+               "row_stride": b.stride(0),
+               "in_mean": which == "main" and not even and M <= 32,
+               "max_abs_err": cmp["max_abs_err"],
+               "max_rel_err": cmp["max_rel_err"],
+               "tol_ratio": cmp["tol_ratio"],
+               "deterministic": cmp["deterministic"],
+               "empty_slots_zero": cmp["odd_slots_zero"] if even else None,
+               "kernel_ms": kernel_ms, "layout_ms": layout_ms,
+               "kernel_only_ms": kernel_ms - layout_ms,
+               "groups_ms": pass_ms(passes, "groups"),
+               "reduce_ms": pass_ms(passes, "reduce"),
                "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms,
                "bound_by": "bytes" if nbytes / bw >= ops / f32
                else "operations",
+               "smem_floor_ms": 16 * n * dd / smem_bw * 1e3,
                "bytes": nbytes, "kernel_GBps": nbytes / kernel_ms / 1e6}
         emit(row)
-        check(deterministic, f"seg_hist M={M}: two launches differ")
-        check(tol_ratio <= 1.0, f"seg_hist M={M}: kernel vs plain error "
-              f"{max_abs} beyond rtol {RTOL} / atol {ATOL}")
-        check(empty_zero is not False, f"seg_hist M={M}: empty slots not 0")
+        what = f"seg_hist M={M} d={dd}"
+        check(row["deterministic"], f"{what}: two launches differ")
+        check(row["tol_ratio"] <= 1.0, f"{what}: kernel vs plain error "
+              f"{row['max_abs_err']} beyond rtol {RTOL} / atol {ATOL}")
+        check(row["empty_slots_zero"] is not False,
+              f"{what}: empty slots not 0")
         rows.append(row)
+        del b, args
     del binned, ch
     return rows
 
@@ -362,25 +474,41 @@ def main() -> int:
     bw, f32 = PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # aggregate shared-memory rate: SMs x 128 bytes a clock (32 banks of 4
+    # bytes) x the SM clock nvidia-smi reports as its maximum
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(_smi("clocks.max.sm").split()[0])
+    smem_bw = sms * 128 * mhz * 1e6
     emit({"phase": "device", "name": name, "bytes_per_s": bw,
-          "f32_ops_per_s": f32,
+          "f32_ops_per_s": f32, "smem_bytes_per_s": smem_bw,
+          "smem_rate_from": f"{sms} SMs x 128 B/clock x {mhz:g} MHz "
+                            f"(nvidia-smi clocks.max.sm)",
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     phase_build()
-    seg = phase_seg_hist(dev, args.rows, args.cols, args.reps, bw, f32)
-    torch.cuda.empty_cache()
     phase_tree(dev)
     torch.cuda.empty_cache()
     sl = phase_slice(args.rows, args.holdout, args.cols, args.rounds)
     torch.cuda.empty_cache()
+    seg = phase_seg_hist(dev, args.rows, args.cols, args.reps, bw, f32,
+                         smem_bw)
+    torch.cuda.empty_cache()
     phase_profile(dev, args.rows, args.cols, PROFILE_ROUNDS)
 
     # per-launch means over the six level shapes of a depth-6 round
-    levels = [r for r in seg if not r["empty_slots"]]
+    levels = [r for r in seg if r["in_mean"]]
 
     def mean(key):
         return statistics.fmean(r[key] for r in levels)
 
+    emit({"phase": "seg_hist_summary", "over": "M = 1..32, d=500",
+          "ms": mean("kernel_ms"), "layout_ms": mean("layout_ms"),
+          "kernel_only_ms": mean("kernel_only_ms"),
+          "groups_ms": mean("groups_ms"), "reduce_ms": mean("reduce_ms"),
+          "bound_ms": mean("bound_ms"),
+          "smem_floor_ms": mean("smem_floor_ms"),
+          "worst_tol_ratio": max(r["tol_ratio"] for r in seg),
+          "worst_ms": max(r["kernel_ms"] for r in levels)})
     emit({"kernels": [{
         "name": "seg_hist", "route": "cuda", "source": SEG_HIST_SOURCE,
         "replaces": SEG_HIST_REPLACES, "launches": sl["seg_hist_launches"],
@@ -388,10 +516,7 @@ def main() -> int:
         "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": levels[-1]["bound_by"],
         "library_ms": mean("library_ms")}]})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

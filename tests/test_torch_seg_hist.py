@@ -62,7 +62,10 @@ class TestSegLevelHistsPlain:
     def test_matches_jax_kernel_and_numpy(self, n, d, M, even):
         B = 32
         binned, slot, ch = _rand(n, d, M, B, even_slots_only=even)
-        got = tk.seg_level_hists(*_torch(binned, slot, ch), M, B).numpy()
+        bt, st, ct = _torch(binned, slot, ch)
+        padded = tk.binned_empty(n, d, bt.device)
+        padded.copy_(bt)
+        got = tk.seg_level_hists(padded, st, ct, M, B).numpy()
         assert got.shape == (2, M, B, d) and got.dtype == np.float32
         np.testing.assert_allclose(got, _np_ref(binned, slot, ch, M, B),
                                    rtol=RTOL, atol=ATOL)
@@ -82,7 +85,8 @@ class TestSegLevelHistsPlain:
     @pytest.mark.parametrize("bad", ["binned_dtype", "slot_dtype",
                                      "ch_shape", "ch_channels", "noncontig",
                                      "bins_over_shared_memory",
-                                     "slots_over_grid"])
+                                     "slots_over_grid", "row_stride_not_4",
+                                     "misaligned_base", "ch_misaligned"])
     def test_rejects_bad_inputs(self, bad):
         binned, slot, ch = _torch(*_rand(64, 8, 4, 32))
         M, B = 4, 32
@@ -94,10 +98,17 @@ class TestSegLevelHistsPlain:
             ch = ch[:10]
         elif bad == "ch_channels":   # the kernel takes gradient, hessian
             ch = ch[:, :1].repeat(1, 4).contiguous()
-        elif bad == "bins_over_shared_memory":   # 2 x B x 128 f32 > 227 KiB
+        elif bad == "bins_over_shared_memory":   # B x 128 float2 > 227 KiB
             B = tk.SEG_MAX_BINS + 1
         elif bad == "slots_over_grid":   # one reduce grid row per slot
             M = tk.SEG_MAX_SLOTS + 1
+        elif bad == "row_stride_not_4":   # rows of 10 bytes
+            binned = torch.zeros((64, 10), dtype=torch.uint8)[:, :8]
+        elif bad == "misaligned_base":   # the kernel loads 4-byte words
+            binned = torch.zeros((64, 12), dtype=torch.uint8)[:, 1:9]
+        elif bad == "ch_misaligned":   # channel pairs copied 8 bytes a row
+            ch = torch.zeros(2 * 64 + 1)[1:].view(64, 2)
+            assert ch.is_contiguous() and ch.data_ptr() % 8
         else:
             binned = binned.T.contiguous().T
         with pytest.raises((TypeError, ValueError)):
@@ -130,6 +141,34 @@ class TestGrowTreeParity:
         np.testing.assert_array_equal(
             tk.quantile_bins(torch.from_numpy(X), 32, **kw),
             gk.quantile_bins(X, 32, **kw))
+
+    def test_padded_rows_match_jax(self):
+        """At d=61 ``apply_bins`` returns the (N, 61) view of rows padded
+        to 64 bytes (a multiple of 16); its values equal the JAX package's
+        binning exactly, and a tree grown from it equals the JAX tree."""
+        X, y, _ = _tree_inputs(n=3000, d=61, seed=4)
+        edges = gk.quantile_bins(X, 32)
+        got = tk.apply_bins(torch.from_numpy(X), edges)
+        assert got.shape == (3000, 61) and got.stride() == (64, 1)
+        binned_j = gk.apply_bins(jnp.asarray(X), jnp.asarray(edges))
+        np.testing.assert_array_equal(got.numpy().astype(np.int32),
+                                      np.asarray(binned_j))
+        p = np.full(len(y), 0.5, np.float32)
+        G = (p - y)[:, None].astype(np.float32)
+        H = (p * (1 - p))[:, None].astype(np.float32)
+        kw = dict(max_depth=4, n_bins=32, lam=1.0, min_child_weight=1.0,
+                  learning_rate=0.3, min_gain_raw=0.1)
+        f_j, t_j, l_j = gk.grow_tree(
+            binned_j, jnp.asarray(G), jnp.asarray(H),
+            jnp.ones(len(y), jnp.float32), min_info_gain=0.0,
+            min_instances=0.0, newton_leaf=True, hist_bf16=False,
+            seg_hist=True, **kw)
+        tree = tk.grow_tree(got, *_torch(G, H), **kw)
+        np.testing.assert_array_equal(tree.feat.numpy(), np.asarray(f_j))
+        np.testing.assert_array_equal(tree.thresh.numpy(), np.asarray(t_j))
+        np.testing.assert_allclose(tree.leaf.numpy(), np.asarray(l_j),
+                                   rtol=1e-5, atol=1e-7)
+        assert (tree.thresh.numpy() < 32).any()
 
     def test_binning_matches(self):
         X, _, edges = _tree_inputs()

@@ -48,13 +48,16 @@ def _lib_path(name: str) -> str:
 
 def build(name: str) -> Tuple[str, str]:
     """Compile ``csrc/<name>.cu`` unless an up-to-date build exists; returns
-    (library path, nvcc's output — its ptxas register and shared-memory
-    report — or "" when the build was reused).  Safe to call from several
-    processes at once: each compiles to its own temporary file and renames
-    it into place."""
+    (library path, nvcc's output — its ptxas register, shared-memory and
+    spill report — kept beside the library, so a reused build returns the
+    report of the build that made it).  Safe to call from several
+    processes at once: each compiles to its own temporary files and renames
+    them into place."""
     path = _lib_path(name)
-    if os.path.exists(path):
-        return path, ""
+    log_path = path[:-3] + ".log"
+    if os.path.exists(path) and os.path.exists(log_path):
+        with open(log_path) as fh:
+            return path, fh.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -65,10 +68,14 @@ def build(name: str) -> Tuple[str, str]:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        with open(tmp + ".log", "w") as fh:
+            fh.write(proc.stdout)
+        os.replace(tmp + ".log", log_path)
         os.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for f in (tmp, tmp + ".log"):
+            if os.path.exists(f):
+                os.remove(f)
     return path, proc.stdout
 
 

@@ -27,19 +27,29 @@ import numpy as np
 import torch
 
 __all__ = ["TreeArrays", "quantile_bins", "apply_bins", "default_dir_mask",
-           "route_right", "seg_layout", "seg_level_hists",
+           "route_right", "binned_empty", "SegPlan",
+           "seg_plan", "seg_layout", "seg_level_hists",
            "seg_level_hists_plain",
            "grow_tree", "predict_tree", "predict_ensemble", "goss_plan"]
 
-#: rows per row group of the seg_hist kernel (a group never straddles two
-#: slots); ~980 groups x 4 feature tiles = ~3900 blocks at M=1, 1M x 500
-SEG_ROW_GROUP = 1024
+#: most rows one warp of the seg_hist kernel adds into one float32 partial
+#: (keeps the partial sums within the kernel's tolerance at a million rows)
+SEG_ROWS_PER_WARP = 1024
+#: warps per block of the seg_hist kernel (each with its own histogram);
+#: chosen by a block-shape sweep on the H100 (PERF.md)
+SEG_WARPS = 2
 #: channels the seg_hist kernel is built for: gradient and hessian of the
 #: binary objective
 SEG_CHANNELS = 2
-#: most bins the kernel's shared-memory histogram [2][B][128] float32 fits
-#: in a Hopper block's 227 KiB
-SEG_MAX_BINS = 227 * 1024 // (SEG_CHANNELS * 128 * 4)
+#: columns of one tile: 32 lanes x one 4-byte word of bins
+SEG_TILE = 128
+#: a Hopper block's shared memory (227 KiB), and the kernel's per-warp
+#: staging ring: 4 stages of 8 rows x (128 bytes of bins + 8 of channels)
+_SMEM_BLOCK = 232_448
+_SMEM_RING = 4 * 8 * (SEG_TILE + 8)
+#: most bins one warp's float2 histogram [B][128] (plus its ring) fits in
+#: a block's shared memory
+SEG_MAX_BINS = (_SMEM_BLOCK - _SMEM_RING) // (SEG_TILE * 8)
 #: most slots: the reduce pass puts one slot per grid row (gridDim.y)
 SEG_MAX_SLOTS = 65535
 #: GOSS engages at/above this depth and row count in the JAX package
@@ -92,13 +102,24 @@ def quantile_bins(X: torch.Tensor, max_bins: int = 32,
 _BIN_ROW_BLOCK = 1 << 16
 
 
+def binned_empty(n: int, d: int, device) -> torch.Tensor:
+    """An uninitialised (N, d) uint8 matrix whose rows are padded to a
+    multiple of 16 bytes: the (N, d) view of an (N, ceil(d/16)*16) buffer.
+    The ``seg_hist`` kernel takes rows padded to 4 bytes (it loads 4
+    columns as one word) and copies rows padded to 16 bytes 16 bytes a
+    lane, which measured faster (PERF.md)."""
+    return torch.empty((n, -(-d // 16) * 16), dtype=torch.uint8,
+                       device=device)[:, :d]
+
+
 def apply_bins(X: torch.Tensor, edges: np.ndarray) -> torch.Tensor:
     """Quantized (N, D) uint8 matrix on X's device: the count of edges below
-    each value (+inf edges never count; NaN lands in bin 0)."""
+    each value (+inf edges never count; NaN lands in bin 0).  Rows are
+    padded to a multiple of 16 bytes (``binned_empty``)."""
     n, d = X.shape
     e = torch.from_numpy(np.sort(np.asarray(edges, np.float32), axis=1))
     e = e.to(X.device).contiguous()
-    out = torch.empty((n, d), dtype=torch.uint8, device=X.device)
+    out = binned_empty(n, d, X.device)
     for a in range(0, n, _BIN_ROW_BLOCK):
         xt = X[a:a + _BIN_ROW_BLOCK].to(torch.float32).T.contiguous()
         b = torch.searchsorted(e, xt, right=False)
@@ -173,37 +194,94 @@ def seg_level_hists_plain(binned: torch.Tensor, slot: torch.Tensor,
     return out.to(torch.float32).reshape(nchan, M, B, d)
 
 
-def seg_layout(slot: torch.Tensor, ch: torch.Tensor, M: int, R: int):
+class SegPlan(NamedTuple):
+    """Launch geometry of the ``seg_hist`` kernel (see ``seg_plan``)."""
+    warps: int          # warps per block, each with its own histogram
+    rows_per_warp: int  # most rows in one warp's float32 partial
+    group_rows: int     # most rows per row group: warps x rows_per_warp
+    n_tiles: int        # column tiles of 128 columns
+    width: int          # scratch row width: n_tiles x 128
+    n_groups: int       # row groups: M + n // group_rows
+    n_blocks: int       # n_groups x n_tiles
+    smem_bytes: int     # dynamic shared memory per block
+
+
+def seg_plan(n: int, d: int, M: int, B: int) -> SegPlan:
+    """The ``seg_hist`` kernel's launch geometry for an (n, d) level of M
+    slots and B bins.  The slot-sorted rows are cut at every slot bound and
+    every multiple of G = group_rows; each piece is a row group, so no
+    group straddles two slots.  Slot s's groups are numbered from
+    goff(s) = s + bounds[s] // G (``bounds`` from ``seg_layout``; one group
+    per slot more than it has cuts, possibly empty), M + n // G in all.
+    Group g of slot s (j = g - goff(s), cut = bounds[s] // G + j) covers
+    sorted rows [r0, r1) with r0 = bounds[s] if j == 0 else cut * G and
+    r1 = max(r0, min(bounds[s+1], (cut + 1) * G)).  Block ``i`` is (group
+    i // n_tiles, tile i % n_tiles); warp w adds rows [r0 + w*q,
+    min(r0 + (w+1)*q, r1)) with q = ceil((r1 - r0) / warps); lane L adds
+    columns t*128 + 4L .. +3 below d.  Warps per block are ``SEG_WARPS``,
+    cut to what B's histograms leave room for in a block's shared memory;
+    q is at most ``SEG_ROWS_PER_WARP``."""
+    per_warp = B * SEG_TILE * 8 + _SMEM_RING
+    warps = min(SEG_WARPS, _SMEM_BLOCK // per_warp)
+    if warps < 1 or B < 1:
+        raise ValueError(f"B={B} bins leave no room for one warp's "
+                         f"histogram (B <= {SEG_MAX_BINS})")
+    group_rows = warps * SEG_ROWS_PER_WARP
+    n_tiles = -(-d // SEG_TILE)
+    n_groups = M + n // group_rows
+    n_blocks = n_groups * n_tiles
+    if n_blocks >= 2 ** 31:
+        raise ValueError(f"{n_blocks} blocks exceed the grid")
+    return SegPlan(warps, SEG_ROWS_PER_WARP, group_rows, n_tiles,
+                   n_tiles * SEG_TILE, n_groups, n_blocks,
+                   warps * per_warp)
+
+
+def seg_layout(slot: torch.Tensor, M: int):
     """The ``seg_hist`` kernel's row layout, built with torch ops on the
-    slot's device and no host synchronisation: ``perm`` (N,) int32 row ids
-    sorted by slot (stable), ``ch_sorted`` the channels in that order,
-    ``counts``/``row_off`` (M,) int32 rows and first sorted position per
-    slot, and ``group_off`` (M+1,) int32 first row group per slot — a slot
-    of c rows owns ceil(c / R) groups, so no group straddles two slots.
-    (Slot bounds come from a search of the sorted slots: ``bincount`` on
-    the card reads the largest slot back to the host and would stall it.)"""
-    sorted_slot, order = torch.sort(slot, stable=True)
+    slot's device and no host synchronisation: ``perm`` (N,) int64 row ids
+    sorted by slot (stable) and ``bounds`` (M+1,) int32, the first sorted
+    position of each slot, then N.  The sort runs on the narrowest key
+    type that holds M (fewer radix passes).  (Slot bounds come from a
+    search of the sorted slots: ``bincount`` on the card reads the largest
+    slot back to the host and would stall it.)"""
+    key = (torch.uint8 if M < 256 else torch.int16 if M < 32768
+           else torch.int32)
+    sorted_slot, perm = torch.sort(slot.to(key), stable=True)
     bounds = torch.searchsorted(
-        sorted_slot, torch.arange(M + 1, dtype=slot.dtype, device=slot.device))
-    row_off = bounds[:-1]
-    counts = bounds[1:] - row_off
-    group_off = torch.zeros(M + 1, dtype=torch.int64, device=slot.device)
-    group_off[1:] = torch.cumsum((counts + R - 1) // R, 0)
-    return (order.to(torch.int32), ch.index_select(0, order).contiguous(),
-            counts.to(torch.int32), row_off.to(torch.int32),
-            group_off.to(torch.int32))
+        sorted_slot, torch.arange(M + 1, dtype=key, device=slot.device),
+        out_int32=True)
+    return perm, bounds
+
+
+def _seg_launcher(lib):
+    """``lib.seg_hist_launch`` with its C signature declared."""
+    fn = lib.seg_hist_launch
+    # pointers and the stream as c_void_p: untyped, ctypes would pass each
+    # Python int as a 32-bit int and cut the pointer
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _seg_lib():
     from ..cuda_build import load_library
 
-    fn = load_library("seg_hist").seg_hist_launch
-    # pointers and the stream as c_void_p: untyped, ctypes would pass each
-    # Python int as a 32-bit int and cut the pointer
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return _seg_launcher(load_library("seg_hist"))
+
+
+def _rows_fit(binned: torch.Tensor, align: int) -> bool:
+    """Whether ``binned`` has unit column stride, a base and row stride that
+    are multiples of ``align`` bytes, and storage that holds its last row
+    rounded up to ``align`` bytes (the kernel loads whole aligned words)."""
+    n, d = binned.shape
+    if (binned.stride(1) != 1 and d > 1) or binned.stride(0) % align \
+            or binned.data_ptr() % align:
+        return False
+    need = (n - 1) * binned.stride(0) + -(-d // align) * align if n else 0
+    have = binned.untyped_storage().nbytes() - binned.storage_offset()
+    return need <= have
 
 
 def seg_level_hists(binned: torch.Tensor, slot: torch.Tensor,
@@ -212,11 +290,15 @@ def seg_level_hists(binned: torch.Tensor, slot: torch.Tensor,
     ``out[c, m, b, j] = sum_i ch[i, c] [slot_i = m] [binned[i, j] = b]``,
     exact zeros for empty slots.
 
-    ``binned`` (N, d) uint8 with values < B <= ``SEG_MAX_BINS``, ``slot``
-    (N,) int32 in [0, M) with M <= ``SEG_MAX_SLOTS``, ``ch`` (N, 2) float32
-    (gradient, hessian), all contiguous on one device.  CUDA tensors launch
-    the ``seg_hist`` kernel (bitwise deterministic); CPU tensors take the
-    plain version.  ``seg_level_hists.launches`` counts kernel launches."""
+    ``binned`` (N, d) uint8 with values < B <= ``SEG_MAX_BINS``, unit column
+    stride and a row stride and base that are multiples of 4 bytes (as
+    ``apply_bins`` returns it); ``slot`` (N,) int32 in [0, M) with M <=
+    ``SEG_MAX_SLOTS``; ``ch`` (N, 2) float32 (gradient, hessian) with an
+    8-byte-aligned base (the kernel copies a row's pair as one 8-byte
+    word); slot and ch contiguous, all on one device.  CUDA tensors launch
+    the ``seg_hist`` kernel (bitwise deterministic) with ``seg_plan``'s
+    geometry; CPU tensors take the plain version.
+    ``seg_level_hists.launches`` counts kernel launches."""
     n, d = binned.shape
     if binned.dtype != torch.uint8 or binned.dim() != 2:
         raise TypeError(f"binned must be (N, d) uint8, got "
@@ -230,12 +312,22 @@ def seg_level_hists(binned: torch.Tensor, slot: torch.Tensor,
                         f"{tuple(ch.shape)} {ch.dtype}")
     if not (binned.device == slot.device == ch.device):
         raise ValueError("binned, slot and ch must share one device")
-    if not (binned.is_contiguous() and slot.is_contiguous()
-            and ch.is_contiguous()):
-        raise ValueError("binned, slot and ch must be contiguous")
-    if not (1 <= B <= SEG_MAX_BINS and 1 <= M <= SEG_MAX_SLOTS):
-        raise ValueError(f"need 1 <= B <= {SEG_MAX_BINS} (shared memory) and "
-                         f"1 <= M <= {SEG_MAX_SLOTS} (grid), got B={B} M={M}")
+    if not (slot.is_contiguous() and ch.is_contiguous()):
+        raise ValueError("slot and ch must be contiguous")
+    if ch.data_ptr() % 8:
+        raise ValueError(f"ch needs an 8-byte-aligned base, got offset "
+                         f"{ch.data_ptr() % 8}")
+    if not _rows_fit(binned, 4):
+        raise ValueError(
+            f"binned needs unit column stride, a row stride and base that are "
+            f"multiples of 4 bytes and storage to its last row's 4-byte word "
+            f"(binned_empty makes one), got strides "
+            f"{binned.stride()}, base offset {binned.data_ptr() % 4}")
+    if not (1 <= B <= SEG_MAX_BINS and 1 <= M <= SEG_MAX_SLOTS
+            and SEG_CHANNELS * B * d < 2 ** 31 and n < 2 ** 31):
+        raise ValueError(f"need 1 <= B <= {SEG_MAX_BINS} (shared memory), "
+                         f"1 <= M <= {SEG_MAX_SLOTS} (grid) and N < 2^31 "
+                         f"(int32 row positions), got B={B} M={M} N={n}")
     if binned.device.type == "cpu":
         return seg_level_hists_plain(binned, slot, ch, M, B)
     if binned.device.type != "cuda":
@@ -243,17 +335,16 @@ def seg_level_hists(binned: torch.Tensor, slot: torch.Tensor,
 
     dev = binned.device
     nchan = SEG_CHANNELS
-    R = SEG_ROW_GROUP
-    perm, ch_sorted, counts, row_off, group_off = seg_layout(slot, ch, M, R)
-    max_groups = -(-n // R) + M
-    scratch = torch.empty((max_groups, nchan, B, d), dtype=torch.float32,
-                          device=dev)
+    plan = seg_plan(n, d, M, B)
+    perm, bounds = seg_layout(slot, M)
+    scratch = torch.empty((plan.n_groups, nchan, B, plan.width),
+                          dtype=torch.float32, device=dev)
     out = torch.empty((nchan, M, B, d), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _seg_lib()(binned.data_ptr(), perm.data_ptr(), ch_sorted.data_ptr(),
-                     counts.data_ptr(), row_off.data_ptr(),
-                     group_off.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                     d, M, B, R, max_groups, stream)
+    err = _seg_lib()(binned.data_ptr(), perm.data_ptr(), ch.data_ptr(),
+                     bounds.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                     binned.stride(0), d, M, B, plan.warps, plan.group_rows,
+                     plan.n_groups, int(_rows_fit(binned, 16)), stream)
     if err != 0:
         raise RuntimeError(f"seg_hist launch failed: CUDA error {err}")
     seg_level_hists.launches += 1
