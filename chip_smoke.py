@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``transmogrifai_tpu_torch``) on one
 NVIDIA GPU: builds the hand-written kernels from ``csrc/``, holds each one
-against its plain PyTorch version, then drives the boosted-tree AutoML
-slice end to end at full width through the entry points a user calls:
+against its plain PyTorch version, then drives the ported AutoML paths end
+to end at full width through the entry points a user calls:
 
     FeatureBuilder -> transmogrify -> SanityChecker -> OpXGBoostClassifier
+    -> OpWorkflow.train() -> score_and_evaluate(AuPR)
+
+    FeatureBuilder -> transmogrify -> SanityChecker
+    -> BinaryClassificationModelSelector.with_cross_validation()
     -> OpWorkflow.train() -> score_and_evaluate(AuPR)
 
 Phases (one JSON line each, after a ``device`` line that also derives the
@@ -15,26 +19,38 @@ card's aggregate shared-memory rate):
                 plain version on the card and the plain version on the CPU:
                 identical splits; growth through the kernel raises nothing
                 under torch.cuda's sync debug mode "error" (a prototype that
-                does not catch every synchronising op)
+                does not catch every synchronising op); a random-forest
+                grid (grow_rf_grid, 3 folds x 2 gates x 3 trees, depth 8,
+                8-feature subsets) through the kernel and the plain version
+                on the card: identical trees
   3. slice      1 000 000 train + 100 000 held-out rows x 500 Real
                 features (the recipe of examples/bench_scale.py, seed 11),
                 XGBoost defaults with max_depth=6; per-phase walls, rounds,
                 ms per round, holdout AuPR, kernel launches, peak memory
-  4. seg_hist   kernel vs plain at the slice's level shapes (N=1M, d=500,
+  4. selector   the same data through the default binary model selector:
+                LR (4 x 2) and random-forest (3 x 2 x 3, 50 trees) grids
+                under 3-fold CV, the winner refit; the train's split by
+                stage and sweep group, every candidate's CV metric, the
+                summary's metrics, holdout AuPR, trees grown and kernel
+                launches against the growers' count, peak memory
+  5. seg_hist   kernel vs plain at the slice's level shapes (N=1M, d=500,
                 B=32, nchan=2, M=1..32, a level with empty slots), the level
                 shapes of depths 7 and 10 (M=64, 512), d=497 through
-                apply_bins' padded rows and one level of unpadded rows
-                (the 4-byte row copies): error, determinism, kernel/plain/
+                apply_bins' padded rows, one level of unpadded rows (the
+                4-byte row copies) and the forests' level shapes (d=22 in
+                32-byte rows, Poisson-count channels, M=1..2048, bitwise
+                equal to plain): error, determinism, kernel/plain/
                 library/bound ms, the layout's share, the groups and
                 reduce passes' device ms and the shared-memory floor
-  5. profile    an 8-round fit at the same width under torch.profiler:
+  6. profile    an 8-round fit at the same width under torch.profiler:
                 binning and boosting walls, the card's busy time and idle
                 share, the boosting's heaviest device ops per round
 The phases that run torch.profiler come after the slice, so no profiler
 session runs in the process before the slice's walls are taken.
-Then the ``kernels`` summary line, the card's name and power limit, and
-the result line.  Any failed check exits non-zero.  Without a CUDA device
-the script exits with code 1 and prints no result.
+Then the ``kernels`` summary line (``launches``: the slice's and the
+selector's), the card's name and power limit, and the result line.  Any
+failed check exits non-zero.  Without a CUDA device the script exits with
+code 1 and prints no result.
 
 Usage: python3 chip_smoke.py [--rows N] [--holdout N] [--cols D]
                              [--rounds R] [--reps K]
@@ -57,6 +73,8 @@ from transmogrifai_tpu_torch.models import gbdt_kernels as gk
 from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
 from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
 from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
+from transmogrifai_tpu_torch.selector.model_selector import \
+    BinaryClassificationModelSelector
 from transmogrifai_tpu_torch.types import feature_types as ft
 from transmogrifai_tpu_torch.types.columns import ColumnarDataset, FeatureColumn
 from transmogrifai_tpu_torch.workflow.workflow import OpWorkflow
@@ -202,31 +220,51 @@ def _compare(args) -> dict:
     out = {"max_abs_err": float(diff.max()),
            "max_rel_err": float((diff / plain.abs().clamp(min=1.0)).max()),
            "tol_ratio": float((diff / (ATOL + RTOL * plain.abs())).max()),
+           "bitwise_equal": bool(torch.equal(k1, plain)),
            "deterministic": bool(torch.equal(k1, k2)),
            "odd_slots_zero": bool((k1[:, 1::2] == 0).all())}
     return out
+
+
+def _rf_level(dev, n: int, d: int, B: int, gen):
+    """A forest level's inputs: bins of a d-column feature subset gathered
+    into rows padded to 16 bytes (as the forest grower gathers them), and
+    the channels (bw [y=0], bw) of Poisson(1) bag counts."""
+    binned = _level_binned(dev, n, d, B, gen)
+    bw = torch.poisson(torch.ones(n, device=dev), generator=gen)
+    y0 = (torch.rand(n, device=dev, generator=gen) < 0.5).to(torch.float32)
+    return binned, torch.stack([bw * y0, bw], 1).contiguous()
 
 
 def phase_seg_hist(dev, n: int, d: int, reps: int, bw: float, f32: float,
                    smem_bw: float):
     """Kernel vs plain at every level shape of a depth-6 round (M = 1..32),
     an M=32 level whose odd slots are empty, the level shapes of depths 7
-    and 10 (M=64, 512), d=497 through apply_bins' padded rows, and an
-    M=32 level of unpadded rows (stride 500: 4-byte row copies).  Rows
-    with ``in_mean`` make the ``kernels`` line's means."""
+    and 10 (M=64, 512), d=497 through apply_bins' padded rows, an M=32
+    level of unpadded rows (stride 500: 4-byte row copies), and the
+    forests' levels: d = floor(sqrt(500)) = 22 in 32-byte rows, integer
+    channels, M = 1, 64, 512, 1024, 2048 (depth 12's last level), where
+    the kernel must equal the plain version bitwise.  Rows with
+    ``in_mean`` make the ``kernels`` line's means."""
     B, nchan = 32, 2
     gen = torch.Generator(device=dev).manual_seed(0)
     binned = _level_binned(dev, n, d, B, gen)
-    ch = torch.stack([torch.rand(n, device=dev, generator=gen) * 2 - 1,
-                      torch.rand(n, device=dev, generator=gen) * 0.25],
-                     dim=1).contiguous()
+    ch_main = torch.stack([torch.rand(n, device=dev, generator=gen) * 2 - 1,
+                           torch.rand(n, device=dev, generator=gen) * 0.25],
+                          dim=1).contiguous()
+    d_rf = int(d ** 0.5)
+    rf_binned, ch_rf = _rf_level(dev, n, d_rf, B, gen)
     cases = [(M, False, "main") for M in (1, 2, 4, 8, 16, 32)]
     cases += [(32, True, "main"), (64, False, "main"), (512, False, "main"),
               (32, False, "d497"), (32, False, "dense")]
+    cases += [(M, False, "rf") for M in (1, 64, 512, 1024, 2048)]
     rows = []
     for M, even, which in cases:
+        ch = ch_rf if which == "rf" else ch_main
         if which == "main":
             b = binned
+        elif which == "rf":
+            b = rf_binned
         elif which == "d497":
             b = _apply_bins_497(dev, n, B, gen)
         else:   # unpadded rows (stride d): the kernel's 4-byte row copies
@@ -257,12 +295,13 @@ def phase_seg_hist(dev, n: int, d: int, reps: int, bw: float, f32: float,
         ops = n * dd * nchan
         bound_ms = max(nbytes / bw, ops / f32) * 1e3
         row = {"phase": "seg_hist", "N": n, "d": dd, "B": B, "nchan": nchan,
-               "M": M, "empty_slots": even,
+               "M": M, "empty_slots": even, "path": which,
                "row_stride": b.stride(0),
                "in_mean": which == "main" and not even and M <= 32,
                "max_abs_err": cmp["max_abs_err"],
                "max_rel_err": cmp["max_rel_err"],
                "tol_ratio": cmp["tol_ratio"],
+               "bitwise_equal": cmp["bitwise_equal"],
                "deterministic": cmp["deterministic"],
                "empty_slots_zero": cmp["odd_slots_zero"] if even else None,
                "kernel_ms": kernel_ms, "layout_ms": layout_ms,
@@ -280,11 +319,14 @@ def phase_seg_hist(dev, n: int, d: int, reps: int, bw: float, f32: float,
         check(row["deterministic"], f"{what}: two launches differ")
         check(row["tol_ratio"] <= 1.0, f"{what}: kernel vs plain error "
               f"{row['max_abs_err']} beyond rtol {RTOL} / atol {ATOL}")
+        check(which != "rf" or row["bitwise_equal"],
+              f"{what}: integer channels, yet the kernel differs from the "
+              f"plain version by {row['max_abs_err']}")
         check(row["empty_slots_zero"] is not False,
               f"{what}: empty slots not 0")
         rows.append(row)
         del b, args
-    del binned, ch
+    del binned, ch_main, rf_binned, ch_rf
     return rows
 
 
@@ -326,11 +368,39 @@ def phase_tree(dev) -> None:
     leaf_err = {n: float((k[2] - t[2]).abs().max())
                 for n, t in trees.items() if n != "kernel"}
     splits = int((k[1] < 32).sum())
+    rf = _rf_grid_kernel_vs_plain(dev, X, y, edges)
     emit({"phase": "tree", "rows": 50_000, "cols": 64, "depth": 6,
           "splits": splits, "same_splits": same, "leaf_max_abs_diff": leaf_err,
-          "growth_sync_debug_mode": "error", "raised": False})
+          "growth_sync_debug_mode": "error", "raised": False, "forest": rf})
     check(splits > 0, "tree: no split grown")
     check(all(same.values()), f"tree: splits differ {same}")
+    check(rf["splits"] > 0 and rf["same_trees"],
+          f"tree: forests through the kernel and the plain version differ "
+          f"{rf}")
+
+
+def _rf_grid_kernel_vs_plain(dev, X, y, edges) -> dict:
+    """A forest grid (3 folds x 2 gates x 3 trees, depth 8, 8-feature
+    subsets, Poisson bags) grown on the card through the kernel and
+    through the plain version: integer channels, so identical trees."""
+    Xt = torch.from_numpy(X).to(dev)
+    binned = gk.apply_bins(Xt, edges)
+    folds = torch.arange(len(y), device=dev) % 3
+    W = torch.stack([(folds != k).to(torch.float32) for k in range(3)])
+    kw = dict(seed=5, n_trees=3, pair_fold=[0, 1, 2, 0, 1, 2],
+              pair_min_ig=[0.001] * 3 + [0.01] * 3,
+              pair_min_inst=[10] * 3 + [100] * 3, pair_depth=[8] * 6,
+              msub=8, subsample_rate=1.0, n_bins=32, leaf_levels=(3,))
+    yt = torch.from_numpy(y).to(dev)
+    got = [gk.grow_rf_grid(binned, yt, W, hist_fn=fn, **kw)
+           for fn in (gk.seg_level_hists, gk.seg_level_hists_plain)]
+    a, b = got
+    return {"pairs": 6, "trees": 3, "depth": 8,
+            "splits": int((a.thresh < 32).sum()), "levels": a.levels,
+            "same_trees": bool(torch.equal(a.feat, b.feat)
+                               and torch.equal(a.thresh, b.thresh)
+                               and torch.equal(a.leaf, b.leaf)
+                               and torch.equal(a.snaps[3], b.snaps[3]))}
 
 
 def _dataset(X, y) -> ColumnarDataset:
@@ -392,6 +462,82 @@ def phase_slice(rows: int, holdout: int, cols: int, rounds: int) -> dict:
     check(bool(torch.isfinite(proba).all()), "non-finite probabilities")
     check(launches > 0 and launches == depth * rounds_grown,
           f"seg_hist launches {launches} != {depth} x {rounds_grown}")
+    check(0.6 < aupr <= 1.0, f"holdout AuPR {aupr} outside (0.6, 1]")
+    return out
+
+
+def phase_selector(rows: int, holdout: int, cols: int) -> dict:
+    """The default binary model selector on the slice's data: 26
+    candidates under 3-fold CV, the winner refit on the training split."""
+    t0 = time.perf_counter()
+    X, y = make_data(rows + holdout, cols)
+    train, hold = _dataset(X[:rows], y[:rows]), _dataset(X[rows:], y[rows:])
+    del X
+    data_s = time.perf_counter() - t0
+
+    label = FeatureBuilder.RealNN("label").as_response()
+    preds = [FeatureBuilder.Real(f"f{j}").as_predictor() for j in range(cols)]
+    checked = label.transform_with(SanityChecker(max_correlation=0.99),
+                                   transmogrify(preds))
+    selector = BinaryClassificationModelSelector.with_cross_validation()
+    pred = label.transform_with(selector, checked)
+    wf = OpWorkflow().set_result_features(pred).set_input_data(train)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.seg_level_hists.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train()
+    train_s = time.perf_counter() - t0
+    launches = gk.seg_level_hists.launches
+    t0 = time.perf_counter()
+    scored, metrics = model.score_and_evaluate(
+        Evaluators.BinaryClassification.auPR(), data=hold)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+
+    meta = selector.metadata
+    summary = meta["model_selector_summary"]
+    results = summary["validationResults"]
+    proba = scored[pred.name].values.probability
+    aupr = float(metrics["AuPR"])
+    out = {"phase": "selector", "rows": rows, "holdout": holdout,
+           "cols": cols, "folds": selector.validator.num_folds,
+           "data_s": data_s, "train_s": train_s, "score_s": score_s,
+           "stage_seconds": model.stage_seconds,
+           "sweep_seconds": meta["sweep_seconds"],
+           "group_errors": meta["group_errors"],
+           "tree_phase_seconds": meta["tree_phase_seconds"],
+           "refit_seconds": meta["refit_seconds"],
+           "metrics_seconds": meta["metrics_seconds"],
+           "winner": summary["bestModelType"],
+           "winner_params": summary["bestModelParams"],
+           "cv": [{"model": r["modelType"], "params": r["params"],
+                   "metric": r["metricValue"], "error": r.get("error")}
+                  for r in results],
+           "train_metrics": summary["trainEvaluationMetrics"],
+           "holdout_metrics": summary["holdoutMetrics"],
+           "holdout_aupr": aupr, "rf_trees": meta["rf_trees"],
+           "seg_hist_launches": launches,
+           "growers_hist_levels": meta["hist_levels"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "dropped_columns": len(checked.origin_stage.metadata["summary"]
+                                  ["dropped"])}
+    emit(out)
+    check(tuple(proba.shape) == (holdout, 2), f"proba shape {proba.shape}")
+    check(bool(torch.isfinite(proba).all()), "non-finite probabilities")
+    check(len(results) == 26, f"{len(results)} validation results, not 26")
+    errors = [r["error"] for r in results if r.get("error")]
+    check(not errors, f"candidates failed: {errors}")
+    # a failed group's members pass as sequential fits: the batched groups
+    # must have run and raised nothing
+    check(not meta["group_errors"],
+          f"grid groups failed: {meta['group_errors']}")
+    check({"LogRegGridGroup", "RFGridGroup"} <= set(meta["sweep_seconds"]),
+          f"grid groups not run: {sorted(meta['sweep_seconds'])}")
+    check(launches > 0 and launches == meta["hist_levels"],
+          f"seg_hist launches {launches} != the growers' "
+          f"{meta['hist_levels']} histogram levels")
     check(0.6 < aupr <= 1.0, f"holdout AuPR {aupr} outside (0.6, 1]")
     return out
 
@@ -490,6 +636,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     sl = phase_slice(args.rows, args.holdout, args.cols, args.rounds)
     torch.cuda.empty_cache()
+    sel = phase_selector(args.rows, args.holdout, args.cols)
+    torch.cuda.empty_cache()
     seg = phase_seg_hist(dev, args.rows, args.cols, args.reps, bw, f32,
                          smem_bw)
     torch.cuda.empty_cache()
@@ -511,7 +659,8 @@ def main() -> int:
           "worst_ms": max(r["kernel_ms"] for r in levels)})
     emit({"kernels": [{
         "name": "seg_hist", "route": "cuda", "source": SEG_HIST_SOURCE,
-        "replaces": SEG_HIST_REPLACES, "launches": sl["seg_hist_launches"],
+        "replaces": SEG_HIST_REPLACES,
+        "launches": sl["seg_hist_launches"] + sel["seg_hist_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in seg),
         "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": levels[-1]["bound_by"],

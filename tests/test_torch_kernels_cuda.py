@@ -263,3 +263,56 @@ def test_grow_tree_kernel_matches_plain(cuda_device):
     k = tk.grow_tree(binned, G, H, **kw)
     p = tk.grow_tree(binned, G, H, hist_fn=tk.seg_level_hists_plain, **kw)
     assert torch.equal(k.feat, p.feat) and torch.equal(k.thresh, p.thresh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 512, 2048])
+def test_seg_hist_forest_levels_bitwise(cuda_device, M):
+    """The forests' levels: d = 22 subset columns in 32-byte rows, integer
+    channels (bw [y=0], bw) of Poisson bag counts.  Every sum is an exact
+    integer below 2^24, so the kernel equals the plain version bitwise."""
+    rng = np.random.default_rng(M)
+    n, d, B = 200_000, 22, 32
+    binned = tk.binned_empty(n, d, cuda_device)
+    binned.copy_(torch.from_numpy(
+        rng.integers(0, B, size=(n, d)).astype(np.uint8)))
+    assert binned.stride() == (32, 1)
+    bw = rng.poisson(1.0, n).astype(np.float32)
+    y0 = (rng.random(n) < 0.5).astype(np.float32)
+    ch = torch.from_numpy(np.stack([bw * y0, bw], 1)).to(cuda_device)
+    slot = torch.from_numpy(rng.integers(0, M, n).astype(np.int32)).to(
+        cuda_device)
+    a = tk.seg_level_hists(binned, slot, ch, M, B)
+    b = tk.seg_level_hists(binned, slot, ch, M, B)
+    plain = tk.seg_level_hists_plain(binned, slot, ch, M, B)
+    assert torch.equal(a, b) and torch.equal(a, plain)
+
+
+@pytest.mark.cuda
+def test_rf_grid_kernel_matches_plain(cuda_device):
+    """A small forest grid grown on the card through the kernel and through
+    the plain version: integer channels, so identical trees, leaves and
+    truncation snapshots."""
+    rng = np.random.default_rng(4)
+    n = 30_000
+    X = rng.normal(size=(n, 49)).astype(np.float32)
+    y = (X[:, 0] - 0.5 * X[:, 3] + 0.5 * rng.normal(size=n) > 0
+         ).astype(np.float32)
+    binned = tk.apply_bins(torch.from_numpy(X).to(cuda_device),
+                           tk.quantile_bins(torch.from_numpy(X), 32))
+    folds = torch.arange(n, device=cuda_device) % 3
+    W = torch.stack([(folds != k).to(torch.float32) for k in range(3)])
+    kw = dict(seed=2, n_trees=3, pair_fold=[0, 1, 2, 0],
+              pair_min_ig=[0.001, 0.01, 0.0, 0.1],
+              pair_min_inst=[10, 100, 1, 10], pair_depth=[9, 9, 6, 9],
+              msub=7, subsample_rate=1.0, n_bins=32, leaf_levels=(3, 6))
+    yt = torch.from_numpy(y).to(cuda_device)
+    before = tk.seg_level_hists.launches
+    k = tk.grow_rf_grid(binned, yt, W, **kw)
+    assert tk.seg_level_hists.launches - before == k.levels > 0
+    p = tk.grow_rf_grid(binned, yt, W, hist_fn=tk.seg_level_hists_plain,
+                        **kw)
+    assert torch.equal(k.feat, p.feat) and torch.equal(k.thresh, p.thresh)
+    assert torch.equal(k.leaf, p.leaf)
+    assert all(torch.equal(k.snaps[lv], p.snaps[lv]) for lv in (3, 6))
+    assert int((k.thresh < 32).sum()) > 0

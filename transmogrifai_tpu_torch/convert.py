@@ -9,23 +9,27 @@ module never imports the JAX package: callers extract the arrays.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .device import resolve_device
 from .features.feature import Feature
+from .models.classification import LogisticRegressionModel
+from .models.prediction import PredictorModel
 from .models.trees import TreeEnsembleModel
 from .ops.vectorizers import (OneHotVectorizer, OneHotVectorizerModel,
                               RealVectorizer, RealVectorizerModel)
 from .preparators.sanity_checker import SanityChecker, SanityCheckerModel
+from .selector.model_selector import ModelSelector, SelectedModel
 from .stages.base import Estimator, Model, PipelineStage
 from .workflow.dag import compute_dag
 from .workflow.workflow import OpWorkflowModel
 
 __all__ = ["real_vectorizer", "one_hot_vectorizer", "sanity_checker",
-           "tree_ensemble", "workflow_model"]
+           "tree_ensemble_model", "tree_ensemble",
+           "logistic_regression_model", "selected_model", "workflow_model"]
 
 
 def real_vectorizer(est: RealVectorizer, fills: Sequence[float],
@@ -54,18 +58,52 @@ def sanity_checker(est: SanityChecker, keep_indices: Sequence[int],
         keep_indices=[int(i) for i in keep_indices]))
 
 
-def tree_ensemble(est: Estimator, mode: str, edges: np.ndarray,
-                  feat: np.ndarray, thresh: np.ndarray, leaf: np.ndarray,
-                  base_score: float) -> TreeEnsembleModel:
-    """A boosted ensemble (``TreeEnsembleModel`` edges/feat/thresh/leaf/
-    base_score/mode), its trees placed on the estimator's device."""
-    dev = resolve_device(getattr(est, "device", None))
-    return est.adopt_model(TreeEnsembleModel(
+def tree_ensemble_model(mode: str, edges: np.ndarray, feat: np.ndarray,
+                        thresh: np.ndarray, leaf: np.ndarray,
+                        base_score: float = 0.0, n_classes: int = 2,
+                        device=None) -> TreeEnsembleModel:
+    """A ``TreeEnsembleModel`` (``gbdt_binary`` or ``rf_cls``) from its
+    edges/feat/thresh/leaf arrays, its trees on ``device`` (else the
+    default device)."""
+    dev = resolve_device(device)
+    return TreeEnsembleModel(
         mode=mode, edges=np.asarray(edges, np.float32),
         feat=torch.tensor(np.asarray(feat, np.int32), device=dev),
         thresh=torch.tensor(np.asarray(thresh, np.int32), device=dev),
         leaf=torch.tensor(np.asarray(leaf, np.float32), device=dev),
-        base_score=float(base_score)))
+        base_score=float(base_score), n_classes=n_classes)
+
+
+def tree_ensemble(est: Estimator, mode: str, edges: np.ndarray,
+                  feat: np.ndarray, thresh: np.ndarray, leaf: np.ndarray,
+                  base_score: float) -> TreeEnsembleModel:
+    """A tree estimator's fitted ensemble, on the estimator's device."""
+    return est.adopt_model(tree_ensemble_model(
+        mode, edges, feat, thresh, leaf, base_score,
+        device=getattr(est, "device", None)))
+
+
+def logistic_regression_model(coef: np.ndarray, intercept: float,
+                              device=None) -> LogisticRegressionModel:
+    """A binary ``LogisticRegressionModel`` from its (D,) coefficients and
+    intercept, on ``device`` (else the default device)."""
+    return LogisticRegressionModel(
+        torch.tensor(np.asarray(coef, np.float32),
+                     device=resolve_device(device)), float(intercept))
+
+
+def selected_model(est: ModelSelector, inner: PredictorModel,
+                   best_name: str, best_params: dict,
+                   summary: Optional[dict] = None) -> SelectedModel:
+    """A fitted selector: the winner ``inner`` (built by
+    ``logistic_regression_model`` or ``tree_ensemble_model``) with its
+    name and params; ``summary`` (the JAX selector's
+    ``model_selector_summary``) is carried into the estimator's
+    metadata."""
+    if summary is not None:
+        est.metadata["model_selector_summary"] = summary
+    return est.adopt_model(SelectedModel(inner=inner, best_name=best_name,
+                                         best_params=dict(best_params)))
 
 
 def workflow_model(result_features: Sequence[Feature],

@@ -9,19 +9,24 @@ slice runs:
  * ``grow_tree`` — level-wise growth in ``newton`` mode (gradient and
    hessian channels, XGBoost gating), default-direction splits and node
    compaction;
+ * ``grow_rf_grid`` / ``grow_forest_rf`` — binary random forests in bag
+   mode ``"onehot"`` (channels bw [y=0] and bw, count gating, feature
+   subsets, leaf-level truncation snapshots), bags from
+   ``rf_bags_and_features``;
  * ``predict_tree`` / ``predict_ensemble`` — plain torch gathers;
  * the per-level histogram: ``seg_level_hists`` launches the hand-written
    CUDA kernel ``csrc/seg_hist.cu`` on CUDA tensors and calls its plain
-   version ``seg_level_hists_plain`` on CPU tensors.
+   version ``seg_level_hists_plain`` on CPU tensors.  Both the boosted and
+   the forest growers build every level through it.
 
 Not ported yet (ROADMAP Queue A): EFB bundling, GOSS, the CSR sparse path,
-feature subsets, sibling subtraction, leaf-level snapshots and sharded
-growth.
+sibling subtraction, regression and multiclass forests and sharded growth.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -30,7 +35,9 @@ __all__ = ["TreeArrays", "quantile_bins", "apply_bins", "default_dir_mask",
            "route_right", "binned_empty", "SegPlan",
            "seg_plan", "seg_layout", "seg_level_hists",
            "seg_level_hists_plain",
-           "grow_tree", "predict_tree", "predict_ensemble", "goss_plan"]
+           "grow_tree", "RFGrowth", "rf_bags_and_features", "grow_rf_grid",
+           "grow_forest_rf", "predict_tree", "predict_ensemble",
+           "goss_plan"]
 
 #: most rows one warp of the seg_hist kernel adds into one float32 partial
 #: (keeps the partial sums within the kernel's tolerance at a million rows)
@@ -362,6 +369,40 @@ HistFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int, int],
                   torch.Tensor]
 
 
+def _slot_cap(n: int) -> int:
+    """next_pow2(N): a level holds at most this many populated nodes, so
+    deeper levels compact their node ids into this many slots."""
+    return 1 << int(np.ceil(np.log2(max(n, 2))))
+
+
+def _compact_slots(node: torch.Tensor, n_cap: int):
+    """(slot (N,) int32, uniq (n_cap,) int32): rows occupy <= N distinct
+    nodes, so each node id is replaced by its rank among the sorted ids;
+    ``uniq`` holds the ids by slot, padded with INT32_MAX."""
+    n = node.shape[0]
+    int_max = torch.iinfo(torch.int32).max
+    sorted_ids = torch.sort(node).values
+    first = torch.ones(n, dtype=torch.bool, device=node.device)
+    first[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    uniq = torch.full((n_cap,), int_max, dtype=torch.int32,
+                      device=node.device)
+    uniq[:n] = torch.sort(torch.where(first, sorted_ids, int_max)).values
+    return torch.searchsorted(uniq, node).to(torch.int32), uniq
+
+
+def _uncompact(uniq, feat_l, thresh_l, level_nodes: int, B: int):
+    """A compacted level's per-slot splits written back at the slots' node
+    ids; padding slots drop out, unpopulated nodes get no split."""
+    keep = uniq < level_nodes
+    seg_feat = torch.zeros(level_nodes, dtype=torch.int32,
+                           device=uniq.device)
+    seg_thresh = torch.full((level_nodes,), B, dtype=torch.int32,
+                            device=uniq.device)
+    seg_feat[uniq[keep].long()] = feat_l[keep]
+    seg_thresh[uniq[keep].long()] = thresh_l[keep]
+    return seg_feat, seg_thresh
+
+
 def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
               max_depth: int, n_bins: int, lam: float = 1.0,
               min_child_weight: float = 0.0, min_gain_raw: float = 0.0,
@@ -382,28 +423,17 @@ def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
     k = G.shape[1]
     B = n_bins
     dev = binned.device
-    n_cap = 1 << int(np.ceil(np.log2(max(n, 2))))
+    n_cap = _slot_cap(n)
     ch = torch.cat([G, H], dim=1).to(torch.float32).contiguous()
     rows = torch.arange(n, device=dev)
     bin_ids = torch.arange(B, device=dev)[None, :, None]
-    int_max = torch.iinfo(torch.int32).max
     node = torch.zeros(n, dtype=torch.int32, device=dev)
     heap_feat, heap_thresh = [], []
     for level in range(max_depth):
         level_nodes = 2 ** level
         compact = level_nodes > n_cap
         M = n_cap if compact else level_nodes
-        if compact:
-            # rows occupy <= N distinct nodes: rank their sorted ids
-            sorted_ids = torch.sort(node).values
-            first = torch.ones(n, dtype=torch.bool, device=dev)
-            first[1:] = sorted_ids[1:] != sorted_ids[:-1]
-            uniq = torch.full((M,), int_max, dtype=torch.int32, device=dev)
-            uniq[:n] = torch.sort(torch.where(first, sorted_ids,
-                                              int_max)).values
-            slot = torch.searchsorted(uniq, node).to(torch.int32)
-        else:
-            slot = node
+        slot, uniq = _compact_slots(node, n_cap) if compact else (node, None)
         hists = hist_fn(binned, slot.contiguous(), ch, M, B)
         cums = torch.cumsum(hists, dim=2)                  # (2K, M, B, d)
         GLs, HLs = cums[:k], cums[k:2 * k]
@@ -470,12 +500,8 @@ def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
         feat_l = feat_l.to(torch.int32)
         thresh_l = thresh_l.to(torch.int32)
         if compact:
-            keep = uniq < level_nodes        # padding slots drop out
-            seg_feat = torch.zeros(level_nodes, dtype=torch.int32, device=dev)
-            seg_thresh = torch.full((level_nodes,), B, dtype=torch.int32,
-                                    device=dev)
-            seg_feat[uniq[keep].long()] = feat_l[keep]
-            seg_thresh[uniq[keep].long()] = thresh_l[keep]
+            seg_feat, seg_thresh = _uncompact(uniq, feat_l, thresh_l,
+                                              level_nodes, B)
         else:
             seg_feat, seg_thresh = feat_l, thresh_l
         heap_feat.append(seg_feat)
@@ -510,6 +536,231 @@ def _leaf_values(node, G, H, n_leaves: int, lam: float,
         sums += oh.T @ stacked[a:a + step]
     Gs, Hs = sums[:, :k], sums[:, k:]
     return -learning_rate * Gs / (Hs + lam)
+
+
+# ---------------------------------------------------------------------------
+# Random forests
+# ---------------------------------------------------------------------------
+
+class RFGrowth(NamedTuple):
+    """Forests of P (candidate, fold) pairs x T trees: feat/thresh
+    (P, T, 2^hd-1) int32 heaps with full-width feature ids, leaf
+    (P, T, 2^hd, 2) class probabilities, ``snaps`` {level: (P, T, 2^level,
+    2)} the leaves of each tree truncated at that level, and ``levels``
+    the per-level histograms built (one ``hist_fn`` call each)."""
+    feat: torch.Tensor
+    thresh: torch.Tensor
+    leaf: torch.Tensor
+    snaps: Dict[int, torch.Tensor]
+    levels: int
+
+
+def _tree_seed(seed: int, tid: int) -> int:
+    """The generator seed of tree ``tid`` of a forest seeded ``seed``."""
+    a, b = np.random.SeedSequence([seed, tid]).generate_state(2, np.uint32)
+    return (int(a) << 31) ^ int(b)
+
+
+def rf_bags_and_features(seed: int, n_trees: int, n: int, d: int, msub: int,
+                         subsample_rate: float, device):
+    """Every tree's Poisson(``subsample_rate``) bag weights (T, N) float32
+    and its feature subset (T, msub) int64 — the ``msub`` smallest ranks of
+    a uniform draw over the d features.  Tree t draws from a generator on
+    ``device`` seeded by (seed, t) alone, so every fold and candidate of a
+    sweep sees the same bags (the JAX package's ``fold_in(seed, t)``
+    contract; the bits differ from ``jax.random``'s)."""
+    bags = torch.empty((n_trees, n), dtype=torch.float32, device=device)
+    feats = torch.empty((n_trees, msub), dtype=torch.int64, device=device)
+    rate = torch.full((n,), float(subsample_rate), dtype=torch.float32,
+                      device=device)
+    for t in range(n_trees):
+        gen = torch.Generator(device=device).manual_seed(_tree_seed(seed, t))
+        bags[t] = torch.poisson(rate, generator=gen)
+        feats[t] = torch.argsort(torch.rand(d, device=device,
+                                            generator=gen))[:msub]
+    return bags, feats
+
+
+def _node_sums(ids: torch.Tensor, vals: torch.Tensor, M: int
+               ) -> torch.Tensor:
+    """(M, c) float32 per-node sums of ``vals`` (N, c) over node ``ids``
+    (N,) in [0, M): rows sorted by node (``seg_layout``), float64 running
+    sums differenced at the node bounds — exact for integer values and in
+    a fixed order on the card, unlike an atomic scatter.  The sums run
+    along the innermost axis of a (c, N) copy: on the card a scan along
+    the outer axis of an (N, c) tensor runs c threads over N rows."""
+    perm, bounds = seg_layout(ids, M)
+    cs = torch.cumsum(vals[perm].T.to(torch.float64).contiguous(), 1)
+    cs = torch.cat([torch.zeros_like(cs[:, :1]), cs], 1)
+    b = bounds.long()
+    return (cs[:, b[1:]] - cs[:, b[:-1]]).T.to(torch.float32)
+
+
+#: the forests' gain regulariser (the JAX package's ``lam=1e-3``)
+RF_LAMBDA = 1e-3
+
+
+def _grow_rf_tree(binned, sub, fidx, y0, bw, min_ig: float, min_inst: float,
+                  depth_limit: int, heap_depth: int, B: int, leaf_levels,
+                  hist_fn: HistFn):
+    """One bagged classification tree (the JAX package's
+    ``_grow_tree_traced`` in bag mode ``"onehot"`` with a feature subset),
+    binary targets.
+
+    The histogram channels are the irreducible pair (bw [y=0], bw): the
+    class-1 gradient is count minus class 0 and both hessians are the
+    count.  Gain is the sum over the two classes of GL^2/(HL+lam) +
+    GR^2/(HR+lam) - G^2/(H+lam) (lam = ``RF_LAMBDA``); a split needs
+    ``min_inst`` bag weight on each side, gain > 0 and gain / node weight
+    >= ``min_ig``.  Histograms
+    run at subset width over ``sub`` (the subset's columns of ``binned``,
+    gathered once per tree); routing reads the full matrix through
+    ``fidx``.  Levels at or past ``depth_limit`` split nothing, so they
+    build no histogram; nor do the levels below one whose nodes all stayed
+    closed (a closed node sends its rows left, to a child with the same
+    rows and the same decision).  That flag is read one level late, so the
+    host never waits on the level it just enqueued.  Returns (feat,
+    thresh, leaf, snaps, levels)."""
+    n, msub = sub.shape
+    dev = binned.device
+    n_cap = _slot_cap(n)
+    lam = RF_LAMBDA
+    ch = torch.stack([bw * y0, bw], 1).contiguous()
+    rows = torch.arange(n, device=dev)
+    bin_ids = torch.arange(B, device=dev)[None, :, None]
+    node = torch.zeros(n, dtype=torch.int32, device=dev)
+    heap_feat, heap_thresh, snaps = [], [], []
+    levels = 0
+    any_open: List[torch.Tensor] = []    # per built level, on the device
+    closed = False
+    for level in range(heap_depth):
+        level_nodes = 2 ** level
+        if level in leaf_levels:
+            s = _node_sums(node, ch, level_nodes)
+            c = torch.clamp(s[:, 1:], min=1e-12)
+            snaps.append(torch.stack([s[:, 0], s[:, 1] - s[:, 0]], 1) / c)
+        if len(any_open) >= 2 and not closed:
+            # the level before the one just enqueued: long done on the card
+            closed = not bool(any_open[-2])
+        if level >= depth_limit or closed:
+            heap_feat.append(torch.zeros(level_nodes, dtype=torch.int32,
+                                         device=dev))
+            heap_thresh.append(torch.full((level_nodes,), B,
+                                          dtype=torch.int32, device=dev))
+            node = 2 * node
+            continue
+        compact = level_nodes > n_cap
+        M = n_cap if compact else level_nodes
+        slot, uniq = _compact_slots(node, n_cap) if compact else (node, None)
+        hists = hist_fn(sub, slot.contiguous(), ch, M, B)
+        levels += 1
+        cums = torch.cumsum(hists, dim=2)                  # (2, M, B, msub)
+        CL = cums[1]
+        gain = 0.0
+        for GL in (cums[0], CL - cums[0]):
+            Gtot, Htot = GL[:, -1:, :1], CL[:, -1:, :1]
+            GR, HR = Gtot - GL, Htot - CL
+            gain = gain + (GL * GL / (CL + lam) + GR * GR / (HR + lam)
+                           - Gtot * Gtot / (Htot + lam))
+        CR = CL[:, -1:, :1] - CL
+        valid = (CL >= min_inst) & (CR >= min_inst) & (bin_ids < B - 1)
+        node_w = torch.clamp(CL[:, -1, 0], min=1e-12)
+        flat_gain = torch.where(valid, gain, float("-inf")).reshape(
+            M, B * msub)
+        best = torch.argmax(flat_gain, dim=1)
+        best_gain = flat_gain.gather(1, best[:, None])[:, 0]
+        ok = ((best_gain > 0) & (best_gain / node_w >= min_ig)
+              & torch.isfinite(best_gain))
+        any_open.append(ok.any())
+        feat_l = torch.where(ok, best % msub, 0).to(torch.int32)
+        thresh_l = torch.where(ok, best // msub, B).to(torch.int32)
+        if compact:
+            seg_feat, seg_thresh = _uncompact(uniq, feat_l, thresh_l,
+                                              level_nodes, B)
+        else:
+            seg_feat, seg_thresh = feat_l, thresh_l
+        heap_feat.append(seg_feat)
+        heap_thresh.append(seg_thresh)
+        sl = slot.long()
+        x_row = binned[rows, fidx[feat_l.long()][sl]]
+        node = 2 * node + route_right(x_row, thresh_l[sl]).to(torch.int32)
+    s = _node_sums(node, torch.stack([bw * y0, bw * (1 - y0), bw], 1),
+                   2 ** heap_depth)
+    leaf = s[:, :2] / torch.clamp(s[:, 2:], min=1e-12)
+    feat = fidx[torch.cat(heap_feat).long()].to(torch.int32)
+    return feat, torch.cat(heap_thresh), leaf, snaps, levels
+
+
+def grow_rf_grid(binned: torch.Tensor, y: torch.Tensor, W_tr: torch.Tensor,
+                 seed: int, n_trees: int, pair_fold, pair_min_ig,
+                 pair_min_inst, pair_depth, msub: int, subsample_rate: float,
+                 n_bins: int, leaf_levels: Sequence[int] = (),
+                 hist_fn: HistFn = seg_level_hists) -> RFGrowth:
+    """Every (candidate x fold) pair's binary random forest.
+
+    ``binned`` (N, D) uint8; ``y`` (N,) labels in {0, 1}; ``W_tr`` (F, N)
+    per-fold training weights; per pair p its fold ``pair_fold[p]``,
+    ``min_info_gain``, ``min_instances`` and depth.  Tree t of every pair
+    draws the same bag and feature subset (``rf_bags_and_features``,
+    keyed on (seed, t)) and trains on bag x its fold's weights, so the
+    forests equal the per-candidate fits.  ``leaf_levels``: levels below
+    the heap depth at which each tree's truncated leaves are also kept —
+    a shallower ``max_depth`` candidate is exactly the deeper tree cut at
+    its depth (splits at a level never depend on deeper levels).  The heap
+    depth is the deepest pair's (at least 1).  Trees grow one at
+    a time, each tree's subset columns gathered once for all pairs; each
+    open level is one ``hist_fn`` call (``seg_level_hists``: the kernel
+    on CUDA tensors)."""
+    n, d = binned.shape
+    dev = binned.device
+    P = len(pair_fold)
+    heap_depth = max(int(max(pair_depth)), 1)
+    leaf_levels = tuple(sorted({int(v) for v in leaf_levels
+                                if 0 < int(v) < heap_depth}))
+    y0 = (y.to(dev) == 0).to(torch.float32)
+    W_tr = W_tr.to(dev, torch.float32)
+    bags, fidx = rf_bags_and_features(seed, n_trees, n, d, msub,
+                                      subsample_rate, dev)
+    out = [[None] * n_trees for _ in range(P)]
+    levels = 0
+    for t in range(n_trees):
+        ft = fidx[t].to(dev, torch.int64)
+        sub = binned_empty(n, msub, dev)
+        sub.copy_(binned.index_select(1, ft))
+        for p in range(P):
+            bw = W_tr[int(pair_fold[p])] * bags[t].to(dev)
+            *tree, lv = _grow_rf_tree(
+                binned, sub, ft, y0, bw,
+                float(np.float32(pair_min_ig[p])),
+                float(np.float32(pair_min_inst[p])), int(pair_depth[p]),
+                heap_depth, n_bins, leaf_levels, hist_fn)
+            out[p][t] = tree
+            levels += lv
+        del sub
+
+    def stack(i):
+        return torch.stack([torch.stack([out[p][t][i]
+                                         for t in range(n_trees)])
+                            for p in range(P)])
+    snaps = {lv: torch.stack([torch.stack([out[p][t][3][i]
+                                           for t in range(n_trees)])
+                              for p in range(P)])
+             for i, lv in enumerate(leaf_levels)}
+    return RFGrowth(stack(0), stack(1), stack(2), snaps, levels)
+
+
+def grow_forest_rf(binned: torch.Tensor, y: torch.Tensor,
+                   base_w: torch.Tensor, seed: int, n_trees: int, msub: int,
+                   subsample_rate: float, max_depth: int, n_bins: int,
+                   min_info_gain: float = 0.0, min_instances: float = 1.0,
+                   hist_fn: HistFn = seg_level_hists) -> RFGrowth:
+    """One binary random forest on ``base_w`` (N,) row weights: the grid
+    grower with a single pair; its arrays have no pair axis (feat
+    (T, 2^d-1), leaf (T, 2^d, 2))."""
+    g = grow_rf_grid(binned, y, base_w[None], seed, n_trees, [0],
+                     [min_info_gain], [min_instances], [max_depth], msub,
+                     subsample_rate, n_bins, hist_fn=hist_fn)
+    return RFGrowth(g.feat[0], g.thresh[0], g.leaf[0], {}, g.levels)
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,19 @@
-"""Boosted-tree model stages (counterpart of ``transmogrifai_tpu.models.trees``).
+"""Tree model stages (counterpart of ``transmogrifai_tpu.models.trees``).
 
 Ported: ``OpGBTClassifier`` and ``OpXGBoostClassifier`` for the binary
 objective, fitted by ``_fit_scan_chunks`` semantics — rounds run in chunks
 of ``es_chunk``, the early-stopping metric (validation AuPR) of each chunk
 is read one chunk late so the device never waits on the host, and the
 ensemble is trimmed to the best round count.  A Python loop over rounds
-takes the place of ``lax.scan``.  ``TreeEnsembleModel`` scores the
-``gbdt_binary`` mode.
+takes the place of ``lax.scan``.  ``OpRandomForestClassifier`` for binary
+labels: Poisson bags, square-root feature subsets, count-gated growth
+(``gbdt_kernels.grow_forest_rf``).  ``TreeEnsembleModel`` scores the
+``gbdt_binary`` and ``rf_cls`` modes.
 
-Not ported yet (ROADMAP Queue A): random forests and decision trees,
-regression and multiclass objectives, row/column subsampling, fractional
-sample weights (the count channel), GOSS, EFB, the sparse path and the
-upload/binning memo caches.
+Not ported yet (ROADMAP Queue A): decision trees, regression and
+multiclass objectives and forests, GBT row/column subsampling and
+fractional sample weights (the count channel), GOSS, EFB, the sparse path
+and the upload/binning memo caches.
 """
 from __future__ import annotations
 
@@ -25,26 +27,30 @@ from ..device import resolve_device
 from ..evaluators.metrics import aupr_device
 from ..types.columns import ColumnarDataset
 from .gbdt_kernels import (
-    apply_bins, default_dir_mask, goss_plan, grow_tree, predict_ensemble,
-    predict_tree, quantile_bins,
+    apply_bins, default_dir_mask, goss_plan, grow_forest_rf, grow_tree,
+    predict_ensemble, predict_tree, quantile_bins,
 )
 from .prediction import PredictionBatch, PredictorEstimator, PredictorModel
 
-__all__ = ["OpGBTClassifier", "OpXGBoostClassifier", "TreeEnsembleModel",
+__all__ = ["OpGBTClassifier", "OpXGBoostClassifier",
+           "OpRandomForestClassifier", "TreeEnsembleModel",
            "es_patience_vec"]
+
+_MODES = ("gbdt_binary", "rf_cls")
 
 
 class TreeEnsembleModel(PredictorModel):
-    """Fitted boosted ensemble: raw margin = base_score + sum of trees,
-    probability = sigmoid (mode ``gbdt_binary``).  ``edges`` (D, B-1) is a
-    host array; ``feat``/``thresh`` (T, 2^d-1) int32 and ``leaf``
-    (T, 2^d, K) float32 are tensors on the model's device."""
+    """Fitted tree ensemble.  ``gbdt_binary``: raw margin = base_score +
+    sum of trees, probability = sigmoid.  ``rf_cls``: the leaves are class
+    probabilities, averaged over the trees.  ``edges`` (D, B-1) is a host
+    array; ``feat``/``thresh`` (T, 2^d-1) int32 and ``leaf`` (T, 2^d, K)
+    float32 are tensors on the model's device."""
 
     def __init__(self, mode: str, edges, feat, thresh, leaf,
                  base_score: float = 0.0, n_classes: int = 2,
                  uid: Optional[str] = None):
         super().__init__(operation_name="treeEnsemble", uid=uid)
-        if mode != "gbdt_binary":
+        if mode not in _MODES:
             raise NotImplementedError(
                 f"tree ensemble mode {mode!r} is not ported yet "
                 f"(ROADMAP Queue A)")
@@ -64,12 +70,25 @@ class TreeEnsembleModel(PredictorModel):
                                 self.thresh.to(dev), self.leaf.to(dev), depth)
 
     def predict_batch(self, X: torch.Tensor) -> PredictionBatch:
+        if self.mode == "rf_cls":
+            raw = self.raw_margin(X)
+            proba = rf_probability(raw, self.feat.shape[0])
+            return PredictionBatch(
+                prediction=proba.argmax(dim=1).to(torch.float64),
+                raw_prediction=raw, probability=proba)
         z = self.raw_margin(X)[:, 0] + self.base_score
         p1 = 1.0 / (1.0 + torch.exp(-z))
         return PredictionBatch(
             prediction=(p1 >= 0.5).to(torch.float64),
             raw_prediction=torch.stack([-z, z], dim=1),
             probability=torch.stack([1 - p1, p1], dim=1))
+
+
+def rf_probability(raw: torch.Tensor, n_trees: int) -> torch.Tensor:
+    """Class probabilities of a forest from its summed leaves (N, K): the
+    mean over trees, floored at 1e-9 and renormalised."""
+    proba = torch.clamp(raw / n_trees, 1e-9, 1.0)
+    return proba / proba.sum(dim=1, keepdim=True)
 
 
 def es_patience_vec(rows, stopped, best_metric, best_len, stall,
@@ -320,3 +339,96 @@ class OpXGBoostClassifier(_GBTBase):
             raise NotImplementedError(
                 "multiclass XGBoost is not ported yet (ROADMAP Queue A)")
         return super().fit_raw(X, y, w, device=device)
+
+
+#: the JAX package's sparse-path rule: a matrix of at least this many
+#: elements whose sampled zero fraction reaches _SPARSE_ZERO_FRAC takes a
+#: nonzero-aware sketch, which is not ported
+_SPARSE_MIN_ELEMS = 1 << 24
+_SPARSE_ZERO_FRAC = 0.75
+
+
+def prep_tree_inputs(X: torch.Tensor, max_bins: int, row_weight=None):
+    """Bin edges and the binned matrix of a forest fit: the quantile
+    sketch over the rows up to the last one of positive ``row_weight``
+    (a trailing block of zero-weight rows never moves the edges; interior
+    ones stay in the sketch, as in the JAX package's weighted sketch),
+    binning over every row.  Raises where the JAX package would take its
+    nonzero-aware sketch of a wide, mostly zero matrix."""
+    Xm = X
+    if row_weight is not None:
+        nz = np.flatnonzero(np.asarray(row_weight) > 0)
+        if len(nz):
+            Xm = X[:nz[-1] + 1]
+    step = max(1, Xm.shape[0] // 4096)
+    if (Xm.numel() >= _SPARSE_MIN_ELEMS
+            and float((Xm[::step] == 0).to(torch.float32).mean())
+            >= _SPARSE_ZERO_FRAC):
+        raise NotImplementedError(
+            "the nonzero-aware sketch of mostly zero matrices is not ported "
+            "yet (ROADMAP Queue A)")
+    edges = quantile_bins(Xm, max_bins)
+    return edges, apply_bins(X, edges)
+
+
+def _feature_subset_size(strategy: str, d: int) -> int:
+    """A classifier's per-tree feature count (``auto`` is ``sqrt``)."""
+    if strategy in ("auto", "sqrt"):
+        return max(1, int(np.sqrt(d)))
+    if strategy == "onethird":
+        return max(1, d // 3)
+    return d
+
+
+class OpRandomForestClassifier(PredictorEstimator):
+    """Bagged binary random forest (Spark's parameters): ``num_trees``
+    trees on Poisson(``subsample_rate``) bags, each over a
+    ``feature_subset_strategy`` subset of the features, grown to
+    ``max_depth`` with splits gated by ``min_instances_per_node`` bag
+    weight per child and ``min_info_gain`` gain per unit of node weight."""
+
+    def __init__(self, num_trees: int = 20, max_depth: int = 5,
+                 max_bins: int = 32, min_instances_per_node: int = 1,
+                 min_info_gain: float = 0.0, subsample_rate: float = 1.0,
+                 feature_subset_strategy: str = "auto", seed: int = 42,
+                 device: Optional[str] = None, uid: Optional[str] = None):
+        super().__init__(operation_name="randomForestCls", uid=uid)
+        self.num_trees = num_trees
+        self.max_depth = max_depth
+        self.max_bins = max_bins
+        self.min_instances_per_node = min_instances_per_node
+        self.min_info_gain = min_info_gain
+        self.subsample_rate = subsample_rate
+        self.feature_subset_strategy = feature_subset_strategy
+        self.seed = seed
+        self.device = device
+
+    def fit_columns(self, data: ColumnarDataset, label_col, features_col):
+        y = np.nan_to_num(np.asarray(label_col.values, dtype=np.float32))
+        return self.fit_raw(features_col.values, y)
+
+    def fit_raw(self, X, y, w=None, device=None) -> TreeEnsembleModel:
+        """Fit on a (N, D) matrix and labels in {0, 1}, on ``device`` (else
+        the stage's, else the default device).  ``metadata["hist_levels"]``
+        counts the per-level histograms built."""
+        dev = resolve_device(device if device is not None else self.device)
+        X = torch.as_tensor(X, dtype=torch.float32).to(dev)
+        y = np.asarray(y, np.float32)
+        if len(y) and float(y.max()) > 1:
+            raise NotImplementedError(
+                "multiclass forests are not ported yet (ROADMAP Queue A)")
+        n, d = X.shape
+        edges, binned = prep_tree_inputs(X, self.max_bins)
+        base_w = (torch.ones(n, dtype=torch.float32, device=dev) if w is None
+                  else torch.as_tensor(np.asarray(w, np.float32)).to(dev))
+        msub = _feature_subset_size(self.feature_subset_strategy, d)
+        forest = grow_forest_rf(
+            binned, torch.from_numpy(y).to(dev), base_w, seed=self.seed,
+            n_trees=self.num_trees, msub=msub,
+            subsample_rate=self.subsample_rate, max_depth=self.max_depth,
+            n_bins=self.max_bins, min_info_gain=self.min_info_gain,
+            min_instances=float(self.min_instances_per_node))
+        self.metadata["hist_levels"] = forest.levels
+        return TreeEnsembleModel(mode="rf_cls", edges=edges, feat=forest.feat,
+                                 thresh=forest.thresh, leaf=forest.leaf,
+                                 n_classes=2)

@@ -7,6 +7,7 @@ hooks and streaming-fit protocol are not ported yet (ROADMAP Queue A).
 """
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
 from ..features.feature import Feature
@@ -87,6 +88,24 @@ class PipelineStage:
     @property
     def input_names(self) -> List[str]:
         return [f.name for f in self.input_features]
+
+    _NON_PARAMS = frozenset({"uid", "operation_name", "output_type"})
+
+    def get_params(self) -> Dict[str, Any]:
+        """Hyperparameters: the constructor's keywords, read back from the
+        attributes of the same names."""
+        sig = inspect.signature(type(self).__init__)
+        return {name: getattr(self, name)
+                for name, p in sig.parameters.items()
+                if name != "self" and name not in self._NON_PARAMS
+                and p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)
+                and hasattr(self, name)}
+
+    def copy(self, **overrides) -> "PipelineStage":
+        """A fresh, unwired instance with the same hyperparameters (and a
+        new uid), ``overrides`` applied — how the model selector makes one
+        estimator per grid point."""
+        return type(self)(**{**self.get_params(), **overrides})
 
     def __repr__(self):
         return f"{type(self).__name__}(uid={self.uid!r})"
