@@ -11,6 +11,9 @@ to end at full width through the entry points a user calls:
     -> BinaryClassificationModelSelector.with_cross_validation()
     -> OpWorkflow.train() -> score_and_evaluate(AuPR)
 
+    model.save -> OpWorkflowModel.load -> score (batch, CSVReader)
+    -> ModelServer (batch 1, a burst, batch 64) -> HTTP
+
 Phases (one JSON line each, after a ``device`` line that also derives the
 card's aggregate shared-memory rate):
   1. build      nvcc for sm_90a of csrc/seg_hist.cu; the ptxas report, which
@@ -24,7 +27,8 @@ card's aggregate shared-memory rate):
                 8-feature subsets) through the kernel and the plain version
                 on the card: identical trees
   3. slice      1 000 000 train + 100 000 held-out rows x 500 Real
-                features (the recipe of examples/bench_scale.py, seed 11),
+                features (the recipe of examples/bench_scale.py, seed 11;
+                made once for this and the next phase, ``data_s``),
                 XGBoost defaults with max_depth=6; per-phase walls, rounds,
                 ms per round, holdout AuPR, kernel launches, peak memory
   4. selector   the same data through the default binary model selector:
@@ -33,7 +37,25 @@ card's aggregate shared-memory rate):
                 stage and sweep group, every candidate's CV metric, the
                 summary's metrics, holdout AuPR, trees grown and kernel
                 launches against the growers' count, peak memory
-  5. seg_hist   kernel vs plain at the slice's level shapes (N=1M, d=500,
+  5. serve      both trained models (the slice's boosted model, the
+                selector's winner): save (seconds, bytes) and load on the
+                card (seconds); the holdout scored after the round trip
+                bitwise equal to the in-memory model; 10k holdout rows
+                written as CSV (floats by repr) and read back by CSVReader
+                scoring equal to the in-memory model; single-row
+                requests through score_function_batch split by stage
+                (its per-stage hook, synchronised);
+                ModelServer.from_path(max_batch=64): 500 sequential
+                single-row requests (p50/p99), a burst of 4096 single rows
+                from 8 threads (rows/s, mean batch, padded share), 200
+                requests of 64 rows (p50/p99), served scores within 1e-6
+                of the in-memory model's (and the bitwise share), no shed,
+                device error or host fallback; /score, /healthz and
+                /metrics over HTTP on 127.0.0.1; and the committed
+                tests/fixtures/model_v1 scored on the card within 1e-5 of
+                its expected scores.  The phase must launch no kernel
+                (scoring is plain torch on the card)
+  6. seg_hist   kernel vs plain at the slice's level shapes (N=1M, d=500,
                 B=32, nchan=2, M=1..32, a level with empty slots), the level
                 shapes of depths 7 and 10 (M=64, 512), d=497 through
                 apply_bins' padded rows, one level of unpadded rows (the
@@ -42,11 +64,14 @@ card's aggregate shared-memory rate):
                 equal to plain): error, determinism, kernel/plain/
                 library/bound ms, the layout's share, the groups and
                 reduce passes' device ms and the shared-memory floor
-  6. profile    an 8-round fit at the same width under torch.profiler:
+  7. profile    an 8-round fit at the same width under torch.profiler:
                 binning and boosting walls, the card's busy time and idle
                 share, the boosting's heaviest device ops per round
-The phases that run torch.profiler come after the slice, so no profiler
-session runs in the process before the slice's walls are taken.
+  8. serve_profile  single-row requests of both loaded models under
+                torch.profiler: the card's busy time and idle share, the
+                device ops and copies a request
+The phases that run torch.profiler come after the slice and the selector,
+so no profiler session runs in the process before their walls are taken.
 Then the ``kernels`` summary line (``launches``: the slice's and the
 selector's), the card's name and power limit, and the result line.  Any
 failed check exits non-zero.  Without a CUDA device the script exits with
@@ -56,11 +81,15 @@ Usage: python3 chip_smoke.py [--rows N] [--holdout N] [--cols D]
                              [--rounds R] [--reps K]
 """
 import argparse
+import csv
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -69,15 +98,20 @@ import torch
 from transmogrifai_tpu_torch.cuda_build import build
 from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
 from transmogrifai_tpu_torch.features.builder import FeatureBuilder
+from transmogrifai_tpu_torch.local import score_function_batch
 from transmogrifai_tpu_torch.models import gbdt_kernels as gk
 from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
 from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
 from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
+from transmogrifai_tpu_torch.readers.files import CSVReader
 from transmogrifai_tpu_torch.selector.model_selector import \
     BinaryClassificationModelSelector
+from transmogrifai_tpu_torch.serving import ModelServer
+from transmogrifai_tpu_torch.serving.http import make_http_server
 from transmogrifai_tpu_torch.types import feature_types as ft
 from transmogrifai_tpu_torch.types.columns import ColumnarDataset, FeatureColumn
-from transmogrifai_tpu_torch.workflow.workflow import OpWorkflow
+from transmogrifai_tpu_torch.workflow.workflow import (OpWorkflow,
+                                                       OpWorkflowModel)
 
 #: kernel vs plain tolerance: float32 sums taken in another order
 RTOL, ATOL = 1e-5, 1e-4
@@ -88,6 +122,12 @@ PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S = 3.35e12, 67e12
 SEG_HIST_SOURCE = "transmogrifai_tpu_torch/csrc/seg_hist.cu"
 SEG_HIST_REPLACES = "transmogrifai_tpu/models/gbdt_kernels.py:638"
 FULL_ROUNDS = 200
+REPO = os.path.dirname(os.path.abspath(__file__))
+#: the serve phase's traffic: holdout rows through CSV, sequential
+#: single-row requests, a burst of single rows from several threads,
+#: 64-row requests, rows over HTTP
+CSV_ROWS, SEQ_REQUESTS, BURST_REQUESTS, BURST_THREADS = 10_000, 500, 4096, 8
+BIG_REQUESTS, HTTP_ROWS, SPLIT_REQUESTS = 200, 4, 20
 #: boosting rounds of the profiled fit (one early-stopping chunk)
 PROFILE_ROUNDS = 8
 
@@ -410,12 +450,18 @@ def _dataset(X, y) -> ColumnarDataset:
     return ColumnarDataset(cols)
 
 
-def phase_slice(rows: int, holdout: int, cols: int, rounds: int) -> dict:
+def make_datasets(rows: int, holdout: int, cols: int):
+    """(train, holdout, seconds): the slice's and the selector's data, made
+    once (set-up, not part of either train)."""
     t0 = time.perf_counter()
     X, y = make_data(rows + holdout, cols)
     train, hold = _dataset(X[:rows], y[:rows]), _dataset(X[rows:], y[rows:])
-    del X
-    data_s = time.perf_counter() - t0
+    return train, hold, time.perf_counter() - t0
+
+
+def phase_slice(data, cols: int, rounds: int) -> dict:
+    train, hold, data_s = data
+    rows, holdout = len(train), len(hold)
 
     label = FeatureBuilder.RealNN("label").as_response()
     preds = [FeatureBuilder.Real(f"f{j}").as_predictor() for j in range(cols)]
@@ -443,6 +489,8 @@ def phase_slice(rows: int, holdout: int, cols: int, rounds: int) -> dict:
     rounds_grown = est.metadata["rounds_grown"]
     timing = est.metadata["fit_timing"]
     aupr = float(metrics["AuPR"])
+    served = {"name": "xgb", "model": model, "pred": pred, "proba": proba,
+              "hold": hold}
     out = {"phase": "slice", "rows": rows, "holdout": holdout, "cols": cols,
            "max_depth": depth, "num_round": rounds,
            "num_round_cut_from": FULL_ROUNDS if rounds < FULL_ROUNDS else None,
@@ -463,17 +511,14 @@ def phase_slice(rows: int, holdout: int, cols: int, rounds: int) -> dict:
     check(launches > 0 and launches == depth * rounds_grown,
           f"seg_hist launches {launches} != {depth} x {rounds_grown}")
     check(0.6 < aupr <= 1.0, f"holdout AuPR {aupr} outside (0.6, 1]")
-    return out
+    return out, served
 
 
-def phase_selector(rows: int, holdout: int, cols: int) -> dict:
+def phase_selector(data, cols: int) -> dict:
     """The default binary model selector on the slice's data: 26
     candidates under 3-fold CV, the winner refit on the training split."""
-    t0 = time.perf_counter()
-    X, y = make_data(rows + holdout, cols)
-    train, hold = _dataset(X[:rows], y[:rows]), _dataset(X[rows:], y[rows:])
-    del X
-    data_s = time.perf_counter() - t0
+    train, hold, _ = data
+    rows, holdout = len(train), len(hold)
 
     label = FeatureBuilder.RealNN("label").as_response()
     preds = [FeatureBuilder.Real(f"f{j}").as_predictor() for j in range(cols)]
@@ -501,9 +546,11 @@ def phase_selector(rows: int, holdout: int, cols: int) -> dict:
     results = summary["validationResults"]
     proba = scored[pred.name].values.probability
     aupr = float(metrics["AuPR"])
+    served = {"name": "selector", "model": model, "pred": pred,
+              "proba": proba, "hold": hold}
     out = {"phase": "selector", "rows": rows, "holdout": holdout,
            "cols": cols, "folds": selector.validator.num_folds,
-           "data_s": data_s, "train_s": train_s, "score_s": score_s,
+           "train_s": train_s, "score_s": score_s,
            "stage_seconds": model.stage_seconds,
            "sweep_seconds": meta["sweep_seconds"],
            "group_errors": meta["group_errors"],
@@ -539,7 +586,296 @@ def phase_selector(rows: int, holdout: int, cols: int) -> dict:
           f"seg_hist launches {launches} != the growers' "
           f"{meta['hist_levels']} histogram levels")
     check(0.6 < aupr <= 1.0, f"holdout AuPR {aupr} outside (0.6, 1]")
+    return out, served
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _pcts(latencies_s) -> dict:
+    ms = np.sort(np.asarray(latencies_s)) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "mean_ms": float(ms.mean()), "n": len(ms)}
+
+
+def _request_split(model, rows: list) -> dict:
+    """Where one single-row request's time goes on the serving path,
+    ``score_function_batch``: each stage's transform, synchronised in the
+    scorer's per-stage hook, and the rest of the request (the raw columns
+    from the row, the plan's drops, the result's copy to the host)."""
+    per_stage = {}
+
+    def on_stage(st, dt):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        key = type(st).__name__
+        per_stage[key] = (per_stage.get(key, 0.0) + dt
+                          + time.perf_counter() - t0)
+
+    scorer = score_function_batch(model, on_stage=on_stage)
+    total = 0.0
+    for r in rows:
+        t0 = time.perf_counter()
+        scorer([r])
+        total += time.perf_counter() - t0
+    n = len(rows)
+    return {"requests": n, "request_ms": total / n * 1e3,
+            "stage_ms": {k: v / n * 1e3 for k, v in per_stage.items()},
+            "outside_stages_ms": (total - sum(per_stage.values())) / n * 1e3}
+
+
+def phase_serve_profile(served: list, rows: list) -> None:
+    """Single-row requests of each saved-and-loaded model under
+    torch.profiler: the card's busy time, idle share, device ops and
+    copies a request (the profiler's own overhead lengthens the wall).
+    Runs last: a session with CPU activity makes later CUDA-only sessions
+    drop device events (the seg_hist phase's check saw it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"phase": "serve_profile", "requests": len(rows)}
+    for name, model in served:
+        scorer = score_function_batch(model)
+        scorer(rows[:1])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for r in rows:
+                scorer([r])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        n = len(rows)
+        out[name] = {"profiled_wall_ms": wall_ms / n,
+                     "device_busy_ms": busy_ms / n,
+                     "device_idle_share": 1 - busy_ms / wall_ms,
+                     "device_ops": len(dev) / n,
+                     "device_copies": sum(1 for e in dev
+                                          if "Memcpy" in e.name) / n}
+    emit(out)
+    check(all(out[name]["device_ops"] > 0 for name, _ in served),
+          "serve_profile: no device event in a request")
+
+
+def _serve_model(m: dict, rows: list, tmp: str) -> dict:
+    """Save, load, batch, CSV and served scores of one trained model."""
+    name, model, pred, hold = m["name"], m["model"], m["pred"], m["hold"]
+    path = os.path.join(tmp, name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = OpWorkflowModel.load(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    # the 100k holdout, in memory vs after the round trip, on the card
+    t0 = time.perf_counter()
+    proba = loaded.score(hold)[pred.name].values.probability
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    bitwise_holdout = bool(torch.equal(proba, m["proba"]))
+
+    # 10k holdout rows through a CSV file, floats written by repr
+    n_csv = min(CSV_ROWS, len(hold))
+    names = [n for n in hold.names()]
+    csv_path = os.path.join(tmp, f"{name}.csv")
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(names)
+        cols = [hold[n].values[:n_csv] for n in names]
+        for i in range(n_csv):
+            w.writerow([repr(float(c[i])) for c in cols])
+    t0 = time.perf_counter()
+    csv_proba = loaded.score(CSVReader(csv_path))[pred.name].values.probability
+    torch.cuda.synchronize()
+    csv_s = time.perf_counter() - t0
+    mem_proba = model.score(hold.slice(0, n_csv))[pred.name] \
+        .values.probability
+    csv_equal = bool(torch.equal(csv_proba, mem_proba))
+    os.remove(csv_path)
+
+    split = _request_split(loaded, rows[:SPLIT_REQUESTS])
+
+    # the server: sequential single rows, a burst, 64-row requests
+    seq_rows, burst_rows, big_rows = (rows[:SEQ_REQUESTS],
+                                      rows[:BURST_REQUESTS],
+                                      rows[:BIG_REQUESTS * 64])
+    srv = ModelServer.from_path(path, name=name, max_batch=64,
+                                max_queue_rows=2 * BURST_REQUESTS,
+                                warmup_row=rows[0])
+    served_p1 = {}
+    t0 = time.perf_counter()
+    srv.start()   # warms every bucket, largest first
+    warmup_s = time.perf_counter() - t0
+    try:
+        seq_lat = []
+        for i, r in enumerate(seq_rows):
+            t = time.perf_counter()
+            out = srv.score([r])
+            seq_lat.append(time.perf_counter() - t)
+            served_p1.setdefault(i, []).append(
+                out[0][pred.name]["probability_1"])
+        before = srv.snapshot()
+        futures = [None] * len(burst_rows)
+
+        def submit(k):
+            for i in range(k, len(burst_rows), BURST_THREADS):
+                futures[i] = srv.submit([burst_rows[i]])
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=submit, args=(k,))
+                   for k in range(BURST_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        burst_out = [f.result(timeout=600) for f in futures]
+        burst_s = time.perf_counter() - t0
+        after = srv.snapshot()
+        for i, out in enumerate(burst_out):
+            check(isinstance(out[0], dict), f"serve {name}: burst request "
+                  f"{i} not scored: {out[0]}")
+            served_p1.setdefault(i, []).append(
+                out[0][pred.name]["probability_1"])
+        big_lat = []
+        for k in range(BIG_REQUESTS):
+            t = time.perf_counter()
+            out = srv.score(big_rows[64 * k:64 * (k + 1)])
+            big_lat.append(time.perf_counter() - t)
+            for j, o in enumerate(out):
+                served_p1.setdefault(64 * k + j, []).append(
+                    o[pred.name]["probability_1"])
+        http = _http_check(srv, rows[:HTTP_ROWS], pred.name)
+        snap = srv.snapshot()
+    finally:
+        srv.stop()
+    ref = m["proba"][:, 1].cpu().numpy()
+    idx = np.concatenate([[i] * len(v) for i, v in served_p1.items()])
+    got = np.concatenate([v for v in served_p1.values()])
+    diff = np.abs(got - ref[idx].astype(np.float64))
+    batches = after["batches"] - before["batches"]
+    padded = after["paddedRows"] - before["paddedRows"]
+    out = {"model": name, "save_s": save_s, "load_s": load_s,
+           "artifact_bytes": _dir_bytes(path),
+           "holdout_rows": len(hold), "holdout_score_s": score_s,
+           "holdout_bitwise_equal": bitwise_holdout,
+           "csv_rows": n_csv, "csv_read_score_s": csv_s,
+           "csv_equal_in_memory": csv_equal, "warmup_s": warmup_s,
+           "request_split": split,
+           "batch1": _pcts(seq_lat), "batch64": _pcts(big_lat),
+           "burst": {"requests": len(burst_rows), "threads": BURST_THREADS,
+                     "seconds": burst_s,
+                     "rows_per_s": len(burst_rows) / burst_s,
+                     "batches": batches,
+                     "mean_batch": len(burst_rows) / max(batches, 1),
+                     "padded_share": padded / max(padded + len(burst_rows),
+                                                  1)},
+           "served_scores": len(got),
+           "served_max_abs_diff": float(diff.max()),
+           "served_bitwise_share": float((diff == 0).mean()),
+           "server_latency_ms": snap["latencyMs"],
+           "batch_histogram": snap["batchSizeHistogram"],
+           "shed": snap["shed"], "device_errors": snap["deviceErrors"],
+           "host_fallbacks": snap["hostFallbacks"], "http": http}
+    what = f"serve {name}"
+    check(bitwise_holdout, f"{what}: holdout scores after save/load differ "
+          f"from the in-memory model's")
+    check(csv_equal, f"{what}: CSV scores differ from in-memory scores")
+    check(out["served_max_abs_diff"] <= 1e-6,
+          f"{what}: served scores {out['served_max_abs_diff']} from the "
+          f"in-memory model's")
+    check(snap["shed"] == 0 and snap["deviceErrors"] == 0
+          and snap["hostFallbacks"] == 0,
+          f"{what}: shed {snap['shed']}, device errors "
+          f"{snap['deviceErrors']}, host fallbacks {snap['hostFallbacks']}")
+    return out, loaded
+
+
+def _http_check(srv, rows: list, pred_name: str) -> dict:
+    """A few requests over HTTP on 127.0.0.1: /score must give the
+    server's own scores, /healthz ok, /metrics a snapshot."""
+    from urllib.request import Request, urlopen
+
+    httpd = make_http_server(srv, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        req = Request(base + "/score", data=json.dumps(
+            {"rows": rows}).encode(), headers={
+                "Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urlopen(req, timeout=120) as resp:
+            scores = json.loads(resp.read())["scores"]
+        score_s = time.perf_counter() - t0
+        with urlopen(base + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        with urlopen(base + "/metrics", timeout=60) as resp:
+            metrics = json.loads(resp.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=10)
+    direct = srv.score(rows)
+    same = [s[pred_name] == d[pred_name] for s, d in zip(scores, direct)]
+    out = {"rows": len(rows), "score_s": score_s,
+           "healthz": health["status"], "metrics_requests":
+           metrics["requests"], "same_scores": all(same)}
+    check(len(scores) == len(rows) and all(same),
+          f"http: /score differs from the server's scores")
+    check(health["status"] == "ok", f"http: /healthz {health}")
+    check(metrics["requests"] > 0, "http: /metrics shows no request")
     return out
+
+
+def phase_serve(models: list, cols: int):
+    """Save, load and serve the slice's boosted model and the selector's
+    winner on the card, and score the committed model_v1 artifact.
+    Returns the loaded models and some request rows for
+    ``phase_serve_profile``."""
+    tmp = os.path.join(REPO, "smoke_out")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    hold = models[0]["hold"]
+    feats = [f"f{j}" for j in range(cols)]
+    t0 = time.perf_counter()
+    n = max(SEQ_REQUESTS, BURST_REQUESTS, BIG_REQUESTS * 64, HTTP_ROWS)
+    Xh = np.stack([hold[f].values[:n] for f in feats], axis=1)
+    rows = [dict(zip(feats, r)) for r in Xh.tolist()]
+    rows_s = time.perf_counter() - t0
+    gk.seg_level_hists.launches = 0
+    try:
+        results = [_serve_model(m, rows, tmp) for m in models]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    per_model = [r for r, _ in results]
+    launches = gk.seg_level_hists.launches
+
+    v1 = os.path.join(REPO, "tests", "fixtures", "model_v1")
+    model = OpWorkflowModel.load(v1)
+    got = model.score(CSVReader(os.path.join(
+        REPO, "tests", "fixtures", "model_v1_input.csv")))
+    p1 = got[model.result_features[0].name].values.probability
+    expected = np.load(os.path.join(REPO, "tests", "fixtures",
+                                    "model_v1_expected.npy"))
+    v1_err = float(np.abs(p1[:, 1].cpu().numpy() - expected).max())
+    emit({"phase": "serve", "request_rows_s": rows_s,
+          "seg_hist_launches": launches, "models": per_model,
+          "model_v1": {"device": str(p1.device), "rows": len(expected),
+                       "max_abs_err": v1_err}})
+    check(launches == 0, f"serve: {launches} seg_hist launches; scoring "
+          f"and serving launch no kernel")
+    check(p1.device.type == "cuda", "model_v1 did not score on the card")
+    check(v1_err <= 1e-5, f"model_v1 scores {v1_err} from expected")
+    return ([(m["name"], loaded) for m, (_, loaded) in zip(models, results)],
+            rows[:SPLIT_REQUESTS])
 
 
 def phase_profile(dev, rows: int, cols: int, rounds: int) -> None:
@@ -634,14 +970,19 @@ def main() -> int:
     phase_build()
     phase_tree(dev)
     torch.cuda.empty_cache()
-    sl = phase_slice(args.rows, args.holdout, args.cols, args.rounds)
+    data = make_datasets(args.rows, args.holdout, args.cols)
+    sl, xgb = phase_slice(data, args.cols, args.rounds)
     torch.cuda.empty_cache()
-    sel = phase_selector(args.rows, args.holdout, args.cols)
+    sel, lr = phase_selector(data, args.cols)
+    torch.cuda.empty_cache()
+    served, request_rows = phase_serve([xgb, lr], args.cols)
+    del xgb, lr, data
     torch.cuda.empty_cache()
     seg = phase_seg_hist(dev, args.rows, args.cols, args.reps, bw, f32,
                          smem_bw)
     torch.cuda.empty_cache()
     phase_profile(dev, args.rows, args.cols, PROFILE_ROUNDS)
+    phase_serve_profile(served, request_rows)
 
     # per-launch means over the six level shapes of a depth-6 round
     levels = [r for r in seg if r["in_mean"]]

@@ -316,3 +316,73 @@ def test_rf_grid_kernel_matches_plain(cuda_device):
     assert torch.equal(k.leaf, p.leaf)
     assert all(torch.equal(k.snaps[lv], p.snaps[lv]) for lv in (3, 6))
     assert int((k.thresh < 32).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["xgb", "selector"])
+def test_trained_model_saves_loads_and_serves_on_card(cuda_device, kind,
+                                                      tmp_path):
+    """A small port model trained on the card (a boosted model through the
+    kernel, or the selector over LR + a forest), saved and loaded on the
+    card, scores bitwise equal; the server answers from the card with no
+    host fallback and the same scores within 1e-6."""
+    from transmogrifai_tpu_torch.features.builder import FeatureBuilder
+    from transmogrifai_tpu_torch.models.classification import \
+        OpLogisticRegression
+    from transmogrifai_tpu_torch.models.trees import (
+        OpRandomForestClassifier, OpXGBoostClassifier)
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.preparators.sanity_checker import \
+        SanityChecker
+    from transmogrifai_tpu_torch.selector.model_selector import (
+        BinaryClassificationModelSelector, grid)
+    from transmogrifai_tpu_torch.serving import ModelServer
+    from transmogrifai_tpu_torch.types import feature_types as ft
+    from transmogrifai_tpu_torch.types.columns import (ColumnarDataset,
+                                                       FeatureColumn)
+    from transmogrifai_tpu_torch.workflow.workflow import (OpWorkflow,
+                                                           OpWorkflowModel)
+
+    rng = np.random.default_rng(9)
+    n, d = 6000, 8
+    X = rng.normal(size=(n, d))
+    y = (X[:, 0] - 0.7 * X[:, 2] + 0.5 * rng.normal(size=n) > 0).astype(
+        np.float64)
+    data = ColumnarDataset(
+        {**{f"x{j}": FeatureColumn.from_values(ft.Real, X[:, j])
+            for j in range(d)},
+         "label": FeatureColumn.from_values(ft.RealNN, y)})
+    label = FeatureBuilder.RealNN("label").as_response()
+    checked = label.transform_with(
+        SanityChecker(max_correlation=0.99),
+        transmogrify([FeatureBuilder.Real(f"x{j}").as_predictor()
+                      for j in range(d)]))
+    est = (OpXGBoostClassifier(max_depth=4, num_round=10)
+           if kind == "xgb" else
+           BinaryClassificationModelSelector.with_cross_validation(
+               models_and_parameters=[
+                   (OpLogisticRegression(), grid(reg_param=[0.01])),
+                   (OpRandomForestClassifier(),
+                    grid(num_trees=[5], max_depth=[4]))]))
+    pred = label.transform_with(est, checked)
+    model = OpWorkflow(device="cuda").set_result_features(pred) \
+        .set_input_data(data).train()
+    path = str(tmp_path / "m")
+    model.save(path)
+    loaded = OpWorkflowModel.load(path, device="cuda")
+    a = model.score(data)[pred.name].values.probability
+    b = loaded.score(data)[pred.name].values.probability
+    assert a.device.type == "cuda" and b.device.type == "cuda"
+    assert torch.equal(a, b)
+
+    rows = [{**{f"x{j}": float(X[i, j]) for j in range(d)}}
+            for i in range(40)]
+    srv = ModelServer.from_path(path, name="m", device="cuda", max_batch=8,
+                                warmup_row=rows[0])
+    with srv:
+        got = [srv.score([r])[0][pred.name]["probability_1"] for r in rows]
+    want = a[:40, 1].cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    snap = srv.snapshot()
+    assert snap["hostFallbacks"] == 0 and snap["deviceErrors"] == 0
+    assert snap["shed"] == 0

@@ -9,9 +9,10 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
-__all__ = ["set_device", "resolve_device"]
+__all__ = ["set_device", "resolve_device", "as_device_tensor"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -35,3 +36,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def as_device_tensor(value, dtype: torch.dtype,
+                     device: DeviceLike = None) -> torch.Tensor:
+    """A tensor left where it is, or an array (a loaded artifact's numpy
+    array, a JSON list) as a ``dtype`` tensor on the resolved device."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.as_tensor(np.asarray(value), dtype=dtype).to(
+        resolve_device(device))

@@ -12,7 +12,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import as_device_tensor, resolve_device
 from ..types.columns import ColumnarDataset
 from .linear import fit_logistic_regression, logreg_predict_proba
 from .prediction import PredictionBatch, PredictorEstimator, PredictorModel
@@ -88,13 +88,16 @@ def _standardize_stats(X: torch.Tensor, w: Optional[torch.Tensor]):
 
 
 class LogisticRegressionModel(PredictorModel):
-    """Binary model: ``coef`` (D,) float32 tensor and ``intercept``."""
+    """Binary model: ``coef`` (D,) float32 tensor and ``intercept``.  An
+    array ``coef`` (a loaded artifact's) goes to ``device`` (else the
+    default device); a tensor stays where it is."""
 
-    def __init__(self, coef: torch.Tensor, intercept: float,
-                 uid: Optional[str] = None):
+    def __init__(self, coef, intercept: float,
+                 device: Optional[str] = None, uid: Optional[str] = None):
         super().__init__(operation_name="logreg", uid=uid)
-        self.coef = coef
+        self.coef = as_device_tensor(coef, torch.float32, device)
         self.intercept = float(intercept)
+        self.device = device
 
     def predict_batch(self, X: torch.Tensor) -> PredictionBatch:
         proba, raw = logreg_predict_proba(self.coef, self.intercept, X)

@@ -23,7 +23,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import as_device_tensor, resolve_device
 from ..evaluators.metrics import aupr_device
 from ..types.columns import ColumnarDataset
 from .gbdt_kernels import (
@@ -44,11 +44,13 @@ class TreeEnsembleModel(PredictorModel):
     sum of trees, probability = sigmoid.  ``rf_cls``: the leaves are class
     probabilities, averaged over the trees.  ``edges`` (D, B-1) is a host
     array; ``feat``/``thresh`` (T, 2^d-1) int32 and ``leaf`` (T, 2^d, K)
-    float32 are tensors on the model's device."""
+    float32 are tensors on the model's device: arrays (a loaded artifact's)
+    go to ``device`` (else the default device), tensors stay where they
+    are."""
 
     def __init__(self, mode: str, edges, feat, thresh, leaf,
                  base_score: float = 0.0, n_classes: int = 2,
-                 uid: Optional[str] = None):
+                 device: Optional[str] = None, uid: Optional[str] = None):
         super().__init__(operation_name="treeEnsemble", uid=uid)
         if mode not in _MODES:
             raise NotImplementedError(
@@ -56,11 +58,12 @@ class TreeEnsembleModel(PredictorModel):
                 f"(ROADMAP Queue A)")
         self.mode = mode
         self.edges = np.asarray(edges, np.float32)
-        self.feat = feat
-        self.thresh = thresh
-        self.leaf = leaf
-        self.base_score = base_score
-        self.n_classes = n_classes
+        self.feat = as_device_tensor(feat, torch.int32, device)
+        self.thresh = as_device_tensor(thresh, torch.int32, device)
+        self.leaf = as_device_tensor(leaf, torch.float32, device)
+        self.base_score = float(base_score)
+        self.n_classes = int(n_classes)
+        self.device = device
 
     def raw_margin(self, X: torch.Tensor) -> torch.Tensor:
         depth = int(np.log2(self.feat.shape[1] + 1))

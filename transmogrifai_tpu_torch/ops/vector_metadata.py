@@ -48,6 +48,10 @@ class VectorColumnMetadata:
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
 
+    @staticmethod
+    def from_json(d: dict) -> "VectorColumnMetadata":
+        return VectorColumnMetadata(**d)
+
 
 class VectorMetadata:
     """Metadata for a whole OPVector feature: ordered slot provenance."""
@@ -82,6 +86,11 @@ class VectorMetadata:
 
     def to_json(self) -> dict:
         return {"name": self.name, "columns": [c.to_json() for c in self.columns]}
+
+    @staticmethod
+    def from_json(d: dict) -> "VectorMetadata":
+        return VectorMetadata(
+            d["name"], [VectorColumnMetadata.from_json(c) for c in d["columns"]])
 
     def __repr__(self):
         return f"VectorMetadata(name={self.name!r}, size={self.size})"

@@ -150,6 +150,15 @@ class SanityCheckerModel(BinaryModel):
         self.keep_indices = list(keep_indices)
         self.new_vmeta: Optional[VectorMetadata] = None
 
+    # the JAX package's extra-state key, so one artifact serves both
+    def extra_state(self):
+        return ({"new_vmeta": self.new_vmeta.to_json()}
+                if self.new_vmeta is not None else {})
+
+    def set_extra_state(self, state):
+        if "new_vmeta" in state:
+            self.new_vmeta = VectorMetadata.from_json(state["new_vmeta"])
+
     def transform_columns(self, label_col, features_col) -> FeatureColumn:
         X = features_col.values
         idx = torch.as_tensor(self.keep_indices, dtype=torch.long,

@@ -1,8 +1,10 @@
 """Data readers — host-side ingestion into columnar batches.
 
-Ported: ``reader_for`` with the ``ColumnarDataset`` passthrough and the
-in-memory pandas DataFrame reader (pandas imported only when a frame is
-given).  File, record, event and streaming readers are not ported yet.
+Ported: ``reader_for`` with the ``ColumnarDataset`` passthrough, the
+records reader (a list of dicts) and the in-memory pandas DataFrame reader
+(pandas imported only when a frame is given); the CSV and JSON-lines file
+readers are in ``readers/files.py``.  Event, streaming and Avro readers,
+chunked ingestion and the resilience policies are not ported yet.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from typing import Dict, Sequence
 from ..features.feature import Feature
 from ..types.columns import ColumnarDataset, FeatureColumn
 
-__all__ = ["Reader", "DataFrameReader", "reader_for"]
+__all__ = ["Reader", "DataFrameReader", "RecordsReader", "reader_for"]
 
 
 class Reader:
@@ -20,6 +22,25 @@ class Reader:
     def generate_dataset(self, raw_features: Sequence[Feature]
                          ) -> ColumnarDataset:
         raise NotImplementedError
+
+    def with_resilience(self, retry=None, bad_records: str = "fail",
+                        quarantine_path=None, max_bad_records: int = 1000):
+        raise NotImplementedError(
+            "ingestion retry and the bad-record quarantine policy are not "
+            "ported yet (ROADMAP Queue A item 6: readers/resilience.py)")
+
+
+class RecordsReader(Reader):
+    """Wraps a list of dict (or attribute) records; every feature reads
+    its value through its generator (``r.get(name)`` or its extractor)."""
+
+    def __init__(self, records: Sequence):
+        self.records = list(records)
+
+    def generate_dataset(self, raw_features: Sequence[Feature]
+                         ) -> ColumnarDataset:
+        return ColumnarDataset({f.name: f.origin_stage.extract_column(
+            self.records) for f in raw_features})
 
 
 class DataFrameReader(Reader):
@@ -68,6 +89,8 @@ def reader_for(data) -> Reader:
         return data
     if isinstance(data, ColumnarDataset):
         return _PassthroughReader(data)
+    if isinstance(data, (list, tuple)):
+        return RecordsReader(data)
     try:
         import pandas as pd
     except ImportError:

@@ -107,6 +107,15 @@ class PipelineStage:
         estimator per grid point."""
         return type(self)(**{**self.get_params(), **overrides})
 
+    def extra_state(self) -> Dict[str, Any]:
+        """Fitted state not captured by constructor params — the
+        persistence hook (``workflow/persistence.py``).  Values must be
+        JSON-able or arrays."""
+        return {}
+
+    def set_extra_state(self, state: Dict[str, Any]) -> None:
+        pass
+
     def __repr__(self):
         return f"{type(self).__name__}(uid={self.uid!r})"
 

@@ -50,6 +50,12 @@ class FeatureColumn:
     def __len__(self) -> int:
         return len(self.values)
 
+    def slice(self, start: int, stop: int) -> "FeatureColumn":
+        """Zero-copy row-range view."""
+        mask = self.mask[start:stop] if self.mask is not None else None
+        return FeatureColumn(self.ftype, self.values[start:stop], mask,
+                             self.vmeta)
+
     @staticmethod
     def from_values(ftype: Type[FeatureType],
                     raw: Sequence[Any]) -> "FeatureColumn":
@@ -132,6 +138,22 @@ class ColumnarDataset:
         merged = dict(self.columns)
         merged.update(new)
         return ColumnarDataset(merged, _validated=True)
+
+    def names(self):
+        return list(self.columns)
+
+    def drop(self, names: Iterable[str]) -> "ColumnarDataset":
+        """A view without ``names``; the other buffers are shared."""
+        dropset = set(names)
+        return ColumnarDataset(
+            {n: c for n, c in self.columns.items() if n not in dropset},
+            _validated=True)
+
+    def slice(self, start: int, stop: int) -> "ColumnarDataset":
+        """Zero-copy row-range view over every column."""
+        return ColumnarDataset(
+            {n: c.slice(start, stop) for n, c in self.columns.items()},
+            _validated=True)
 
     def select(self, names: Iterable[str]) -> "ColumnarDataset":
         return ColumnarDataset({n: self.columns[n] for n in names},

@@ -3,13 +3,14 @@
 
 ``compute_dag`` layers stages by longest path from the raw generators;
 ``fit_and_transform_dag`` walks the layers in order, fitting estimators and
-applying transformers.  The JAX package's execution plan (liveness pruning,
-intra-layer host threads) and the workflow-CV cut are not ported yet.
+applying transformers; ``transform_dag`` applies a fitted DAG through the
+memoized execution plan (``workflow/plan.py``: column liveness).  The
+intra-layer host threads and the workflow-CV cut are not ported.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..features.feature import Feature, FeatureCycleError
 from ..stages.base import Estimator, PipelineStage, Transformer
@@ -97,12 +98,13 @@ def fit_and_transform_dag(
     return fitted, data
 
 
-def transform_dag(dag: StagesDAG, data: ColumnarDataset) -> ColumnarDataset:
-    """Apply an already-fitted DAG (the scoring path)."""
-    for layer in dag.non_generator_layers():
-        for stage in layer:
-            if isinstance(stage, Estimator):
-                raise RuntimeError(
-                    f"unfitted estimator {stage.uid} in scoring DAG")
-            data = stage.transform(data)
-    return data
+def transform_dag(dag: StagesDAG, data: ColumnarDataset,
+                  keep: Optional[Sequence[str]] = None,
+                  on_stage=None) -> ColumnarDataset:
+    """Apply an already-fitted DAG (the scoring path) through its memoized
+    plan; ``keep`` names the columns the caller needs, and every other
+    intermediate is dropped after its last consumer (``keep=None``: none
+    is).  ``on_stage(stage, seconds)`` is called after each stage."""
+    from .plan import plan_for
+
+    return plan_for(dag, keep=keep).transform(data, on_stage=on_stage)

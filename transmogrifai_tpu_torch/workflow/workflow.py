@@ -2,15 +2,17 @@
 of ``transmogrifai_tpu.workflow.workflow``).
 
 Ported: ``OpWorkflow.set_result_features / set_input_data / train`` on the
-in-core path and ``OpWorkflowModel.score / evaluate / score_and_evaluate``.
-Every stage that owns a ``device`` runs on the workflow's device
-(``OpWorkflow(device=...)``), which defaults to the package default
-(``cuda`` unless the caller asked for the CPU).
+in-core path with the train-time serializability gate
+(``allow_non_serializable()`` opts out), ``OpWorkflow.load_model`` and
+``OpWorkflowModel.score / evaluate / score_and_evaluate / save / load``
+(``workflow/persistence.py``).  Every stage that owns a ``device`` runs on
+the workflow's device (``OpWorkflow(device=...)``), which defaults to the
+package default (``cuda`` unless the caller asked for the CPU).
 
 Not ported yet (ROADMAP Queue A): the static DAG lint that
 ``train(validate=True)`` runs in the JAX package (so ``validate=True``
 raises here and the default is ``False``), workflow CV, raw feature
-filtering, meshes, checkpoints, out-of-core streaming and persistence.
+filtering, meshes, checkpoints and out-of-core streaming.
 """
 from __future__ import annotations
 
@@ -61,6 +63,21 @@ class OpWorkflow(_WorkflowCore):
     def __init__(self, device: DeviceLike = None):
         super().__init__()
         self.device = device
+        self._allow_non_serializable = False
+
+    def allow_non_serializable(self) -> "OpWorkflow":
+        """Opt out of the train-time serializability gate: train with
+        callable stage params (lambda extractors) anyway; saving stubs
+        them with a warning."""
+        self._allow_non_serializable = True
+        return self
+
+    def load_model(self, path: str,
+                   device: DeviceLike = None) -> "OpWorkflowModel":
+        """A saved model (either package's), on ``device`` (else this
+        workflow's, else the default device)."""
+        return OpWorkflowModel.load(
+            path, device=device if device is not None else self.device)
 
     def set_result_features(self, *features: Feature) -> "OpWorkflow":
         self.result_features = list(features)
@@ -79,6 +96,10 @@ class OpWorkflow(_WorkflowCore):
         data = self.generate_raw_data()
         dag = compute_dag(self.result_features)
         _check_unique_uids(dag.all_stages())
+        if not self._allow_non_serializable:
+            from .persistence import check_serializable
+
+            check_serializable(dag.all_stages())
         seconds: Dict[str, float] = {}
 
         def on_stage(stage: PipelineStage, dt: float) -> None:
@@ -122,21 +143,28 @@ class OpWorkflowModel(_WorkflowCore):
         self.stages = list(stages)
         self.train_data = train_data
         self.stage_seconds: Dict[str, float] = {}
+        self._scoring_dag_memo = None
 
     def _scoring_dag(self):
-        stage_map = {s.uid: s for s in self.stages}
-        return compute_dag([f.copy_with_new_stages(stage_map)
-                            for f in self.result_features])
+        """The DAG over the fitted stages, built once (scoring, saving and
+        every serving registry entry share it)."""
+        if self._scoring_dag_memo is None:
+            stage_map = {s.uid: s for s in self.stages}
+            self._scoring_dag_memo = compute_dag(
+                [f.copy_with_new_stages(stage_map)
+                 for f in self.result_features])
+        return self._scoring_dag_memo
 
     def score(self, data=None) -> ColumnarDataset:
-        """Apply the fitted DAG; returns the responses and result features."""
+        """Apply the fitted DAG; returns the responses and result features
+        (every other intermediate is dropped after its last consumer)."""
         if data is not None:
             self.set_input_data(data)
-        scored = transform_dag(self._scoring_dag(), self.generate_raw_data())
         keep = [f.name for f in self.raw_features() if f.is_response]
-        keep += [f.name for f in self.result_features
-                 if f.name in scored and f.name not in keep]
-        return scored.select(keep)
+        keep += [f.name for f in self.result_features if f.name not in keep]
+        scored = transform_dag(self._scoring_dag(), self.generate_raw_data(),
+                               keep=keep)
+        return scored.select([k for k in keep if k in scored])
 
     def evaluate(self, evaluator: OpEvaluatorBase, data=None,
                  scored: Optional[ColumnarDataset] = None) -> Dict[str, float]:
@@ -152,3 +180,18 @@ class OpWorkflowModel(_WorkflowCore):
     def score_and_evaluate(self, evaluator: OpEvaluatorBase, data=None):
         scored = self.score(data)
         return scored, self.evaluate(evaluator, scored=scored)
+
+    def save(self, path: str, overwrite: bool = True) -> None:
+        """Write the model in the format both packages read
+        (``workflow/persistence.py``)."""
+        from .persistence import save_workflow_model
+
+        save_workflow_model(self, path, overwrite=overwrite)
+
+    @staticmethod
+    def load(path: str, device: DeviceLike = None) -> "OpWorkflowModel":
+        """Load a saved model (either package's) with its tensors on
+        ``device`` (else the default device)."""
+        from .persistence import load_workflow_model
+
+        return load_workflow_model(path, device=device)
