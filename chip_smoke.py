@@ -11,6 +11,11 @@ to end at full width through the entry points a user calls:
     -> BinaryClassificationModelSelector.with_cross_validation()
     -> OpWorkflow.train() -> score_and_evaluate(AuPR)
 
+    FeatureBuilder (Real, Integral, PickList) -> transmogrify
+    -> SanityChecker -> RegressionModelSelector.with_cross_validation()
+    -> OpWorkflow.train() -> score_and_evaluate(RMSE, R2)
+    -> save -> load -> score, local scorer
+
     model.save -> OpWorkflowModel.load -> score (batch, CSVReader)
     -> ModelServer (batch 1, a burst, batch 64) -> HTTP
 
@@ -37,7 +42,34 @@ card's aggregate shared-memory rate):
                 stage and sweep group, every candidate's CV metric, the
                 summary's metrics, holdout AuPR, trees grown and kernel
                 launches against the growers' count, peak memory
-  5. serve      both trained models (the slice's boosted model, the
+  5. regression  the same 500 Real columns plus one Integral column (30
+                values, 5% missing) and one PickList (5 values, 5% null), a
+                RealNN label from its own seed (22.5 + a linear part of
+                variance 49 + 4 tanh(f10 f11) + the Integral and PickList
+                effects + Gaussian noise of variance 9: the largest
+                attainable R2 is printed), through the default regression
+                selector: linear regression (4 x 2), random forests (3 x 2
+                x 3, 50 trees, one-third feature subsets: d = 169 at the
+                checked width of 508, bag mode "bagged") and GBT chains
+                (depths 3, 6, 12 x 20 rounds, lockstep) under 3-fold CV,
+                RMSE; the train's
+                split by stage and by sweep group (binning, growth,
+                scoring), every candidate's CV RMSE, the winner, holdout
+                RMSE and R2 (must reach R2_FLOOR), trees grown, kernel
+                launches against the growers' count, peak memory; save ->
+                load on the card -> the holdout scored bitwise equal, the
+                local scorer's rows equal to the loaded model's batch; then
+                one OpGBTRegressor(max_depth=12, max_iter=20) fit on the
+                checked matrix, which grows on GOSS row samples (ms per
+                round, launches, holdout R2 against DEEP_R2_FLOOR); then
+                the three regression tree paths grown on the checked
+                matrix with every level's histograms held against the
+                plain version (the tolerance below, its relative part of
+                the per-bin sums of |channels|): 2 rounds of the GBT
+                group's chains (depths 3, 6, 12), 2 rounds of the deep
+                fit's GOSS chain and 2 trees of a regression forest
+                (depth 12, one-third subsets)
+  6. serve      both trained models (the slice's boosted model, the
                 selector's winner): save (seconds, bytes) and load on the
                 card (seconds); the holdout scored after the round trip
                 bitwise equal to the in-memory model; 10k holdout rows
@@ -55,25 +87,36 @@ card's aggregate shared-memory rate):
                 tests/fixtures/model_v1 scored on the card within 1e-5 of
                 its expected scores.  The phase must launch no kernel
                 (scoring is plain torch on the card)
-  6. seg_hist   kernel vs plain at the slice's level shapes (N=1M, d=500,
+  7. seg_hist   kernel vs plain at the slice's level shapes (N=1M, d=500,
                 B=32, nchan=2, M=1..32, a level with empty slots), the level
                 shapes of depths 7 and 10 (M=64, 512), d=497 through
                 apply_bins' padded rows, one level of unpadded rows (the
                 4-byte row copies) and the forests' level shapes (d=22 in
                 32-byte rows, Poisson-count channels, M=1..2048, bitwise
-                equal to plain): error, determinism, kernel/plain/
-                library/bound ms, the layout's share, the groups and
-                reduce passes' device ms and the shared-memory floor
-  7. profile    an 8-round fit at the same width under torch.profiler:
+                equal to plain), and at the regression phase's checked
+                width (508 at full size) the regression forests' levels
+                (d = 508 // 3 = 169 in 176-byte rows, float channels (bw y,
+                bw), M = 1, 64, 512, 2048) and the GBT chains' depth-12
+                levels (d = 508, float channels (w (F - y), w), M = 1024,
+                2048): error within
+                tolerance, determinism, kernel/plain/library/bound ms, the
+                layout's share, the groups and reduce passes' device ms and
+                the shared-memory floor
+  8. profile    an 8-round fit at the same width under torch.profiler:
                 binning and boosting walls, the card's busy time and idle
                 share, the boosting's heaviest device ops per round
-  8. serve_profile  single-row requests of both loaded models under
+  9. regression_profile  one forest of 4 regression trees (depth 12,
+                one-third subsets) and one boosted chain's 3 rounds (depth
+                12, full width) under torch.profiler: wall, the card's busy
+                time and idle share per level, the heaviest device ops
+ 10. serve_profile  single-row requests of both loaded models under
                 torch.profiler: the card's busy time and idle share, the
                 device ops and copies a request
 The phases that run torch.profiler come after the slice and the selector,
 so no profiler session runs in the process before their walls are taken.
-Then the ``kernels`` summary line (``launches``: the slice's and the
-selector's), the card's name and power limit, and the result line.  Any
+Then the ``kernels`` summary line (``launches``: the slice's, the
+selector's and the regression phase's), the card's name and power limit,
+and the result line.  Any
 failed check exits non-zero.  Without a CUDA device the script exits with
 code 1 and prints no result.
 
@@ -100,16 +143,20 @@ from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
 from transmogrifai_tpu_torch.features.builder import FeatureBuilder
 from transmogrifai_tpu_torch.local import score_function_batch
 from transmogrifai_tpu_torch.models import gbdt_kernels as gk
-from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
+from transmogrifai_tpu_torch.models.trees import (OpGBTRegressor,
+                                                  OpXGBoostClassifier,
+                                                  boost_chains)
 from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
 from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
 from transmogrifai_tpu_torch.readers.files import CSVReader
-from transmogrifai_tpu_torch.selector.model_selector import \
-    BinaryClassificationModelSelector
+from transmogrifai_tpu_torch.selector.model_selector import (
+    BinaryClassificationModelSelector, RegressionModelSelector)
+from transmogrifai_tpu_torch.selector.validators import make_folds
 from transmogrifai_tpu_torch.serving import ModelServer
 from transmogrifai_tpu_torch.serving.http import make_http_server
 from transmogrifai_tpu_torch.types import feature_types as ft
 from transmogrifai_tpu_torch.types.columns import ColumnarDataset, FeatureColumn
+from transmogrifai_tpu_torch.workflow.dag import compute_dag, transform_dag
 from transmogrifai_tpu_torch.workflow.workflow import (OpWorkflow,
                                                        OpWorkflowModel)
 
@@ -130,6 +177,21 @@ CSV_ROWS, SEQ_REQUESTS, BURST_REQUESTS, BURST_THREADS = 10_000, 500, 4096, 8
 BIG_REQUESTS, HTTP_ROWS, SPLIT_REQUESTS = 200, 4, 20
 #: boosting rounds of the profiled fit (one early-stopping chunk)
 PROFILE_ROUNDS = 8
+#: the regression phase's label: its seed, the variance of its linear
+#: part and of its Gaussian noise; the holdout R2 it must reach (stated
+#: before the first chip run, below the largest attainable R2 of about
+#: 0.87 that the noise share leaves, and above the linear part's share)
+REG_SEED, REG_LINEAR_VAR, REG_NOISE_VAR = 5, 49.0, 9.0
+R2_FLOOR = 0.75
+#: the direct deep GBT fit of the regression phase, and the holdout R2
+#: it must reach (stated before its first chip run: the depth-12 GBT
+#: candidate's CV RMSE of 4.30 gives R2 near 0.72 at the label's variance
+#: of about 65; a grower that picks wrong splits falls far below)
+DEEP_DEPTH, DEEP_ROUNDS = 12, 20
+DEEP_R2_FLOOR = 0.65
+#: rounds and trees of the regression tree paths grown at full size with
+#: every level's histograms held against the plain version
+CHECK_ROUNDS, CHECK_TREES = 2, 2
 
 
 def _smi(query: str) -> str:
@@ -276,16 +338,38 @@ def _rf_level(dev, n: int, d: int, B: int, gen):
     return binned, torch.stack([bw * y0, bw], 1).contiguous()
 
 
-def phase_seg_hist(dev, n: int, d: int, reps: int, bw: float, f32: float,
-                   smem_bw: float):
+def _reg_levels(dev, n: int, d: int, B: int, gen):
+    """The regression paths' level inputs at the regression phase's
+    checked width ``d``: a forest level's d // 3-column subset gathered
+    into rows padded to 16 bytes, with channels (bw y, bw) of Poisson(1)
+    bags and a Boston-scaled label (mean 22.5, sd 9); a boosted chain's
+    full-width level, with channels (w (F - y), w) of 0/1 fold weights at
+    the label's mean margin."""
+    y = 22.5 + 9.0 * torch.randn(n, device=dev, generator=gen)
+    bw = torch.poisson(torch.ones(n, device=dev), generator=gen)
+    rf = (_level_binned(dev, n, max(1, d // 3), B, gen),
+          torch.stack([bw * y, bw], 1).contiguous())
+    w = (torch.rand(n, device=dev, generator=gen) < 2 / 3).to(torch.float32)
+    gbt = (_level_binned(dev, n, d, B, gen),
+           torch.stack([w * (22.5 - y), w], 1).contiguous())
+    return rf, gbt
+
+
+def phase_seg_hist(dev, n: int, d: int, d_reg: int, reps: int, bw: float,
+                   f32: float, smem_bw: float):
     """Kernel vs plain at every level shape of a depth-6 round (M = 1..32),
     an M=32 level whose odd slots are empty, the level shapes of depths 7
     and 10 (M=64, 512), d=497 through apply_bins' padded rows, an M=32
     level of unpadded rows (stride 500: 4-byte row copies), and the
     forests' levels: d = floor(sqrt(500)) = 22 in 32-byte rows, integer
     channels, M = 1, 64, 512, 1024, 2048 (depth 12's last level), where
-    the kernel must equal the plain version bitwise.  Rows with
-    ``in_mean`` make the ``kernels`` line's means."""
+    the kernel must equal the plain version bitwise; at the regression
+    phase's checked width ``d_reg``, the regression forests' levels (d =
+    d_reg // 3, float channels (bw y, bw), M = 1, 64, 512, 2048) and the
+    GBT chains' depth-12 levels (d = d_reg, float channels (w (F - y), w),
+    M = 1024, 2048), held to the tolerance and to bitwise
+    repeatability.  Rows with ``in_mean`` make the ``kernels``
+    line's means."""
     B, nchan = 32, 2
     gen = torch.Generator(device=dev).manual_seed(0)
     binned = _level_binned(dev, n, d, B, gen)
@@ -294,17 +378,26 @@ def phase_seg_hist(dev, n: int, d: int, reps: int, bw: float, f32: float,
                           dim=1).contiguous()
     d_rf = int(d ** 0.5)
     rf_binned, ch_rf = _rf_level(dev, n, d_rf, B, gen)
+    (reg_binned, ch_reg), (gbt_binned, ch_gbt) = _reg_levels(dev, n, d_reg,
+                                                             B, gen)
     cases = [(M, False, "main") for M in (1, 2, 4, 8, 16, 32)]
     cases += [(32, True, "main"), (64, False, "main"), (512, False, "main"),
               (32, False, "d497"), (32, False, "dense")]
     cases += [(M, False, "rf") for M in (1, 64, 512, 1024, 2048)]
+    cases += [(M, False, "rf_reg") for M in (1, 64, 512, 2048)]
+    cases += [(M, False, "gbt_d12") for M in (1024, 2048)]
     rows = []
     for M, even, which in cases:
-        ch = ch_rf if which == "rf" else ch_main
+        ch = {"rf": ch_rf, "rf_reg": ch_reg, "gbt_d12": ch_gbt}.get(
+            which, ch_main)
         if which == "main":
             b = binned
+        elif which == "gbt_d12":
+            b = gbt_binned
         elif which == "rf":
             b = rf_binned
+        elif which == "rf_reg":
+            b = reg_binned
         elif which == "d497":
             b = _apply_bins_497(dev, n, B, gen)
         else:   # unpadded rows (stride d): the kernel's 4-byte row copies
@@ -366,7 +459,8 @@ def phase_seg_hist(dev, n: int, d: int, reps: int, bw: float, f32: float,
               f"{what}: empty slots not 0")
         rows.append(row)
         del b, args
-    del binned, ch_main, rf_binned, ch_rf
+    del binned, ch_main, rf_binned, ch_rf, reg_binned, ch_reg, gbt_binned
+    del ch_gbt
     return rows
 
 
@@ -587,6 +681,306 @@ def phase_selector(data, cols: int) -> dict:
           f"{meta['hist_levels']} histogram levels")
     check(0.6 < aupr <= 1.0, f"holdout AuPR {aupr} outside (0.6, 1]")
     return out, served
+
+
+def make_regression_data(data):
+    """The regression phase's datasets over the slice's 500 Real columns
+    (the same host arrays, no second matrix): an Integral column of 30
+    values (5% missing), a PickList of 5 values (5% null) and a RealNN
+    label from REG_SEED.  Returns (train, holdout, the largest attainable
+    R2 on the training rows, seconds)."""
+    train, hold, _ = data
+    t0 = time.perf_counter()
+    rows, holdout = len(train), len(hold)
+    n = rows + holdout
+    rng = np.random.default_rng(REG_SEED)
+    F = np.stack([np.concatenate([train[f"f{j}"].values,
+                                  hold[f"f{j}"].values]) for j in range(12)],
+                 axis=1)
+    beta = rng.normal(size=10)
+    beta *= np.sqrt(REG_LINEAR_VAR / (beta @ beta))
+    rad = rng.integers(1, 31, size=n).astype(np.float64)
+    rad[rng.random(n) < 0.05] = np.nan
+    levels = np.array(["a", "b", "c", "d", "e"], dtype=object)
+    chas = levels[rng.integers(0, 5, size=n)]
+    chas[rng.random(n) < 0.05] = None
+    effect = {"a": 0.0, "b": 1.5, "c": -1.0, "d": 2.5, "e": 0.5, None: 0.0}
+    signal = (22.5 + F[:, :10] @ beta + 4 * np.tanh(F[:, 10] * F[:, 11])
+              + 0.15 * np.nan_to_num(rad, nan=15.5)
+              + np.array([effect[c] for c in chas]))
+    y = signal + rng.normal(0.0, np.sqrt(REG_NOISE_VAR), n)
+    max_r2 = 1.0 - REG_NOISE_VAR / float(np.var(y[:rows]))
+
+    def dataset(base, sl):
+        cols = {k: c for k, c in base.columns.items() if k != "label"}
+        cols["rad"] = FeatureColumn.from_values(ft.Integral, rad[sl])
+        cols["chas"] = FeatureColumn.from_values(ft.PickList,
+                                                 list(chas[sl]))
+        cols["label"] = FeatureColumn.from_values(ft.RealNN, y[sl])
+        return ColumnarDataset(cols)
+
+    return (dataset(train, slice(0, rows)), dataset(hold, slice(rows, n)),
+            max_r2, time.perf_counter() - t0)
+
+
+def _regression_rows(hold, names, k: int) -> list:
+    """The first ``k`` holdout rows as raw-feature dicts (missing values
+    as None), as a local-scoring caller sends them."""
+    cols = {nm: hold[nm] for nm in names}
+    out = []
+    for i in range(k):
+        row = {}
+        for nm, c in cols.items():
+            ok = True if c.mask is None else bool(c.mask[i])
+            v = c.values[i]
+            row[nm] = (None if not ok or v is None
+                       else v if isinstance(v, str) else float(v))
+        out.append(row)
+    return out
+
+
+class _LevelCheck:
+    """A ``hist_fn`` for the growers that launches the kernel and holds
+    its histograms against the plain version on the same level inputs;
+    the growth goes on from the kernel's.  Two float32 sums of the same
+    terms in another order differ by a few ulps of the sum of the terms'
+    magnitudes, and gradients w (F - y) of both signs cancel to sums far
+    smaller than that: the tolerance is ATOL + RTOL x the histogram of
+    |channels| (the plain version's), not of the sums themselves."""
+
+    def __init__(self):
+        self.errs, self.ratios, self.shapes = [], [], set()
+
+    def __call__(self, binned, slot, ch, M: int, B: int):
+        k = gk.seg_level_hists(binned, slot, ch, M, B)
+        p = gk.seg_level_hists_plain(binned, slot, ch, M, B)
+        mag = gk.seg_level_hists_plain(binned, slot, ch.abs(), M, B)
+        diff = (k - p).abs()
+        self.errs.append(diff.max())
+        self.ratios.append((diff / (ATOL + RTOL * mag)).max())
+        self.shapes.add((binned.shape[0], binned.shape[1], M))
+        return k
+
+    def summary(self) -> dict:
+        shapes = sorted(self.shapes)
+        return {"levels": len(self.errs),
+                "max_abs_err": float(torch.stack(self.errs).max()),
+                "tol_ratio": float(torch.stack(self.ratios).max()),
+                "N": sorted({n for n, _, _ in shapes}),
+                "d": sorted({d for _, d, _ in shapes}),
+                "M_max": max(m for _, _, m in shapes)}
+
+
+def _tree_paths_vs_plain(X: torch.Tensor, y: np.ndarray) -> dict:
+    """The regression phase's three tree paths grown on its checked
+    matrix, every level's histograms held against the plain version
+    (``_LevelCheck``): CHECK_ROUNDS rounds of the GBT group's chains
+    (depths 3, 6, 12 on the first fold's weights), CHECK_ROUNDS rounds of
+    the deep fit's chain (depth 12, GOSS row samples) and CHECK_TREES
+    trees of a regression forest (depth 12, one-third subsets, min
+    instances 10, bag mode "bagged")."""
+    dev = X.device
+    n = X.shape[0]
+    edges = gk.quantile_bins(X, 32)
+    binned = gk.apply_bins(X, edges)
+    yt = torch.from_numpy(y).to(dev)
+    fold = torch.from_numpy(
+        (make_folds(n, 3, seed=42) != 0).astype(np.float32)).to(dev)
+    mean = float((fold * yt).sum() / fold.sum())
+    out = {}
+    runs = {
+        "gbt_chains": ([OpGBTRegressor(max_depth=dd, max_iter=CHECK_ROUNDS)
+                        for dd in (3, 6, 12)], fold),
+        "deep_goss": ([OpGBTRegressor(max_depth=DEEP_DEPTH,
+                                      max_iter=CHECK_ROUNDS)],
+                      torch.ones(n, device=dev))}
+    for name, (ests, w) in runs.items():
+        chk = _LevelCheck()
+        grown = boost_chains(ests, binned, edges, yt,
+                             w[None].repeat(len(ests), 1),
+                             torch.full((len(ests),), mean), [],
+                             hist_fn=chk)
+        out[name] = {**chk.summary(), "goss": grown.goss,
+                     "splits": sum(int((t.thresh < 32).sum())
+                                   for c in grown.trees for t in c)}
+    chk = _LevelCheck()
+    forest = gk.grow_rf_grid(
+        binned, yt, fold[None], seed=7, n_trees=CHECK_TREES, pair_fold=[0],
+        pair_min_ig=[0.001], pair_min_inst=[10], pair_depth=[12],
+        msub=X.shape[1] // 3, subsample_rate=1.0, n_bins=32,
+        regression=True, hist_fn=chk)
+    out["rf_reg"] = {**chk.summary(),
+                     "splits": int((forest.thresh < 32).sum())}
+    return out
+
+
+def _checked_matrix(model, checked, data) -> torch.Tensor:
+    """The fitted vectorizers' and checker's matrix of ``data``."""
+    stage_map = {s.uid: s for s in model.stages}
+    dag = compute_dag([checked.copy_with_new_stages(stage_map)])
+    return transform_dag(dag, data, keep=[checked.name])[checked.name].values
+
+
+def phase_regression(data, cols: int) -> dict:
+    """The default regression selector on the slice's columns plus an
+    Integral and a PickList, a new label; save/load/local scoring of the
+    trained model; one deep GBT fit that grows on GOSS row samples."""
+    rtrain, rhold, max_r2, data_s = make_regression_data(data)
+    rows, holdout = len(rtrain), len(rhold)
+    label = FeatureBuilder.RealNN("label").as_response()
+    preds = ([FeatureBuilder.Real(f"f{j}").as_predictor()
+              for j in range(cols)]
+             + [FeatureBuilder.Integral("rad").as_predictor(),
+                FeatureBuilder.PickList("chas").as_predictor()])
+    checked = label.transform_with(SanityChecker(max_correlation=0.99),
+                                   transmogrify(preds))
+    selector = RegressionModelSelector.with_cross_validation()
+    pred = label.transform_with(selector, checked)
+    wf = OpWorkflow().set_result_features(pred).set_input_data(rtrain)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.seg_level_hists.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train()
+    train_s = time.perf_counter() - t0
+    launches = gk.seg_level_hists.launches
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    scored, metrics = model.score_and_evaluate(
+        Evaluators.Regression.rmse(), data=rhold)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    prediction = scored[pred.name].values.prediction
+    meta = selector.metadata
+    summary = meta["model_selector_summary"]
+    results = summary["validationResults"]
+
+    # save -> load on the card -> the holdout bitwise; the local scorer
+    tmp = os.path.join(REPO, "smoke_out")
+    path = os.path.join(tmp, "regression")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        t0 = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(path)
+        t0 = time.perf_counter()
+        loaded = OpWorkflowModel.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    reloaded = loaded.score(rhold)[pred.name].values.prediction
+    bitwise = bool(torch.equal(reloaded, prediction))
+    names = [f"f{j}" for j in range(cols)] + ["rad", "chas"]
+    local_rows = _regression_rows(rhold, names, 64)
+    local = [r[pred.name]["prediction"]
+             for r in score_function_batch(loaded)(local_rows)]
+    batch64 = loaded.score(rhold.slice(0, 64))[pred.name].values.prediction
+    local_equal = local == batch64.cpu().tolist()
+
+    # one deep boosted fit on the checked matrix: GOSS row samples
+    X = model.train_data[checked.name].values
+    y = np.asarray(rtrain["label"].values, np.float32)
+    est = OpGBTRegressor(max_depth=DEEP_DEPTH, max_iter=DEEP_ROUNDS)
+    torch.cuda.synchronize()
+    gk.seg_level_hists.launches = 0
+    t0 = time.perf_counter()
+    deep_model = est.fit_raw(X, y)
+    torch.cuda.synchronize()
+    deep_s = time.perf_counter() - t0
+    deep_launches = gk.seg_level_hists.launches
+    timing = est.metadata["fit_timing"]
+    y_hold = torch.as_tensor(np.asarray(rhold["label"].values, np.float32),
+                             device=X.device)
+    deep_pred = deep_model.predict_values(
+        _checked_matrix(model, checked, rhold))
+    deep_r2 = float(1 - ((deep_pred - y_hold) ** 2).sum()
+                    / ((y_hold - y_hold.mean()) ** 2).sum())
+    paths = _tree_paths_vs_plain(X, y)
+    deep = {"max_depth": DEEP_DEPTH, "max_iter": DEEP_ROUNDS,
+            "rows": int(X.shape[0]), "cols": int(X.shape[1]),
+            "goss": est.metadata["goss"], "fit_s": deep_s,
+            "binning_s": timing["binning_s"],
+            "boosting_s": timing["boosting_s"],
+            "rounds_grown": est.metadata["rounds_grown"],
+            "ms_per_round": timing["boosting_s"]
+            / est.metadata["rounds_grown"] * 1e3,
+            "seg_hist_launches": deep_launches,
+            "growers_hist_levels": est.metadata["hist_levels"],
+            "holdout_r2": deep_r2, "r2_floor": DEEP_R2_FLOOR}
+    checked_cols = int(X.shape[1])
+    del X, deep_model, deep_pred
+
+    r2 = float(metrics["R2"])
+    out = {"phase": "regression", "rows": rows, "holdout": holdout,
+           "predictors": cols + 2, "folds": selector.validator.num_folds,
+           "label_noise_var": REG_NOISE_VAR, "max_attainable_r2": max_r2,
+           "r2_floor": R2_FLOOR, "data_s": data_s, "train_s": train_s,
+           "score_s": score_s, "stage_seconds": model.stage_seconds,
+           "sweep_seconds": meta["sweep_seconds"],
+           "group_errors": meta["group_errors"],
+           "tree_phase_seconds": meta["tree_phase_seconds"],
+           "refit_seconds": meta["refit_seconds"],
+           "metrics_seconds": meta["metrics_seconds"],
+           "winner": summary["bestModelType"],
+           "winner_params": summary["bestModelParams"],
+           "cv": [{"model": r["modelType"], "params": r["params"],
+                   "rmse": r["metricValue"], "error": r.get("error")}
+                  for r in results],
+           "train_metrics": summary["trainEvaluationMetrics"],
+           "holdout_metrics": metrics,
+           "trees_grown": meta["rf_trees"], "group_trees": meta[
+               "group_trees"], "group_hist_levels": meta["group_hist_levels"],
+           "seg_hist_launches": launches,
+           "growers_hist_levels": meta["hist_levels"],
+           "max_memory_allocated": peak,
+           "dropped_columns": len(checked.origin_stage.metadata["summary"]
+                                  ["dropped"]),
+           "save_s": save_s, "load_s": load_s, "artifact_bytes": nbytes,
+           "holdout_bitwise_after_load": bitwise,
+           "local_scorer_rows_equal": local_equal, "deep_gbt": deep,
+           "checked_cols": checked_cols, "tree_paths_vs_plain": paths,
+           "seg_hist_launches_total": launches + deep_launches}
+    emit(out)
+    check(tuple(prediction.shape) == (holdout,),
+          f"prediction shape {tuple(prediction.shape)}")
+    check(bool(torch.isfinite(prediction).all()), "non-finite predictions")
+    check(len(results) == 29, f"{len(results)} validation results, not 29")
+    errors = [r["error"] for r in results if r.get("error")]
+    check(not errors, f"candidates failed: {errors}")
+    check(not meta["group_errors"],
+          f"grid groups failed: {meta['group_errors']}")
+    check({"LinRegGridGroup", "RFGridGroup", "GBTGridGroup"}
+          <= set(meta["sweep_seconds"]),
+          f"grid groups not run: {sorted(meta['sweep_seconds'])}")
+    check(launches > 0 and launches == meta["hist_levels"],
+          f"seg_hist launches {launches} != the growers' "
+          f"{meta['hist_levels']} histogram levels")
+    check(r2 >= R2_FLOOR, f"holdout R2 {r2} below the floor {R2_FLOOR}")
+    check(bitwise, "regression: holdout predictions after save/load differ")
+    check(local_equal, "regression: local scorer rows differ from the "
+          "loaded model's batch")
+    check(deep["goss"] is not None, "deep GBT fit did not engage GOSS")
+    check(deep_launches == deep["growers_hist_levels"]
+          == DEEP_DEPTH * deep["rounds_grown"],
+          f"deep GBT seg_hist launches {deep_launches} != "
+          f"{deep['growers_hist_levels']} levels")
+    check(deep_r2 >= DEEP_R2_FLOOR, f"deep GBT holdout R2 {deep_r2} below "
+          f"the floor {DEEP_R2_FLOOR}")
+    for name, row in paths.items():
+        check(row["levels"] > 0 and row["splits"] > 0,
+              f"{name}: no level or no split grown")
+        check(row["tol_ratio"] <= 1.0, f"{name}: kernel vs plain error "
+              f"{row['max_abs_err']} beyond rtol {RTOL} (of the sums of "
+              f"|channels|) / atol {ATOL}")
+    check(paths["deep_goss"]["goss"] is not None
+          and paths["gbt_chains"]["goss"] is None,
+          f"GOSS engaged where it should not, or not where it should: "
+          f"{paths}")
+    return out
 
 
 def _dir_bytes(path: str) -> int:
@@ -936,6 +1330,77 @@ def phase_profile(dev, rows: int, cols: int, rounds: int) -> None:
           "profile: no device events or missing fit ranges")
 
 
+def _profiled(fn) -> dict:
+    """Wall, the card's busy time and idle share, and the heaviest device
+    ops of one call of ``fn`` under torch.profiler (CPU and CUDA)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    by_name = {}
+    for e in dev:
+        t, c = by_name.get(e.name[:60], (0.0, 0))
+        by_name[e.name[:60]] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "device_ops": len(dev),
+            "top_device_ops": [{"name": k, "ms": t, "count": c}
+                               for k, (t, c) in top]}
+
+
+def phase_regression_profile(dev, rows: int, cols: int) -> None:
+    """Where the regression sweep's tree growth spends its time: under
+    torch.profiler, one base pair's forest of 4 trees (depth 12, min
+    instances 10, one-third feature subsets, bag mode "bagged") and one
+    boosted chain's 3 rounds (depth 12, full width), on data drawn on
+    the card with the regression phase's label scale.  Per level: the
+    wall, the card's busy time and idle share."""
+    gen = torch.Generator(device=dev).manual_seed(REG_SEED)
+    X = torch.randn(rows, cols, generator=gen, device=dev)
+    y = (22.5 + 7 * X[:, 0] + 4 * torch.tanh(X[:, 1] * X[:, 2])
+         + 3 * torch.randn(rows, generator=gen, device=dev))
+    binned = gk.apply_bins(X, gk.quantile_bins(X, 32))
+    del X
+    w = torch.ones((1, rows), device=dev)
+    kw = dict(seed=1, n_trees=4, pair_fold=[0], pair_min_ig=[0.001],
+              pair_min_inst=[10], pair_depth=[12], msub=cols // 3,
+              subsample_rate=1.0, n_bins=32, regression=True)
+    gk.grow_rf_grid(binned, y, w, **{**kw, "n_trees": 1})   # warm-up
+    grown = {}
+    rf = _profiled(lambda: grown.setdefault(
+        "rf", gk.grow_rf_grid(binned, y, w, **kw)))
+    rf["levels"] = grown["rf"].levels
+    rf["wall_ms_per_level"] = rf["wall_ms"] / rf["levels"]
+
+    def chain():
+        F = torch.full((rows,), 22.5, device=dev)
+        for _ in range(3):
+            G, H = F - y, torch.ones_like(F)
+            tree = gk.grow_tree(binned, G[:, None], H[:, None], 12, 32,
+                                lam=1.0, min_child_weight=1.0,
+                                learning_rate=0.1)
+            F = F + gk.predict_tree(binned, *tree, 12)[:, 0]
+
+    chain()                                                 # warm-up
+    gbt = _profiled(chain)
+    gbt["levels"] = 36
+    gbt["wall_ms_per_level"] = gbt["wall_ms"] / 36
+    out = {"phase": "regression_profile", "rows": rows, "cols": cols,
+           "rf_forest": rf, "gbt_chain": gbt}
+    emit(out)
+    check(rf["device_ops"] > 0 and gbt["device_ops"] > 0,
+          "regression_profile: no device events")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
@@ -975,13 +1440,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     sel, lr = phase_selector(data, args.cols)
     torch.cuda.empty_cache()
+    reg = phase_regression(data, args.cols)
+    torch.cuda.empty_cache()
     served, request_rows = phase_serve([xgb, lr], args.cols)
     del xgb, lr, data
     torch.cuda.empty_cache()
-    seg = phase_seg_hist(dev, args.rows, args.cols, args.reps, bw, f32,
-                         smem_bw)
+    seg = phase_seg_hist(dev, args.rows, args.cols, reg["checked_cols"],
+                         args.reps, bw, f32, smem_bw)
     torch.cuda.empty_cache()
     phase_profile(dev, args.rows, args.cols, PROFILE_ROUNDS)
+    torch.cuda.empty_cache()
+    phase_regression_profile(dev, args.rows, args.cols)
+    torch.cuda.empty_cache()
     phase_serve_profile(served, request_rows)
 
     # per-launch means over the six level shapes of a depth-6 round
@@ -1001,7 +1471,8 @@ def main() -> int:
     emit({"kernels": [{
         "name": "seg_hist", "route": "cuda", "source": SEG_HIST_SOURCE,
         "replaces": SEG_HIST_REPLACES,
-        "launches": sl["seg_hist_launches"] + sel["seg_hist_launches"],
+        "launches": (sl["seg_hist_launches"] + sel["seg_hist_launches"]
+                     + reg["seg_hist_launches_total"]),
         "max_abs_err": max(r["max_abs_err"] for r in seg),
         "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": levels[-1]["bound_by"],

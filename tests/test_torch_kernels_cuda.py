@@ -289,6 +289,107 @@ def test_seg_hist_forest_levels_bitwise(cuda_device, M):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,M", [(169, 1), (169, 64), (169, 2048),
+                                 (508, 1024), (508, 2048)])
+def test_seg_hist_regression_levels(cuda_device, d, M):
+    """The regression paths' levels at the widths of the smoke's checked
+    matrix (508 columns): a forest's one-third subset (d = 169, rows
+    padded to 176 bytes) with float channels (bw y, bw) of a
+    Boston-scaled label (mean 22.5, sd 9) and Poisson bags, and the
+    boosted chains' depth-12 levels (d = 508, M up to 2048) with
+    channels (w (F - y), w).  Float sums: within the tolerance of the
+    plain version, and two launches bitwise equal."""
+    rng = np.random.default_rng(d + M)
+    n, B = 200_000, 32
+    binned = tk.binned_empty(n, d, cuda_device)
+    binned.copy_(torch.from_numpy(
+        rng.integers(0, B, size=(n, d)).astype(np.uint8)))
+    y = (22.5 + 9 * rng.normal(size=n)).astype(np.float32)
+    if d == 169:
+        assert binned.stride() == (176, 1)
+        w = rng.poisson(1.0, n).astype(np.float32)
+        ch = np.stack([w * y, w], 1)
+    else:
+        w = (rng.random(n) < 2 / 3).astype(np.float32)
+        ch = np.stack([w * (22.5 - y), w], 1)
+    slot = torch.from_numpy(rng.integers(0, M, n).astype(np.int32))
+    _check_kernel([binned, slot.to(cuda_device),
+                   torch.from_numpy(ch.astype(np.float32)).to(cuda_device)],
+                  M, B)
+
+
+@pytest.mark.cuda
+def test_regression_forest_and_chains_on_card(cuda_device, monkeypatch):
+    """A regression forest grid and a lockstep GBT group on the card: the
+    forest through the kernel equals the one through the plain version
+    up to float sums (same splits, leaves within 1e-5 relative); boosted
+    chains (depths 3 and 7, then one depth-8 chain on GOSS row samples)
+    grown through the kernel with every level's histograms within the
+    tolerance of the plain version on the same inputs; the kernel's
+    launches equal the growers' counts."""
+    from transmogrifai_tpu_torch.models.trees import (OpGBTRegressor,
+                                                      boost_chains)
+    from transmogrifai_tpu_torch.selector.grid_groups import GBTGridGroup
+
+    rng = np.random.default_rng(9)
+    n = 30_000
+    X = rng.normal(size=(n, 30)).astype(np.float32)
+    y = (22.5 + 5 * X[:, 0] + 3 * np.tanh(X[:, 1] * X[:, 2])
+         + 2 * rng.normal(size=n)).astype(np.float32)
+    Xc = torch.from_numpy(X).to(cuda_device)
+    edges = tk.quantile_bins(torch.from_numpy(X), 32)
+    binned = tk.apply_bins(Xc, edges)
+    folds = torch.arange(n, device=cuda_device) % 3
+    W = torch.stack([(folds != k).to(torch.float32) for k in range(3)])
+    kw = dict(seed=3, n_trees=2, pair_fold=[0, 1, 2],
+              pair_min_ig=[0.001, 0.01, 0.1], pair_min_inst=[10, 100, 10],
+              pair_depth=[8, 8, 5], msub=10, subsample_rate=1.0, n_bins=32,
+              leaf_levels=(3,), regression=True)
+    yt = torch.from_numpy(y).to(cuda_device)
+    before = tk.seg_level_hists.launches
+    k = tk.grow_rf_grid(binned, yt, W, **kw)
+    assert tk.seg_level_hists.launches - before == k.levels > 0
+    p = tk.grow_rf_grid(binned, yt, W, hist_fn=tk.seg_level_hists_plain,
+                        **kw)
+    assert torch.equal(k.feat, p.feat) and torch.equal(k.thresh, p.thresh)
+    np.testing.assert_allclose(k.leaf.cpu().numpy(), p.leaf.cpu().numpy(),
+                               rtol=1e-5)
+
+    checked = []
+
+    def hist_checked(b, slot, ch, M, B):
+        got = tk.seg_level_hists(b, slot, ch, M, B)
+        torch.testing.assert_close(
+            got, tk.seg_level_hists_plain(b, slot, ch, M, B), rtol=RTOL,
+            atol=ATOL)
+        checked.append(b.shape[0])
+        return got
+
+    ests = [OpGBTRegressor(max_depth=dd, max_iter=4) for dd in (3, 7)]
+    grown = boost_chains(ests, binned, edges, yt, W[:2],
+                         torch.full((2,), 22.5), [], hist_fn=hist_checked)
+    assert grown.goss is None and len(checked) == grown.levels == 4 * 10
+    monkeypatch.setenv("TMOG_GOSS", "1")
+    deep = boost_chains([OpGBTRegressor(max_depth=8, max_iter=2)], binned,
+                        edges, yt, W[:1], torch.full((1,), 22.5), [],
+                        hist_fn=hist_checked)
+    assert deep.goss == (6000, 6000)
+    assert checked[40:] == [12_000] * 16 == [12_000] * deep.levels
+    monkeypatch.delenv("TMOG_GOSS")
+
+    f = (folds.cpu().numpy())
+    ctxs = [((f != i).astype(np.float32), (f == i).astype(np.float32))
+            for i in range(3)]
+    g = GBTGridGroup(OpGBTRegressor(), [dict(max_depth=dd, max_iter=4)
+                                        for dd in (3, 7)],
+                     "RootMeanSquaredError")
+    before = tk.seg_level_hists.launches
+    m = g.run(Xc, y, ctxs)
+    assert tk.seg_level_hists.launches - before == g.hist_levels == 4 * 3 * 10
+    assert m.shape == (2, 3) and bool(torch.isfinite(m).all())
+
+
+@pytest.mark.cuda
 def test_rf_grid_kernel_matches_plain(cuda_device):
     """A small forest grid grown on the card through the kernel and through
     the plain version: integer channels, so identical trees, leaves and

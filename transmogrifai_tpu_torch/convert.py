@@ -9,7 +9,7 @@ module never imports the JAX package: callers extract the arrays.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -18,9 +18,11 @@ from .device import resolve_device
 from .features.feature import Feature
 from .models.classification import LogisticRegressionModel
 from .models.prediction import PredictorModel
+from .models.regression import LinearRegressionModel
 from .models.trees import TreeEnsembleModel
-from .ops.vectorizers import (OneHotVectorizer, OneHotVectorizerModel,
-                              RealVectorizer, RealVectorizerModel)
+from .ops.vectorizers import (IntegralVectorizer, OneHotVectorizer,
+                              OneHotVectorizerModel, RealVectorizer,
+                              RealVectorizerModel)
 from .preparators.sanity_checker import SanityChecker, SanityCheckerModel
 from .selector.model_selector import ModelSelector, SelectedModel
 from .stages.base import Estimator, Model, PipelineStage
@@ -29,12 +31,16 @@ from .workflow.workflow import OpWorkflowModel
 
 __all__ = ["real_vectorizer", "one_hot_vectorizer", "sanity_checker",
            "tree_ensemble_model", "tree_ensemble",
-           "logistic_regression_model", "selected_model", "workflow_model"]
+           "logistic_regression_model", "linear_regression_model",
+           "selected_model", "workflow_model"]
 
 
-def real_vectorizer(est: RealVectorizer, fills: Sequence[float],
+def real_vectorizer(est: Union[RealVectorizer, IntegralVectorizer],
+                    fills: Sequence[float],
                     track_nulls: bool = True) -> RealVectorizerModel:
-    """Fill values per input feature (``RealVectorizerModel.fills``)."""
+    """Fill values per input feature (``RealVectorizerModel.fills``), for
+    a ``RealVectorizer`` or an ``IntegralVectorizer`` (whose fitted stage
+    is a ``RealVectorizerModel`` in both packages)."""
     return est.adopt_model(RealVectorizerModel(
         fills=[float(v) for v in fills], track_nulls=track_nulls,
         device=est.device))
@@ -62,9 +68,9 @@ def tree_ensemble_model(mode: str, edges: np.ndarray, feat: np.ndarray,
                         thresh: np.ndarray, leaf: np.ndarray,
                         base_score: float = 0.0, n_classes: int = 2,
                         device=None) -> TreeEnsembleModel:
-    """A ``TreeEnsembleModel`` (``gbdt_binary`` or ``rf_cls``) from its
-    edges/feat/thresh/leaf arrays, its trees on ``device`` (else the
-    default device)."""
+    """A ``TreeEnsembleModel`` (``gbdt_binary``, ``gbdt_reg``, ``rf_cls``
+    or ``rf_reg``) from its edges/feat/thresh/leaf arrays, its trees on
+    ``device`` (else the default device)."""
     dev = resolve_device(device)
     return TreeEnsembleModel(
         mode=mode, edges=np.asarray(edges, np.float32),
@@ -92,11 +98,21 @@ def logistic_regression_model(coef: np.ndarray, intercept: float,
                      device=resolve_device(device)), float(intercept))
 
 
+def linear_regression_model(coef: np.ndarray, intercept: float,
+                            device=None) -> LinearRegressionModel:
+    """A ``LinearRegressionModel`` from its (D,) coefficients and
+    intercept, on ``device`` (else the default device)."""
+    return LinearRegressionModel(
+        torch.tensor(np.asarray(coef, np.float32),
+                     device=resolve_device(device)), float(intercept))
+
+
 def selected_model(est: ModelSelector, inner: PredictorModel,
                    best_name: str, best_params: dict,
                    summary: Optional[dict] = None) -> SelectedModel:
     """A fitted selector: the winner ``inner`` (built by
-    ``logistic_regression_model`` or ``tree_ensemble_model``) with its
+    ``logistic_regression_model``, ``linear_regression_model`` or
+    ``tree_ensemble_model``) with its
     name and params; ``summary`` (the JAX selector's
     ``model_selector_summary``) is carried into the estimator's
     metadata."""

@@ -1,13 +1,15 @@
-"""Binary metrics on device tensors (counterpart of
+"""Binary and regression metrics on device tensors (counterpart of
 ``transmogrifai_tpu.evaluators.metrics``): the areas under the
 precision-recall and ROC curves from one sort of the scores, evaluated at
 distinct-score boundaries (average-precision style, as sklearn and Spark
-compute them), the metrics at a threshold, Brier score and log loss.
+compute them), the metrics at a threshold, Brier score and log loss; the
+weighted regression set (RMSE, MSE, MAE, R2).
 
 Sums run in float64 over cumulative sums rather than scatter-adds, so the
 results are deterministic on the card; with unit weights every partial sum
-is an exact integer.  ``binary_metric_grid`` scores a whole
-(fold, candidate) sweep against per-fold evaluation weights.
+is an exact integer.  ``binary_metric_grid`` and
+``regression_metric_grid`` score a whole (fold, candidate) sweep against
+per-fold evaluation weights.
 """
 from __future__ import annotations
 
@@ -17,11 +19,17 @@ import torch
 
 __all__ = ["MINIMIZE_METRICS", "aupr", "aupr_device", "auroc",
            "auroc_device", "binary_metric_grid", "binary_metrics_at_threshold",
-           "brier_score", "log_loss", "binary_classification_metrics"]
+           "brier_score", "log_loss", "binary_classification_metrics",
+           "REGRESSION_METRICS", "regression_metric_device",
+           "regression_metric_grid", "regression_metrics"]
 
-#: binary metrics where smaller is better (the selector's direction of
-#: selection)
-MINIMIZE_METRICS = ("Error", "LogLoss", "BrierScore")
+#: metrics where smaller is better (the selector's direction of selection)
+MINIMIZE_METRICS = ("RootMeanSquaredError", "MeanSquaredError",
+                    "MeanAbsoluteError", "Error", "LogLoss", "BrierScore")
+
+#: the regression metric set, by the JAX package's names
+REGRESSION_METRICS = ("RootMeanSquaredError", "MeanSquaredError",
+                      "MeanAbsoluteError", "R2")
 
 
 def _prep(y_true, y_score, sample_weight):
@@ -158,3 +166,51 @@ def binary_classification_metrics(y_true, y_prob, sample_weight=None,
     out.update(binary_metrics_at_threshold(y_true, y_prob, threshold,
                                            sample_weight))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Regression
+# ---------------------------------------------------------------------------
+
+def regression_metric_device(y_true, y_pred, sample_weight,
+                             metric: str) -> torch.Tensor:
+    """One weighted regression metric as a 0-d float64 tensor on the
+    predictions' device: the sums run in float64, the total weight floored
+    at 1e-12 and R2's label variance at 1e-12, as in the JAX package's
+    kernel."""
+    if metric not in REGRESSION_METRICS:
+        raise ValueError(f"unknown regression metric {metric!r}")
+    y, w, _ = _prep(y_true, y_pred, sample_weight)
+    ws = torch.clamp(w.sum(), min=1e-12)
+    err = torch.as_tensor(y_pred).to(y.device, torch.float64) - y
+    if metric == "MeanAbsoluteError":
+        return (w * err.abs()).sum() / ws
+    mse = (w * err * err).sum() / ws
+    if metric == "MeanSquaredError":
+        return mse
+    if metric == "RootMeanSquaredError":
+        return torch.sqrt(mse)
+    mean = (w * y).sum() / ws
+    var = (w * (y - mean) ** 2).sum() / ws
+    return 1.0 - mse / torch.clamp(var, min=1e-12)
+
+
+def regression_metric_grid(y_true: torch.Tensor, preds: torch.Tensor,
+                           weights: torch.Tensor, metric: str
+                           ) -> Optional[torch.Tensor]:
+    """A regression sweep's metrics: ``preds`` (F, C, N) per (fold,
+    candidate), ``weights`` (F, N) -> (F, C) float64 device values, or
+    None for a metric outside the regression set."""
+    if metric not in REGRESSION_METRICS:
+        return None
+    return torch.stack([torch.stack([
+        regression_metric_device(y_true, p, weights[f], metric)
+        for p in preds[f]]) for f in range(preds.shape[0])])
+
+
+def regression_metrics(y_true, y_pred, sample_weight=None
+                       ) -> Dict[str, float]:
+    """The full regression metric set (OpRegressionEvaluator's)."""
+    return {m: float(regression_metric_device(y_true, y_pred, sample_weight,
+                                              m))
+            for m in REGRESSION_METRICS}

@@ -9,18 +9,21 @@ slice runs:
  * ``grow_tree`` — level-wise growth in ``newton`` mode (gradient and
    hessian channels, XGBoost gating), default-direction splits and node
    compaction;
- * ``grow_rf_grid`` / ``grow_forest_rf`` — binary random forests in bag
-   mode ``"onehot"`` (channels bw [y=0] and bw, count gating, feature
-   subsets, leaf-level truncation snapshots), bags from
+ * ``grow_rf_grid`` / ``grow_forest_rf`` — random forests in bag mode
+   ``"onehot"`` for binary labels (channels bw [y=0] and bw) and
+   ``"bagged"`` for regression (channels bw y and bw): count gating,
+   feature subsets, leaf-level truncation snapshots, bags from
    ``rf_bags_and_features``;
+ * GOSS (``goss_plan``, ``goss_select``, ``goss_rows``): the boosted
+   fits' gradient-based row sampling for deep trees;
  * ``predict_tree`` / ``predict_ensemble`` — plain torch gathers;
  * the per-level histogram: ``seg_level_hists`` launches the hand-written
    CUDA kernel ``csrc/seg_hist.cu`` on CUDA tensors and calls its plain
    version ``seg_level_hists_plain`` on CPU tensors.  Both the boosted and
    the forest growers build every level through it.
 
-Not ported yet (ROADMAP Queue A): EFB bundling, GOSS, the CSR sparse path,
-sibling subtraction, regression and multiclass forests and sharded growth.
+Not ported yet (ROADMAP Queue A): EFB bundling, the CSR sparse path,
+sibling subtraction, multiclass forests and sharded growth.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ __all__ = ["TreeArrays", "quantile_bins", "apply_bins", "default_dir_mask",
            "seg_level_hists_plain",
            "grow_tree", "RFGrowth", "rf_bags_and_features", "grow_rf_grid",
            "grow_forest_rf", "predict_tree", "predict_ensemble",
-           "goss_plan"]
+           "goss_plan", "goss_select", "goss_rows"]
 
 #: most rows one warp of the seg_hist kernel adds into one float32 partial
 #: (keeps the partial sums within the kernel's tolerance at a million rows)
@@ -59,9 +62,13 @@ _SMEM_RING = 4 * 8 * (SEG_TILE + 8)
 SEG_MAX_BINS = (_SMEM_BLOCK - _SMEM_RING) // (SEG_TILE * 8)
 #: most slots: the reduce pass puts one slot per grid row (gridDim.y)
 SEG_MAX_SLOTS = 65535
-#: GOSS engages at/above this depth and row count in the JAX package
+#: GOSS engages at/above this depth and row count, and keeps these
+#: fractions of the rows by |gradient| and by a uniform draw of the rest
+#: (the JAX package's constants)
 GOSS_MIN_DEPTH = 8
 GOSS_MIN_ROWS = 20000
+GOSS_TOP_FRAC = 0.2
+GOSS_REST_FRAC = 0.2
 
 
 class TreeArrays(NamedTuple):
@@ -155,9 +162,11 @@ def route_right(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 
 def goss_plan(n_rows: int, min_depth: int) -> Optional[Tuple[int, int]]:
-    """The JAX package's GOSS row budget rule, used here only to refuse the
-    fits where GOSS would engage (its ``jax.random`` draws are not
-    reproducible in torch)."""
+    """The JAX package's GOSS row budget (k_top, k_rest) for fits whose
+    shallowest tree has ``min_depth``, or None when GOSS stays off.
+    ``TMOG_GOSS``: '1' forces it on (the row gate bypassed; the depth gate
+    always holds), '0' off, 'auto' (default) engages at depth >= 8 and
+    n >= ``GOSS_MIN_ROWS``."""
     import os
 
     v = os.environ.get("TMOG_GOSS", "auto")
@@ -165,9 +174,49 @@ def goss_plan(n_rows: int, min_depth: int) -> Optional[Tuple[int, int]]:
         return None
     if v != "1" and n_rows < GOSS_MIN_ROWS:
         return None
-    k_top = max(1, int(round(0.2 * n_rows)))
-    k_rest = max(1, int(round(0.2 * n_rows)))
+    k_top = max(1, int(round(GOSS_TOP_FRAC * n_rows)))
+    k_rest = max(1, int(round(GOSS_REST_FRAC * n_rows)))
     return None if k_top + k_rest >= n_rows else (k_top, k_rest)
+
+
+def _goss_seed(seed: int, round_id: int, chain: int) -> int:
+    """The generator seed of GOSS round ``round_id`` of chain ``chain``."""
+    a, b = np.random.SeedSequence([seed, round_id, chain]).generate_state(
+        2, np.uint32)
+    return (int(a) << 31) ^ int(b)
+
+
+def goss_select(ga: torch.Tensor, seed: int, round_id: int, chain: int,
+                k_top: int, k_rest: int):
+    """One round's GOSS row selection for one chain (the JAX package's
+    ``_goss_select`` contract): the ``k_top`` rows of largest |gradient|
+    ``ga`` (N,) — ties to the smaller row id — kept at weight 1, then
+    ``k_rest`` rows drawn uniformly without replacement from the rest,
+    weighted (N - k_top) / k_rest.  Returns (row ids (k_top + k_rest,)
+    int64, multipliers float32) on ``ga``'s device.  The draw comes from a
+    generator seeded by (seed, round, chain): deterministic, but not
+    ``jax.random``'s bits (tests inject the JAX package's selection by
+    replacing this function)."""
+    n = ga.shape[0]
+    dev = ga.device
+    top = torch.sort(-ga, stable=True).indices[:k_top]
+    gen = torch.Generator(device=dev).manual_seed(
+        _goss_seed(seed, round_id, chain))
+    r = torch.rand(n, device=dev, generator=gen)
+    r[top] = -1.0
+    rest = torch.sort(-r, stable=True).indices[:k_rest]
+    mult = torch.cat([torch.ones(k_top, dtype=torch.float32, device=dev),
+                      torch.full((k_rest,), (n - k_top) / k_rest,
+                                 dtype=torch.float32, device=dev)])
+    return torch.cat([top, rest]), mult
+
+
+def goss_rows(binned: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The selected rows of ``binned`` in the kernel's row layout
+    (``binned_empty``)."""
+    out = binned_empty(idx.shape[0], binned.shape[1], binned.device)
+    out.copy_(binned.index_select(0, idx))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -545,9 +594,10 @@ def _leaf_values(node, G, H, n_leaves: int, lam: float,
 class RFGrowth(NamedTuple):
     """Forests of P (candidate, fold) pairs x T trees: feat/thresh
     (P, T, 2^hd-1) int32 heaps with full-width feature ids, leaf
-    (P, T, 2^hd, 2) class probabilities, ``snaps`` {level: (P, T, 2^level,
-    2)} the leaves of each tree truncated at that level, and ``levels``
-    the per-level histograms built (one ``hist_fn`` call each)."""
+    (P, T, 2^hd, K) — class probabilities (K = 2) or the bag-weighted mean
+    label (K = 1, regression) — ``snaps`` {level: (P, T, 2^level, K)} the
+    leaves of each tree truncated at that level, and ``levels`` the
+    per-level histograms built (one ``hist_fn`` call each)."""
     feat: torch.Tensor
     thresh: torch.Tensor
     leaf: torch.Tensor
@@ -600,32 +650,44 @@ def _node_sums(ids: torch.Tensor, vals: torch.Tensor, M: int
 RF_LAMBDA = 1e-3
 
 
-def _grow_rf_tree(binned, sub, fidx, y0, bw, min_ig: float, min_inst: float,
-                  depth_limit: int, heap_depth: int, B: int, leaf_levels,
-                  hist_fn: HistFn):
-    """One bagged classification tree (the JAX package's
-    ``_grow_tree_traced`` in bag mode ``"onehot"`` with a feature subset),
-    binary targets.
+def _rf_leaves(s: torch.Tensor, regression: bool) -> torch.Tensor:
+    """Leaf values from per-node sums of the channels (bw t, bw): the
+    bag-weighted mean label (M, 1), or the two class shares (M, 2) when
+    t is the class-0 indicator."""
+    c = torch.clamp(s[:, 1:], min=1e-12)
+    if regression:
+        return s[:, :1] / c
+    return torch.stack([s[:, 0], s[:, 1] - s[:, 0]], 1) / c
 
-    The histogram channels are the irreducible pair (bw [y=0], bw): the
-    class-1 gradient is count minus class 0 and both hessians are the
-    count.  Gain is the sum over the two classes of GL^2/(HL+lam) +
-    GR^2/(HR+lam) - G^2/(H+lam) (lam = ``RF_LAMBDA``); a split needs
-    ``min_inst`` bag weight on each side, gain > 0 and gain / node weight
-    >= ``min_ig``.  Histograms
-    run at subset width over ``sub`` (the subset's columns of ``binned``,
-    gathered once per tree); routing reads the full matrix through
-    ``fidx``.  Levels at or past ``depth_limit`` split nothing, so they
-    build no histogram; nor do the levels below one whose nodes all stayed
-    closed (a closed node sends its rows left, to a child with the same
-    rows and the same decision).  That flag is read one level late, so the
-    host never waits on the level it just enqueued.  Returns (feat,
-    thresh, leaf, snaps, levels)."""
+
+def _grow_rf_tree(binned, sub, fidx, t, bw, min_ig: float, min_inst: float,
+                  depth_limit: int, heap_depth: int, B: int, leaf_levels,
+                  hist_fn: HistFn, regression: bool = False):
+    """One bagged tree with a feature subset (the JAX package's
+    ``_grow_tree_traced`` in bag mode ``"onehot"`` for binary targets,
+    ``"bagged"`` for regression).
+
+    The histogram channels are (bw t, bw): ``t`` is the class-0 indicator
+    of a binary label, whose class-1 gradient is the count minus class 0
+    and whose hessians are both the count; or the real label, whose
+    hessian is the count.  Gain is the sum over the gradients of
+    GL^2/(HL+lam) + GR^2/(HR+lam) - G^2/(H+lam) (lam = ``RF_LAMBDA``:
+    variance reduction for regression); a split needs ``min_inst`` bag
+    weight on each side, gain > 0 and gain / node weight >= ``min_ig``.
+    Leaves are the class shares or the bag-weighted mean label.
+    Histograms run at subset width over ``sub`` (the subset's columns of
+    ``binned``, gathered once per tree); routing reads the full matrix
+    through ``fidx``.  Levels at or past ``depth_limit`` split nothing,
+    so they build no histogram; nor do the levels below one whose nodes
+    all stayed closed (a closed node sends its rows left, to a child with
+    the same rows and the same decision).  That flag is read one level
+    late, so the host never waits on the level it just enqueued.  Returns
+    (feat, thresh, leaf, snaps, levels)."""
     n, msub = sub.shape
     dev = binned.device
     n_cap = _slot_cap(n)
     lam = RF_LAMBDA
-    ch = torch.stack([bw * y0, bw], 1).contiguous()
+    ch = torch.stack([bw * t, bw], 1).contiguous()
     rows = torch.arange(n, device=dev)
     bin_ids = torch.arange(B, device=dev)[None, :, None]
     node = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -636,9 +698,8 @@ def _grow_rf_tree(binned, sub, fidx, y0, bw, min_ig: float, min_inst: float,
     for level in range(heap_depth):
         level_nodes = 2 ** level
         if level in leaf_levels:
-            s = _node_sums(node, ch, level_nodes)
-            c = torch.clamp(s[:, 1:], min=1e-12)
-            snaps.append(torch.stack([s[:, 0], s[:, 1] - s[:, 0]], 1) / c)
+            snaps.append(_rf_leaves(_node_sums(node, ch, level_nodes),
+                                    regression))
         if len(any_open) >= 2 and not closed:
             # the level before the one just enqueued: long done on the card
             closed = not bool(any_open[-2])
@@ -656,13 +717,14 @@ def _grow_rf_tree(binned, sub, fidx, y0, bw, min_ig: float, min_inst: float,
         levels += 1
         cums = torch.cumsum(hists, dim=2)                  # (2, M, B, msub)
         CL = cums[1]
+        Ctot = CL[:, -1:, :1]
         gain = 0.0
-        for GL in (cums[0], CL - cums[0]):
-            Gtot, Htot = GL[:, -1:, :1], CL[:, -1:, :1]
-            GR, HR = Gtot - GL, Htot - CL
+        for GL in ((cums[0],) if regression else (cums[0], CL - cums[0])):
+            Gtot = GL[:, -1:, :1]
+            GR, HR = Gtot - GL, Ctot - CL
             gain = gain + (GL * GL / (CL + lam) + GR * GR / (HR + lam)
-                           - Gtot * Gtot / (Htot + lam))
-        CR = CL[:, -1:, :1] - CL
+                           - Gtot * Gtot / (Ctot + lam))
+        CR = Ctot - CL
         valid = (CL >= min_inst) & (CR >= min_inst) & (bin_ids < B - 1)
         node_w = torch.clamp(CL[:, -1, 0], min=1e-12)
         flat_gain = torch.where(valid, gain, float("-inf")).reshape(
@@ -684,9 +746,12 @@ def _grow_rf_tree(binned, sub, fidx, y0, bw, min_ig: float, min_inst: float,
         sl = slot.long()
         x_row = binned[rows, fidx[feat_l.long()][sl]]
         node = 2 * node + route_right(x_row, thresh_l[sl]).to(torch.int32)
-    s = _node_sums(node, torch.stack([bw * y0, bw * (1 - y0), bw], 1),
-                   2 ** heap_depth)
-    leaf = s[:, :2] / torch.clamp(s[:, 2:], min=1e-12)
+    if regression:
+        leaf = _rf_leaves(_node_sums(node, ch, 2 ** heap_depth), True)
+    else:
+        s = _node_sums(node, torch.stack([bw * t, bw * (1 - t), bw], 1),
+                       2 ** heap_depth)
+        leaf = s[:, :2] / torch.clamp(s[:, 2:], min=1e-12)
     feat = fidx[torch.cat(heap_feat).long()].to(torch.int32)
     return feat, torch.cat(heap_thresh), leaf, snaps, levels
 
@@ -695,10 +760,14 @@ def grow_rf_grid(binned: torch.Tensor, y: torch.Tensor, W_tr: torch.Tensor,
                  seed: int, n_trees: int, pair_fold, pair_min_ig,
                  pair_min_inst, pair_depth, msub: int, subsample_rate: float,
                  n_bins: int, leaf_levels: Sequence[int] = (),
-                 hist_fn: HistFn = seg_level_hists) -> RFGrowth:
-    """Every (candidate x fold) pair's binary random forest.
+                 hist_fn: HistFn = seg_level_hists,
+                 regression: bool = False) -> RFGrowth:
+    """Every (candidate x fold) pair's random forest: binary
+    classification, or regression (``regression``: the bag-weighted mean
+    label in the leaves).
 
-    ``binned`` (N, D) uint8; ``y`` (N,) labels in {0, 1}; ``W_tr`` (F, N)
+    ``binned`` (N, D) uint8; ``y`` (N,) labels in {0, 1} or real;
+    ``W_tr`` (F, N)
     per-fold training weights; per pair p its fold ``pair_fold[p]``,
     ``min_info_gain``, ``min_instances`` and depth.  Tree t of every pair
     draws the same bag and feature subset (``rf_bags_and_features``,
@@ -717,7 +786,8 @@ def grow_rf_grid(binned: torch.Tensor, y: torch.Tensor, W_tr: torch.Tensor,
     heap_depth = max(int(max(pair_depth)), 1)
     leaf_levels = tuple(sorted({int(v) for v in leaf_levels
                                 if 0 < int(v) < heap_depth}))
-    y0 = (y.to(dev) == 0).to(torch.float32)
+    yt = y.to(dev, torch.float32)
+    target = yt if regression else (yt == 0).to(torch.float32)
     W_tr = W_tr.to(dev, torch.float32)
     bags, fidx = rf_bags_and_features(seed, n_trees, n, d, msub,
                                       subsample_rate, dev)
@@ -730,10 +800,10 @@ def grow_rf_grid(binned: torch.Tensor, y: torch.Tensor, W_tr: torch.Tensor,
         for p in range(P):
             bw = W_tr[int(pair_fold[p])] * bags[t].to(dev)
             *tree, lv = _grow_rf_tree(
-                binned, sub, ft, y0, bw,
+                binned, sub, ft, target, bw,
                 float(np.float32(pair_min_ig[p])),
                 float(np.float32(pair_min_inst[p])), int(pair_depth[p]),
-                heap_depth, n_bins, leaf_levels, hist_fn)
+                heap_depth, n_bins, leaf_levels, hist_fn, regression)
             out[p][t] = tree
             levels += lv
         del sub
@@ -753,13 +823,15 @@ def grow_forest_rf(binned: torch.Tensor, y: torch.Tensor,
                    base_w: torch.Tensor, seed: int, n_trees: int, msub: int,
                    subsample_rate: float, max_depth: int, n_bins: int,
                    min_info_gain: float = 0.0, min_instances: float = 1.0,
-                   hist_fn: HistFn = seg_level_hists) -> RFGrowth:
-    """One binary random forest on ``base_w`` (N,) row weights: the grid
-    grower with a single pair; its arrays have no pair axis (feat
-    (T, 2^d-1), leaf (T, 2^d, 2))."""
+                   hist_fn: HistFn = seg_level_hists,
+                   regression: bool = False) -> RFGrowth:
+    """One random forest on ``base_w`` (N,) row weights: the grid grower
+    with a single pair; its arrays have no pair axis (feat (T, 2^d-1),
+    leaf (T, 2^d, K))."""
     g = grow_rf_grid(binned, y, base_w[None], seed, n_trees, [0],
                      [min_info_gain], [min_instances], [max_depth], msub,
-                     subsample_rate, n_bins, hist_fn=hist_fn)
+                     subsample_rate, n_bins, hist_fn=hist_fn,
+                     regression=regression)
     return RFGrowth(g.feat[0], g.thresh[0], g.leaf[0], {}, g.levels)
 
 

@@ -1,5 +1,6 @@
 """Linear-model trainers (counterpart of ``transmogrifai_tpu.models.linear``),
-the binary logistic-regression subset the model selector runs:
+the binary logistic-regression and linear-regression subsets the model
+selectors run:
 
  * ``fit_logistic_regression`` — one fit: Newton-IRLS with a damped
    Cholesky solve for pure-L2 candidates, proximal-gradient FISTA (the
@@ -8,14 +9,21 @@ the binary logistic-regression subset the model selector runs:
    one weighted Gram per fold gives a fixed majorizer shared by every
    candidate, and each iteration is two batched (N, D) products over the
    whole grid (Nesterov momentum, ``H_inv`` per (fold, candidate));
- * ``logreg_predict_proba``.
+ * ``logreg_predict_proba``;
+ * ``fit_linear_regression`` — ridge by the normal equations (a damped
+   Cholesky solve of the centred weighted Gram), elastic net by FISTA on
+   the same Gram; ``linear_predict``;
+ * ``fit_linreg_grid`` — every (fold, candidate) linear-regression fit:
+   one weighted Gram per fold, standardization folded into it, then a
+   ridge solve or FISTA iterations per (fold, candidate), each pair
+   stopping at its own convergence.
 
 Everything computes in float32 on the inputs' device; loops are Python
 loops that read the stopping test back to the host once per iteration.
 The per-fold Gram ``X' diag(w) X`` and the grid products are plain large
 matrix products (``torch.matmul``), as the JAX package left them to XLA.
-Not ported yet (ROADMAP Queue A): the multinomial, linear-regression, SVC
-and naive Bayes trainers and the sharded solvers.
+Not ported yet (ROADMAP Queue A): the multinomial, SVC and naive Bayes
+trainers and the sharded solvers.
 """
 from __future__ import annotations
 
@@ -24,7 +32,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 __all__ = ["LinearFit", "fit_logistic_regression", "logreg_predict_proba",
-           "fit_logreg_grid"]
+           "fit_logreg_grid", "fit_linear_regression", "linear_predict",
+           "fit_linreg_grid"]
 
 
 class LinearFit(NamedTuple):
@@ -247,3 +256,161 @@ def fit_logreg_grid(X: torch.Tensor, y: torch.Tensor, W_tr: torch.Tensor,
     u = pb / sig[:, None, :]
     icpt = pb0 - (cen[:, None, :] * u).sum(2)
     return torch.sigmoid(z_of(pb, pb0)), it, u, icpt
+
+
+# ---------------------------------------------------------------------------
+# Linear regression
+# ---------------------------------------------------------------------------
+
+def _power_lmax(A: torch.Tensor, steps: int) -> torch.Tensor:
+    """Top eigenvalue of the symmetric (..., D, D) ``A`` by ``steps``
+    power-iteration steps from the unit diagonal direction, as v' A v."""
+    d = A.shape[-1]
+    v = torch.ones(A.shape[:-1], dtype=A.dtype, device=A.device) / d ** 0.5
+    for _ in range(steps):
+        v = (A @ v[..., None])[..., 0]
+        v = v / (torch.linalg.norm(v, dim=-1, keepdim=True) + 1e-12)
+    return (v * (A @ v[..., None])[..., 0]).sum(-1)
+
+
+def fit_linear_regression(X: torch.Tensor, y: torch.Tensor,
+                          sample_weight: Optional[torch.Tensor] = None,
+                          reg_param: float = 0.0,
+                          elastic_net_param: float = 0.0,
+                          max_iter: int = 200, tol: float = 1e-7,
+                          fit_intercept: bool = True) -> LinearFit:
+    """Weighted least squares on (N, D) ``X`` with l2 = reg (1 - alpha)
+    and l1 = reg alpha.  The weighted, centred Gram A and moment b are one
+    pass over the data; ridge (l1 = 0) solves (A + l2 I) beta = b with
+    damping relative to its largest diagonal entry; elastic net runs FISTA
+    on the quadratic with the step from a power-iteration bound on A's top
+    eigenvalue, at most ``max_iter`` steps until the largest coefficient
+    move is at most ``tol``."""
+    X = X.to(torch.float32)
+    n, d = X.shape
+    dev = X.device
+    y = y.to(dev, torch.float32)
+    w = (torch.ones(n, dtype=torch.float32, device=dev)
+         if sample_weight is None
+         else sample_weight.to(dev, torch.float32))
+    wsum = torch.clamp(w.sum(), min=1.0)
+    l2 = reg_param * (1.0 - elastic_net_param)
+    l1 = reg_param * elastic_net_param
+    if fit_intercept:
+        xm = (w @ X) / wsum
+        ym = (w @ y) / wsum
+    else:
+        xm = torch.zeros(d, dtype=X.dtype, device=dev)
+        ym = torch.zeros((), dtype=X.dtype, device=dev)
+    Xc = X - xm
+    Xw = Xc * w[:, None]
+    A = Xw.T @ Xc / wsum
+    b = Xw.T @ (y - ym) / wsum
+    if l1 > 0:
+        L = _power_lmax(A, 17) + l2 + 1e-6
+        beta = torch.zeros(d, dtype=X.dtype, device=dev)
+        z, t_m, dn, it = beta, 1.0, float("inf"), 0
+        while dn > tol and it < max_iter:
+            nb = _soft(z - (A @ z - b + l2 * z) / L, l1 / L)
+            nt = 0.5 * (1.0 + (1.0 + 4.0 * t_m * t_m) ** 0.5)
+            z = nb + (t_m - 1.0) / nt * (nb - beta)
+            dn = float(torch.max(torch.abs(nb - beta)))
+            beta, t_m, it = nb, nt, it + 1
+        converged = dn <= tol
+    else:
+        beta = _damped_solve(
+            A + l2 * torch.eye(d, dtype=X.dtype, device=dev), b)
+        it, converged = 1, True
+    icpt = ym - torch.dot(xm, beta) if fit_intercept else ym
+    return LinearFit(beta, icpt, it, converged)
+
+
+def linear_predict(coef: torch.Tensor, intercept, X: torch.Tensor
+                   ) -> torch.Tensor:
+    """(N,) predictions X coef + intercept, float32."""
+    return X.to(torch.float32) @ coef.to(X.device, torch.float32) + intercept
+
+
+def fit_linreg_grid(X: torch.Tensor, y: torch.Tensor, W_tr: torch.Tensor,
+                    regs: torch.Tensor, alphas: torch.Tensor,
+                    max_iter: int = 200, tol: float = 1e-7,
+                    fit_intercept: bool = True, standardization: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every (fold, candidate) linear-regression fit in one solve.
+
+    ``X`` (N, D), ``y`` (N,), ``W_tr`` (F, N) per-fold training weights,
+    ``regs``/``alphas`` (C,).  Returns ``(preds, coef, intercept)``: (F,
+    C, N) predictions over all rows and the raw-feature-space (F, C, D) /
+    (F, C) solutions.
+
+    One weighted Gram per fold, centred by subtracting the weighted means'
+    outer product and, under ``standardization``, scaled to unit diagonal
+    (the penalty applies in standardized space).  Ridge candidates solve
+    (A + (l2 + 1e-5) I) beta = b by Cholesky; candidates with an L1 part
+    run FISTA on that Gram with the step from a power-iteration bound
+    (x1.01), each (fold, candidate) pair stopping on its own once its
+    largest coefficient move is at most ``tol`` or after ``max_iter``
+    steps."""
+    dev = X.device
+    X = X.to(torch.float32)
+    y = y.to(dev, torch.float32)
+    W_tr = W_tr.to(dev, torch.float32)
+    regs = regs.to(dev, torch.float32)
+    alphas = alphas.to(dev, torch.float32)
+    n, d = X.shape
+    F, C = W_tr.shape[0], regs.shape[0]
+    wsum = torch.clamp(W_tr.sum(1), min=1.0)
+    l2 = (regs * (1.0 - alphas))[None, :].expand(F, C)      # (F, C)
+    l1 = (regs * alphas)[None, :].expand(F, C)
+    if fit_intercept:
+        xm = (W_tr @ X) / wsum[:, None]
+        ym = (W_tr @ y) / wsum
+    else:
+        xm = torch.zeros((F, d), dtype=X.dtype, device=dev)
+        ym = torch.zeros(F, dtype=X.dtype, device=dev)
+    A_raw = torch.stack([(X * w_f[:, None]).T @ X for w_f in W_tr])
+    b_raw = torch.stack([(X * w_f[:, None]).T @ y for w_f in W_tr])
+    A = A_raw / wsum[:, None, None] - xm[:, :, None] * xm[:, None, :]
+    bv = b_raw / wsum[:, None] - xm * ym[:, None]
+    if standardization:
+        sig = torch.sqrt(torch.clamp(A.diagonal(dim1=1, dim2=2), min=0.0))
+        sig = torch.where(sig < 1e-12, 1.0, sig)
+        A = A / (sig[:, :, None] * sig[:, None, :])
+        bv = bv / sig
+    else:
+        sig = torch.ones((F, d), dtype=X.dtype, device=dev)
+    eye = torch.eye(d, dtype=X.dtype, device=dev)
+    Ab = A[:, None].expand(F, C, d, d)
+    bb = bv[:, None].expand(F, C, d)
+
+    M = Ab + (l2 + 1e-5)[..., None, None] * eye
+    Lc, _ = torch.linalg.cholesky_ex(M)
+    coef_s = torch.cholesky_solve(bb[..., None], Lc)[..., 0]   # ridge
+    has_l1 = l1 > 0
+    if bool(has_l1.any()):
+        Lf = (_power_lmax(A, 16) * 1.01)[:, None] + l2 + 1e-6       # (F, C)
+        beta = torch.zeros((F, C, d), dtype=X.dtype, device=dev)
+        z = beta
+        t_m = torch.ones((F, C), dtype=X.dtype, device=dev)
+        dn = torch.full((F, C), float("inf"), dtype=X.dtype, device=dev)
+        it = torch.zeros((F, C), dtype=torch.int64, device=dev)
+        while True:
+            live = has_l1 & (dn > tol) & (it < max_iter)
+            if not bool(live.any()):
+                break
+            g = (Ab @ z[..., None])[..., 0] - bb + l2[..., None] * z
+            nb = _soft(z - g / Lf[..., None], (l1 / Lf)[..., None])
+            nt = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t_m * t_m))
+            nz = nb + ((t_m - 1.0) / nt)[..., None] * (nb - beta)
+            ndn = torch.max(torch.abs(nb - beta), dim=2).values
+            lv = live[..., None]
+            beta = torch.where(lv, nb, beta)
+            z = torch.where(lv, nz, z)
+            t_m = torch.where(live, nt, t_m)
+            dn = torch.where(live, ndn, dn)
+            it = it + live.to(torch.int64)
+        coef_s = torch.where(has_l1[..., None], beta, coef_s)
+    coef = coef_s / sig[:, None, :]
+    icpt = ym[:, None] - (xm[:, None, :] * coef).sum(2)
+    preds = (coef.reshape(F * C, d) @ X.T).reshape(F, C, n)
+    return preds + icpt[..., None], coef, icpt

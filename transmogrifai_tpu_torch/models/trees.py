@@ -1,24 +1,29 @@
 """Tree model stages (counterpart of ``transmogrifai_tpu.models.trees``).
 
-Ported: ``OpGBTClassifier`` and ``OpXGBoostClassifier`` for the binary
-objective, fitted by ``_fit_scan_chunks`` semantics — rounds run in chunks
-of ``es_chunk``, the early-stopping metric (validation AuPR) of each chunk
-is read one chunk late so the device never waits on the host, and the
-ensemble is trimmed to the best round count.  A Python loop over rounds
-takes the place of ``lax.scan``.  ``OpRandomForestClassifier`` for binary
-labels: Poisson bags, square-root feature subsets, count-gated growth
+Ported: ``OpGBTClassifier``, ``OpXGBoostClassifier``, ``OpGBTRegressor``
+and ``OpXGBoostRegressor`` for the binary logistic and the squared-error
+objectives: a fit is one chain of ``boost_chains``, the boosting loop
+that the lockstep grid group runs over many — rounds run in chunks of
+``es_chunk``, the early-stopping metric (validation AuPR, or minus the
+validation MSE) of each chunk is read one chunk late so the device never
+waits on the host, and the ensemble is trimmed to the best round count;
+deep fits on many rows grow each round on a GOSS row sample
+(``gbdt_kernels.goss_plan``).  A Python loop over rounds takes the place
+of ``lax.scan``.  ``OpRandomForestClassifier`` (binary labels) and
+``OpRandomForestRegressor``: Poisson bags, square-root (classification)
+or one-third (regression) feature subsets, count-gated growth
 (``gbdt_kernels.grow_forest_rf``).  ``TreeEnsembleModel`` scores the
-``gbdt_binary`` and ``rf_cls`` modes.
+``gbdt_binary``, ``gbdt_reg``, ``rf_cls`` and ``rf_reg`` modes.
 
-Not ported yet (ROADMAP Queue A): decision trees, regression and
-multiclass objectives and forests, GBT row/column subsampling and
-fractional sample weights (the count channel), GOSS, EFB, the sparse path
-and the upload/binning memo caches.
+Not ported yet (ROADMAP Queue A): decision trees, multiclass objectives
+and forests, GBT row/column subsampling and fractional sample weights
+(the count channel), EFB, the sparse path and the upload/binning memo
+caches.
 """
 from __future__ import annotations
 
 import time
-from typing import List, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,23 +31,29 @@ import torch
 from ..device import as_device_tensor, resolve_device
 from ..evaluators.metrics import aupr_device
 from ..types.columns import ColumnarDataset
+from . import gbdt_kernels
 from .gbdt_kernels import (
-    apply_bins, default_dir_mask, goss_plan, grow_forest_rf, grow_tree,
-    predict_ensemble, predict_tree, quantile_bins,
+    HistFn, TreeArrays, apply_bins, default_dir_mask, goss_plan, goss_rows,
+    grow_forest_rf, grow_tree, predict_ensemble, predict_tree,
+    quantile_bins, seg_level_hists,
 )
 from .prediction import PredictionBatch, PredictorEstimator, PredictorModel
 
-__all__ = ["OpGBTClassifier", "OpXGBoostClassifier",
-           "OpRandomForestClassifier", "TreeEnsembleModel",
-           "es_patience_vec"]
+__all__ = ["OpGBTClassifier", "OpXGBoostClassifier", "OpGBTRegressor",
+           "OpXGBoostRegressor", "OpRandomForestClassifier",
+           "OpRandomForestRegressor", "TreeEnsembleModel",
+           "BoostedChains", "boost_chains", "es_patience_vec"]
 
-_MODES = ("gbdt_binary", "rf_cls")
+_MODES = ("gbdt_binary", "gbdt_reg", "rf_cls", "rf_reg")
 
 
 class TreeEnsembleModel(PredictorModel):
     """Fitted tree ensemble.  ``gbdt_binary``: raw margin = base_score +
-    sum of trees, probability = sigmoid.  ``rf_cls``: the leaves are class
-    probabilities, averaged over the trees.  ``edges`` (D, B-1) is a host
+    sum of trees, probability = sigmoid.  ``gbdt_reg``: the prediction is
+    base_score + sum of trees.  ``rf_cls``: the leaves are class
+    probabilities, averaged over the trees.  ``rf_reg``: the prediction is
+    the mean of the trees' leaves (+ base_score).  Regression batches hold
+    the prediction only.  ``edges`` (D, B-1) is a host
     array; ``feat``/``thresh`` (T, 2^d-1) int32 and ``leaf`` (T, 2^d, K)
     float32 are tensors on the model's device: arrays (a loaded artifact's)
     go to ``device`` (else the default device), tensors stay where they
@@ -79,12 +90,25 @@ class TreeEnsembleModel(PredictorModel):
             return PredictionBatch(
                 prediction=proba.argmax(dim=1).to(torch.float64),
                 raw_prediction=raw, probability=proba)
+        if self.mode in ("rf_reg", "gbdt_reg"):
+            return PredictionBatch(prediction=self.predict_values(X).to(
+                torch.float64))
         z = self.raw_margin(X)[:, 0] + self.base_score
         p1 = 1.0 / (1.0 + torch.exp(-z))
         return PredictionBatch(
             prediction=(p1 >= 0.5).to(torch.float64),
             raw_prediction=torch.stack([-z, z], dim=1),
             probability=torch.stack([1 - p1, p1], dim=1))
+
+
+    def predict_values(self, X: torch.Tensor) -> torch.Tensor:
+        """(N,) float32 regression predictions: the mean of the trees
+        (``rf_reg``) or their sum (``gbdt_reg``), plus base_score."""
+        raw = self.raw_margin(X)[:, 0]
+        base = float(np.float32(self.base_score))
+        if self.mode == "rf_reg":
+            return raw / self.feat.shape[0] + base
+        return raw + base
 
 
 def rf_probability(raw: torch.Tensor, n_trees: int) -> torch.Tensor:
@@ -110,19 +134,125 @@ def es_patience_vec(rows, stopped, best_metric, best_len, stall,
     return bool(stopped.all())
 
 
-def _materialize_es(chunk_rows):
-    """Fetch a chunk of (round, device-metric) pairs in one copy."""
+def replay_es(chunk_rows, stopped, best_metric, best_len, stall,
+              patience: int) -> bool:
+    """Replay one fetched chunk of (round, per-chain device metrics (S,))
+    pairs (one host copy) against the patience state, in place; True when
+    every chain has stopped."""
     if not chunk_rows:
-        return []
+        return bool(stopped.all())
     vals = torch.stack([m for _, m in chunk_rows]).cpu().numpy()
-    return [(n_at, np.asarray([m])) for (n_at, _), m in zip(chunk_rows, vals)]
+    return es_patience_vec([(r, v) for (r, _), v in zip(chunk_rows, vals)],
+                           stopped, best_metric, best_len, stall, patience)
+
+
+class BoostedChains(NamedTuple):
+    """What ``boost_chains`` grew: each chain's trees of every round it
+    grew, the rounds each chain keeps (S,), the per-level histograms built
+    and the GOSS budget (None when off)."""
+    trees: List[List[TreeArrays]]
+    best_len: np.ndarray
+    levels: int
+    goss: Optional[Tuple[int, int]]
+
+
+def boost_chains(ests, binned: torch.Tensor, edges, y: torch.Tensor,
+                 W: torch.Tensor, base: torch.Tensor, val_idx,
+                 hist_fn: HistFn = seg_level_hists) -> BoostedChains:
+    """THE boosting loop: S chains advanced in lockstep one round at a
+    time — the JAX package's sequential ``_fit_scan_chunks`` is one chain,
+    its ``GBTGridGroup`` one chain per (candidate x fold).
+
+    Chain s boosts from the margin ``base[s]`` on the gradient weights
+    ``W[s]`` (N,) with ``ests[s]``'s depth, step, lambda, min_child_weight
+    and gamma; ``ests[0]`` gives what the chains share (objective,
+    max_iter, max_bins, early stopping, seed, default-direction splits).
+    Rounds run in chunks of ``es_chunk``: after chunk c is grown, chunk
+    c-1's per-chain metrics on the rows ``val_idx`` are fetched in one copy
+    and the patience rule replayed (``replay_es``), so the device never
+    waits on the host; a stopped chain grows no more trees, and rounds past
+    max_iter are not grown.  GOSS engages when every chain is deep
+    (``goss_plan`` over the shallowest depth): chain s's tree of round r
+    then grows on ``gbdt_kernels.goss_select(|g|, seed, r, s)``'s rows.
+    ``hist_fn`` builds every level's histograms (the kernel wrapper by
+    default)."""
+    e0 = ests[0]
+    obj = e0._objective
+    dev = binned.device
+    S, n = len(ests), binned.shape[0]
+    max_iter, mb = int(e0.max_iter), int(e0.max_bins)
+    patience = int(e0.early_stopping_rounds)
+    dd = (torch.from_numpy(default_dir_mask(edges)).to(dev)
+          if e0.sparse_default_direction else None)
+    goss = goss_plan(n, min(int(e.max_depth) for e in ests))
+    es_chunk = max(1, min(8, patience or 8))
+    run_es = patience > 0 and len(val_idx) > 0
+    vi = torch.from_numpy(np.asarray(val_idx, np.int64)).to(dev)
+    y_val = y[vi]
+    Fm = base.to(dev, torch.float32)[:, None].repeat(1, n)
+    best_metric = np.full(S, -np.inf)
+    best_len = np.zeros(S, np.int32)
+    stall = np.zeros(S, np.int32)
+    stopped = np.zeros(S, bool)
+    trees: List[List[TreeArrays]] = [[] for _ in range(S)]
+    levels = 0
+    lagged: list = []
+    no_metric = torch.zeros((), dtype=torch.float64, device=dev)
+    n_rounds = 0
+    while n_rounds < max_iter:
+        pending = []
+        for rid in range(n_rounds, min(n_rounds + es_chunk, max_iter)):
+            ms = []
+            for s in range(S):
+                if stopped[s]:
+                    ms.append(no_metric)
+                    continue
+                e = ests[s]
+                depth = int(e.max_depth)
+                G, H = gbt_grad_hess(obj, Fm[s], y, W[s])
+                tb = binned
+                if goss is not None:
+                    idx, mult = gbdt_kernels.goss_select(
+                        G.abs(), int(e0.seed), rid, s, *goss)
+                    tb = goss_rows(binned, idx)
+                    G, H = G[idx] * mult, H[idx] * mult
+                tree = grow_tree(
+                    tb, G[:, None], H[:, None], depth, mb,
+                    lam=float(e.reg_lambda),
+                    min_child_weight=float(e.min_child_weight),
+                    min_gain_raw=float(e.min_split_gain_raw),
+                    learning_rate=float(e.step_size),
+                    default_dir=bool(e0.sparse_default_direction),
+                    dd_mask=dd, hist_fn=hist_fn)
+                del tb
+                levels += depth
+                Fm[s] += predict_tree(binned, *tree, depth)[:, 0]
+                trees[s].append(tree)
+                if run_es:
+                    ms.append(gbt_es_metric(obj, Fm[s][vi], y_val).to(
+                        torch.float64))
+            if run_es:
+                pending.append((rid + 1, torch.stack(ms)))
+        n_rounds = min(n_rounds + es_chunk, max_iter)
+        if run_es:
+            if replay_es(lagged, stopped, best_metric, best_len, stall,
+                         patience):
+                break
+            lagged = pending
+    if run_es and not stopped.all():
+        replay_es(lagged, stopped, best_metric, best_len, stall, patience)
+    # a chain that never improved (or ran without early stopping) keeps
+    # every round grown
+    best_len[best_len == 0] = n_rounds
+    return BoostedChains(trees, best_len, levels, goss)
 
 
 class _GBTBase(PredictorEstimator):
-    """Gradient-boosted trees, binary logistic objective: Spark-GBT
-    parameterisation (max_iter, step_size, max_depth) with XGBoost extras
-    (reg_lambda, min_child_weight, gamma as ``min_split_gain_raw``, early
-    stopping on a validation slice scored by AuPR)."""
+    """Gradient-boosted trees, binary logistic or squared-error objective:
+    Spark-GBT parameterisation (max_iter, step_size, max_depth) with
+    XGBoost extras (reg_lambda, min_child_weight, gamma as
+    ``min_split_gain_raw``, early stopping on a validation slice scored by
+    AuPR, or by minus the MSE for regression)."""
 
     _op_name = "gbt"
     _objective = "binary"
@@ -159,36 +289,18 @@ class _GBTBase(PredictorEstimator):
         y = np.nan_to_num(np.asarray(label_col.values, dtype=np.float32))
         return self.fit_raw(features_col.values, y)
 
-    def _check_supported(self, n: int, w) -> None:
-        if self._objective != "binary":
-            raise NotImplementedError(
-                f"objective {self._objective!r} is not ported yet "
-                f"(ROADMAP Queue A)")
-        if self.subsample_rate < 1.0 or self.colsample < 1.0:
-            raise NotImplementedError(
-                "row/column subsampling is not ported yet (ROADMAP Queue A)")
-        if (float(self.min_instances_per_node) > 1
-                or float(self.min_info_gain) != 0.0
-                or (w is not None
-                    and not bool((w == np.floor(w)).all()))):
-            raise NotImplementedError(
-                "count-gated growth (min_instances_per_node > 1, "
-                "min_info_gain != 0 or fractional weights) is not ported "
-                "yet (ROADMAP Queue A)")
-        if goss_plan(n, self.max_depth) is not None:
-            raise NotImplementedError(
-                "GOSS row sampling (max_depth >= 8 at >= 20000 rows) is not "
-                "ported yet (ROADMAP Queue A)")
-
     def fit_raw(self, X, y, w=None, device=None) -> TreeEnsembleModel:
-        """Fit on a (N, D) matrix (tensor or array) and labels in {0, 1}.
-        Runs on ``device`` (else the stage's, else the default device)."""
+        """Fit on a (N, D) matrix (tensor or array) and labels (in {0, 1}
+        for the binary objective).  Runs on ``device`` (else the stage's,
+        else the default device)."""
         dev = resolve_device(device if device is not None else self.device)
         X = torch.as_tensor(X, dtype=torch.float32).to(dev)
         y = np.asarray(y, np.float32)
         n, d = X.shape
         w = None if w is None else np.asarray(w, np.float32)
-        self._check_supported(n, w)
+        check_gbt_supported(self._objective, self.subsample_rate,
+                            self.colsample, [self.min_instances_per_node],
+                            [self.min_info_gain], w)
         # fit_timing and the profiler ranges below split the fit into its
         # host-heavy binning and its device-heavy boosting
         timing = {}
@@ -201,95 +313,98 @@ class _GBTBase(PredictorEstimator):
 
         rng = np.random.default_rng(self.seed)
         base_w = np.ones(n, np.float32) if w is None else w
-        use_es = self.early_stopping_rounds > 0
-        if use_es:
-            val = rng.random(n) < self.validation_fraction
-            train_w = base_w * (~val)
-        else:
-            val = np.zeros(n, bool)
-            train_w = base_w
-        pos = float((base_w * y).sum())
-        tot = float(base_w.sum())
-        p0 = min(max(pos / max(tot, 1e-9), 1e-6), 1 - 1e-6)
-        base = float(np.float32(np.log(p0 / (1 - p0))))
+        val = (rng.random(n) < self.validation_fraction
+               if self.early_stopping_rounds > 0 else np.zeros(n, bool))
+        train_w = base_w * (~val)
+        base = gbt_base_score(self._objective, base_w, y)
 
         with torch.profiler.record_function("tmog.boosting"):
             t0 = time.perf_counter()
-            model = self._fit_scan_chunks(
-                binned, edges, torch.from_numpy(y).to(dev),
-                torch.from_numpy(train_w).to(dev), base, use_es,
-                np.where(val)[0])
+            out = boost_chains(
+                [self], binned, edges, torch.from_numpy(y).to(dev),
+                torch.from_numpy(train_w).to(dev)[None],
+                torch.tensor([float(base)]), np.where(val)[0])
+            kept = out.trees[0][:int(out.best_len[0])]
+            model = TreeEnsembleModel(
+                mode="gbdt_binary" if self._objective == "binary"
+                else "gbdt_reg", edges=edges,
+                feat=torch.stack([t.feat for t in kept]),
+                thresh=torch.stack([t.thresh for t in kept]),
+                leaf=torch.stack([t.leaf for t in kept]),
+                base_score=base, n_classes=2)
             _sync(dev)
             timing["boosting_s"] = time.perf_counter() - t0
         self.metadata["fit_timing"] = timing
+        self.metadata["rounds_grown"] = len(out.trees[0])
+        self.metadata["best_len"] = len(kept)
+        self.metadata["hist_levels"] = out.levels
+        self.metadata["goss"] = (list(out.goss) if out.goss is not None
+                                 else None)
         return model
 
-    def _fit_scan_chunks(self, binned, edges, y, W, base: float,
-                         use_es: bool, val_idx) -> TreeEnsembleModel:
-        """Chunked boosting with lagged early stopping — the JAX package's
-        ``_fit_scan_chunks``: ``es_chunk`` rounds per chunk; after chunk c
-        is enqueued, chunk c-1's metrics are read and the patience rule
-        replayed, so at most one extra chunk is grown past the stop."""
-        dev = binned.device
-        n = binned.shape[0]
-        dd = (torch.from_numpy(default_dir_mask(edges)).to(dev)
-              if self.sparse_default_direction else None)
-        es_chunk = max(1, min(8, self.early_stopping_rounds or 8))
-        run_es = use_es and len(val_idx) > 0
-        vi = torch.from_numpy(np.asarray(val_idx, np.int64)).to(dev)
-        y_val = y[vi]
-        F = torch.full((n,), base, dtype=torch.float32, device=dev)
-        lagged: list = []
-        best_metric = np.full(1, -np.inf)
-        best_len_a = np.zeros(1, np.int32)
-        stall_a = np.zeros(1, np.int32)
-        stopped = np.zeros(1, bool)
-        feats: List[torch.Tensor] = []
-        threshs: List[torch.Tensor] = []
-        leaves: List[torch.Tensor] = []
-        n_rounds = 0
-        for _ in range(-(-self.max_iter // es_chunk)):
-            pending = []
-            for j in range(es_chunk):
-                P = torch.sigmoid(F)
-                G = W * (P - y)
-                H = W * torch.clamp(P * (1 - P), min=1e-6)
-                tree = grow_tree(
-                    binned, G[:, None], H[:, None], self.max_depth,
-                    self.max_bins, lam=self.reg_lambda,
-                    min_child_weight=self.min_child_weight,
-                    min_gain_raw=self.min_split_gain_raw,
-                    learning_rate=self.step_size,
-                    default_dir=self.sparse_default_direction, dd_mask=dd)
-                F = F + predict_tree(binned, tree.feat, tree.thresh,
-                                     tree.leaf, self.max_depth)[:, 0]
-                feats.append(tree.feat)
-                threshs.append(tree.thresh)
-                leaves.append(tree.leaf)
-                if run_es and n_rounds + j + 1 <= self.max_iter:
-                    pending.append((n_rounds + j + 1,
-                                    aupr_device(y_val, torch.sigmoid(F[vi]))))
-            n_rounds += es_chunk
-            if run_es:
-                if es_patience_vec(_materialize_es(lagged), stopped,
-                                   best_metric, best_len_a, stall_a,
-                                   self.early_stopping_rounds):
-                    break
-                lagged = pending
-        if run_es and not stopped.all():
-            es_patience_vec(_materialize_es(lagged), stopped, best_metric,
-                            best_len_a, stall_a, self.early_stopping_rounds)
-        best_len = (int(best_len_a[0]) if run_es and best_len_a[0]
-                    else n_rounds)
-        best_len = min(best_len, self.max_iter)
-        self.metadata["rounds_grown"] = n_rounds
-        self.metadata["best_len"] = best_len
-        return TreeEnsembleModel(
-            mode="gbdt_binary", edges=edges,
-            feat=torch.stack(feats[:best_len]),
-            thresh=torch.stack(threshs[:best_len]),
-            leaf=torch.stack(leaves[:best_len]), base_score=base,
-            n_classes=2)
+
+def check_gbt_supported(objective: str, subsample_rate: float,
+                        colsample: float, min_instances, min_info_gains,
+                        w) -> None:
+    """Raise for what the port's boosting leaves out: objectives other
+    than binary and regression, row/column subsampling, and count-gated
+    growth (the count histogram channel the kernel is not built for)."""
+    if objective not in ("binary", "regression"):
+        raise NotImplementedError(
+            f"objective {objective!r} is not ported yet (ROADMAP Queue A)")
+    if subsample_rate < 1.0 or colsample < 1.0:
+        raise NotImplementedError(
+            "row/column subsampling is not ported yet (ROADMAP Queue A)")
+    if (any(float(m) > 1 for m in min_instances)
+            or any(float(g) != 0.0 for g in min_info_gains)
+            or (w is not None and not bool((w == np.floor(w)).all()))):
+        raise NotImplementedError(
+            "count-gated growth (min_instances_per_node > 1, "
+            "min_info_gain != 0 or fractional weights) is not ported "
+            "yet (ROADMAP Queue A)")
+
+
+def gbt_base_score(objective: str, W: np.ndarray, y: np.ndarray):
+    """Starting margins: the log-odds of the weighted positive share
+    (clipped to [1e-6, 1 - 1e-6]) for the binary objective, the weighted
+    mean label for regression.  ``W`` (N,) is one fit's weights and gives
+    a float32 scalar in the JAX package's sequential-fit arithmetic; (S,
+    N) chains' weights give (S,) float32 in its grid group's arithmetic
+    (float32 sums and quotient), so either path starts where the JAX one
+    does, bit for bit."""
+    W = np.asarray(W, np.float32)
+    if W.ndim == 1:
+        if objective == "binary":
+            pos, tot = float((W * y).sum()), float(W.sum())
+            p0 = min(max(pos / max(tot, 1e-9), 1e-6), 1 - 1e-6)
+            return np.float32(np.log(p0 / (1 - p0)))
+        return np.float32((W @ y) / max(W.sum(), 1e-9))
+    if objective == "binary":
+        pos = (W * y[None, :]).sum(axis=1)
+        p0 = np.clip(pos / np.maximum(W.sum(axis=1), 1e-9), 1e-6, 1 - 1e-6)
+        return np.log(p0 / (1 - p0)).astype(np.float32)
+    return ((W @ y) / np.maximum(W.sum(axis=1), 1e-9)).astype(np.float32)
+
+
+def gbt_grad_hess(objective: str, F: torch.Tensor, y: torch.Tensor,
+                  W: torch.Tensor):
+    """Per-row gradient and hessian (N,) of one chain's margins ``F``:
+    binary logistic (w (p - y), w max(p (1 - p), 1e-6)) or squared error
+    (w (F - y), w)."""
+    if objective == "binary":
+        P = torch.sigmoid(F)
+        return W * (P - y), W * torch.clamp(P * (1 - P), min=1e-6)
+    return W * (F - y), W
+
+
+def gbt_es_metric(objective: str, F_val: torch.Tensor, y_val: torch.Tensor
+                  ) -> torch.Tensor:
+    """The early-stopping metric of one chain's validation margins, larger
+    better: AuPR of the sigmoid, or minus the unweighted mean squared
+    error."""
+    if objective == "binary":
+        return aupr_device(y_val, torch.sigmoid(F_val))
+    return -torch.mean((F_val - y_val) ** 2)
 
 
 def _sync(dev: torch.device) -> None:
@@ -301,6 +416,12 @@ class OpGBTClassifier(_GBTBase):
     """Binary GBT (OpGBTClassifier parity)."""
     _op_name = "gbtCls"
     _objective = "binary"
+
+
+class OpGBTRegressor(_GBTBase):
+    """Squared-error GBT (OpGBTRegressor parity)."""
+    _op_name = "gbtReg"
+    _objective = "regression"
 
 
 class OpXGBoostClassifier(_GBTBase):
@@ -344,6 +465,16 @@ class OpXGBoostClassifier(_GBTBase):
         return super().fit_raw(X, y, w, device=device)
 
 
+class OpXGBoostRegressor(OpXGBoostClassifier):
+    """XGBoost-parameterised boosted regressor (squared error)."""
+
+    _op_name = "xgbReg"
+    _objective = "regression"
+
+    def fit_raw(self, X, y, w=None, device=None):
+        return _GBTBase.fit_raw(self, X, y, w, device=device)
+
+
 #: the JAX package's sparse-path rule: a matrix of at least this many
 #: elements whose sampled zero fraction reaches _SPARSE_ZERO_FRAC takes a
 #: nonzero-aware sketch, which is not ported
@@ -374,28 +505,35 @@ def prep_tree_inputs(X: torch.Tensor, max_bins: int, row_weight=None):
     return edges, apply_bins(X, edges)
 
 
-def _feature_subset_size(strategy: str, d: int) -> int:
-    """A classifier's per-tree feature count (``auto`` is ``sqrt``)."""
-    if strategy in ("auto", "sqrt"):
+def _feature_subset_size(strategy: str, d: int,
+                         classification: bool = True) -> int:
+    """A forest's per-tree feature count: ``auto`` is ``sqrt`` for a
+    classifier and ``onethird`` for a regressor."""
+    if strategy == "all":
+        return d
+    if strategy == "sqrt" or (strategy == "auto" and classification):
         return max(1, int(np.sqrt(d)))
-    if strategy == "onethird":
+    if strategy == "onethird" or (strategy == "auto" and not classification):
         return max(1, d // 3)
     return d
 
 
-class OpRandomForestClassifier(PredictorEstimator):
-    """Bagged binary random forest (Spark's parameters): ``num_trees``
-    trees on Poisson(``subsample_rate``) bags, each over a
+class _RandomForestBase(PredictorEstimator):
+    """Bagged random forest (Spark's parameters): ``num_trees`` trees on
+    Poisson(``subsample_rate``) bags, each over a
     ``feature_subset_strategy`` subset of the features, grown to
     ``max_depth`` with splits gated by ``min_instances_per_node`` bag
     weight per child and ``min_info_gain`` gain per unit of node weight."""
+
+    _op_name = "randomForest"
+    _classification = True
 
     def __init__(self, num_trees: int = 20, max_depth: int = 5,
                  max_bins: int = 32, min_instances_per_node: int = 1,
                  min_info_gain: float = 0.0, subsample_rate: float = 1.0,
                  feature_subset_strategy: str = "auto", seed: int = 42,
                  device: Optional[str] = None, uid: Optional[str] = None):
-        super().__init__(operation_name="randomForestCls", uid=uid)
+        super().__init__(operation_name=self._op_name, uid=uid)
         self.num_trees = num_trees
         self.max_depth = max_depth
         self.max_bins = max_bins
@@ -411,27 +549,46 @@ class OpRandomForestClassifier(PredictorEstimator):
         return self.fit_raw(features_col.values, y)
 
     def fit_raw(self, X, y, w=None, device=None) -> TreeEnsembleModel:
-        """Fit on a (N, D) matrix and labels in {0, 1}, on ``device`` (else
-        the stage's, else the default device).  ``metadata["hist_levels"]``
-        counts the per-level histograms built."""
+        """Fit on a (N, D) matrix and labels (in {0, 1} for the
+        classifier), on ``device`` (else the stage's, else the default
+        device).  ``metadata["hist_levels"]`` counts the per-level
+        histograms built."""
         dev = resolve_device(device if device is not None else self.device)
         X = torch.as_tensor(X, dtype=torch.float32).to(dev)
         y = np.asarray(y, np.float32)
-        if len(y) and float(y.max()) > 1:
+        cls = self._classification
+        if cls and len(y) and float(y.max()) > 1:
             raise NotImplementedError(
                 "multiclass forests are not ported yet (ROADMAP Queue A)")
         n, d = X.shape
         edges, binned = prep_tree_inputs(X, self.max_bins)
         base_w = (torch.ones(n, dtype=torch.float32, device=dev) if w is None
                   else torch.as_tensor(np.asarray(w, np.float32)).to(dev))
-        msub = _feature_subset_size(self.feature_subset_strategy, d)
+        msub = _feature_subset_size(self.feature_subset_strategy, d, cls)
         forest = grow_forest_rf(
             binned, torch.from_numpy(y).to(dev), base_w, seed=self.seed,
             n_trees=self.num_trees, msub=msub,
             subsample_rate=self.subsample_rate, max_depth=self.max_depth,
             n_bins=self.max_bins, min_info_gain=self.min_info_gain,
-            min_instances=float(self.min_instances_per_node))
+            min_instances=float(self.min_instances_per_node),
+            regression=not cls)
         self.metadata["hist_levels"] = forest.levels
-        return TreeEnsembleModel(mode="rf_cls", edges=edges, feat=forest.feat,
+        return TreeEnsembleModel(mode="rf_cls" if cls else "rf_reg",
+                                 edges=edges, feat=forest.feat,
                                  thresh=forest.thresh, leaf=forest.leaf,
                                  n_classes=2)
+
+
+class OpRandomForestClassifier(_RandomForestBase):
+    """Bagged binary random forest classifier."""
+
+    _op_name = "randomForestCls"
+    _classification = True
+
+
+class OpRandomForestRegressor(_RandomForestBase):
+    """Bagged random forest regressor: the leaves hold the bag-weighted
+    mean label; a prediction is the mean over the trees."""
+
+    _op_name = "randomForestReg"
+    _classification = False

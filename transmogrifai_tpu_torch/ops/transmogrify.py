@@ -3,8 +3,9 @@
 Groups input features by semantic type, applies each group's default
 vectorizer and combines the resulting OPVectors into one feature vector,
 as ``transmogrifai_tpu.ops.transmogrify`` does.  Ported groups: reals
-(``RealVectorizer``) and pivoted categorical text (``OneHotVectorizer``);
-every other group raises ``NotImplementedError`` (ROADMAP Queue A).
+(``RealVectorizer``), integrals (``IntegralVectorizer``) and pivoted
+categorical text (``OneHotVectorizer``); every other group raises
+``NotImplementedError`` (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import Dict, List, Sequence, Type
 
 from ..features.feature import Feature
 from ..types import feature_types as ft
-from .vectorizers import OneHotVectorizer, RealVectorizer, VectorsCombiner
+from .vectorizers import (IntegralVectorizer, OneHotVectorizer,
+                          RealVectorizer, VectorsCombiner)
 
 __all__ = ["transmogrify", "TransmogrifierDefaults"]
 
@@ -37,13 +39,18 @@ def transmogrify(features: Sequence[Feature],
     for f in features:
         groups.setdefault(_group_of(f.ftype), []).append(f)
     vectors: List[Feature] = []
-    for g in ("real", "pivot_text"):
+    # the JAX package's group order (its groups the port lacks raise below)
+    for g in ("real", "integral", "pivot_text"):
         feats = groups.pop(g, [])
         if not feats:
             continue
-        stage = (RealVectorizer(track_nulls=track_nulls) if g == "real"
-                 else OneHotVectorizer(top_k=top_k, min_support=min_support,
-                                       track_nulls=track_nulls))
+        if g == "real":
+            stage = RealVectorizer(track_nulls=track_nulls)
+        elif g == "integral":
+            stage = IntegralVectorizer(track_nulls=track_nulls)
+        else:
+            stage = OneHotVectorizer(top_k=top_k, min_support=min_support,
+                                     track_nulls=track_nulls)
         stage.set_input(*feats)
         vectors.append(stage.get_output())
     if groups:
@@ -60,8 +67,10 @@ def transmogrify(features: Sequence[Feature],
 def _group_of(t: Type[ft.FeatureType]) -> str:
     # same precedence as the JAX package's dispatcher for the ported groups
     if issubclass(t, (ft.OPMap, ft.OPVector, ft.OPCollection, ft.Binary,
-                      ft.Integral)):
+                      ft.Date)):
         return t.type_name()
+    if issubclass(t, ft.Integral):
+        return "integral"
     if issubclass(t, ft.Real):
         return "real"
     if issubclass(t, _PIVOT_TEXT):

@@ -2,6 +2,9 @@
 
 Counterparts of ``transmogrifai_tpu.ops.vectorizers``:
  * ``RealVectorizer`` — fill missing reals with the mean + null-indicator slots
+ * ``IntegralVectorizer`` — fill missing integrals with the mode (ties go
+   to the smallest value) + null-indicator slots; its fitted stage is a
+   ``RealVectorizerModel``, as in the JAX package
  * ``OneHotVectorizer`` — TopK pivot of categorical text with OTHER and
    null-indicator slots
  * ``VectorsCombiner`` — concatenates OPVectors and merges their metadata
@@ -28,7 +31,8 @@ from .vector_metadata import (
     NULL_INDICATOR, OTHER_INDICATOR, VectorColumnMetadata, VectorMetadata,
 )
 
-__all__ = ["RealVectorizer", "RealVectorizerModel", "OneHotVectorizer",
+__all__ = ["RealVectorizer", "RealVectorizerModel", "IntegralVectorizer",
+           "OneHotVectorizer",
            "OneHotVectorizerModel", "VectorsCombiner"]
 
 
@@ -111,6 +115,34 @@ class RealVectorizerModel(SequenceModel):
                     f.name, f.ftype.type_name(),
                     indicator_value=NULL_INDICATOR))
         return _vec_column(out, VectorMetadata(self.get_output().name, meta))
+
+
+class IntegralVectorizer(SequenceEstimator):
+    """Fill missing integrals with the mode (0 for a column with no value)
+    + optional null-indicator slots."""
+
+    input_types = (OPNumeric,)
+
+    def __init__(self, track_nulls: bool = True,
+                 device: Optional[str] = None, uid: Optional[str] = None):
+        super().__init__(operation_name="vecIntegral", output_type=OPVector,
+                         uid=uid)
+        self.track_nulls = track_nulls
+        self.device = device
+
+    def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
+        fills = []
+        for c in cols:
+            vals = np.asarray(c.values)[np.asarray(c.mask)]
+            if len(vals):
+                # unique values ascend, and argmax takes the first of the
+                # tied counts: the smallest value
+                uniq, cnt = np.unique(vals, return_counts=True)
+                fills.append(float(uniq[np.argmax(cnt)]))
+            else:
+                fills.append(0.0)
+        return RealVectorizerModel(fills=fills, track_nulls=self.track_nulls,
+                                   device=self.device)
 
 
 class OneHotVectorizer(SequenceEstimator):

@@ -1,5 +1,6 @@
 """Grid-batched candidate groups (counterpart of
-``transmogrifai_tpu.selector.grid_groups``), binary only.
+``transmogrifai_tpu.selector.grid_groups``) for binary and regression
+problems.
 
 A run of candidates of one estimator family fits as one batched solve over
 a (folds, candidates) grid, and the per-fold validation metrics come back
@@ -8,10 +9,15 @@ group that declines (returns None) or raises falls back to the candidates'
 sequential fits.  A group whose ``run`` solved an appended full-train
 weight row also hands the selector the winner's refit model.
 
-Not ported yet (ROADMAP Queue A): the linear-regression, softmax and GBT
-groups, multiclass and regression forests, and the sweep mesh (sharded
-placement, cost-model observations; the JAX package's compile-depth hint
-has no counterpart, nothing here is compiled).
+Groups: ``LogRegGridGroup`` (binary LR), ``LinRegGridGroup`` (linear
+regression), ``RFGridGroup`` (binary and regression forests) and
+``GBTGridGroup`` (boosted chains advanced in lockstep, binary and
+regression).
+
+Not ported yet (ROADMAP Queue A): the softmax group, multiclass forests,
+and the sweep mesh (sharded placement, cost-model observations; the JAX
+package's compile-depth hint has no counterpart, nothing here is
+compiled).
 """
 from __future__ import annotations
 
@@ -21,16 +27,21 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..evaluators.metrics import binary_metric_grid
+from ..evaluators.metrics import (REGRESSION_METRICS, binary_metric_grid,
+                                  regression_metric_grid)
 from ..models.classification import (LogisticRegressionModel,
                                      OpLogisticRegression)
 from ..models.gbdt_kernels import grow_rf_grid, predict_ensemble
-from ..models.linear import fit_logreg_grid
-from ..models.trees import (OpRandomForestClassifier, TreeEnsembleModel,
-                            _feature_subset_size, prep_tree_inputs,
-                            rf_probability)
+from ..models.linear import fit_linreg_grid, fit_logreg_grid
+from ..models.regression import LinearRegressionModel, OpLinearRegression
+from ..models.trees import (OpRandomForestClassifier,
+                            OpRandomForestRegressor, TreeEnsembleModel,
+                            _feature_subset_size, _GBTBase, boost_chains,
+                            check_gbt_supported, gbt_base_score,
+                            prep_tree_inputs, rf_probability)
 
-__all__ = ["GridGroup", "LogRegGridGroup", "TreeGridGroup", "RFGridGroup",
+__all__ = ["GridGroup", "LogRegGridGroup", "LinRegGridGroup",
+           "TreeGridGroup", "RFGridGroup", "GBTGridGroup",
            "make_grid_group"]
 
 
@@ -138,6 +149,40 @@ class LogRegGridGroup(_LinearGridGroup):
                                        intercept=float(icpt[row]))
 
 
+class LinRegGridGroup(_LinearGridGroup):
+    """Every linear-regression (fold x candidate) fit in one Gram-sharing
+    solve (``linear.fit_linreg_grid``), with the full-train weights as one
+    more row, whose solution is the winner's refit model."""
+
+    def run(self, X, y, weight_ctxs):
+        if not self._batchable_params():
+            return None
+        dev = X.device
+        W_tr, W_ev = self._stack_weights(weight_ctxs, dev)
+        full = torch.from_numpy(self._full_weights(weight_ctxs)).to(dev)
+        F = W_tr.shape[0]
+        regs, alphas = self._regs_alphas(dev)
+        p0 = self.grid_points[0]
+        yt = torch.from_numpy(np.nan_to_num(np.asarray(y, np.float32))
+                              ).to(dev)
+        preds, coef, icpt = fit_linreg_grid(
+            X, yt, torch.cat([W_tr, full[None]]), regs, alphas,
+            max_iter=int(self._param(p0, "max_iter")),
+            tol=float(self._param(p0, "tol")),
+            fit_intercept=bool(self._param(p0, "fit_intercept")),
+            standardization=bool(self._param(p0, "standardization")))
+        self._refit = (coef[F], icpt[F])
+        m = regression_metric_grid(yt, preds[:F], W_ev, self.metric)
+        return None if m is None else m.T
+
+    def refit_model(self, row: int):
+        if getattr(self, "_refit", None) is None:
+            return None
+        coef, icpt = self._refit
+        return LinearRegressionModel(coef=coef[row],
+                                     intercept=float(icpt[row]))
+
+
 class TreeGridGroup(GridGroup):
     """Base of the tree-family groups: counts the trees a group grew and
     the per-level histograms it built, and times its growth and its
@@ -159,16 +204,21 @@ class TreeGridGroup(GridGroup):
         return t1
 
 
-def _score_forest(binned, feat, thresh, leaf, depth: int) -> torch.Tensor:
-    """Class-1 probability of every row under one forest."""
+def _score_forest(binned, feat, thresh, leaf, depth: int,
+                  regression: bool = False) -> torch.Tensor:
+    """Class-1 probability, or the regression prediction (the mean of
+    the trees), of every row under one forest."""
     raw = predict_ensemble(binned, feat, thresh, leaf, depth)
+    if regression:
+        return raw[:, 0] / feat.shape[0]
     return rf_probability(raw, feat.shape[0])[:, 1]
 
 
 class RFGridGroup(TreeGridGroup):
-    """Every (candidate x fold) binary random forest as one tree stream
-    (``gbdt_kernels.grow_rf_grid``): per-pair (min_info_gain,
-    min_instances, depth) and fold weights over shared bags.
+    """Every (candidate x fold) random forest — binary classification or
+    regression — as one tree stream (``gbdt_kernels.grow_rf_grid``):
+    per-pair (min_info_gain, min_instances, depth) and fold weights over
+    shared bags.
 
     Depth-truncation sharing: candidates that differ only in ``max_depth``
     share bags and folds, and a level-wise tree cut at a depth is exactly
@@ -181,8 +231,11 @@ class RFGridGroup(TreeGridGroup):
                "feature_subset_strategy", "seed")
 
     def run(self, X, y, weight_ctxs):
-        if (not self._batchable_params() or (len(y) and np.nanmax(y) > 1)
-                or self.metric not in ("AuPR", "AuROC")):
+        cls = self.proto._classification
+        if not self._batchable_params() or (
+                (len(y) and np.nanmax(y) > 1
+                 or self.metric not in ("AuPR", "AuROC")) if cls
+                else self.metric not in REGRESSION_METRICS):
             return None
         dev = X.device
         t0 = time.perf_counter()
@@ -197,7 +250,7 @@ class RFGridGroup(TreeGridGroup):
         t0 = self._lap("binning", t0, dev)
         n, d = X.shape
         msub = _feature_subset_size(
-            self._param(p0, "feature_subset_strategy"), d)
+            self._param(p0, "feature_subset_strategy"), d, cls)
         yt = torch.from_numpy(np.nan_to_num(np.asarray(y, np.float32))
                               ).to(dev)
         W_tr, W_ev = self._stack_weights(weight_ctxs, dev)
@@ -231,7 +284,8 @@ class RFGridGroup(TreeGridGroup):
             pair_min_ig=np.repeat([k[0] for k in base_keys], F),
             pair_min_inst=np.repeat([k[1] for k in base_keys], F),
             pair_depth=np.repeat(base_depth, F), msub=msub,
-            subsample_rate=subsample, n_bins=mb, leaf_levels=leaf_levels)
+            subsample_rate=subsample, n_bins=mb, leaf_levels=leaf_levels,
+            regression=not cls)
         self.trees_grown += len(base_keys) * F * T
         self.hist_levels += grown.levels
         heap_depth = int(np.log2(grown.feat.shape[2] + 1))
@@ -250,14 +304,16 @@ class RFGridGroup(TreeGridGroup):
                     nd = 2 ** dt - 1
                     forest = (grown.feat[p][:, :nd], grown.thresh[p][:, :nd],
                               grown.snaps[dt][p], dt)
-                scores[f, c] = _score_forest(binned, *forest)
+                scores[f, c] = _score_forest(binned, *forest,
+                                             regression=not cls)
         self._refit_ctx = dict(
             binned=binned, y=yt, edges=edges, msub=msub, mb=mb, T=T,
             key2base=key2base, cand_key=cand_key, cand_depth=cand_depth,
             base_depth=base_depth, leaf_levels=leaf_levels,
             full_w=torch.from_numpy(full_w).to(dev), seed=seed,
-            subsample=subsample)
-        m = binary_metric_grid(yt, scores, W_ev, self.metric)
+            subsample=subsample, cls=cls)
+        m = (binary_metric_grid if cls else regression_metric_grid)(
+            yt, scores, W_ev, self.metric)
         self._lap("score", t0, dev)
         return None if m is None else m.T
 
@@ -276,7 +332,7 @@ class RFGridGroup(TreeGridGroup):
             n_trees=ctx["T"], pair_fold=[0], pair_min_ig=[key[0]],
             pair_min_inst=[key[1]], pair_depth=[bd], msub=ctx["msub"],
             subsample_rate=ctx["subsample"], n_bins=ctx["mb"],
-            leaf_levels=ctx["leaf_levels"])
+            leaf_levels=ctx["leaf_levels"], regression=not ctx["cls"])
         self.trees_grown += ctx["T"]
         self.hist_levels += grown.levels
         if dt < bd:
@@ -285,20 +341,127 @@ class RFGridGroup(TreeGridGroup):
             leaf = grown.snaps[dt][0]
         else:
             feat, thresh, leaf = grown.feat[0], grown.thresh[0], grown.leaf[0]
-        return TreeEnsembleModel(mode="rf_cls", edges=ctx["edges"],
-                                 feat=feat, thresh=thresh, leaf=leaf,
-                                 n_classes=2)
+        return TreeEnsembleModel(mode="rf_cls" if ctx["cls"] else "rf_reg",
+                                 edges=ctx["edges"], feat=feat,
+                                 thresh=thresh, leaf=leaf, n_classes=2)
+
+
+class GBTGridGroup(TreeGridGroup):
+    """Every (candidate x fold) boosting chain, advanced in lockstep one
+    round at a time (the JAX package's ``GBTGridGroup``), binary logistic
+    or squared error.
+
+    Chain s = c * F + f boosts candidate c on fold f's training weights,
+    with its own depth, eta, lambda, min_child_weight and gamma, through
+    ``boost_chains`` (the loop a sequential fit runs as one chain): early
+    stopping on the same validation rows as a sequential fit (the
+    ``seed``'s draw) with per-chain lagged patience, GOSS when every chain
+    is deep.  A chain's validation scores come from its first ``best_len``
+    trees.  No full-train refit chains, as in the JAX group: a GBT winner
+    is refit sequentially.  Declines (None) for other objectives, mixed
+    static attributes and subsampling; raises for count-gated growth, as
+    the sequential fits do."""
+
+    _STATIC = ("max_iter", "max_bins", "early_stopping_rounds",
+               "validation_fraction", "seed", "subsample_rate", "colsample",
+               "sparse_default_direction")
+
+    def _chains(self):
+        """The candidates' estimators (attribute-level params, robust to
+        constructor aliases such as XGBoost's eta -> step_size)."""
+        return [self.proto.copy(**p) for p in self.grid_points]
+
+    def run(self, X, y, weight_ctxs):
+        ests = self._chains()
+        e0 = ests[0]
+        obj = e0._objective
+        if obj not in ("binary", "regression"):
+            return None
+        if obj == "binary" and len(y) and np.nanmax(y) > 1:
+            return None
+        if any(len({getattr(e, a) for e in ests}) > 1 for a in self._STATIC):
+            return None
+        if e0.subsample_rate < 1.0 or e0.colsample < 1.0:
+            return None
+        dev = X.device
+        t0 = time.perf_counter()
+        y = np.nan_to_num(np.asarray(y, np.float32))
+        n = len(y)
+        W_tr = np.stack([np.asarray(w, np.float32) for w, _ in weight_ctxs])
+        F, C = W_tr.shape[0], len(ests)
+        S = C * F
+        chain_fold = np.tile(np.arange(F), C)
+        chain_est = [ests[c] for c in np.repeat(np.arange(C), F)]
+        rng = np.random.default_rng(e0.seed)
+        val = (rng.random(n) < e0.validation_fraction
+               if e0.early_stopping_rounds > 0 else np.zeros(n, bool))
+        # full fold weights for the starting margins, the early-stopping
+        # train weights for the gradients (sequential fit_raw parity)
+        W_full = W_tr[chain_fold]
+        W_train = W_full * (~val)[None, :]
+        check_gbt_supported(obj, 1.0, 1.0,
+                            [e.min_instances_per_node for e in ests],
+                            [e.min_info_gain for e in ests], W_train)
+        edges, binned = prep_tree_inputs(X, int(e0.max_bins),
+                                         row_weight=self._full_weights(
+                                             weight_ctxs))
+        t0 = self._lap("binning", t0, dev)
+
+        base = gbt_base_score(obj, W_full, y)
+        yt = torch.from_numpy(y).to(dev)
+        out = boost_chains(chain_est, binned, edges, yt,
+                           torch.from_numpy(W_train).to(dev),
+                           torch.from_numpy(base), np.flatnonzero(val))
+        trees, best_len = out.trees, out.best_len
+        self.trees_grown += sum(len(t) for t in trees)
+        self.hist_levels += out.levels
+        self.best_len = best_len.copy()
+        t0 = self._lap("grow", t0, dev)
+
+        scores = torch.empty((S, n), dtype=torch.float32, device=dev)
+        for s in range(S):
+            kept = trees[s][:int(best_len[s])]
+            raw = predict_ensemble(
+                binned, torch.stack([t.feat for t in kept]),
+                torch.stack([t.thresh for t in kept]),
+                torch.stack([t.leaf for t in kept]),
+                int(chain_est[s].max_depth))[:, 0]
+            z = raw + float(base[s])
+            scores[s] = torch.sigmoid(z) if obj == "binary" else z
+        self.chain_trees = trees
+        scores = scores.reshape(C, F, n).transpose(0, 1)
+        W_ev = torch.from_numpy(np.stack([np.asarray(w, np.float32)
+                                          for _, w in weight_ctxs])).to(dev)
+        fn = binary_metric_grid if obj == "binary" else regression_metric_grid
+        m = fn(yt, scores, W_ev, self.metric)
+        self._lap("score", t0, dev)
+        return None if m is None else m.T
 
 
 def make_grid_group(proto, grid_points, problem_type: str,
                     metric: str) -> Optional[GridGroup]:
-    """A batched group for a binary LR or random-forest grid scored by
-    AuPR or AuROC, else None (sequential fits)."""
-    if (len(grid_points) == 0 or problem_type != "binary"
-            or metric not in ("AuPR", "AuROC")):
+    """A batched group for the candidates' family under the problem type
+    and metric (the JAX package's table), else None (sequential fits):
+    LR, forests and boosted trees for binary problems scored by AuPR or
+    AuROC; linear regression, forests and boosted trees for regression
+    scored by RMSE, MSE, MAE or R2."""
+    if len(grid_points) == 0:
         return None
-    if type(proto) is OpLogisticRegression:
-        return LogRegGridGroup(proto, grid_points, metric)
-    if type(proto) is OpRandomForestClassifier:
-        return RFGridGroup(proto, grid_points, metric)
+    if problem_type == "binary" and metric in ("AuPR", "AuROC"):
+        if type(proto) is OpLogisticRegression:
+            return LogRegGridGroup(proto, grid_points, metric)
+        if type(proto) is OpRandomForestClassifier:
+            return RFGridGroup(proto, grid_points, metric)
+    if problem_type == "regression" and metric in REGRESSION_METRICS:
+        if type(proto) is OpLinearRegression:
+            return LinRegGridGroup(proto, grid_points, metric)
+        if type(proto) is OpRandomForestRegressor:
+            return RFGridGroup(proto, grid_points, metric)
+    if isinstance(proto, _GBTBase) and (
+            (problem_type == "binary" and proto._objective == "binary"
+             and metric in ("AuPR", "AuROC"))
+            or (problem_type == "regression"
+                and proto._objective == "regression"
+                and metric in REGRESSION_METRICS)):
+        return GBTGridGroup(proto, grid_points, metric)
     return None

@@ -1,5 +1,6 @@
 """ModelSelector — automated model selection with validation (counterpart of
-``transmogrifai_tpu.selector.model_selector``), binary problems.
+``transmogrifai_tpu.selector.model_selector``), binary and regression
+problems.
 
 Flow: the splitter reserves a holdout and computes training weights; the
 validator scores every (model, params) candidate on weight-masked CV folds
@@ -9,10 +10,10 @@ group's full-train row where the group solved one); holdout and training
 metrics are evaluated; everything lands in
 ``metadata["model_selector_summary"]`` with the JAX package's keys.
 
-Not ported yet (ROADMAP Queue A): multiclass and regression selectors, the
-train/validation-split validator, successive halving, the sweep mesh
-(``parallel=``, ``with_mesh``), the straggler watchdog, sweep checkpoints,
-workflow-level CV and the tree-prep prefetch thread.
+Not ported yet (ROADMAP Queue A): the multiclass selector, successive
+halving, the sweep mesh (``parallel=``, ``with_mesh``), the straggler
+watchdog, sweep checkpoints, workflow-level CV and the tree-prep prefetch
+thread.
 """
 from __future__ import annotations
 
@@ -25,19 +26,28 @@ import torch
 
 from ..evaluators.metrics import (MINIMIZE_METRICS, aupr_device,
                                   auroc_device,
-                                  binary_classification_metrics)
+                                  binary_classification_metrics,
+                                  regression_metric_device,
+                                  regression_metrics)
 from ..models.classification import OpLogisticRegression
 from ..models.prediction import (PredictionBatch, PredictorEstimator,
                                  PredictorModel)
-from ..models.trees import OpRandomForestClassifier
+from ..models.regression import OpLinearRegression
+from ..models.trees import (OpGBTRegressor, OpRandomForestClassifier,
+                            OpRandomForestRegressor, _GBTBase,
+                            _RandomForestBase)
 from ..types.columns import ColumnarDataset, FeatureColumn
 from .grid_groups import TreeGridGroup, make_grid_group
-from .splitters import DataBalancer
-from .validators import OpCrossValidation, ValidationResult
+from .splitters import DataBalancer, DataSplitter
+from .validators import (OpCrossValidation, OpTrainValidationSplit,
+                         ValidationResult)
 
 __all__ = ["ModelSelector", "SelectedModel", "ModelSelectorSummary",
-           "BinaryClassificationModelSelector", "DefaultSelectorParams",
-           "grid"]
+           "BinaryClassificationModelSelector", "RegressionModelSelector",
+           "DefaultSelectorParams", "grid"]
+
+#: the problem types the port selects for, with their default metric
+_DEFAULT_METRIC = {"binary": "AuPR", "regression": "RootMeanSquaredError"}
 
 
 class DefaultSelectorParams:
@@ -113,7 +123,7 @@ def _sync(dev: torch.device) -> None:
 
 class ModelSelector(PredictorEstimator):
     """Selector over (estimator prototype, param grid) candidates of a
-    binary problem, on the workflow's device.
+    binary or regression problem, on the workflow's device.
 
     After a fit, ``metadata`` holds the summary and the sweep's own
     numbers: ``sweep_seconds`` (each grid group's wall, and the rest of
@@ -122,7 +132,9 @@ class ModelSelector(PredictorEstimator):
     ``tree_phase_seconds``
     (the tree groups' binning, growth and candidate scoring),
     ``refit_seconds``, ``metrics_seconds``, ``hist_levels`` (tree-level
-    histograms built) and ``rf_trees``."""
+    histograms built), ``rf_trees`` (trees grown: forests' and boosted
+    chains'), and ``group_trees`` / ``group_hist_levels`` (the trees and
+    levels of each tree group)."""
 
     def __init__(self,
                  models_and_params: Sequence[Tuple[PredictorEstimator,
@@ -133,7 +145,7 @@ class ModelSelector(PredictorEstimator):
                  watchdog: Optional[float] = None,
                  device: Optional[str] = None, uid: Optional[str] = None):
         super().__init__(operation_name="modelSelector", uid=uid)
-        if problem_type != "binary":
+        if problem_type not in _DEFAULT_METRIC:
             raise _not_ported(f"the {problem_type} model selector")
         if strategy not in ("full", "halving"):
             raise ValueError(f"unknown selector strategy {strategy!r}; "
@@ -146,10 +158,11 @@ class ModelSelector(PredictorEstimator):
             raise _not_ported("the straggler watchdog")
         self.models_and_params = list(models_and_params)
         self.problem_type = problem_type
-        self.validator = validator or OpCrossValidation(num_folds=3,
-                                                        stratify=True)
+        self.validator = validator or OpCrossValidation(
+            num_folds=3, stratify=problem_type != "regression")
         self.splitter = splitter
-        self.validation_metric = validation_metric or "AuPR"
+        self.validation_metric = (validation_metric
+                                  or _DEFAULT_METRIC[problem_type])
         self.device = device
 
     def with_mesh(self, mesh) -> "ModelSelector":
@@ -169,13 +182,19 @@ class ModelSelector(PredictorEstimator):
 
     # -- validation plumbing -------------------------------------------------
 
-    @staticmethod
-    def _score_fn(model: PredictorModel, X: torch.Tensor) -> torch.Tensor:
-        return model.predict_batch(X).probability[:, 1]
+    def _score_fn(self, model: PredictorModel, X: torch.Tensor
+                  ) -> torch.Tensor:
+        batch = model.predict_batch(X)
+        if self.problem_type == "binary":
+            return batch.probability[:, 1]
+        return batch.prediction
 
     def _metric(self, y, scores: torch.Tensor, w):
-        """A fold metric: a device scalar for AuPR/AuROC, else a float."""
+        """A fold metric: a device scalar for AuPR/AuROC and the regression
+        set, else a float."""
         m = self.validation_metric
+        if self.problem_type == "regression":
+            return regression_metric_device(y, scores, w, m)
         fn = {"AuPR": aupr_device, "AuROC": auroc_device}.get(m)
         if fn is not None:
             return fn(y, scores, w)
@@ -197,8 +216,10 @@ class ModelSelector(PredictorEstimator):
 
     def _note_sequential_fit(self, est) -> None:
         self._seq_levels += est.metadata.get("hist_levels", 0)
-        if isinstance(est, OpRandomForestClassifier):
+        if isinstance(est, _RandomForestBase):
             self._seq_trees += est.num_trees
+        elif isinstance(est, _GBTBase):
+            self._seq_trees += est.metadata.get("rounds_grown", 0)
 
     # -- fit -----------------------------------------------------------------
 
@@ -208,10 +229,11 @@ class ModelSelector(PredictorEstimator):
         dev = X.device
         y = np.nan_to_num(np.asarray(label_col.values, dtype=np.float32))
         n = len(y)
-        if n and float(y.max()) > 1:
+        if self.problem_type == "binary" and n and float(y.max()) > 1:
             raise _not_ported("multiclass selection")
         splitter = (self.splitter if self.splitter is not None
-                    else DataBalancer())
+                    else DataBalancer() if self.problem_type == "binary"
+                    else DataSplitter())
         train_idx, holdout_idx = splitter.split_indices(n, y)
         train_mask = np.zeros(n, dtype=bool)
         train_mask[train_idx] = True
@@ -268,7 +290,11 @@ class ModelSelector(PredictorEstimator):
             hist_levels=self._seq_levels + sum(g.hist_levels
                                                for g in tree_groups),
             rf_trees=self._seq_trees + sum(g.trees_grown
-                                           for g in tree_groups))
+                                           for g in tree_groups),
+            group_trees={type(g).__name__: g.trees_grown
+                         for g in tree_groups},
+            group_hist_levels={type(g).__name__: g.hist_levels
+                               for g in tree_groups})
         summary = ModelSelectorSummary(
             validation_results=results, best_model_name=best_name,
             best_params=best_params,
@@ -281,17 +307,19 @@ class ModelSelector(PredictorEstimator):
         return SelectedModel(inner=best_model, best_name=best_name,
                              best_params=best_params)
 
-    @staticmethod
-    def _full_metrics(full_batch: PredictionBatch, y: np.ndarray,
+    def _full_metrics(self, full_batch: PredictionBatch, y: np.ndarray,
                       mask: np.ndarray) -> Dict[str, float]:
-        """Binary metrics over the masked rows of a full-matrix batch."""
+        """The problem's metric set over the masked rows of a full-matrix
+        batch."""
         idx = np.flatnonzero(mask)
         if not len(idx):
             return {}
-        score = full_batch.probability[:, 1]
+        score = (full_batch.probability[:, 1]
+                 if self.problem_type == "binary" else full_batch.prediction)
         rows = torch.from_numpy(idx).to(score.device)
-        return binary_classification_metrics(
-            torch.from_numpy(y[idx]), score.index_select(0, rows))
+        fn = (binary_classification_metrics if self.problem_type == "binary"
+              else regression_metrics)
+        return fn(torch.from_numpy(y[idx]), score.index_select(0, rows))
 
 
 class SelectedModel(PredictorModel):
@@ -344,5 +372,68 @@ class BinaryClassificationModelSelector:
                                         max_wait=max_wait),
             splitter=(splitter if splitter is not None
                       else DataBalancer(seed=seed)),
+            validation_metric=validation_metric, strategy=strategy,
+            halving=halving, parallel=parallel, watchdog=watchdog)
+
+
+def _regression_defaults() -> List[Tuple[PredictorEstimator,
+                                         List[Dict[str, Any]]]]:
+    """Default regression models: linear regression over 4 x 2
+    regularisations, RF over 3 depths x 2 min-instances x 3
+    min-info-gains at 50 trees, GBT over 3 depths at 20 rounds of step
+    0.1 (RegressionModelSelector.scala:49-110)."""
+    D = DefaultSelectorParams
+    return [
+        (OpLinearRegression(), grid(
+            reg_param=D.REGULARIZATION, elastic_net_param=D.ELASTIC_NET,
+            max_iter=[200])),
+        (OpRandomForestRegressor(), grid(
+            max_depth=D.MAX_DEPTH,
+            min_instances_per_node=D.MIN_INSTANCES_PER_NODE,
+            min_info_gain=D.MIN_INFO_GAIN, num_trees=D.MAX_TREES)),
+        (OpGBTRegressor(), grid(
+            max_depth=D.MAX_DEPTH, max_iter=D.MAX_ITER_TREE,
+            step_size=D.STEP_SIZE)),
+    ]
+
+
+class RegressionModelSelector:
+    @staticmethod
+    def with_cross_validation(
+        num_folds: int = 3, validation_metric: str = "RootMeanSquaredError",
+        splitter=None, seed: int = 42, models_and_parameters=None,
+        parallelism: Optional[int] = None, max_wait: Optional[float] = None,
+        strategy: str = "full", halving=None, parallel=None,
+        watchdog: Optional[float] = None,
+    ) -> ModelSelector:
+        return ModelSelector(
+            models_and_params=models_and_parameters or _regression_defaults(),
+            problem_type="regression",
+            validator=OpCrossValidation(num_folds=num_folds, seed=seed,
+                                        parallelism=parallelism,
+                                        max_wait=max_wait),
+            splitter=(splitter if splitter is not None
+                      else DataSplitter(seed=seed)),
+            validation_metric=validation_metric, strategy=strategy,
+            halving=halving, parallel=parallel, watchdog=watchdog)
+
+    @staticmethod
+    def with_train_validation_split(
+        train_ratio: float = 0.75,
+        validation_metric: str = "RootMeanSquaredError",
+        splitter=None, seed: int = 42, models_and_parameters=None,
+        parallelism: Optional[int] = None, max_wait: Optional[float] = None,
+        strategy: str = "full", halving=None, parallel=None,
+        watchdog: Optional[float] = None,
+    ) -> ModelSelector:
+        return ModelSelector(
+            models_and_params=models_and_parameters or _regression_defaults(),
+            problem_type="regression",
+            validator=OpTrainValidationSplit(train_ratio=train_ratio,
+                                             seed=seed,
+                                             parallelism=parallelism,
+                                             max_wait=max_wait),
+            splitter=(splitter if splitter is not None
+                      else DataSplitter(seed=seed)),
             validation_metric=validation_metric, strategy=strategy,
             halving=halving, parallel=parallel, watchdog=watchdog)

@@ -1,16 +1,17 @@
-"""Cross-validation for the model selector (counterpart of
-``transmogrifai_tpu.selector.validators``).
+"""Cross-validation and the train/validation split for the model selector
+(counterpart of ``transmogrifai_tpu.selector.validators``).
 
-Every fold is a 0/1 weight mask over the one resident matrix.  The sweep
+Every fold is a 0/1 weight mask over the one resident matrix; the
+train/validation split is one such fold.  The sweep
 is plain and sequential: first every candidate group's batched fit (one
 (candidates x folds) metric matrix per group), then, one by one, each
 candidate whose group declined or failed, through its estimator's
 ``fit_raw``.  A candidate's failure is recorded on its result and scores
 it worst; the sweep goes on.
 
-Not ported yet (ROADMAP Queue A): the train/validation split, the
-schedulable work queue with its asynchronous dispatch, checkpoints,
-elastic retries, the straggler watchdog and the ``max_wait`` budget.
+Not ported yet (ROADMAP Queue A): the schedulable work queue with its
+asynchronous dispatch, checkpoints, elastic retries, the straggler
+watchdog and the ``max_wait`` budget.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-__all__ = ["ValidationResult", "OpCrossValidation", "make_folds"]
+__all__ = ["ValidationResult", "OpCrossValidation", "OpTrainValidationSplit",
+           "make_folds"]
 
 
 @dataclasses.dataclass
@@ -62,6 +64,29 @@ def make_folds(n: int, num_folds: int, y: Optional[np.ndarray] = None,
     return fold
 
 
+def _check_dispatch(parallelism, max_wait) -> None:
+    if parallelism is not None:
+        raise NotImplementedError(
+            "parallel candidate dispatch is not ported yet: the sweep "
+            "runs its fits one after another (ROADMAP Queue A)")
+    if max_wait is not None:
+        raise NotImplementedError(
+            "the max_wait sweep budget is not ported yet "
+            "(ROADMAP Queue A)")
+
+
+def _validate_on(candidates, X, y, fold_ctxs, eval_fn, metric_name: str,
+                 larger_better: bool):
+    """The sweep over ``fold_ctxs``, (train, eval) weight pairs."""
+    def run_fold(fitter, params, ctx):
+        w_train, w_eval = ctx
+        return eval_fn(y, fitter(X, y, w_train, params)(X), w_eval)
+
+    return _run_sweep(candidates, fold_ctxs, run_fold,
+                      lambda group: group.run(X, y, fold_ctxs),
+                      metric_name, larger_better)
+
+
 class OpCrossValidation:
     """k-fold cross-validation over candidate tuples ``(name, params,
     fitter, group)``: ``fitter(X, y, w_train, params)`` returns a scoring
@@ -71,14 +96,7 @@ class OpCrossValidation:
     def __init__(self, num_folds: int = 3, seed: int = 42,
                  stratify: bool = False, parallelism: Optional[int] = None,
                  max_wait: Optional[float] = None):
-        if parallelism is not None:
-            raise NotImplementedError(
-                "parallel candidate dispatch is not ported yet: the sweep "
-                "runs its fits one after another (ROADMAP Queue A)")
-        if max_wait is not None:
-            raise NotImplementedError(
-                "the max_wait sweep budget is not ported yet "
-                "(ROADMAP Queue A)")
+        _check_dispatch(parallelism, max_wait)
         self.num_folds = num_folds
         self.seed = seed
         self.stratify = stratify
@@ -97,14 +115,34 @@ class OpCrossValidation:
             if w_train.sum() == 0 or w_eval.sum() == 0:
                 continue
             fold_ctxs.append((w_train, w_eval))
+        return _validate_on(candidates, X, y, fold_ctxs, eval_fn,
+                            metric_name, larger_better)
 
-        def run_fold(fitter, params, ctx):
-            w_train, w_eval = ctx
-            return eval_fn(y, fitter(X, y, w_train, params)(X), w_eval)
 
-        return _run_sweep(candidates, fold_ctxs, run_fold,
-                          lambda group: group.run(X, y, fold_ctxs),
-                          metric_name, larger_better)
+class OpTrainValidationSplit:
+    """One train/validation split over the same candidate tuples as
+    ``OpCrossValidation``: a row trains when its uniform draw falls below
+    ``train_ratio``, the JAX package's numpy draw.  Its stratified split
+    comes with the binary train/validation split (ROADMAP Queue A)."""
+
+    def __init__(self, train_ratio: float = 0.75, seed: int = 42,
+                 parallelism: Optional[int] = None,
+                 max_wait: Optional[float] = None):
+        _check_dispatch(parallelism, max_wait)
+        self.train_ratio = train_ratio
+        self.seed = seed
+
+    def validate(self, candidates, X, y: np.ndarray,
+                 base_weights: np.ndarray, eval_fn, metric_name: str,
+                 larger_better: bool = True):
+        """(index of the best candidate, its ValidationResults in
+        candidate order), each with one fold value."""
+        in_train = (np.random.default_rng(self.seed).random(len(y))
+                    < self.train_ratio)
+        return _validate_on(candidates, X, y,
+                            [(base_weights * in_train,
+                              base_weights * ~in_train)],
+                            eval_fn, metric_name, larger_better)
 
 
 def _run_sweep(candidates, fold_ctxs, run_fold, run_group,

@@ -32,6 +32,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..features.feature import Feature
 from ..models.classification import LogisticRegressionModel
+from ..models.regression import LinearRegressionModel
 from ..models.trees import TreeEnsembleModel
 from ..ops.vector_metadata import VectorMetadata
 from ..ops.vectorizers import (OneHotVectorizerModel, RealVectorizerModel,
@@ -65,6 +66,8 @@ CLASS_MAP: Dict[str, Type[PipelineStage]] = {
         SanityCheckerModel,
     "transmogrifai_tpu.models.classification.LogisticRegressionModel":
         LogisticRegressionModel,
+    "transmogrifai_tpu.models.regression.LinearRegressionModel":
+        LinearRegressionModel,
     "transmogrifai_tpu.models.trees.TreeEnsembleModel": TreeEnsembleModel,
     "transmogrifai_tpu.selector.model_selector.SelectedModel": SelectedModel,
 }
