@@ -16,6 +16,12 @@ to end at full width through the entry points a user calls:
     -> OpWorkflow.train() -> score_and_evaluate(RMSE, R2)
     -> save -> load -> score, local scorer
 
+    FeatureBuilder -> feature arithmetic, vectorize -> transmogrify
+    (SmartText hashing, pivots, reals, integrals, a vector)
+    -> SanityChecker -> BinaryClassificationModelSelector (the Titanic
+    demo's grid) -> OpWorkflow.train() -> score_and_evaluate(AuPR)
+    -> save -> load -> local scorer -> ModelServer
+
     model.save -> OpWorkflowModel.load -> score (batch, CSVReader)
     -> ModelServer (batch 1, a burst, batch 64) -> HTTP
 
@@ -69,7 +75,26 @@ card's aggregate shared-memory rate):
                 group's chains (depths 3, 6, 12), 2 rounds of the deep
                 fit's GOSS chain and 2 trees of a regression forest
                 (depth 12, one-third subsets)
-  6. serve      both trained models (the slice's boosted model, the
+  6. titanic    the reference's headline demo, examples/op_titanic_simple.py
+                with this package's imports, on 1 000 000 + 100 000 rows
+                of examples/bench_pipeline.py's make_titanic_like recipe
+                (``make_titanic``: no pandas) with the label redrawn from a
+                logit of sex, class, fare and age: the train's split by
+                stage (SmartText statistics, hashing and copy, the other
+                vectorizers, the checker, the sweep), the sketch the tree
+                prep took (must be ``sparse_aware``), the width before and
+                after the checker and the forests' subset width, every
+                candidate's CV AuPR, the winner, holdout AuPR against
+                TITANIC_AUPR_SHARE x the attainable one (the true
+                probabilities'), kernel launches against the growers'
+                count, peak memory; TITANIC_CHECK_TREES demo forest trees
+                grown on the checked matrix with every level held bitwise
+                to the plain version and the widest level timed (a
+                ``seg_hist`` line with ``path`` "titanic"); save -> load
+                (the holdout bitwise), the local scorer's rows, and
+                TITANIC_SERVE_REQUESTS single rows with text through
+                ModelServer (p50/p99, ``request_split``)
+  7. serve      both trained models (the slice's boosted model, the
                 selector's winner): save (seconds, bytes) and load on the
                 card (seconds); the holdout scored after the round trip
                 bitwise equal to the in-memory model; 10k holdout rows
@@ -87,7 +112,7 @@ card's aggregate shared-memory rate):
                 tests/fixtures/model_v1 scored on the card within 1e-5 of
                 its expected scores.  The phase must launch no kernel
                 (scoring is plain torch on the card)
-  7. seg_hist   kernel vs plain at the slice's level shapes (N=1M, d=500,
+  8. seg_hist   kernel vs plain at the slice's level shapes (N=1M, d=500,
                 B=32, nchan=2, M=1..32, a level with empty slots), the level
                 shapes of depths 7 and 10 (M=64, 512), d=497 through
                 apply_bins' padded rows, one level of unpadded rows (the
@@ -102,20 +127,21 @@ card's aggregate shared-memory rate):
                 tolerance, determinism, kernel/plain/library/bound ms, the
                 layout's share, the groups and reduce passes' device ms and
                 the shared-memory floor
-  8. profile    an 8-round fit at the same width under torch.profiler:
+  9. profile    an 8-round fit at the same width under torch.profiler:
                 binning and boosting walls, the card's busy time and idle
                 share, the boosting's heaviest device ops per round
-  9. regression_profile  one forest of 4 regression trees (depth 12,
+ 10. regression_profile  one forest of 4 regression trees (depth 12,
                 one-third subsets) and one boosted chain's 3 rounds (depth
                 12, full width) under torch.profiler: wall, the card's busy
                 time and idle share per level, the heaviest device ops
- 10. serve_profile  single-row requests of both loaded models under
+ 11. serve_profile  single-row requests of both loaded models under
                 torch.profiler: the card's busy time and idle share, the
                 device ops and copies a request
 The phases that run torch.profiler come after the slice and the selector,
 so no profiler session runs in the process before their walls are taken.
 Then the ``kernels`` summary line (``launches``: the slice's, the
-selector's and the regression phase's), the card's name and power limit,
+selector's, the regression phase's and the titanic phase's), the card's
+name and power limit,
 and the result line.  Any
 failed check exits non-zero.  Without a CUDA device the script exits with
 code 1 and prints no result.
@@ -140,17 +166,25 @@ import torch
 
 from transmogrifai_tpu_torch.cuda_build import build
 from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
+from transmogrifai_tpu_torch.evaluators.metrics import aupr
 from transmogrifai_tpu_torch.features.builder import FeatureBuilder
 from transmogrifai_tpu_torch.local import score_function_batch
 from transmogrifai_tpu_torch.models import gbdt_kernels as gk
-from transmogrifai_tpu_torch.models.trees import (OpGBTRegressor,
+from transmogrifai_tpu_torch.models.classification import \
+    OpLogisticRegression
+from transmogrifai_tpu_torch.models.trees import (SKETCH_KINDS,
+                                                  OpGBTRegressor,
+                                                  OpRandomForestClassifier,
                                                   OpXGBoostClassifier,
-                                                  boost_chains)
+                                                  boost_chains,
+                                                  prep_tree_inputs)
 from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+from transmogrifai_tpu_torch.ops.vectorizers import (SmartTextVectorizer,
+                                                     SmartTextVectorizerModel)
 from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
 from transmogrifai_tpu_torch.readers.files import CSVReader
 from transmogrifai_tpu_torch.selector.model_selector import (
-    BinaryClassificationModelSelector, RegressionModelSelector)
+    BinaryClassificationModelSelector, RegressionModelSelector, grid)
 from transmogrifai_tpu_torch.selector.validators import make_folds
 from transmogrifai_tpu_torch.serving import ModelServer
 from transmogrifai_tpu_torch.serving.http import make_http_server
@@ -192,6 +226,17 @@ DEEP_R2_FLOOR = 0.65
 #: rounds and trees of the regression tree paths grown at full size with
 #: every level's histograms held against the plain version
 CHECK_ROUNDS, CHECK_TREES = 2, 2
+#: the titanic phase: the seed of its label's uniform draws; the share of
+#: the attainable holdout AuPR (that of the true probabilities) the
+#: trained demo must reach (stated before the first chip run); the
+#: single-row requests it serves
+TITANIC_LABEL_SEED = 11
+TITANIC_AUPR_SHARE = 0.9
+TITANIC_SERVE_REQUESTS = 200
+#: demo forest trees grown on the checked matrix with every level held
+#: bitwise to the plain version: the demo's whole forest on one fold, so
+#: the check meets the deepest levels its trees reach
+TITANIC_CHECK_TREES = 50
 
 
 def _smi(query: str) -> str:
@@ -1021,6 +1066,349 @@ def _request_split(model, rows: list) -> dict:
             "outside_stages_ms": (total - sum(per_stage.values())) / n * 1e3}
 
 
+# ---------------------------------------------------------------------------
+# the titanic phase: the reference's headline demo at 1M + 100k rows
+# ---------------------------------------------------------------------------
+
+#: the demo frame's raw columns and their feature types
+TITANIC_SCHEMA = {
+    "Survived": ft.RealNN, "Pclass": ft.PickList, "Name": ft.Text,
+    "Sex": ft.PickList, "Age": ft.Real, "SibSp": ft.Integral,
+    "Parch": ft.Integral, "Ticket": ft.PickList, "Fare": ft.Real,
+    "Cabin": ft.PickList, "Embarked": ft.PickList}
+
+
+def make_titanic(rows: int, seed: int = 7) -> dict:
+    """examples/bench_pipeline.py's ``make_titanic_like`` recipe (the same
+    draws in the same order) as numpy columns, without pandas: Titanic's
+    columns and cardinalities (681 tickets, 147 cabins, 77% missing
+    cabins, 20% missing ages), names ``Passenger {i % 5000} von
+    Name{i % 97}``, and a label drawn independently of the features."""
+    rng = np.random.default_rng(seed)
+    cols = {}
+    cols["Survived"] = (rng.random(rows) > 0.62).astype(float)
+    cols["Pclass"] = rng.choice(["1", "2", "3"], rows, p=[0.24, 0.21, 0.55])
+    cols["Name"] = np.array([f"Passenger {i % 5000} von Name{i % 97}"
+                             for i in range(rows)], dtype=object)
+    cols["Sex"] = rng.choice(["male", "female"], rows, p=[0.65, 0.35])
+    cols["Age"] = np.where(rng.random(rows) < 0.2, np.nan,
+                           rng.normal(30, 13, rows).clip(0.4, 80))
+    cols["SibSp"] = rng.integers(0, 6, rows).astype(float)
+    cols["Parch"] = rng.integers(0, 5, rows).astype(float)
+    cols["Ticket"] = rng.choice([f"T{i}" for i in range(681)], rows)
+    cols["Fare"] = rng.lognormal(3.0, 1.0, rows)
+    cols["Cabin"] = np.where(rng.random(rows) < 0.77, None,
+                             rng.choice([f"C{i}" for i in range(147)], rows))
+    cols["Embarked"] = rng.choice(["S", "C", "Q"], rows,
+                                  p=[0.72, 0.19, 0.09])
+    return cols
+
+
+def titanic_data(rows: int, holdout: int):
+    """The demo's train and holdout datasets, the label regenerated with
+    signal (sigmoid(-1.1 + 2.4 [female] - 1.0 [3rd class] + 0.35
+    log1p(fare) - 0.015 age, 30 where missing) against uniform draws from
+    TITANIC_LABEL_SEED), the holdout's true probabilities and the
+    seconds taken."""
+    t0 = time.perf_counter()
+    n = rows + holdout
+    cols = make_titanic(n)
+    logit = (-1.1 + 2.4 * (cols["Sex"] == "female")
+             - 1.0 * (cols["Pclass"] == "3")
+             + 0.35 * np.log1p(cols["Fare"])
+             - 0.015 * np.nan_to_num(cols["Age"], nan=30))
+    p = 1 / (1 + np.exp(-logit))
+    u = np.random.default_rng(TITANIC_LABEL_SEED).random(n)
+    cols["Survived"] = (p > u).astype(float)
+
+    def ds(lo, hi):
+        return ColumnarDataset({
+            k: FeatureColumn.from_values(TITANIC_SCHEMA[k], v[lo:hi])
+            for k, v in cols.items()})
+
+    train, hold = ds(0, rows), ds(rows, n)
+    return train, hold, p[rows:], time.perf_counter() - t0
+
+
+def build_titanic():
+    """The demo's DAG exactly as examples/op_titanic_simple.py builds it,
+    with the port's imports: (prediction, features, checked, selector)."""
+    survived = FeatureBuilder.RealNN("Survived").as_response()
+    pclass = FeatureBuilder.PickList("Pclass").as_predictor()
+    name = FeatureBuilder.Text("Name").as_predictor()
+    sex = FeatureBuilder.PickList("Sex").as_predictor()
+    age = FeatureBuilder.Real("Age").as_predictor()
+    sibsp = FeatureBuilder.Integral("SibSp").as_predictor()
+    parch = FeatureBuilder.Integral("Parch").as_predictor()
+    ticket = FeatureBuilder.PickList("Ticket").as_predictor()
+    fare = FeatureBuilder.Real("Fare").as_predictor()
+    cabin = FeatureBuilder.PickList("Cabin").as_predictor()
+    embarked = FeatureBuilder.PickList("Embarked").as_predictor()
+
+    family_size = sibsp + parch + 1.0
+    estimated_cost = family_size * fare
+    pivoted_sex = sex.vectorize(top_k=2)
+
+    features = transmogrify([pclass, name, age, sibsp, parch, ticket,
+                             fare, cabin, embarked, family_size,
+                             estimated_cost, pivoted_sex])
+    checked = SanityChecker(remove_bad_features=True).set_input(
+        survived, features).get_output()
+    selector = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3,
+        models_and_parameters=[
+            (OpLogisticRegression(), grid(
+                reg_param=[0.01, 0.1, 0.3], elastic_net_param=[0.0])),
+            (OpRandomForestClassifier(), grid(
+                num_trees=[50], max_depth=[6, 12], min_info_gain=[0.001])),
+        ],
+    )
+    prediction = selector.set_input(survived, checked).get_output()
+    return prediction, features, checked, selector
+
+
+class _TitanicLevels:
+    """A ``hist_fn`` that launches the kernel, holds each level bitwise to
+    the plain version (integer channels) and keeps the level inputs of
+    the most slots for timing."""
+
+    def __init__(self):
+        self.levels, self.unequal, self.max_err = 0, 0, 0.0
+        self.widest = None
+
+    def __call__(self, binned, slot, ch, M: int, B: int):
+        k = gk.seg_level_hists(binned, slot, ch, M, B)
+        p = gk.seg_level_hists_plain(binned, slot, ch, M, B)
+        self.levels += 1
+        self.unequal += int(not torch.equal(k, p))
+        self.max_err = max(self.max_err, float((k - p).abs().max()))
+        if self.widest is None or M > self.widest[3]:
+            # a copy in the kernel's padded row layout
+            b = gk.binned_empty(*binned.shape, binned.device)
+            b.copy_(binned)
+            self.widest = (b, slot.clone(), ch.clone(), M, B)
+        return k
+
+
+def _titanic_levels(X: torch.Tensor, y: np.ndarray, msub: int, reps: int,
+                    bw: float, f32: float) -> dict:
+    """TITANIC_CHECK_TREES demo forest trees (depth 12, min info gain 0.001,
+    ``msub``-column subsets, the first fold's weights) grown on the
+    checked matrix binned as the demo's group bins it, every level held
+    bitwise to the plain version, with the count of trees by the levels
+    that split (``split_levels_per_tree[k]``: trees whose deepest split
+    is on level k - 1); then the level of most slots timed: the kernel,
+    the plain version, the library call (two weighted
+    ``torch.bincount``) and the bound."""
+    dev = X.device
+    edges, binned = prep_tree_inputs(X, 32)
+    fold = torch.from_numpy(
+        (make_folds(X.shape[0], 3, seed=42) != 0).astype(np.float32)).to(dev)
+    chk = _TitanicLevels()
+    forest = gk.grow_rf_grid(
+        binned, torch.from_numpy(y).to(dev), fold[None], seed=42,
+        n_trees=TITANIC_CHECK_TREES, pair_fold=[0], pair_min_ig=[0.001],
+        pair_min_inst=[1], pair_depth=[12], msub=msub, subsample_rate=1.0,
+        n_bins=32, hist_fn=chk)
+    b, slot, ch, M, B = chk.widest
+    del binned, chk.widest
+    splits = forest.thresh[0] < 32                       # (T, 2^12 - 1)
+    level_of = torch.log2(torch.arange(1, splits.shape[1] + 1,
+                                       device=dev).double()).floor().long()
+    deepest = torch.where(splits, level_of + 1, 0).amax(dim=1)
+    split_levels = torch.bincount(deepest.cpu(), minlength=13).tolist()
+    n, dd = b.shape
+    args = (b, slot, ch, M, B)
+    kernel_ms = time_ms(lambda: gk.seg_level_hists(*args), reps)
+    plain_ms = time_ms(lambda: gk.seg_level_hists_plain(*args), 3, 1)
+    flat = ((slot.long()[:, None] * B + b.long()) * dd
+            + torch.arange(dd, device=dev)[None, :]).reshape(-1)
+    ws = [ch[:, c:c + 1].expand(n, dd).reshape(-1) for c in range(2)]
+    library_ms = time_ms(lambda: [torch.bincount(flat, weights=w,
+                                                 minlength=M * B * dd)
+                                  for w in ws], 3, 1)
+    del flat, ws
+    nbytes = n * dd + n * 4 + n * 2 * 4 + M * 2 * B * dd * 4
+    ops = n * dd * 2
+    return {"phase": "seg_hist", "path": "titanic", "N": n, "d": dd, "B": B,
+            "nchan": 2, "M": M, "row_stride": b.stride(0),
+            "trees": TITANIC_CHECK_TREES, "levels_checked": chk.levels,
+            "levels_unequal": chk.unequal, "max_abs_err": chk.max_err,
+            "bitwise_equal": chk.unequal == 0,
+            "splits": int((forest.thresh < 32).sum()),
+            "split_levels_per_tree": split_levels,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": max(nbytes / bw, ops / f32) * 1e3,
+            "bound_by": "bytes" if nbytes / bw >= ops / f32
+            else "operations", "bytes": nbytes}
+
+
+def _titanic_rows(hold, k: int) -> list:
+    """The first ``k`` holdout rows as a client sends them: raw values by
+    feature name, missing ones as None, no label."""
+    names = [nm for nm in TITANIC_SCHEMA if nm != "Survived"]
+    return _regression_rows(hold, names, k)
+
+
+def phase_titanic(rows: int, holdout: int, reps: int, bw: float,
+                  f32: float):
+    """The reference's headline demo on the card: train, the sketch it
+    took, holdout AuPR against the attainable, the kernel on the demo's
+    own levels, save/load, the local scorer and single-row serving."""
+    train, hold, p_hold, data_s = titanic_data(rows, holdout)
+    pred, features, checked, selector = build_titanic()
+    wf = OpWorkflow().set_result_features(pred).set_input_data(train)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kinds = dict(SKETCH_KINDS)
+    gk.seg_level_hists.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train()
+    train_s = time.perf_counter() - t0
+    launches = gk.seg_level_hists.launches
+    peak = torch.cuda.max_memory_allocated()
+    kinds = {k: SKETCH_KINDS[k] - kinds[k] for k in kinds}
+    # the training transform's split, before scoring transforms again
+    smart = next(s for s in model.stages
+                 if isinstance(s, SmartTextVectorizerModel))
+    smart_transform_s = dict(smart.transform_seconds)
+    t0 = time.perf_counter()
+    scored, metrics = model.score_and_evaluate(
+        Evaluators.BinaryClassification.auPR(), data=hold)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    proba = scored[pred.name].values.probability
+    y_hold = torch.as_tensor(np.asarray(hold["Survived"].values,
+                                        np.float32))
+    attainable = aupr(y_hold, torch.from_numpy(p_hold.astype(np.float32)))
+    aupr_hold = float(metrics["AuPR"])
+
+    meta = selector.metadata
+    summary = meta["model_selector_summary"]
+    results = summary["validationResults"]
+    smart_est = next(f.origin_stage for f in features.parents
+                     if isinstance(f.origin_stage, SmartTextVectorizer))
+    secs = model.stage_seconds
+    vec_stages = ("RealVectorizer", "IntegralVectorizer", "OneHotVectorizer",
+                  "SmartTextVectorizer", "VectorsCombiner")
+    d_before = int(model.train_data[features.name].values.shape[1])
+    X = model.train_data[checked.name].values
+    d_after = int(X.shape[1])
+    msub = int(np.sqrt(d_after))
+    y = np.asarray(train["Survived"].values, np.float32)
+    kernel_row = _titanic_levels(X, y, msub, reps, bw, f32)
+    del X
+
+    # save -> load on the card -> the holdout bitwise; the local scorer
+    tmp = os.path.join(REPO, "smoke_out")
+    path = os.path.join(tmp, "titanic")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    req = _titanic_rows(hold, SEQ_REQUESTS)
+    try:
+        t0 = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(path)
+        t0 = time.perf_counter()
+        loaded = OpWorkflowModel.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        reloaded = loaded.score(hold)[pred.name].values.probability
+        bitwise = bool(torch.equal(reloaded, proba))
+        local = [r[pred.name]["probability_1"]
+                 for r in score_function_batch(loaded)(req[:64])]
+        batch64 = loaded.score(hold.slice(0, 64))[pred.name] \
+            .values.probability[:, 1]
+        local_equal = local == batch64.cpu().tolist()
+        split = _request_split(loaded, req[:SPLIT_REQUESTS])
+        lat, served = [], []
+        with ModelServer.from_path(path, name="titanic", max_batch=64,
+                                   warmup_row=req[0]) as srv:
+            for r in req[:TITANIC_SERVE_REQUESTS]:
+                t = time.perf_counter()
+                out = srv.score([r])
+                lat.append(time.perf_counter() - t)
+                served.append(out[0][pred.name]["probability_1"])
+            snap = srv.snapshot()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    served_diff = float(np.abs(np.asarray(served) - proba[
+        :len(served), 1].cpu().numpy().astype(np.float64)).max())
+
+    out = {"phase": "titanic", "rows": rows, "holdout": holdout,
+           "data_s": data_s, "train_s": train_s, "score_s": score_s,
+           "stage_seconds": secs,
+           "smart_text_fit_s": smart_est.fit_seconds,
+           "smart_text_transform_s": smart_transform_s,
+           "transmogrify_s": sum(secs.get(k, 0.0) for k in vec_stages),
+           "feature_arithmetic_s": sum(
+               secs.get(k, 0.0) for k in ("MathBinaryTransformer",
+                                          "MathScalarTransformer")),
+           "sanity_checker_s": secs.get("SanityChecker"),
+           "text_strategies": smart.metadata.get("text_strategies"),
+           "sketch_kinds": kinds, "d_before_checker": d_before,
+           "d_after_checker": d_after, "rf_subset_width": msub,
+           "winner": summary["bestModelType"],
+           "winner_params": summary["bestModelParams"],
+           "cv": [{"model": r["modelType"], "params": r["params"],
+                   "metric": r["metricValue"], "folds": r["foldValues"],
+                   "error": r.get("error")} for r in results],
+           "sweep_seconds": meta["sweep_seconds"],
+           "tree_phase_seconds": meta["tree_phase_seconds"],
+           "group_errors": meta["group_errors"],
+           "holdout_aupr": aupr_hold, "attainable_aupr": attainable,
+           "aupr_floor": TITANIC_AUPR_SHARE * attainable,
+           "holdout_metrics": metrics, "rf_trees": meta["rf_trees"],
+           "seg_hist_launches": launches,
+           "growers_hist_levels": meta["hist_levels"],
+           "max_memory_allocated": peak,
+           "dropped_columns": len(checked.origin_stage.metadata["summary"]
+                                  ["dropped"]),
+           "save_s": save_s, "load_s": load_s, "artifact_bytes": nbytes,
+           "holdout_bitwise_after_load": bitwise,
+           "local_scorer_rows_equal": local_equal,
+           "request_split": split,
+           "serve_batch1": _pcts(lat), "served_max_abs_diff": served_diff,
+           "server_shed": snap["shed"],
+           "server_device_errors": snap["deviceErrors"]}
+    emit(out)
+    emit(kernel_row)
+    check(tuple(proba.shape) == (holdout, 2), f"proba shape {proba.shape}")
+    check(bool(torch.isfinite(proba).all()), "non-finite probabilities")
+    check(len(results) == 5, f"{len(results)} validation results, not 5")
+    errors = [r["error"] for r in results if r.get("error")]
+    check(not errors, f"candidates failed: {errors}")
+    check(not meta["group_errors"],
+          f"grid groups failed: {meta['group_errors']}")
+    check({"LogRegGridGroup", "RFGridGroup"} <= set(meta["sweep_seconds"]),
+          f"grid groups not run: {sorted(meta['sweep_seconds'])}")
+    check(kinds["sparse_aware"] > 0 and kinds["dense"] == 0,
+          f"titanic: the tree prep took the sketches {kinds}, not the "
+          f"nonzero-aware one")
+    check(launches > 0 and launches == meta["hist_levels"],
+          f"seg_hist launches {launches} != the growers' "
+          f"{meta['hist_levels']} histogram levels")
+    check(aupr_hold >= TITANIC_AUPR_SHARE * attainable,
+          f"titanic: holdout AuPR {aupr_hold} below {TITANIC_AUPR_SHARE} x "
+          f"the attainable {attainable}")
+    check(kernel_row["bitwise_equal"] and kernel_row["levels_checked"] > 0,
+          f"titanic: {kernel_row['levels_unequal']} of "
+          f"{kernel_row['levels_checked']} levels differ from the plain "
+          f"version by up to {kernel_row['max_abs_err']}")
+    check(bitwise, "titanic: holdout scores after save/load differ")
+    check(local_equal, "titanic: local scorer rows differ from the loaded "
+          "model's batch")
+    check(served_diff <= 1e-6 and snap["shed"] == 0
+          and snap["deviceErrors"] == 0,
+          f"titanic: served scores {served_diff} from the in-memory "
+          f"model's, shed {snap['shed']}, device errors "
+          f"{snap['deviceErrors']}")
+    return out
+
+
 def phase_serve_profile(served: list, rows: list) -> None:
     """Single-row requests of each saved-and-loaded model under
     torch.profiler: the card's busy time, idle share, device ops and
@@ -1442,6 +1830,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     reg = phase_regression(data, args.cols)
     torch.cuda.empty_cache()
+    titanic = phase_titanic(args.rows, args.holdout, args.reps, bw, f32)
+    torch.cuda.empty_cache()
     served, request_rows = phase_serve([xgb, lr], args.cols)
     del xgb, lr, data
     torch.cuda.empty_cache()
@@ -1472,7 +1862,8 @@ def main() -> int:
         "name": "seg_hist", "route": "cuda", "source": SEG_HIST_SOURCE,
         "replaces": SEG_HIST_REPLACES,
         "launches": (sl["seg_hist_launches"] + sel["seg_hist_launches"]
-                     + reg["seg_hist_launches_total"]),
+                     + reg["seg_hist_launches_total"]
+                     + titanic["seg_hist_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in seg),
         "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": levels[-1]["bound_by"],

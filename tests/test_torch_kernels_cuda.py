@@ -289,6 +289,33 @@ def test_seg_hist_forest_levels_bitwise(cuda_device, M):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 512, 2048])
+def test_seg_hist_titanic_levels_bitwise(cuda_device, M):
+    """The Titanic demo's forest levels: d = 23 subset columns (the square
+    root of its ~575 checked columns) in 32-byte rows, 1M rows of a
+    mostly zero matrix binned by the nonzero-aware sketch, so ~96% of the
+    entries fall in bin 0 (the zeros, at the pinned 0 edge), integer channels
+    (bw [y=0], bw) of Poisson bags: every sum an exact integer, so the
+    kernel equals the plain version bitwise."""
+    rng = np.random.default_rng(M + 1)
+    n, d, B = 1_000_000, 23, 32
+    bins = np.where(rng.random((n, d)) < 0.96, 0,
+                    rng.integers(0, B, size=(n, d))).astype(np.uint8)
+    binned = tk.binned_empty(n, d, cuda_device)
+    binned.copy_(torch.from_numpy(bins))
+    assert binned.stride() == (32, 1)
+    bw = rng.poisson(1.0, n).astype(np.float32)
+    y0 = (rng.random(n) < 0.5).astype(np.float32)
+    ch = torch.from_numpy(np.stack([bw * y0, bw], 1)).to(cuda_device)
+    slot = torch.from_numpy(rng.integers(0, M, n).astype(np.int32)).to(
+        cuda_device)
+    a = tk.seg_level_hists(binned, slot, ch, M, B)
+    b = tk.seg_level_hists(binned, slot, ch, M, B)
+    plain = tk.seg_level_hists_plain(binned, slot, ch, M, B)
+    assert torch.equal(a, b) and torch.equal(a, plain)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d,M", [(169, 1), (169, 64), (169, 2048),
                                  (508, 1024), (508, 2048)])
 def test_seg_hist_regression_levels(cuda_device, d, M):

@@ -297,10 +297,15 @@ def test_integral_vectorizer_matches_jax():
 
 def test_transmogrify_refuses_dates():
     """Date features (an Integral subtype) form the JAX package's date
-    group, which the port lacks: it raises instead of vectorizing them as
-    integrals."""
-    with pytest.raises(NotImplementedError, match="Date"):
-        transmogrify([FeatureBuilder.Date("d").as_predictor()])
+    group: transmogrify refuses them to the integral vectorizer and gives
+    them the date group's unit-circle vectorizer."""
+    from transmogrifai_tpu_torch.ops.date_geo import \
+        DateToUnitCircleVectorizer
+    from transmogrifai_tpu_torch.ops.vectorizers import IntegralVectorizer
+
+    out = transmogrify([FeatureBuilder.Date("d").as_predictor()])
+    assert isinstance(out.origin_stage, DateToUnitCircleVectorizer)
+    assert not isinstance(out.origin_stage, IntegralVectorizer)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,11 @@
 slice runs:
 
  * ``quantile_bins`` (the JAX package's numpy row sample and quantiles, the
-   sample's columns sorted on the matrix's device) and ``apply_bins``
-   (binned matrix as uint8 on the device);
+   sample's columns sorted on the matrix's device),
+   ``quantile_bins_sparse_aware`` (the nonzero-aware sketch of mostly
+   zero columns: the same sample, copied to the host once, and the JAX
+   package's per-column host arithmetic) and ``apply_bins`` (binned
+   matrix as uint8 on the device);
  * ``default_dir_mask`` and ``route_right`` — the split routing rule;
  * ``grow_tree`` — level-wise growth in ``newton`` mode (gradient and
    hessian channels, XGBoost gating), default-direction splits and node
@@ -22,7 +25,7 @@ slice runs:
    version ``seg_level_hists_plain`` on CPU tensors.  Both the boosted and
    the forest growers build every level through it.
 
-Not ported yet (ROADMAP Queue A): EFB bundling, the CSR sparse path,
+Not ported yet (ROADMAP Queue A): EFB bundling, the CSR histogram path,
 sibling subtraction, multiclass forests and sharded growth.
 """
 from __future__ import annotations
@@ -34,7 +37,8 @@ from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
-__all__ = ["TreeArrays", "quantile_bins", "apply_bins", "default_dir_mask",
+__all__ = ["TreeArrays", "quantile_bins", "quantile_bins_sparse_aware",
+           "SPARSE_SKETCH_ZERO_FRAC", "apply_bins", "default_dir_mask",
            "route_right", "binned_empty", "SegPlan",
            "seg_plan", "seg_layout", "seg_level_hists",
            "seg_level_hists_plain",
@@ -103,13 +107,64 @@ def quantile_bins(X: torch.Tensor, max_bins: int = 32,
     """Per-feature quantile bin edges (D, max_bins-1) float32 of a (N, D)
     matrix: the JAX package's numpy row draw picks the sample, whose columns
     are sorted on X's device and copied to the host for the quantiles."""
-    n = X.shape[0]
-    if n > sample_rows:
-        rng = np.random.default_rng(seed)
-        idx = torch.from_numpy(rng.choice(n, sample_rows, replace=False))
-        X = X.index_select(0, idx.to(X.device))
+    X = _sample_rows(X, sample_rows, seed)
     cols = torch.sort(X.T.contiguous(), dim=1).values
     return _edges_of_sorted(cols.cpu().numpy(), max_bins)
+
+
+def _sample_rows(X: torch.Tensor, sample_rows: int, seed: int
+                 ) -> torch.Tensor:
+    """The JAX package's numpy row draw (``default_rng(seed).choice``
+    without replacement), gathered on X's device; X itself when it has at
+    most ``sample_rows`` rows."""
+    n = X.shape[0]
+    if n <= sample_rows:
+        return X
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.choice(n, sample_rows, replace=False))
+    return X.index_select(0, idx.to(X.device))
+
+
+#: a feature at least this fraction zero spends its quantiles on its
+#: nonzero values, with an edge pinned at 0: an all-values sketch of a 95%
+#: zero feature collapses every sub-0.95 quantile to 0 (XGBoost's sketch
+#: is sparsity-aware)
+SPARSE_SKETCH_ZERO_FRAC = 0.5
+
+
+def quantile_bins_sparse_aware(X: torch.Tensor, max_bins: int = 32,
+                               sample_rows: int = 200_000,
+                               seed: int = 7) -> np.ndarray:
+    """Bin edges (D, max_bins-1) float32 like ``quantile_bins``, but a
+    mostly zero feature sketches the quantiles of its nonzero values plus
+    a pinned 0.0 edge; NaN never enters a sketch.  The row sample is
+    ``quantile_bins``' own, copied to the host in one (D, n) transfer; the
+    per-column arithmetic is the JAX package's, on the same float32
+    values in the same order, so the edges are bit-equal to its."""
+    X = torch.as_tensor(X, dtype=torch.float32)
+    d = X.shape[1]
+    S = _sample_rows(X, sample_rows, seed)
+    n = S.shape[0]
+    cols = S.T.contiguous().cpu().numpy()
+    del S
+    edges = np.full((d, max_bins - 1), np.inf, np.float32)
+    qs_dense = np.linspace(0, 1, max_bins + 1)[1:-1]
+    qs_sparse = np.linspace(0, 1, max_bins)[1:-1]     # B-2 qs + the 0 edge
+    eps = 1e-7
+    for j in range(d):
+        col = cols[j]
+        nz = col[(col != 0) & ~np.isnan(col)]
+        if len(nz) and 1.0 - len(nz) / n >= SPARSE_SKETCH_ZERO_FRAC:
+            e = np.unique(np.concatenate(
+                [[0.0], np.quantile(nz, qs_sparse)]).astype(np.float32))
+        else:
+            e = np.nanquantile(col, qs_dense).astype(np.float32)
+            e = e[np.isfinite(e)]
+            dup = (np.concatenate([[False], np.diff(e) <= eps])
+                   if len(e) else np.zeros(0, bool))
+            e = e[~dup]
+        edges[j, :len(e)] = e[:max_bins - 1]
+    return edges
 
 
 #: rows per block of the binning pass

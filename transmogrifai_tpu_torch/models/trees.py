@@ -15,10 +15,12 @@ or one-third (regression) feature subsets, count-gated growth
 (``gbdt_kernels.grow_forest_rf``).  ``TreeEnsembleModel`` scores the
 ``gbdt_binary``, ``gbdt_reg``, ``rf_cls`` and ``rf_reg`` modes.
 
-Not ported yet (ROADMAP Queue A): decision trees, multiclass objectives
-and forests, GBT row/column subsampling and fractional sample weights
-(the count channel), EFB, the sparse path and the upload/binning memo
-caches.
+Every tree fit bins through ``prep_tree_inputs``, which takes the
+nonzero-aware sketch for a wide, mostly zero matrix as the JAX package
+does.  Not ported yet (ROADMAP Queue A): decision trees, multiclass
+objectives and forests, GBT row/column subsampling and fractional sample
+weights (the count channel), EFB, the CSR histogram path and the
+upload/binning memo caches.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from . import gbdt_kernels
 from .gbdt_kernels import (
     HistFn, TreeArrays, apply_bins, default_dir_mask, goss_plan, goss_rows,
     grow_forest_rf, grow_tree, predict_ensemble, predict_tree,
-    quantile_bins, seg_level_hists,
+    quantile_bins, quantile_bins_sparse_aware, seg_level_hists,
 )
 from .prediction import PredictionBatch, PredictorEstimator, PredictorModel
 
@@ -306,8 +308,7 @@ class _GBTBase(PredictorEstimator):
         timing = {}
         with torch.profiler.record_function("tmog.binning"):
             t0 = time.perf_counter()
-            edges = quantile_bins(X, self.max_bins)
-            binned = apply_bins(X, edges)
+            edges, binned = prep_tree_inputs(X, self.max_bins)
             _sync(dev)
             timing["binning_s"] = time.perf_counter() - t0
 
@@ -475,33 +476,45 @@ class OpXGBoostRegressor(OpXGBoostClassifier):
         return _GBTBase.fit_raw(self, X, y, w, device=device)
 
 
-#: the JAX package's sparse-path rule: a matrix of at least this many
-#: elements whose sampled zero fraction reaches _SPARSE_ZERO_FRAC takes a
-#: nonzero-aware sketch, which is not ported
+#: the JAX package's sparse rule: a matrix of at least this many elements
+#: whose sampled zero fraction reaches _SPARSE_ZERO_FRAC takes the
+#: nonzero-aware sketch
 _SPARSE_MIN_ELEMS = 1 << 24
 _SPARSE_ZERO_FRAC = 0.75
 
+#: how many times ``prep_tree_inputs`` took each sketch, by kind
+SKETCH_KINDS = {"dense": 0, "sparse_aware": 0}
+
+
+def sketch_kind(X: torch.Tensor) -> str:
+    """``"sparse_aware"`` for a matrix of at least ``_SPARSE_MIN_ELEMS``
+    elements whose every (n // 4096)-th row is at least
+    ``_SPARSE_ZERO_FRAC`` zero, else ``"dense"``.  The zeros are counted
+    as an integer and divided in float64, as the JAX package's host mean
+    of booleans is, so a fraction at the threshold decides the same."""
+    if X.numel() < _SPARSE_MIN_ELEMS:
+        return "dense"
+    sample = X[::max(1, X.shape[0] // 4096)]
+    zeros = int((sample == 0).sum())
+    return ("sparse_aware" if zeros / sample.numel() >= _SPARSE_ZERO_FRAC
+            else "dense")
+
 
 def prep_tree_inputs(X: torch.Tensor, max_bins: int, row_weight=None):
-    """Bin edges and the binned matrix of a forest fit: the quantile
-    sketch over the rows up to the last one of positive ``row_weight``
-    (a trailing block of zero-weight rows never moves the edges; interior
-    ones stay in the sketch, as in the JAX package's weighted sketch),
-    binning over every row.  Raises where the JAX package would take its
-    nonzero-aware sketch of a wide, mostly zero matrix."""
+    """Bin edges and the binned matrix of a tree fit: the quantile sketch
+    (``sketch_kind``'s choice) over the rows up to the last one of
+    positive ``row_weight`` (a trailing block of zero-weight rows never
+    moves the edges; interior ones stay in the sketch, as in the JAX
+    package's weighted sketch), binning over every row."""
     Xm = X
     if row_weight is not None:
         nz = np.flatnonzero(np.asarray(row_weight) > 0)
         if len(nz):
             Xm = X[:nz[-1] + 1]
-    step = max(1, Xm.shape[0] // 4096)
-    if (Xm.numel() >= _SPARSE_MIN_ELEMS
-            and float((Xm[::step] == 0).to(torch.float32).mean())
-            >= _SPARSE_ZERO_FRAC):
-        raise NotImplementedError(
-            "the nonzero-aware sketch of mostly zero matrices is not ported "
-            "yet (ROADMAP Queue A)")
-    edges = quantile_bins(Xm, max_bins)
+    kind = sketch_kind(Xm)
+    SKETCH_KINDS[kind] += 1
+    edges = (quantile_bins_sparse_aware(Xm, max_bins)
+             if kind == "sparse_aware" else quantile_bins(Xm, max_bins))
     return edges, apply_bins(X, edges)
 
 

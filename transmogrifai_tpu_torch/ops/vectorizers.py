@@ -1,24 +1,34 @@
-"""Default vectorizers of ``transmogrify()`` for the ported types.
+"""Default vectorizers of ``transmogrify()``.
 
 Counterparts of ``transmogrifai_tpu.ops.vectorizers``:
  * ``RealVectorizer`` — fill missing reals with the mean + null-indicator slots
  * ``IntegralVectorizer`` — fill missing integrals with the mode (ties go
    to the smallest value) + null-indicator slots; its fitted stage is a
    ``RealVectorizerModel``, as in the JAX package
+ * ``BinaryVectorizer`` — Binary -> {0, 1} with a fill + null indicators
  * ``OneHotVectorizer`` — TopK pivot of categorical text with OTHER and
    null-indicator slots
+ * ``MultiPickListVectorizer`` — TopK multi-hot pivot of sets
+ * ``TextHashingVectorizer`` — murmur3 hashing of tokenized text
+ * ``SmartTextVectorizer`` — per text field, pivot, hash or ignore by its
+   cardinality and fill rate (``TextStats``)
  * ``VectorsCombiner`` — concatenates OPVectors and merges their metadata
 
 Fits run on the host over the raw numpy columns (the same float64
-arithmetic as the JAX package, so fill values and vocabularies match
-exactly).  Transforms emit the (N, D) float32 matrix as a tensor on the
-stage's device.  Drift baselines and the streaming-fit protocol are not
-ported yet.
+arithmetic and the same counting order as the JAX package, so fill
+values, vocabularies, strategies and bucket ids match exactly).
+Transforms emit the (N, D) float32 matrix as a tensor on the stage's
+device; the blocks of the host-built vectorizers are made as one host
+array and moved in one copy.  Drift baselines and the streaming-fit
+protocol are not ported yet.
 """
 from __future__ import annotations
 
+import itertools
+import re
+import time
 from collections import Counter
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,18 +36,29 @@ import torch
 from ..device import resolve_device
 from ..stages.base import SequenceEstimator, SequenceModel, SequenceTransformer
 from ..types.columns import ColumnarDataset, FeatureColumn
-from ..types.feature_types import OPNumeric, OPVector, Text
+from ..types.feature_types import OPNumeric, OPSet, OPVector, Text
+from ..utils.hashing import murmur3_32
 from .vector_metadata import (
     NULL_INDICATOR, OTHER_INDICATOR, VectorColumnMetadata, VectorMetadata,
 )
 
 __all__ = ["RealVectorizer", "RealVectorizerModel", "IntegralVectorizer",
-           "OneHotVectorizer",
-           "OneHotVectorizerModel", "VectorsCombiner"]
+           "BinaryVectorizer", "OneHotVectorizer", "OneHotVectorizerModel",
+           "MultiPickListVectorizer", "MultiPickListVectorizerModel",
+           "TextHashingVectorizer", "TextStats", "SmartTextVectorizer",
+           "SmartTextVectorizerModel", "VectorsCombiner"]
 
 
 def _vec_column(mat: torch.Tensor, meta: VectorMetadata) -> FeatureColumn:
     return FeatureColumn(OPVector, mat, vmeta=meta)
+
+
+def _host_vec_column(arr: np.ndarray, meta: VectorMetadata,
+                     device) -> FeatureColumn:
+    """A host-built block as float32 on the stage's device: one copy."""
+    block = np.ascontiguousarray(arr, dtype=np.float32)
+    return _vec_column(torch.from_numpy(block).to(resolve_device(device)),
+                       meta)
 
 
 def _pivot_vocab(values, top_k: int, min_support: int) -> List:
@@ -145,6 +166,37 @@ class IntegralVectorizer(SequenceEstimator):
                                    device=self.device)
 
 
+class BinaryVectorizer(SequenceTransformer):
+    """Binary -> {0, 1} with ``fill_value`` for missing values + optional
+    null-indicator slots (stateless)."""
+
+    input_types = (OPNumeric,)
+
+    def __init__(self, fill_value: bool = False, track_nulls: bool = True,
+                 device: Optional[str] = None, uid: Optional[str] = None):
+        super().__init__(operation_name="vecBinary", output_type=OPVector,
+                         uid=uid)
+        self.fill_value = fill_value
+        self.track_nulls = track_nulls
+        self.device = device
+
+    def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
+        parts, meta = [], []
+        for f, c in zip(self.input_features, cols):
+            vals = np.nan_to_num(np.asarray(c.values, dtype=np.float64))
+            m = np.asarray(c.mask)
+            parts.append(np.where(m, vals, float(self.fill_value)))
+            meta.append(VectorColumnMetadata(f.name, f.ftype.type_name()))
+            if self.track_nulls:
+                parts.append(~m)
+                meta.append(VectorColumnMetadata(
+                    f.name, f.ftype.type_name(),
+                    indicator_value=NULL_INDICATOR))
+        return _host_vec_column(np.stack(parts, axis=1),
+                                VectorMetadata("binary_vec", meta),
+                                self.device)
+
+
 class OneHotVectorizer(SequenceEstimator):
     """TopK pivot of categorical text with OTHER + null indicator columns
     (defaults TopK=20, minSupport=10)."""
@@ -213,14 +265,385 @@ class OneHotVectorizerModel(SequenceModel):
         return _vec_column(out, VectorMetadata("onehot_vec", meta))
 
 
+class MultiPickListVectorizer(SequenceEstimator):
+    """TopK multi-hot pivot of MultiPickList sets with OTHER + null
+    indicator columns."""
+
+    input_types = (OPSet,)
+
+    def __init__(self, top_k: int = 20, min_support: int = 10,
+                 track_nulls: bool = True, device: Optional[str] = None,
+                 uid: Optional[str] = None):
+        super().__init__(operation_name="pivotSet", output_type=OPVector,
+                         uid=uid)
+        self.top_k = top_k
+        self.min_support = min_support
+        self.track_nulls = track_nulls
+        self.device = device
+
+    def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
+        # the cells flattened in iteration order: the first occurrence
+        # breaks count ties, as Counter.update over the sets would
+        vocabs = [_pivot_vocab([v for s in c.values for v in s], self.top_k,
+                               self.min_support) for c in cols]
+        return MultiPickListVectorizerModel(
+            vocabs=vocabs, track_nulls=self.track_nulls, device=self.device)
+
+
+class MultiPickListVectorizerModel(SequenceModel):
+    input_types = (OPSet,)
+
+    def __init__(self, vocabs: List[List[str]], track_nulls: bool = True,
+                 device: Optional[str] = None, uid: Optional[str] = None):
+        super().__init__(operation_name="pivotSet", output_type=OPVector,
+                         uid=uid)
+        self.vocabs = vocabs
+        self.track_nulls = track_nulls
+        self.device = device
+
+    def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
+        n = len(cols[0])
+        step = 1 + (1 if self.track_nulls else 0)
+        widths = [len(v) + step for v in self.vocabs]
+        out = np.zeros((n, sum(widths)), dtype=np.float32)
+        meta = []
+        off = 0
+        for f, vocab, c, w in zip(self.input_features, self.vocabs, cols,
+                                  widths):
+            index = {v: i for i, v in enumerate(vocab)}
+            k = len(vocab)
+            block = out[:, off:off + w]
+            for row, s in enumerate(c.values):
+                if not s:
+                    if self.track_nulls:
+                        block[row, w - 1] = 1.0
+                    continue
+                hit = False
+                for v in s:
+                    j = index.get(v)
+                    if j is not None:
+                        block[row, j] = 1.0
+                        hit = True
+                if not hit:
+                    block[row, k] = 1.0
+            tname = f.ftype.type_name()
+            names = list(vocab) + [OTHER_INDICATOR]
+            if self.track_nulls:
+                names.append(NULL_INDICATOR)
+            meta += [VectorColumnMetadata(f.name, tname, grouping=f.name,
+                                          indicator_value=v) for v in names]
+            off += w
+        return _host_vec_column(out, VectorMetadata("set_vec", meta),
+                                self.device)
+
+
+# ---------------------------------------------------------------------------
+# Hashing
+# ---------------------------------------------------------------------------
+
+_TOKEN_SPLIT = re.compile(r"[^\w']+", re.UNICODE)
+
+
+def _tokenize(v: Optional[str]) -> List[str]:
+    """Lowercased word tokens of a text value (none for a missing one)."""
+    if v is None:
+        return []
+    return [t for t in _TOKEN_SPLIT.split(v.lower()) if t]
+
+
+def _row_tokens(v) -> List[str]:
+    """Tokens of one cell: a string is word-tokenized; a collection cell
+    (a list or set of any values, e.g. DateList epoch ints) hashes its
+    elements' string forms."""
+    if v is None:
+        return []
+    if isinstance(v, str):
+        return _tokenize(v)
+    return [str(t) for t in v]
+
+
+def _hash_rows(values, block: np.ndarray, offset: int, nf: int, seed: int,
+               binary_freq: bool = False) -> np.ndarray:
+    """Add the token counts of one column into ``block[:, offset:offset +
+    nf]`` (set them to 1 under ``binary_freq``); returns a bool array of
+    the rows with no token.  Each distinct string is tokenized and hashed
+    once; the counts land in one scatter-add (small integers, exact in
+    float32), so the block equals a per-token ``+= 1`` loop's."""
+    bucket_of: Dict[str, int] = {}
+    by_value: Dict[str, List[int]] = {}
+
+    def buckets(toks: List[str]) -> List[int]:
+        out = []
+        for t in toks:
+            b = bucket_of.get(t)
+            if b is None:
+                b = bucket_of[t] = murmur3_32(t, seed) % nf
+            out.append(b)
+        return out
+
+    per_row = []
+    for v in values:
+        if isinstance(v, str):
+            bs = by_value.get(v)
+            if bs is None:
+                bs = by_value[v] = buckets(_tokenize(v))
+        else:
+            bs = buckets(_row_tokens(v))
+        per_row.append(bs)
+    n = len(per_row)
+    lens = np.fromiter(map(len, per_row), dtype=np.int64, count=n)
+    cols = np.fromiter(itertools.chain.from_iterable(per_row),
+                       dtype=np.int64, count=int(lens.sum())) + offset
+    rows = np.repeat(np.arange(n), lens)
+    if binary_freq:
+        block[rows, cols] = 1.0
+    else:
+        np.add.at(block, (rows, cols), np.float32(1.0))
+    return lens == 0
+
+
+class TextHashingVectorizer(SequenceTransformer):
+    """Murmur3 feature hashing of tokenized text (stateless): 512 buckets
+    a feature by default, or one bucket space shared by all inputs
+    (``shared_hash_space``), + null indicators."""
+
+    def __init__(self, num_features: int = 512, binary_freq: bool = False,
+                 shared_hash_space: bool = False, track_nulls: bool = True,
+                 seed: int = 42, device: Optional[str] = None,
+                 uid: Optional[str] = None):
+        super().__init__(operation_name="textHash", output_type=OPVector,
+                         uid=uid)
+        self.num_features = num_features
+        self.binary_freq = binary_freq
+        self.shared_hash_space = shared_hash_space
+        self.track_nulls = track_nulls
+        self.seed = seed
+        self.device = device
+
+    def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
+        n = len(cols[0])
+        nf = self.num_features
+        n_spaces = 1 if self.shared_hash_space else len(cols)
+        n_nulls = len(cols) if self.track_nulls else 0
+        out = np.zeros((n, n_spaces * nf + n_nulls), dtype=np.float32)
+        for ci, c in enumerate(cols):
+            offset = 0 if self.shared_hash_space else ci * nf
+            empty = _hash_rows(c.values, out, offset, nf, self.seed,
+                               self.binary_freq)
+            if self.track_nulls:
+                out[:, n_spaces * nf + ci] = empty
+        meta: List[VectorColumnMetadata] = []
+        if self.shared_hash_space:
+            pf = ",".join(f.name for f in self.input_features)
+            meta += [VectorColumnMetadata(pf, "Text", grouping=None,
+                                          descriptor_value=f"hash_{b}")
+                     for b in range(nf)]
+        else:
+            meta += [VectorColumnMetadata(f.name, f.ftype.type_name(),
+                                          descriptor_value=f"hash_{b}")
+                     for f in self.input_features for b in range(nf)]
+        if self.track_nulls:
+            meta += [VectorColumnMetadata(f.name, f.ftype.type_name(),
+                                          indicator_value=NULL_INDICATOR)
+                     for f in self.input_features]
+        return _host_vec_column(out, VectorMetadata("hash_vec", meta),
+                                self.device)
+
+
+# ---------------------------------------------------------------------------
+# SmartTextVectorizer
+# ---------------------------------------------------------------------------
+
+class TextStats:
+    """Text statistics of one field: value counts (until more than
+    ``max_card`` distinct values are seen: saturated), rows and nulls.
+    Counting stops at saturation and the ``Counter``'s insertion order
+    breaks ``most_common`` ties, both as in the JAX package."""
+
+    def __init__(self, max_card: int = 100):
+        self.max_card = max_card
+        self.value_counts: Counter = Counter()
+        self.n = 0
+        self.n_null = 0
+        self.saturated = False
+
+    def update(self, v: Optional[str]):
+        self.n += 1
+        if v is None:
+            self.n_null += 1
+            return
+        if not self.saturated:
+            self.value_counts[v] += 1
+            if len(self.value_counts) > self.max_card:
+                self.saturated = True
+
+    @property
+    def cardinality(self) -> int:
+        return len(self.value_counts)
+
+    def strategy(self, n_rows: int, min_fill_rate: float,
+                 top_k: int, min_support: int) -> Tuple[str, List[str]]:
+        """SmartText's rule for one field (or map key) of ``n_rows`` rows:
+        ignore below ``min_fill_rate``, pivot on the top values while not
+        saturated, hash otherwise; with the pivot's vocabulary."""
+        if (self.n - self.n_null) / max(n_rows, 1) < min_fill_rate:
+            return SmartTextVectorizer.IGNORE, []
+        if not self.saturated and self.cardinality <= self.max_card:
+            return SmartTextVectorizer.PIVOT, [
+                v for v, cnt in self.value_counts.most_common(top_k)
+                if cnt >= min_support]
+        return SmartTextVectorizer.HASH, []
+
+
+class SmartTextVectorizer(SequenceEstimator):
+    """Per text field: a categorical pivot when its cardinality is at most
+    ``max_cardinality``, murmur3 hashing when above it, nothing when its
+    fill rate is below ``min_fill_rate``; + null indicators.
+    ``metadata["text_strategies"]`` records the choice per field."""
+
+    input_types = (Text,)
+
+    PIVOT, HASH, IGNORE = "pivot", "hash", "ignore"
+
+    def __init__(self, max_cardinality: int = 100, top_k: int = 20,
+                 min_support: int = 10, num_hash_features: int = 512,
+                 min_fill_rate: float = 0.001, track_nulls: bool = True,
+                 track_text_len: bool = False, seed: int = 42,
+                 device: Optional[str] = None, uid: Optional[str] = None):
+        super().__init__(operation_name="smartTxtVec", output_type=OPVector,
+                         uid=uid)
+        self.max_cardinality = max_cardinality
+        self.top_k = top_k
+        self.min_support = min_support
+        self.num_hash_features = num_hash_features
+        self.min_fill_rate = min_fill_rate
+        self.track_nulls = track_nulls
+        self.track_text_len = track_text_len
+        self.seed = seed
+        self.device = device
+        #: seconds of the last fit's statistics pass (host)
+        self.fit_seconds: Optional[float] = None
+
+    def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
+        t0 = time.perf_counter()
+        strategies, vocabs = [], []
+        for c in cols:
+            stats = TextStats(self.max_cardinality)
+            for v in c.values:
+                stats.update(v)
+            strat, vocab = stats.strategy(stats.n, self.min_fill_rate,
+                                          self.top_k, self.min_support)
+            strategies.append(strat)
+            vocabs.append(vocab)
+        self.metadata["text_strategies"] = dict(
+            zip([f.name for f in self.input_features], strategies))
+        self.fit_seconds = time.perf_counter() - t0
+        return SmartTextVectorizerModel(
+            strategies=strategies, vocabs=vocabs,
+            num_hash_features=self.num_hash_features,
+            track_nulls=self.track_nulls, track_text_len=self.track_text_len,
+            seed=self.seed, device=self.device)
+
+
+class SmartTextVectorizerModel(SequenceModel):
+    input_types = (Text,)
+
+    def __init__(self, strategies: List[str], vocabs: List[List[str]],
+                 num_hash_features: int = 512, track_nulls: bool = True,
+                 track_text_len: bool = False, seed: int = 42,
+                 device: Optional[str] = None, uid: Optional[str] = None):
+        super().__init__(operation_name="smartTxtVec", output_type=OPVector,
+                         uid=uid)
+        self.strategies = strategies
+        self.vocabs = vocabs
+        self.num_hash_features = num_hash_features
+        self.track_nulls = track_nulls
+        self.track_text_len = track_text_len
+        self.seed = seed
+        self.device = device
+        #: host seconds of the last transform: pivots, hashing, the rest
+        #: (lengths, nulls) and the copy to the device
+        self.transform_seconds: Dict[str, float] = {}
+
+    def _widths(self) -> List[int]:
+        extra = int(self.track_text_len) + int(self.track_nulls)
+        return [extra + (0 if s == SmartTextVectorizer.IGNORE
+                         else len(v) + 1 if s == SmartTextVectorizer.PIVOT
+                         else self.num_hash_features)
+                for s, v in zip(self.strategies, self.vocabs)]
+
+    def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
+        n = len(cols[0])
+        nf = self.num_hash_features
+        widths = self._widths()
+        out = np.zeros((n, sum(widths)), dtype=np.float32)
+        meta: List[VectorColumnMetadata] = []
+        secs = dict.fromkeys(("pivot_s", "hash_s", "other_s", "copy_s"), 0.0)
+        off = 0
+        for f, strat, vocab, c, w in zip(self.input_features,
+                                         self.strategies, self.vocabs, cols,
+                                         widths):
+            tname = f.ftype.type_name()
+            vals = c.values
+            j = off
+            t0 = time.perf_counter()
+            if strat == SmartTextVectorizer.PIVOT:
+                index = {v: i for i, v in enumerate(vocab)}
+                k = len(vocab)
+                slot = np.fromiter((-1 if v is None else index.get(v, k)
+                                    for v in vals), dtype=np.int64, count=n)
+                hit = np.flatnonzero(slot >= 0)
+                out[hit, j + slot[hit]] = 1.0
+                meta += [VectorColumnMetadata(f.name, tname, grouping=f.name,
+                                              indicator_value=v)
+                         for v in list(vocab) + [OTHER_INDICATOR]]
+                j += k + 1
+                secs["pivot_s"] += time.perf_counter() - t0
+            elif strat == SmartTextVectorizer.HASH:
+                _hash_rows(vals, out, j, nf, self.seed)
+                meta += [VectorColumnMetadata(f.name, tname,
+                                              descriptor_value=f"hash_{b}")
+                         for b in range(nf)]
+                j += nf
+                secs["hash_s"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if self.track_text_len:
+                out[:, j] = np.fromiter(
+                    (0.0 if v is None else float(len(v)) for v in vals),
+                    dtype=np.float64, count=n)
+                meta.append(VectorColumnMetadata(f.name, tname,
+                                                 descriptor_value="textLen"))
+                j += 1
+            if self.track_nulls:
+                out[:, j] = np.equal(vals, None)
+                meta.append(VectorColumnMetadata(
+                    f.name, tname, grouping=f.name,
+                    indicator_value=NULL_INDICATOR))
+            secs["other_s"] += time.perf_counter() - t0
+            off += w
+        t0 = time.perf_counter()
+        col = _host_vec_column(out, VectorMetadata("smart_text_vec", meta),
+                               self.device)
+        secs["copy_s"] = time.perf_counter() - t0
+        self.transform_seconds = secs
+        return col
+
+
+# ---------------------------------------------------------------------------
+# Combiner
+# ---------------------------------------------------------------------------
+
 class VectorsCombiner(SequenceTransformer):
-    """Concatenate OPVector inputs + merge their metadata."""
+    """Concatenate OPVector inputs + merge their metadata.  A raw vector
+    input (a host array) is moved to the stage's device first."""
 
     input_types = (OPVector,)
 
-    def __init__(self, uid: Optional[str] = None):
+    def __init__(self, device: Optional[str] = None,
+                 uid: Optional[str] = None):
         super().__init__(operation_name="combineVecs", output_type=OPVector,
                          uid=uid)
+        self.device = device
 
     def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
         metas = []
@@ -231,4 +654,9 @@ class VectorsCombiner(SequenceTransformer):
                          for i in range(c.values.shape[1])]))
         vm = VectorMetadata.flatten(self.get_output().name, metas)
         self.metadata["vector_metadata"] = vm.to_json()
-        return _vec_column(torch.cat([c.values for c in cols], dim=1), vm)
+        mats = [c.values for c in cols]
+        if not all(isinstance(m, torch.Tensor) for m in mats):
+            dev = resolve_device(self.device)
+            mats = [torch.as_tensor(np.asarray(m, np.float32)).to(dev)
+                    if not isinstance(m, torch.Tensor) else m for m in mats]
+        return _vec_column(torch.cat(mats, dim=1), vm)

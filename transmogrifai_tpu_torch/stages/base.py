@@ -17,6 +17,7 @@ from ..utils.uid import uid_for
 
 __all__ = [
     "SchemaError", "PipelineStage", "Transformer", "Estimator", "Model",
+    "UnaryTransformer", "BinaryTransformer",
     "SequenceTransformer", "SequenceEstimator", "SequenceModel",
     "BinaryEstimator", "BinaryModel",
 ]
@@ -63,10 +64,15 @@ class PipelineStage:
                     f"({f.name!r}) must be {exp.__name__}, got "
                     f"{getattr(f.ftype, '__name__', f.ftype)}")
 
+    def on_set_input(self) -> None:
+        """Hook called after the inputs are set, before the output feature
+        is made (a pass-through stage takes its input's type here)."""
+
     def set_input(self, *features: Feature) -> "PipelineStage":
         self.check_input_length(features)
         self.check_input_schema(features)
         self.input_features = list(features)
+        self.on_set_input()
         self._output_feature = Feature(
             name=self.make_output_name(), ftype=self.output_type,
             is_response=self.output_is_response(), origin_stage=self,
@@ -157,6 +163,14 @@ class Estimator(PipelineStage):
     def fit(self, data: ColumnarDataset) -> Model:
         model = self.fit_columns(data, *[data[n] for n in self.input_names])
         return self.adopt_model(model)
+
+
+class UnaryTransformer(Transformer):
+    input_arity = (1, 1)
+
+
+class BinaryTransformer(Transformer):
+    input_arity = (2, 2)
 
 
 class SequenceTransformer(Transformer):

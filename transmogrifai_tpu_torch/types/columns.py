@@ -5,13 +5,18 @@ best suited to its semantic type:
 
     real/integral/binary/date  -> float64 numpy values + bool mask (host)
     text (incl. subtypes)      -> object ndarray of str|None (host)
-    vector                     -> (N, D) float32 torch tensor on the device
+    text_list/date_list        -> object ndarray of tuple (host)
+    multi_pick_list            -> object ndarray of frozenset (host)
+    geolocation                -> (N, 3) float64 + bool mask (host)
+    map                        -> object ndarray of dict (host)
+    vector                     -> (N, D) float32: a torch tensor on the
+                                  device when a stage made it, a numpy
+                                  array when it was read raw
     prediction                 -> ``models.prediction.PredictionBatch``
 
 Raw columns stay on the host; vectorizers move the data to the device, so
 the assembled feature matrix, the sanity-checked matrix and the model
-inputs are device tensors.  Storages the slice does not use (lists, sets,
-maps, geolocation) are not ported yet.
+inputs are device tensors.
 """
 from __future__ import annotations
 
@@ -90,9 +95,32 @@ class FeatureColumn:
             for i, v in enumerate(raw):
                 arr[i] = None if _is_missing(v) else str(v)
             return FeatureColumn(ftype, arr)
-        raise NotImplementedError(
-            f"storage {st!r} ({ftype.type_name()}) is not ported yet "
-            f"(ROADMAP Queue A)")
+        if st in ("text_list", "date_list"):
+            arr = np.empty(n, dtype=object)
+            for i, v in enumerate(raw):
+                arr[i] = tuple(v) if v is not None else ()
+            return FeatureColumn(ftype, arr)
+        if st == "multi_pick_list":
+            arr = np.empty(n, dtype=object)
+            for i, v in enumerate(raw):
+                arr[i] = frozenset(v) if v is not None else frozenset()
+            return FeatureColumn(ftype, arr)
+        if st == "geolocation":
+            vals = np.full((n, 3), np.nan)
+            mask = np.zeros(n, dtype=bool)
+            for i, v in enumerate(raw):
+                if v is not None and len(v) == 3:
+                    vals[i] = v
+                    mask[i] = True
+            return FeatureColumn(ftype, vals, mask)
+        if st == "map":
+            arr = np.empty(n, dtype=object)
+            for i, v in enumerate(raw):
+                arr[i] = dict(v) if v is not None else {}
+            return FeatureColumn(ftype, arr)
+        if st == "vector":
+            return FeatureColumn(ftype, np.asarray(raw, dtype=np.float32))
+        raise ValueError(f"unknown storage {st!r} for {ftype.type_name()}")
 
 
 def _is_missing(v: Any) -> bool:

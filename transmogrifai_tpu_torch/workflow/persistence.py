@@ -34,9 +34,8 @@ from ..features.feature import Feature
 from ..models.classification import LogisticRegressionModel
 from ..models.regression import LinearRegressionModel
 from ..models.trees import TreeEnsembleModel
+from ..ops import date_geo, dsl_transformers, map_vectorizers, vectorizers
 from ..ops.vector_metadata import VectorMetadata
-from ..ops.vectorizers import (OneHotVectorizerModel, RealVectorizerModel,
-                               VectorsCombiner)
 from ..preparators.sanity_checker import SanityCheckerModel
 from ..selector.model_selector import SelectedModel
 from ..stages.base import PipelineStage
@@ -58,10 +57,41 @@ CLASS_MAP: Dict[str, Type[PipelineStage]] = {
     "transmogrifai_tpu.stages.generator.FeatureGeneratorStage":
         FeatureGeneratorStage,
     "transmogrifai_tpu.ops.vectorizers.RealVectorizerModel":
-        RealVectorizerModel,
+        vectorizers.RealVectorizerModel,
+    "transmogrifai_tpu.ops.vectorizers.BinaryVectorizer":
+        vectorizers.BinaryVectorizer,
     "transmogrifai_tpu.ops.vectorizers.OneHotVectorizerModel":
-        OneHotVectorizerModel,
-    "transmogrifai_tpu.ops.vectorizers.VectorsCombiner": VectorsCombiner,
+        vectorizers.OneHotVectorizerModel,
+    "transmogrifai_tpu.ops.vectorizers.MultiPickListVectorizerModel":
+        vectorizers.MultiPickListVectorizerModel,
+    "transmogrifai_tpu.ops.vectorizers.TextHashingVectorizer":
+        vectorizers.TextHashingVectorizer,
+    "transmogrifai_tpu.ops.vectorizers.SmartTextVectorizerModel":
+        vectorizers.SmartTextVectorizerModel,
+    "transmogrifai_tpu.ops.vectorizers.VectorsCombiner":
+        vectorizers.VectorsCombiner,
+    "transmogrifai_tpu.ops.date_geo.DateToUnitCircleVectorizer":
+        date_geo.DateToUnitCircleVectorizer,
+    "transmogrifai_tpu.ops.date_geo.DateListVectorizerModel":
+        date_geo.DateListVectorizerModel,
+    "transmogrifai_tpu.ops.date_geo.GeolocationVectorizerModel":
+        date_geo.GeolocationVectorizerModel,
+    "transmogrifai_tpu.ops.map_vectorizers.NumericMapVectorizerModel":
+        map_vectorizers.NumericMapVectorizerModel,
+    "transmogrifai_tpu.ops.map_vectorizers.TextMapPivotVectorizerModel":
+        map_vectorizers.TextMapPivotVectorizerModel,
+    "transmogrifai_tpu.ops.map_vectorizers.MultiPickListMapVectorizerModel":
+        map_vectorizers.MultiPickListMapVectorizerModel,
+    "transmogrifai_tpu.ops.map_vectorizers.GeoMapVectorizerModel":
+        map_vectorizers.GeoMapVectorizerModel,
+    "transmogrifai_tpu.ops.map_vectorizers.SmartTextMapVectorizerModel":
+        map_vectorizers.SmartTextMapVectorizerModel,
+    "transmogrifai_tpu.ops.dsl_transformers.MathBinaryTransformer":
+        dsl_transformers.MathBinaryTransformer,
+    "transmogrifai_tpu.ops.dsl_transformers.MathScalarTransformer":
+        dsl_transformers.MathScalarTransformer,
+    "transmogrifai_tpu.ops.dsl_transformers.AliasTransformer":
+        dsl_transformers.AliasTransformer,
     "transmogrifai_tpu.preparators.sanity_checker.SanityCheckerModel":
         SanityCheckerModel,
     "transmogrifai_tpu.models.classification.LogisticRegressionModel":
@@ -80,7 +110,7 @@ _ROADMAP_ITEMS = (
     ("transmogrifai_tpu.models.gbdt",
      "ROADMAP Queue A item 3 (the rest of the tree family)"),
     ("transmogrifai_tpu.ops.",
-     "ROADMAP Queue A item 4 (SmartText and the other transmogrify groups)"),
+     "ROADMAP Queue A item 5 (the rest of feature engineering)"),
     ("transmogrifai_tpu.",
      "ROADMAP Queue A item 6 (remaining model families, selectors and "
      "feature engineering)"),

@@ -5,7 +5,8 @@ Ported: ``OpWorkflow.set_result_features / set_input_data / train`` on the
 in-core path with the train-time serializability gate
 (``allow_non_serializable()`` opts out), ``OpWorkflow.load_model`` and
 ``OpWorkflowModel.score / evaluate / score_and_evaluate / save / load``
-(``workflow/persistence.py``).  Every stage that owns a ``device`` runs on
+(``workflow/persistence.py``) and ``summary / summary_json /
+summary_pretty``.  Every stage that owns a ``device`` runs on
 the workflow's device (``OpWorkflow(device=...)``), which defaults to the
 package default (``cuda`` unless the caller asked for the CPU).
 
@@ -16,9 +17,11 @@ filtering, meshes, checkpoints and out-of-core streaming.
 """
 from __future__ import annotations
 
+import json
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
@@ -181,6 +184,40 @@ class OpWorkflowModel(_WorkflowCore):
         scored = self.score(data)
         return scored, self.evaluate(evaluator, scored=scored)
 
+    def summary(self) -> Dict[str, Any]:
+        """Every fitted stage's metadata, by stage uid."""
+        return {s.uid: _jsonable(s.metadata) for s in self.stages
+                if s.metadata}
+
+    def summary_json(self) -> str:
+        return json.dumps(self.summary(), indent=2, default=str)
+
+    def summary_pretty(self) -> str:
+        """The training summary as the JAX package prints it: the
+        selector's candidates (the first 20), winner and holdout metrics,
+        and the columns the sanity checker dropped (the first 10)."""
+        lines: List[str] = []
+        for s in self.stages:
+            summ = s.metadata.get("model_selector_summary")
+            if summ:
+                lines.append("Evaluated models:")
+                for row in summ.get("validationResults", [])[:20]:
+                    lines.append(
+                        f"  {row['modelType']} {row['params']} -> "
+                        f"{row['metricName']}={row['metricValue']:.4f}")
+                lines.append(
+                    f"Best model: {summ.get('bestModelType')} "
+                    f"{summ.get('bestModelParams')}")
+                hold = summ.get("holdoutMetrics")
+                if hold:
+                    lines.append("Holdout metrics: " + json.dumps(hold))
+            sc = s.metadata.get("summary")
+            if sc and "dropped" in sc:
+                lines.append(
+                    f"SanityChecker dropped {len(sc['dropped'])} columns: "
+                    f"{sc['dropped'][:10]}")
+        return "\n".join(lines) if lines else "(no fitted summaries)"
+
     def save(self, path: str, overwrite: bool = True) -> None:
         """Write the model in the format both packages read
         (``workflow/persistence.py``)."""
@@ -195,3 +232,21 @@ class OpWorkflowModel(_WorkflowCore):
         from .persistence import load_workflow_model
 
         return load_workflow_model(path, device=device)
+
+
+def _jsonable(obj):
+    """``obj`` where JSON takes it as is, else its dicts and lists walked,
+    arrays as lists and anything else as its string."""
+    try:
+        json.dumps(obj)
+        return obj
+    except (TypeError, ValueError):
+        if isinstance(obj, dict):
+            return {k: _jsonable(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return [_jsonable(v) for v in obj]
+        if isinstance(obj, np.ndarray):
+            return obj.tolist()
+        if isinstance(obj, torch.Tensor):
+            return obj.cpu().tolist()
+        return str(obj)
