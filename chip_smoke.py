@@ -22,6 +22,15 @@ to end at full width through the entry points a user calls:
     demo's grid) -> OpWorkflow.train() -> score_and_evaluate(AuPR)
     -> save -> load -> local scorer -> ModelServer
 
+    FeatureBuilder -> transmogrify -> SanityChecker
+    -> MultiClassificationModelSelector.with_cross_validation()
+    -> OpWorkflow.train() -> score_and_evaluate(F1)
+    -> save -> load -> local scorer -> ModelServer
+
+    FeatureBuilder (4 Reals) -> transmogrify -> SanityChecker
+    -> MultiClassificationModelSelector.with_train_validation_split()
+       (LR, MLP: the Iris demo) -> OpWorkflow.train() -> F1
+
     model.save -> OpWorkflowModel.load -> score (batch, CSVReader)
     -> ModelServer (batch 1, a burst, batch 64) -> HTTP
 
@@ -94,7 +103,35 @@ card's aggregate shared-memory rate):
                 (the holdout bitwise), the local scorer's rows, and
                 TITANIC_SERVE_REQUESTS single rows with text through
                 ModelServer (p50/p99, ``request_split``)
-  7. serve      both trained models (the slice's boosted model, the
+  7. multiclass  the same 500 Real columns with a K = 5 label from its
+                own seed (class logits: log priors 0.40 / 0.25 / 0.15 /
+                0.12 / 0.08, a linear part of standard deviation
+                MC_LINEAR_SD in MC_GROUP_COLS columns of the class's
+                own, one tanh
+                interaction; Gumbel noise; the label their argmax: the
+                attainable holdout F1, that of the true probabilities'
+                argmax, is printed) through the default multiclass
+                selector: softmax LR (4 x 2, one Böhning-bound solve) and
+                K-class forests (3 x 2 x 3, 50 trees, d = 22 subset
+                columns, 5 channels a level) under 3 stratified folds,
+                F1, DataCutter; the train's split by stage and sweep
+                group, every candidate's CV F1, the winner, holdout F1,
+                Accuracy and LogLoss against MC_F1_SHARE x the attainable,
+                kernel launches against the growers' count, peak memory;
+                MC_CHECK_TREES forest trees on the checked matrix with
+                every level held bitwise to the plain version (a
+                ``seg_hist`` line with ``path`` "multiclass"); save ->
+                load (bitwise), the local scorer and MC_SERVE_REQUESTS
+                single rows through ModelServer (within 1e-6)
+  8. iris       the reference's Iris demo (examples/op_iris_simple.py's
+                DAG and grid: LR {0.01, 0.1}, MLP [5, 4] and [10], a
+                stratified train/validation split) on 1M + 100k rows of an
+                Iris-shaped frame (the reference CSV's class means and
+                standard deviations, three balanced classes, seed 13):
+                the kept labels, both families' validation F1, the winner,
+                the MLP fits' steps and seconds, holdout F1 against
+                IRIS_F1_SHARE x the attainable (the Gaussian Bayes rule's)
+  9. serve      both trained models (the slice's boosted model, the
                 selector's winner): save (seconds, bytes) and load on the
                 card (seconds); the holdout scored after the round trip
                 bitwise equal to the in-memory model; 10k holdout rows
@@ -112,7 +149,7 @@ card's aggregate shared-memory rate):
                 tests/fixtures/model_v1 scored on the card within 1e-5 of
                 its expected scores.  The phase must launch no kernel
                 (scoring is plain torch on the card)
-  8. seg_hist   kernel vs plain at the slice's level shapes (N=1M, d=500,
+ 10. seg_hist   kernel vs plain at the slice's level shapes (N=1M, d=500,
                 B=32, nchan=2, M=1..32, a level with empty slots), the level
                 shapes of depths 7 and 10 (M=64, 512), d=497 through
                 apply_bins' padded rows, one level of unpadded rows (the
@@ -127,20 +164,30 @@ card's aggregate shared-memory rate):
                 tolerance, determinism, kernel/plain/library/bound ms, the
                 layout's share, the groups and reduce passes' device ms and
                 the shared-memory floor
-  9. profile    an 8-round fit at the same width under torch.profiler:
+ 11. seg_hist_channels  the kernel at C channels: K-class forest levels
+                (d = 22, integer channels) at C = 3, 5, 10, 13, 14, 100
+                and M = 1, 64 (one launch up to 13 channels at 32 bins,
+                one per channel group past it), bitwise equal to plain,
+                and a softmax objective's float level (C = 10, d = 500, M
+                = 32) within tolerance: ms, plain, library, bound,
+                shared-memory floor and the groups launched; then a
+                ``seg_hist_two_channel`` line beside the two-channel
+                kernel's earlier numbers
+ 12. profile    an 8-round fit at the same width under torch.profiler:
                 binning and boosting walls, the card's busy time and idle
                 share, the boosting's heaviest device ops per round
- 10. regression_profile  one forest of 4 regression trees (depth 12,
+ 13. regression_profile  one forest of 4 regression trees (depth 12,
                 one-third subsets) and one boosted chain's 3 rounds (depth
                 12, full width) under torch.profiler: wall, the card's busy
                 time and idle share per level, the heaviest device ops
- 11. serve_profile  single-row requests of both loaded models under
+ 14. serve_profile  single-row requests of both loaded models under
                 torch.profiler: the card's busy time and idle share, the
                 device ops and copies a request
 The phases that run torch.profiler come after the slice and the selector,
 so no profiler session runs in the process before their walls are taken.
 Then the ``kernels`` summary line (``launches``: the slice's, the
-selector's, the regression phase's and the titanic phase's), the card's
+selector's, the regression phase's, the titanic phase's and the multiclass
+phase's), the card's
 name and power limit,
 and the result line.  Any
 failed check exits non-zero.  Without a CUDA device the script exits with
@@ -166,12 +213,15 @@ import torch
 
 from transmogrifai_tpu_torch.cuda_build import build
 from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
-from transmogrifai_tpu_torch.evaluators.metrics import aupr
+from transmogrifai_tpu_torch.evaluators.metrics import (aupr,
+                                                        multiclass_metrics)
 from transmogrifai_tpu_torch.features.builder import FeatureBuilder
 from transmogrifai_tpu_torch.local import score_function_batch
 from transmogrifai_tpu_torch.models import gbdt_kernels as gk
 from transmogrifai_tpu_torch.models.classification import \
     OpLogisticRegression
+from transmogrifai_tpu_torch.models.mlp import \
+    OpMultilayerPerceptronClassifier
 from transmogrifai_tpu_torch.models.trees import (SKETCH_KINDS,
                                                   OpGBTRegressor,
                                                   OpRandomForestClassifier,
@@ -184,7 +234,8 @@ from transmogrifai_tpu_torch.ops.vectorizers import (SmartTextVectorizer,
 from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
 from transmogrifai_tpu_torch.readers.files import CSVReader
 from transmogrifai_tpu_torch.selector.model_selector import (
-    BinaryClassificationModelSelector, RegressionModelSelector, grid)
+    BinaryClassificationModelSelector, MultiClassificationModelSelector,
+    RegressionModelSelector, grid)
 from transmogrifai_tpu_torch.selector.validators import make_folds
 from transmogrifai_tpu_torch.serving import ModelServer
 from transmogrifai_tpu_torch.serving.http import make_http_server
@@ -237,6 +288,45 @@ TITANIC_SERVE_REQUESTS = 200
 #: bitwise to the plain version: the demo's whole forest on one fold, so
 #: the check meets the deepest levels its trees reach
 TITANIC_CHECK_TREES = 50
+#: the multiclass phase's label: its seed, its classes and their priors;
+#: the share of the attainable holdout F1 (that of the argmax of the true
+#: class probabilities) the trained selector must reach (stated before the
+#: first chip run); the forest trees grown on the checked matrix with
+#: every level held bitwise to the plain version; single rows served
+MC_SEED, MC_CLASSES = 17, 5
+MC_PRIORS = (0.40, 0.25, 0.15, 0.12, 0.08)
+#: each class's linear part: its standard deviation (the Gumbel noise's
+#: is 1.28) and the columns of its own group it spreads over.  At 2 and
+#: 20 columns the attainable F1 is near 0.66 and a forest's 22-column
+#: subset holds ~4 informative columns; the first runs' (1, 4) and (2, 4)
+#: left most subsets without one, and the forests barely split
+MC_LINEAR_SD, MC_GROUP_COLS = 2.0, 20
+MC_F1_SHARE = 0.9
+MC_CHECK_TREES = 10
+MC_SERVE_REQUESTS = 200
+#: the iris phase: the frame's seed and the share of the attainable
+#: holdout F1 (the Bayes argmax of the classes' Gaussian densities) the
+#: demo must reach (stated before the first chip run)
+IRIS_SEED = 13
+IRIS_F1_SHARE = 0.9
+#: per Iris class (setosa, versicolor, virginica): the reference CSV's
+#: class means and standard deviations of sepal length, sepal width,
+#: petal length and petal width
+IRIS_COLS = ("sepalLength", "sepalWidth", "petalLength", "petalWidth")
+IRIS_MEANS = np.array([[5.006, 3.428, 1.462, 0.246],
+                       [5.936, 2.770, 4.260, 1.326],
+                       [6.588, 2.974, 5.552, 2.026]])
+IRIS_SDS = np.array([[0.352, 0.379, 0.174, 0.105],
+                     [0.516, 0.314, 0.470, 0.198],
+                     [0.636, 0.322, 0.552, 0.275]])
+#: the seg_hist phase's channel sweep: K-class forest levels (d = 22,
+#: integer channels) at these channel counts and slot counts, and one
+#: float-channel level of a 5-class softmax objective (2K = 10 channels
+#: at d = 500, M = 32); the two-channel kernel's ms measured before it
+#: took any channel count (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md),
+#: reprinted beside this run's
+SWEEP_CHANNELS, SWEEP_SLOTS = (3, 5, 10, 13, 14, 100), (1, 64)
+EARLIER_XGB_MS, EARLIER_RF_MS = (0.525, 0.528), (0.22, 0.30)
 
 
 def _smi(query: str) -> str:
@@ -448,7 +538,6 @@ def phase_seg_hist(dev, n: int, d: int, d_reg: int, reps: int, bw: float,
         else:   # unpadded rows (stride d): the kernel's 4-byte row copies
             b = binned.contiguous()
         dd = b.shape[1]
-        cols = torch.arange(dd, device=dev)
         hi = M // 2 if even else M
         slot = torch.randint(0, hi, (n,), dtype=torch.int32, device=dev,
                              generator=gen)
@@ -462,13 +551,7 @@ def phase_seg_hist(dev, n: int, d: int, d_reg: int, reps: int, bw: float,
         layout_ms = sum(device_ms(lambda: gk.seg_layout(slot, M)).values())
         passes = device_ms(lambda: gk.seg_level_hists(*args))
         plain_ms = time_ms(lambda: gk.seg_level_hists_plain(*args), 3, 1)
-        flat = ((slot.long()[:, None] * B + b.long()) * dd
-                + cols[None, :]).reshape(-1)
-        ws = [ch[:, c:c + 1].expand(n, dd).reshape(-1) for c in range(nchan)]
-        library_ms = time_ms(lambda: [torch.bincount(flat, weights=w,
-                                                     minlength=M * B * dd)
-                                      for w in ws], 3, 1)
-        del flat, ws
+        library_ms = _library_ms(b, slot, ch, M, B)
         nbytes = n * dd + n * 4 + n * nchan * 4 + M * nchan * B * dd * 4
         ops = n * dd * nchan
         bound_ms = max(nbytes / bw, ops / f32) * 1e3
@@ -506,6 +589,86 @@ def phase_seg_hist(dev, n: int, d: int, d_reg: int, reps: int, bw: float,
         del b, args
     del binned, ch_main, rf_binned, ch_rf, reg_binned, ch_reg, gbt_binned
     del ch_gbt
+    return rows
+
+
+def phase_seg_hist_channels(dev, n: int, reps: int, bw: float, f32: float,
+                            smem_bw: float) -> list:
+    """The kernel at C channels: K-class forest levels (d = 22 subset
+    columns in 32-byte rows, integer channels (bw [y=0], .., bw [y=C-2],
+    bw) of Poisson bags and uniform labels) at every C of SWEEP_CHANNELS
+    and M of SWEEP_SLOTS, each bitwise equal to the plain version; and
+    one float-channel level (C = 10, d = 500, M = 32: a 5-class softmax
+    objective's gradients and hessians) within the tolerance.  Per case:
+    ms, plain and library ms, the bytes bound, the shared-memory floor
+    (8C bytes of shared memory read and written a (row, column)) and the
+    channel groups launched."""
+    B = 32
+    gen = torch.Generator(device=dev).manual_seed(1)
+    d_rf = 22
+    binned = _level_binned(dev, n, d_rf, B, gen)
+    bag = torch.poisson(torch.ones(n, device=dev), generator=gen)
+    cases = [(C, M, False) for C in SWEEP_CHANNELS for M in SWEEP_SLOTS]
+    cases.append((10, 32, True))
+    rows = []
+    for C, M, fl in cases:
+        if fl:
+            b = _level_binned(dev, n, 500, B, gen)
+            ch = (torch.rand((n, C), device=dev, generator=gen) * 2 - 1)
+        else:
+            b = binned
+            lab = torch.randint(0, C, (n,), device=dev, generator=gen)
+            ch = torch.stack([bag * (lab == k) for k in range(C - 1)]
+                             + [bag], 1).contiguous()
+        slot = torch.randint(0, M, (n,), dtype=torch.int32, device=dev,
+                             generator=gen)
+        args = (b, slot, ch, M, B)
+        before = gk.seg_level_hists.launches
+        k1 = gk.seg_level_hists(*args)
+        groups = gk.seg_level_hists.launches - before
+        k2 = gk.seg_level_hists(*args)
+        plain = gk.seg_level_hists_plain(*args)
+        torch.cuda.synchronize()
+        diff = (k1 - plain).abs()
+        tol_ratio = float((diff / (ATOL + RTOL * plain.abs())).max())
+        dd = b.shape[1]
+        kernel_ms = time_ms(lambda: gk.seg_level_hists(*args), reps)
+        plain_ms = time_ms(lambda: gk.seg_level_hists_plain(*args), 3, 1)
+        library_ms = _library_ms(b, slot, ch, M, B)
+        nbytes = n * dd + n * 4 + n * C * 4 + M * C * B * dd * 4
+        ops = n * dd * C
+        row = {"phase": "seg_hist_channels", "N": n, "d": dd, "B": B,
+               "nchan": C, "M": M, "float_channels": fl,
+               "channel_groups": [list(g) for g in
+                                  gk.seg_channel_groups(C, B)],
+               "launches_per_level": groups,
+               "warps_per_block": gk.seg_plan(
+                   n, dd, M, B, gk.seg_channel_groups(C, B)[0][1]).warps,
+               "max_abs_err": float(diff.max()), "tol_ratio": tol_ratio,
+               "bitwise_equal": bool(torch.equal(k1, plain)),
+               "deterministic": bool(torch.equal(k1, k2)),
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "bound_ms": max(nbytes / bw, ops / f32) * 1e3,
+               "bound_by": "bytes" if nbytes / bw >= ops / f32
+               else "operations",
+               "smem_floor_ms": 8 * C * n * dd / smem_bw * 1e3,
+               "bytes": nbytes}
+        emit(row)
+        what = f"seg_hist C={C} M={M} d={dd}"
+        check(row["deterministic"], f"{what}: two launches differ")
+        check(groups == len(gk.seg_channel_groups(C, B)),
+              f"{what}: {groups} launches, not one per channel group")
+        check(fl or row["bitwise_equal"], f"{what}: integer channels, yet "
+              f"the kernel differs from the plain version by "
+              f"{row['max_abs_err']}")
+        check(tol_ratio <= 1.0, f"{what}: kernel vs plain error "
+              f"{row['max_abs_err']} beyond rtol {RTOL} / atol {ATOL}")
+        rows.append(row)
+        del k1, k2, plain, diff, args, ch, slot
+        if fl:
+            del b
+    del binned, bag
     return rows
 
 
@@ -1167,7 +1330,7 @@ def build_titanic():
     return prediction, features, checked, selector
 
 
-class _TitanicLevels:
+class _BitwiseLevels:
     """A ``hist_fn`` that launches the kernel, holds each level bitwise to
     the plain version (integer channels) and keeps the level inputs of
     the most slots for timing."""
@@ -1204,7 +1367,7 @@ def _titanic_levels(X: torch.Tensor, y: np.ndarray, msub: int, reps: int,
     edges, binned = prep_tree_inputs(X, 32)
     fold = torch.from_numpy(
         (make_folds(X.shape[0], 3, seed=42) != 0).astype(np.float32)).to(dev)
-    chk = _TitanicLevels()
+    chk = _BitwiseLevels()
     forest = gk.grow_rf_grid(
         binned, torch.from_numpy(y).to(dev), fold[None], seed=42,
         n_trees=TITANIC_CHECK_TREES, pair_fold=[0], pair_min_ig=[0.001],
@@ -1221,13 +1384,7 @@ def _titanic_levels(X: torch.Tensor, y: np.ndarray, msub: int, reps: int,
     args = (b, slot, ch, M, B)
     kernel_ms = time_ms(lambda: gk.seg_level_hists(*args), reps)
     plain_ms = time_ms(lambda: gk.seg_level_hists_plain(*args), 3, 1)
-    flat = ((slot.long()[:, None] * B + b.long()) * dd
-            + torch.arange(dd, device=dev)[None, :]).reshape(-1)
-    ws = [ch[:, c:c + 1].expand(n, dd).reshape(-1) for c in range(2)]
-    library_ms = time_ms(lambda: [torch.bincount(flat, weights=w,
-                                                 minlength=M * B * dd)
-                                  for w in ws], 3, 1)
-    del flat, ws
+    library_ms = _library_ms(b, slot, ch, M, B)
     nbytes = n * dd + n * 4 + n * 2 * 4 + M * 2 * B * dd * 4
     ops = n * dd * 2
     return {"phase": "seg_hist", "path": "titanic", "N": n, "d": dd, "B": B,
@@ -1406,6 +1563,380 @@ def phase_titanic(rows: int, holdout: int, reps: int, bw: float,
           f"titanic: served scores {served_diff} from the in-memory "
           f"model's, shed {snap['shed']}, device errors "
           f"{snap['deviceErrors']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the multiclass phase: the default multiclass selector at 1M + 100k x 500
+# ---------------------------------------------------------------------------
+
+def _softmax_np(z: np.ndarray) -> np.ndarray:
+    e = np.exp(z - z.max(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
+
+
+def make_multiclass_data(data):
+    """The multiclass phase's datasets over the slice's 500 Real columns
+    (the same host arrays): a K = MC_CLASSES label from MC_SEED.  Class
+    k's logit is log(MC_PRIORS[k]) plus a linear part of standard
+    deviation MC_LINEAR_SD in its own group of MC_GROUP_COLS columns
+    (gk .. gk + g - 1), class 0 adds tanh(f0 f5); the label
+    is the argmax of the logits plus Gumbel noise, so the true class
+    probabilities are the logits' softmax.  Returns (train, holdout, the
+    attainable holdout F1 — the argmax of the true probabilities —, the
+    class shares, seconds)."""
+    train, hold, _ = data
+    t0 = time.perf_counter()
+    rows, holdout = len(train), len(hold)
+    n = rows + holdout
+    K = MC_CLASSES
+    rng = np.random.default_rng(MC_SEED)
+    g = MC_GROUP_COLS
+    F = np.stack([np.concatenate([train[f"f{j}"].values,
+                                  hold[f"f{j}"].values])
+                  for j in range(g * K)], axis=1)
+    beta = rng.normal(size=(K, g))
+    beta *= MC_LINEAR_SD / np.linalg.norm(beta, axis=1, keepdims=True)
+    logits = np.log(np.asarray(MC_PRIORS))[None, :] + np.stack(
+        [F[:, g * k:g * k + g] @ beta[k] for k in range(K)], axis=1)
+    logits[:, 0] += np.tanh(F[:, 0] * F[:, 5])
+    y = (logits + rng.gumbel(size=(n, K))).argmax(1).astype(np.float64)
+    bayes = logits[rows:].argmax(1)
+    attainable = multiclass_metrics(torch.from_numpy(y[rows:]),
+                                    torch.from_numpy(bayes), K)["F1"]
+    shares = np.bincount(y[:rows].astype(int), minlength=K) / rows
+
+    def dataset(base, sl):
+        cols = {k: c for k, c in base.columns.items() if k != "label"}
+        cols["label"] = FeatureColumn.from_values(ft.RealNN, y[sl])
+        return ColumnarDataset(cols)
+
+    return (dataset(train, slice(0, rows)), dataset(hold, slice(rows, n)),
+            float(attainable), shares.tolist(), time.perf_counter() - t0)
+
+
+def _class_levels(X: torch.Tensor, y: np.ndarray, msub: int, reps: int,
+                  bw: float, f32: float) -> dict:
+    """MC_CHECK_TREES K-class forest trees (the default grid's loosest
+    gates: depth 12, min instances 10, min info gain 0.001; ``msub``-column
+    subsets; the first fold's weights) grown on the checked matrix, every
+    level held bitwise to the plain version at K channels; then the level
+    of most slots timed: the kernel, the plain version, the library call
+    (one weighted ``torch.bincount`` a channel) and the bound."""
+    dev = X.device
+    edges, binned = prep_tree_inputs(X, 32)
+    fold = torch.from_numpy(
+        (make_folds(X.shape[0], 3, y=y, stratify=True, seed=42) != 0
+         ).astype(np.float32)).to(dev)
+    chk = _BitwiseLevels()
+    forest = gk.grow_rf_grid(
+        binned, torch.from_numpy(y.astype(np.float32)).to(dev), fold[None],
+        seed=42, n_trees=MC_CHECK_TREES, pair_fold=[0], pair_min_ig=[0.001],
+        pair_min_inst=[10], pair_depth=[12], msub=msub, subsample_rate=1.0,
+        n_bins=32, hist_fn=chk, n_classes=MC_CLASSES)
+    b, slot, ch, M, B = chk.widest
+    del binned, chk.widest
+    n, dd = b.shape
+    C = ch.shape[1]
+    args = (b, slot, ch, M, B)
+    kernel_ms = time_ms(lambda: gk.seg_level_hists(*args), reps)
+    plain_ms = time_ms(lambda: gk.seg_level_hists_plain(*args), 3, 1)
+    library_ms = _library_ms(b, slot, ch, M, B)
+    nbytes = n * dd + n * 4 + n * C * 4 + M * C * B * dd * 4
+    ops = n * dd * C
+    return {"phase": "seg_hist", "path": "multiclass", "N": n, "d": dd,
+            "B": B, "nchan": C, "M": M, "row_stride": b.stride(0),
+            "trees": MC_CHECK_TREES, "levels_checked": chk.levels,
+            "levels_unequal": chk.unequal, "max_abs_err": chk.max_err,
+            "bitwise_equal": chk.unequal == 0,
+            "splits": int((forest.thresh < 32).sum()),
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": max(nbytes / bw, ops / f32) * 1e3,
+            "bound_by": "bytes" if nbytes / bw >= ops / f32
+            else "operations", "bytes": nbytes}
+
+
+def _library_ms(b, slot, ch, M: int, B: int) -> float:
+    """The library yardstick of one level: one weighted ``torch.bincount``
+    a channel over the flat (slot, bin, column) index."""
+    n, dd = b.shape
+    flat = ((slot.long()[:, None] * B + b.long()) * dd
+            + torch.arange(dd, device=b.device)[None, :]).reshape(-1)
+    ws = [ch[:, c:c + 1].expand(n, dd).reshape(-1)
+          for c in range(ch.shape[1])]
+    ms = time_ms(lambda: [torch.bincount(flat, weights=w,
+                                         minlength=M * B * dd)
+                          for w in ws], 3, 1)
+    del flat, ws
+    return ms
+
+
+def _serve_multiclass(model, pred, hold, names, proba, tmp: str,
+                      name: str) -> dict:
+    """Save -> load on the card -> the holdout bitwise; the local scorer's
+    64 rows within 1e-6; MC_SERVE_REQUESTS single rows through
+    ModelServer (p50/p99), served probabilities within 1e-6."""
+    path = os.path.join(tmp, name)
+    K = proba.shape[1]
+    req = _regression_rows(hold, names, MC_SERVE_REQUESTS)
+    t0 = time.perf_counter()
+    model.save(path)
+    save_s = time.perf_counter() - t0
+    nbytes = _dir_bytes(path)
+    t0 = time.perf_counter()
+    loaded = OpWorkflowModel.load(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    reloaded = loaded.score(hold)[pred.name].values.probability
+    bitwise = bool(torch.equal(reloaded, proba))
+    want = proba[:MC_SERVE_REQUESTS].cpu().numpy().astype(np.float64)
+    local = np.asarray([[r[pred.name][f"probability_{k}"] for k in range(K)]
+                        for r in score_function_batch(loaded)(req[:64])])
+    local_diff = float(np.abs(local - want[:64]).max())
+    lat, served = [], []
+    with ModelServer.from_path(path, name=name, max_batch=64,
+                               warmup_row=req[0]) as srv:
+        for r in req:
+            t = time.perf_counter()
+            out = srv.score([r])
+            lat.append(time.perf_counter() - t)
+            served.append([out[0][pred.name][f"probability_{k}"]
+                           for k in range(K)])
+        snap = srv.snapshot()
+    served_diff = float(np.abs(np.asarray(served) - want).max())
+    return {"save_s": save_s, "load_s": load_s, "artifact_bytes": nbytes,
+            "holdout_bitwise_after_load": bitwise,
+            "local_scorer_max_abs_diff": local_diff,
+            "serve_batch1": _pcts(lat), "served_max_abs_diff": served_diff,
+            "server_shed": snap["shed"],
+            "server_device_errors": snap["deviceErrors"]}
+
+
+def phase_multiclass(data, cols: int, reps: int, bw: float,
+                     f32: float) -> dict:
+    """The default multiclass selector (softmax LR 4 x 2 and K-class
+    forests 3 x 2 x 3 at 50 trees, 3 stratified folds, F1, DataCutter) on
+    the slice's columns with a K = 5 label; the kernel on the forests'
+    own levels; save/load, the local scorer and single-row serving."""
+    train, hold, attainable, shares, data_s = make_multiclass_data(data)
+    rows, holdout = len(train), len(hold)
+    K = MC_CLASSES
+    label = FeatureBuilder.RealNN("label").as_response()
+    names = [f"f{j}" for j in range(cols)]
+    preds = [FeatureBuilder.Real(nm).as_predictor() for nm in names]
+    checked = label.transform_with(SanityChecker(max_correlation=0.99),
+                                   transmogrify(preds))
+    selector = MultiClassificationModelSelector.with_cross_validation()
+    pred = label.transform_with(selector, checked)
+    wf = OpWorkflow().set_result_features(pred).set_input_data(train)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.seg_level_hists.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train()
+    train_s = time.perf_counter() - t0
+    launches = gk.seg_level_hists.launches
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    scored, metrics = model.score_and_evaluate(
+        Evaluators.MultiClassification.f1(), data=hold)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    proba = scored[pred.name].values.probability
+    f1 = float(metrics["F1"])
+
+    meta = selector.metadata
+    summary = meta["model_selector_summary"]
+    results = summary["validationResults"]
+    X = model.train_data[checked.name].values
+    msub = int(np.sqrt(X.shape[1]))
+    y = np.asarray(train["label"].values, np.float64)
+    kernel_row = _class_levels(X, y, msub, reps, bw, f32)
+    del X
+    tmp = os.path.join(REPO, "smoke_out")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        served = _serve_multiclass(model, pred, hold, names, proba, tmp,
+                                   "multiclass")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    out = {"phase": "multiclass", "rows": rows, "holdout": holdout,
+           "cols": cols, "classes": K, "class_shares": shares,
+           "folds": selector.validator.num_folds, "data_s": data_s,
+           "train_s": train_s, "score_s": score_s,
+           "stage_seconds": model.stage_seconds,
+           "sweep_seconds": meta["sweep_seconds"],
+           "group_errors": meta["group_errors"],
+           "tree_phase_seconds": meta["tree_phase_seconds"],
+           "refit_seconds": meta["refit_seconds"],
+           "metrics_seconds": meta["metrics_seconds"],
+           "sequential_fits": meta["sequential_fits"],
+           "splitter": summary["dataPrepResults"],
+           "winner": summary["bestModelType"],
+           "winner_params": summary["bestModelParams"],
+           "cv": [{"model": r["modelType"], "params": r["params"],
+                   "f1": r["metricValue"], "error": r.get("error")}
+                  for r in results],
+           "train_metrics": summary["trainEvaluationMetrics"],
+           "holdout_f1": f1, "holdout_accuracy": metrics["Accuracy"],
+           "holdout_logloss": metrics["LogLoss"],
+           "attainable_f1": attainable,
+           "f1_floor": MC_F1_SHARE * attainable,
+           "trees_grown": meta["rf_trees"],
+           "group_trees": meta["group_trees"],
+           "seg_hist_launches": launches,
+           "growers_hist_levels": meta["hist_levels"],
+           "max_memory_allocated": peak,
+           "dropped_columns": len(checked.origin_stage.metadata["summary"]
+                                  ["dropped"]), **served}
+    emit(out)
+    emit(kernel_row)
+    check(tuple(proba.shape) == (holdout, K), f"proba shape {proba.shape}")
+    check(bool(torch.isfinite(proba).all()), "non-finite probabilities")
+    check(len(results) == 26, f"{len(results)} validation results, not 26")
+    errors = [r["error"] for r in results if r.get("error")]
+    check(not errors, f"candidates failed: {errors}")
+    check(not meta["group_errors"],
+          f"grid groups failed: {meta['group_errors']}")
+    check({"SoftmaxGridGroup", "RFGridGroup"} <= set(meta["sweep_seconds"]),
+          f"grid groups not run: {sorted(meta['sweep_seconds'])}")
+    check(launches > 0 and launches == meta["hist_levels"],
+          f"seg_hist launches {launches} != the growers' "
+          f"{meta['hist_levels']} histogram levels")
+    check(kernel_row["bitwise_equal"] and kernel_row["levels_checked"] > 0
+          and kernel_row["nchan"] == K,
+          f"multiclass: {kernel_row['levels_unequal']} of "
+          f"{kernel_row['levels_checked']} levels at "
+          f"{kernel_row['nchan']} channels differ from the plain version "
+          f"by up to {kernel_row['max_abs_err']}")
+    check(f1 >= MC_F1_SHARE * attainable,
+          f"multiclass: holdout F1 {f1} below {MC_F1_SHARE} x the "
+          f"attainable {attainable}")
+    check(served["holdout_bitwise_after_load"],
+          "multiclass: holdout scores after save/load differ")
+    check(served["local_scorer_max_abs_diff"] <= 1e-6,
+          f"multiclass: local scorer rows "
+          f"{served['local_scorer_max_abs_diff']} from the batch")
+    check(served["served_max_abs_diff"] <= 1e-6 and served["server_shed"] == 0
+          and served["server_device_errors"] == 0,
+          f"multiclass: served scores {served['served_max_abs_diff']} from "
+          f"the in-memory model's, shed {served['server_shed']}, device "
+          f"errors {served['server_device_errors']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the iris phase: the reference's Iris demo at 1M + 100k rows
+# ---------------------------------------------------------------------------
+
+def make_iris(n: int, seed: int = IRIS_SEED):
+    """(X (n, 4), y (n,)): three balanced classes, each row drawn from its
+    class's diagonal Gaussian (the reference CSV's class means and
+    standard deviations)."""
+    rng = np.random.default_rng(seed)
+    y = np.arange(n) % 3
+    rng.shuffle(y)
+    X = IRIS_MEANS[y] + IRIS_SDS[y] * rng.normal(size=(n, 4))
+    return X, y.astype(np.float64)
+
+
+def _iris_dataset(X, y) -> ColumnarDataset:
+    cols = {c: FeatureColumn.from_values(ft.Real, X[:, j])
+            for j, c in enumerate(IRIS_COLS)}
+    cols["label"] = FeatureColumn.from_values(ft.RealNN, y)
+    return ColumnarDataset(cols)
+
+
+def build_iris():
+    """examples/op_iris_simple.py's DAG with this package's imports: 4
+    Reals -> transmogrify -> SanityChecker -> the multiclass selector on a
+    stratified train/validation split over LR {0.01, 0.1} and the MLP at
+    hidden layers [5, 4] and [10] (300 steps of 0.1)."""
+    label = FeatureBuilder.RealNN("label").as_response()
+    predictors = [FeatureBuilder.Real(c).as_predictor() for c in IRIS_COLS]
+    checked = SanityChecker().set_input(label, transmogrify(predictors)
+                                        ).get_output()
+    selector = MultiClassificationModelSelector.with_train_validation_split(
+        models_and_parameters=[
+            (OpLogisticRegression(), grid(reg_param=[0.01, 0.1])),
+            (OpMultilayerPerceptronClassifier(max_iter=300, step_size=0.1),
+             grid(hidden_layers=[[5, 4], [10]])),
+        ])
+    prediction = selector.set_input(label, checked).get_output()
+    return prediction, label, checked, selector
+
+
+def phase_iris(rows: int, holdout: int) -> dict:
+    """The Iris demo's own DAG and grid on an Iris-shaped frame: the
+    split's kept labels, both families' validation F1, the winner, the
+    MLP's steps and fit seconds, holdout F1 against IRIS_F1_SHARE x the
+    attainable."""
+    t0 = time.perf_counter()
+    X, y = make_iris(rows + holdout)
+    train, hold = (_iris_dataset(X[:rows], y[:rows]),
+                   _iris_dataset(X[rows:], y[rows:]))
+    ll = np.stack([(-0.5 * ((X[rows:] - IRIS_MEANS[k]) / IRIS_SDS[k]) ** 2
+                    - np.log(IRIS_SDS[k])).sum(1) for k in range(3)], 1)
+    attainable = multiclass_metrics(torch.from_numpy(y[rows:]),
+                                    torch.from_numpy(ll.argmax(1)), 3)["F1"]
+    data_s = time.perf_counter() - t0
+    prediction, label, checked, selector = build_iris()
+    wf = OpWorkflow().set_result_features(prediction, label) \
+        .set_input_data(train)
+    torch.cuda.synchronize()
+    gk.seg_level_hists.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train()
+    train_s = time.perf_counter() - t0
+    launches = gk.seg_level_hists.launches
+    scored, metrics = model.score_and_evaluate(
+        Evaluators.MultiClassification.f1(), data=hold)
+    proba = scored[prediction.name].values.probability
+    meta = selector.metadata
+    summary = meta["model_selector_summary"]
+    results = summary["validationResults"]
+    mlp_fits = [f for f in meta["sequential_fits"]
+                if f["model"] == "OpMultilayerPerceptronClassifier"]
+    f1 = float(metrics["F1"])
+    out = {"phase": "iris", "rows": rows, "holdout": holdout,
+           "data_s": data_s, "train_s": train_s,
+           "stage_seconds": model.stage_seconds,
+           "sweep_seconds": meta["sweep_seconds"],
+           "group_errors": meta["group_errors"],
+           "labels_kept": summary["dataPrepResults"]["labelsKept"],
+           "dropped_columns": checked.origin_stage.metadata["summary"]
+           ["dropped"],
+           "validation": [{"model": r["modelType"], "params": r["params"],
+                           "f1": r["metricValue"], "error": r.get("error")}
+                          for r in results],
+           "winner": summary["bestModelType"],
+           "winner_params": summary["bestModelParams"],
+           "mlp_fits": mlp_fits, "holdout_f1": f1,
+           "holdout_accuracy": metrics["Accuracy"],
+           "attainable_f1": float(attainable),
+           "f1_floor": IRIS_F1_SHARE * float(attainable),
+           "seg_hist_launches": launches}
+    emit(out)
+    check(tuple(proba.shape) == (holdout, 3), f"proba shape {proba.shape}")
+    check(bool(torch.isfinite(proba).all()), "non-finite probabilities")
+    check(len(results) == 4, f"{len(results)} validation results, not 4")
+    errors = [r["error"] for r in results if r.get("error")]
+    check(not errors, f"candidates failed: {errors}")
+    check(not meta["group_errors"],
+          f"grid groups failed: {meta['group_errors']}")
+    check("SoftmaxGridGroup" in meta["sweep_seconds"],
+          f"the softmax group did not run: {sorted(meta['sweep_seconds'])}")
+    check(len(mlp_fits) >= 2 and all(f["n_iter"] > 0 for f in mlp_fits),
+          f"iris: MLP fits {mlp_fits}")
+    check(summary["dataPrepResults"]["labelsKept"] == [0.0, 1.0, 2.0],
+          f"iris: kept labels {summary['dataPrepResults']['labelsKept']}")
+    check(f1 >= IRIS_F1_SHARE * attainable,
+          f"iris: holdout F1 {f1} below {IRIS_F1_SHARE} x the attainable "
+          f"{attainable}")
     return out
 
 
@@ -1832,11 +2363,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     titanic = phase_titanic(args.rows, args.holdout, args.reps, bw, f32)
     torch.cuda.empty_cache()
+    multi = phase_multiclass(data, args.cols, args.reps, bw, f32)
+    torch.cuda.empty_cache()
+    phase_iris(args.rows, args.holdout)
+    torch.cuda.empty_cache()
     served, request_rows = phase_serve([xgb, lr], args.cols)
     del xgb, lr, data
     torch.cuda.empty_cache()
     seg = phase_seg_hist(dev, args.rows, args.cols, reg["checked_cols"],
                          args.reps, bw, f32, smem_bw)
+    torch.cuda.empty_cache()
+    phase_seg_hist_channels(dev, args.rows, args.reps, bw, f32, smem_bw)
     torch.cuda.empty_cache()
     phase_profile(dev, args.rows, args.cols, PROFILE_ROUNDS)
     torch.cuda.empty_cache()
@@ -1858,12 +2395,19 @@ def main() -> int:
           "smem_floor_ms": mean("smem_floor_ms"),
           "worst_tol_ratio": max(r["tol_ratio"] for r in seg),
           "worst_ms": max(r["kernel_ms"] for r in levels)})
+    emit({"phase": "seg_hist_two_channel",
+          "xgb_ms_mean": mean("kernel_ms"),
+          "xgb_ms_earlier": EARLIER_XGB_MS,
+          "rf_ms": {r["M"]: r["kernel_ms"] for r in seg
+                    if r["path"] == "rf"},
+          "rf_ms_earlier": EARLIER_RF_MS})
     emit({"kernels": [{
         "name": "seg_hist", "route": "cuda", "source": SEG_HIST_SOURCE,
         "replaces": SEG_HIST_REPLACES,
         "launches": (sl["seg_hist_launches"] + sel["seg_hist_launches"]
                      + reg["seg_hist_launches_total"]
-                     + titanic["seg_hist_launches"]),
+                     + titanic["seg_hist_launches"]
+                     + multi["seg_hist_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in seg),
         "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": levels[-1]["bound_by"],

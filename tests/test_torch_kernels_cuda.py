@@ -142,7 +142,7 @@ def test_plan_replay_covers_every_row_once(M, even, d, monkeypatch):
                              even_slots_only=even)
     monkeypatch.setattr(tk, "SEG_WARPS", 3)
     monkeypatch.setattr(tk, "SEG_ROWS_PER_WARP", 16)
-    plan = tk.seg_plan(3000, d, M, B)
+    plan = tk.seg_plan(3000, d, M, B, 2)
     assert plan.group_rows == 48 and plan.n_tiles == -(-d // 128)
     assert plan.n_groups == M + 3000 // 48
     got, cover = _replay(plan, binned, slot, ch, M, B)
@@ -156,15 +156,15 @@ def test_plan_replay_covers_every_row_once(M, even, d, monkeypatch):
 def test_plan_fits_shared_memory(monkeypatch):
     """Warps are cut to what B's histograms leave room for; the largest B
     still fits one warp."""
-    p = tk.seg_plan(1_000_000, 500, 32, 32)
+    p = tk.seg_plan(1_000_000, 500, 32, 32, 2)
     assert p.warps == tk.SEG_WARPS and p.smem_bytes <= 232_448
     assert p.n_blocks == p.n_groups * 4 and p.width == 512
     assert p.n_groups == 32 + 1_000_000 // p.group_rows
     monkeypatch.setattr(tk, "SEG_WARPS", 6)
-    big = tk.seg_plan(1000, 8, 1, tk.SEG_MAX_BINS)
+    big = tk.seg_plan(1000, 8, 1, tk.SEG_MAX_BINS, 2)
     assert big.warps == 1 and big.smem_bytes <= 232_448
     with pytest.raises(ValueError):
-        tk.seg_plan(1000, 8, 1, tk.SEG_MAX_BINS + 1)
+        tk.seg_plan(1000, 8, 1, tk.SEG_MAX_BINS + 1, 2)
 
 
 def test_launcher_passes_pointers_as_void_p(monkeypatch):
@@ -178,7 +178,7 @@ def test_launcher_passes_pointers_as_void_p(monkeypatch):
     monkeypatch.setattr(cuda_build, "load_library", lambda name: lib)
     fn = tk._seg_lib()
     assert fn.argtypes == ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                           + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     assert fn.restype is ctypes.c_int
 
 
@@ -245,7 +245,7 @@ def test_seg_hist_every_block_shape_matches_plain(cuda_device, warps,
     M, B = 16, 32
     args = [t.to(cuda_device) for t in _rand(50_000, 300, M, B, seed=warps)]
     monkeypatch.setattr(tk, "SEG_WARPS", warps)
-    assert tk.seg_plan(50_000, 300, M, B).warps == warps
+    assert tk.seg_plan(50_000, 300, M, B, 2).warps == warps
     _check_kernel(args, M, B)
 
 
@@ -286,6 +286,82 @@ def test_seg_hist_forest_levels_bitwise(cuda_device, M):
     b = tk.seg_level_hists(binned, slot, ch, M, B)
     plain = tk.seg_level_hists_plain(binned, slot, ch, M, B)
     assert torch.equal(a, b) and torch.equal(a, plain)
+
+
+def _class_channels(rng, n, K):
+    """A K-class forest level's integer channels: (bw [y=0], ..,
+    bw [y=K-2], bw) of Poisson bag counts and uniform labels."""
+    bw = rng.poisson(1.0, n).astype(np.float32)
+    y = rng.integers(0, K, n)
+    return np.stack([bw * (y == k) for k in range(K - 1)] + [bw],
+                    1).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nchan", [3, 5, 13, 14, 100])
+def test_seg_hist_channel_counts_bitwise(cuda_device, nchan):
+    """K-class forest levels at C = K channels (d = 22 subset columns in
+    32-byte rows, M = 64): one launch up to 13 channels at 32 bins, one per
+    channel group past it; integer channels, so every launch equals the
+    plain version bitwise."""
+    rng = np.random.default_rng(nchan)
+    n, d, M, B = 200_000, 22, 64, 32
+    binned = tk.binned_empty(n, d, cuda_device)
+    binned.copy_(torch.from_numpy(
+        rng.integers(0, B, size=(n, d)).astype(np.uint8)))
+    ch = torch.from_numpy(_class_channels(rng, n, nchan)).to(cuda_device)
+    slot = torch.from_numpy(rng.integers(0, M, n).astype(np.int32)).to(
+        cuda_device)
+    before = tk.seg_level_hists.launches
+    a = tk.seg_level_hists(binned, slot, ch, M, B)
+    torch.cuda.synchronize()
+    assert (tk.seg_level_hists.launches - before
+            == len(tk.seg_channel_groups(nchan, B)))
+    assert len(tk.seg_channel_groups(nchan, B)) == (1 if nchan <= 13 else
+                                                    -(-nchan // 13))
+    b = tk.seg_level_hists(binned, slot, ch, M, B)
+    plain = tk.seg_level_hists_plain(binned, slot, ch, M, B)
+    assert torch.equal(a, b) and torch.equal(a, plain)
+
+
+@pytest.mark.cuda
+def test_seg_hist_grouped_channels_take_any_base(cuda_device):
+    """14 channels run as two groups, each copied into rows of its own, so
+    a ``ch`` 4 bytes off its 8-byte row copy launches and equals the plain
+    version bitwise."""
+    rng = np.random.default_rng(14)
+    n, d, M, B, nchan = 200_000, 22, 64, 32, 14
+    binned = tk.binned_empty(n, d, cuda_device)
+    binned.copy_(torch.from_numpy(
+        rng.integers(0, B, size=(n, d)).astype(np.uint8)))
+    flat = torch.empty(n * nchan + 1, device=cuda_device)
+    ch = flat[1:].view(n, nchan)
+    ch.copy_(torch.from_numpy(_class_channels(rng, n, nchan)))
+    assert ch.data_ptr() % 8 == 4
+    slot = torch.from_numpy(rng.integers(0, M, n).astype(np.int32)).to(
+        cuda_device)
+    before = tk.seg_level_hists.launches
+    got = tk.seg_level_hists(binned, slot, ch, M, B)
+    torch.cuda.synchronize()
+    assert tk.seg_level_hists.launches - before == 2
+    assert torch.equal(got, tk.seg_level_hists_plain(binned, slot, ch, M, B))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nchan", [1, 4, 10])
+def test_seg_hist_float_channels(cuda_device, nchan):
+    """Float channels (a softmax objective's gradients and hessians at
+    d = 500): within the tolerance of the plain version, and two launches
+    bitwise equal."""
+    rng = np.random.default_rng(nchan + 7)
+    n, d, M, B = 100_000, 500, 32, 32
+    binned = tk.binned_empty(n, d, cuda_device)
+    binned.copy_(torch.from_numpy(
+        rng.integers(0, B, size=(n, d)).astype(np.uint8)))
+    ch = rng.uniform(-1, 1, (n, nchan)).astype(np.float32)
+    slot = torch.from_numpy(rng.integers(0, M, n).astype(np.int32))
+    _check_kernel([binned, slot.to(cuda_device),
+                   torch.from_numpy(ch).to(cuda_device)], M, B)
 
 
 @pytest.mark.cuda

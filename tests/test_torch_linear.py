@@ -120,7 +120,11 @@ def test_estimator_fit_raw_and_predict(problem):
 
 
 def test_fit_raw_rejects_multiclass():
-    X = np.zeros((4, 2), np.float32)
-    with pytest.raises(NotImplementedError):
-        OpLogisticRegression().fit_raw(X, np.array([0, 1, 2, 1.0]),
+    """Multiclass labels no longer raise: they take the multinomial fit,
+    a (K, D) model with K intercepts (its parity with the JAX package is
+    in tests/test_torch_multiclass.py)."""
+    X = np.array([[0, 1], [1, 0], [2, 2], [1, 1]], np.float32)
+    m = OpLogisticRegression().fit_raw(X, np.array([0, 1, 2, 1.0]),
                                        device="cpu")
+    assert tuple(m.coef.shape) == (3, 2) and len(m.intercept) == 3
+    assert m.predict_batch(torch.from_numpy(X)).probability.shape == (4, 3)

@@ -739,10 +739,19 @@ def test_no_card_raises(entry, monkeypatch):
 
 
 def test_selector_refuses_what_is_not_ported():
-    """Multiclass selection still raises; the regression selector's
-    dispatch options raise as the binary one's do."""
+    """A problem type outside binary, multiclass and regression raises;
+    the regression and multiclass selectors' dispatch options raise as
+    the binary one's do."""
+    from transmogrifai_tpu_torch.selector.model_selector import \
+        MultiClassificationModelSelector
+
     with pytest.raises(NotImplementedError):
-        ModelSelector([], problem_type="multiclass")
+        ModelSelector([], problem_type="forecast")
+    for kw in (dict(parallelism=8), dict(parallel=2)):
+        with pytest.raises(NotImplementedError):
+            MultiClassificationModelSelector.with_cross_validation(**kw)
+        with pytest.raises(NotImplementedError):
+            MultiClassificationModelSelector.with_train_validation_split(**kw)
     for kw in (dict(parallelism=8), dict(max_wait=1.0), dict(parallel=2),
                dict(strategy="halving"), dict(watchdog=2.0)):
         with pytest.raises(NotImplementedError):

@@ -74,6 +74,44 @@ class TestSegLevelHistsPlain:
         if even:
             assert (got[:, 1::2] == 0).all()
 
+    @pytest.mark.parametrize("nchan", [1, 3, 5, 14, 100])
+    def test_any_channel_count_matches_jax_kernel(self, nchan):
+        """C channels, as a K-class forest's K (or a softmax objective's
+        2K) give the level: the wrapper on CPU tensors against the JAX
+        package's segmented kernel (interpret mode) and ``np.add.at``."""
+        n, d, M, B = 700, 20, 8, 32
+        binned, slot, ch = _rand(n, d, M, B, nchan=nchan, seed=nchan)
+        bt, st, ct = _torch(binned, slot, ch)
+        padded = tk.binned_empty(n, d, bt.device)
+        padded.copy_(bt)
+        got = tk.seg_level_hists(padded, st, ct, M, B).numpy()
+        assert got.shape == (nchan, M, B, d)
+        np.testing.assert_allclose(got, _np_ref(binned, slot, ch, M, B),
+                                   rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got, _jax_seg(binned, slot, ch, M, B),
+                                   rtol=RTOL, atol=ATOL)
+
+    def test_grouped_channels_take_any_base(self):
+        """Past one launch's channels each group's columns are copied into
+        rows of their own, so a wider ``ch`` needs no aligned base: 14
+        channels 4 bytes off their 8-byte row copy give the plain sums,
+        while 12 (one launch reading ``ch`` itself, in 16-byte copies) are
+        refused."""
+        n, d, M, B = 300, 8, 4, 32
+        binned, slot, _ = _torch(*_rand(n, d, M, B))
+        for nchan, ok in [(14, True), (12, False)]:
+            ch = torch.empty(nchan * n + 1)[1:].view(n, nchan)
+            ch.copy_(torch.arange(nchan * n).view(n, nchan) % 5)
+            assert ch.is_contiguous() and ch.data_ptr() % 8 == 4
+            assert (len(tk.seg_channel_groups(nchan, B)) > 1) == ok
+            if ok:
+                assert torch.equal(
+                    tk.seg_level_hists(binned, slot, ch, M, B),
+                    tk.seg_level_hists_plain(binned, slot, ch, M, B))
+            else:
+                with pytest.raises(ValueError, match="aligned"):
+                    tk.seg_level_hists(binned, slot, ch, M, B)
+
     def test_cpu_tensors_take_the_plain_version(self):
         binned, slot, ch = _rand(300, 8, 4, 32)
         before = tk.seg_level_hists.launches
@@ -96,8 +134,8 @@ class TestSegLevelHistsPlain:
             slot = slot.to(torch.int64)
         elif bad == "ch_shape":
             ch = ch[:10]
-        elif bad == "ch_channels":   # the kernel takes gradient, hessian
-            ch = ch[:, :1].repeat(1, 4).contiguous()
+        elif bad == "ch_channels":   # at least one channel
+            ch = ch[:, :0]
         elif bad == "bins_over_shared_memory":   # B x 128 float2 > 227 KiB
             B = tk.SEG_MAX_BINS + 1
         elif bad == "slots_over_grid":   # one reduce grid row per slot

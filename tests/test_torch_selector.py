@@ -426,7 +426,7 @@ def test_dropped_options_raise():
         with pytest.raises(NotImplementedError):
             OpCrossValidation(**kw)
     with pytest.raises(NotImplementedError):
-        ModelSelector([], problem_type="multiclass")
+        ModelSelector([], problem_type="forecast")
     sel = mk()
     for call in (lambda: sel.with_mesh(None), lambda: sel.with_watchdog(2.0),
                  lambda: sel.with_sweep_checkpoint("ckpt")):

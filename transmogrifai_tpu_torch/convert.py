@@ -17,6 +17,7 @@ import torch
 from .device import resolve_device
 from .features.feature import Feature
 from .models.classification import LogisticRegressionModel
+from .models.mlp import MLPClassificationModel
 from .models.prediction import PredictorModel
 from .models.regression import LinearRegressionModel
 from .models.trees import TreeEnsembleModel
@@ -31,8 +32,8 @@ from .workflow.workflow import OpWorkflowModel
 
 __all__ = ["real_vectorizer", "one_hot_vectorizer", "sanity_checker",
            "tree_ensemble_model", "tree_ensemble",
-           "logistic_regression_model", "linear_regression_model",
-           "selected_model", "workflow_model"]
+           "logistic_regression_model", "mlp_model",
+           "linear_regression_model", "selected_model", "workflow_model"]
 
 
 def real_vectorizer(est: Union[RealVectorizer, IntegralVectorizer],
@@ -69,8 +70,9 @@ def tree_ensemble_model(mode: str, edges: np.ndarray, feat: np.ndarray,
                         base_score: float = 0.0, n_classes: int = 2,
                         device=None) -> TreeEnsembleModel:
     """A ``TreeEnsembleModel`` (``gbdt_binary``, ``gbdt_reg``, ``rf_cls``
-    or ``rf_reg``) from its edges/feat/thresh/leaf arrays, its trees on
-    ``device`` (else the default device)."""
+    — leaf (T, 2^d, K) of K class shares — or ``rf_reg``) from its
+    edges/feat/thresh/leaf arrays, its trees on ``device`` (else the
+    default device)."""
     dev = resolve_device(device)
     return TreeEnsembleModel(
         mode=mode, edges=np.asarray(edges, np.float32),
@@ -89,13 +91,30 @@ def tree_ensemble(est: Estimator, mode: str, edges: np.ndarray,
         device=getattr(est, "device", None)))
 
 
-def logistic_regression_model(coef: np.ndarray, intercept: float,
+def logistic_regression_model(coef: np.ndarray, intercept,
                               device=None) -> LogisticRegressionModel:
-    """A binary ``LogisticRegressionModel`` from its (D,) coefficients and
-    intercept, on ``device`` (else the default device)."""
+    """A ``LogisticRegressionModel`` from its coefficients and intercept,
+    on ``device`` (else the default device): binary, (D,) and a float;
+    multinomial, (K, D) and K intercepts."""
+    coef = np.asarray(coef, np.float32)
     return LogisticRegressionModel(
-        torch.tensor(np.asarray(coef, np.float32),
-                     device=resolve_device(device)), float(intercept))
+        torch.tensor(coef, device=resolve_device(device)),
+        float(intercept) if coef.ndim == 1
+        else [float(v) for v in np.asarray(intercept).reshape(-1)])
+
+
+def mlp_model(weights, mu: np.ndarray, sigma: np.ndarray,
+              device=None) -> MLPClassificationModel:
+    """An ``MLPClassificationModel`` from its layer list ``[[W (fan_in,
+    fan_out), b (fan_out,)], ...]`` and input standardization, on
+    ``device`` (else the default device)."""
+    dev = resolve_device(device)
+    return MLPClassificationModel(
+        weights=[[torch.tensor(np.asarray(W, np.float32), device=dev),
+                  torch.tensor(np.asarray(b, np.float32), device=dev)]
+                 for W, b in weights],
+        mu=torch.tensor(np.asarray(mu, np.float32), device=dev),
+        sigma=torch.tensor(np.asarray(sigma, np.float32), device=dev))
 
 
 def linear_regression_model(coef: np.ndarray, intercept: float,
@@ -111,8 +130,8 @@ def selected_model(est: ModelSelector, inner: PredictorModel,
                    best_name: str, best_params: dict,
                    summary: Optional[dict] = None) -> SelectedModel:
     """A fitted selector: the winner ``inner`` (built by
-    ``logistic_regression_model``, ``linear_regression_model`` or
-    ``tree_ensemble_model``) with its
+    ``logistic_regression_model``, ``linear_regression_model``,
+    ``mlp_model`` or ``tree_ensemble_model``) with its
     name and params; ``summary`` (the JAX selector's
     ``model_selector_summary``) is carried into the estimator's
     metadata."""

@@ -1,10 +1,13 @@
 """Evaluator stages (counterpart of ``transmogrifai_tpu.evaluators.evaluators``).
 
 Ported: the binary classification evaluator with its AuPR metric and the
-``Evaluators.BinaryClassification.auPR()`` factory; the regression
-evaluator (RMSE, MSE, MAE, R2) and ``Evaluators.Regression.{rmse, mse,
-mae, r2}``.  Other metrics and evaluator families are not ported yet
-(ROADMAP Queue A).
+``Evaluators.BinaryClassification.auPR()`` factory; the multiclass
+evaluator (F1, Error, Accuracy, Precision, Recall, the confusion matrix,
+LogLoss and the top-N threshold counts) and
+``Evaluators.MultiClassification.{f1, error}``; the
+regression evaluator (RMSE, MSE, MAE, R2) and ``Evaluators.Regression.
+{rmse, mse, mae, r2}``.  Other metrics and evaluator families are not
+ported yet (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -14,10 +17,12 @@ import numpy as np
 import torch
 
 from ..types.columns import ColumnarDataset
-from .metrics import aupr, regression_metrics
+from .metrics import (aupr, multiclass_metrics,
+                      multiclass_threshold_metrics, regression_metrics)
 
 __all__ = ["OpEvaluatorBase", "OpBinaryClassificationEvaluator",
-           "OpRegressionEvaluator", "Evaluators"]
+           "OpMultiClassificationEvaluator", "OpRegressionEvaluator",
+           "Evaluators"]
 
 
 class OpEvaluatorBase:
@@ -44,6 +49,47 @@ class OpBinaryClassificationEvaluator(OpEvaluatorBase):
                  else batch.prediction)
         y = np.nan_to_num(np.asarray(data[self.label_col].values, np.float64))
         return {"AuPR": aupr(torch.from_numpy(y).to(score.device), score)}
+
+
+class OpMultiClassificationEvaluator(OpEvaluatorBase):
+    """Multiclass metrics of the ``prediction`` column (weighted by
+    ``sample_weight`` when given), the confusion matrix, LogLoss of the
+    probabilities and their top-N / threshold counts at the JAX package's
+    defaults (top 1 and 3; thresholds 0.00 .. 1.00).  ``num_classes`` is the
+    class count when given; else it is inferred from the labels, the
+    predictions and the probability width together, never from the
+    labels' largest value alone (an evaluation slice missing the top class
+    does not shrink the class space)."""
+
+    default_metric = "F1"
+
+    def __init__(self, label_col=None, prediction_col=None,
+                 num_classes: Optional[int] = None):
+        super().__init__(label_col, prediction_col)
+        self.num_classes = num_classes
+
+    def evaluate(self, data: ColumnarDataset,
+                 sample_weight=None) -> Dict[str, object]:
+        batch = data[self.prediction_col].values
+        pred = batch.prediction
+        proba = batch.probability
+        y = np.nan_to_num(np.asarray(data[self.label_col].values, np.float64))
+        n_classes = self.num_classes or int(max(
+            float(y.max()) if len(y) else 0.0,
+            float(pred.max()) if len(pred) else 0.0,
+            (proba.shape[1] - 1) if proba is not None else 0)) + 1
+        yi = torch.from_numpy(y.astype(np.int64)).to(pred.device)
+        w = (None if sample_weight is None
+             else torch.as_tensor(np.asarray(sample_weight, np.float64)))
+        out = multiclass_metrics(yi, pred.long(), n_classes, w)
+        out["confusionMatrix"] = out.pop("confusion").tolist()
+        if proba is not None:
+            p = torch.clamp(proba.to(torch.float64), 1e-15, 1.0)
+            idx = torch.clamp(yi, 0, p.shape[1] - 1)
+            out["LogLoss"] = float(-torch.log(
+                p[torch.arange(len(yi), device=p.device), idx]).mean())
+            out["ThresholdMetrics"] = multiclass_threshold_metrics(yi, proba)
+        return out
 
 
 class OpRegressionEvaluator(OpEvaluatorBase):
@@ -78,6 +124,18 @@ class Evaluators:
         @staticmethod
         def auPR() -> OpBinaryClassificationEvaluator:
             return OpBinaryClassificationEvaluator()
+
+    class MultiClassification:
+        @staticmethod
+        def f1() -> OpMultiClassificationEvaluator:
+            return OpMultiClassificationEvaluator()
+
+        @staticmethod
+        def error() -> OpMultiClassificationEvaluator:
+            ev = OpMultiClassificationEvaluator()
+            ev.default_metric = "Error"
+            ev.larger_better = False
+            return ev
 
     class Regression:
         @staticmethod

@@ -3,25 +3,32 @@
 precision-recall and ROC curves from one sort of the scores, evaluated at
 distinct-score boundaries (average-precision style, as sklearn and Spark
 compute them), the metrics at a threshold, Brier score and log loss; the
-weighted regression set (RMSE, MSE, MAE, R2).
+weighted regression set (RMSE, MSE, MAE, R2); the weighted multiclass set
+(F1, Error, Accuracy, Precision, Recall: support-weighted averages over a
+confusion matrix) and the top-N / confidence-threshold counts.
 
 Sums run in float64 over cumulative sums rather than scatter-adds, so the
 results are deterministic on the card; with unit weights every partial sum
 is an exact integer.  ``binary_metric_grid`` and
 ``regression_metric_grid`` score a whole (fold, candidate) sweep against
-per-fold evaluation weights.
+per-fold evaluation weights, ``multiclass_metric_grid`` a sweep's
+predicted labels.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 __all__ = ["MINIMIZE_METRICS", "aupr", "aupr_device", "auroc",
            "auroc_device", "binary_metric_grid", "binary_metrics_at_threshold",
            "brier_score", "log_loss", "binary_classification_metrics",
            "REGRESSION_METRICS", "regression_metric_device",
-           "regression_metric_grid", "regression_metrics"]
+           "regression_metric_grid", "regression_metrics",
+           "MULTICLASS_METRICS", "multiclass_metric_device",
+           "multiclass_metric_grid", "multiclass_metrics",
+           "multiclass_threshold_metrics"]
 
 #: metrics where smaller is better (the selector's direction of selection)
 MINIMIZE_METRICS = ("RootMeanSquaredError", "MeanSquaredError",
@@ -214,3 +221,144 @@ def regression_metrics(y_true, y_pred, sample_weight=None
     return {m: float(regression_metric_device(y_true, y_pred, sample_weight,
                                               m))
             for m in REGRESSION_METRICS}
+
+
+# ---------------------------------------------------------------------------
+# Multiclass
+# ---------------------------------------------------------------------------
+
+#: the multiclass metrics a sweep scores on the device
+MULTICLASS_METRICS = ("F1", "Error", "Accuracy", "Precision", "Recall")
+
+
+def _confusion(y: torch.Tensor, p: torch.Tensor, w: torch.Tensor,
+               n_classes: int) -> torch.Tensor:
+    """(K, K) float64 weighted confusion matrix (rows: labels, columns:
+    predictions) as one one-hot product: a fixed summation order on the
+    card, unlike a scatter."""
+    yo = torch.nn.functional.one_hot(y, n_classes).to(torch.float64)
+    po = torch.nn.functional.one_hot(p, n_classes).to(torch.float64)
+    return (yo * w[:, None]).T @ po
+
+
+def _multiclass_set(conf: torch.Tensor, wsum: torch.Tensor):
+    """(Precision, Recall, F1) support-weighted over the classes of a
+    confusion matrix whose rows hold ``wsum`` in all."""
+    tp = torch.diagonal(conf)
+    support = conf.sum(1)
+    prec_k = tp / torch.clamp(conf.sum(0), min=1e-12)
+    rec_k = tp / torch.clamp(support, min=1e-12)
+    f1_k = 2 * prec_k * rec_k / torch.clamp(prec_k + rec_k, min=1e-12)
+    wts = support / wsum
+    return (wts * prec_k).sum(), (wts * rec_k).sum(), (wts * f1_k).sum()
+
+
+def _multiclass_prep(y_true, y_pred, sample_weight, n_classes: int):
+    """int64 labels and predictions on the predictions' device, and the
+    float64 weights with rows whose label or prediction lies outside [0,
+    K) zeroed (both are then clamped into range)."""
+    pt = torch.as_tensor(y_pred)
+    dev = pt.device
+    y = torch.as_tensor(y_true).to(dev).long()
+    p = pt.long()
+    w = (torch.ones(y.shape[0], dtype=torch.float64, device=dev)
+         if sample_weight is None
+         else torch.as_tensor(sample_weight).to(dev, torch.float64))
+    ok = (y >= 0) & (y < n_classes) & (p >= 0) & (p < n_classes)
+    return torch.where(ok, y, 0), torch.where(ok, p, 0), w * ok
+
+
+def multiclass_metric_device(y_true, y_pred, sample_weight, n_classes: int,
+                             metric: str) -> torch.Tensor:
+    """One weighted multiclass metric of predicted labels as a 0-d float64
+    tensor on the predictions' device.  Rows whose label or prediction
+    lies outside [0, K) weigh nothing (the JAX package's grid kernel)."""
+    if metric not in MULTICLASS_METRICS:
+        raise ValueError(f"unknown multiclass metric {metric!r}")
+    y, p, w = _multiclass_prep(y_true, y_pred, sample_weight, n_classes)
+    wsum = torch.clamp(w.sum(), min=1e-12)
+    if metric in ("Accuracy", "Error"):
+        acc = (w * (y == p)).sum() / wsum
+        return acc if metric == "Accuracy" else 1.0 - acc
+    prec, rec, f1 = _multiclass_set(_confusion(y, p, w, n_classes), wsum)
+    return {"Precision": prec, "Recall": rec, "F1": f1}[metric]
+
+
+def multiclass_metric_grid(y_true: torch.Tensor, preds: torch.Tensor,
+                           weights: torch.Tensor, n_classes: int,
+                           metric: str) -> Optional[torch.Tensor]:
+    """A multiclass sweep's metrics: ``preds`` (F, C, N) predicted labels
+    per (fold, candidate), ``weights`` (F, N) per-fold evaluation weights,
+    one label vector -> (F, C) float64 device values, or None when
+    ``metric`` has no device form."""
+    if metric not in MULTICLASS_METRICS:
+        return None
+    return torch.stack([torch.stack([
+        multiclass_metric_device(y_true, p, weights[f], n_classes, metric)
+        for p in preds[f]]) for f in range(preds.shape[0])])
+
+
+def multiclass_metrics(y_true, y_pred, n_classes: int,
+                       sample_weight=None) -> Dict[str, object]:
+    """The full multiclass set (Accuracy, Error, Precision, Recall, F1)
+    and the (K, K) ``confusion`` matrix (a float64 numpy array) of
+    predicted labels; rows whose label or prediction lies outside [0, K)
+    are dropped, as the JAX package's host path drops them."""
+    y, p, w = _multiclass_prep(y_true, y_pred, sample_weight, n_classes)
+    wsum = torch.clamp(w.sum(), min=1e-12)
+    acc = float((w * (y == p)).sum() / wsum)
+    conf = _confusion(y, p, w, n_classes)
+    prec, rec, f1 = _multiclass_set(conf, wsum)
+    return {"Accuracy": acc, "Error": 1.0 - acc, "Precision": float(prec),
+            "Recall": float(rec), "F1": float(f1),
+            "confusion": conf.cpu().numpy()}
+
+
+def multiclass_threshold_metrics(y_true, proba, top_ns=(1, 3),
+                                 thresholds=None) -> Dict:
+    """Top-N / confidence-threshold counts of multiclass probabilities
+    (OpMultiClassificationEvaluator's threshold metrics, the JAX
+    package's host arithmetic in float64): for every N and threshold, the
+    rows whose true class ranks in the top N (stable descending order: a
+    tie goes to the earlier class) with a score at or above the threshold
+    (``correct``), the rows whose top score clears the threshold but whose
+    true class misses the top N or the threshold (``incorrect``), and the
+    rest (``noPrediction``).  A label outside [0, K) scores 0."""
+    thr = (np.arange(0, 101) / 100.0 if thresholds is None
+           else np.asarray(thresholds, np.float64))
+    if thr.size == 0 or not np.all((thr >= 0) & (thr <= 1)):
+        raise ValueError("thresholds must be a non-empty sequence in [0, 1]")
+    tns = list(dict.fromkeys(int(t) for t in top_ns))
+    if not tns or any(t <= 0 for t in tns):
+        raise ValueError("top_ns must be a non-empty sequence of positive "
+                         "integers")
+    P = torch.as_tensor(proba).to(torch.float64)
+    dev = P.device
+    y = torch.as_tensor(y_true).to(dev).long()
+    n, k = P.shape
+    lbl = torch.clamp(y, 0, k - 1)
+    seen = (y >= 0) & (y < k)
+    rows = torch.arange(n, device=dev)
+    true_score = torch.where(seen, P[rows, lbl], 0.0)
+    top_score = P.max(dim=1).values
+    gt = (P > true_score[:, None]).sum(1)
+    eq_before = ((P == true_score[:, None])
+                 & (torch.arange(k, device=dev)[None, :]
+                    < lbl[:, None])).sum(1)
+    rank = torch.where(seen, gt + eq_before, k)
+    thr_t = torch.as_tensor(thr, dtype=torch.float64, device=dev)
+    true_ge = true_score[:, None] >= thr_t[None, :]
+    top_ge = top_score[:, None] >= thr_t[None, :]
+    out = {"topNs": tns, "thresholds": [float(t) for t in thr],
+           "correctCounts": {}, "incorrectCounts": {},
+           "noPredictionCounts": {}}
+    for t in tns:
+        in_top = (rank < t)[:, None]
+        correct = (in_top & true_ge).sum(0).cpu().tolist()
+        incorrect = ((in_top & top_ge & ~true_ge)
+                     | (~in_top & top_ge)).sum(0).cpu().tolist()
+        out["correctCounts"][t] = [int(c) for c in correct]
+        out["incorrectCounts"][t] = [int(c) for c in incorrect]
+        out["noPredictionCounts"][t] = [int(n - c - i) for c, i
+                                        in zip(correct, incorrect)]
+    return out

@@ -13,7 +13,8 @@ slice runs:
    hessian channels, XGBoost gating), default-direction splits and node
    compaction;
  * ``grow_rf_grid`` / ``grow_forest_rf`` — random forests in bag mode
-   ``"onehot"`` for binary labels (channels bw [y=0] and bw) and
+   ``"onehot"`` for K-class labels (channels bw [y=k] for k < K-1, and
+   bw) and
    ``"bagged"`` for regression (channels bw y and bw): count gating,
    feature subsets, leaf-level truncation snapshots, bags from
    ``rf_bags_and_features``;
@@ -26,11 +27,12 @@ slice runs:
    the forest growers build every level through it.
 
 Not ported yet (ROADMAP Queue A): EFB bundling, the CSR histogram path,
-sibling subtraction, multiclass forests and sharded growth.
+sibling subtraction, the softmax boosting objective and sharded growth.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
                     Tuple)
 
@@ -40,7 +42,8 @@ import torch
 __all__ = ["TreeArrays", "quantile_bins", "quantile_bins_sparse_aware",
            "SPARSE_SKETCH_ZERO_FRAC", "apply_bins", "default_dir_mask",
            "route_right", "binned_empty", "SegPlan",
-           "seg_plan", "seg_layout", "seg_level_hists",
+           "seg_plan", "seg_channel_groups", "seg_layout",
+           "seg_level_hists",
            "seg_level_hists_plain",
            "grow_tree", "RFGrowth", "rf_bags_and_features", "grow_rf_grid",
            "grow_forest_rf", "predict_tree", "predict_ensemble",
@@ -49,21 +52,33 @@ __all__ = ["TreeArrays", "quantile_bins", "quantile_bins_sparse_aware",
 #: most rows one warp of the seg_hist kernel adds into one float32 partial
 #: (keeps the partial sums within the kernel's tolerance at a million rows)
 SEG_ROWS_PER_WARP = 1024
-#: warps per block of the seg_hist kernel (each with its own histogram);
-#: chosen by a block-shape sweep on the H100 (PERF.md)
+#: most warps per block of the seg_hist kernel (each with its own
+#: histogram); chosen by a block-shape sweep on the H100 (PERF.md)
 SEG_WARPS = 2
-#: channels the seg_hist kernel is built for: gradient and hessian of the
-#: binary objective
-SEG_CHANNELS = 2
+#: the widest channel set one launch of the seg_hist kernel takes (the
+#: kernel is built for 1..13 channels: 13 one-channel histograms of 32
+#: bins fill a block's shared memory); wider sets run as several launches
+SEG_MAX_CHANNELS = 13
 #: columns of one tile: 32 lanes x one 4-byte word of bins
 SEG_TILE = 128
-#: a Hopper block's shared memory (227 KiB), and the kernel's per-warp
-#: staging ring: 4 stages of 8 rows x (128 bytes of bins + 8 of channels)
+#: a Hopper block's shared memory (227 KiB)
 _SMEM_BLOCK = 232_448
-_SMEM_RING = 4 * 8 * (SEG_TILE + 8)
-#: most bins one warp's float2 histogram [B][128] (plus its ring) fits in
-#: a block's shared memory
-SEG_MAX_BINS = (_SMEM_BLOCK - _SMEM_RING) // (SEG_TILE * 8)
+
+
+def _smem_ring(nchan: int) -> int:
+    """Bytes of the kernel's per-warp staging ring: 4 stages of 8 rows x
+    (128 bytes of bins + 4 bytes a channel)."""
+    return 4 * 8 * (SEG_TILE + 4 * nchan)
+
+
+def _smem_per_warp(B: int, nchan: int) -> int:
+    """Bytes of one warp's B x 128 x nchan float histogram and its ring."""
+    return B * SEG_TILE * 4 * nchan + _smem_ring(nchan)
+
+
+#: most bins one warp's two-channel histogram [B][128] (plus its ring)
+#: fits in a block's shared memory
+SEG_MAX_BINS = (_SMEM_BLOCK - _smem_ring(2)) // (SEG_TILE * 8)
 #: most slots: the reduce pass puts one slot per grid row (gridDim.y)
 SEG_MAX_SLOTS = 65535
 #: GOSS engages at/above this depth and row count, and keeps these
@@ -317,9 +332,10 @@ class SegPlan(NamedTuple):
     smem_bytes: int     # dynamic shared memory per block
 
 
-def seg_plan(n: int, d: int, M: int, B: int) -> SegPlan:
+def seg_plan(n: int, d: int, M: int, B: int, nchan: int) -> SegPlan:
     """The ``seg_hist`` kernel's launch geometry for an (n, d) level of M
-    slots and B bins.  The slot-sorted rows are cut at every slot bound and
+    slots, B bins and ``nchan`` channels in one launch.  The slot-sorted
+    rows are cut at every slot bound and
     every multiple of G = group_rows; each piece is a row group, so no
     group straddles two slots.  Slot s's groups are numbered from
     goff(s) = s + bounds[s] // G (``bounds`` from ``seg_layout``; one group
@@ -330,13 +346,14 @@ def seg_plan(n: int, d: int, M: int, B: int) -> SegPlan:
     i // n_tiles, tile i % n_tiles); warp w adds rows [r0 + w*q,
     min(r0 + (w+1)*q, r1)) with q = ceil((r1 - r0) / warps); lane L adds
     columns t*128 + 4L .. +3 below d.  Warps per block are ``SEG_WARPS``,
-    cut to what B's histograms leave room for in a block's shared memory;
-    q is at most ``SEG_ROWS_PER_WARP``."""
-    per_warp = B * SEG_TILE * 8 + _SMEM_RING
+    cut to what B x nchan histograms leave room for in a block's shared
+    memory; q is at most ``SEG_ROWS_PER_WARP``."""
+    per_warp = _smem_per_warp(B, nchan)
     warps = min(SEG_WARPS, _SMEM_BLOCK // per_warp)
-    if warps < 1 or B < 1:
-        raise ValueError(f"B={B} bins leave no room for one warp's "
-                         f"histogram (B <= {SEG_MAX_BINS})")
+    if warps < 1 or B < 1 or not 1 <= nchan <= SEG_MAX_CHANNELS:
+        raise ValueError(f"B={B} bins x {nchan} channels leave no room for "
+                         f"one warp's histogram (B <= {SEG_MAX_BINS} at two "
+                         f"channels, 1 <= channels <= {SEG_MAX_CHANNELS})")
     group_rows = warps * SEG_ROWS_PER_WARP
     n_tiles = -(-d // SEG_TILE)
     n_groups = M + n // group_rows
@@ -346,6 +363,28 @@ def seg_plan(n: int, d: int, M: int, B: int) -> SegPlan:
     return SegPlan(warps, SEG_ROWS_PER_WARP, group_rows, n_tiles,
                    n_tiles * SEG_TILE, n_groups, n_blocks,
                    warps * per_warp)
+
+
+@functools.lru_cache(maxsize=None)
+def seg_channel_groups(nchan: int, B: int) -> Tuple[Tuple[int, int], ...]:
+    """The channel groups the ``seg_hist`` kernel runs ``nchan`` channels
+    of B bins in, as (first channel, width) pairs: as few launches as the
+    widest launch allows (``SEG_MAX_CHANNELS``, and one warp's histograms
+    within a block's shared memory), their widths as even as can be.  Each
+    group re-reads ``binned``."""
+    fit = min(SEG_MAX_CHANNELS, max(
+        (c for c in range(1, SEG_MAX_CHANNELS + 1)
+         if _smem_per_warp(B, c) <= _SMEM_BLOCK), default=0))
+    if fit < 1:
+        raise ValueError(f"B={B} bins leave no room for one channel")
+    k = -(-nchan // fit)
+    q, r = divmod(nchan, k)
+    out, c0 = [], 0
+    for i in range(k):
+        w = q + (i < r)
+        out.append((c0, w))
+        c0 += w
+    return tuple(out)
 
 
 def seg_layout(slot: torch.Tensor, M: int):
@@ -371,7 +410,7 @@ def _seg_launcher(lib):
     # pointers and the stream as c_void_p: untyped, ctypes would pass each
     # Python int as a 32-bit int and cut the pointer
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -395,21 +434,33 @@ def _rows_fit(binned: torch.Tensor, align: int) -> bool:
     return need <= have
 
 
+def _ch_copy_bytes(nchan: int) -> int:
+    """Bytes the kernel copies a row's ``nchan`` channels in (16, 8 or 4:
+    the widest that divides 4 x nchan); the channels' base must be a
+    multiple of it."""
+    return 16 if nchan % 4 == 0 else 8 if nchan % 2 == 0 else 4
+
+
 def seg_level_hists(binned: torch.Tensor, slot: torch.Tensor,
                     ch: torch.Tensor, M: int, B: int) -> torch.Tensor:
-    """One tree level's per-channel histograms (nchan, M, B, d) float32:
+    """One tree level's per-channel histograms (C, M, B, d) float32:
     ``out[c, m, b, j] = sum_i ch[i, c] [slot_i = m] [binned[i, j] = b]``,
     exact zeros for empty slots.
 
     ``binned`` (N, d) uint8 with values < B <= ``SEG_MAX_BINS``, unit column
     stride and a row stride and base that are multiples of 4 bytes (as
     ``apply_bins`` returns it); ``slot`` (N,) int32 in [0, M) with M <=
-    ``SEG_MAX_SLOTS``; ``ch`` (N, 2) float32 (gradient, hessian) with an
-    8-byte-aligned base (the kernel copies a row's pair as one 8-byte
-    word); slot and ch contiguous, all on one device.  CUDA tensors launch
-    the ``seg_hist`` kernel (bitwise deterministic) with ``seg_plan``'s
-    geometry; CPU tensors take the plain version.
-    ``seg_level_hists.launches`` counts kernel launches."""
+    ``SEG_MAX_SLOTS``; ``ch`` (N, C) float32, C >= 1 channels (gradient
+    and hessian of a boosted level; a forest's class indicators and
+    count) whose base, where one launch reads all C channels, is a
+    multiple of the row copy's bytes (16 for C % 4 == 0, 8 for other even
+    C, else 4); slot and ch contiguous, all on one
+    device.  CUDA tensors launch the ``seg_hist`` kernel (bitwise
+    deterministic) with ``seg_plan``'s geometry, once per channel group
+    (``seg_channel_groups``: one launch for C <= 13 at 32 bins; past it,
+    each group's columns are copied into rows of their own); CPU tensors
+    take the plain version.  ``seg_level_hists.launches`` counts kernel
+    launches."""
     n, d = binned.shape
     if binned.dtype != torch.uint8 or binned.dim() != 2:
         raise TypeError(f"binned must be (N, d) uint8, got "
@@ -417,17 +468,15 @@ def seg_level_hists(binned: torch.Tensor, slot: torch.Tensor,
     if slot.dtype != torch.int32 or tuple(slot.shape) != (n,):
         raise TypeError(f"slot must be ({n},) int32, got "
                         f"{tuple(slot.shape)} {slot.dtype}")
-    if (ch.dtype != torch.float32
-            or tuple(ch.shape) != (n, SEG_CHANNELS)):
-        raise TypeError(f"ch must be ({n}, {SEG_CHANNELS}) float32, got "
+    if (ch.dtype != torch.float32 or ch.dim() != 2 or ch.shape[0] != n
+            or ch.shape[1] < 1):
+        raise TypeError(f"ch must be ({n}, C) float32 with C >= 1, got "
                         f"{tuple(ch.shape)} {ch.dtype}")
+    nchan = ch.shape[1]
     if not (binned.device == slot.device == ch.device):
         raise ValueError("binned, slot and ch must share one device")
     if not (slot.is_contiguous() and ch.is_contiguous()):
         raise ValueError("slot and ch must be contiguous")
-    if ch.data_ptr() % 8:
-        raise ValueError(f"ch needs an 8-byte-aligned base, got offset "
-                         f"{ch.data_ptr() % 8}")
     if not _rows_fit(binned, 4):
         raise ValueError(
             f"binned needs unit column stride, a row stride and base that are "
@@ -435,30 +484,44 @@ def seg_level_hists(binned: torch.Tensor, slot: torch.Tensor,
             f"(binned_empty makes one), got strides "
             f"{binned.stride()}, base offset {binned.data_ptr() % 4}")
     if not (1 <= B <= SEG_MAX_BINS and 1 <= M <= SEG_MAX_SLOTS
-            and SEG_CHANNELS * B * d < 2 ** 31 and n < 2 ** 31):
+            and nchan * B * d < 2 ** 31 and n < 2 ** 31):
         raise ValueError(f"need 1 <= B <= {SEG_MAX_BINS} (shared memory), "
                          f"1 <= M <= {SEG_MAX_SLOTS} (grid) and N < 2^31 "
                          f"(int32 row positions), got B={B} M={M} N={n}")
+    groups = seg_channel_groups(nchan, B)
+    if len(groups) == 1 and ch.data_ptr() % _ch_copy_bytes(nchan):
+        # one launch reads ``ch`` itself; past it, each group's columns
+        # are copied into fresh rows
+        raise ValueError(f"ch of {nchan} channels needs a base aligned to "
+                         f"{_ch_copy_bytes(nchan)} bytes (the kernel copies "
+                         f"a row's channels in such pieces), got offset "
+                         f"{ch.data_ptr() % _ch_copy_bytes(nchan)}")
     if binned.device.type == "cpu":
         return seg_level_hists_plain(binned, slot, ch, M, B)
     if binned.device.type != "cuda":
         raise ValueError(f"unsupported device {binned.device}")
 
     dev = binned.device
-    nchan = SEG_CHANNELS
-    plan = seg_plan(n, d, M, B)
     perm, bounds = seg_layout(slot, M)
-    scratch = torch.empty((plan.n_groups, nchan, B, plan.width),
-                          dtype=torch.float32, device=dev)
+    plans = {w: seg_plan(n, d, M, B, w) for _, w in groups}
+    scratch = torch.empty(
+        max(p.n_groups * w * B * p.width for w, p in plans.items()),
+        dtype=torch.float32, device=dev)
     out = torch.empty((nchan, M, B, d), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _seg_lib()(binned.data_ptr(), perm.data_ptr(), ch.data_ptr(),
-                     bounds.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                     binned.stride(0), d, M, B, plan.warps, plan.group_rows,
-                     plan.n_groups, int(_rows_fit(binned, 16)), stream)
-    if err != 0:
-        raise RuntimeError(f"seg_hist launch failed: CUDA error {err}")
-    seg_level_hists.launches += 1
+    wide = int(_rows_fit(binned, 16))
+    launch = _seg_lib()
+    for c0, w in groups:
+        plan = plans[w]
+        cg = ch if w == nchan else ch[:, c0:c0 + w].contiguous()
+        err = launch(binned.data_ptr(), perm.data_ptr(), cg.data_ptr(),
+                     bounds.data_ptr(), scratch.data_ptr(),
+                     out[c0].data_ptr(), binned.stride(0), w, d, M, B,
+                     plan.warps, plan.group_rows, plan.n_groups, wide,
+                     stream)
+        if err != 0:
+            raise RuntimeError(f"seg_hist launch failed: CUDA error {err}")
+        seg_level_hists.launches += 1
     return out
 
 
@@ -649,7 +712,7 @@ def _leaf_values(node, G, H, n_leaves: int, lam: float,
 class RFGrowth(NamedTuple):
     """Forests of P (candidate, fold) pairs x T trees: feat/thresh
     (P, T, 2^hd-1) int32 heaps with full-width feature ids, leaf
-    (P, T, 2^hd, K) — class probabilities (K = 2) or the bag-weighted mean
+    (P, T, 2^hd, K) — the K class shares or the bag-weighted mean
     label (K = 1, regression) — ``snaps`` {level: (P, T, 2^level, K)} the
     leaves of each tree truncated at that level, and ``levels`` the
     per-level histograms built (one ``hist_fn`` call each)."""
@@ -706,30 +769,34 @@ RF_LAMBDA = 1e-3
 
 
 def _rf_leaves(s: torch.Tensor, regression: bool) -> torch.Tensor:
-    """Leaf values from per-node sums of the channels (bw t, bw): the
-    bag-weighted mean label (M, 1), or the two class shares (M, 2) when
-    t is the class-0 indicator."""
-    c = torch.clamp(s[:, 1:], min=1e-12)
+    """Leaf values from per-node sums of a tree's histogram channels: the
+    bag-weighted mean label (M, 1) from (bw y, bw), or the K class shares
+    (M, K) from (bw [y=0], .., bw [y=K-2], bw), the last class's sum
+    rebuilt as the count minus the others' (added left to right, as the
+    JAX package sums them)."""
+    c = torch.clamp(s[:, -1:], min=1e-12)
     if regression:
         return s[:, :1] / c
-    return torch.stack([s[:, 0], s[:, 1] - s[:, 0]], 1) / c
+    cls = [s[:, k] for k in range(s.shape[1] - 1)]
+    return torch.stack(cls + [s[:, -1] - sum(cls)], 1) / c
 
 
-def _grow_rf_tree(binned, sub, fidx, t, bw, min_ig: float, min_inst: float,
+def _grow_rf_tree(binned, sub, fidx, Y, bw, min_ig: float, min_inst: float,
                   depth_limit: int, heap_depth: int, B: int, leaf_levels,
                   hist_fn: HistFn, regression: bool = False):
     """One bagged tree with a feature subset (the JAX package's
-    ``_grow_tree_traced`` in bag mode ``"onehot"`` for binary targets,
+    ``_grow_tree_traced`` in bag mode ``"onehot"`` for K-class targets,
     ``"bagged"`` for regression).
 
-    The histogram channels are (bw t, bw): ``t`` is the class-0 indicator
-    of a binary label, whose class-1 gradient is the count minus class 0
-    and whose hessians are both the count; or the real label, whose
-    hessian is the count.  Gain is the sum over the gradients of
+    ``Y`` is the (N, K) one-hot class matrix of a K-class label (K >= 2),
+    or the (N, 1) real label.  The histogram channels are (bw [y=0], ..,
+    bw [y=K-2], bw): the last class's gradient is the count minus the
+    others' and every hessian is the count; or (bw y, bw), whose hessian
+    is the count.  Gain is the sum over the classes (in class order) of
     GL^2/(HL+lam) + GR^2/(HR+lam) - G^2/(H+lam) (lam = ``RF_LAMBDA``:
     variance reduction for regression); a split needs ``min_inst`` bag
     weight on each side, gain > 0 and gain / node weight >= ``min_ig``.
-    Leaves are the class shares or the bag-weighted mean label.
+    Leaves are the K class shares or the bag-weighted mean label.
     Histograms run at subset width over ``sub`` (the subset's columns of
     ``binned``, gathered once per tree); routing reads the full matrix
     through ``fidx``.  Levels at or past ``depth_limit`` split nothing,
@@ -742,7 +809,9 @@ def _grow_rf_tree(binned, sub, fidx, t, bw, min_ig: float, min_inst: float,
     dev = binned.device
     n_cap = _slot_cap(n)
     lam = RF_LAMBDA
-    ch = torch.stack([bw * t, bw], 1).contiguous()
+    bwc = bw[:, None]
+    ch = torch.cat([bwc * (Y if regression else Y[:, :-1]), bwc],
+                   1).contiguous()
     rows = torch.arange(n, device=dev)
     bin_ids = torch.arange(B, device=dev)[None, :, None]
     node = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -770,11 +839,14 @@ def _grow_rf_tree(binned, sub, fidx, t, bw, min_ig: float, min_inst: float,
         slot, uniq = _compact_slots(node, n_cap) if compact else (node, None)
         hists = hist_fn(sub, slot.contiguous(), ch, M, B)
         levels += 1
-        cums = torch.cumsum(hists, dim=2)                  # (2, M, B, msub)
-        CL = cums[1]
+        cums = torch.cumsum(hists, dim=2)                  # (K, M, B, msub)
+        CL = cums[-1]
         Ctot = CL[:, -1:, :1]
+        GLs = list(cums[:-1])
+        if not regression:
+            GLs.append(CL - sum(GLs))
         gain = 0.0
-        for GL in ((cums[0],) if regression else (cums[0], CL - cums[0])):
+        for GL in GLs:
             Gtot = GL[:, -1:, :1]
             GR, HR = Gtot - GL, Ctot - CL
             gain = gain + (GL * GL / (CL + lam) + GR * GR / (HR + lam)
@@ -804,9 +876,8 @@ def _grow_rf_tree(binned, sub, fidx, t, bw, min_ig: float, min_inst: float,
     if regression:
         leaf = _rf_leaves(_node_sums(node, ch, 2 ** heap_depth), True)
     else:
-        s = _node_sums(node, torch.stack([bw * t, bw * (1 - t), bw], 1),
-                       2 ** heap_depth)
-        leaf = s[:, :2] / torch.clamp(s[:, 2:], min=1e-12)
+        s = _node_sums(node, torch.cat([bwc * Y, bwc], 1), 2 ** heap_depth)
+        leaf = s[:, :-1] / torch.clamp(s[:, -1:], min=1e-12)
     feat = fidx[torch.cat(heap_feat).long()].to(torch.int32)
     return feat, torch.cat(heap_thresh), leaf, snaps, levels
 
@@ -816,12 +887,13 @@ def grow_rf_grid(binned: torch.Tensor, y: torch.Tensor, W_tr: torch.Tensor,
                  pair_min_inst, pair_depth, msub: int, subsample_rate: float,
                  n_bins: int, leaf_levels: Sequence[int] = (),
                  hist_fn: HistFn = seg_level_hists,
-                 regression: bool = False) -> RFGrowth:
-    """Every (candidate x fold) pair's random forest: binary
-    classification, or regression (``regression``: the bag-weighted mean
-    label in the leaves).
+                 regression: bool = False, n_classes: int = 2) -> RFGrowth:
+    """Every (candidate x fold) pair's random forest: K-class
+    classification (``n_classes`` K >= 2: K class shares in the leaves;
+    the level histograms take K channels), or regression (``regression``:
+    the bag-weighted mean label in the leaves).
 
-    ``binned`` (N, D) uint8; ``y`` (N,) labels in {0, 1} or real;
+    ``binned`` (N, D) uint8; ``y`` (N,) labels in {0, .., K-1} or real;
     ``W_tr`` (F, N)
     per-fold training weights; per pair p its fold ``pair_fold[p]``,
     ``min_info_gain``, ``min_instances`` and depth.  Tree t of every pair
@@ -842,7 +914,8 @@ def grow_rf_grid(binned: torch.Tensor, y: torch.Tensor, W_tr: torch.Tensor,
     leaf_levels = tuple(sorted({int(v) for v in leaf_levels
                                 if 0 < int(v) < heap_depth}))
     yt = y.to(dev, torch.float32)
-    target = yt if regression else (yt == 0).to(torch.float32)
+    Y = (yt[:, None] if regression else torch.nn.functional.one_hot(
+        yt.long(), int(n_classes)).to(torch.float32))
     W_tr = W_tr.to(dev, torch.float32)
     bags, fidx = rf_bags_and_features(seed, n_trees, n, d, msub,
                                       subsample_rate, dev)
@@ -855,7 +928,7 @@ def grow_rf_grid(binned: torch.Tensor, y: torch.Tensor, W_tr: torch.Tensor,
         for p in range(P):
             bw = W_tr[int(pair_fold[p])] * bags[t].to(dev)
             *tree, lv = _grow_rf_tree(
-                binned, sub, ft, target, bw,
+                binned, sub, ft, Y, bw,
                 float(np.float32(pair_min_ig[p])),
                 float(np.float32(pair_min_inst[p])), int(pair_depth[p]),
                 heap_depth, n_bins, leaf_levels, hist_fn, regression)
@@ -879,14 +952,15 @@ def grow_forest_rf(binned: torch.Tensor, y: torch.Tensor,
                    subsample_rate: float, max_depth: int, n_bins: int,
                    min_info_gain: float = 0.0, min_instances: float = 1.0,
                    hist_fn: HistFn = seg_level_hists,
-                   regression: bool = False) -> RFGrowth:
+                   regression: bool = False, n_classes: int = 2
+                   ) -> RFGrowth:
     """One random forest on ``base_w`` (N,) row weights: the grid grower
     with a single pair; its arrays have no pair axis (feat (T, 2^d-1),
     leaf (T, 2^d, K))."""
     g = grow_rf_grid(binned, y, base_w[None], seed, n_trees, [0],
                      [min_info_gain], [min_instances], [max_depth], msub,
                      subsample_rate, n_bins, hist_fn=hist_fn,
-                     regression=regression)
+                     regression=regression, n_classes=n_classes)
     return RFGrowth(g.feat[0], g.thresh[0], g.leaf[0], {}, g.levels)
 
 

@@ -16,14 +16,22 @@ selectors run:
  * ``fit_linreg_grid`` — every (fold, candidate) linear-regression fit:
    one weighted Gram per fold, standardization folded into it, then a
    ridge solve or FISTA iterations per (fold, candidate), each pair
-   stopping at its own convergence.
+   stopping at its own convergence;
+ * ``fit_softmax_grid`` — every (fold, candidate) multinomial-LR fit at
+   once under Böhning's bound (one weighted Gram per fold, its (F, C, D,
+   D) majorizer inverted once, Nesterov steps over (F, C, K, N) logits,
+   scalar-majorizer FISTA for L1 candidates);
+ * ``fit_multinomial_logreg`` — one multinomial fit: blockwise Newton
+   (a damped Cholesky solve per class) for pure-L2 candidates, FISTA
+   under Böhning's bound when the L1 part is positive;
+   ``softmax_predict_proba``.
 
 Everything computes in float32 on the inputs' device; loops are Python
 loops that read the stopping test back to the host once per iteration.
 The per-fold Gram ``X' diag(w) X`` and the grid products are plain large
 matrix products (``torch.matmul``), as the JAX package left them to XLA.
-Not ported yet (ROADMAP Queue A): the multinomial, SVC and naive Bayes
-trainers and the sharded solvers.
+Not ported yet (ROADMAP Queue A): the SVC and naive Bayes trainers and
+the sharded solvers.
 """
 from __future__ import annotations
 
@@ -32,12 +40,14 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 __all__ = ["LinearFit", "fit_logistic_regression", "logreg_predict_proba",
-           "fit_logreg_grid", "fit_linear_regression", "linear_predict",
-           "fit_linreg_grid"]
+           "fit_logreg_grid", "fit_softmax_grid", "fit_multinomial_logreg",
+           "softmax_predict_proba", "fit_linear_regression",
+           "linear_predict", "fit_linreg_grid"]
 
 
 class LinearFit(NamedTuple):
-    """coef (D,), intercept 0-d, iterations run, whether it converged."""
+    """coef (D,) and intercept 0-d (a multinomial fit's (K, D) and (K,)),
+    iterations run, whether it converged."""
     coef: torch.Tensor
     intercept: torch.Tensor
     n_iter: int
@@ -256,6 +266,179 @@ def fit_logreg_grid(X: torch.Tensor, y: torch.Tensor, W_tr: torch.Tensor,
     u = pb / sig[:, None, :]
     icpt = pb0 - (cen[:, None, :] * u).sum(2)
     return torch.sigmoid(z_of(pb, pb0)), it, u, icpt
+
+
+# ---------------------------------------------------------------------------
+# Multinomial (softmax) logistic regression
+# ---------------------------------------------------------------------------
+
+def fit_softmax_grid(X: torch.Tensor, y: torch.Tensor, n_classes: int,
+                     W_tr: torch.Tensor, regs: torch.Tensor,
+                     alphas: torch.Tensor, max_iter: int = 200,
+                     tol: float = 1e-5, fit_intercept: bool = True,
+                     standardization: bool = True
+                     ) -> Tuple[torch.Tensor, int]:
+    """Every (fold, candidate) multinomial-LR fit in one solve, the
+    multiclass sibling of ``fit_logreg_grid``.
+
+    ``X`` (N, D), ``y`` (N,) integer labels below ``n_classes`` K,
+    ``W_tr`` (F, N) per-fold training weights, ``regs``/``alphas`` (C,)
+    per candidate.  Returns ``(logits, iters)``: the (F, C, K, N) class
+    scores of every row (a caller's argmax gives the predicted labels;
+    the softmax never needs building) and the iterations run.
+
+    Proximal majorization with Nesterov momentum under Böhning's bound
+    H <= 1/2 (I_K - 11'/K) x X'WX <= 1/2 I_K x X'WX: one weighted Gram per
+    fold, shared by every candidate and class, with the candidate's ridge
+    inverted once per (fold, candidate); each step is two batched (N, D)
+    products over the whole (fold, candidate, class) grid.  L1 candidates
+    take the exact scalar-majorizer proximal step.  Stops when the largest
+    coefficient move is at most ``tol`` or after ``max_iter`` steps."""
+    dev = X.device
+    X = X.to(torch.float32)
+    yi = y.to(dev).long()
+    W_tr = W_tr.to(dev, torch.float32)
+    regs = regs.to(dev, torch.float32)
+    alphas = alphas.to(dev, torch.float32)
+    K = int(n_classes)
+    n, d = X.shape
+    F, C = W_tr.shape[0], regs.shape[0]
+    Yt = torch.nn.functional.one_hot(yi, K).to(torch.float32).T  # (K, N)
+    wsum = torch.clamp(W_tr.sum(1), min=1.0)
+    l2 = regs[None, :] * (1.0 - alphas[None, :])            # (1, C)
+    l1 = regs[None, :] * alphas[None, :]
+
+    cen, sig = _grid_fold_stats(X, W_tr, wsum, fit_intercept,
+                                standardization)
+    Qs = _grid_fold_grams(X, W_tr, wsum, cen, sig)
+    eye = torch.eye(d, dtype=X.dtype, device=dev)
+    H = Qs[:, None] / 2.0 + (l2[:, :, None, None] + 2.5e-6) * eye
+    H_inv_t = torch.linalg.inv(H).transpose(-1, -2)        # (F, C, D, D)
+
+    def z_of(b, b0):
+        """(F, C, K, N) logits of the standardized-space solution against
+        the raw matrix."""
+        u = b / sig[:, None, None, :]
+        z = (u.reshape(F * C * K, d) @ X.T).reshape(F, C, K, n)
+        return (z - (cen[:, None, None, :] * u).sum(3)[..., None]
+                + b0[..., None])
+
+    def grad(b, b0):
+        p = torch.softmax(z_of(b, b0), dim=2)
+        r = (W_tr[:, None, None, :] * (p - Yt[None, None])
+             / wsum[:, None, None, None])
+        g_raw = (r.reshape(F * C * K, n) @ X).reshape(F, C, K, d)
+        rsum = r.sum(3)
+        g = (g_raw - cen[:, None, None, :] * rsum[..., None]) \
+            / sig[:, None, None, :]
+        return g + l2[..., None, None] * b, rsum
+
+    Lf = _grid_lmax(Qs)
+    L_fc = (Lf[:, None] / 2.0 + l2 + 1e-6)[..., None, None]  # (F, C, 1, 1)
+    thr = l1[..., None, None] / L_fc
+    has_l1 = (l1 > 0)[..., None, None]
+
+    b = torch.zeros((F, C, K, d), dtype=X.dtype, device=dev)
+    b0 = torch.zeros((F, C, K), dtype=X.dtype, device=dev)
+    pb, pb0 = b, b0
+    tm, dn, it = 1.0, float("inf"), 0
+    while dn > tol and it < max_iter:
+        # Nesterov: the gradient at the extrapolated point
+        gb, g0 = grad(b, b0)
+        nb_mm = b - gb @ H_inv_t
+        nb_prox = _soft(b - gb / L_fc, thr)
+        nb = torch.where(has_l1, nb_prox, nb_mm)
+        n0 = b0 - 2.0 * g0 if fit_intercept else b0
+        ntm = 0.5 * (1.0 + (1.0 + 4.0 * tm * tm) ** 0.5)
+        mom = (tm - 1.0) / ntm
+        b, b0 = nb + mom * (nb - pb), n0 + mom * (n0 - pb0)
+        dn = float(torch.maximum(torch.max(torch.abs(nb - pb)),
+                                 torch.max(torch.abs(n0 - pb0))))
+        pb, pb0, tm, it = nb, n0, ntm, it + 1
+    return z_of(pb, pb0), it
+
+
+def fit_multinomial_logreg(X: torch.Tensor, y: torch.Tensor,
+                           n_classes: int,
+                           sample_weight: Optional[torch.Tensor] = None,
+                           reg_param: float = 0.0,
+                           elastic_net_param: float = 0.0,
+                           max_iter: int = 100, tol: float = 1e-6,
+                           fit_intercept: bool = True) -> LinearFit:
+    """Multinomial logistic regression on (N, D) ``X`` and integer labels
+    (Spark's parameterisation, the loss a weighted mean).  Pure-L2:
+    blockwise Newton — per class k, a Cholesky solve of X' diag(w p_k
+    (1 - p_k)) X with its ridge and relative damping — stepping 0.9 of the
+    direction.  L1 > 0: FISTA under Böhning's bound 1/2 X'WX (its top
+    eigenvalue from a 16-step power iteration), at most ``8 max_iter``
+    steps.  Returns (K, D) coefficients and (K,) intercepts."""
+    X = X.to(torch.float32)
+    n, d = X.shape
+    dev = X.device
+    K = int(n_classes)
+    Y = torch.nn.functional.one_hot(y.to(dev).long(), K).to(torch.float32)
+    w = (torch.ones(n, dtype=torch.float32, device=dev)
+         if sample_weight is None
+         else sample_weight.to(dev, torch.float32))
+    wsum = torch.clamp(w.sum(), min=1.0)
+    l2 = reg_param * (1.0 - elastic_net_param)
+    l1 = reg_param * elastic_net_param
+    Xa = (torch.cat([X, torch.ones((n, 1), dtype=X.dtype, device=dev)], 1)
+          if fit_intercept else X)
+    da = Xa.shape[1]
+
+    def smooth_grad(B):
+        P = torch.softmax(Xa @ B, dim=1)
+        G = Xa.T @ (w[:, None] * (P - Y)) / wsum
+        G[:d] += l2 * B[:d]
+        return G, P
+
+    B = torch.zeros((da, K), dtype=torch.float32, device=dev)
+    dn, it = float("inf"), 0
+    if l1 > 0:
+        v = torch.ones(da, dtype=X.dtype, device=dev) / da ** 0.5
+        for _ in range(16):
+            v = Xa.T @ (w * (Xa @ v)) / (2.0 * wsum)
+            v = v / (torch.linalg.norm(v) + 1e-12)
+        L = (torch.dot(v, Xa.T @ (w * (Xa @ v)) / (2.0 * wsum)) * 1.01
+             + l2 + 1e-6)
+        thr = l1 / L
+        coef_dims = (torch.arange(da, device=dev) < d)[:, None]
+        zB, t_m = B, 1.0
+        while dn > tol and it < 8 * max_iter:
+            G, _ = smooth_grad(zB)
+            nB = zB - G / L
+            nB = _finite_or(torch.where(coef_dims, _soft(nB, thr), nB), B)
+            nt = 0.5 * (1.0 + (1.0 + 4.0 * t_m * t_m) ** 0.5)
+            zB = nB + (t_m - 1.0) / nt * (nB - B)
+            dn = float(torch.max(torch.abs(nB - B)))
+            B, t_m, it = nB, nt, it + 1
+    else:
+        diag = torch.arange(d, device=dev)
+        while dn > tol and it < max_iter:
+            G, P = smooth_grad(B)
+            delta = torch.empty_like(B)
+            for k in range(K):
+                s = torch.clamp(w * P[:, k] * (1 - P[:, k]) / wsum,
+                                min=1e-10)
+                H = (Xa * s[:, None]).T @ Xa
+                H[diag, diag] += l2
+                delta[:, k] = _damped_solve(H, G[:, k])
+            new = _finite_or(B - 0.9 * delta, B)
+            dn = float(torch.max(torch.abs(new - B)))
+            B, it = new, it + 1
+    icpt = (B[d] if fit_intercept
+            else torch.zeros(K, dtype=torch.float32, device=dev))
+    return LinearFit(B[:d].T.contiguous(), icpt, it, dn <= tol)
+
+
+def softmax_predict_proba(coef: torch.Tensor, intercept: torch.Tensor,
+                          X: torch.Tensor):
+    """(probabilities (N, K), class scores (N, K)) of a multinomial model:
+    ``coef`` (K, D), ``intercept`` (K,)."""
+    Z = (X.to(torch.float32) @ coef.to(X.device, torch.float32).T
+         + intercept.to(X.device, torch.float32))
+    return torch.softmax(Z, dim=1), Z
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ validation MSE) of each chunk is read one chunk late so the device never
 waits on the host, and the ensemble is trimmed to the best round count;
 deep fits on many rows grow each round on a GOSS row sample
 (``gbdt_kernels.goss_plan``).  A Python loop over rounds takes the place
-of ``lax.scan``.  ``OpRandomForestClassifier`` (binary labels) and
+of ``lax.scan``.  ``OpRandomForestClassifier`` (K classes) and
 ``OpRandomForestRegressor``: Poisson bags, square-root (classification)
 or one-third (regression) feature subsets, count-gated growth
 (``gbdt_kernels.grow_forest_rf``).  ``TreeEnsembleModel`` scores the
@@ -17,8 +17,8 @@ or one-third (regression) feature subsets, count-gated growth
 
 Every tree fit bins through ``prep_tree_inputs``, which takes the
 nonzero-aware sketch for a wide, mostly zero matrix as the JAX package
-does.  Not ported yet (ROADMAP Queue A): decision trees, multiclass
-objectives and forests, GBT row/column subsampling and fractional sample
+does.  Not ported yet (ROADMAP Queue A): decision trees, the multiclass
+boosting objective, GBT row/column subsampling and fractional sample
 weights (the count channel), EFB, the CSR histogram path and the
 upload/binning memo caches.
 """
@@ -562,17 +562,16 @@ class _RandomForestBase(PredictorEstimator):
         return self.fit_raw(features_col.values, y)
 
     def fit_raw(self, X, y, w=None, device=None) -> TreeEnsembleModel:
-        """Fit on a (N, D) matrix and labels (in {0, 1} for the
-        classifier), on ``device`` (else the stage's, else the default
-        device).  ``metadata["hist_levels"]`` counts the per-level
-        histograms built."""
+        """Fit on a (N, D) matrix and labels (in {0, .., K-1} for the
+        classifier: K = the largest label + 1, at least 2), on ``device``
+        (else the stage's, else the default device).
+        ``metadata["hist_levels"]`` counts the per-level histograms
+        built."""
         dev = resolve_device(device if device is not None else self.device)
         X = torch.as_tensor(X, dtype=torch.float32).to(dev)
         y = np.asarray(y, np.float32)
         cls = self._classification
-        if cls and len(y) and float(y.max()) > 1:
-            raise NotImplementedError(
-                "multiclass forests are not ported yet (ROADMAP Queue A)")
+        k = max(int(y.max()) + 1, 2) if cls and len(y) else 2
         n, d = X.shape
         edges, binned = prep_tree_inputs(X, self.max_bins)
         base_w = (torch.ones(n, dtype=torch.float32, device=dev) if w is None
@@ -584,16 +583,17 @@ class _RandomForestBase(PredictorEstimator):
             subsample_rate=self.subsample_rate, max_depth=self.max_depth,
             n_bins=self.max_bins, min_info_gain=self.min_info_gain,
             min_instances=float(self.min_instances_per_node),
-            regression=not cls)
+            regression=not cls, n_classes=k)
         self.metadata["hist_levels"] = forest.levels
         return TreeEnsembleModel(mode="rf_cls" if cls else "rf_reg",
                                  edges=edges, feat=forest.feat,
                                  thresh=forest.thresh, leaf=forest.leaf,
-                                 n_classes=2)
+                                 n_classes=k)
 
 
 class OpRandomForestClassifier(_RandomForestBase):
-    """Bagged binary random forest classifier."""
+    """Bagged random forest classifier, binary or K-class: the leaves hold
+    class shares, a probability is their mean over the trees."""
 
     _op_name = "randomForestCls"
     _classification = True

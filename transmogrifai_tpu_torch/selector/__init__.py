@@ -1,3 +1,4 @@
 """Model selection (counterpart of ``transmogrifai_tpu.selector``): the
-binary model selector with cross-validation, its splitters and the
+binary, multiclass and regression model selectors, their validators and
+splitters, and the
 grid-batched candidate groups."""

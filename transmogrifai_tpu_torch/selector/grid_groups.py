@@ -1,6 +1,6 @@
 """Grid-batched candidate groups (counterpart of
-``transmogrifai_tpu.selector.grid_groups``) for binary and regression
-problems.
+``transmogrifai_tpu.selector.grid_groups``) for binary, multiclass and
+regression problems.
 
 A run of candidates of one estimator family fits as one batched solve over
 a (folds, candidates) grid, and the per-fold validation metrics come back
@@ -9,15 +9,14 @@ group that declines (returns None) or raises falls back to the candidates'
 sequential fits.  A group whose ``run`` solved an appended full-train
 weight row also hands the selector the winner's refit model.
 
-Groups: ``LogRegGridGroup`` (binary LR), ``LinRegGridGroup`` (linear
-regression), ``RFGridGroup`` (binary and regression forests) and
-``GBTGridGroup`` (boosted chains advanced in lockstep, binary and
-regression).
+Groups: ``LogRegGridGroup`` (binary LR), ``SoftmaxGridGroup``
+(multiclass LR), ``LinRegGridGroup`` (linear regression), ``RFGridGroup``
+(binary, K-class and regression forests) and ``GBTGridGroup`` (boosted
+chains advanced in lockstep, binary and regression).
 
-Not ported yet (ROADMAP Queue A): the softmax group, multiclass forests,
-and the sweep mesh (sharded placement, cost-model observations; the JAX
-package's compile-depth hint has no counterpart, nothing here is
-compiled).
+Not ported yet (ROADMAP Queue A): the sweep mesh (sharded placement,
+cost-model observations; the JAX package's compile-depth hint has no
+counterpart, nothing here is compiled).
 """
 from __future__ import annotations
 
@@ -27,12 +26,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..evaluators.metrics import (REGRESSION_METRICS, binary_metric_grid,
+from ..evaluators.metrics import (MULTICLASS_METRICS, REGRESSION_METRICS,
+                                  binary_metric_grid, multiclass_metric_grid,
                                   regression_metric_grid)
 from ..models.classification import (LogisticRegressionModel,
                                      OpLogisticRegression)
 from ..models.gbdt_kernels import grow_rf_grid, predict_ensemble
-from ..models.linear import fit_linreg_grid, fit_logreg_grid
+from ..models.linear import (fit_linreg_grid, fit_logreg_grid,
+                             fit_softmax_grid)
 from ..models.regression import LinearRegressionModel, OpLinearRegression
 from ..models.trees import (OpRandomForestClassifier,
                             OpRandomForestRegressor, TreeEnsembleModel,
@@ -40,8 +41,8 @@ from ..models.trees import (OpRandomForestClassifier,
                             check_gbt_supported, gbt_base_score,
                             prep_tree_inputs, rf_probability)
 
-__all__ = ["GridGroup", "LogRegGridGroup", "LinRegGridGroup",
-           "TreeGridGroup", "RFGridGroup", "GBTGridGroup",
+__all__ = ["GridGroup", "LogRegGridGroup", "SoftmaxGridGroup",
+           "LinRegGridGroup", "TreeGridGroup", "RFGridGroup", "GBTGridGroup",
            "make_grid_group"]
 
 
@@ -149,6 +150,48 @@ class LogRegGridGroup(_LinearGridGroup):
                                        intercept=float(icpt[row]))
 
 
+class SoftmaxGridGroup(_LinearGridGroup):
+    """Every multiclass-LR (fold x candidate) fit in one Böhning
+    majorization solve (``linear.fit_softmax_grid``), scored by the
+    argmax labels against the multiclass metric grid.  Declines (None)
+    above ``MAX_LOGIT_ELEMS`` (F, C, K, N) logits — the solve holds a few
+    such tensors at once — and the selector then fits the candidates one
+    by one, as the JAX package does.  No full-train row: a softmax winner
+    is refit sequentially (``fit_multinomial_logreg``)."""
+
+    MAX_LOGIT_ELEMS = 2e8
+
+    def __init__(self, proto, grid_points, metric, n_classes: int = 2):
+        super().__init__(proto, grid_points, metric)
+        self.n_classes = n_classes
+
+    def run(self, X, y, weight_ctxs):
+        if not self._batchable_params():
+            return None
+        n_classes = self.n_classes
+        if len(y):
+            n_classes = max(n_classes, int(np.nanmax(y)) + 1)
+        F, C, n = len(weight_ctxs), len(self.grid_points), len(y)
+        if F * C * n * n_classes > self.MAX_LOGIT_ELEMS:
+            return None
+        dev = X.device
+        W_tr, W_ev = self._stack_weights(weight_ctxs, dev)
+        regs, alphas = self._regs_alphas(dev)
+        p0 = self.grid_points[0]
+        yi = torch.from_numpy(np.nan_to_num(np.asarray(y, np.float32))
+                              .astype(np.int64)).to(dev)
+        logits, _ = fit_softmax_grid(
+            X, yi, n_classes, W_tr, regs, alphas,
+            max_iter=max(150, 4 * int(self._param(p0, "max_iter"))),
+            tol=max(float(self._param(p0, "tol")), 1e-5),
+            fit_intercept=bool(self._param(p0, "fit_intercept")),
+            standardization=bool(self._param(p0, "standardization")))
+        preds = torch.argmax(logits, dim=2)                  # (F, C, N)
+        del logits
+        m = multiclass_metric_grid(yi, preds, W_ev, n_classes, self.metric)
+        return None if m is None else m.T
+
+
 class LinRegGridGroup(_LinearGridGroup):
     """Every linear-regression (fold x candidate) fit in one Gram-sharing
     solve (``linear.fit_linreg_grid``), with the full-train weights as one
@@ -205,20 +248,28 @@ class TreeGridGroup(GridGroup):
 
 
 def _score_forest(binned, feat, thresh, leaf, depth: int,
-                  regression: bool = False) -> torch.Tensor:
-    """Class-1 probability, or the regression prediction (the mean of
-    the trees), of every row under one forest."""
+                  problem: str) -> torch.Tensor:
+    """Every row's score under one forest: the class-1 probability
+    (``binary``), the argmax class (``multiclass``) or the regression
+    prediction, the mean of the trees (``regression``)."""
     raw = predict_ensemble(binned, feat, thresh, leaf, depth)
-    if regression:
+    if problem == "regression":
         return raw[:, 0] / feat.shape[0]
-    return rf_probability(raw, feat.shape[0])[:, 1]
+    proba = rf_probability(raw, feat.shape[0])
+    if problem == "multiclass":
+        return proba.argmax(dim=1).to(torch.float32)
+    return proba[:, 1]
 
 
 class RFGridGroup(TreeGridGroup):
-    """Every (candidate x fold) random forest — binary classification or
+    """Every (candidate x fold) random forest — binary or K-class
+    classification (K-class: one-hot targets, the level histograms at K
+    channels, argmax scores against the multiclass metric grid), or
     regression — as one tree stream (``gbdt_kernels.grow_rf_grid``):
     per-pair (min_info_gain, min_instances, depth) and fold weights over
-    shared bags.
+    shared bags.  ``n_classes`` is the selector's class count; the labels
+    can only raise it.  Declines (None) before growing anything when the
+    label space and the metric family disagree.
 
     Depth-truncation sharing: candidates that differ only in ``max_depth``
     share bags and folds, and a level-wise tree cut at a depth is exactly
@@ -230,12 +281,21 @@ class RFGridGroup(TreeGridGroup):
     _static = ("num_trees", "max_bins", "subsample_rate",
                "feature_subset_strategy", "seed")
 
+    def __init__(self, proto, grid_points, metric: str, n_classes: int = 2):
+        super().__init__(proto, grid_points, metric)
+        self.n_classes = n_classes
+
     def run(self, X, y, weight_ctxs):
         cls = self.proto._classification
-        if not self._batchable_params() or (
-                (len(y) and np.nanmax(y) > 1
-                 or self.metric not in ("AuPR", "AuROC")) if cls
-                else self.metric not in REGRESSION_METRICS):
+        n_classes = self.n_classes
+        if cls and len(y):
+            n_classes = max(n_classes, int(np.nanmax(y)) + 1)
+        problem = ("regression" if not cls
+                   else "multiclass" if n_classes > 2 else "binary")
+        family = {"binary": ("AuPR", "AuROC"),
+                  "multiclass": MULTICLASS_METRICS,
+                  "regression": REGRESSION_METRICS}[problem]
+        if not self._batchable_params() or self.metric not in family:
             return None
         dev = X.device
         t0 = time.perf_counter()
@@ -285,7 +345,7 @@ class RFGridGroup(TreeGridGroup):
             pair_min_inst=np.repeat([k[1] for k in base_keys], F),
             pair_depth=np.repeat(base_depth, F), msub=msub,
             subsample_rate=subsample, n_bins=mb, leaf_levels=leaf_levels,
-            regression=not cls)
+            regression=not cls, n_classes=n_classes)
         self.trees_grown += len(base_keys) * F * T
         self.hist_levels += grown.levels
         heap_depth = int(np.log2(grown.feat.shape[2] + 1))
@@ -304,16 +364,19 @@ class RFGridGroup(TreeGridGroup):
                     nd = 2 ** dt - 1
                     forest = (grown.feat[p][:, :nd], grown.thresh[p][:, :nd],
                               grown.snaps[dt][p], dt)
-                scores[f, c] = _score_forest(binned, *forest,
-                                             regression=not cls)
+                scores[f, c] = _score_forest(binned, *forest, problem)
         self._refit_ctx = dict(
             binned=binned, y=yt, edges=edges, msub=msub, mb=mb, T=T,
             key2base=key2base, cand_key=cand_key, cand_depth=cand_depth,
             base_depth=base_depth, leaf_levels=leaf_levels,
             full_w=torch.from_numpy(full_w).to(dev), seed=seed,
-            subsample=subsample, cls=cls)
-        m = (binary_metric_grid if cls else regression_metric_grid)(
-            yt, scores, W_ev, self.metric)
+            subsample=subsample, cls=cls, n_classes=n_classes)
+        if problem == "multiclass":
+            m = multiclass_metric_grid(yt, scores, W_ev, n_classes,
+                                       self.metric)
+        else:
+            m = (binary_metric_grid if cls else regression_metric_grid)(
+                yt, scores, W_ev, self.metric)
         self._lap("score", t0, dev)
         return None if m is None else m.T
 
@@ -332,7 +395,8 @@ class RFGridGroup(TreeGridGroup):
             n_trees=ctx["T"], pair_fold=[0], pair_min_ig=[key[0]],
             pair_min_inst=[key[1]], pair_depth=[bd], msub=ctx["msub"],
             subsample_rate=ctx["subsample"], n_bins=ctx["mb"],
-            leaf_levels=ctx["leaf_levels"], regression=not ctx["cls"])
+            leaf_levels=ctx["leaf_levels"], regression=not ctx["cls"],
+            n_classes=ctx["n_classes"])
         self.trees_grown += ctx["T"]
         self.hist_levels += grown.levels
         if dt < bd:
@@ -341,9 +405,10 @@ class RFGridGroup(TreeGridGroup):
             leaf = grown.snaps[dt][0]
         else:
             feat, thresh, leaf = grown.feat[0], grown.thresh[0], grown.leaf[0]
-        return TreeEnsembleModel(mode="rf_cls" if ctx["cls"] else "rf_reg",
-                                 edges=ctx["edges"], feat=feat,
-                                 thresh=thresh, leaf=leaf, n_classes=2)
+        return TreeEnsembleModel(
+            mode="rf_cls" if ctx["cls"] else "rf_reg", edges=ctx["edges"],
+            feat=feat, thresh=thresh, leaf=leaf,
+            n_classes=ctx["n_classes"] if ctx["cls"] else 2)
 
 
 class GBTGridGroup(TreeGridGroup):
@@ -439,12 +504,14 @@ class GBTGridGroup(TreeGridGroup):
 
 
 def make_grid_group(proto, grid_points, problem_type: str,
-                    metric: str) -> Optional[GridGroup]:
+                    metric: str, n_classes: int = 2) -> Optional[GridGroup]:
     """A batched group for the candidates' family under the problem type
     and metric (the JAX package's table), else None (sequential fits):
     LR, forests and boosted trees for binary problems scored by AuPR or
-    AuROC; linear regression, forests and boosted trees for regression
-    scored by RMSE, MSE, MAE or R2."""
+    AuROC; softmax LR and K-class forests for multiclass problems scored
+    by F1, Error, Accuracy, Precision or Recall (``n_classes``: the
+    selector's class count); linear regression, forests and boosted trees
+    for regression scored by RMSE, MSE, MAE or R2."""
     if len(grid_points) == 0:
         return None
     if problem_type == "binary" and metric in ("AuPR", "AuROC"):
@@ -452,6 +519,11 @@ def make_grid_group(proto, grid_points, problem_type: str,
             return LogRegGridGroup(proto, grid_points, metric)
         if type(proto) is OpRandomForestClassifier:
             return RFGridGroup(proto, grid_points, metric)
+    if problem_type == "multiclass" and metric in MULTICLASS_METRICS:
+        if type(proto) is OpLogisticRegression:
+            return SoftmaxGridGroup(proto, grid_points, metric, n_classes)
+        if type(proto) is OpRandomForestClassifier:
+            return RFGridGroup(proto, grid_points, metric, n_classes)
     if problem_type == "regression" and metric in REGRESSION_METRICS:
         if type(proto) is OpLinearRegression:
             return LinRegGridGroup(proto, grid_points, metric)

@@ -1,6 +1,6 @@
 """ModelSelector — automated model selection with validation (counterpart of
-``transmogrifai_tpu.selector.model_selector``), binary and regression
-problems.
+``transmogrifai_tpu.selector.model_selector``), binary, multiclass and
+regression problems.
 
 Flow: the splitter reserves a holdout and computes training weights; the
 validator scores every (model, params) candidate on weight-masked CV folds
@@ -10,10 +10,9 @@ group's full-train row where the group solved one); holdout and training
 metrics are evaluated; everything lands in
 ``metadata["model_selector_summary"]`` with the JAX package's keys.
 
-Not ported yet (ROADMAP Queue A): the multiclass selector, successive
-halving, the sweep mesh (``parallel=``, ``with_mesh``), the straggler
-watchdog, sweep checkpoints, workflow-level CV and the tree-prep prefetch
-thread.
+Not ported yet (ROADMAP Queue A): successive halving, the sweep mesh
+(``parallel=``, ``with_mesh``), the straggler watchdog, sweep
+checkpoints, workflow-level CV and the tree-prep prefetch thread.
 """
 from __future__ import annotations
 
@@ -24,9 +23,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..evaluators.metrics import (MINIMIZE_METRICS, aupr_device,
-                                  auroc_device,
+from ..evaluators.metrics import (MINIMIZE_METRICS, MULTICLASS_METRICS,
+                                  aupr_device, auroc_device,
                                   binary_classification_metrics,
+                                  multiclass_metric_device,
+                                  multiclass_metrics,
                                   regression_metric_device,
                                   regression_metrics)
 from ..models.classification import OpLogisticRegression
@@ -38,16 +39,18 @@ from ..models.trees import (OpGBTRegressor, OpRandomForestClassifier,
                             _RandomForestBase)
 from ..types.columns import ColumnarDataset, FeatureColumn
 from .grid_groups import TreeGridGroup, make_grid_group
-from .splitters import DataBalancer, DataSplitter
+from .splitters import DataBalancer, DataCutter, DataSplitter
 from .validators import (OpCrossValidation, OpTrainValidationSplit,
                          ValidationResult)
 
 __all__ = ["ModelSelector", "SelectedModel", "ModelSelectorSummary",
-           "BinaryClassificationModelSelector", "RegressionModelSelector",
+           "BinaryClassificationModelSelector",
+           "MultiClassificationModelSelector", "RegressionModelSelector",
            "DefaultSelectorParams", "grid"]
 
 #: the problem types the port selects for, with their default metric
-_DEFAULT_METRIC = {"binary": "AuPR", "regression": "RootMeanSquaredError"}
+_DEFAULT_METRIC = {"binary": "AuPR", "multiclass": "F1",
+                   "regression": "RootMeanSquaredError"}
 
 
 class DefaultSelectorParams:
@@ -123,7 +126,10 @@ def _sync(dev: torch.device) -> None:
 
 class ModelSelector(PredictorEstimator):
     """Selector over (estimator prototype, param grid) candidates of a
-    binary or regression problem, on the workflow's device.
+    binary, multiclass or regression problem, on the workflow's device.
+    A multiclass selector takes its class count from the full labels
+    before any split (``_class_count``), so a fold missing the top class
+    never shrinks the class space.
 
     After a fit, ``metadata`` holds the summary and the sweep's own
     numbers: ``sweep_seconds`` (each grid group's wall, and the rest of
@@ -133,8 +139,13 @@ class ModelSelector(PredictorEstimator):
     (the tree groups' binning, growth and candidate scoring),
     ``refit_seconds``, ``metrics_seconds``, ``hist_levels`` (tree-level
     histograms built), ``rf_trees`` (trees grown: forests' and boosted
-    chains'), and ``group_trees`` / ``group_hist_levels`` (the trees and
-    levels of each tree group)."""
+    chains'), ``group_trees`` / ``group_hist_levels`` (the trees and
+    levels of each tree group), and ``sequential_fits`` (each fit outside
+    a group, the winner's refit last where it had none: model, params,
+    the host seconds of the call, with no device synchronisation — a fit
+    that reads its loss back every step, as the MLP does, has ended on
+    the device by then —, and, for an iterative fit that counts them,
+    ``n_iter``)."""
 
     def __init__(self,
                  models_and_params: Sequence[Tuple[PredictorEstimator,
@@ -189,12 +200,28 @@ class ModelSelector(PredictorEstimator):
             return batch.probability[:, 1]
         return batch.prediction
 
+    def _class_count(self, y=None, pred=None) -> int:
+        """The class count: the one captured from the full labels at fit
+        time, raised by ``y`` or ``pred`` where they hold a larger class,
+        at least 2."""
+        n = getattr(self, "_n_classes", 0)
+        for v in (y, pred):
+            if v is not None and len(v):
+                n = max(n, int(torch.as_tensor(v).max()) + 1)
+        return max(n, 2)
+
     def _metric(self, y, scores: torch.Tensor, w):
         """A fold metric: a device scalar for AuPR/AuROC and the regression
-        set, else a float."""
+        and multiclass sets, else a float."""
         m = self.validation_metric
         if self.problem_type == "regression":
             return regression_metric_device(y, scores, w, m)
+        if self.problem_type == "multiclass":
+            if m in MULTICLASS_METRICS:
+                return multiclass_metric_device(
+                    y, scores, w, self._class_count(y), m)
+            return multiclass_metrics(y, scores, self._class_count(y, scores),
+                                      w)[m]
         fn = {"AuPR": aupr_device, "AuROC": auroc_device}.get(m)
         if fn is not None:
             return fn(y, scores, w)
@@ -204,17 +231,26 @@ class ModelSelector(PredictorEstimator):
         out = []
         for proto, grid_points in self.models_and_params:
             group = make_grid_group(proto, grid_points, self.problem_type,
-                                    self.validation_metric)
+                                    self.validation_metric,
+                                    n_classes=self._class_count())
             for params in grid_points:
                 def fitter(X, y, w, p, proto=proto):
                     est = proto.copy(**p)
+                    t0 = time.perf_counter()
                     model = est.fit_raw(X, y, w, device=X.device)
-                    self._note_sequential_fit(est)
+                    self._note_sequential_fit(est, p,
+                                              time.perf_counter() - t0)
                     return lambda Xe: self._score_fn(model, Xe)
                 out.append((type(proto).__name__, params, fitter, group))
         return out
 
-    def _note_sequential_fit(self, est) -> None:
+    def _note_sequential_fit(self, est, params=None,
+                             seconds: Optional[float] = None) -> None:
+        fit = {"model": type(est).__name__, "params": params,
+               "seconds": seconds}
+        if "n_iter" in est.metadata:
+            fit["n_iter"] = est.metadata["n_iter"]
+        self._seq_fits.append(fit)
         self._seq_levels += est.metadata.get("hist_levels", 0)
         if isinstance(est, _RandomForestBase):
             self._seq_trees += est.num_trees
@@ -229,17 +265,17 @@ class ModelSelector(PredictorEstimator):
         dev = X.device
         y = np.nan_to_num(np.asarray(label_col.values, dtype=np.float32))
         n = len(y)
-        if self.problem_type == "binary" and n and float(y.max()) > 1:
-            raise _not_ported("multiclass selection")
+        self._n_classes = (max(int(y.max()) + 1, 2)
+                           if self.problem_type == "multiclass" and n else 0)
         splitter = (self.splitter if self.splitter is not None
-                    else DataBalancer() if self.problem_type == "binary"
-                    else DataSplitter())
+                    else {"binary": DataBalancer, "multiclass": DataCutter,
+                          "regression": DataSplitter}[self.problem_type]())
         train_idx, holdout_idx = splitter.split_indices(n, y)
         train_mask = np.zeros(n, dtype=bool)
         train_mask[train_idx] = True
         base_w = splitter.train_weights(y, train_mask)
 
-        self._seq_levels, self._seq_trees = 0, 0
+        self._seq_levels, self._seq_trees, self._seq_fits = 0, 0, []
         candidates = self._candidates()
         t0 = time.perf_counter()
         best_i, results = self.validator.validate(
@@ -266,8 +302,11 @@ class ModelSelector(PredictorEstimator):
             proto = next(p for p, _ in self.models_and_params
                          if type(p).__name__ == best_name)
             est = proto.copy(**best_params)
+            t1 = time.perf_counter()
             best_model = est.fit_raw(X, y, base_w, device=dev)
-            self._note_sequential_fit(est)
+            _sync(dev)
+            self._note_sequential_fit(est, best_params,
+                                      time.perf_counter() - t1)
         _sync(dev)
         refit_s = time.perf_counter() - t0
 
@@ -294,7 +333,8 @@ class ModelSelector(PredictorEstimator):
             group_trees={type(g).__name__: g.trees_grown
                          for g in tree_groups},
             group_hist_levels={type(g).__name__: g.hist_levels
-                               for g in tree_groups})
+                               for g in tree_groups},
+            sequential_fits=self._seq_fits)
         summary = ModelSelectorSummary(
             validation_results=results, best_model_name=best_name,
             best_params=best_params,
@@ -314,6 +354,13 @@ class ModelSelector(PredictorEstimator):
         idx = np.flatnonzero(mask)
         if not len(idx):
             return {}
+        if self.problem_type == "multiclass":
+            pred = full_batch.prediction.index_select(
+                0, torch.from_numpy(idx).to(full_batch.prediction.device))
+            out = multiclass_metrics(torch.from_numpy(y[idx]), pred,
+                                     self._class_count(y[idx], pred))
+            out.pop("confusion")
+            return out
         score = (full_batch.probability[:, 1]
                  if self.problem_type == "binary" else full_batch.prediction)
         rows = torch.from_numpy(idx).to(score.device)
@@ -372,6 +419,58 @@ class BinaryClassificationModelSelector:
                                         max_wait=max_wait),
             splitter=(splitter if splitter is not None
                       else DataBalancer(seed=seed)),
+            validation_metric=validation_metric, strategy=strategy,
+            halving=halving, parallel=parallel, watchdog=watchdog)
+
+
+def _multiclass_defaults() -> List[Tuple[PredictorEstimator,
+                                         List[Dict[str, Any]]]]:
+    """Default multiclass models: LR over 4 x 2 regularisations (softmax),
+    RF over 3 depths x 2 min-instances x 3 min-info-gains at 50 trees
+    (MultiClassificationModelSelector.scala)."""
+    return _binary_defaults()
+
+
+class MultiClassificationModelSelector:
+    @staticmethod
+    def with_cross_validation(
+        num_folds: int = 3, validation_metric: str = "F1",
+        splitter=None, seed: int = 42, models_and_parameters=None,
+        parallelism: Optional[int] = None, max_wait: Optional[float] = None,
+        strategy: str = "full", halving=None, parallel=None,
+        watchdog: Optional[float] = None,
+    ) -> ModelSelector:
+        return ModelSelector(
+            models_and_params=(models_and_parameters
+                               or _multiclass_defaults()),
+            problem_type="multiclass",
+            validator=OpCrossValidation(num_folds=num_folds, seed=seed,
+                                        stratify=True,
+                                        parallelism=parallelism,
+                                        max_wait=max_wait),
+            splitter=(splitter if splitter is not None
+                      else DataCutter(seed=seed)),
+            validation_metric=validation_metric, strategy=strategy,
+            halving=halving, parallel=parallel, watchdog=watchdog)
+
+    @staticmethod
+    def with_train_validation_split(
+        train_ratio: float = 0.75, validation_metric: str = "F1",
+        splitter=None, seed: int = 42, models_and_parameters=None,
+        parallelism: Optional[int] = None, max_wait: Optional[float] = None,
+        strategy: str = "full", halving=None, parallel=None,
+        watchdog: Optional[float] = None,
+    ) -> ModelSelector:
+        return ModelSelector(
+            models_and_params=(models_and_parameters
+                               or _multiclass_defaults()),
+            problem_type="multiclass",
+            validator=OpTrainValidationSplit(train_ratio=train_ratio,
+                                             seed=seed, stratify=True,
+                                             parallelism=parallelism,
+                                             max_wait=max_wait),
+            splitter=(splitter if splitter is not None
+                      else DataCutter(seed=seed)),
             validation_metric=validation_metric, strategy=strategy,
             halving=halving, parallel=parallel, watchdog=watchdog)
 

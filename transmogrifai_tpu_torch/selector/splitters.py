@@ -1,10 +1,11 @@
 """Data splitters (counterpart of ``transmogrifai_tpu.selector.splitters``):
-the random holdout split and the binary class rebalancer.
+the random holdout split, the binary class rebalancer and the multiclass
+label cutter.
 
-Both are numpy-seeded exactly as in the JAX package, so the holdout mask
+All are numpy-seeded exactly as in the JAX package, so the holdout mask
 and the training weights are bit-identical.  The balancer expresses its
-up-sampling as sample weights over the one resident matrix.  Not ported
-yet (ROADMAP Queue A): ``DataCutter`` (multiclass).
+up-sampling, the cutter its dropped labels, as sample weights over the
+one resident matrix.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["SplitterSummary", "DataSplitter", "DataBalancer"]
+__all__ = ["SplitterSummary", "DataSplitter", "DataBalancer", "DataCutter"]
 
 
 @dataclasses.dataclass
@@ -86,4 +87,39 @@ class DataBalancer(DataSplitter):
         else:
             details["alreadyBalanced"] = True
         self.summary = SplitterSummary("DataBalancer", details)
+        return w
+
+
+class DataCutter(DataSplitter):
+    """Multiclass label cutting: of the training split's labels, the
+    ``max_label_categories`` most frequent (ranked by numpy's argsort of
+    the counts, as in the JAX package) whose share reaches
+    ``min_label_fraction`` are kept; rows of any other label weigh 0.  The
+    summary lists the kept and dropped labels."""
+
+    def __init__(self, max_label_categories: int = 100,
+                 min_label_fraction: float = 0.0,
+                 reserve_test_fraction: float = 0.1, seed: int = 42):
+        super().__init__(reserve_test_fraction, seed)
+        self.max_label_categories = max_label_categories
+        self.min_label_fraction = min_label_fraction
+        self.labels_kept: Optional[np.ndarray] = None
+
+    def train_weights(self, y: np.ndarray,
+                      train_mask: np.ndarray) -> np.ndarray:
+        w = train_mask.astype(np.float32).copy()
+        yt = y[train_mask.astype(bool)]
+        labels, counts = np.unique(yt, return_counts=True)
+        frac = counts / max(len(yt), 1)
+        keep = [labels[i] for i in np.argsort(-counts)
+                [:self.max_label_categories]
+                if frac[i] >= self.min_label_fraction]
+        self.labels_kept = np.asarray(sorted(keep))
+        dropped = [float(v) for v in labels if v not in set(keep)]
+        w[~np.isin(y, self.labels_kept)] = 0.0
+        self.summary = SplitterSummary("DataCutter", {
+            "labelsKept": [float(v) for v in self.labels_kept],
+            "labelsDropped": dropped,
+            "minLabelFraction": self.min_label_fraction,
+        })
         return w

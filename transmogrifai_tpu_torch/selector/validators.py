@@ -122,23 +122,38 @@ class OpCrossValidation:
 class OpTrainValidationSplit:
     """One train/validation split over the same candidate tuples as
     ``OpCrossValidation``: a row trains when its uniform draw falls below
-    ``train_ratio``, the JAX package's numpy draw.  Its stratified split
-    comes with the binary train/validation split (ROADMAP Queue A)."""
+    ``train_ratio``; stratified (``stratify``), each label's rows are
+    permuted and the first round(count x ``train_ratio``) of them (at
+    least one) train, so both sides keep the label ratios.  Both are the
+    JAX package's numpy draws, row for row."""
 
     def __init__(self, train_ratio: float = 0.75, seed: int = 42,
-                 parallelism: Optional[int] = None,
+                 stratify: bool = False, parallelism: Optional[int] = None,
                  max_wait: Optional[float] = None):
         _check_dispatch(parallelism, max_wait)
         self.train_ratio = train_ratio
         self.seed = seed
+        self.stratify = stratify
+
+    def split_mask(self, n: int, y: np.ndarray) -> np.ndarray:
+        """(n,) bool: the rows that train."""
+        rng = np.random.default_rng(self.seed)
+        if not self.stratify:
+            return rng.random(n) < self.train_ratio
+        in_train = np.zeros(n, bool)
+        for cls in np.unique(y[np.isfinite(y)]):
+            idx = np.where(y == cls)[0]
+            perm = rng.permutation(idx)
+            in_train[perm[:max(1, int(round(
+                len(idx) * self.train_ratio)))]] = True
+        return in_train
 
     def validate(self, candidates, X, y: np.ndarray,
                  base_weights: np.ndarray, eval_fn, metric_name: str,
                  larger_better: bool = True):
         """(index of the best candidate, its ValidationResults in
         candidate order), each with one fold value."""
-        in_train = (np.random.default_rng(self.seed).random(len(y))
-                    < self.train_ratio)
+        in_train = self.split_mask(len(y), y)
         return _validate_on(candidates, X, y,
                             [(base_weights * in_train,
                               base_weights * ~in_train)],

@@ -32,6 +32,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..features.feature import Feature
 from ..models.classification import LogisticRegressionModel
+from ..models.mlp import MLPClassificationModel
 from ..models.regression import LinearRegressionModel
 from ..models.trees import TreeEnsembleModel
 from ..ops import date_geo, dsl_transformers, map_vectorizers, vectorizers
@@ -99,6 +100,8 @@ CLASS_MAP: Dict[str, Type[PipelineStage]] = {
     "transmogrifai_tpu.models.regression.LinearRegressionModel":
         LinearRegressionModel,
     "transmogrifai_tpu.models.trees.TreeEnsembleModel": TreeEnsembleModel,
+    "transmogrifai_tpu.models.mlp.MLPClassificationModel":
+        MLPClassificationModel,
     "transmogrifai_tpu.selector.model_selector.SelectedModel": SelectedModel,
 }
 _JAX_PATH = {cls: path for path, cls in CLASS_MAP.items()}
