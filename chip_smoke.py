@@ -27,6 +27,14 @@ to end at full width through the entry points a user calls:
     -> OpWorkflow.train() -> score_and_evaluate(F1)
     -> save -> load -> local scorer -> ModelServer
 
+    FeatureBuilder -> transmogrify -> SanityChecker
+    -> MultiClassificationModelSelector.with_cross_validation(
+       models_and_parameters=[softmax XGBoost, decision trees])
+    -> OpWorkflow.train() -> score_and_evaluate(F1)
+    -> save -> load -> local scorer -> ModelServer;
+    OpXGBoostClassifier (K classes), OpGBTClassifier (count-gated) and
+    OpXGBoostClassifier (subsampled) -> fit_raw -> predict_batch
+
     FeatureBuilder (4 Reals) -> transmogrify -> SanityChecker
     -> MultiClassificationModelSelector.with_train_validation_split()
        (LR, MLP: the Iris demo) -> OpWorkflow.train() -> F1
@@ -123,7 +131,34 @@ card's aggregate shared-memory rate):
                 ``seg_hist`` line with ``path`` "multiclass"); save ->
                 load (bitwise), the local scorer and MC_SERVE_REQUESTS
                 single rows through ModelServer (within 1e-6)
-  8. iris       the reference's Iris demo (examples/op_iris_simple.py's
+  8. boosted_multi  the general tree grower on the multiclass phase's
+                datasets: the multiclass selector over a softmax XGBoost
+                grid (max_depth 4, 6 x BOOSTED_SELECTOR_ROUNDS rounds, eta
+                0.3) and a decision-tree grid (max_depth 6, 10, min
+                instances 10), 3 stratified folds, F1, every candidate a
+                sequential fit: the train's split by stage, every
+                candidate's CV F1, the winner (must be the softmax
+                XGBoost), holdout F1 against BOOSTED_F1_SHARE x the
+                attainable, ``sequential_fits``, kernel launches against
+                the growers' count, save -> load (bitwise), the local
+                scorer and MC_SERVE_REQUESTS single rows; ``xgb_defaults``
+                (one OpXGBoostClassifier(num_class=5) fit at the
+                reference's defaults: 200 rounds, depth 10, eta 0.02, gamma
+                0.8, early stopping after 20: rounds grown and kept, ms per
+                round, holdout F1 and LogLoss); ``count_and_subsample``
+                (OpGBTClassifier with min instances 10 and min info gain
+                0.001, and OpXGBoostClassifier with subsample 0.8 and
+                colsample_bytree 0.5, both depth 6 x BOOSTED_BINARY_ROUNDS
+                on the slice's binary label: ms per round, holdout AuPR
+                against BOOSTED_AUPR_FLOOR); ``levels_vs_plain``: 3 rounds
+                of a 5-class softmax fit (11 float channels) and of each
+                binary fit (3 float channels) within the tolerance of
+                |channels|, and one depth-10 5-class decision tree (11
+                integer channels) bitwise; ``seg_hist`` lines with ``path``
+                "dt_multi" (that tree's widest level), "gbdt_multi" (11
+                float channels at the checked width, M = 1, 32, 512) and
+                "gbdt_count" (3 float channels, M = 1, 32)
+ 9. iris       the reference's Iris demo (examples/op_iris_simple.py's
                 DAG and grid: LR {0.01, 0.1}, MLP [5, 4] and [10], a
                 stratified train/validation split) on 1M + 100k rows of an
                 Iris-shaped frame (the reference CSV's class means and
@@ -131,7 +166,7 @@ card's aggregate shared-memory rate):
                 the kept labels, both families' validation F1, the winner,
                 the MLP fits' steps and seconds, holdout F1 against
                 IRIS_F1_SHARE x the attainable (the Gaussian Bayes rule's)
-  9. serve      both trained models (the slice's boosted model, the
+  10. serve     both trained models (the slice's boosted model, the
                 selector's winner): save (seconds, bytes) and load on the
                 card (seconds); the holdout scored after the round trip
                 bitwise equal to the in-memory model; 10k holdout rows
@@ -149,7 +184,7 @@ card's aggregate shared-memory rate):
                 tests/fixtures/model_v1 scored on the card within 1e-5 of
                 its expected scores.  The phase must launch no kernel
                 (scoring is plain torch on the card)
- 10. seg_hist   kernel vs plain at the slice's level shapes (N=1M, d=500,
+ 11. seg_hist  kernel vs plain at the slice's level shapes (N=1M, d=500,
                 B=32, nchan=2, M=1..32, a level with empty slots), the level
                 shapes of depths 7 and 10 (M=64, 512), d=497 through
                 apply_bins' padded rows, one level of unpadded rows (the
@@ -164,7 +199,7 @@ card's aggregate shared-memory rate):
                 tolerance, determinism, kernel/plain/library/bound ms, the
                 layout's share, the groups and reduce passes' device ms and
                 the shared-memory floor
- 11. seg_hist_channels  the kernel at C channels: K-class forest levels
+ 12. seg_hist_channels  the kernel at C channels: K-class forest levels
                 (d = 22, integer channels) at C = 3, 5, 10, 13, 14, 100
                 and M = 1, 64 (one launch up to 13 channels at 32 bins,
                 one per channel group past it), bitwise equal to plain,
@@ -173,21 +208,22 @@ card's aggregate shared-memory rate):
                 shared-memory floor and the groups launched; then a
                 ``seg_hist_two_channel`` line beside the two-channel
                 kernel's earlier numbers
- 12. profile    an 8-round fit at the same width under torch.profiler:
+ 13. profile   an 8-round fit at the same width under torch.profiler:
                 binning and boosting walls, the card's busy time and idle
                 share, the boosting's heaviest device ops per round
- 13. regression_profile  one forest of 4 regression trees (depth 12,
+ 14. regression_profile  one forest of 4 regression trees (depth 12,
                 one-third subsets) and one boosted chain's 3 rounds (depth
                 12, full width) under torch.profiler: wall, the card's busy
                 time and idle share per level, the heaviest device ops
- 14. serve_profile  single-row requests of both loaded models under
+ 15. serve_profile  single-row requests of both loaded models under
                 torch.profiler: the card's busy time and idle share, the
                 device ops and copies a request
 The phases that run torch.profiler come after the slice and the selector,
 so no profiler session runs in the process before their walls are taken.
 Then the ``kernels`` summary line (``launches``: the slice's, the
-selector's, the regression phase's, the titanic phase's and the multiclass
-phase's), the card's
+selector's, the regression phase's, the titanic phase's, the multiclass
+phase's and the boosted_multi phase's train, xgb_defaults and
+count_and_subsample fits), the card's
 name and power limit,
 and the result line.  Any
 failed check exits non-zero.  Without a CUDA device the script exits with
@@ -207,6 +243,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -223,6 +260,8 @@ from transmogrifai_tpu_torch.models.classification import \
 from transmogrifai_tpu_torch.models.mlp import \
     OpMultilayerPerceptronClassifier
 from transmogrifai_tpu_torch.models.trees import (SKETCH_KINDS,
+                                                  OpDecisionTreeClassifier,
+                                                  OpGBTClassifier,
                                                   OpGBTRegressor,
                                                   OpRandomForestClassifier,
                                                   OpXGBoostClassifier,
@@ -319,6 +358,17 @@ IRIS_MEANS = np.array([[5.006, 3.428, 1.462, 0.246],
 IRIS_SDS = np.array([[0.352, 0.379, 0.174, 0.105],
                      [0.516, 0.314, 0.470, 0.198],
                      [0.636, 0.322, 0.552, 0.275]])
+#: the boosted_multi phase: the XGBoost grid's rounds in the multiclass
+#: selector (the reference's 200 cut to keep the phase near 100 s of the
+#: card's time; eta 0.3 in place of 0.02 so 30 rounds reach a fitted
+#: model), the rounds of its count-gated and subsampled binary fits, the
+#: rounds grown with every level held against the plain version; the
+#: share of the attainable holdout F1 the selector's
+#: winner must reach and the holdout AuPR both binary fits must reach
+#: (stated before the first chip run; the slice's AuPR is 0.94)
+BOOSTED_SELECTOR_ROUNDS, BOOSTED_BINARY_ROUNDS = 30, 20
+BOOSTED_CHECK_ROUNDS = 3
+BOOSTED_F1_SHARE, BOOSTED_AUPR_FLOOR = 0.8, 0.85
 #: the seg_hist phase's channel sweep: K-class forest levels (d = 22,
 #: integer channels) at these channel counts and slot counts, and one
 #: float-channel level of a 5-class softmax objective (2K = 10 channels
@@ -1826,6 +1876,366 @@ def phase_multiclass(data, cols: int, reps: int, bw: float,
           f"multiclass: served scores {served['served_max_abs_diff']} from "
           f"the in-memory model's, shed {served['server_shed']}, device "
           f"errors {served['server_device_errors']}")
+    return out, (train, hold, attainable)
+
+
+# ---------------------------------------------------------------------------
+# the boosted_multi phase: the general grower (softmax boosting, decision
+# trees, count-gated and subsampled boosting) at 1M + 100k rows
+# ---------------------------------------------------------------------------
+
+def _softmax_check(X: torch.Tensor, y: np.ndarray, est, fold) -> dict:
+    """BOOSTED_CHECK_ROUNDS rounds of ``est``'s softmax fit (K =
+    MC_CLASSES, 2K+1 = 11 float channels with the count) grown on the
+    checked matrix on ``fold``'s weights, every level held against the
+    plain version (``_LevelCheck``)."""
+    dev = X.device
+    edges, binned = prep_tree_inputs(X, 32)
+    chk = _LevelCheck()
+    grown = boost_chains(
+        [est], binned, edges, torch.from_numpy(y.astype(np.float32)).to(dev),
+        fold[None], torch.zeros((1, MC_CLASSES)), [], hist_fn=chk)
+    return {**chk.summary(), "rounds": len(grown.trees[0]),
+            "splits": sum(int((t.thresh < 32).sum()) for t in grown.trees[0])}
+
+
+def _tree_levels(X: torch.Tensor, y: np.ndarray, fold, depth: int,
+                 min_instances: float) -> Tuple[dict, "_BitwiseLevels"]:
+    """One K-class decision tree (the selector's deepest candidate) grown
+    on the checked matrix on ``fold``'s weights, binned through the dense
+    sketch as ``OpDecisionTreeClassifier`` bins: its 2K+1 = 11 channels
+    (w [y=k], w in each hessian column, w) are integers, so every level
+    must equal the plain version bitwise (``_BitwiseLevels``)."""
+    dev = X.device
+    binned = gk.apply_bins(X, gk.quantile_bins(X, 32))
+    Y = torch.nn.functional.one_hot(
+        torch.from_numpy(y.astype(np.int64)).to(dev), MC_CLASSES).float()
+    chk = _BitwiseLevels()
+    tree = gk.grow_tree(binned, Y * fold[:, None],
+                        fold[:, None].repeat(1, MC_CLASSES), depth, 32,
+                        C=fold, lam=gk.RF_LAMBDA, min_info_gain=0.0,
+                        min_instances=min_instances, newton_leaf=False,
+                        hist_fn=chk)
+    del binned
+    return ({"levels": chk.levels, "levels_unequal": chk.unequal,
+             "max_abs_err": chk.max_err, "bitwise_equal": chk.unequal == 0,
+             "splits": int((tree.thresh < 32).sum())}, chk)
+
+
+def _binary_checks(X: torch.Tensor, yb: np.ndarray) -> dict:
+    """BOOSTED_CHECK_ROUNDS rounds of the count-gated GBT and of the
+    subsampled XGBoost fit of ``count_and_subsample`` (3 float channels:
+    gradient, hessian, count) on the slice's binary label, every level
+    held against the plain version (``_LevelCheck``)."""
+    dev = X.device
+    n = X.shape[0]
+    edges, binned = prep_tree_inputs(X, 32)
+    yt = torch.from_numpy(yb).to(dev)
+    w = torch.ones((1, n), device=dev)
+    p0 = float(np.clip(yb.mean(), 1e-6, 1 - 1e-6))
+    base = torch.tensor([float(np.log(p0 / (1 - p0)))])
+    out = {}
+    for name, est in _binary_estimators(BOOSTED_CHECK_ROUNDS).items():
+        chk = _LevelCheck()
+        grown = boost_chains([est], binned, edges, yt, w, base, [],
+                             hist_fn=chk,
+                             rng=np.random.default_rng(est.seed))
+        out[name] = {**chk.summary(), "rounds": len(grown.trees[0]),
+                     "splits": sum(int((t.thresh < 32).sum())
+                                   for t in grown.trees[0])}
+    return out
+
+
+def _binary_estimators(rounds: int) -> dict:
+    """``count_and_subsample``'s two fits: Spark-GBT gates (min instances
+    and min info gain: the count channel) and XGBoost row and column
+    subsampling (the per-round loop, with the count channel)."""
+    return {
+        "count_gated_gbt": OpGBTClassifier(
+            max_depth=6, max_iter=rounds, min_instances_per_node=10,
+            min_info_gain=0.001),
+        "subsampled_xgb": OpXGBoostClassifier(
+            max_depth=6, num_round=rounds, subsample=0.8,
+            colsample_bytree=0.5, early_stopping_rounds=0)}
+
+
+def _level_row(path: str, args, reps: int, bw: float, f32: float,
+               smem_bw: float, integer: bool) -> dict:
+    """One ``seg_hist`` line at a level of ``path``: the kernel against the
+    plain version (bitwise for integer channels, else the tolerance of
+    |channels|), kernel, plain and library ms, the bytes bound and the
+    shared-memory floor (8C bytes of shared memory a (row, column))."""
+    b, slot, ch, M, B = args
+    n, dd = b.shape
+    C = ch.shape[1]
+    k = gk.seg_level_hists(*args)
+    p = gk.seg_level_hists_plain(*args)
+    mag = gk.seg_level_hists_plain(b, slot, ch.abs(), M, B)
+    diff = (k - p).abs()
+    kernel_ms = time_ms(lambda: gk.seg_level_hists(*args), reps)
+    plain_ms = time_ms(lambda: gk.seg_level_hists_plain(*args), 3, 1)
+    library_ms = _library_ms(b, slot, ch, M, B)
+    nbytes = n * dd + n * 4 + n * C * 4 + M * C * B * dd * 4
+    ops = n * dd * C
+    row = {"phase": "seg_hist", "path": path, "N": n, "d": dd, "B": B,
+           "nchan": C, "M": M, "row_stride": b.stride(0),
+           "integer_channels": integer,
+           "channel_groups": [list(g) for g in gk.seg_channel_groups(C, B)],
+           "max_abs_err": float(diff.max()),
+           "tol_ratio": float((diff / (ATOL + RTOL * mag)).max()),
+           "bitwise_equal": bool(torch.equal(k, p)),
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "bound_ms": max(nbytes / bw, ops / f32) * 1e3,
+           "bound_by": "bytes" if nbytes / bw >= ops / f32 else "operations",
+           "smem_floor_ms": 8 * C * n * dd / smem_bw * 1e3, "bytes": nbytes}
+    emit(row)
+    what = f"seg_hist {path} C={C} M={M} d={dd}"
+    check(row["tol_ratio"] <= 1.0, f"{what}: kernel vs plain error "
+          f"{row['max_abs_err']} beyond the tolerance")
+    check(not integer or row["bitwise_equal"], f"{what}: integer channels, "
+          f"yet the kernel differs from the plain version by "
+          f"{row['max_abs_err']}")
+    return row
+
+
+def _general_level_rows(X: torch.Tensor, K: int, path: str, slots,
+                        reps: int, bw: float, f32: float,
+                        smem_bw: float) -> None:
+    """``seg_hist`` lines at the general grower's level shape on the
+    checked matrix's bins (d columns, 2K+1 float channels: K gradients in
+    [-1, 1], K hessians in [0, 0.25] and a 0/1 count) at random slots:
+    ``gbdt_multi`` (K = MC_CLASSES, M = 1, 32 and 512: depth 10's last
+    level) and ``gbdt_count`` (K = 1, the count-gated and subsampled
+    binary fits at depth 6: M = 1 and 32)."""
+    dev = X.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    _, binned = prep_tree_inputs(X, 32)
+    n = binned.shape[0]
+    ch = torch.cat([torch.rand((n, K), device=dev, generator=gen) * 2 - 1,
+                    torch.rand((n, K), device=dev, generator=gen) * 0.25,
+                    (torch.rand((n, 1), device=dev, generator=gen) < 2 / 3)
+                    .float()], 1).contiguous()
+    for M in slots:
+        slot = torch.randint(0, M, (n,), dtype=torch.int32, device=dev,
+                             generator=gen)
+        _level_row(path, (binned, slot, ch, M, 32), reps, bw, f32, smem_bw,
+                   integer=False)
+        del slot
+    del binned, ch
+
+
+def _timed_fit(est, X, y) -> Tuple[object, float]:
+    """``est.fit_raw`` on the card; its model and the seconds it took."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = est.fit_raw(X, y, device=X.device)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def phase_boosted_multi(mc, data, cols: int, reps: int, bw: float,
+                        f32: float, smem_bw: float) -> dict:
+    """The general grower on the multiclass phase's datasets: the
+    multiclass selector over a softmax XGBoost grid and a decision-tree
+    grid (3 stratified folds, F1; every candidate a sequential fit), with
+    save/load, the local scorer and single-row serving of its winner;
+    ``xgb_defaults`` (one softmax fit at the reference's XGBoost
+    defaults); ``count_and_subsample`` (count-gated GBT and subsampled
+    XGBoost on the slice's binary label); the levels of every new path
+    held against the plain version; ``seg_hist`` lines at the new channel
+    counts."""
+    train, hold, attainable = mc
+    btrain, bhold, _ = data
+    rows, holdout = len(train), len(hold)
+    K = MC_CLASSES
+    label = FeatureBuilder.RealNN("label").as_response()
+    names = [f"f{j}" for j in range(cols)]
+    preds = [FeatureBuilder.Real(nm).as_predictor() for nm in names]
+    checked = label.transform_with(SanityChecker(max_correlation=0.99),
+                                   transmogrify(preds))
+    selector = MultiClassificationModelSelector.with_cross_validation(
+        models_and_parameters=[
+            (OpXGBoostClassifier(num_round=BOOSTED_SELECTOR_ROUNDS, eta=0.3,
+                                 early_stopping_rounds=0),
+             grid(max_depth=[4, 6])),
+            (OpDecisionTreeClassifier(),
+             grid(max_depth=[6, 10], min_instances_per_node=[10]))])
+    pred = label.transform_with(selector, checked)
+    wf = OpWorkflow().set_result_features(pred).set_input_data(train)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.seg_level_hists.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train()
+    train_s = time.perf_counter() - t0
+    launches = gk.seg_level_hists.launches
+    peak = torch.cuda.max_memory_allocated()
+    scored, metrics = model.score_and_evaluate(
+        Evaluators.MultiClassification.f1(), data=hold)
+    torch.cuda.synchronize()
+    proba = scored[pred.name].values.probability
+    f1 = float(metrics["F1"])
+    meta = selector.metadata
+    summary = meta["model_selector_summary"]
+    results = summary["validationResults"]
+    tmp = os.path.join(REPO, "smoke_out")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        served = _serve_multiclass(model, pred, hold, names, proba, tmp,
+                                   "boosted_multi")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the checked matrices: the selector's fitted vectorizers and checker
+    X = model.train_data[checked.name].values
+    Xh = _checked_matrix(model, checked, hold)
+    y = np.asarray(train["label"].values, np.float64)
+    yh = torch.from_numpy(np.asarray(hold["label"].values, np.int64)).to(
+        X.device)
+    stage_seconds = model.stage_seconds
+    del model, scored
+
+    # xgb_defaults: the reference's XGBoost defaults, K classes
+    est = OpXGBoostClassifier(num_class=K)
+    gk.seg_level_hists.launches = 0
+    xgb, xgb_s = _timed_fit(est, X, y)
+    xgb_launches = gk.seg_level_hists.launches
+    batch = xgb.predict_batch(Xh)
+    p = torch.clamp(batch.probability.to(torch.float64), 1e-15, 1.0)
+    xgb_out = {
+        "num_round": est.num_round, "max_depth": est.max_depth,
+        "eta": est.eta, "gamma": est.gamma,
+        "early_stopping_rounds": est.early_stopping_rounds,
+        "fit_s": xgb_s, **est.metadata["fit_timing"],
+        "rounds_grown": est.metadata["rounds_grown"],
+        "rounds_kept": est.metadata["best_len"],
+        "ms_per_round": est.metadata["fit_timing"]["boosting_s"]
+        / est.metadata["rounds_grown"] * 1e3,
+        "holdout_f1": multiclass_metrics(yh, batch.prediction.long(),
+                                         K)["F1"],
+        "holdout_logloss": float(-torch.log(
+            p[torch.arange(len(yh), device=p.device), yh]).mean()),
+        "seg_hist_launches": xgb_launches,
+        "growers_hist_levels": est.metadata["hist_levels"],
+        "mode": xgb.mode}
+    del xgb, batch, p
+
+    # count_and_subsample: the slice's binary label on the same matrix
+    yb = np.asarray(btrain["label"].values, np.float32)
+    ybh = torch.from_numpy(np.asarray(bhold["label"].values, np.float32))
+    cs_out = {}
+    for name, est in _binary_estimators(BOOSTED_BINARY_ROUNDS).items():
+        gk.seg_level_hists.launches = 0
+        m, fit_s = _timed_fit(est, X, yb)
+        got = gk.seg_level_hists.launches
+        score = m.predict_batch(Xh).probability[:, 1]
+        cs_out[name] = {
+            "fit_s": fit_s, **est.metadata["fit_timing"],
+            "rounds_grown": est.metadata["rounds_grown"],
+            "ms_per_round": est.metadata["fit_timing"]["boosting_s"]
+            / est.metadata["rounds_grown"] * 1e3,
+            "holdout_aupr": aupr(ybh.to(score.device), score),
+            "seg_hist_launches": got,
+            "growers_hist_levels": est.metadata["hist_levels"]}
+        del m, score
+
+    # every level of the new paths against the plain version
+    fold = torch.from_numpy(
+        (make_folds(X.shape[0], 3, y=y, stratify=True, seed=42) != 0
+         ).astype(np.float32)).to(X.device)
+    checks = {"softmax": _softmax_check(
+        X, y, OpXGBoostClassifier(max_depth=6, num_round=BOOSTED_CHECK_ROUNDS,
+                                  eta=0.3, early_stopping_rounds=0), fold)}
+    checks["decision_tree"], dt_chk = _tree_levels(X, y, fold, 10, 10.0)
+    checks.update(_binary_checks(X, yb))
+    _level_row("dt_multi", dt_chk.widest, reps, bw, f32, smem_bw,
+               integer=True)
+    del dt_chk
+    _general_level_rows(X, K, "gbdt_multi", (1, 32, 512), reps, bw, f32,
+                        smem_bw)
+    _general_level_rows(X, 1, "gbdt_count", (1, 32), reps, bw, f32,
+                        smem_bw)
+    del X, Xh
+
+    out = {"phase": "boosted_multi", "rows": rows, "holdout": holdout,
+           "cols": cols, "classes": K,
+           "folds": selector.validator.num_folds, "train_s": train_s,
+           "stage_seconds": stage_seconds,
+           "sweep_seconds": meta["sweep_seconds"],
+           "group_errors": meta["group_errors"],
+           "refit_seconds": meta["refit_seconds"],
+           "sequential_fits": meta["sequential_fits"],
+           "winner": summary["bestModelType"],
+           "winner_params": summary["bestModelParams"],
+           "cv": [{"model": r["modelType"], "params": r["params"],
+                   "f1": r["metricValue"], "error": r.get("error")}
+                  for r in results],
+           "holdout_f1": f1, "holdout_accuracy": metrics["Accuracy"],
+           "holdout_logloss": metrics["LogLoss"],
+           "attainable_f1": attainable,
+           "f1_floor": BOOSTED_F1_SHARE * attainable,
+           "seg_hist_launches": launches,
+           "growers_hist_levels": meta["hist_levels"],
+           "max_memory_allocated": peak, **served,
+           "xgb_defaults": xgb_out, "count_and_subsample": cs_out,
+           "levels_vs_plain": checks,
+           "launches_total": launches + xgb_launches + sum(
+               r["seg_hist_launches"] for r in cs_out.values())}
+    emit(out)
+    check(tuple(proba.shape) == (holdout, K), f"proba shape {proba.shape}")
+    check(bool(torch.isfinite(proba).all()), "non-finite probabilities")
+    check(len(results) == 4, f"{len(results)} validation results, not 4")
+    errors = [r["error"] for r in results if r.get("error")]
+    check(not errors, f"candidates failed: {errors}")
+    check(not meta["group_errors"],
+          f"grid groups failed: {meta['group_errors']}")
+    check(len(meta["sequential_fits"]) == 4 * 3 + 1,
+          f"{len(meta['sequential_fits'])} sequential fits, not 13")
+    check(launches > 0 and launches == meta["hist_levels"],
+          f"boosted_multi: seg_hist launches {launches} != the growers' "
+          f"{meta['hist_levels']} histogram levels")
+    check(summary["bestModelType"] == "OpXGBoostClassifier",
+          f"boosted_multi: winner {summary['bestModelType']}, not the "
+          f"softmax XGBoost")
+    check(f1 >= BOOSTED_F1_SHARE * attainable,
+          f"boosted_multi: holdout F1 {f1} below {BOOSTED_F1_SHARE} x the "
+          f"attainable {attainable}")
+    check(served["holdout_bitwise_after_load"],
+          "boosted_multi: holdout scores after save/load differ")
+    check(served["local_scorer_max_abs_diff"] <= 1e-6,
+          f"boosted_multi: local scorer rows "
+          f"{served['local_scorer_max_abs_diff']} from the batch")
+    check(served["served_max_abs_diff"] <= 1e-6 and served["server_shed"] == 0
+          and served["server_device_errors"] == 0,
+          f"boosted_multi: served scores {served['served_max_abs_diff']} "
+          f"from the in-memory model's, shed {served['server_shed']}, "
+          f"device errors {served['server_device_errors']}")
+    check(xgb_out["mode"] == "gbdt_multi"
+          and xgb_launches == xgb_out["growers_hist_levels"] > 0,
+          f"xgb_defaults: mode {xgb_out['mode']}, launches {xgb_launches} "
+          f"vs {xgb_out['growers_hist_levels']} levels")
+    check(np.isfinite(xgb_out["holdout_logloss"]),
+          "xgb_defaults: non-finite LogLoss")
+    for name, r in cs_out.items():
+        check(r["seg_hist_launches"] == r["growers_hist_levels"] > 0,
+              f"{name}: launches {r['seg_hist_launches']} vs "
+              f"{r['growers_hist_levels']} levels")
+        check(r["holdout_aupr"] >= BOOSTED_AUPR_FLOOR,
+              f"{name}: holdout AuPR {r['holdout_aupr']} below "
+              f"{BOOSTED_AUPR_FLOOR}")
+    for name, c in checks.items():
+        if name == "decision_tree":
+            check(c["bitwise_equal"] and c["levels"] > 0,
+                  f"decision tree: {c['levels_unequal']} of {c['levels']} "
+                  f"levels differ from the plain version")
+        else:
+            check(c["tol_ratio"] <= 1.0 and c["levels"] > 0,
+                  f"{name}: kernel vs plain error {c['max_abs_err']} "
+                  f"beyond the tolerance")
+        check(c["splits"] > 0, f"{name}: no split grown")
     return out
 
 
@@ -2363,7 +2773,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     titanic = phase_titanic(args.rows, args.holdout, args.reps, bw, f32)
     torch.cuda.empty_cache()
-    multi = phase_multiclass(data, args.cols, args.reps, bw, f32)
+    multi, mc = phase_multiclass(data, args.cols, args.reps, bw, f32)
+    torch.cuda.empty_cache()
+    boosted = phase_boosted_multi(mc, data, args.cols, args.reps, bw, f32,
+                                  smem_bw)
+    del mc
     torch.cuda.empty_cache()
     phase_iris(args.rows, args.holdout)
     torch.cuda.empty_cache()
@@ -2407,7 +2821,8 @@ def main() -> int:
         "launches": (sl["seg_hist_launches"] + sel["seg_hist_launches"]
                      + reg["seg_hist_launches_total"]
                      + titanic["seg_hist_launches"]
-                     + multi["seg_hist_launches"]),
+                     + multi["seg_hist_launches"]
+                     + boosted["launches_total"]),
         "max_abs_err": max(r["max_abs_err"] for r in seg),
         "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": levels[-1]["bound_by"],

@@ -186,14 +186,26 @@ def test_regression_group_matches_jax(mcw, depths, metric, monkeypatch):
     min_child_weight 1 (the default: ties that route held-out rows
     differently may occur, trees compared up to them) and 10 (no such
     tie); the CV metric matrix within 1e-5 wherever no tie routes a row
-    differently.  Depth 12 at 3 000 rows compacts its node ids (levels
-    past 2 048 nodes)."""
-    X, y = _make(3000, 11)
+    differently.  The depth-12 case runs on 1 000 rows, where its last
+    level (2 048 nodes) compacts its node ids into next_pow2(N) = 1 024
+    slots, as the JAX growth does (at 3 000 rows no level of depth 12
+    passes next_pow2(N) = 4 096 nodes)."""
+    n = 1000 if max(depths) > 10 else 3000
+    X, y = _make(n, 11)
     ctxs = _folds(y)
     pts = [dict(max_depth=d, max_iter=8, step_size=0.1,
                 min_child_weight=mcw) for d in depths]
+    compact = tk._compact_slots
+    compacted = []
+
+    def spy(node, n_cap):
+        compacted.append(n_cap)
+        return compact(node, n_cap)
+
+    monkeypatch.setattr(tk, "_compact_slots", spy)
     jm, tm, jtrees, jleaves, _, tg = _run_both(
         JGBT(), OpGBTRegressor(), pts, metric, X, y, ctxs, monkeypatch)
+    assert set(compacted) == ({1024} if n == 1000 else set())
     assert tm.shape == jm.shape == (len(depths), 3)
     assert (tg.best_len == 8).all()
     assert tg.trees_grown == 8 * 3 * len(depths)
@@ -225,8 +237,8 @@ def test_xgb_early_stopping_group_matches_jax(monkeypatch):
 
 def test_group_declines_and_raises():
     """The JAX group's decline rules (None: multiclass labels, mixed
-    static attributes, subsampling) and the port's refusal of count-gated
-    growth."""
+    static attributes, subsampling); count-gated chains are not declined
+    (they grow with the count channel and score every fold)."""
     tt.set_device("cpu")
     X, y = _make(400, 13)
     ctxs = _folds(y)
@@ -243,8 +255,9 @@ def test_group_declines_and_raises():
         assert tgg.GBTGridGroup(proto, pts, metric).run(Xt, yy, ctxs) is None
     g = tgg.GBTGridGroup(OpGBTRegressor(), [dict(min_instances_per_node=10)],
                          "RootMeanSquaredError")
-    with pytest.raises(NotImplementedError, match="count-gated"):
-        g.run(Xt, y, ctxs)
+    m = g.run(Xt, y, ctxs)
+    assert m is not None and tuple(m.shape) == (1, 3)
+    assert g.hist_levels == 20 * 3 * 5
 
 
 def _jax_goss(seed, rid, chain, ga, k_top, k_rest):

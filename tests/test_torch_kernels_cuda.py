@@ -324,6 +324,111 @@ def test_seg_hist_channel_counts_bitwise(cuda_device, nchan):
     assert torch.equal(a, b) and torch.equal(a, plain)
 
 
+def _general_channels(rng, n, nchan, integer):
+    """The general grower's 2K+1 channels [G_0..G_{K-1}, H_0..H_{K-1}, C]
+    for K = (nchan - 1) // 2, the count channel the odd one last: float
+    softmax gradients in [-1, 1], hessians in [0, 0.25] and 0/1 fold
+    weights; or a decision tree's integer channels (w [y=k], w in each
+    hessian column, w) of Poisson weights."""
+    K = (nchan - 1) // 2
+    if integer:
+        w = rng.poisson(1.0, n).astype(np.float32)
+        y = rng.integers(0, K, n)
+        cols = [w * (y == k) for k in range(K)] + [w] * K + [w]
+    else:
+        cols = ([rng.uniform(-1, 1, n) for _ in range(K)]
+                + [rng.uniform(0, 0.25, n) for _ in range(K)]
+                + [(rng.random(n) < 2 / 3).astype(np.float32)])
+    return np.stack(cols, 1).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nchan", [3, 5, 7, 11, 15])
+@pytest.mark.parametrize("integer", [False, True])
+def test_seg_hist_general_grower_channels(cuda_device, nchan, integer):
+    """The general grower's levels at C = 2K+1 channels, the count last
+    (an odd channel after the float2 pairs; 15 runs as groups of 8 + 7):
+    d = 500 columns in padded rows, M = 32.  Float channels within the
+    tolerance of |channels| (signed gradients cancel); integer-valued
+    channels bitwise equal to the plain version; two launches bitwise
+    equal."""
+    rng = np.random.default_rng(100 + nchan)
+    n, d, M, B = 100_000, 500, 32, 32
+    binned = tk.binned_empty(n, d, cuda_device)
+    binned.copy_(torch.from_numpy(
+        rng.integers(0, B, size=(n, d)).astype(np.uint8)))
+    ch = torch.from_numpy(_general_channels(rng, n, nchan, integer)).to(
+        cuda_device)
+    slot = torch.from_numpy(rng.integers(0, M, n).astype(np.int32)).to(
+        cuda_device)
+    groups = tk.seg_channel_groups(nchan, B)
+    assert [w for _, w in groups] == ([8, 7] if nchan == 15 else [nchan])
+    before = tk.seg_level_hists.launches
+    a = tk.seg_level_hists(binned, slot, ch, M, B)
+    torch.cuda.synchronize()
+    assert tk.seg_level_hists.launches - before == len(groups)
+    b = tk.seg_level_hists(binned, slot, ch, M, B)
+    plain = tk.seg_level_hists_plain(binned, slot, ch, M, B)
+    assert torch.equal(a, b)
+    if integer:
+        assert torch.equal(a, plain)
+    else:
+        mag = tk.seg_level_hists_plain(binned, slot, ch.abs(), M, B)
+        assert bool(((a - plain).abs() <= ATOL + RTOL * mag).all())
+
+
+@pytest.mark.cuda
+def test_decision_tree_kernel_matches_plain(cuda_device):
+    """A 3-class decision tree on the card (2K+1 = 7 integer channels, the
+    count gates on) grown through the kernel and through the plain version:
+    identical trees and leaves."""
+    rng = np.random.default_rng(8)
+    n = 40_000
+    X = rng.normal(size=(n, 30)).astype(np.float32)
+    y = (np.argmax(X[:, :3] + rng.gumbel(size=(n, 3)), 1)).astype(
+        np.float32)
+    binned = tk.apply_bins(torch.from_numpy(X).to(cuda_device),
+                           tk.quantile_bins(torch.from_numpy(X), 32))
+    Y = torch.nn.functional.one_hot(
+        torch.from_numpy(y).long(), 3).float().to(cuda_device)
+    w = torch.ones(n, device=cuda_device)
+    kw = dict(C=w, lam=1e-3, min_instances=10.0, min_info_gain=0.001,
+              newton_leaf=False)
+    k = tk.grow_tree(binned, Y, w[:, None].repeat(1, 3), 8, 32, **kw)
+    p = tk.grow_tree(binned, Y, w[:, None].repeat(1, 3), 8, 32,
+                     hist_fn=tk.seg_level_hists_plain, **kw)
+    assert torch.equal(k.feat, p.feat) and torch.equal(k.thresh, p.thresh)
+    assert torch.equal(k.leaf, p.leaf)
+    assert int((k.thresh < 32).sum()) > 10
+
+
+@pytest.mark.cuda
+def test_multiclass_xgb_fits_on_card(cuda_device):
+    """A softmax XGBoost fit (K = 4, row and column subsampling, early
+    stopping) on the card through the kernel, scoring finite probabilities
+    that sum to 1; its levels launch the kernel once each."""
+    from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
+
+    rng = np.random.default_rng(12)
+    n = 30_000
+    X = rng.normal(size=(n, 20)).astype(np.float32)
+    y = np.argmax(X[:, :4] + rng.gumbel(size=(n, 4)), 1).astype(np.float32)
+    est = OpXGBoostClassifier(num_round=12, max_depth=5, eta=0.3,
+                              subsample=0.8, colsample_bytree=0.5,
+                              early_stopping_rounds=4)
+    before = tk.seg_level_hists.launches
+    model = est.fit_raw(X, y, device="cuda")
+    assert tk.seg_level_hists.launches - before == est.metadata[
+        "hist_levels"] == 5 * est.metadata["rounds_grown"]
+    assert model.mode == "gbdt_multi" and model.leaf.shape[-1] == 4
+    p = model.predict_batch(torch.from_numpy(X).to(cuda_device)).probability
+    assert p.device.type == "cuda" and bool(torch.isfinite(p).all())
+    assert torch.allclose(p.sum(1), torch.ones(n, device=cuda_device))
+    acc = float((p.argmax(1).cpu() == torch.from_numpy(y).long()).float()
+                .mean())
+    assert acc > 0.4      # the Bayes rule: 0.51, chance 0.25
+
+
 @pytest.mark.cuda
 def test_seg_hist_grouped_channels_take_any_base(cuda_device):
     """14 channels run as two groups, each copied into rows of its own, so

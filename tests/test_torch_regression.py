@@ -452,18 +452,53 @@ def test_boosted_regressor_matches_jax(kind, monkeypatch):
         jmod.predict_batch(X).prediction), rtol=1e-5)
 
 
-def test_boosted_regression_refuses_what_is_not_ported():
-    """Count-gated growth and subsampling raise for the regressors too;
-    a multiclass objective still raises."""
+def test_boosted_regression_refuses_what_is_not_ported(monkeypatch):
+    """Nothing the JAX package's boosted regressors run is refused any
+    more: count-gated growth and subsampling fit as the JAX package's
+    fits do — every round's tree equal up to exact gain ties over the
+    rows it grew on, up to the first tie that routes some other row
+    differently (later rounds then start from other margins), and
+    predictions within 1e-5 where no such tie occurs — and a label of 3
+    classes boosts the softmax objective (mode ``gbdt_multi``)."""
+    from test_torch_gbt_grid import _assert_same_tree
+
+    from transmogrifai_tpu_torch.models import trees as ttrees
+    from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
+
+    monkeypatch.setenv("TMOG_COST_HISTORY", "0")
     X, y = _gbt_problem(n=200)
-    for est in (OpGBTRegressor(min_instances_per_node=5),
-                OpGBTRegressor(min_info_gain=0.1),
-                OpGBTRegressor(subsample_rate=0.5)):
-        with pytest.raises(NotImplementedError):
-            est.fit_raw(X, y, device="cpu")
-    with pytest.raises(NotImplementedError, match="multiclass"):
-        from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
-        OpXGBoostClassifier().fit_raw(X, np.arange(200) % 3, device="cpu")
+    rows = []
+    grow = ttrees.grow_tree
+
+    def spy(*a, **k):
+        rows.append(k["C"].numpy() > 0)
+        return grow(*a, **k)
+
+    monkeypatch.setattr(ttrees, "grow_tree", spy)
+    for kw in (dict(min_instances_per_node=5), dict(min_info_gain=0.1),
+               dict(subsample_rate=0.5)):
+        rows.clear()
+        got = OpGBTRegressor(**kw).fit_raw(X, y, device="cpu")
+        want = JGBT(**kw).fit_raw(X, y)
+        assert len(rows) == 20          # the count channel, every round
+        binned = tk.apply_bins(torch.from_numpy(X), got.edges).numpy()
+        jf, jt, jl = (np.asarray(a) for a in (want.feat, want.thresh,
+                                              want.leaf))
+        ties = 0
+        for r in range(20):
+            ties += _assert_same_tree(
+                jf[r], jt[r], jl[r], got.feat[r].numpy(),
+                got.thresh[r].numpy(), got.leaf[r].numpy(), binned,
+                rows[r], 5)
+            if ties:
+                break
+        if ties == 0:
+            np.testing.assert_allclose(
+                got.predict_batch(torch.from_numpy(X)).prediction.numpy(),
+                np.asarray(want.predict_batch(X).prediction), rtol=1e-5)
+    model = OpXGBoostClassifier().fit_raw(
+        X, (np.arange(200) % 3).astype(np.float32), device="cpu")
+    assert model.mode == "gbdt_multi" and model.leaf.shape[-1] == 3
 
 
 # ---------------------------------------------------------------------------

@@ -90,6 +90,17 @@ def _cpu():
     tt.set_device("cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one intra-op thread: inside the parallel test run the CPU
+    is shared, and the port's forests (integer sums) and the checked
+    vectors do not depend on it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def titanic_frame(rows, seed=7, label_seed=11):
     """``make_titanic_like`` with ``Survived`` drawn from the logit
     -1.1 + 2.4 [female] - 1.0 [3rd class] + 0.35 log1p(fare)

@@ -16,7 +16,7 @@ import torch
 import transmogrifai_tpu_torch as tt
 from test_torch_titanic import (  # noqa: F401  fixtures and the shared class
     PORT, JRF, OpRandomForestClassifier, OpWorkflow, TestDemoParity,
-    _both, _cpu, _jax_bags, build_demo, frames, tk)
+    _both, _cpu, _jax_bags, build_demo, frames, one_thread, tk)
 
 
 @pytest.fixture(scope="module")

@@ -69,8 +69,9 @@ def tree_ensemble_model(mode: str, edges: np.ndarray, feat: np.ndarray,
                         thresh: np.ndarray, leaf: np.ndarray,
                         base_score: float = 0.0, n_classes: int = 2,
                         device=None) -> TreeEnsembleModel:
-    """A ``TreeEnsembleModel`` (``gbdt_binary``, ``gbdt_reg``, ``rf_cls``
-    — leaf (T, 2^d, K) of K class shares — or ``rf_reg``) from its
+    """A ``TreeEnsembleModel`` (``gbdt_binary``, ``gbdt_multi`` — leaf
+    (T, 2^d, K) of K class margins —, ``gbdt_reg``, ``rf_cls`` — leaf (T,
+    2^d, K) of K class shares — or ``rf_reg``) from its
     edges/feat/thresh/leaf arrays, its trees on ``device`` (else the
     default device)."""
     dev = resolve_device(device)
@@ -84,10 +85,11 @@ def tree_ensemble_model(mode: str, edges: np.ndarray, feat: np.ndarray,
 
 def tree_ensemble(est: Estimator, mode: str, edges: np.ndarray,
                   feat: np.ndarray, thresh: np.ndarray, leaf: np.ndarray,
-                  base_score: float) -> TreeEnsembleModel:
+                  base_score: float, n_classes: int = 2
+                  ) -> TreeEnsembleModel:
     """A tree estimator's fitted ensemble, on the estimator's device."""
     return est.adopt_model(tree_ensemble_model(
-        mode, edges, feat, thresh, leaf, base_score,
+        mode, edges, feat, thresh, leaf, base_score, n_classes,
         device=getattr(est, "device", None)))
 
 

@@ -9,9 +9,12 @@ slice runs:
    package's per-column host arithmetic) and ``apply_bins`` (binned
    matrix as uint8 on the device);
  * ``default_dir_mask`` and ``route_right`` — the split routing rule;
- * ``grow_tree`` — level-wise growth in ``newton`` mode (gradient and
-   hessian channels, XGBoost gating), default-direction splits and node
-   compaction;
+ * ``grow_tree`` — the general level-wise grower: K gradient and K
+   hessian channels plus, in bag mode ``"none"``, a count channel (2K+1:
+   count and per-node-weight gain gates, column masks, Newton or mean
+   leaves; softmax boosting, count-gated and subsampled boosting, decision
+   trees), or without it (``"newton"``, XGBoost's gating);
+   default-direction splits and node compaction;
  * ``grow_rf_grid`` / ``grow_forest_rf`` — random forests in bag mode
    ``"onehot"`` for K-class labels (channels bw [y=k] for k < K-1, and
    bw) and
@@ -27,7 +30,7 @@ slice runs:
    the forest growers build every level through it.
 
 Not ported yet (ROADMAP Queue A): EFB bundling, the CSR histogram path,
-sibling subtraction, the softmax boosting objective and sharded growth.
+sibling subtraction and sharded growth.
 """
 from __future__ import annotations
 
@@ -571,29 +574,50 @@ def _uncompact(uniq, feat_l, thresh_l, level_nodes: int, B: int):
 
 
 def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
-              max_depth: int, n_bins: int, lam: float = 1.0,
-              min_child_weight: float = 0.0, min_gain_raw: float = 0.0,
+              max_depth: int, n_bins: int, C: Optional[torch.Tensor] = None,
+              lam: float = 1.0, min_child_weight: float = 0.0,
+              min_info_gain: float = 0.0, min_instances: float = 1.0,
+              feat_mask: Optional[torch.Tensor] = None,
+              newton_leaf: bool = True, min_gain_raw: float = 0.0,
               learning_rate: float = 1.0, default_dir: bool = False,
               dd_mask: Optional[torch.Tensor] = None,
               hist_fn: HistFn = seg_level_hists) -> TreeArrays:
-    """Grow one tree level by level in ``newton`` mode (the JAX package's
-    ``_grow_tree_traced`` with ``bag_mode="newton"``): channels are the K
-    gradient and K hessian columns, gating is XGBoost's (min_child_weight
-    on hessian mass, gamma as the raw loss-reduction threshold).
+    """Grow one tree level by level (the JAX package's
+    ``_grow_tree_traced``).
 
-    ``binned`` (N, d) uint8; ``G``/``H`` (N, K) float32.  Nodes that fail
-    the gates emit the no-split sentinel (thresh = B); levels with more
-    nodes than next_pow2(N) compact their node ids into that many slots.
-    ``hist_fn`` builds each level's histograms (the kernel wrapper by
-    default; the plain version for comparisons on the card)."""
+    ``binned`` (N, d) uint8; ``G``/``H`` (N, K) float32 gradients and
+    hessians.  With a count channel ``C`` (N,) (bag mode ``"none"``) each
+    level's histograms have 2K+1 channels [G_0..G_{K-1}, H_0..H_{K-1}, C]
+    and a split needs ``min_instances`` count on each side and gain per
+    unit of node count ``>= min_info_gain``; without one (``"newton"``,
+    XGBoost's gating) the 2K channels [G.., H..] serve and the hessian
+    mass stands in for counts, so the count gates are inert.  Both gate on
+    ``min_child_weight`` of every class's hessian mass on each side, gain
+    > 0 and the raw gain ``>= min_gain_raw`` (XGBoost's gamma).
+    ``feat_mask`` (d,) bool: the features a split may use (column
+    subsampling).  ``default_dir``: each split also tries sending the bin-0
+    mass right (features of ``dd_mask`` only), encoded as a negative
+    threshold.  Leaves are Newton steps -lr G / (H + lam) or, with
+    ``newton_leaf=False``, means G / C.
+
+    Nodes that fail the gates emit the no-split sentinel (thresh = B);
+    levels with more nodes than next_pow2(N) compact their node ids into
+    that many slots.  ``hist_fn`` builds each level's histograms (the
+    kernel wrapper by default; the plain version for comparisons on the
+    card)."""
     n, d = binned.shape
     k = G.shape[1]
     B = n_bins
     dev = binned.device
     n_cap = _slot_cap(n)
-    ch = torch.cat([G, H], dim=1).to(torch.float32).contiguous()
+    newton = C is None
+    chans = [G, H] if newton else [G, H, C[:, None]]
+    ch = torch.cat(chans, dim=1).to(torch.float32).contiguous()
+    if newton:
+        min_instances = 0.0     # the hessian mass stands in for counts
     rows = torch.arange(n, device=dev)
     bin_ids = torch.arange(B, device=dev)[None, :, None]
+    fmask = None if feat_mask is None else feat_mask.to(dev)[None, None, :]
     node = torch.zeros(n, dtype=torch.int32, device=dev)
     heap_feat, heap_thresh = [], []
     for level in range(max_depth):
@@ -602,9 +626,9 @@ def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
         M = n_cap if compact else level_nodes
         slot, uniq = _compact_slots(node, n_cap) if compact else (node, None)
         hists = hist_fn(binned, slot.contiguous(), ch, M, B)
-        cums = torch.cumsum(hists, dim=2)                  # (2K, M, B, d)
+        cums = torch.cumsum(hists, dim=2)             # (2K[+1], M, B, d)
         GLs, HLs = cums[:k], cums[k:2 * k]
-        CL = HLs[0]   # hessian mass stands in for counts; count gates inert
+        CL = HLs[0] if newton else cums[2 * k]
 
         gain = 0.0
         HLmin = HRmin = None
@@ -618,7 +642,10 @@ def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
         Ctot = CL[:, -1:, :1]
         CR = Ctot - CL
         valid = ((HLmin >= min_child_weight) & (HRmin >= min_child_weight)
-                 & (CL >= 0.0) & (CR >= 0.0) & (bin_ids < B - 1))
+                 & (CL >= min_instances) & (CR >= min_instances)
+                 & (bin_ids < B - 1))
+        if fmask is not None:
+            valid = valid & fmask
         node_w = torch.clamp(Ctot[:, 0, 0], min=1e-12)
         neg_inf = float("-inf")
         flat_gain = torch.where(valid, gain, neg_inf).reshape(M, B * d)
@@ -641,8 +668,10 @@ def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
             CRb = Ctot - CLb
             valid_b = ((HLbmin >= min_child_weight)
                        & (HRbmin >= min_child_weight)
-                       & (CLb >= 0.0) & (CRb >= 0.0) & (bin_ids < B - 1)
-                       & (c0 > 0))
+                       & (CLb >= min_instances) & (CRb >= min_instances)
+                       & (bin_ids < B - 1) & (c0 > 0))
+            if fmask is not None:
+                valid_b = valid_b & fmask
             if dd_mask is not None:
                 valid_b = valid_b & dd_mask[None, None, :]
             flat_gain = torch.cat(
@@ -652,7 +681,7 @@ def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
 
         best = torch.argmax(flat_gain, dim=1)
         best_gain = flat_gain.gather(1, best[:, None])[:, 0]
-        ok = ((best_gain > 0) & (best_gain / node_w >= 0.0)
+        ok = ((best_gain > 0) & (best_gain / node_w >= min_info_gain)
               & torch.isfinite(best_gain) & (best_gain >= min_gain_raw))
         if default_dir:
             is_b = best >= B * d
@@ -679,7 +708,8 @@ def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
         go_right = route_right(x_row, thresh_l[sl])
         node = 2 * node + go_right.to(torch.int32)
 
-    leaf = _leaf_values(node, G, H, 2 ** max_depth, lam, learning_rate)
+    leaf = _leaf_values(node, ch, k, 2 ** max_depth, lam, learning_rate,
+                        newton_leaf)
     return TreeArrays(torch.cat(heap_feat), torch.cat(heap_thresh), leaf)
 
 
@@ -687,22 +717,26 @@ def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
 _LEAF_BLOCK_ELEMS = 64 << 20
 
 
-def _leaf_values(node, G, H, n_leaves: int, lam: float,
-                 learning_rate: float) -> torch.Tensor:
-    """Newton leaf values -lr * G_leaf / (H_leaf + lam).  Sums are one-hot
-    products over row blocks — a fixed summation order, so the leaves are
-    deterministic on the card, unlike an atomic scatter."""
-    n, k = G.shape
-    stacked = torch.cat([G, H], dim=1).to(torch.float32)
-    sums = torch.zeros((n_leaves, 2 * k), dtype=torch.float32,
-                       device=G.device)
-    leaves = torch.arange(n_leaves, device=G.device, dtype=torch.int32)
+def _leaf_values(node, ch, k: int, n_leaves: int, lam: float,
+                 learning_rate: float, newton_leaf: bool = True
+                 ) -> torch.Tensor:
+    """Leaf values from the per-leaf sums of the level channels ``ch`` (N,
+    2K[+1]) = [G, H(, C)]: Newton steps -lr * G_leaf / (H_leaf + lam), or
+    means G_leaf / max(C_leaf, 1e-12).  Sums are one-hot products over row
+    blocks — a fixed summation order, so the leaves are deterministic on
+    the card, unlike an atomic scatter."""
+    n = ch.shape[0]
+    sums = torch.zeros((n_leaves, ch.shape[1]), dtype=torch.float32,
+                       device=ch.device)
+    leaves = torch.arange(n_leaves, device=ch.device, dtype=torch.int32)
     step = max(1, _LEAF_BLOCK_ELEMS // n_leaves)
     for a in range(0, n, step):
         oh = (node[a:a + step, None] == leaves[None, :]).to(torch.float32)
-        sums += oh.T @ stacked[a:a + step]
-    Gs, Hs = sums[:, :k], sums[:, k:]
-    return -learning_rate * Gs / (Hs + lam)
+        sums += oh.T @ ch[a:a + step]
+    Gs, Hs = sums[:, :k], sums[:, k:2 * k]
+    if newton_leaf:
+        return -learning_rate * Gs / (Hs + lam)
+    return Gs / torch.clamp(sums[:, 2 * k:], min=1e-12)
 
 
 # ---------------------------------------------------------------------------

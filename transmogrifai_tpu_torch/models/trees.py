@@ -1,26 +1,29 @@
 """Tree model stages (counterpart of ``transmogrifai_tpu.models.trees``).
 
-Ported: ``OpGBTClassifier``, ``OpXGBoostClassifier``, ``OpGBTRegressor``
-and ``OpXGBoostRegressor`` for the binary logistic and the squared-error
-objectives: a fit is one chain of ``boost_chains``, the boosting loop
-that the lockstep grid group runs over many — rounds run in chunks of
-``es_chunk``, the early-stopping metric (validation AuPR, or minus the
-validation MSE) of each chunk is read one chunk late so the device never
-waits on the host, and the ensemble is trimmed to the best round count;
-deep fits on many rows grow each round on a GOSS row sample
-(``gbdt_kernels.goss_plan``).  A Python loop over rounds takes the place
-of ``lax.scan``.  ``OpRandomForestClassifier`` (K classes) and
-``OpRandomForestRegressor``: Poisson bags, square-root (classification)
-or one-third (regression) feature subsets, count-gated growth
-(``gbdt_kernels.grow_forest_rf``).  ``TreeEnsembleModel`` scores the
-``gbdt_binary``, ``gbdt_reg``, ``rf_cls`` and ``rf_reg`` modes.
+Ported: ``OpGBTClassifier``, ``OpXGBoostClassifier`` (binary, or softmax
+over K classes), ``OpGBTRegressor`` and ``OpXGBoostRegressor``: a fit is
+one chain of ``boost_chains``, the boosting loop that the lockstep grid
+group runs over many — rounds run in chunks of ``es_chunk``, the
+early-stopping metric (validation AuPR, accuracy, or minus the validation
+MSE) of each chunk is read one chunk late so the device never waits on
+the host, and the ensemble is trimmed to the best round count; count-gated
+growth (``min_instances_per_node``, ``min_info_gain``, fractional
+weights) grows with the count channel, row and column subsampling draw
+from the JAX package's numpy stream, and deep fits on many rows grow each
+round on a GOSS row sample (``gbdt_kernels.goss_plan``).  A Python loop
+over rounds takes the place of ``lax.scan``.  ``OpRandomForestClassifier``
+(K classes) and ``OpRandomForestRegressor``: Poisson bags, square-root
+(classification) or one-third (regression) feature subsets, count-gated
+growth (``gbdt_kernels.grow_forest_rf``).  ``OpDecisionTreeClassifier``
+and ``OpDecisionTreeRegressor``: one unbagged tree of mean leaves on the
+general grower.  ``TreeEnsembleModel`` scores the ``gbdt_binary``,
+``gbdt_multi``, ``gbdt_reg``, ``rf_cls`` and ``rf_reg`` modes.
 
-Every tree fit bins through ``prep_tree_inputs``, which takes the
-nonzero-aware sketch for a wide, mostly zero matrix as the JAX package
-does.  Not ported yet (ROADMAP Queue A): decision trees, the multiclass
-boosting objective, GBT row/column subsampling and fractional sample
-weights (the count channel), EFB, the CSR histogram path and the
-upload/binning memo caches.
+Boosted fits and forests bin through ``prep_tree_inputs``, which takes
+the nonzero-aware sketch for a wide, mostly zero matrix as the JAX package
+does; decision trees bin through the dense sketch, as the JAX package's
+do.  Not ported yet (ROADMAP Queue A): EFB, the CSR histogram path, the
+``with_mesh`` paths and the upload/binning memo caches.
 """
 from __future__ import annotations
 
@@ -43,15 +46,19 @@ from .prediction import PredictionBatch, PredictorEstimator, PredictorModel
 
 __all__ = ["OpGBTClassifier", "OpXGBoostClassifier", "OpGBTRegressor",
            "OpXGBoostRegressor", "OpRandomForestClassifier",
-           "OpRandomForestRegressor", "TreeEnsembleModel",
-           "BoostedChains", "boost_chains", "es_patience_vec"]
+           "OpRandomForestRegressor", "OpDecisionTreeClassifier",
+           "OpDecisionTreeRegressor", "TreeEnsembleModel",
+           "BoostedChains", "boost_chains", "skip_counts",
+           "es_patience_vec"]
 
-_MODES = ("gbdt_binary", "gbdt_reg", "rf_cls", "rf_reg")
+_MODES = ("gbdt_binary", "gbdt_multi", "gbdt_reg", "rf_cls", "rf_reg")
 
 
 class TreeEnsembleModel(PredictorModel):
     """Fitted tree ensemble.  ``gbdt_binary``: raw margin = base_score +
-    sum of trees, probability = sigmoid.  ``gbdt_reg``: the prediction is
+    sum of trees, probability = sigmoid.  ``gbdt_multi``: K class margins
+    = base_score + sum of trees, probability = their softmax, prediction
+    = the argmax class.  ``gbdt_reg``: the prediction is
     base_score + sum of trees.  ``rf_cls``: the leaves are class
     probabilities, averaged over the trees.  ``rf_reg``: the prediction is
     the mean of the trees' leaves (+ base_score).  Regression batches hold
@@ -95,13 +102,19 @@ class TreeEnsembleModel(PredictorModel):
         if self.mode in ("rf_reg", "gbdt_reg"):
             return PredictionBatch(prediction=self.predict_values(X).to(
                 torch.float64))
+        if self.mode == "gbdt_multi":
+            z = self.raw_margin(X) + self.base_score
+            e = torch.exp(z - z.max(dim=1, keepdim=True).values)
+            proba = e / e.sum(dim=1, keepdim=True)
+            return PredictionBatch(
+                prediction=proba.argmax(dim=1).to(torch.float64),
+                raw_prediction=z, probability=proba)
         z = self.raw_margin(X)[:, 0] + self.base_score
         p1 = 1.0 / (1.0 + torch.exp(-z))
         return PredictionBatch(
             prediction=(p1 >= 0.5).to(torch.float64),
             raw_prediction=torch.stack([-z, z], dim=1),
             probability=torch.stack([1 - p1, p1], dim=1))
-
 
     def predict_values(self, X: torch.Tensor) -> torch.Tensor:
         """(N,) float32 regression predictions: the mean of the trees
@@ -158,40 +171,78 @@ class BoostedChains(NamedTuple):
     goss: Optional[Tuple[int, int]]
 
 
+def skip_counts(ests, W) -> bool:
+    """The JAX package's rule for dropping the count channel (bag mode
+    ``"newton"``): every chain gates on XGBoost's terms only
+    (``min_instances_per_node <= 1``, ``min_info_gain == 0``) and the
+    weights ``W`` are integers (the count channel is weighted, so with
+    fractional weights ``count >= 1`` can gate a split)."""
+    W = np.asarray(W)
+    return (all(float(e.min_instances_per_node) <= 1
+                and float(e.min_info_gain) == 0.0 for e in ests)
+            and bool((W == np.floor(W)).all()))
+
+
 def boost_chains(ests, binned: torch.Tensor, edges, y: torch.Tensor,
                  W: torch.Tensor, base: torch.Tensor, val_idx,
-                 hist_fn: HistFn = seg_level_hists) -> BoostedChains:
+                 hist_fn: HistFn = seg_level_hists,
+                 rng: Optional[np.random.Generator] = None
+                 ) -> BoostedChains:
     """THE boosting loop: S chains advanced in lockstep one round at a
-    time — the JAX package's sequential ``_fit_scan_chunks`` is one chain,
-    its ``GBTGridGroup`` one chain per (candidate x fold).
+    time — the JAX package's sequential fits are one chain, its
+    ``GBTGridGroup`` one chain per (candidate x fold).
 
-    Chain s boosts from the margin ``base[s]`` on the gradient weights
-    ``W[s]`` (N,) with ``ests[s]``'s depth, step, lambda, min_child_weight
-    and gamma; ``ests[0]`` gives what the chains share (objective,
-    max_iter, max_bins, early stopping, seed, default-direction splits).
+    Chain s boosts from the margins ``base[s]`` on the gradient weights
+    ``W[s]`` (N,) with ``ests[s]``'s depth, step, lambda, min_child_weight,
+    gamma, min_instances_per_node and min_info_gain; ``ests[0]`` gives
+    what the chains share (objective, max_iter, max_bins, early stopping,
+    seed, subsampling, default-direction splits).  ``base`` (S, K) — K
+    class margins a chain — boosts the softmax objective over labels
+    ``y`` in 0..K-1, whatever ``ests[0]``'s objective; ``base`` (S,) boosts
+    that objective (binary logistic or squared error).  Trees grow with
+    the count channel (2K+1 channels, count gates; the count is the
+    round's row weights) wherever the JAX package keeps it: unless
+    ``skip_counts`` holds, and always in its per-round loop (softmax and
+    subsampled fits).  Row and column subsampling (one chain only) draw from
+    ``rng`` every round, as the JAX package's loop does: the rows
+    ``rng.random(N) < subsample_rate`` (the round's weights become W x the
+    draw), then ``rng.choice(d, int(d * colsample), replace=False)`` as
+    the features a split may use.
     Rounds run in chunks of ``es_chunk``: after chunk c is grown, chunk
     c-1's per-chain metrics on the rows ``val_idx`` are fetched in one copy
     and the patience rule replayed (``replay_es``), so the device never
     waits on the host; a stopped chain grows no more trees, and rounds past
     max_iter are not grown.  GOSS engages when every chain is deep
-    (``goss_plan`` over the shallowest depth): chain s's tree of round r
-    then grows on ``gbdt_kernels.goss_select(|g|, seed, r, s)``'s rows.
-    ``hist_fn`` builds every level's histograms (the kernel wrapper by
-    default)."""
+    (``goss_plan`` over the shallowest depth) and the fit is neither
+    softmax nor subsampled (the JAX package's per-round loop never
+    samples): chain s's tree of round r then grows on
+    ``gbdt_kernels.goss_select(|g|, seed, r, s)``'s rows.  ``hist_fn``
+    builds every level's histograms (the kernel wrapper by default)."""
     e0 = ests[0]
-    obj = e0._objective
     dev = binned.device
-    S, n = len(ests), binned.shape[0]
+    S, (n, d) = len(ests), binned.shape
     max_iter, mb = int(e0.max_iter), int(e0.max_bins)
     patience = int(e0.early_stopping_rounds)
     dd = (torch.from_numpy(default_dir_mask(edges)).to(dev)
           if e0.sparse_default_direction else None)
-    goss = goss_plan(n, min(int(e.max_depth) for e in ests))
+    base = base.to(dev, torch.float32)
+    K = base.shape[1] if base.dim() == 2 else 1
+    obj = "multiclass" if base.dim() == 2 else e0._objective
+    sub_rows = float(e0.subsample_rate) < 1.0
+    sub_cols = float(e0.colsample) < 1.0
+    if (sub_rows or sub_cols) and (S != 1 or rng is None):
+        raise ValueError("subsampling grows one chain from an rng")
+    per_round = obj == "multiclass" or sub_rows or sub_cols
+    counts = per_round or not skip_counts(ests, W.cpu().numpy())
+    goss = None if per_round else goss_plan(
+        n, min(int(e.max_depth) for e in ests))
     es_chunk = max(1, min(8, patience or 8))
     run_es = patience > 0 and len(val_idx) > 0
     vi = torch.from_numpy(np.asarray(val_idx, np.int64)).to(dev)
     y_val = y[vi]
-    Fm = base.to(dev, torch.float32)[:, None].repeat(1, n)
+    target = (torch.nn.functional.one_hot(y.long(), K).to(torch.float32)
+              if obj == "multiclass" else y)
+    Fm = base.reshape(S, 1, K).repeat(1, n, 1)                # (S, N, K)
     best_metric = np.full(S, -np.inf)
     best_len = np.zeros(S, np.int32)
     stall = np.zeros(S, np.int32)
@@ -211,24 +262,40 @@ def boost_chains(ests, binned: torch.Tensor, edges, y: torch.Tensor,
                     continue
                 e = ests[s]
                 depth = int(e.max_depth)
-                G, H = gbt_grad_hess(obj, Fm[s], y, W[s])
+                bw = W[s]
+                if sub_rows:
+                    bw = bw * torch.from_numpy(
+                        (rng.random(n) < float(e0.subsample_rate))
+                        .astype(np.float32)).to(dev)
+                mask = None
+                if sub_cols:
+                    mask = np.zeros(d, bool)
+                    mask[rng.choice(d, max(1, int(d * float(e0.colsample))),
+                                    replace=False)] = True
+                    mask = torch.from_numpy(mask).to(dev)
+                G, H = gbt_grad_hess(obj, Fm[s], target, bw)
+                C = bw if counts else None
                 tb = binned
                 if goss is not None:
                     idx, mult = gbdt_kernels.goss_select(
-                        G.abs(), int(e0.seed), rid, s, *goss)
+                        G[:, 0].abs(), int(e0.seed), rid, s, *goss)
                     tb = goss_rows(binned, idx)
-                    G, H = G[idx] * mult, H[idx] * mult
+                    G, H = G[idx] * mult[:, None], H[idx] * mult[:, None]
+                    C = None if C is None else C[idx] * mult
                 tree = grow_tree(
-                    tb, G[:, None], H[:, None], depth, mb,
+                    tb, G, H, depth, mb, C=C,
                     lam=float(e.reg_lambda),
                     min_child_weight=float(e.min_child_weight),
+                    min_info_gain=float(e.min_info_gain),
+                    min_instances=float(e.min_instances_per_node),
+                    feat_mask=mask,
                     min_gain_raw=float(e.min_split_gain_raw),
                     learning_rate=float(e.step_size),
                     default_dir=bool(e0.sparse_default_direction),
                     dd_mask=dd, hist_fn=hist_fn)
                 del tb
                 levels += depth
-                Fm[s] += predict_tree(binned, *tree, depth)[:, 0]
+                Fm[s] += predict_tree(binned, *tree, depth)
                 trees[s].append(tree)
                 if run_es:
                     ms.append(gbt_es_metric(obj, Fm[s][vi], y_val).to(
@@ -250,11 +317,13 @@ def boost_chains(ests, binned: torch.Tensor, edges, y: torch.Tensor,
 
 
 class _GBTBase(PredictorEstimator):
-    """Gradient-boosted trees, binary logistic or squared-error objective:
-    Spark-GBT parameterisation (max_iter, step_size, max_depth) with
-    XGBoost extras (reg_lambda, min_child_weight, gamma as
-    ``min_split_gain_raw``, early stopping on a validation slice scored by
-    AuPR, or by minus the MSE for regression)."""
+    """Gradient-boosted trees, binary logistic, softmax (``OpXGBoost
+    Classifier`` on more than two classes) or squared-error objective:
+    Spark-GBT parameterisation (max_iter, step_size, max_depth,
+    min_instances_per_node, min_info_gain) with XGBoost extras
+    (reg_lambda, min_child_weight, gamma as ``min_split_gain_raw``, row
+    and column subsampling, early stopping on a validation slice scored
+    by AuPR, accuracy, or minus the MSE for regression)."""
 
     _op_name = "gbt"
     _objective = "binary"
@@ -291,18 +360,21 @@ class _GBTBase(PredictorEstimator):
         y = np.nan_to_num(np.asarray(label_col.values, dtype=np.float32))
         return self.fit_raw(features_col.values, y)
 
+    def _fit_objective(self, y: np.ndarray) -> str:
+        """The objective a fit on labels ``y`` runs."""
+        return self._objective
+
     def fit_raw(self, X, y, w=None, device=None) -> TreeEnsembleModel:
         """Fit on a (N, D) matrix (tensor or array) and labels (in {0, 1}
-        for the binary objective).  Runs on ``device`` (else the stage's,
-        else the default device)."""
+        for the binary objective, 0..K-1 for the softmax one).  Runs on
+        ``device`` (else the stage's, else the default device).  The
+        validation rows and every round's row and column draws come from
+        ``np.random.default_rng(seed)`` in the JAX package's order."""
         dev = resolve_device(device if device is not None else self.device)
         X = torch.as_tensor(X, dtype=torch.float32).to(dev)
         y = np.asarray(y, np.float32)
         n, d = X.shape
-        w = None if w is None else np.asarray(w, np.float32)
-        check_gbt_supported(self._objective, self.subsample_rate,
-                            self.colsample, [self.min_instances_per_node],
-                            [self.min_info_gain], w)
+        obj = self._fit_objective(y)
         # fit_timing and the profiler ranges below split the fit into its
         # host-heavy binning and its device-heavy boosting
         timing = {}
@@ -313,26 +385,29 @@ class _GBTBase(PredictorEstimator):
             timing["binning_s"] = time.perf_counter() - t0
 
         rng = np.random.default_rng(self.seed)
-        base_w = np.ones(n, np.float32) if w is None else w
+        base_w = np.ones(n, np.float32) if w is None else np.asarray(
+            w, np.float32)
         val = (rng.random(n) < self.validation_fraction
                if self.early_stopping_rounds > 0 else np.zeros(n, bool))
         train_w = base_w * (~val)
-        base = gbt_base_score(self._objective, base_w, y)
+        k = max(int(y.max()) + 1, 2) if obj == "multiclass" else 1
+        base = (np.zeros((1, k), np.float32) if obj == "multiclass"
+                else np.full(1, gbt_base_score(obj, base_w, y), np.float32))
 
         with torch.profiler.record_function("tmog.boosting"):
             t0 = time.perf_counter()
             out = boost_chains(
                 [self], binned, edges, torch.from_numpy(y).to(dev),
                 torch.from_numpy(train_w).to(dev)[None],
-                torch.tensor([float(base)]), np.where(val)[0])
+                torch.from_numpy(base), np.where(val)[0], rng=rng)
             kept = out.trees[0][:int(out.best_len[0])]
             model = TreeEnsembleModel(
-                mode="gbdt_binary" if self._objective == "binary"
-                else "gbdt_reg", edges=edges,
+                mode=_GBT_MODES[obj], edges=edges,
                 feat=torch.stack([t.feat for t in kept]),
                 thresh=torch.stack([t.thresh for t in kept]),
                 leaf=torch.stack([t.leaf for t in kept]),
-                base_score=base, n_classes=2)
+                base_score=0.0 if obj == "multiclass" else float(base[0]),
+                n_classes=k if obj == "multiclass" else 2)
             _sync(dev)
             timing["boosting_s"] = time.perf_counter() - t0
         self.metadata["fit_timing"] = timing
@@ -344,25 +419,9 @@ class _GBTBase(PredictorEstimator):
         return model
 
 
-def check_gbt_supported(objective: str, subsample_rate: float,
-                        colsample: float, min_instances, min_info_gains,
-                        w) -> None:
-    """Raise for what the port's boosting leaves out: objectives other
-    than binary and regression, row/column subsampling, and count-gated
-    growth (the count histogram channel the kernel is not built for)."""
-    if objective not in ("binary", "regression"):
-        raise NotImplementedError(
-            f"objective {objective!r} is not ported yet (ROADMAP Queue A)")
-    if subsample_rate < 1.0 or colsample < 1.0:
-        raise NotImplementedError(
-            "row/column subsampling is not ported yet (ROADMAP Queue A)")
-    if (any(float(m) > 1 for m in min_instances)
-            or any(float(g) != 0.0 for g in min_info_gains)
-            or (w is not None and not bool((w == np.floor(w)).all()))):
-        raise NotImplementedError(
-            "count-gated growth (min_instances_per_node > 1, "
-            "min_info_gain != 0 or fractional weights) is not ported "
-            "yet (ROADMAP Queue A)")
+#: the ensemble mode of each boosting objective
+_GBT_MODES = {"binary": "gbdt_binary", "multiclass": "gbdt_multi",
+              "regression": "gbdt_reg"}
 
 
 def gbt_base_score(objective: str, W: np.ndarray, y: np.ndarray):
@@ -372,7 +431,7 @@ def gbt_base_score(objective: str, W: np.ndarray, y: np.ndarray):
     a float32 scalar in the JAX package's sequential-fit arithmetic; (S,
     N) chains' weights give (S,) float32 in its grid group's arithmetic
     (float32 sums and quotient), so either path starts where the JAX one
-    does, bit for bit."""
+    does, bit for bit.  (The softmax objective starts from zeros.)"""
     W = np.asarray(W, np.float32)
     if W.ndim == 1:
         if objective == "binary":
@@ -389,23 +448,33 @@ def gbt_base_score(objective: str, W: np.ndarray, y: np.ndarray):
 
 def gbt_grad_hess(objective: str, F: torch.Tensor, y: torch.Tensor,
                   W: torch.Tensor):
-    """Per-row gradient and hessian (N,) of one chain's margins ``F``:
-    binary logistic (w (p - y), w max(p (1 - p), 1e-6)) or squared error
-    (w (F - y), w)."""
+    """Per-row gradients and hessians (N, K) of one chain's margins ``F``
+    (N, K) and row weights ``W`` (N,): binary logistic (w (p - y), w max(p
+    (1 - p), 1e-6)), softmax over the K classes of the one-hot targets
+    ``y`` (N, K) (P = softmax(F): w (P - Y), w max(P (1 - P), 1e-6)) or
+    squared error (w (F - y), w)."""
+    if objective == "multiclass":
+        P = torch.softmax(F, dim=1)
+        return (W[:, None] * (P - y),
+                W[:, None] * torch.clamp(P * (1 - P), min=1e-6))
     if objective == "binary":
-        P = torch.sigmoid(F)
-        return W * (P - y), W * torch.clamp(P * (1 - P), min=1e-6)
-    return W * (F - y), W
+        P = torch.sigmoid(F[:, 0])
+        return ((W * (P - y))[:, None],
+                (W * torch.clamp(P * (1 - P), min=1e-6))[:, None])
+    return (W * (F[:, 0] - y))[:, None], W[:, None]
 
 
 def gbt_es_metric(objective: str, F_val: torch.Tensor, y_val: torch.Tensor
                   ) -> torch.Tensor:
-    """The early-stopping metric of one chain's validation margins, larger
-    better: AuPR of the sigmoid, or minus the unweighted mean squared
-    error."""
+    """The early-stopping metric of one chain's validation margins (V, K),
+    larger better: AuPR of the sigmoid, the accuracy of the argmax class
+    (softmax), or minus the unweighted mean squared error."""
     if objective == "binary":
-        return aupr_device(y_val, torch.sigmoid(F_val))
-    return -torch.mean((F_val - y_val) ** 2)
+        return aupr_device(y_val, torch.sigmoid(F_val[:, 0]))
+    if objective == "multiclass":
+        return (F_val.argmax(dim=1) == y_val.long()).to(
+            torch.float32).mean()
+    return -torch.mean((F_val[:, 0] - y_val) ** 2)
 
 
 def _sync(dev: torch.device) -> None:
@@ -426,7 +495,8 @@ class OpGBTRegressor(_GBTBase):
 
 
 class OpXGBoostClassifier(_GBTBase):
-    """XGBoost-parameterised boosted classifier, binary objective.
+    """XGBoost-parameterised boosted classifier: binary, or softmax over K
+    classes when ``num_class`` > 2 or (``num_class`` 0) a label exceeds 1.
 
     Defaults follow the reference's XGB defaults for binary selection
     (NumRound=200, Eta=0.02, MaxDepth=10, MinChildWeight=1, Gamma=0.8,
@@ -458,12 +528,13 @@ class OpXGBoostClassifier(_GBTBase):
         self.colsample_bytree = colsample_bytree
         self.num_class = num_class
 
-    def fit_raw(self, X, y, w=None, device=None):
-        if self.num_class > 2 or (self.num_class == 0
+    def _fit_objective(self, y: np.ndarray) -> str:
+        """Softmax when ``num_class`` > 2, or when it is 0 and a label
+        exceeds 1; else the binary objective."""
+        if self.num_class > 2 or (self.num_class == 0 and len(y)
                                   and float(np.max(y)) > 1):
-            raise NotImplementedError(
-                "multiclass XGBoost is not ported yet (ROADMAP Queue A)")
-        return super().fit_raw(X, y, w, device=device)
+            return "multiclass"
+        return self._objective
 
 
 class OpXGBoostRegressor(OpXGBoostClassifier):
@@ -472,8 +543,8 @@ class OpXGBoostRegressor(OpXGBoostClassifier):
     _op_name = "xgbReg"
     _objective = "regression"
 
-    def fit_raw(self, X, y, w=None, device=None):
-        return _GBTBase.fit_raw(self, X, y, w, device=device)
+    def _fit_objective(self, y: np.ndarray) -> str:
+        return "regression"
 
 
 #: the JAX package's sparse rule: a matrix of at least this many elements
@@ -604,4 +675,64 @@ class OpRandomForestRegressor(_RandomForestBase):
     mean label; a prediction is the mean over the trees."""
 
     _op_name = "randomForestReg"
+    _classification = False
+
+
+class OpDecisionTreeClassifier(OpRandomForestClassifier):
+    """One unbagged tree (OpDecisionTreeClassifier parity): every feature,
+    the row weights as bag weights, leaves of class shares (mode
+    ``rf_cls``, one tree)."""
+
+    _op_name = "decisionTreeCls"
+
+    def __init__(self, max_depth: int = 5, max_bins: int = 32,
+                 min_instances_per_node: int = 1, min_info_gain: float = 0.0,
+                 seed: int = 42, device: Optional[str] = None,
+                 uid: Optional[str] = None):
+        super().__init__(num_trees=1, max_depth=max_depth, max_bins=max_bins,
+                         min_instances_per_node=min_instances_per_node,
+                         min_info_gain=min_info_gain, subsample_rate=1.0,
+                         feature_subset_strategy="all", seed=seed,
+                         device=device, uid=uid)
+        # a single tree: no bootstrap
+        self.subsample_rate = 0.0
+
+    def fit_raw(self, X, y, w=None, device=None) -> TreeEnsembleModel:
+        """Fit on a (N, D) matrix and labels (classes 0..K-1, K = the
+        largest label + 1 and at least 2; or real values), on ``device``
+        (else the stage's, else the default device).  The JAX package's
+        decision tree on the general grower: the dense sketch's bins, G =
+        Y w (the one-hot classes, or the label), H = w in every column, the
+        count C = w, gain regulariser ``RF_LAMBDA``, mean leaves G / C."""
+        dev = resolve_device(device if device is not None else self.device)
+        X = torch.as_tensor(X, dtype=torch.float32).to(dev)
+        y = np.asarray(y, np.float32)
+        cls = self._classification
+        edges = quantile_bins(X, self.max_bins)
+        binned = apply_bins(X, edges)
+        w = (torch.ones(X.shape[0], dtype=torch.float32, device=dev)
+             if w is None else torch.as_tensor(np.asarray(w, np.float32)
+                                               ).to(dev))
+        yt = torch.from_numpy(y).to(dev)
+        k = max(int(y.max()) + 1, 2) if cls else 1
+        Y = (torch.nn.functional.one_hot(yt.long(), k).to(torch.float32)
+             if cls else yt[:, None])
+        tree = grow_tree(binned, Y * w[:, None], w[:, None].repeat(1, k),
+                         self.max_depth, self.max_bins, C=w,
+                         lam=gbdt_kernels.RF_LAMBDA,
+                         min_info_gain=float(self.min_info_gain),
+                         min_instances=float(self.min_instances_per_node),
+                         newton_leaf=False)
+        self.metadata["hist_levels"] = int(self.max_depth)
+        return TreeEnsembleModel(
+            mode="rf_cls" if cls else "rf_reg", edges=edges,
+            feat=tree.feat[None], thresh=tree.thresh[None],
+            leaf=tree.leaf[None], n_classes=k if cls else 2)
+
+
+class OpDecisionTreeRegressor(OpDecisionTreeClassifier):
+    """One unbagged regression tree: leaves of the weighted mean label
+    (mode ``rf_reg``, one tree)."""
+
+    _op_name = "decisionTreeReg"
     _classification = False

@@ -38,8 +38,8 @@ from ..models.regression import LinearRegressionModel, OpLinearRegression
 from ..models.trees import (OpRandomForestClassifier,
                             OpRandomForestRegressor, TreeEnsembleModel,
                             _feature_subset_size, _GBTBase, boost_chains,
-                            check_gbt_supported, gbt_base_score,
-                            prep_tree_inputs, rf_probability)
+                            gbt_base_score, prep_tree_inputs,
+                            rf_probability)
 
 __all__ = ["GridGroup", "LogRegGridGroup", "SoftmaxGridGroup",
            "LinRegGridGroup", "TreeGridGroup", "RFGridGroup", "GBTGridGroup",
@@ -421,11 +421,13 @@ class GBTGridGroup(TreeGridGroup):
     ``boost_chains`` (the loop a sequential fit runs as one chain): early
     stopping on the same validation rows as a sequential fit (the
     ``seed``'s draw) with per-chain lagged patience, GOSS when every chain
-    is deep.  A chain's validation scores come from its first ``best_len``
-    trees.  No full-train refit chains, as in the JAX group: a GBT winner
-    is refit sequentially.  Declines (None) for other objectives, mixed
-    static attributes and subsampling; raises for count-gated growth, as
-    the sequential fits do."""
+    is deep, the count channel where the JAX package keeps it
+    (``skip_counts``: count-gated chains or fractional weights).  A
+    chain's validation scores come from its first ``best_len`` trees.  No
+    full-train refit chains, as in the JAX group: a GBT winner is refit
+    sequentially.  Declines (None) where the JAX group does: other
+    objectives (a multiclass label), mixed static attributes and
+    subsampling, whose candidates fall to sequential fits."""
 
     _STATIC = ("max_iter", "max_bins", "early_stopping_rounds",
                "validation_fraction", "seed", "subsample_rate", "colsample",
@@ -464,9 +466,6 @@ class GBTGridGroup(TreeGridGroup):
         # train weights for the gradients (sequential fit_raw parity)
         W_full = W_tr[chain_fold]
         W_train = W_full * (~val)[None, :]
-        check_gbt_supported(obj, 1.0, 1.0,
-                            [e.min_instances_per_node for e in ests],
-                            [e.min_info_gain for e in ests], W_train)
         edges, binned = prep_tree_inputs(X, int(e0.max_bins),
                                          row_weight=self._full_weights(
                                              weight_ctxs))
