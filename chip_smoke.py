@@ -35,6 +35,13 @@ to end at full width through the entry points a user calls:
     OpXGBoostClassifier (K classes), OpGBTClassifier (count-gated) and
     OpXGBoostClassifier (subsampled) -> fit_raw -> predict_batch
 
+    OpGeneralizedLinearRegression (poisson) -> fit_raw -> predict_batch;
+    IsotonicRegressionCalibrator -> fit_raw -> predict_batch
+
+    OpXGBoostClassifier (the reference's defaults) -> fit_raw on 1M x 2000
+    wide sparse rows (BASELINE.md config 5) -> predict_batch; the same
+    with TMOG_SPARSE_HIST=1 (the CSR histogram) and with TMOG_EFB
+
     FeatureBuilder (4 Reals) -> transmogrify -> SanityChecker
     -> MultiClassificationModelSelector.with_train_validation_split()
        (LR, MLP: the Iris demo) -> OpWorkflow.train() -> F1
@@ -107,7 +114,14 @@ card's aggregate shared-memory rate):
                 count, peak memory; TITANIC_CHECK_TREES demo forest trees
                 grown on the checked matrix with every level held bitwise
                 to the plain version and the widest level timed (a
-                ``seg_hist`` line with ``path`` "titanic"); save -> load
+                ``seg_hist`` line with ``path`` "titanic"); an ``efb``
+                line on the checked matrix: the JAX rule's bundling plan
+                (d -> d_b, bundles, members, or its decline and the width
+                ratio), OpXGBoostClassifier(max_depth=EFB_DEPTH,
+                num_round=EFB_ROUNDS) with TMOG_EFB at auto and 0 (ms a
+                round, holdout AuPR within 1e-3, trees equal up to exact
+                ties) and, where it bundles, a ``seg_hist`` line with
+                ``path`` "efb" at the bundled width; save -> load
                 (the holdout bitwise), the local scorer's rows, and
                 TITANIC_SERVE_REQUESTS single rows with text through
                 ModelServer (p50/p99, ``request_split``)
@@ -139,9 +153,13 @@ card's aggregate shared-memory rate):
                 sequential fit: the train's split by stage, every
                 candidate's CV F1, the winner (must be the softmax
                 XGBoost), holdout F1 against BOOSTED_F1_SHARE x the
-                attainable, ``sequential_fits``, kernel launches against
-                the growers' count, save -> load (bitwise), the local
-                scorer and MC_SERVE_REQUESTS single rows; ``xgb_defaults``
+                attainable, ``sequential_fits`` with the binnings each
+                built and ``tree_binnings`` (the sweep memo's binnings
+                and hits: one binning of the checked matrix serves all 13
+                fits), the train's wall beside BOOSTED_TRAIN_S_EARLIER
+                (before the memo), kernel launches against the growers'
+                count, save -> load (bitwise), the local scorer and
+                MC_SERVE_REQUESTS single rows; ``xgb_defaults``
                 (one OpXGBoostClassifier(num_class=5) fit at the
                 reference's defaults: 200 rounds, depth 10, eta 0.02, gamma
                 0.8, early stopping after 20: rounds grown and kept, ms per
@@ -158,7 +176,35 @@ card's aggregate shared-memory rate):
                 "dt_multi" (that tree's widest level), "gbdt_multi" (11
                 float channels at the checked width, M = 1, 32, 512) and
                 "gbdt_count" (3 float channels, M = 1, 32)
- 9. iris       the reference's Iris demo (examples/op_iris_simple.py's
+ 9. glm_isotonic  a poisson OpGeneralizedLinearRegression (IRLS) on the
+                slice's 1M x 500 columns with a count label drawn from a
+                log-linear rate of its own seed (GLM_SEED): seconds, IRLS
+                steps, holdout deviance against GLM_DEVIANCE_RATIO x the
+                true rate's and below the intercept-only model's; an
+                IsotonicRegressionCalibrator on the slice's boosted
+                model's holdout scores: seconds, blocks, monotonicity,
+                calibrated AuPR within ISO_AUPR_GAP of the raw one
+ 10. xgb_wide  BASELINE.md config 5: examples/bench_xgb_wide.py's
+                make_sparse_data recipe (seed 17, 5% density, 2000
+                columns; 1 100 000 rows made in one call, the first 1M to
+                train, the last 100 000 held out), one OpXGBoostClassifier
+                at the reference's defaults (200 rounds, eta 0.02, depth
+                10, gamma 0.8, early stopping 20, seed 13) through fit_raw:
+                data_s, the sketch (must be ``sparse_aware``), the EFB
+                decision (the fit's, and the widest plan's width ratio),
+                GOSS's (k_top, k_rest), binning and boosting seconds,
+                rounds grown and kept, ms per round, train and holdout
+                AuPR against WIDE_AUPR_SHARE x the attainable (the
+                noiseless score's), launches against the grower's levels,
+                peak memory; the CSR leg: the CSR's build seconds and
+                nz_max, two depth-6 fits of 40 rounds with and without
+                TMOG_SPARSE_HIST=1 (ms a round, the share of levels each
+                took through the CSR, trees equal up to exact ties,
+                holdout AuPR within 1e-3), 2 rounds of each leg's levels
+                held against the plain version; ``seg_hist`` lines with
+                ``path`` "xgb_wide" (d = 2000, M = 1, 32, 512 on 1M rows,
+                and M = 32 on one GOSS sample)
+ 11. iris      the reference's Iris demo (examples/op_iris_simple.py's
                 DAG and grid: LR {0.01, 0.1}, MLP [5, 4] and [10], a
                 stratified train/validation split) on 1M + 100k rows of an
                 Iris-shaped frame (the reference CSV's class means and
@@ -166,7 +212,7 @@ card's aggregate shared-memory rate):
                 the kept labels, both families' validation F1, the winner,
                 the MLP fits' steps and seconds, holdout F1 against
                 IRIS_F1_SHARE x the attainable (the Gaussian Bayes rule's)
-  10. serve     both trained models (the slice's boosted model, the
+  12. serve     both trained models (the slice's boosted model, the
                 selector's winner): save (seconds, bytes) and load on the
                 card (seconds); the holdout scored after the round trip
                 bitwise equal to the in-memory model; 10k holdout rows
@@ -184,7 +230,7 @@ card's aggregate shared-memory rate):
                 tests/fixtures/model_v1 scored on the card within 1e-5 of
                 its expected scores.  The phase must launch no kernel
                 (scoring is plain torch on the card)
- 11. seg_hist  kernel vs plain at the slice's level shapes (N=1M, d=500,
+ 13. seg_hist  kernel vs plain at the slice's level shapes (N=1M, d=500,
                 B=32, nchan=2, M=1..32, a level with empty slots), the level
                 shapes of depths 7 and 10 (M=64, 512), d=497 through
                 apply_bins' padded rows, one level of unpadded rows (the
@@ -199,7 +245,7 @@ card's aggregate shared-memory rate):
                 tolerance, determinism, kernel/plain/library/bound ms, the
                 layout's share, the groups and reduce passes' device ms and
                 the shared-memory floor
- 12. seg_hist_channels  the kernel at C channels: K-class forest levels
+ 14. seg_hist_channels  the kernel at C channels: K-class forest levels
                 (d = 22, integer channels) at C = 3, 5, 10, 13, 14, 100
                 and M = 1, 64 (one launch up to 13 channels at 32 bins,
                 one per channel group past it), bitwise equal to plain,
@@ -208,22 +254,23 @@ card's aggregate shared-memory rate):
                 shared-memory floor and the groups launched; then a
                 ``seg_hist_two_channel`` line beside the two-channel
                 kernel's earlier numbers
- 13. profile   an 8-round fit at the same width under torch.profiler:
+ 15. profile   an 8-round fit at the same width under torch.profiler:
                 binning and boosting walls, the card's busy time and idle
                 share, the boosting's heaviest device ops per round
- 14. regression_profile  one forest of 4 regression trees (depth 12,
+ 16. regression_profile  one forest of 4 regression trees (depth 12,
                 one-third subsets) and one boosted chain's 3 rounds (depth
                 12, full width) under torch.profiler: wall, the card's busy
                 time and idle share per level, the heaviest device ops
- 15. serve_profile  single-row requests of both loaded models under
+ 17. serve_profile  single-row requests of both loaded models under
                 torch.profiler: the card's busy time and idle share, the
                 device ops and copies a request
 The phases that run torch.profiler come after the slice and the selector,
 so no profiler session runs in the process before their walls are taken.
 Then the ``kernels`` summary line (``launches``: the slice's, the
-selector's, the regression phase's, the titanic phase's, the multiclass
-phase's and the boosted_multi phase's train, xgb_defaults and
-count_and_subsample fits), the card's
+selector's, the regression phase's, the titanic phase's (its efb fits
+too), the multiclass phase's, the boosted_multi phase's train,
+xgb_defaults and count_and_subsample fits, and the xgb_wide phase's three
+fits), the card's
 name and power limit,
 and the result line.  Any
 failed check exits non-zero.  Without a CUDA device the script exits with
@@ -259,13 +306,18 @@ from transmogrifai_tpu_torch.models.classification import \
     OpLogisticRegression
 from transmogrifai_tpu_torch.models.mlp import \
     OpMultilayerPerceptronClassifier
-from transmogrifai_tpu_torch.models.trees import (SKETCH_KINDS,
+from transmogrifai_tpu_torch.models.regression import (
+    IsotonicRegressionCalibrator, OpGeneralizedLinearRegression)
+from transmogrifai_tpu_torch.models.trees import (MEMO_STATS, SKETCH_KINDS,
                                                   OpDecisionTreeClassifier,
                                                   OpGBTClassifier,
                                                   OpGBTRegressor,
                                                   OpRandomForestClassifier,
                                                   OpXGBoostClassifier,
+                                                  binned_for_edges,
                                                   boost_chains,
+                                                  maybe_bundle,
+                                                  prep_tree_csr,
                                                   prep_tree_inputs)
 from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
 from transmogrifai_tpu_torch.ops.vectorizers import (SmartTextVectorizer,
@@ -369,6 +421,9 @@ IRIS_SDS = np.array([[0.352, 0.379, 0.174, 0.105],
 BOOSTED_SELECTOR_ROUNDS, BOOSTED_BINARY_ROUNDS = 30, 20
 BOOSTED_CHECK_ROUNDS = 3
 BOOSTED_F1_SHARE, BOOSTED_AUPR_FLOOR = 0.8, 0.85
+#: the boosted_multi train's wall before the sweep memo, reprinted beside
+#: this run's (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
+BOOSTED_TRAIN_S_EARLIER = 33.54
 #: the seg_hist phase's channel sweep: K-class forest levels (d = 22,
 #: integer channels) at these channel counts and slot counts, and one
 #: float-channel level of a 5-class softmax objective (2K = 10 channels
@@ -377,6 +432,31 @@ BOOSTED_F1_SHARE, BOOSTED_AUPR_FLOOR = 0.8, 0.85
 #: reprinted beside this run's
 SWEEP_CHANNELS, SWEEP_SLOTS = (3, 5, 10, 13, 14, 100), (1, 64)
 EARLIER_XGB_MS, EARLIER_RF_MS = (0.525, 0.528), (0.22, 0.30)
+#: the xgb_wide phase, BASELINE.md config 5 (examples/bench_xgb_wide.py),
+#: on --rows + --holdout rows (1M + 100 000 by default): its columns,
+#: density and data seed; the share of
+#: the attainable AuPR (the noiseless score's) its fit must reach on the
+#: train and the held-out rows (stated in PERF.md before the first full
+#: run); the CSR leg's two fits (depth below GOSS's gate) and the rounds
+#: whose every level is held against the plain version
+WIDE_COLS, WIDE_DENSITY, WIDE_SEED = 2000, 0.05, 17
+WIDE_AUPR_SHARE = 0.85
+WIDE_CSR_DEPTH, WIDE_CSR_ROUNDS, WIDE_CHECK_ROUNDS = 6, 40, 2
+#: the CSR leg's trees must first part where the two cuts' float64 gains
+#: lie within this relative gap (a tie within float32 rounding)
+WIDE_TIE_GAP = 1e-5
+#: the efb line's fits on the Titanic demo's checked matrix (bundled and
+#: not): their depth and rounds
+EFB_DEPTH, EFB_ROUNDS = 6, 40
+#: the glm_isotonic phase: the seed of its count label, the columns of
+#: its log-linear rate and their coefficients' scale, the intercept; the
+#: holdout deviance it must reach, as a multiple of the true rate's
+#: (stated before the first chip run)
+GLM_SEED, GLM_INFORMATIVE, GLM_COEF_SD, GLM_INTERCEPT = 23, 20, 0.2, 0.5
+GLM_DEVIANCE_RATIO = 1.02
+#: how far the calibrated holdout AuPR may sit from the raw one: a
+#: monotone map keeps the order but flat steps make ties
+ISO_AUPR_GAP = 0.01
 
 
 def _smi(query: str) -> str:
@@ -998,19 +1078,23 @@ def _regression_rows(hold, names, k: int) -> list:
 
 
 class _LevelCheck:
-    """A ``hist_fn`` for the growers that launches the kernel and holds
-    its histograms against the plain version on the same level inputs;
-    the growth goes on from the kernel's.  Two float32 sums of the same
-    terms in another order differ by a few ulps of the sum of the terms'
-    magnitudes, and gradients w (F - y) of both signs cancel to sums far
-    smaller than that: the tolerance is ATOL + RTOL x the histogram of
-    |channels| (the plain version's), not of the sums themselves."""
+    """A ``hist_fn`` for the growers that builds each level's histograms
+    (the kernel, or ``build``) and holds them against the plain version on
+    the same level inputs; the growth goes on from the built ones.  Two
+    float32 sums of the same terms in another order differ by a few ulps
+    of the sum of the terms' magnitudes, and gradients w (F - y) of both
+    signs cancel to sums far smaller than that: the tolerance is ATOL +
+    RTOL x the histogram of |channels| (the plain version's), not of the
+    sums themselves."""
 
-    def __init__(self):
+    def __init__(self, build=None):
+        # the histogram under test: the kernel, or another function of the
+        # same (C, M, B, d) histograms (the CSR path's)
+        self.build = gk.seg_level_hists if build is None else build
         self.errs, self.ratios, self.shapes = [], [], set()
 
     def __call__(self, binned, slot, ch, M: int, B: int):
-        k = gk.seg_level_hists(binned, slot, ch, M, B)
+        k = self.build(binned, slot, ch, M, B)
         p = gk.seg_level_hists_plain(binned, slot, ch, M, B)
         mag = gk.seg_level_hists_plain(binned, slot, ch.abs(), M, B)
         diff = (k - p).abs()
@@ -1459,7 +1543,7 @@ def _titanic_rows(hold, k: int) -> list:
 
 
 def phase_titanic(rows: int, holdout: int, reps: int, bw: float,
-                  f32: float):
+                  f32: float, smem_bw: float):
     """The reference's headline demo on the card: train, the sketch it
     took, holdout AuPR against the attainable, the kernel on the demo's
     own levels, save/load, the local scorer and single-row serving."""
@@ -1506,7 +1590,9 @@ def phase_titanic(rows: int, holdout: int, reps: int, bw: float,
     msub = int(np.sqrt(d_after))
     y = np.asarray(train["Survived"].values, np.float32)
     kernel_row = _titanic_levels(X, y, msub, reps, bw, f32)
-    del X
+    Xh = _checked_matrix(model, checked, hold)
+    efb = _efb_line(X, y, Xh, y_hold, reps, bw, f32, smem_bw)
+    del X, Xh
 
     # save -> load on the card -> the holdout bitwise; the local scorer
     tmp = os.path.join(REPO, "smoke_out")
@@ -1580,7 +1666,8 @@ def phase_titanic(rows: int, holdout: int, reps: int, bw: float,
            "request_split": split,
            "serve_batch1": _pcts(lat), "served_max_abs_diff": served_diff,
            "server_shed": snap["shed"],
-           "server_device_errors": snap["deviceErrors"]}
+           "server_device_errors": snap["deviceErrors"],
+           "efb_launches": efb["launches_total"]}
     emit(out)
     emit(kernel_row)
     check(tuple(proba.shape) == (holdout, 2), f"proba shape {proba.shape}")
@@ -2168,6 +2255,8 @@ def phase_boosted_multi(mc, data, cols: int, reps: int, bw: float,
            "group_errors": meta["group_errors"],
            "refit_seconds": meta["refit_seconds"],
            "sequential_fits": meta["sequential_fits"],
+           "tree_binnings": meta["tree_binnings"],
+           "train_s_earlier": BOOSTED_TRAIN_S_EARLIER,
            "winner": summary["bestModelType"],
            "winner_params": summary["bestModelParams"],
            "cv": [{"model": r["modelType"], "params": r["params"],
@@ -2194,6 +2283,10 @@ def phase_boosted_multi(mc, data, cols: int, reps: int, bw: float,
           f"grid groups failed: {meta['group_errors']}")
     check(len(meta["sequential_fits"]) == 4 * 3 + 1,
           f"{len(meta['sequential_fits'])} sequential fits, not 13")
+    # one matrix, one (dense) sketch: one binning serves every fit
+    check(meta["tree_binnings"]["binnings"] == 1
+          and sum(f["binnings_built"] for f in meta["sequential_fits"]) == 1,
+          f"boosted_multi: {meta['tree_binnings']} binnings for one matrix")
     check(launches > 0 and launches == meta["hist_levels"],
           f"boosted_multi: seg_hist launches {launches} != the growers' "
           f"{meta['hist_levels']} histogram levels")
@@ -2236,6 +2329,551 @@ def phase_boosted_multi(mc, data, cols: int, reps: int, bw: float,
                   f"{name}: kernel vs plain error {c['max_abs_err']} "
                   f"beyond the tolerance")
         check(c["splits"] > 0, f"{name}: no split grown")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# comparisons of two fits' trees, and the level checks of the CSR path
+# ---------------------------------------------------------------------------
+
+def _leaf_ids(binned, feat, thresh, depth: int) -> torch.Tensor:
+    """Every row's leaf under one tree (heap arrays)."""
+    n = binned.shape[0]
+    rows = torch.arange(n, device=binned.device)
+    node = torch.zeros(n, dtype=torch.int64, device=binned.device)
+    for level in range(depth):
+        heap = (2 ** level - 1) + node
+        x = binned[rows, feat[heap].long()]
+        node = 2 * node + gk.route_right(x, thresh[heap]).long()
+    return node
+
+
+def _compare_ensembles(a, b, binned) -> dict:
+    """Two boosted models' trees, round by round, over the rows of
+    ``binned`` (the original columns): ``identical`` splits, ``tied``
+    (other splits that cut the rows into the same leaves: exact ties of
+    gain), ``differ`` (another partition); the largest leaf difference of
+    the rows' leaves in the trees that partition alike."""
+    depth = int(np.log2(a.feat.shape[1] + 1))
+    out = {"rounds": [int(a.feat.shape[0]), int(b.feat.shape[0])],
+           "identical": 0, "tied": 0, "differ": 0, "first_differ": None,
+           "max_leaf_diff": 0.0}
+    for t in range(min(a.feat.shape[0], b.feat.shape[0])):
+        if torch.equal(a.feat[t], b.feat[t]) and torch.equal(a.thresh[t],
+                                                             b.thresh[t]):
+            out["identical"] += 1
+            diff = (a.leaf[t] - b.leaf[t]).abs().max()
+        else:
+            la = _leaf_ids(binned, a.feat[t], a.thresh[t], depth)
+            lb = _leaf_ids(binned, b.feat[t], b.thresh[t], depth)
+            pairs = torch.unique(la * (1 << depth) + lb).numel()
+            if pairs == torch.unique(la).numel() == torch.unique(lb).numel():
+                out["tied"] += 1
+                diff = (a.leaf[t][la] - b.leaf[t][lb]).abs().max()
+            else:
+                out["differ"] += 1
+                if out["first_differ"] is None:
+                    out["first_differ"] = t
+                continue
+        out["max_leaf_diff"] = max(out["max_leaf_diff"], float(diff))
+    return out
+
+
+def _first_divergence(a, b, binned, y: torch.Tensor, lam: float) -> dict:
+    """Where two binary boosted fits' trees first cut a node's rows into
+    different sets (round ``t``, the first whose partition differs; every
+    earlier tree cut the rows alike, so both fits grew round ``t`` from
+    the same margins, those of ``a``'s earlier trees): the node's level
+    and rows, and the float64 gain (G_L^2 / (H_L + lam) + G_R^2 / (H_R +
+    lam) - G^2 / (H + lam)) of each fit's split of them.  Two gains within
+    float32 rounding of each other are a tie the two histograms' rounding
+    broke either way."""
+    depth = int(np.log2(a.feat.shape[1] + 1))
+    t = _compare_ensembles(a, b, binned)["first_differ"]
+    if t is None:
+        return {"round": None}
+    F = a.base_score + _margin_of_rounds(a, binned, t, depth)
+    p = torch.sigmoid(F.to(torch.float64))
+    g, h = p - y.to(torch.float64), torch.clamp(p * (1 - p), min=1e-6)
+    rows = torch.arange(binned.shape[0], device=binned.device)
+    na = torch.zeros_like(rows)
+    nb = torch.zeros_like(rows)
+
+    def gain(m, right):
+        G, H = g[m].sum(), h[m].sum()
+        GR, HR = g[m & right].sum(), h[m & right].sum()
+        GL, HL = G - GR, H - HR
+        return float(GL * GL / (HL + lam) + GR * GR / (HR + lam)
+                     - G * G / (H + lam))
+
+    for level in range(depth):
+        ha, hb = (2 ** level - 1) + na, (2 ** level - 1) + nb
+        ra = gk.route_right(binned[rows, a.feat[t][ha].long()],
+                            a.thresh[t][ha])
+        rb = gk.route_right(binned[rows, b.feat[t][hb].long()],
+                            b.thresh[t][hb])
+        for node in torch.unique(na).tolist():
+            m = na == node
+            if torch.equal(ra[m], rb[m]) or torch.equal(ra[m], ~rb[m]):
+                continue
+            ga, gb = gain(m, ra), gain(m, rb)
+            return {"round": t, "level": level, "node_rows": int(m.sum()),
+                    "gain_a": ga, "gain_b": gb,
+                    "rel_gap": abs(ga - gb) / max(abs(ga), abs(gb), 1e-30)}
+        na = 2 * na + ra.long()
+        nb = 2 * nb + rb.long()
+    return {"round": t, "level": None}
+
+
+def _margin_of_rounds(model, binned, t: int, depth: int):
+    """The sum of ``model``'s first ``t`` trees' leaves on ``binned``'s
+    rows (N,)."""
+    if t == 0:
+        return torch.zeros(binned.shape[0], device=binned.device)
+    return gk.predict_ensemble(binned, model.feat[:t], model.thresh[:t],
+                               model.leaf[:t], depth)[:, 0]
+
+
+def _boosted_levels(est, binned, edges, y: np.ndarray, hist_fn) -> dict:
+    """WIDE_CHECK_ROUNDS rounds of ``est``'s chain on all rows, every level
+    built and checked by ``hist_fn``."""
+    dev = binned.device
+    p0 = float(np.clip(y.mean(), 1e-6, 1 - 1e-6))
+    grown = boost_chains(
+        [est], binned, edges, torch.from_numpy(y).to(dev),
+        torch.ones((1, binned.shape[0]), device=dev),
+        torch.tensor([float(np.log(p0 / (1 - p0)))]), [], hist_fn=hist_fn)
+    return {**hist_fn.summary(), "rounds": len(grown.trees[0]),
+            "splits": sum(int((t.thresh < 32).sum()) for t in grown.trees[0])}
+
+
+def _fit_row(est, X, y, Xh, yh) -> Tuple[object, dict]:
+    """One boosted fit on the card: its model and its line (seconds,
+    rounds, ms a round, launches, histogram levels and the CSR's share of
+    them, holdout AuPR)."""
+    gk.seg_level_hists.launches = 0
+    sparse0 = gk.sparse_level_hists.levels
+    model, fit_s = _timed_fit(est, X, y)
+    meta = est.metadata
+    score = model.predict_batch(Xh).probability[:, 1]
+    return model, {
+        "fit_s": fit_s, **meta["fit_timing"],
+        "rounds_grown": meta["rounds_grown"], "rounds_kept": meta["best_len"],
+        "ms_per_round": meta["fit_timing"]["boosting_s"]
+        / meta["rounds_grown"] * 1e3,
+        "seg_hist_launches": gk.seg_level_hists.launches,
+        "growers_hist_levels": meta["hist_levels"],
+        "csr_levels": gk.sparse_level_hists.levels - sparse0,
+        "efb_width": meta["efb_width"], "goss": meta["goss"],
+        "holdout_aupr": aupr(yh.to(score.device), score)}
+
+
+# ---------------------------------------------------------------------------
+# the xgb_wide phase: BASELINE.md config 5, XGBoost on 1M x 2000 wide sparse
+# rows
+# ---------------------------------------------------------------------------
+
+def make_sparse_data(rows: int, cols: int, density: float = 0.05,
+                     seed: int = 17):
+    """examples/bench_xgb_wide.py's ``make_sparse_data`` recipe (a wide,
+    mostly zero matrix with signal in 25 columns), as numpy arrays, with
+    the label's noiseless score ``z`` beside it: (X, y, z)."""
+    rng = np.random.default_rng(seed)
+    X = np.zeros((rows, cols), np.float32)
+    nnz_per_row = max(1, int(cols * density))
+    cols_idx = rng.integers(0, cols, size=(rows, nnz_per_row))
+    vals = rng.exponential(1.0, size=(rows, nnz_per_row)).astype(np.float32)
+    rows_idx = np.repeat(np.arange(rows), nnz_per_row)
+    X[rows_idx, cols_idx.ravel()] = vals.ravel()
+    informative = rng.choice(cols, 25, replace=False)
+    z = X[:, informative] @ rng.normal(size=25).astype(np.float32)
+    y = (z + 0.5 * rng.normal(size=rows) > np.median(z)).astype(np.float32)
+    return X, y, z
+
+
+def _wide_seg_rows(binned, goss, reps: int, bw: float, f32: float,
+                   smem_bw: float) -> list:
+    """``seg_hist`` lines with ``path`` "xgb_wide": the fit's binned matrix
+    (d = 2000) at M = 1, 32 and 512 on every row, and one GOSS sample's
+    level (k_top + k_rest rows, M = 32); float channels (a gradient in
+    [-1, 1], a hessian in [0, 0.25]) at random slots."""
+    dev = binned.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = binned.shape[0]
+    ch = torch.cat([torch.rand((n, 1), device=dev, generator=gen) * 2 - 1,
+                    torch.rand((n, 1), device=dev, generator=gen) * 0.25],
+                   1).contiguous()
+    rows = []
+    for M in (1, 32, 512):
+        slot = torch.randint(0, M, (n,), dtype=torch.int32, device=dev,
+                             generator=gen)
+        rows.append(_level_row("xgb_wide", (binned, slot, ch, M, 32), reps,
+                               bw, f32, smem_bw, integer=False))
+        del slot
+    idx, _ = gk.goss_select(ch[:, 0].abs(), 13, 0, 0, *goss)
+    sample = gk.goss_rows(binned, idx)
+    chs = ch[idx].contiguous()
+    slot = torch.randint(0, 32, (sample.shape[0],), dtype=torch.int32,
+                         device=dev, generator=gen)
+    row = _level_row("xgb_wide", (sample, slot, chs, 32, 32), reps, bw, f32,
+                     smem_bw, integer=False)
+    row["goss_sample"] = list(goss)
+    rows.append(row)
+    return rows
+
+
+def phase_xgb_wide(rows: int, hold: int, reps: int, bw: float, f32: float,
+                   smem_bw: float) -> dict:
+    """BASELINE.md config 5 on the card: ``make_sparse_data``'s 1.1M x
+    2000 rows at 5% density (the first 1M to train, the last 100 000
+    held out), one ``OpXGBoostClassifier`` at the reference's defaults
+    through ``fit_raw``, as ``bench_xgb_wide.run`` fits it; the CSR leg
+    (two depth-6 fits with and without ``TMOG_SPARSE_HIST=1``, trees and
+    AuPR compared, two rounds of each leg's levels held against the plain
+    version); ``seg_hist`` lines at d = 2000."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    Xn, yn, zn = make_sparse_data(rows + hold, WIDE_COLS, WIDE_DENSITY,
+                                  WIDE_SEED)
+    Xall = torch.from_numpy(Xn).to(dev)
+    del Xn
+    X, Xh = Xall[:rows], Xall[rows:]
+    y, yh = yn[:rows], torch.from_numpy(yn[rows:])
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    attainable = {
+        "train": aupr(torch.from_numpy(y), torch.from_numpy(zn[:rows])),
+        "holdout": aupr(yh, torch.from_numpy(zn[rows:]))}
+    density = float((X[::1000] != 0).float().mean())
+
+    # the reference's XGBoost defaults for binary selection
+    est = OpXGBoostClassifier(num_round=200, eta=0.02, max_depth=10,
+                              min_child_weight=1.0, gamma=0.8,
+                              early_stopping_rounds=20, seed=13)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kinds = dict(SKETCH_KINDS)
+    built = MEMO_STATS["binnings"]
+    model, fit = _fit_row(est, X, y, Xh, yh)
+    peak = torch.cuda.max_memory_allocated()
+    kinds = {k: SKETCH_KINDS[k] - kinds[k] for k in kinds}
+    train_aupr = aupr(torch.from_numpy(y).to(dev),
+                      model.predict_batch(X).probability[:, 1])
+    binned = binned_for_edges(X, model.edges)
+    binnings = MEMO_STATS["binnings"] - built
+    # the EFB decision: the fit's (the JAX rule) and the widest bundling
+    # any plan could make on this matrix
+    t0 = time.perf_counter()
+    best = gk.bundle_features(binned, model.edges, 32, min_width_ratio=1.0)
+    plan_s = time.perf_counter() - t0
+    efb = {"fit_efb_width": fit["efb_width"],
+           "rule_ratio": gk.EFB_MIN_WIDTH_RATIO,
+           "best_width": None if best is None else best.width,
+           "best_ratio": None if best is None else best.width_ratio,
+           "plan_s": plan_s}
+
+    # the CSR leg: depth 6 (below GOSS's depth gate), with and without it
+    os.environ["TMOG_SPARSE_HIST"] = "1"
+    try:
+        t0 = time.perf_counter()
+        csr = prep_tree_csr(X, model.edges, binned)
+        torch.cuda.synchronize()
+        csr_s = time.perf_counter() - t0
+        check(csr is not None, "xgb_wide: the matrix did not qualify for "
+              "the CSR histogram")
+        nz_max = csr.nz_max
+        legs = {}
+
+        def leg():
+            return OpXGBoostClassifier(max_depth=WIDE_CSR_DEPTH,
+                                       num_round=WIDE_CSR_ROUNDS,
+                                       early_stopping_rounds=0)
+        m_csr, legs["csr"] = _fit_row(leg(), X, y, Xh, yh)
+        sparse_chk = _boosted_levels(
+            OpXGBoostClassifier(max_depth=WIDE_CSR_DEPTH,
+                                num_round=WIDE_CHECK_ROUNDS,
+                                early_stopping_rounds=0),
+            binned, model.edges, y, _LevelCheck(
+                lambda b, slot, ch, M, B: gk.sparse_level_hists(
+                    csr, slot, ch, M, B)))
+    finally:
+        del os.environ["TMOG_SPARSE_HIST"]
+    m_dense, legs["dense"] = _fit_row(leg(), X, y, Xh, yh)
+    dense_chk = _boosted_levels(
+        OpXGBoostClassifier(max_depth=WIDE_CSR_DEPTH,
+                            num_round=WIDE_CHECK_ROUNDS,
+                            early_stopping_rounds=0),
+        binned, model.edges, y, _LevelCheck())
+    trees = _compare_ensembles(m_csr, m_dense, binned)
+    trees["first_divergence"] = _first_divergence(
+        m_csr, m_dense, binned, torch.from_numpy(y).to(dev), 1.0)
+    for name, r in legs.items():
+        r["csr_share"] = r["csr_levels"] / r["growers_hist_levels"]
+    del m_csr, m_dense, csr, Xall, X, Xh
+    torch.cuda.empty_cache()
+
+    seg_rows = _wide_seg_rows(binned, fit["goss"], reps, bw, f32, smem_bw)
+    del binned
+    launches = (fit["seg_hist_launches"] + legs["csr"]["seg_hist_launches"]
+                + legs["dense"]["seg_hist_launches"])
+    out = {"phase": "xgb_wide", "rows": rows, "holdout": hold,
+           "cols": WIDE_COLS, "density": density, "data_s": data_s,
+           "num_round": est.num_round, "max_depth": est.max_depth,
+           "eta": est.eta, "gamma": est.gamma,
+           "early_stopping_rounds": est.early_stopping_rounds,
+           "sketch_kinds": kinds, "binnings_built": binnings, **fit,
+           "train_aupr": train_aupr, "attainable_aupr": attainable,
+           "aupr_floor": {k: WIDE_AUPR_SHARE * v
+                          for k, v in attainable.items()},
+           "efb": efb, "max_memory_allocated": peak,
+           "csr": {"build_s": csr_s, "nz_max": nz_max,
+                   "legs": legs, "trees": trees,
+                   "aupr_gap": abs(legs["csr"]["holdout_aupr"]
+                                   - legs["dense"]["holdout_aupr"]),
+                   "levels_vs_plain": {"csr": sparse_chk,
+                                       "dense": dense_chk}},
+           "launches_total": launches}
+    emit(out)
+    check(kinds["sparse_aware"] > 0 and kinds["dense"] == 0,
+          f"xgb_wide: the fit took the sketches {kinds}, not the "
+          f"nonzero-aware one")
+    check(fit["rounds_grown"] <= 200 and fit["rounds_kept"] >= 1,
+          f"xgb_wide: {fit['rounds_grown']} rounds grown")
+    check(fit["goss"] is not None, "xgb_wide: GOSS did not engage")
+    check(fit["seg_hist_launches"] == fit["growers_hist_levels"] > 0,
+          f"xgb_wide: launches {fit['seg_hist_launches']} vs "
+          f"{fit['growers_hist_levels']} levels")
+    for k, floor in out["aupr_floor"].items():
+        got = train_aupr if k == "train" else fit["holdout_aupr"]
+        check(got >= floor, f"xgb_wide: {k} AuPR {got} below {floor}")
+    for name, r in legs.items():
+        check(r["seg_hist_launches"] + r["csr_levels"]
+              == r["growers_hist_levels"] > 0,
+              f"CSR leg {name}: {r['seg_hist_launches']} launches + "
+              f"{r['csr_levels']} CSR levels vs {r['growers_hist_levels']}")
+    check(legs["csr"]["csr_share"] == 1.0 and legs["dense"]["csr_levels"] == 0,
+          f"CSR leg: CSR shares {legs['csr']['csr_share']} / "
+          f"{legs['dense']['csr_share']}")
+    # the legs' trees are equal up to ties: where they first cut a node
+    # differently, the two cuts' gains are equal within float32 rounding
+    # (the kernel's float32 sums against the CSR's float64 ones; PERF.md)
+    div = trees["first_divergence"]
+    check(trees["rounds"][0] == trees["rounds"][1]
+          and (div["round"] is None
+               or (div.get("level") is not None
+                   and div["rel_gap"] <= WIDE_TIE_GAP)),
+          f"CSR leg: trees differ beyond ties: {trees}")
+    check(out["csr"]["aupr_gap"] <= 1e-3,
+          f"CSR leg: holdout AuPR gap {out['csr']['aupr_gap']}")
+    for name, c in out["csr"]["levels_vs_plain"].items():
+        check(c["tol_ratio"] <= 1.0 and c["levels"] > 0 and c["splits"] > 0,
+              f"CSR leg {name}: levels vs plain {c}")
+    out["seg_hist_rows"] = seg_rows
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the efb line: exclusive feature bundling on the Titanic demo's matrix
+# ---------------------------------------------------------------------------
+
+def _bundle_conflicts(plan, binned: torch.Tensor) -> int:
+    """Rows of ``binned`` in which two members of one bundle of ``plan``
+    are nonzero (their bundled bin keeps the larger member's)."""
+    dev = binned.device
+    mem, slot = [], []
+    for c, spec in enumerate(s for s in plan.plan if isinstance(s, tuple)):
+        for orig, _base, _end in spec:
+            mem.append(orig)
+            slot.append(c)
+    mem = torch.tensor(mem, dtype=torch.int64, device=dev)
+    slot = torch.tensor(slot, dtype=torch.int64, device=dev)
+    rows = 0
+    for a in range(0, binned.shape[0], 1 << 16):
+        act = (binned[a:a + (1 << 16)].index_select(1, mem) > 0).to(
+            torch.int32)
+        per = torch.zeros((act.shape[0], int(slot.max()) + 1),
+                          dtype=torch.int32, device=dev)
+        per.index_add_(1, slot, act)
+        rows += int((per >= 2).any(1).sum())
+    return rows
+
+
+def _efb_line(X: torch.Tensor, y: np.ndarray, Xh: torch.Tensor,
+              yh: torch.Tensor, reps: int, bw: float, f32: float,
+              smem_bw: float) -> dict:
+    """The JAX rule's bundling plan of the demo's checked matrix as the
+    port computes it (d -> d_b, bundles, members, the rows outside the
+    plan's sample that put two members of a bundle to work; or its
+    decline with the width ratio the widest plan reaches), and one
+    ``OpXGBoostClassifier(max_depth=EFB_DEPTH, num_round=EFB_ROUNDS)`` fit
+    with ``TMOG_EFB`` at ``auto`` and at ``0``: ms a round, holdout AuPR,
+    trees compared; a ``seg_hist`` line at the bundled width."""
+    edges, binned = prep_tree_inputs(X, 32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eb = maybe_bundle(binned, edges, 32)       # the fit's plan (memoized)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    plan = None if eb is None else eb.bundles
+    widest = plan or gk.bundle_features(binned, edges, 32,
+                                        min_width_ratio=1.0)
+    multi = ([] if widest is None else
+             [len(spec) for spec in widest.plan if isinstance(spec, tuple)])
+    out = {"phase": "efb", "N": X.shape[0], "d": X.shape[1],
+           "bundles": plan is not None, "plan_and_encode_s": plan_s,
+           "d_b": None if widest is None else widest.width,
+           "width_ratio": None if widest is None else widest.width_ratio,
+           "rule_ratio": gk.EFB_MIN_WIDTH_RATIO,
+           "bundle_count": len(multi), "members": sum(multi),
+           "largest_bundle": max(multi, default=0),
+           "conflicted_rows": (None if plan is None
+                               else _bundle_conflicts(plan, binned))}
+    fits, models = {}, {}
+    for mode in ("auto", "0"):
+        os.environ["TMOG_EFB"] = mode
+        try:
+            models[mode], fits[mode] = _fit_row(
+                OpXGBoostClassifier(max_depth=EFB_DEPTH, num_round=EFB_ROUNDS,
+                                    early_stopping_rounds=0), X, y, Xh, yh)
+        finally:
+            del os.environ["TMOG_EFB"]
+    out["fits"] = fits
+    out["launches_total"] = sum(f["seg_hist_launches"] for f in fits.values())
+    if plan is not None:
+        out["trees"] = _compare_ensembles(models["auto"], models["0"],
+                                          binned)
+        out["aupr_gap"] = abs(fits["auto"]["holdout_aupr"]
+                              - fits["0"]["holdout_aupr"])
+    del models
+    emit(out)
+    for mode, f in fits.items():
+        check(f["seg_hist_launches"] == f["growers_hist_levels"] > 0,
+              f"efb {mode}: launches {f['seg_hist_launches']} vs "
+              f"{f['growers_hist_levels']} levels")
+    check((fits["auto"]["efb_width"] is not None) == (plan is not None)
+          and fits["0"]["efb_width"] is None,
+          f"efb: the fits grew at {fits['auto']['efb_width']} / "
+          f"{fits['0']['efb_width']}, the plan says {out['d_b']}")
+    if plan is not None:
+        t = out["trees"]
+        # the plan is decided on a row sample: rows outside it where two
+        # members of a bundle are nonzero keep only the larger encoded
+        # bin, so the bundled trees match only on a conflict-free matrix
+        if out["conflicted_rows"] == 0:
+            check(t["differ"] == 0 and t["max_leaf_diff"] <= 1e-6,
+                  f"efb: bundled and unbundled trees differ beyond ties: "
+                  f"{t}")
+        check(out["aupr_gap"] <= 1e-3, f"efb: holdout AuPR gap "
+              f"{out['aupr_gap']}")
+        # the kernel at the bundled width: a boosted level's channels
+        dev = X.device
+        gen = torch.Generator(device=dev).manual_seed(9)
+        n = eb.binned.shape[0]
+        ch = torch.cat([torch.rand((n, 1), device=dev, generator=gen) * 2 - 1,
+                        torch.rand((n, 1), device=dev, generator=gen) * 0.25],
+                       1).contiguous()
+        slot = torch.randint(0, 32, (n,), dtype=torch.int32, device=dev,
+                             generator=gen)
+        out["seg_hist_row"] = _level_row(
+            "efb", (eb.binned, slot, ch, 32, 32), reps, bw, f32, smem_bw,
+            integer=False)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the glm_isotonic phase: a poisson GLM at 1M x 500, the isotonic calibrator
+# on the slice's holdout scores
+# ---------------------------------------------------------------------------
+
+def _poisson_deviance(y: torch.Tensor, mu: torch.Tensor) -> float:
+    """The mean Poisson deviance 2 (y log(y / mu) - (y - mu))."""
+    y, mu = y.to(torch.float64), mu.to(torch.float64)
+    t = torch.where(y > 0, y * torch.log(y / mu), 0.0)
+    return float(2 * (t - (y - mu)).mean())
+
+
+def phase_glm_isotonic(data, served: dict) -> dict:
+    """``OpGeneralizedLinearRegression(family="poisson")`` on the slice's
+    1M x 500 columns with a count label from a log-linear rate of its own
+    seed (GLM_INFORMATIVE columns): seconds, IRLS steps, holdout deviance
+    against the true rate's and the intercept-only model's; then
+    ``IsotonicRegressionCalibrator`` on the slice's boosted model's
+    100 000 holdout scores: seconds, blocks, monotonicity, calibrated
+    against raw holdout AuPR."""
+    train, hold, _ = data
+    dev = torch.device("cuda")
+    cols = len([k for k in train.columns if k.startswith("f")])
+
+    def matrix(ds):
+        return torch.from_numpy(np.stack(
+            [np.asarray(ds[f"f{j}"].values, np.float32)
+             for j in range(cols)], 1)).to(dev)
+
+    X, Xh = matrix(train), matrix(hold)
+    rng = np.random.default_rng(GLM_SEED)
+    beta = np.zeros(cols, np.float32)
+    beta[rng.choice(cols, GLM_INFORMATIVE, replace=False)] = rng.normal(
+        size=GLM_INFORMATIVE) * GLM_COEF_SD
+    bt = torch.from_numpy(beta).to(dev)
+    mu, mu_h = (torch.exp(M @ bt + GLM_INTERCEPT) for M in (X, Xh))
+    y = torch.from_numpy(rng.poisson(mu.cpu().numpy()).astype(np.float32))
+    yh = torch.from_numpy(rng.poisson(mu_h.cpu().numpy()).astype(
+        np.float32)).to(dev)
+    est = OpGeneralizedLinearRegression(family="poisson")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    glm = est.fit_raw(X, y.numpy(), device=dev)
+    torch.cuda.synchronize()
+    glm_s = time.perf_counter() - t0
+    pred = glm.predict_batch(Xh).prediction
+    dev_fit = _poisson_deviance(yh, pred)
+    dev_true = _poisson_deviance(yh, mu_h)
+    dev_null = _poisson_deviance(yh, torch.full_like(yh, float(y.mean())))
+    coef_err = float((glm.coef - bt).abs().max())
+    del X, Xh, mu, mu_h
+
+    proba = served["proba"][:, 1]
+    y_hold = torch.from_numpy(np.asarray(served["hold"]["label"].values,
+                                         np.float64))
+    cal = IsotonicRegressionCalibrator()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iso = cal.fit_raw(proba, y_hold, device=dev)
+    torch.cuda.synchronize()
+    iso_s = time.perf_counter() - t0
+    calibrated = iso.predict_batch(proba[:, None]).prediction
+    order = torch.argsort(proba.to(torch.float64))
+    steps = calibrated[order]
+    monotone = bool((steps[1:] >= steps[:-1]).all())
+    raw_aupr = aupr(y_hold, proba.cpu())
+    cal_aupr = aupr(y_hold, calibrated.cpu())
+    out = {"phase": "glm_isotonic", "rows": int(y.shape[0]),
+           "holdout": int(yh.shape[0]), "cols": cols,
+           "glm": {"family": "poisson", "fit_s": glm_s,
+                   "n_iter": est.metadata["n_iter"],
+                   "holdout_deviance": dev_fit,
+                   "true_rate_deviance": dev_true,
+                   "null_deviance": dev_null,
+                   "deviance_limit": GLM_DEVIANCE_RATIO * dev_true,
+                   "max_coef_err": coef_err,
+                   "intercept": glm.intercept},
+           "isotonic": {"rows": int(proba.shape[0]), "fit_s": iso_s,
+                        "blocks": cal.metadata["blocks"],
+                        "monotone": monotone, "raw_aupr": raw_aupr,
+                        "calibrated_aupr": cal_aupr,
+                        "aupr_gap": abs(cal_aupr - raw_aupr),
+                        "calibrated_range": [float(calibrated.min()),
+                                             float(calibrated.max())]}}
+    emit(out)
+    check(np.isfinite(dev_fit) and dev_fit <= GLM_DEVIANCE_RATIO * dev_true
+          and dev_fit < dev_null,
+          f"glm: holdout deviance {dev_fit} against the true rate's "
+          f"{dev_true} and the null {dev_null}")
+    check(monotone and out["isotonic"]["aupr_gap"] <= ISO_AUPR_GAP,
+          f"isotonic: monotone {monotone}, AuPR {cal_aupr} vs raw "
+          f"{raw_aupr}")
+    check(0.0 <= float(calibrated.min()) and float(calibrated.max()) <= 1.0,
+          "isotonic: calibrated values outside [0, 1]")
     return out
 
 
@@ -2771,13 +3409,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     reg = phase_regression(data, args.cols)
     torch.cuda.empty_cache()
-    titanic = phase_titanic(args.rows, args.holdout, args.reps, bw, f32)
+    titanic = phase_titanic(args.rows, args.holdout, args.reps, bw, f32,
+                            smem_bw)
     torch.cuda.empty_cache()
     multi, mc = phase_multiclass(data, args.cols, args.reps, bw, f32)
     torch.cuda.empty_cache()
     boosted = phase_boosted_multi(mc, data, args.cols, args.reps, bw, f32,
                                   smem_bw)
     del mc
+    torch.cuda.empty_cache()
+    phase_glm_isotonic(data, xgb)
+    torch.cuda.empty_cache()
+    wide = phase_xgb_wide(args.rows, args.holdout, args.reps, bw, f32,
+                          smem_bw)
     torch.cuda.empty_cache()
     phase_iris(args.rows, args.holdout)
     torch.cuda.empty_cache()
@@ -2821,8 +3465,10 @@ def main() -> int:
         "launches": (sl["seg_hist_launches"] + sel["seg_hist_launches"]
                      + reg["seg_hist_launches_total"]
                      + titanic["seg_hist_launches"]
+                     + titanic["efb_launches"]
                      + multi["seg_hist_launches"]
-                     + boosted["launches_total"]),
+                     + boosted["launches_total"]
+                     + wide["launches_total"]),
         "max_abs_err": max(r["max_abs_err"] for r in seg),
         "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": levels[-1]["bound_by"],

@@ -695,3 +695,68 @@ def test_trained_model_saves_loads_and_serves_on_card(cuda_device, kind,
     snap = srv.snapshot()
     assert snap["hostFallbacks"] == 0 and snap["deviceErrors"] == 0
     assert snap["shed"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,M", [(2000, 1), (2000, 32), (2000, 512),
+                                 (37, 8)])
+def test_seg_hist_wide_and_bundled_levels_bitwise(cuda_device, d, M):
+    """The wide sparse fit's levels (d = 2000, mostly bin 0) and a bundled
+    width (d = 37 in 48-byte rows, bundle bins up to 31), integer channels
+    (bag counts): every sum is an exact integer below 2^24, so the kernel
+    equals the plain version bitwise."""
+    rng = np.random.default_rng(d + M)
+    n, B = 100_000, 32
+    vals = rng.integers(1, B, size=(n, d)).astype(np.uint8)
+    vals[rng.random((n, d)) < (0.95 if d == 2000 else 0.5)] = 0
+    binned = tk.binned_empty(n, d, cuda_device)
+    binned.copy_(torch.from_numpy(vals))
+    bw = rng.poisson(1.0, n).astype(np.float32)
+    y0 = (rng.random(n) < 0.5).astype(np.float32)
+    ch = torch.from_numpy(np.stack([bw * y0, bw], 1)).to(cuda_device)
+    slot = torch.from_numpy(rng.integers(0, M, n).astype(np.int32)).to(
+        cuda_device)
+    a = tk.seg_level_hists(binned, slot, ch, M, B)
+    plain = tk.seg_level_hists_plain(binned, slot, ch, M, B)
+    assert torch.equal(a, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 32, 2048])
+def test_csr_histogram_on_card_matches_kernel(cuda_device, M):
+    """The CSR histogram built on the card from a 95%-zero matrix (its
+    rows, bins and zero bins equal to the one built on the CPU) against
+    the kernel on the same level: bitwise at integer channels; at float
+    channels within ATOL + RTOL x the histogram of |channels| (the float32
+    kernel's rounding grows with the sum of the terms' magnitudes, and
+    gradients of both signs cancel), the CSR's float64 sums within 1e-5
+    of the plain version's."""
+    rng = np.random.default_rng(M)
+    n, d, B = 60_000, 300, 32
+    X = np.zeros((n, d), np.float32)
+    cols = rng.integers(0, d, size=(n, 15))
+    X[np.repeat(np.arange(n), 15), cols.ravel()] = rng.exponential(
+        1.0, size=n * 15).astype(np.float32)
+    edges = tk.quantile_bins_sparse_aware(torch.from_numpy(X), B)
+    Xc = torch.from_numpy(X).to(cuda_device)
+    binned = tk.apply_bins(Xc, edges)
+    csr = tk.build_feature_csr(Xc, edges, binned)
+    host = tk.build_feature_csr(torch.from_numpy(X), edges,
+                                binned.cpu())
+    for a, b in zip(csr, host):
+        assert torch.equal(a.cpu(), b)
+    slot = torch.from_numpy(rng.integers(0, M, n).astype(np.int32)).to(
+        cuda_device)
+    bw = rng.poisson(1.0, n).astype(np.float32)
+    for integer, ch in (
+            (True, np.stack([bw * (rng.random(n) < 0.5), bw], 1)),
+            (False, np.stack([rng.uniform(-1, 1, n),
+                              rng.uniform(0, 0.25, n)], 1))):
+        cht = torch.from_numpy(ch.astype(np.float32)).to(cuda_device)
+        got = tk.sparse_level_hists(csr, slot, cht, M, B)
+        kern = tk.seg_level_hists(binned, slot, cht, M, B)
+        plain = tk.seg_level_hists_plain(binned, slot, cht, M, B)
+        mag = tk.seg_level_hists_plain(binned, slot, cht.abs(), M, B)
+        assert bool(((got - kern).abs() <= ATOL + RTOL * mag).all())
+        assert float((got - plain).abs().max()) <= 1e-5
+        assert not integer or torch.equal(got, kern)

@@ -680,15 +680,21 @@ class TestRegressionSlice:
         assert 0.6 < tr["metrics"]["R2"] < 0.95
 
     def test_efb_engages_in_the_jax_package(self, slice_runs):
-        """The JAX package bundles this frame's one-hot columns (EFB)
-        before its GBT chains grow, the port grows unbundled: the agreement
-        above holds across that difference."""
+        """Both packages bundle this frame's one-hot columns (EFB) before
+        their GBT chains grow: the port's plan on the checked matrix is the
+        JAX package's, and its GBT group grew at that width."""
         run = slice_runs["torch"]
         X = run["model"].train_data[run["checked"].name].values
         edges = tk.quantile_bins(X, 32)
-        binned = tk.apply_bins(X, edges).numpy().astype(np.int8)
-        plan = jg.bundle_features(binned, edges, 32)
-        assert plan is not None and plan.width < binned.shape[1]
+        tb = tk.apply_bins(X, edges)
+        plan = jg.bundle_features(tb.numpy().astype(np.int8), edges, 32)
+        assert plan is not None and plan.width < tb.shape[1]
+        mine = tk.bundle_features(tb, edges, 32)
+        assert mine.plan == plan.plan and np.array_equal(mine.end_bin,
+                                                         plan.end_bin)
+        meta = run["selector"].metadata
+        assert meta["group_efb_width"]["GBTGridGroup"] == (tb.shape[1],
+                                                           plan.width)
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,9 @@
 // of a row group run side by side, so a gathered row's segments are read
 // close together in time.  Warp w takes the fixed sub-range
 // [r0 + w*q, min(r0 + (w+1)*q, r1)) of its group's rows [r0, r1), with
-// q = ceil((r1-r0)/warps) <= 1024, so each float32 warp partial sums at
-// most 1024 rows.  Lane L owns the four adjacent columns t*128 + 4L .. +3.
+// q = ceil((r1-r0)/warps) <= rows_per_warp (`SEG_ROWS_PER_WARP`, 256),
+// so each float32 warp partial sums at most that many rows.  Lane L owns
+// the four adjacent columns t*128 + 4L .. +3.
 // (`seg_plan` in models/gbdt_kernels.py states the same geometry, and a
 // CPU test replays it.)
 //

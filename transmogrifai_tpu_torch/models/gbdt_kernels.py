@@ -27,10 +27,18 @@ slice runs:
  * the per-level histogram: ``seg_level_hists`` launches the hand-written
    CUDA kernel ``csrc/seg_hist.cu`` on CUDA tensors and calls its plain
    version ``seg_level_hists_plain`` on CPU tensors.  Both the boosted and
-   the forest growers build every level through it.
+   the forest growers build every level through it;
+ * exclusive feature bundling (``bundle_features``, ``bundle_matrix``,
+   ``unbundle_ensemble``; ``grow_tree(bundle_end=)`` and
+   ``predict_tree_bundled``): the JAX package's plan, decided in numpy on a
+   row sample, packs mutually exclusive columns into shared histogram
+   columns, and the grown splits map back to the original columns;
+ * the CSR histogram path (``build_feature_csr``, ``sparse_level_hists``,
+   ``csr_hist_fn``): a level's histograms of a wide, mostly zero matrix
+   from its nonzero entries, plain torch ops (XLA code in the JAX package,
+   no kernel there).
 
-Not ported yet (ROADMAP Queue A): EFB bundling, the CSR histogram path,
-sibling subtraction and sharded growth.
+Not ported yet (ROADMAP Queue A): sibling subtraction and sharded growth.
 """
 from __future__ import annotations
 
@@ -50,11 +58,20 @@ __all__ = ["TreeArrays", "quantile_bins", "quantile_bins_sparse_aware",
            "seg_level_hists_plain",
            "grow_tree", "RFGrowth", "rf_bags_and_features", "grow_rf_grid",
            "grow_forest_rf", "predict_tree", "predict_ensemble",
-           "goss_plan", "goss_select", "goss_rows"]
+           "goss_plan", "goss_select", "goss_rows",
+           "EFB_MAX_ACTIVE_FRAC", "EFB_SAMPLE_ROWS", "EFB_MIN_WIDTH_RATIO",
+           "FeatureBundles", "bundle_features", "bundle_matrix",
+           "unbundle_ensemble", "predict_tree_bundled", "FeatureCSR",
+           "build_feature_csr", "sparse_level_hists", "csr_hist_fn",
+           "SPARSE_MAX_SLOTS"]
 
-#: most rows one warp of the seg_hist kernel adds into one float32 partial
-#: (keeps the partial sums within the kernel's tolerance at a million rows)
-SEG_ROWS_PER_WARP = 1024
+#: most rows one warp of the seg_hist kernel adds into one float32 partial.
+#: Where most of a warp's rows fall in one bin (a sparse matrix's zero bin)
+#: and a channel holds nearly one value (a boosted fit's first hessians),
+#: every add rounds the same way and the drift grows with the rows: at
+#: 1024 a 1M x 2000 sparse level reached 0.67-1.23 of the kernel's
+#: tolerance, at 256 0.12 (``scripts/torch_seg_rows.py``, PERF.md)
+SEG_ROWS_PER_WARP = 256
 #: most warps per block of the seg_hist kernel (each with its own
 #: histogram); chosen by a block-shape sweep on the H100 (PERF.md)
 SEG_WARPS = 2
@@ -290,6 +307,368 @@ def goss_rows(binned: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = binned_empty(idx.shape[0], binned.shape[1], binned.device)
     out.copy_(binned.index_select(0, idx))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Exclusive feature bundling (EFB): the JAX package's plan, its encode on the
+# binned matrix's device, and the map of grown splits back to the original
+# columns
+# ---------------------------------------------------------------------------
+
+#: a column qualifies for bundling when at most this fraction of sampled
+#: rows is nonzero
+EFB_MAX_ACTIVE_FRAC = 0.5
+#: rows of the strided sample the bundling plan is decided on
+EFB_SAMPLE_ROWS = 65536
+#: bundling must shrink the histogram width to at most this ratio
+EFB_MIN_WIDTH_RATIO = 0.85
+
+
+class FeatureBundles(NamedTuple):
+    """The invertible plan ``bundle_features`` makes.  ``plan``: one entry
+    per bundled column, an original column id (copied as it is) or a tuple
+    of (original id, base, end) members, the member's nonzero bins shifted
+    to bundle bins [base, end].  ``col_feat``/``col_thresh`` (D_b, B) map a
+    bundled split back to an original (feature, threshold); ``end_bin``
+    (B, D_b) is each threshold's member end, which the grower reads."""
+
+    plan: Tuple
+    col_feat: np.ndarray      # (D_b, B) int32
+    col_thresh: np.ndarray    # (D_b, B) int32
+    end_bin: np.ndarray       # (B, D_b) int32
+    n_orig: int
+    n_bins: int
+
+    @property
+    def width(self) -> int:
+        return int(self.col_feat.shape[0])
+
+    @property
+    def width_ratio(self) -> float:
+        return self.width / max(self.n_orig, 1)
+
+    def bundled_dd_mask(self, dd_mask: Optional[np.ndarray]) -> np.ndarray:
+        """Default-direction eligibility in bundled column space: a bundle
+        column never learns a default direction (its bin 0 is "every member
+        at zero"); a singleton column keeps its flag."""
+        out = np.zeros(self.width, bool)
+        if dd_mask is None:
+            return out
+        dd = np.asarray(dd_mask, bool)
+        for c, spec in enumerate(self.plan):
+            if isinstance(spec, (int, np.integer)):
+                out[c] = bool(dd[int(spec)])
+        return out
+
+
+#: set bits of each byte value
+_POP8 = np.array([bin(v).count("1") for v in range(256)], np.int64)
+
+
+def _popcount(words: np.ndarray) -> int:
+    """Set bits in an array of 64-bit words."""
+    if hasattr(np, "bitwise_count"):
+        return int(np.bitwise_count(words).sum())
+    return int(_POP8[words.view(np.uint8)].sum())
+
+
+def bundle_features(binned, edges, max_bins: int,
+                    max_conflict_rate: float = 0.0,
+                    sample_rows: int = EFB_SAMPLE_ROWS,
+                    min_width_ratio: float = EFB_MIN_WIDTH_RATIO
+                    ) -> Optional[FeatureBundles]:
+    """The JAX package's greedy bundling plan over a binned (N, D) matrix
+    (tensor or array), or None where it declines (D < 3, ``max_bins`` >
+    127, fewer than two candidate columns, no bundle of two, or a width
+    above ``min_width_ratio`` x D).  Exclusivity is decided in numpy on the
+    strided row sample ``binned[::max(1, N // sample_rows)][:sample_rows]``
+    (only the sample leaves the device): a candidate column has two or more
+    used bins, zeros in bin 0 (its smallest finite edge >= 0) and at most
+    ``EFB_MAX_ACTIVE_FRAC`` of the sample nonzero; candidates pack densest
+    first into the first bundle with room for their bins and conflicts
+    within ``max_conflict_rate`` x the sample's rows."""
+    n, d = binned.shape
+    if d < 3 or max_bins > 127:
+        return None
+    e = np.asarray(edges, np.float32)
+    finite = np.isfinite(e)
+    used_bins = finite.sum(axis=1) + 1
+    first_edge = np.where(finite, e, np.inf).min(axis=1)
+    zero_ok = first_edge >= 0.0
+
+    step = max(1, n // sample_rows)
+    samp = torch.as_tensor(binned)[::step][:sample_rows].cpu().numpy()
+    ns = samp.shape[0]
+    active = samp != 0
+    act_frac = active.mean(axis=0)
+    cand = (used_bins >= 2) & zero_ok & (act_frac <= EFB_MAX_ACTIVE_FRAC)
+    cand_ids = np.where(cand)[0]
+    if len(cand_ids) < 2:
+        return None
+    # each column's active rows as packed 64-bit words: a conflict count
+    # is the popcount of two columns' AND (the same count as the rows')
+    packed = np.packbits(active, axis=0)
+    packed = np.concatenate([packed, np.zeros(((-packed.shape[0]) % 8, d),
+                                              np.uint8)])
+    words = np.ascontiguousarray(packed.T).view(np.uint64)     # (d, w)
+    del packed, samp
+
+    budget = int(max_conflict_rate * ns)
+    order = cand_ids[np.argsort(-act_frac[cand_ids], kind="stable")]
+    bundles: List[dict] = []
+    for j in order:
+        uj = int(used_bins[j])
+        aj = words[j]
+        for b in bundles:
+            if b["bins"] + (uj - 1) > max_bins:
+                continue
+            conflicts = _popcount(aj & b["active"])
+            if b["conflicts"] + conflicts > budget:
+                continue
+            b["members"].append(int(j))
+            b["bins"] += uj - 1
+            b["conflicts"] += conflicts
+            b["active"] |= aj
+            break
+        else:
+            bundles.append({"members": [int(j)], "bins": uj,
+                            "conflicts": 0, "active": aj.copy()})
+    multi = {}
+    for b in bundles:
+        if len(b["members"]) >= 2:
+            ms = sorted(b["members"])
+            multi[ms[0]] = ms
+    if not multi:
+        return None
+    in_multi = {j for ms in multi.values() for j in ms}
+    width = d - len(in_multi) + len(multi)
+    if width > min_width_ratio * d:
+        return None
+
+    B = int(max_bins)
+    plan: List = []
+    for j in range(d):
+        if j not in in_multi:
+            plan.append(j)
+        elif j in multi:                      # a bundle sits at its first
+            specs, base = [], 1               # member
+            for m in multi[j]:
+                um = int(used_bins[m])
+                specs.append((m, base, base + um - 2))
+                base += um - 1
+            plan.append(tuple(specs))
+    d_b = len(plan)
+    col_feat = np.zeros((d_b, B), np.int32)
+    col_thresh = np.zeros((d_b, B), np.int32)
+    end_bin = np.empty((B, d_b), np.int32)
+    ts = np.arange(B, dtype=np.int32)
+    for c, spec in enumerate(plan):
+        if isinstance(spec, (int, np.integer)):
+            col_feat[c] = int(spec)
+            col_thresh[c] = ts
+            end_bin[:, c] = B - 1
+        else:
+            ends = np.asarray([s[2] for s in spec], np.int32)
+            # the owner of threshold t: the member of the smallest end > t;
+            # past the last member the interval (t, t] is empty
+            owner = np.searchsorted(ends, ts, side="right")
+            tail = owner >= len(spec)
+            owner = np.minimum(owner, len(spec) - 1)
+            end_bin[:, c] = np.where(tail, ts, ends[owner])
+            feats = np.asarray([s[0] for s in spec], np.int32)
+            bases = np.asarray([s[1] for s in spec], np.int32)
+            col_feat[c] = feats[owner]
+            col_thresh[c] = np.maximum(ts - bases[owner] + 1, 0)
+    return FeatureBundles(plan=tuple(plan), col_feat=col_feat,
+                          col_thresh=col_thresh, end_bin=end_bin,
+                          n_orig=d, n_bins=B)
+
+
+def bundle_matrix(bundles: FeatureBundles, binned: torch.Tensor
+                  ) -> torch.Tensor:
+    """The (N, D_b) bundled matrix on ``binned``'s device, in the kernel's
+    row layout (``binned_empty``): singleton columns copied, a bundle's bin
+    base + b - 1 for its active member's bin b > 0, else 0; where several
+    members are active (a nonzero conflict budget) the largest encoded
+    value wins."""
+    n = binned.shape[0]
+    dev = binned.device
+    out = binned_empty(n, bundles.width, dev)
+    single_b, single_o, mem_b, mem_o, mem_base = [], [], [], [], []
+    for c, spec in enumerate(bundles.plan):
+        if isinstance(spec, (int, np.integer)):
+            single_b.append(c)
+            single_o.append(int(spec))
+        else:
+            for orig, base, _end in spec:
+                mem_b.append(c)
+                mem_o.append(orig)
+                mem_base.append(base)
+
+    def ids(v):
+        return torch.tensor(v, dtype=torch.int64, device=dev)
+
+    sb, so, mb, mo = ids(single_b), ids(single_o), ids(mem_b), ids(mem_o)
+    base = torch.tensor(mem_base, dtype=torch.int32, device=dev)
+    bundle_cols = torch.unique(mb)
+    slot = torch.searchsorted(bundle_cols, mb)
+    for a in range(0, n, _BIN_ROW_BLOCK):
+        rows = binned[a:a + _BIN_ROW_BLOCK]
+        blk = out[a:a + _BIN_ROW_BLOCK]
+        blk[:, sb] = rows.index_select(1, so)
+        v = rows.index_select(1, mo).to(torch.int32)
+        enc = torch.where(v > 0, base + v - 1, 0)
+        acc = torch.zeros((rows.shape[0], len(bundle_cols)),
+                          dtype=torch.int32, device=dev)
+        acc.scatter_reduce_(1, slot.expand_as(enc), enc, "amax")
+        blk[:, bundle_cols] = acc.to(torch.uint8)
+    return out
+
+
+def unbundle_ensemble(bundles: FeatureBundles, feat: torch.Tensor,
+                      thresh: torch.Tensor, tables=None):
+    """Splits grown in bundled column space (int32 tensors of any shape)
+    as original (feature, threshold) pairs on their device: exact for every
+    per-member interval split; no-split sentinels (thresh == B) and
+    default-direction splits (negative, singleton columns only) keep their
+    threshold.  ``tables``: ``bundles.col_feat``/``col_thresh`` already on
+    the splits' device (a fit unbundling tree by tree passes them, so no
+    tree waits on a host-to-device copy)."""
+    dev = feat.device
+    B = bundles.n_bins
+    cf, ct = tables if tables is not None else (
+        torch.from_numpy(bundles.col_feat).to(dev),
+        torch.from_numpy(bundles.col_thresh).to(dev))
+    f = feat.long()
+    t_id = thresh.clamp(0, B - 1).long()
+    passthrough = (thresh >= B) | (thresh < 0)
+    f_out = torch.where(passthrough, cf[f, 0], cf[f, t_id])
+    t_out = torch.where(passthrough, thresh, ct[f, t_id])
+    return f_out.to(torch.int32), t_out.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The CSR histogram path: a level's histograms from the nonzero entries of
+# a wide, mostly zero matrix
+# ---------------------------------------------------------------------------
+
+class FeatureCSR(NamedTuple):
+    """The nonzero entries of a matrix, column by column (the JAX package's
+    ``build_feature_csr`` layout): ``rows`` (D, NZ) int32 row ids padded
+    with N, ``bins`` (D, NZ) uint8 their bins (0 in the padding),
+    ``zero_bin`` (D,) uint8 the bin 0.0 falls in, all on the matrix's
+    device."""
+    rows: torch.Tensor
+    bins: torch.Tensor
+    zero_bin: torch.Tensor
+
+    @property
+    def nz_max(self) -> int:
+        return int(self.rows.shape[1])
+
+
+#: columns of one block of the CSR build (an (N, block) copy of the matrix)
+_CSR_BUILD_COLS = 128
+#: entries per block of the sparse level histogram
+SPARSE_ENTRY_BLOCK = 1 << 24
+#: the sparse histogram serves levels of at most this many slots; wider
+#: levels take ``seg_level_hists`` (the JAX package's constant)
+SPARSE_MAX_SLOTS = 2048
+
+
+def build_feature_csr(X: torch.Tensor, edges, binned: torch.Tensor
+                      ) -> Optional[FeatureCSR]:
+    """The per-column padded CSR of ``X``'s nonzero entries (NaN counts as
+    nonzero and sits in bin 0, as binning puts it), built on X's device
+    with torch ops; ``binned`` is X binned by ``edges`` (its entries are
+    the CSR's bins).  None where the matrix does not qualify (the JAX
+    package's rules): B + 1 > 127 bins, no nonzero, density above 0.25, or
+    a column of more than max(4 x the mean, 64) nonzeros."""
+    e = np.asarray(edges, np.float32)
+    if e.shape[1] + 1 > 127:
+        return None
+    n, d = X.shape
+    dev = X.device
+    nnz = torch.zeros(d, dtype=torch.int64, device=dev)
+    for a in range(0, n, _BIN_ROW_BLOCK):
+        nnz += (X[a:a + _BIN_ROW_BLOCK] != 0).sum(0)
+    counts = nnz.cpu().numpy()
+    total = int(counts.sum())
+    if total == 0 or total / (n * d) > 0.25:
+        return None
+    nz_max = int(counts.max())
+    if nz_max > max(4.0 * total / d, 64.0):
+        return None
+    rows = torch.full((d, nz_max), n, dtype=torch.int32, device=dev)
+    bins = torch.zeros((d, nz_max), dtype=torch.uint8, device=dev)
+    starts = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)])).to(
+        dev)
+    for j0 in range(0, d, _CSR_BUILD_COLS):
+        j1 = min(d, j0 + _CSR_BUILD_COLS)
+        # (column, row) pairs ordered by column, then row
+        cr = torch.nonzero(X[:, j0:j1].T)
+        col = cr[:, 0] + j0
+        pos = (torch.arange(cr.shape[0], device=dev)
+               - (starts[col] - starts[j0]))
+        rows[col, pos] = cr[:, 1].to(torch.int32)
+        bins[col, pos] = binned[cr[:, 1], col]
+        del cr, col, pos
+    zero_bin = (np.sort(e, axis=1) < 0.0).sum(axis=1).astype(np.uint8)
+    return FeatureCSR(rows, bins, torch.from_numpy(zero_bin).to(dev))
+
+
+def sparse_level_hists(csr: FeatureCSR, slot: torch.Tensor, ch: torch.Tensor,
+                       M: int, B: int) -> torch.Tensor:
+    """One tree level's histograms (C, M, B, d) float32 from the nonzero
+    entries only (the JAX package's ``_sparse_level_hists``): each entry
+    adds its row's channels at (slot, bin, column), and each column's
+    zero bin gets the slot's channel totals minus the column's nonzero
+    sums.  A scatter-add in float64 over blocks of columns (atomic on the
+    card, so the float64 order varies, which the one rounding to float32
+    hides), plain torch ops on any device; ``sparse_level_hists.levels``
+    counts the levels built."""
+    d, nz = csr.rows.shape
+    n, C = ch.shape
+    dev = ch.device
+    slot_pad = torch.cat([slot.to(torch.int64),
+                          torch.zeros(1, dtype=torch.int64, device=dev)])
+    ch_pad = torch.cat([ch.to(torch.float64),
+                        torch.zeros((1, C), dtype=torch.float64,
+                                    device=dev)])
+    acc = torch.zeros((M * B * d, C), dtype=torch.float64, device=dev)
+    step = max(1, SPARSE_ENTRY_BLOCK // max(nz, 1))
+    for j0 in range(0, d, step):
+        r = csr.rows[j0:j0 + step].to(torch.int64)
+        cols = torch.arange(j0, j0 + r.shape[0], device=dev)[:, None]
+        flat = (slot_pad[r] * B + csr.bins[j0:j0 + step].to(torch.int64)
+                ) * d + cols
+        acc.index_add_(0, flat.reshape(-1), ch_pad[r].reshape(-1, C))
+        del r, flat
+    tot = torch.zeros((M, C), dtype=torch.float64, device=dev)
+    tot.index_add_(0, slot.to(torch.int64), ch.to(torch.float64))
+    acc = acc.reshape(M, B, d, C)
+    zero = tot[:, None, :] - acc.sum(1)                     # (M, d, C)
+    idx = csr.zero_bin.to(torch.int64)[None, None, :, None].expand(
+        M, 1, d, C)
+    acc.scatter_add_(1, idx, zero[:, None])
+    sparse_level_hists.levels += 1
+    return acc.to(torch.float32).permute(3, 0, 1, 2).contiguous()
+
+
+sparse_level_hists.levels = 0
+
+
+def csr_hist_fn(csr: FeatureCSR, dense: "HistFn" = None) -> "HistFn":
+    """A grower's ``hist_fn`` for a matrix with a CSR: levels of at most
+    ``SPARSE_MAX_SLOTS`` slots from ``sparse_level_hists``, wider ones
+    from ``dense`` (the kernel wrapper by default)."""
+    dense = seg_level_hists if dense is None else dense
+
+    def hist(binned, slot, ch, M, B):
+        if M <= SPARSE_MAX_SLOTS:
+            return sparse_level_hists(csr, slot, ch, M, B)
+        return dense(binned, slot, ch, M, B)
+    return hist
 
 
 # ---------------------------------------------------------------------------
@@ -581,7 +960,8 @@ def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
               newton_leaf: bool = True, min_gain_raw: float = 0.0,
               learning_rate: float = 1.0, default_dir: bool = False,
               dd_mask: Optional[torch.Tensor] = None,
-              hist_fn: HistFn = seg_level_hists) -> TreeArrays:
+              hist_fn: HistFn = seg_level_hists,
+              bundle_end: Optional[torch.Tensor] = None) -> TreeArrays:
     """Grow one tree level by level (the JAX package's
     ``_grow_tree_traced``).
 
@@ -604,7 +984,16 @@ def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
     levels with more nodes than next_pow2(N) compact their node ids into
     that many slots.  ``hist_fn`` builds each level's histograms (the
     kernel wrapper by default; the plain version for comparisons on the
-    card)."""
+    card).
+
+    ``bundle_end`` (B, d) int32: ``binned`` is an EFB-bundled matrix
+    (``bundle_matrix``) and each candidate (t, f) is the interval split
+    "bin in (t, E[t, f]]" right, everything else left; rows route right
+    only up to E.  Columns with E = B - 1 (singletons, a bundle's last
+    member) take the standard arithmetic (totals minus the left sums), as
+    the JAX package does, so on a conflict-free matrix the unbundled
+    splits (``unbundle_ensemble``) equal the unbundled fit's.  ``dd_mask``
+    is then in bundled space (``FeatureBundles.bundled_dd_mask``)."""
     n, d = binned.shape
     k = G.shape[1]
     B = n_bins
@@ -632,17 +1021,42 @@ def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
 
         gain = 0.0
         HLmin = HRmin = None
-        for GL, HL in zip(GLs, HLs):
-            Gtot, Htot = GL[:, -1:, :1], HL[:, -1:, :1]
-            GR, HR = Gtot - GL, Htot - HL
-            gain = gain + (GL * GL / (HL + lam) + GR * GR / (HR + lam)
-                           - Gtot * Gtot / (Htot + lam))
-            HLmin = HL if HLmin is None else torch.minimum(HLmin, HL)
-            HRmin = HR if HRmin is None else torch.minimum(HRmin, HR)
         Ctot = CL[:, -1:, :1]
-        CR = Ctot - CL
+        if bundle_end is None:
+            for GL, HL in zip(GLs, HLs):
+                Gtot, Htot = GL[:, -1:, :1], HL[:, -1:, :1]
+                GR, HR = Gtot - GL, Htot - HL
+                gain = gain + (GL * GL / (HL + lam) + GR * GR / (HR + lam)
+                               - Gtot * Gtot / (Htot + lam))
+                HLmin = HL if HLmin is None else torch.minimum(HLmin, HL)
+                HRmin = HR if HRmin is None else torch.minimum(HRmin, HR)
+            CR = Ctot - CL
+            CLft = CL
+        else:
+            # the interval split's right side: the owner member's bins
+            # (t, E]; E = B-1 entries keep the standard arithmetic
+            Eb = bundle_end.to(dev, torch.int64)[None].expand(M, B, d)
+            is_std = Eb == B - 1
+
+            def right(A, tot):
+                return torch.where(is_std, tot - A,
+                                   torch.gather(A, 1, Eb) - A)
+
+            for GL, HL in zip(GLs, HLs):
+                Gtot, Htot = GL[:, -1:, :1], HL[:, -1:, :1]
+                GR, HR = right(GL, Gtot), right(HL, Htot)
+                GLft = torch.where(is_std, GL, Gtot - GR)
+                HLft = torch.where(is_std, HL, Htot - HR)
+                gain = gain + (GLft * GLft / (HLft + lam)
+                               + GR * GR / (HR + lam)
+                               - Gtot * Gtot / (Htot + lam))
+                HLmin = HLft if HLmin is None else torch.minimum(HLmin, HLft)
+                HRmin = HR if HRmin is None else torch.minimum(HRmin, HR)
+            CR = right(CL, Ctot)
+            CLft = torch.where(is_std, CL, Ctot - CR)
+            del Eb, is_std
         valid = ((HLmin >= min_child_weight) & (HRmin >= min_child_weight)
-                 & (CL >= min_instances) & (CR >= min_instances)
+                 & (CLft >= min_instances) & (CR >= min_instances)
                  & (bin_ids < B - 1))
         if fmask is not None:
             valid = valid & fmask
@@ -704,13 +1118,28 @@ def grow_tree(binned: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
         heap_thresh.append(seg_thresh)
 
         sl = slot.long()
-        x_row = binned[rows, feat_l[sl].long()]
-        go_right = route_right(x_row, thresh_l[sl])
+        fid = feat_l[sl].long()
+        x_row = binned[rows, fid]
+        tv = thresh_l[sl]
+        go_right = route_right(x_row, tv)
+        if bundle_end is not None:
+            # rows past the owner member's end belong to other members
+            go_right = go_right & (x_row.to(torch.int32) <= _end_of(
+                bundle_end, tv, fid))
         node = 2 * node + go_right.to(torch.int32)
 
     leaf = _leaf_values(node, ch, k, 2 ** max_depth, lam, learning_rate,
                         newton_leaf)
     return TreeArrays(torch.cat(heap_feat), torch.cat(heap_thresh), leaf)
+
+
+def _end_of(bundle_end: torch.Tensor, t: torch.Tensor, f: torch.Tensor
+            ) -> torch.Tensor:
+    """The member end E[clip(t, 0, B-1), f] of each (threshold, bundled
+    column) pair."""
+    B, d = bundle_end.shape
+    be = bundle_end.to(t.device).reshape(-1)
+    return be[t.clamp(0, B - 1).long() * d + f.long()]
 
 
 #: one-hot elements per block of the leaf sums
@@ -1013,6 +1442,27 @@ def predict_tree(binned: torch.Tensor, feat: torch.Tensor,
         heap = (2 ** level - 1) + node
         x = binned[rows, feat[heap].long()]
         node = 2 * node + route_right(x, thresh[heap]).long()
+    return leaf[node]
+
+
+def predict_tree_bundled(binned: torch.Tensor, feat: torch.Tensor,
+                         thresh: torch.Tensor, leaf: torch.Tensor,
+                         max_depth: int, bundle_end: torch.Tensor
+                         ) -> torch.Tensor:
+    """``predict_tree`` in bundled column space (a tree grown with
+    ``bundle_end``): a row goes right only up to its split's member end.
+    The boosting loop's margin updates use it; a fitted model's trees are
+    unbundled and route through ``predict_tree``."""
+    n = binned.shape[0]
+    rows = torch.arange(n, device=binned.device)
+    node = torch.zeros(n, dtype=torch.int64, device=binned.device)
+    for level in range(max_depth):
+        heap = (2 ** level - 1) + node
+        f, t = feat[heap].long(), thresh[heap]
+        x = binned[rows, f]
+        go = route_right(x, t) & (x.to(torch.int32)
+                                  <= _end_of(bundle_end, t, f))
+        node = 2 * node + go.long()
     return leaf[node]
 
 

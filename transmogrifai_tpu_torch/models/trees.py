@@ -22,13 +22,33 @@ general grower.  ``TreeEnsembleModel`` scores the ``gbdt_binary``,
 Boosted fits and forests bin through ``prep_tree_inputs``, which takes
 the nonzero-aware sketch for a wide, mostly zero matrix as the JAX package
 does; decision trees bin through the dense sketch, as the JAX package's
-do.  Not ported yet (ROADMAP Queue A): EFB, the CSR histogram path, the
-``with_mesh`` paths and the upload/binning memo caches.
+do.  Every sketch, binned matrix, bundling plan and CSR goes through the
+sweep memo (``memo_get``): a selector's candidates, which all fit on the
+same matrix with fold weights, and the scoring of that matrix with a
+fit's edges share one binning per distinct (matrix, sketch).  The memo is
+keyed on the matrix tensor's identity and ``_version`` (an in-place write
+misses), its shape, strides, dtype and device, and the edges' content; it
+holds at most ``_BIN_CACHE_CAPACITY`` entries, drops a matrix's entries
+when the matrix is freed, and ``clear_sweep_caches`` (which
+``OpWorkflow.train`` calls at its end) empties it.  Boosted fits bundle
+mutually exclusive columns (EFB, ``TMOG_EFB``) where the JAX package does,
+and grow through the CSR histogram path under ``TMOG_SPARSE_HIST=1``.
+
+Not ported (each has no counterpart here): the JAX package's bf16 upload
+of large matrices (``_dev_f32``), which saves bytes on a remote TPU's
+link, and the memo's in-flight dedupe for the selector's prefetch thread
+(that thread is ROADMAP Queue A item 6).  Not ported yet (ROADMAP Queue
+A): the ``with_mesh`` paths.
 """
 from __future__ import annotations
 
+import hashlib
+import os
+import threading
 import time
-from typing import List, NamedTuple, Optional, Tuple
+import weakref
+from collections import OrderedDict
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,9 +58,12 @@ from ..evaluators.metrics import aupr_device
 from ..types.columns import ColumnarDataset
 from . import gbdt_kernels
 from .gbdt_kernels import (
-    HistFn, TreeArrays, apply_bins, default_dir_mask, goss_plan, goss_rows,
-    grow_forest_rf, grow_tree, predict_ensemble, predict_tree,
+    EFB_MIN_WIDTH_RATIO, FeatureBundles, FeatureCSR, HistFn, TreeArrays,
+    apply_bins, build_feature_csr, bundle_features, bundle_matrix,
+    csr_hist_fn, default_dir_mask, goss_plan, goss_rows, grow_forest_rf,
+    grow_tree, predict_ensemble, predict_tree, predict_tree_bundled,
     quantile_bins, quantile_bins_sparse_aware, seg_level_hists,
+    unbundle_ensemble,
 )
 from .prediction import PredictionBatch, PredictorEstimator, PredictorModel
 
@@ -49,7 +72,9 @@ __all__ = ["OpGBTClassifier", "OpXGBoostClassifier", "OpGBTRegressor",
            "OpRandomForestRegressor", "OpDecisionTreeClassifier",
            "OpDecisionTreeRegressor", "TreeEnsembleModel",
            "BoostedChains", "boost_chains", "skip_counts",
-           "es_patience_vec"]
+           "es_patience_vec", "clear_sweep_caches", "memo_get", "MEMO_STATS",
+           "prep_tree_inputs", "binned_for_edges", "dense_tree_inputs",
+           "prep_tree_csr", "efb_enabled", "maybe_bundle", "EFBInputs"]
 
 _MODES = ("gbdt_binary", "gbdt_multi", "gbdt_reg", "rf_cls", "rf_reg")
 
@@ -87,7 +112,7 @@ class TreeEnsembleModel(PredictorModel):
 
     def raw_margin(self, X: torch.Tensor) -> torch.Tensor:
         depth = int(np.log2(self.feat.shape[1] + 1))
-        binned = apply_bins(X, self.edges)
+        binned = binned_for_edges(X, self.edges)
         dev = binned.device
         return predict_ensemble(binned, self.feat.to(dev),
                                 self.thresh.to(dev), self.leaf.to(dev), depth)
@@ -163,12 +188,16 @@ def replay_es(chunk_rows, stopped, best_metric, best_len, stall,
 
 class BoostedChains(NamedTuple):
     """What ``boost_chains`` grew: each chain's trees of every round it
-    grew, the rounds each chain keeps (S,), the per-level histograms built
-    and the GOSS budget (None when off)."""
+    grew (splits on the original columns), the rounds each chain keeps
+    (S,), the per-level histograms built, the GOSS budget (None when off),
+    the bundled width (d, d_b) (None when the fit grew unbundled) and the
+    seconds the bundling plan and its encode took (0 on a memo hit)."""
     trees: List[List[TreeArrays]]
     best_len: np.ndarray
     levels: int
     goss: Optional[Tuple[int, int]]
+    efb_width: Optional[Tuple[int, int]] = None
+    efb_s: float = 0.0
 
 
 def skip_counts(ests, W) -> bool:
@@ -186,8 +215,8 @@ def skip_counts(ests, W) -> bool:
 def boost_chains(ests, binned: torch.Tensor, edges, y: torch.Tensor,
                  W: torch.Tensor, base: torch.Tensor, val_idx,
                  hist_fn: HistFn = seg_level_hists,
-                 rng: Optional[np.random.Generator] = None
-                 ) -> BoostedChains:
+                 rng: Optional[np.random.Generator] = None,
+                 csr: Optional[FeatureCSR] = None) -> BoostedChains:
     """THE boosting loop: S chains advanced in lockstep one round at a
     time — the JAX package's sequential fits are one chain, its
     ``GBTGridGroup`` one chain per (candidate x fold).
@@ -217,14 +246,20 @@ def boost_chains(ests, binned: torch.Tensor, edges, y: torch.Tensor,
     softmax nor subsampled (the JAX package's per-round loop never
     samples): chain s's tree of round r then grows on
     ``gbdt_kernels.goss_select(|g|, seed, r, s)``'s rows.  ``hist_fn``
-    builds every level's histograms (the kernel wrapper by default)."""
+    builds every level's histograms (the kernel wrapper by default).
+
+    Where the JAX package bundles (``efb_enabled``, neither softmax nor
+    subsampled, no CSR) the chains grow on ``maybe_bundle``'s bundled
+    matrix, GOSS samples included, with the member end table, and each
+    tree is unbundled as it is grown.  ``csr`` (``prep_tree_csr``): levels
+    of up to ``SPARSE_MAX_SLOTS`` slots build from the nonzero entries
+    (``csr_hist_fn``), unless GOSS engages."""
     e0 = ests[0]
     dev = binned.device
     S, (n, d) = len(ests), binned.shape
     max_iter, mb = int(e0.max_iter), int(e0.max_bins)
     patience = int(e0.early_stopping_rounds)
-    dd = (torch.from_numpy(default_dir_mask(edges)).to(dev)
-          if e0.sparse_default_direction else None)
+    dd_host = default_dir_mask(edges) if e0.sparse_default_direction else None
     base = base.to(dev, torch.float32)
     K = base.shape[1] if base.dim() == 2 else 1
     obj = "multiclass" if base.dim() == 2 else e0._objective
@@ -234,8 +269,22 @@ def boost_chains(ests, binned: torch.Tensor, edges, y: torch.Tensor,
         raise ValueError("subsampling grows one chain from an rng")
     per_round = obj == "multiclass" or sub_rows or sub_cols
     counts = per_round or not skip_counts(ests, W.cpu().numpy())
+    efb, efb_s = None, 0.0
+    if not per_round and csr is None and efb_enabled():
+        t0 = time.perf_counter()
+        efb = maybe_bundle(binned, edges, mb)
+        _sync(dev)
+        efb_s = time.perf_counter() - t0
     goss = None if per_round else goss_plan(
         n, min(int(e.max_depth) for e in ests))
+    if csr is not None and goss is None:
+        hist_fn = csr_hist_fn(csr, hist_fn)
+    gb, bend = binned, None        # the matrix the trees grow on
+    if efb is not None:
+        gb, bend = efb.binned, efb.end_bin
+        if dd_host is not None:
+            dd_host = efb.bundles.bundled_dd_mask(dd_host)
+    dd = torch.from_numpy(dd_host).to(dev) if dd_host is not None else None
     es_chunk = max(1, min(8, patience or 8))
     run_es = patience > 0 and len(val_idx) > 0
     vi = torch.from_numpy(np.asarray(val_idx, np.int64)).to(dev)
@@ -275,11 +324,11 @@ def boost_chains(ests, binned: torch.Tensor, edges, y: torch.Tensor,
                     mask = torch.from_numpy(mask).to(dev)
                 G, H = gbt_grad_hess(obj, Fm[s], target, bw)
                 C = bw if counts else None
-                tb = binned
+                tb = gb
                 if goss is not None:
                     idx, mult = gbdt_kernels.goss_select(
                         G[:, 0].abs(), int(e0.seed), rid, s, *goss)
-                    tb = goss_rows(binned, idx)
+                    tb = goss_rows(gb, idx)
                     G, H = G[idx] * mult[:, None], H[idx] * mult[:, None]
                     C = None if C is None else C[idx] * mult
                 tree = grow_tree(
@@ -292,10 +341,16 @@ def boost_chains(ests, binned: torch.Tensor, edges, y: torch.Tensor,
                     min_gain_raw=float(e.min_split_gain_raw),
                     learning_rate=float(e.step_size),
                     default_dir=bool(e0.sparse_default_direction),
-                    dd_mask=dd, hist_fn=hist_fn)
+                    dd_mask=dd, hist_fn=hist_fn, bundle_end=bend)
                 del tb
                 levels += depth
-                Fm[s] += predict_tree(binned, *tree, depth)
+                if efb is None:
+                    Fm[s] += predict_tree(binned, *tree, depth)
+                else:
+                    Fm[s] += predict_tree_bundled(gb, *tree, depth, bend)
+                    tree = TreeArrays(*unbundle_ensemble(
+                        efb.bundles, tree.feat, tree.thresh, efb.tables),
+                        tree.leaf)
                 trees[s].append(tree)
                 if run_es:
                     ms.append(gbt_es_metric(obj, Fm[s][vi], y_val).to(
@@ -313,7 +368,9 @@ def boost_chains(ests, binned: torch.Tensor, edges, y: torch.Tensor,
     # a chain that never improved (or ran without early stopping) keeps
     # every round grown
     best_len[best_len == 0] = n_rounds
-    return BoostedChains(trees, best_len, levels, goss)
+    return BoostedChains(trees, best_len, levels, goss,
+                         None if efb is None else (d, efb.bundles.width),
+                         efb_s)
 
 
 class _GBTBase(PredictorEstimator):
@@ -381,6 +438,7 @@ class _GBTBase(PredictorEstimator):
         with torch.profiler.record_function("tmog.binning"):
             t0 = time.perf_counter()
             edges, binned = prep_tree_inputs(X, self.max_bins)
+            csr = prep_tree_csr(X, edges, binned)
             _sync(dev)
             timing["binning_s"] = time.perf_counter() - t0
 
@@ -399,7 +457,7 @@ class _GBTBase(PredictorEstimator):
             out = boost_chains(
                 [self], binned, edges, torch.from_numpy(y).to(dev),
                 torch.from_numpy(train_w).to(dev)[None],
-                torch.from_numpy(base), np.where(val)[0], rng=rng)
+                torch.from_numpy(base), np.where(val)[0], rng=rng, csr=csr)
             kept = out.trees[0][:int(out.best_len[0])]
             model = TreeEnsembleModel(
                 mode=_GBT_MODES[obj], edges=edges,
@@ -409,13 +467,18 @@ class _GBTBase(PredictorEstimator):
                 base_score=0.0 if obj == "multiclass" else float(base[0]),
                 n_classes=k if obj == "multiclass" else 2)
             _sync(dev)
-            timing["boosting_s"] = time.perf_counter() - t0
+            # the bundling plan and encode, timed apart from the rounds
+            timing["bundling_s"] = out.efb_s
+            timing["boosting_s"] = time.perf_counter() - t0 - out.efb_s
         self.metadata["fit_timing"] = timing
         self.metadata["rounds_grown"] = len(out.trees[0])
         self.metadata["best_len"] = len(kept)
         self.metadata["hist_levels"] = out.levels
         self.metadata["goss"] = (list(out.goss) if out.goss is not None
                                  else None)
+        self.metadata["efb_width"] = (list(out.efb_width)
+                                      if out.efb_width is not None else None)
+        self.metadata["csr"] = csr is not None
         return model
 
 
@@ -571,22 +634,192 @@ def sketch_kind(X: torch.Tensor) -> str:
             else "dense")
 
 
+# ---------------------------------------------------------------------------
+# The sweep memo
+# ---------------------------------------------------------------------------
+
+#: most entries the memo holds; the oldest goes first (the JAX package's
+#: capacity).  0 turns the memo off.
+_BIN_CACHE_CAPACITY = 32
+_MEMO: "OrderedDict" = OrderedDict()
+#: id of a matrix tensor -> (weak reference to it, its entries' keys)
+_MEMO_OWNERS: Dict[int, Tuple[weakref.ref, set]] = {}
+_MEMO_LOCK = threading.RLock()
+#: binnings built and binned matrices served from the memo (running
+#: counts; read differences)
+MEMO_STATS = {"binnings": 0, "binning_hits": 0}
+
+
+def _tensor_key(t: torch.Tensor) -> tuple:
+    """What identifies a tensor's content without reading it: its object,
+    its version counter (an in-place write bumps it), its storage address,
+    shape, strides, dtype and device."""
+    return (id(t), t._version, t.data_ptr(), tuple(t.shape), t.stride(),
+            str(t.dtype), str(t.device))
+
+
+def _drop_owner(oid: int, ref: weakref.ref, memo=_MEMO,
+                owners=_MEMO_OWNERS, lock=_MEMO_LOCK) -> None:
+    """A memoized matrix was freed: drop its entries.  (The tables are
+    bound at definition: a tensor freed at interpreter exit finds them
+    even after the module's globals are gone.)"""
+    with lock:
+        owner = owners.get(oid)
+        if owner is not None and owner[0] is ref:
+            for k in owner[1]:
+                memo.pop(k, None)
+            del owners[oid]
+
+
+def memo_get(owner: torch.Tensor, tag: str, extra: tuple,
+             build: Callable[[], object]):
+    """The memoized value of ``build()`` for the tensor ``owner`` under
+    ``tag`` and ``extra`` (hashable parameters of the build), built on a
+    miss.  Entries go oldest first past ``_BIN_CACHE_CAPACITY`` and with
+    their owner tensor."""
+    key = (tag, _tensor_key(owner)) + tuple(extra)
+    oid = id(owner)
+    with _MEMO_LOCK:
+        if key in _MEMO:
+            ref = _MEMO_OWNERS.get(oid)
+            if ref is not None and ref[0]() is owner:
+                _MEMO.move_to_end(key)
+                return _MEMO[key]
+    val = build()
+    if _BIN_CACHE_CAPACITY <= 0:
+        return val
+    with _MEMO_LOCK:
+        while len(_MEMO) >= _BIN_CACHE_CAPACITY:
+            old, _ = _MEMO.popitem(last=False)
+            entry = _MEMO_OWNERS.get(old[1][0])
+            if entry is not None:
+                entry[1].discard(old)
+        entry = _MEMO_OWNERS.get(oid)
+        if entry is None or entry[0]() is not owner:
+            ref = weakref.ref(owner, lambda r, oid=oid: _drop_owner(oid, r))
+            entry = (ref, set())
+            _MEMO_OWNERS[oid] = entry
+        entry[1].add(key)
+        _MEMO[key] = val
+    return val
+
+
+def clear_sweep_caches() -> None:
+    """Release every memoized sketch, binned matrix, bundling plan and CSR
+    (``OpWorkflow.train`` calls it at its end, as the JAX package's
+    does)."""
+    with _MEMO_LOCK:
+        _MEMO.clear()
+        _MEMO_OWNERS.clear()
+
+
+def _edges_key(edges) -> tuple:
+    e = np.ascontiguousarray(np.asarray(edges, np.float32))
+    return (e.shape, hashlib.blake2b(e.tobytes(), digest_size=16).digest())
+
+
+def binned_for_edges(X: torch.Tensor, edges) -> torch.Tensor:
+    """``apply_bins(X, edges)`` through the memo: a fit's binning and the
+    scoring of the same matrix with the fit's edges share one entry."""
+    def build():
+        MEMO_STATS["binnings"] += 1
+        return apply_bins(X, edges)
+
+    before = MEMO_STATS["binnings"]
+    out = memo_get(X, "binned", _edges_key(edges), build)
+    if MEMO_STATS["binnings"] == before:
+        MEMO_STATS["binning_hits"] += 1
+    return out
+
+
+def _sketch_rows(X: torch.Tensor, row_weight) -> int:
+    """The rows a sketch reads: up to the last one of positive
+    ``row_weight`` (all, without weights or with none positive)."""
+    if row_weight is not None:
+        nz = np.flatnonzero(np.asarray(row_weight) > 0)
+        if len(nz):
+            return int(nz[-1]) + 1
+    return X.shape[0]
+
+
 def prep_tree_inputs(X: torch.Tensor, max_bins: int, row_weight=None):
     """Bin edges and the binned matrix of a tree fit: the quantile sketch
     (``sketch_kind``'s choice) over the rows up to the last one of
     positive ``row_weight`` (a trailing block of zero-weight rows never
     moves the edges; interior ones stay in the sketch, as in the JAX
-    package's weighted sketch), binning over every row."""
-    Xm = X
-    if row_weight is not None:
-        nz = np.flatnonzero(np.asarray(row_weight) > 0)
-        if len(nz):
-            Xm = X[:nz[-1] + 1]
+    package's weighted sketch), binning over every row; both memoized."""
+    k = _sketch_rows(X, row_weight)
+    Xm = X if k == X.shape[0] else X[:k]
     kind = sketch_kind(Xm)
     SKETCH_KINDS[kind] += 1
-    edges = (quantile_bins_sparse_aware(Xm, max_bins)
-             if kind == "sparse_aware" else quantile_bins(Xm, max_bins))
-    return edges, apply_bins(X, edges)
+    edges = memo_get(X, "edges", (k, kind, int(max_bins)), lambda: (
+        quantile_bins_sparse_aware(Xm, max_bins) if kind == "sparse_aware"
+        else quantile_bins(Xm, max_bins)))
+    return edges, binned_for_edges(X, edges)
+
+
+def dense_tree_inputs(X: torch.Tensor, max_bins: int):
+    """Edges of the dense sketch (``quantile_bins``, what the decision
+    trees bin with, whatever the sparse rule says) and the binned matrix,
+    through the memo: a dense matrix's entry is ``prep_tree_inputs``'."""
+    edges = memo_get(X, "edges", (X.shape[0], "dense", int(max_bins)),
+                     lambda: quantile_bins(X, max_bins))
+    return edges, binned_for_edges(X, edges)
+
+
+def prep_tree_csr(X: torch.Tensor, edges, binned: torch.Tensor,
+                  row_weight=None) -> Optional[FeatureCSR]:
+    """The CSR of a boosted fit's matrix, memoized, or None: the JAX
+    package builds one only under ``TMOG_SPARSE_HIST=1``, for a matrix the
+    sparse rule sends to the nonzero-aware sketch (``sketch_kind``), whose
+    sketch reads every row, and that ``build_feature_csr`` accepts."""
+    if os.environ.get("TMOG_SPARSE_HIST", "0") != "1":
+        return None
+    if (_sketch_rows(X, row_weight) != X.shape[0]
+            or sketch_kind(X) != "sparse_aware"):
+        return None
+    return memo_get(X, "csr", _edges_key(edges),
+                    lambda: build_feature_csr(X, edges, binned))
+
+
+def efb_enabled() -> bool:
+    """``TMOG_EFB``: '0' turns exclusive feature bundling off, '1' bundles
+    past the width-ratio gate, 'auto' (the default) bundles where the plan
+    shrinks the width to ``EFB_MIN_WIDTH_RATIO`` or less."""
+    return os.environ.get("TMOG_EFB", "auto") != "0"
+
+
+class EFBInputs(NamedTuple):
+    """A bundled fit's inputs: the plan, the bundled matrix, the member
+    end table (B, D_b) int32 and the plan's split map (``col_feat``,
+    ``col_thresh``), all on the matrix's device."""
+    bundles: FeatureBundles
+    binned: torch.Tensor
+    end_bin: torch.Tensor
+    tables: Tuple[torch.Tensor, torch.Tensor]
+
+
+def maybe_bundle(binned: torch.Tensor, edges, max_bins: int
+                 ) -> Optional[EFBInputs]:
+    """The bundling plan of a binned matrix and its bundled copy
+    (memoized on the binned matrix, the edges and ``TMOG_EFB``), or None
+    where the plan declines."""
+    force = os.environ.get("TMOG_EFB", "auto") == "1"
+
+    def build():
+        b = bundle_features(binned, edges, max_bins,
+                            min_width_ratio=(1.0 if force
+                                             else EFB_MIN_WIDTH_RATIO))
+        if b is None:
+            return None
+        dev = binned.device
+        return EFBInputs(b, bundle_matrix(b, binned),
+                         torch.from_numpy(b.end_bin).to(dev),
+                         (torch.from_numpy(b.col_feat).to(dev),
+                          torch.from_numpy(b.col_thresh).to(dev)))
+
+    return memo_get(binned, "efb", _edges_key(edges) + (int(max_bins),
+                                                        force), build)
 
 
 def _feature_subset_size(strategy: str, d: int,
@@ -708,8 +941,7 @@ class OpDecisionTreeClassifier(OpRandomForestClassifier):
         X = torch.as_tensor(X, dtype=torch.float32).to(dev)
         y = np.asarray(y, np.float32)
         cls = self._classification
-        edges = quantile_bins(X, self.max_bins)
-        binned = apply_bins(X, edges)
+        edges, binned = dense_tree_inputs(X, self.max_bins)
         w = (torch.ones(X.shape[0], dtype=torch.float32, device=dev)
              if w is None else torch.as_tensor(np.asarray(w, np.float32)
                                                ).to(dev))

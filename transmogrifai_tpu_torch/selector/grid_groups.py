@@ -38,7 +38,7 @@ from ..models.regression import LinearRegressionModel, OpLinearRegression
 from ..models.trees import (OpRandomForestClassifier,
                             OpRandomForestRegressor, TreeEnsembleModel,
                             _feature_subset_size, _GBTBase, boost_chains,
-                            gbt_base_score, prep_tree_inputs,
+                            gbt_base_score, prep_tree_csr, prep_tree_inputs,
                             rf_probability)
 
 __all__ = ["GridGroup", "LogRegGridGroup", "SoftmaxGridGroup",
@@ -425,9 +425,15 @@ class GBTGridGroup(TreeGridGroup):
     (``skip_counts``: count-gated chains or fractional weights).  A
     chain's validation scores come from its first ``best_len`` trees.  No
     full-train refit chains, as in the JAX group: a GBT winner is refit
-    sequentially.  Declines (None) where the JAX group does: other
-    objectives (a multiclass label), mixed static attributes and
+    sequentially.  The chains grow on the EFB-bundled matrix where the
+    plan bundles (``efb_width`` records (d, d_b), else None) and through
+    the CSR histogram under ``TMOG_SPARSE_HIST=1``, as in the JAX group;
+    splits come back on the original columns, so scoring reads the
+    original binned matrix.  Declines (None) where the JAX group does:
+    other objectives (a multiclass label), mixed static attributes and
     subsampling, whose candidates fall to sequential fits."""
+
+    efb_width = None
 
     _STATIC = ("max_iter", "max_bins", "early_stopping_rounds",
                "validation_fraction", "seed", "subsample_rate", "colsample",
@@ -466,16 +472,19 @@ class GBTGridGroup(TreeGridGroup):
         # train weights for the gradients (sequential fit_raw parity)
         W_full = W_tr[chain_fold]
         W_train = W_full * (~val)[None, :]
+        full_w = self._full_weights(weight_ctxs)
         edges, binned = prep_tree_inputs(X, int(e0.max_bins),
-                                         row_weight=self._full_weights(
-                                             weight_ctxs))
+                                         row_weight=full_w)
+        csr = prep_tree_csr(X, edges, binned, row_weight=full_w)
         t0 = self._lap("binning", t0, dev)
 
         base = gbt_base_score(obj, W_full, y)
         yt = torch.from_numpy(y).to(dev)
         out = boost_chains(chain_est, binned, edges, yt,
                            torch.from_numpy(W_train).to(dev),
-                           torch.from_numpy(base), np.flatnonzero(val))
+                           torch.from_numpy(base), np.flatnonzero(val),
+                           csr=csr)
+        self.efb_width = out.efb_width
         trees, best_len = out.trees, out.best_len
         self.trees_grown += sum(len(t) for t in trees)
         self.hist_levels += out.levels

@@ -34,7 +34,8 @@ from ..models.classification import OpLogisticRegression
 from ..models.prediction import (PredictionBatch, PredictorEstimator,
                                  PredictorModel)
 from ..models.regression import OpLinearRegression
-from ..models.trees import (OpGBTRegressor, OpRandomForestClassifier,
+from ..models.trees import (MEMO_STATS, OpGBTRegressor,
+                            OpRandomForestClassifier,
                             OpRandomForestRegressor, _GBTBase,
                             _RandomForestBase)
 from ..types.columns import ColumnarDataset, FeatureColumn
@@ -237,17 +238,23 @@ class ModelSelector(PredictorEstimator):
                 def fitter(X, y, w, p, proto=proto):
                     est = proto.copy(**p)
                     t0 = time.perf_counter()
+                    built = MEMO_STATS["binnings"]
                     model = est.fit_raw(X, y, w, device=X.device)
-                    self._note_sequential_fit(est, p,
-                                              time.perf_counter() - t0)
+                    self._note_sequential_fit(
+                        est, p, time.perf_counter() - t0,
+                        MEMO_STATS["binnings"] - built)
                     return lambda Xe: self._score_fn(model, Xe)
                 out.append((type(proto).__name__, params, fitter, group))
         return out
 
     def _note_sequential_fit(self, est, params=None,
-                             seconds: Optional[float] = None) -> None:
+                             seconds: Optional[float] = None,
+                             binnings: int = 0) -> None:
+        """Record a fit outside a group: its seconds, the binnings it
+        built (0 where the sweep memo served its binned matrix) and its
+        solver's iterations."""
         fit = {"model": type(est).__name__, "params": params,
-               "seconds": seconds}
+               "seconds": seconds, "binnings_built": binnings}
         if "n_iter" in est.metadata:
             fit["n_iter"] = est.metadata["n_iter"]
         self._seq_fits.append(fit)
@@ -276,6 +283,7 @@ class ModelSelector(PredictorEstimator):
         base_w = splitter.train_weights(y, train_mask)
 
         self._seq_levels, self._seq_trees, self._seq_fits = 0, 0, []
+        memo0 = dict(MEMO_STATS)
         candidates = self._candidates()
         t0 = time.perf_counter()
         best_i, results = self.validator.validate(
@@ -303,10 +311,12 @@ class ModelSelector(PredictorEstimator):
                          if type(p).__name__ == best_name)
             est = proto.copy(**best_params)
             t1 = time.perf_counter()
+            built = MEMO_STATS["binnings"]
             best_model = est.fit_raw(X, y, base_w, device=dev)
             _sync(dev)
             self._note_sequential_fit(est, best_params,
-                                      time.perf_counter() - t1)
+                                      time.perf_counter() - t1,
+                                      MEMO_STATS["binnings"] - built)
         _sync(dev)
         refit_s = time.perf_counter() - t0
 
@@ -334,7 +344,11 @@ class ModelSelector(PredictorEstimator):
                          for g in tree_groups},
             group_hist_levels={type(g).__name__: g.hist_levels
                                for g in tree_groups},
-            sequential_fits=self._seq_fits)
+            sequential_fits=self._seq_fits,
+            tree_binnings={k: MEMO_STATS[k] - memo0[k] for k in memo0},
+            group_efb_width={type(g).__name__: g.efb_width
+                             for g in tree_groups
+                             if hasattr(g, "efb_width")})
         summary = ModelSelectorSummary(
             validation_results=results, best_model_name=best_name,
             best_params=best_params,

@@ -33,7 +33,8 @@ from ..device import DeviceLike, resolve_device
 from ..features.feature import Feature
 from ..models.classification import LogisticRegressionModel
 from ..models.mlp import MLPClassificationModel
-from ..models.regression import LinearRegressionModel
+from ..models.regression import (GLMModel, IsotonicRegressionModel,
+                                 LinearRegressionModel)
 from ..models.trees import TreeEnsembleModel
 from ..ops import date_geo, dsl_transformers, map_vectorizers, vectorizers
 from ..ops.vector_metadata import VectorMetadata
@@ -99,6 +100,9 @@ CLASS_MAP: Dict[str, Type[PipelineStage]] = {
         LogisticRegressionModel,
     "transmogrifai_tpu.models.regression.LinearRegressionModel":
         LinearRegressionModel,
+    "transmogrifai_tpu.models.regression.GLMModel": GLMModel,
+    "transmogrifai_tpu.models.regression.IsotonicRegressionModel":
+        IsotonicRegressionModel,
     "transmogrifai_tpu.models.trees.TreeEnsembleModel": TreeEnsembleModel,
     "transmogrifai_tpu.models.mlp.MLPClassificationModel":
         MLPClassificationModel,

@@ -27,6 +27,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..evaluators.evaluators import OpEvaluatorBase
 from ..features.feature import Feature
+from ..models.trees import clear_sweep_caches
 from ..readers.base import Reader, reader_for
 from ..stages.base import PipelineStage
 from ..types.columns import ColumnarDataset
@@ -90,7 +91,8 @@ class OpWorkflow(_WorkflowCore):
         """Fit every stage of the DAG in layer order on the input data.
 
         The returned model's ``stage_seconds`` maps each stage's class name
-        to its fit+transform wall seconds (synchronised with the device)."""
+        to its fit+transform wall seconds (synchronised with the device).
+        The tree fits' sweep memo is cleared at its end."""
         if validate:
             raise NotImplementedError(
                 "train(validate=True) runs the DAG lint, which is not "
@@ -123,6 +125,9 @@ class OpWorkflow(_WorkflowCore):
         finally:
             for s in placed:
                 s.device = None
+            # the sweep memo's sketches and binned matrices live no
+            # longer than the train
+            clear_sweep_caches()
         model = OpWorkflowModel(self.result_features, fitted, transformed)
         model.reader = self.reader
         model.stage_seconds = seconds
