@@ -22,6 +22,12 @@ to end at full width through the entry points a user calls:
     demo's grid) -> OpWorkflow.train() -> score_and_evaluate(AuPR)
     -> save -> load -> local scorer -> ModelServer
 
+    OpWorkflow().with_raw_feature_filter(scoring_data=...) over the
+    Titanic demo with two planted bad features -> train() (the DAG lint,
+    RawFeatureFilter, the DAG) -> model_insights() -> RecordInsightsLOCO,
+    RecordInsightsCorr -> save -> load; SanityChecker(correlation_type=
+    "spearman"); train() refusing a leaky and a dangling DAG
+
     FeatureBuilder -> transmogrify -> SanityChecker
     -> MultiClassificationModelSelector.with_cross_validation()
     -> OpWorkflow.train() -> score_and_evaluate(F1)
@@ -125,6 +131,32 @@ card's aggregate shared-memory rate):
                 (the holdout bitwise), the local scorer's rows, and
                 TITANIC_SERVE_REQUESTS single rows with text through
                 ModelServer (p50/p99, ``request_split``)
+  6b. validate_explain  the Titanic phase's 1M + 100k rows with two
+                planted raw features (seed VE_SEED): ``leak``, null exactly
+                where Survived is 1, and ``rare``, filled on VE_RARE_SHARE
+                of the rows; the demo trained with a RawFeatureFilter
+                whose scoring data is the holdout with Fare scaled by
+                VE_FARE_SCALE: the lint's wall and rule counts (none), the
+                filter's seconds (numeric profiles on the card, text on
+                the host), its drop list (must be exactly leak and rare,
+                and no fitted stage may read them), each JS divergence
+                (Fare's must stay below 0.9), the train's wall and stage
+                seconds, holdout AuPR against the Titanic floor, the
+                kernel's launches against the growers' levels;
+                model_insights()'s JSON size and top 5 contributions;
+                RecordInsightsLOCO on VE_LOCO_ROWS holdout rows (seconds,
+                rows/s); RecordInsightsCorr, Pearson and Spearman, fitted
+                and applied on the whole holdout; save -> load keeping
+                rawFeatureFilterResults; then ``lint_refusals``: a label
+                wired into a vectorizer (TM006) and an input no stage
+                makes (TM001) raise PipelineLintError before any data is
+                read; ``rff_numeric``: RawFeatureFilter over the slice's
+                1M + 100k x 500 Real columns (seconds; VE_CHECK_COLS
+                random columns' bins bitwise to the host numpy histogram;
+                nothing dropped); ``spearman_loco``: the Spearman
+                SanityChecker on the slice's 1M x 500 matrix (seconds, 50
+                columns within 1e-5 of float64 numpy) and LOCO through the
+                slice's boosted model on VE_XGB_LOCO_ROWS holdout rows
   7. multiclass  the same 500 Real columns with a K = 5 label from its
                 own seed (class logits: log priors 0.40 / 0.25 / 0.15 /
                 0.12 / 0.08, a linear part of standard deviation
@@ -268,10 +300,9 @@ The phases that run torch.profiler come after the slice and the selector,
 so no profiler session runs in the process before their walls are taken.
 Then the ``kernels`` summary line (``launches``: the slice's, the
 selector's, the regression phase's, the titanic phase's (its efb fits
-too), the multiclass phase's, the boosted_multi phase's train,
-xgb_defaults and count_and_subsample fits, and the xgb_wide phase's three
-fits), the card's
-name and power limit,
+too), the validate_explain phase's train, the multiclass phase's, the
+boosted_multi phase's train, xgb_defaults and count_and_subsample fits,
+and the xgb_wide phase's three fits), the card's name and power limit,
 and the result line.  Any
 failed check exits non-zero.  Without a CUDA device the script exits with
 code 1 and prints no result.
@@ -290,16 +321,23 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from transmogrifai_tpu_torch.analysis import PipelineLintError
 from transmogrifai_tpu_torch.cuda_build import build
 from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
 from transmogrifai_tpu_torch.evaluators.metrics import (aupr,
                                                         multiclass_metrics)
 from transmogrifai_tpu_torch.features.builder import FeatureBuilder
+from transmogrifai_tpu_torch.features.feature import Feature
+from transmogrifai_tpu_torch.filters import RawFeatureFilter
+from transmogrifai_tpu_torch.insights import (RecordInsightsCorr,
+                                              RecordInsightsLOCO,
+                                              parse_insights)
 from transmogrifai_tpu_torch.local import score_function_batch
 from transmogrifai_tpu_torch.models import gbdt_kernels as gk
 from transmogrifai_tpu_torch.models.classification import \
@@ -320,7 +358,8 @@ from transmogrifai_tpu_torch.models.trees import (MEMO_STATS, SKETCH_KINDS,
                                                   prep_tree_csr,
                                                   prep_tree_inputs)
 from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
-from transmogrifai_tpu_torch.ops.vectorizers import (SmartTextVectorizer,
+from transmogrifai_tpu_torch.ops.vectorizers import (RealVectorizer,
+                                                     SmartTextVectorizer,
                                                      SmartTextVectorizerModel)
 from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
 from transmogrifai_tpu_torch.readers.files import CSVReader
@@ -332,6 +371,8 @@ from transmogrifai_tpu_torch.serving import ModelServer
 from transmogrifai_tpu_torch.serving.http import make_http_server
 from transmogrifai_tpu_torch.types import feature_types as ft
 from transmogrifai_tpu_torch.types.columns import ColumnarDataset, FeatureColumn
+from transmogrifai_tpu_torch.utils.streaming_histogram import \
+    StreamingHistogram
 from transmogrifai_tpu_torch.workflow.dag import compute_dag, transform_dag
 from transmogrifai_tpu_torch.workflow.workflow import (OpWorkflow,
                                                        OpWorkflowModel)
@@ -457,6 +498,18 @@ GLM_DEVIANCE_RATIO = 1.02
 #: how far the calibrated holdout AuPR may sit from the raw one: a
 #: monotone map keeps the order but flat steps make ties
 ISO_AUPR_GAP = 0.01
+#: validate_explain: the planted features' seed, ``rare``'s fill rate
+#: (below RawFeatureFilter's min_fill_rate of 0.001), the scoring data's
+#: Fare scale, LOCO's rows on the demo and on the slice's boosted model,
+#: the columns held to the host histogram and to numpy's Spearman, and the
+#: columns stacked a copy to the card
+VE_SEED = 29
+VE_RARE_SHARE = 0.0005
+VE_FARE_SCALE = 1.5
+VE_LOCO_ROWS, VE_XGB_LOCO_ROWS = 10_000, 2_000
+VE_CHECK_COLS, VE_SPEARMAN_CHECK, VE_STACK_COLS = 20, 50, 50
+#: host threads of those checks (numpy's sorts release the GIL)
+VE_HOST_THREADS = 8
 
 
 def _smi(query: str) -> str:
@@ -1427,9 +1480,10 @@ def titanic_data(rows: int, holdout: int):
     return train, hold, p[rows:], time.perf_counter() - t0
 
 
-def build_titanic():
+def build_titanic(extra=()):
     """The demo's DAG exactly as examples/op_titanic_simple.py builds it,
-    with the port's imports: (prediction, features, checked, selector)."""
+    with the port's imports: (prediction, features, checked, selector);
+    ``extra`` predictors join its ``transmogrify`` list."""
     survived = FeatureBuilder.RealNN("Survived").as_response()
     pclass = FeatureBuilder.PickList("Pclass").as_predictor()
     name = FeatureBuilder.Text("Name").as_predictor()
@@ -1448,7 +1502,7 @@ def build_titanic():
 
     features = transmogrify([pclass, name, age, sibsp, parch, ticket,
                              fare, cabin, embarked, family_size,
-                             estimated_cost, pivoted_sex])
+                             estimated_cost, pivoted_sex, *extra])
     checked = SanityChecker(remove_bad_features=True).set_input(
         survived, features).get_output()
     selector = BinaryClassificationModelSelector.with_cross_validation(
@@ -1542,12 +1596,13 @@ def _titanic_rows(hold, k: int) -> list:
     return _regression_rows(hold, names, k)
 
 
-def phase_titanic(rows: int, holdout: int, reps: int, bw: float,
-                  f32: float, smem_bw: float):
+def phase_titanic(tdata, reps: int, bw: float, f32: float, smem_bw: float):
     """The reference's headline demo on the card: train, the sketch it
     took, holdout AuPR against the attainable, the kernel on the demo's
-    own levels, save/load, the local scorer and single-row serving."""
-    train, hold, p_hold, data_s = titanic_data(rows, holdout)
+    own levels, save/load, the local scorer and single-row serving.
+    ``tdata`` is ``titanic_data``'s."""
+    train, hold, p_hold, data_s = tdata
+    rows, holdout = len(train), len(hold)
     pred, features, checked, selector = build_titanic()
     wf = OpWorkflow().set_result_features(pred).set_input_data(train)
 
@@ -1701,6 +1756,339 @@ def phase_titanic(rows: int, holdout: int, reps: int, bw: float,
           f"model's, shed {snap['shed']}, device errors "
           f"{snap['deviceErrors']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the validate_explain phase: the DAG lint, RawFeatureFilter, ModelInsights,
+# RecordInsights LOCO and Corr, Spearman
+# ---------------------------------------------------------------------------
+
+def _with_planted(ds, rng, fare_scale: float = 1.0):
+    """``ds`` with the RawFeatureFilter's two planted raw features: ``leak``
+    (null exactly where Survived is 1) and ``rare`` (filled on
+    VE_RARE_SHARE of the rows), and Fare scaled by ``fare_scale``."""
+    n = len(ds)
+    y = np.asarray(ds["Survived"].values)
+    leak = np.where(y == 1, np.nan, rng.normal(size=n))
+    rare = np.where(rng.random(n) < VE_RARE_SHARE, rng.normal(size=n),
+                    np.nan)
+    cols = {"leak": FeatureColumn.from_values(ft.Real, leak),
+            "rare": FeatureColumn.from_values(ft.Real, rare)}
+    if fare_scale != 1.0:
+        cols["Fare"] = FeatureColumn.from_values(
+            ft.Real, np.asarray(ds["Fare"].values) * fare_scale)
+    return ds.with_columns(cols)
+
+
+def _lint_refusals(train) -> dict:
+    """A label wired into a vectorizer (TM006) and an input no stage makes
+    (TM001): each train must raise PipelineLintError before it reads any
+    data."""
+    survived = FeatureBuilder.RealNN("Survived").as_response()
+    age = FeatureBuilder.Real("Age").as_predictor()
+    leaky = RealVectorizer().set_input(survived, age)
+    ghost = Feature(name="ghost", ftype=ft.Real, origin_stage=age.origin_stage,
+                    parents=[])
+    dangling = RealVectorizer().set_input(ghost)
+    out = {}
+    for rule, feat in (("TM006", leaky.get_output()),
+                       ("TM001", dangling.get_output())):
+        wf = OpWorkflow().set_result_features(feat).set_input_data(train)
+        reads = []
+        inner = wf.reader.generate_dataset
+        wf.reader.generate_dataset = lambda fs: reads.append(1) or inner(fs)
+        t0 = time.perf_counter()
+        try:
+            wf.train()
+            fired = None
+        except PipelineLintError as e:
+            fired = e.findings.rules_fired()
+        out[rule] = {"raised": fired, "data_reads": len(reads),
+                     "s": time.perf_counter() - t0}
+        check(fired == [rule] and not reads,
+              f"lint: the {rule} pipeline raised {fired} after {len(reads)} "
+              f"data reads")
+    return out
+
+
+def _np_spearman(x: np.ndarray, y: np.ndarray) -> float:
+    """float64 Spearman correlation: Pearson of the average ranks."""
+    def rank(v):
+        order = np.argsort(v, kind="stable")
+        s = v[order]
+        first = np.r_[True, s[1:] != s[:-1]]
+        gid = np.cumsum(first) - 1
+        starts = np.flatnonzero(first)
+        ends = np.r_[starts[1:], len(v)] - 1
+        r = np.empty(len(v))
+        r[order] = (starts[gid] + ends[gid]) / 2.0 + 1.0
+        return r
+    rx, ry = rank(x), rank(y)
+    rx -= rx.mean()
+    ry -= ry.mean()
+    return float(rx @ ry / np.sqrt((rx @ rx) * (ry @ ry)))
+
+
+def _device_matrix(ds, names) -> torch.Tensor:
+    """Columns ``names`` of a host dataset as one float32 (N, d) matrix on
+    the card, stacked VE_STACK_COLS at a time."""
+    X = torch.empty((len(ds), len(names)), dtype=torch.float32,
+                    device="cuda")
+    for a in range(0, len(names), VE_STACK_COLS):
+        blk = np.stack([np.asarray(ds[n].values, np.float32)
+                        for n in names[a:a + VE_STACK_COLS]], axis=1)
+        X[:, a:a + VE_STACK_COLS] = torch.from_numpy(blk).cuda()
+    return X
+
+
+def phase_validate_explain(tdata, data, xgb, cols: int) -> dict:
+    """The validation-and-explanation path on the card (the module
+    docstring's phase 6b)."""
+    train, hold, p_hold, _ = tdata
+    rng = np.random.default_rng(VE_SEED)
+    phase_t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    train_p = _with_planted(train, rng)
+    hold_p = _with_planted(hold, rng)
+    score_p = _with_planted(hold, rng, fare_scale=VE_FARE_SCALE)
+    data_s = time.perf_counter() - t0
+
+    pred, features, checked, selector = build_titanic(extra=(
+        FeatureBuilder.Real("leak").as_predictor(),
+        FeatureBuilder.Real("rare").as_predictor()))
+    wf = (OpWorkflow().set_result_features(pred).set_input_data(train_p)
+          .with_raw_feature_filter(scoring_data=score_p))
+    torch.cuda.synchronize()
+    gk.seg_level_hists.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train()
+    train_s = time.perf_counter() - t0
+    launches = gk.seg_level_hists.launches
+    rff = model.raw_feature_filter_results
+    score_by = {(d.name, d.key): d for d in rff.score_distributions}
+    js = {d.full_name: d.js_divergence(score_by[(d.name, d.key)])
+          for d in rff.train_distributions if (d.name, d.key) in score_by}
+    leftover = sorted({n for s in model.stages for n in s.input_names}
+                      & {"leak", "rare"})
+    scored, metrics = model.score_and_evaluate(
+        Evaluators.BinaryClassification.auPR(), data=hold_p)
+    y_hold = torch.as_tensor(np.asarray(hold["Survived"].values, np.float32))
+    attainable = aupr(y_hold, torch.from_numpy(p_hold.astype(np.float32)))
+    aupr_hold = float(metrics["AuPR"])
+
+    t0 = time.perf_counter()
+    insights = model.model_insights()
+    doc = json.dumps(insights.to_json(), default=str)
+    insights_s = time.perf_counter() - t0
+
+    # record insights on the holdout's checked vectors
+    t0 = time.perf_counter()
+    full = model.score(hold_p, keep_intermediate_features=True,
+                       keep_raw_features=True)
+    vec, pcol = full[checked.name], full[pred.name]
+    torch.cuda.synchronize()
+    vec_s = time.perf_counter() - t0
+    selected = next(s for s in model.stages
+                    if "model_selector_summary" in s.metadata)
+    loco_col = FeatureColumn(vec.ftype, vec.values[:VE_LOCO_ROWS],
+                             vmeta=vec.vmeta)
+    loco = RecordInsightsLOCO(selected, top_k=20)
+    t0 = time.perf_counter()
+    loco_out = loco.transform_columns(loco_col).values
+    torch.cuda.synchronize()
+    loco_s = time.perf_counter() - t0
+    loco_first = parse_insights(loco_out[0])
+    corr = {}
+    for kind in ("pearson", "spearman"):
+        t0 = time.perf_counter()
+        fitted = RecordInsightsCorr(correlation_type=kind).fit_columns(
+            None, pcol, vec)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows_out = fitted.transform_columns(pcol, vec).values
+        corr[kind] = {"fit_s": fit_s, "transform_s": time.perf_counter() - t0,
+                      "rows": len(rows_out),
+                      "keys_row0": len(rows_out[0]),
+                      "finite": bool(np.isfinite(fitted.score_corr).all())}
+    del full, vec, pcol, loco_col
+
+    # save -> load keeps rawFeatureFilterResults
+    tmp = os.path.join(REPO, "smoke_out")
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        model.save(os.path.join(tmp, "rff"))
+        loaded = OpWorkflowModel.load(os.path.join(tmp, "rff"))
+        kept = (json.dumps(loaded.raw_feature_filter_results, sort_keys=True)
+                == json.dumps(rff.to_json(), sort_keys=True))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    snap = model.lint_snapshot
+    out = {"phase": "validate_explain", "rows": len(train),
+           "holdout": len(hold), "data_s": data_s, "train_s": train_s,
+           "stage_seconds": model.stage_seconds,
+           "lint_s": snap.wall_s, "lint_rule_counts": snap.rule_counts,
+           "rff_s": model.raw_feature_filter_seconds,
+           "rff_profile_s": rff.profile_seconds,
+           "dropped": rff.dropped_features,
+           "dropped_map_keys": rff.dropped_map_keys,
+           "js_divergence": js,
+           "leak_null_label_corr": next(
+               d.null_label_corr() for d in rff.train_distributions
+               if d.name == "leak"),
+           "rare_fill_rate": next(d.fill_rate() for d in
+                                  rff.train_distributions
+                                  if d.name == "rare"),
+           "holdout_aupr": aupr_hold, "attainable_aupr": attainable,
+           "aupr_floor": TITANIC_AUPR_SHARE * attainable,
+           "winner": selector.metadata["model_selector_summary"][
+               "bestModelType"],
+           "seg_hist_launches": launches,
+           "growers_hist_levels": selector.metadata["hist_levels"],
+           "insights_s": insights_s, "insights_json_bytes": len(doc),
+           "insights_top5": insights.top_contributions(5),
+           "holdout_vectors_s": vec_s,
+           "loco_rows": VE_LOCO_ROWS, "loco_slots": loco.slots_scored,
+           "loco_s": loco_s, "loco_rows_per_s": VE_LOCO_ROWS / loco_s,
+           "loco_row0_top": list(loco_first)[:5],
+           "corr": corr, "rff_results_kept_after_load": kept,
+           "part_s": time.perf_counter() - phase_t0}
+    emit(out)
+    check(rff.dropped_features == ["leak", "rare"],
+          f"validate_explain: RawFeatureFilter dropped "
+          f"{rff.dropped_features}, not ['leak', 'rare']")
+    check(js.get("Fare", 1.0) < 0.9, f"validate_explain: Fare's JS "
+          f"divergence {js.get('Fare')} (it must be kept)")
+    check(not leftover, f"validate_explain: fitted stages still read "
+          f"{leftover}")
+    check(launches > 0 and launches == selector.metadata["hist_levels"],
+          f"validate_explain: seg_hist launches {launches} != the growers' "
+          f"{selector.metadata['hist_levels']}")
+    check(aupr_hold >= TITANIC_AUPR_SHARE * attainable,
+          f"validate_explain: holdout AuPR {aupr_hold} below "
+          f"{TITANIC_AUPR_SHARE} x the attainable {attainable}")
+    check(len(loco_out) == VE_LOCO_ROWS and 0 < len(loco_first) <= 20
+          and all(np.isfinite(v).all() for v in loco_first.values()),
+          "validate_explain: LOCO rows malformed")
+    check(all(c["rows"] == len(hold) and c["finite"] for c in corr.values()),
+          f"validate_explain: RecordInsightsCorr {corr}")
+    check(kept, "validate_explain: rawFeatureFilterResults changed in a "
+          "save/load round trip")
+    check(snap.rule_counts == {}, f"validate_explain: lint findings "
+          f"{snap.rule_counts} on the demo's DAG")
+    del model, loaded
+
+    emit({"phase": "validate_explain.lint_refusals",
+          **_lint_refusals(train)})
+    out["launches_total"] = launches
+    out.update(_numeric_rff(data, cols))
+    out.update(_spearman_and_loco(data, xgb, cols))
+    emit({"phase": "validate_explain.total",
+          "phase_s": time.perf_counter() - phase_t0})
+    return out
+
+
+def _numeric_rff(data, cols: int) -> dict:
+    """RawFeatureFilter's numeric profile of the slice's 1M + 100k x 500
+    Real matrix on the card; VE_CHECK_COLS random columns' bins held
+    bitwise to the host numpy histogram of the same values."""
+    train, hold, _ = data
+    raw = [FeatureBuilder.Real(f"f{j}").as_predictor() for j in range(cols)]
+    raw.append(FeatureBuilder.RealNN("label").as_response())
+    rff = RawFeatureFilter(scoring_data=hold)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, res = rff.filter_raw_data(train, raw, device="cuda")
+    profile_s = time.perf_counter() - t0
+    picks = np.random.default_rng(VE_SEED).choice(cols, VE_CHECK_COLS,
+                                                  replace=False)
+    t0 = time.perf_counter()
+
+    def differs(j):
+        d = res.train_distributions[j]
+        h = StreamingHistogram(100).update(np.asarray(train[f"f{j}"].values))
+        return not (np.array_equal(d.hist.centroids, h.centroids)
+                    and np.array_equal(d.hist.counts, h.counts))
+
+    with ThreadPoolExecutor(VE_HOST_THREADS) as pool:
+        unequal = [int(j) for j, bad in zip(picks, pool.map(differs, picks))
+                   if bad]
+    host_s = time.perf_counter() - t0
+    out = {"phase": "validate_explain.rff_numeric", "rows": len(train),
+           "score_rows": len(hold), "cols": cols, "profile_s": profile_s,
+           "profile_split_s": res.profile_seconds,
+           "dropped": res.dropped_features,
+           "max_js": max(d.js_divergence(s) for d, s in zip(
+               res.train_distributions, res.score_distributions)),
+           "checked_cols": len(picks), "unequal_cols": unequal,
+           "host_numpy_s_for_checked": host_s,
+           "bins": len(res.train_distributions[0].hist.counts)}
+    emit(out)
+    check(not unequal, f"rff_numeric: columns {unequal} differ from the "
+          f"host histograms")
+    check(res.dropped_features == [], f"rff_numeric: dropped "
+          f"{res.dropped_features} of clean columns")
+    return {"rff_numeric_s": profile_s}
+
+
+def _spearman_and_loco(data, xgb, cols: int) -> dict:
+    """The Spearman SanityChecker on the slice's 1M x 500 matrix (50
+    columns held within 1e-5 of float64 numpy), and LOCO through the
+    slice's boosted model on VE_XGB_LOCO_ROWS holdout rows."""
+    train, hold, _ = data
+    names = [f"f{j}" for j in range(cols)]
+    X = _device_matrix(train, names)
+    y = np.asarray(train["label"].values)
+    checker = SanityChecker(correlation_type="spearman",
+                            max_correlation=0.99)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checker.fit_columns(None, train["label"],
+                        FeatureColumn(ft.OPVector, X))
+    torch.cuda.synchronize()
+    spearman_s = time.perf_counter() - t0
+    stats = checker.metadata["summary"]["columnStats"]
+    k = min(VE_SPEARMAN_CHECK, cols)
+    Xh = X[:, :k].cpu().numpy()
+    del X
+    t0 = time.perf_counter()
+
+    def gap(j):
+        return abs(stats[j]["corr_label"]
+                   - _np_spearman(Xh[:, j].astype(np.float64), y))
+
+    with ThreadPoolExecutor(VE_HOST_THREADS) as pool:
+        diff = max(pool.map(gap, range(k)))
+    numpy_s = time.perf_counter() - t0
+
+    model, pred = xgb["model"], xgb["pred"]
+    tree = pred.origin_stage
+    tree = next(s for s in model.stages if s.uid == tree.uid)
+    vec_name = tree.input_features[1].name
+    part = hold.slice(0, VE_XGB_LOCO_ROWS)
+    vec = model.score(part, keep_intermediate_features=True,
+                       keep_raw_features=True)[vec_name]
+    loco = RecordInsightsLOCO(tree, top_k=20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = loco.transform_columns(vec).values
+    torch.cuda.synchronize()
+    loco_s = time.perf_counter() - t0
+    out = {"phase": "validate_explain.spearman_loco", "rows": len(train),
+           "cols": cols, "spearman_checker_s": spearman_s,
+           "spearman_checked_cols": k,
+           "spearman_max_abs_diff_vs_numpy_f64": diff,
+           "numpy_s_for_checked": numpy_s,
+           "spearman_dropped": len(checker.metadata["summary"]["dropped"]),
+           "xgb_loco_rows": VE_XGB_LOCO_ROWS,
+           "xgb_loco_slots": loco.slots_scored,
+           "xgb_loco_s": loco_s, "xgb_loco_rows_per_s": len(rows) / loco_s}
+    emit(out)
+    check(diff <= 1e-5, f"spearman: {diff} from float64 numpy")
+    check(len(rows) == VE_XGB_LOCO_ROWS and all(len(r) > 0 for r in rows),
+          "xgb LOCO rows malformed")
+    return {"spearman_s": spearman_s, "xgb_loco_s": loco_s}
 
 
 # ---------------------------------------------------------------------------
@@ -3409,8 +3797,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     reg = phase_regression(data, args.cols)
     torch.cuda.empty_cache()
-    titanic = phase_titanic(args.rows, args.holdout, args.reps, bw, f32,
-                            smem_bw)
+    tdata = titanic_data(args.rows, args.holdout)
+    titanic = phase_titanic(tdata, args.reps, bw, f32, smem_bw)
+    torch.cuda.empty_cache()
+    validate = phase_validate_explain(tdata, data, xgb, args.cols)
+    del tdata
     torch.cuda.empty_cache()
     multi, mc = phase_multiclass(data, args.cols, args.reps, bw, f32)
     torch.cuda.empty_cache()
@@ -3466,6 +3857,7 @@ def main() -> int:
                      + reg["seg_hist_launches_total"]
                      + titanic["seg_hist_launches"]
                      + titanic["efb_launches"]
+                     + validate["launches_total"]
                      + multi["seg_hist_launches"]
                      + boosted["launches_total"]
                      + wide["launches_total"]),

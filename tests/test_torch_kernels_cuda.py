@@ -760,3 +760,74 @@ def test_csr_histogram_on_card_matches_kernel(cuda_device, M):
         assert bool(((got - kern).abs() <= ATOL + RTOL * mag).all())
         assert float((got - plain).abs().max()) <= 1e-5
         assert not integer or torch.equal(got, kern)
+
+
+@pytest.mark.cuda
+def test_batched_histograms_on_card_match_host(cuda_device):
+    """The RawFeatureFilter's batched histograms on the card equal the
+    host's bit for bit (no kernel of its own: plain torch ops whose
+    float64 merge arithmetic is one op a rounding on both devices)."""
+    from transmogrifai_tpu_torch.utils.streaming_histogram import (
+        StreamingHistogram, batched_histograms)
+
+    rng = np.random.default_rng(21)
+    X = rng.normal(size=(24, 40_000)).astype(np.float32).astype(np.float64)
+    X[3] = np.round(X[3] * 3)                     # heavy duplicates
+    X[5, ::7] = np.nan                            # nulls
+    X[7] = np.geomspace(1e-3, 1e9, X.shape[1])    # monotone gaps
+    valid = torch.from_numpy(rng.random(X.shape) > 0.01)
+    C, N, L = batched_histograms(torch.from_numpy(X).to(cuda_device),
+                                 valid.to(cuda_device), 100)
+    hc, hn, hl = batched_histograms(torch.from_numpy(X), valid, 100)
+    assert torch.equal(L.cpu(), hl)
+    assert torch.equal(C.cpu(), hc) and torch.equal(N.cpu(), hn)
+    for j in (0, 3, 5, 7):
+        h = StreamingHistogram(100).update(X[j][valid[j].numpy()])
+        m = int(hl[j])
+        assert np.array_equal(hc[j, :m].numpy(), h.centroids)
+        assert np.array_equal(hn[j, :m].numpy(), h.counts)
+
+
+@pytest.mark.cuda
+def test_ranks_on_card_match_host(cuda_device):
+    from transmogrifai_tpu_torch.ops.stats import ranks, spearman_with_label
+
+    rng = np.random.default_rng(22)
+    X = rng.integers(0, 50, size=(30_000, 40)).astype(np.float32)
+    X[:, 1] = rng.normal(size=30_000)
+    y = (rng.random(30_000) < 0.3).astype(np.float32)
+    Xt = torch.from_numpy(X)
+    assert torch.equal(ranks(Xt.to(cuda_device)).cpu(), ranks(Xt))
+    a = spearman_with_label(Xt.to(cuda_device), torch.from_numpy(y).to(
+        cuda_device))
+    b = spearman_with_label(Xt, torch.from_numpy(y))
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_loco_on_card_matches_host(cuda_device):
+    """LOCO through a logistic model on the card against the same model
+    on the CPU: insights within 1e-5, keys equal."""
+    import json
+
+    from transmogrifai_tpu_torch.insights import RecordInsightsLOCO
+    from transmogrifai_tpu_torch.models.classification import \
+        LogisticRegressionModel
+    from transmogrifai_tpu_torch.types.columns import FeatureColumn
+    from transmogrifai_tpu_torch.types.feature_types import OPVector
+
+    rng = np.random.default_rng(23)
+    X = rng.normal(size=(2_000, 60)).astype(np.float32)
+    X[:, 5] = 0.0
+    coef = rng.normal(size=60).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        m = LogisticRegressionModel(coef, 0.1, device=str(dev))
+        col = FeatureColumn(OPVector, torch.from_numpy(X).to(dev))
+        out.append(RecordInsightsLOCO(m, top_k=10).transform_columns(
+            col).values)
+    for a, b in zip(*out):
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_allclose(json.loads(a[k]), json.loads(b[k]),
+                                       rtol=0, atol=1e-5)

@@ -68,6 +68,7 @@ class PredictorEstimator(BinaryEstimator):
     """Base for model estimators: inputs (response RealNN, features OPVector)."""
 
     input_types = (OPNumeric, OPVector)
+    label_input_positions = (0,)
 
     def __init__(self, operation_name: str, uid: Optional[str] = None):
         super().__init__(operation_name=operation_name,
@@ -81,6 +82,7 @@ class PredictorModel(BinaryModel):
     """Base for fitted predictors; subclasses implement ``predict_batch``."""
 
     input_types = (OPNumeric, OPVector)
+    label_input_positions = (0,)
 
     def __init__(self, operation_name: str, uid: Optional[str] = None):
         super().__init__(operation_name=operation_name,

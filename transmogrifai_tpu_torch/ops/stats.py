@@ -15,10 +15,12 @@ import numpy as np
 import torch
 
 __all__ = ["ColStats", "col_stats_with_label", "cramers_v",
-           "contingency_stats"]
+           "contingency_stats", "ranks", "spearman_with_label"]
 
 #: rows per float64 block of the two-pass reductions
 STATS_ROW_BLOCK = 1 << 16
+#: columns ranked at once (one (cols, N) sort)
+RANK_COLS = 32
 
 
 class ColStats(NamedTuple):
@@ -60,6 +62,49 @@ def col_stats_with_label(X: torch.Tensor, y: torch.Tensor) -> ColStats:
     corr = torch.nan_to_num(num / den)
     packed = torch.stack([mean, var, mn.to(f64), mx.to(f64), corr]).cpu()
     return ColStats(*packed.numpy())
+
+
+def ranks(X: torch.Tensor) -> torch.Tensor:
+    """Average ranks (1-based; a tie group's members share its midrank)
+    down each column of ``X`` (N,) or (N, D), as float32.  The midrank
+    (first + last position) / 2 is exact before the cast to float32."""
+    vec = X.dim() == 1
+    Xt = (X[None, :] if vec else X.t()).to(torch.float32)
+    out = torch.empty(Xt.shape, dtype=torch.float32, device=X.device)
+    for a in range(0, Xt.shape[0], RANK_COLS):
+        out[a:a + RANK_COLS] = _row_ranks(Xt[a:a + RANK_COLS].contiguous())
+    return out[0] if vec else out.t()
+
+
+def _row_ranks(x: torch.Tensor) -> torch.Tensor:
+    d, n = x.shape
+    xs, order = torch.sort(x, dim=1, stable=True)
+    pos = torch.arange(n, device=x.device).expand(d, n)
+    first = torch.ones_like(xs, dtype=torch.bool)
+    first[:, 1:] = xs[:, 1:] != xs[:, :-1]
+    last = torch.ones_like(first)
+    last[:, :-1] = first[:, 1:]
+    lo = torch.cummax(torch.where(first, pos, 0), dim=1).values
+    hi = torch.cummin(torch.where(last, pos, n - 1).flip(1),
+                      dim=1).values.flip(1)
+    mid = ((lo + hi).to(torch.float64) / 2 + 1).to(torch.float32)
+    return torch.empty_like(mid).scatter_(1, order, mid)
+
+
+def spearman_with_label(X: torch.Tensor, y: torch.Tensor) -> np.ndarray:
+    """Spearman corr(x_j, y) per column of ``X`` (N, D): Pearson
+    correlation (float64) of the float32 ranks; a column without
+    variance gets 0."""
+    yr = ranks(y).to(torch.float64)
+    yc = yr - yr.mean()
+    yy = yc @ yc
+    out = torch.empty(X.shape[1], dtype=torch.float64, device=X.device)
+    for a in range(0, X.shape[1], RANK_COLS):
+        xr = ranks(X[:, a:a + RANK_COLS]).to(torch.float64)
+        xc = xr - xr.mean(dim=0)
+        den = torch.sqrt((xc * xc).sum(dim=0) * yy)
+        out[a:a + RANK_COLS] = torch.where(den > 0, (yc @ xc) / den, 0.0)
+    return out.cpu().numpy()
 
 
 def contingency_stats(table: np.ndarray) -> Dict[str, float]:

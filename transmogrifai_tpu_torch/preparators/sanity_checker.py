@@ -4,8 +4,10 @@ Counterpart of ``transmogrifai_tpu.preparators.sanity_checker`` with the
 same drop rules: low variance, label correlation above
 ``max_correlation`` (leakage) or below ``min_correlation``, and Cramér's V
 of a categorical group above ``max_cramers_v``.  Statistics are device
-reductions (``ops.stats``); the fitted model gathers the kept columns of
-the device matrix.  Spearman correlation and the streaming fit are not
+reductions (``ops.stats``); the label correlation is Pearson's or, with
+``correlation_type="spearman"``, Spearman's (Pearson on the float32
+average ranks, ``ops.stats.spearman_with_label``).  The fitted model
+gathers the kept columns of the device matrix.  The streaming fit is not
 ported yet.
 """
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.stats import col_stats_with_label, cramers_v
+from ..ops.stats import col_stats_with_label, cramers_v, spearman_with_label
 from ..ops.vector_metadata import VectorMetadata
 from ..stages.base import BinaryEstimator, BinaryModel
 from ..types.columns import ColumnarDataset, FeatureColumn
@@ -33,6 +35,7 @@ class SanityChecker(BinaryEstimator):
     """Inputs: (label RealNN, features OPVector) -> cleaned OPVector."""
 
     input_types = (OPNumeric, OPVector)
+    label_input_positions = (0,)
 
     def __init__(self, check_sample: float = 1.0, sample_seed: int = 42,
                  min_variance: float = 1e-5, min_correlation: float = 0.0,
@@ -43,9 +46,8 @@ class SanityChecker(BinaryEstimator):
                  max_label_classes: int = 100, uid: Optional[str] = None):
         super().__init__(operation_name="sanityCheck", output_type=OPVector,
                          uid=uid)
-        if correlation_type != "pearson":
-            raise NotImplementedError(
-                "only Pearson correlation is ported (ROADMAP Queue A)")
+        if correlation_type not in ("pearson", "spearman"):
+            raise ValueError(f"unknown correlation_type {correlation_type!r}")
         self.check_sample = check_sample
         self.sample_seed = sample_seed
         self.min_variance = min_variance
@@ -71,6 +73,9 @@ class SanityChecker(BinaryEstimator):
             n = len(y)
         vmeta = features_col.vmeta or VectorMetadata("features", [])
         stats = col_stats_with_label(X, y)
+        if self.correlation_type == "spearman":
+            stats = stats._replace(corr=np.nan_to_num(
+                spearman_with_label(X, y)))
 
         uniq = torch.unique(y)
         is_cat_label = (self.categorical_label
@@ -111,6 +116,11 @@ class SanityChecker(BinaryEstimator):
                         f"group Cramér's V {cv:.3f} > {self.max_cramers_v}")
         names = (vmeta.column_names() if vmeta.size == d
                  else [f"f_{j}" for j in range(d)])
+        parents = ([c.parent_feature for c in vmeta.columns]
+                   if vmeta.size == d else ["features"] * d)
+        group_of = ([group_cv.get((c.parent_feature, c.grouping))
+                     for c in vmeta.columns]
+                    if vmeta.size == d else [None] * d)
         keep = ([j for j in range(d) if not to_drop[j]]
                 if self.remove_bad_features else list(range(d)))
         self.metadata["summary"] = {
@@ -118,10 +128,12 @@ class SanityChecker(BinaryEstimator):
             "sampleSize": float(n),
             "dropped": [names[j] for j in range(d) if to_drop[j]],
             "columnStats": [
-                {"name": names[j], "mean": float(stats.mean[j]),
+                {"name": names[j], "parent_feature": parents[j],
+                 "mean": float(stats.mean[j]),
                  "variance": float(stats.variance[j]),
                  "min": float(stats.min[j]), "max": float(stats.max[j]),
                  "corr_label": float(stats.corr[j]),
+                 "cramers_v": group_of[j],
                  "dropped": bool(to_drop[j]), "reasons": reasons[j]}
                 for j in range(d)],
         }
@@ -143,6 +155,7 @@ class SanityCheckerModel(BinaryModel):
     """Index-filter on the feature vector."""
 
     input_types = (OPNumeric, OPVector)
+    label_input_positions = (0,)
 
     def __init__(self, keep_indices: List[int], uid: Optional[str] = None):
         super().__init__(operation_name="sanityCheck", output_type=OPVector,

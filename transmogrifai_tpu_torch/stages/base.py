@@ -35,6 +35,10 @@ class PipelineStage:
     input_arity: Tuple[int, Optional[int]] = (1, None)
     #: declared per-position input types; the last entry repeats
     input_types: Optional[Tuple[Type[FeatureType], ...]] = None
+    #: input positions that legitimately receive the response (position 0
+    #: of SanityChecker and every predictor): the label-leakage lint
+    #: (TM006) lets response-derived features into these only
+    label_input_positions: Tuple[int, ...] = ()
 
     def __init__(self, operation_name: str, output_type: Type[FeatureType],
                  uid: Optional[str] = None):
@@ -53,12 +57,18 @@ class PipelineStage:
                 f"{type(self).__name__} expects between {lo} and {hi} "
                 f"inputs, got {len(features)}")
 
-    def check_input_schema(self, features: Sequence[Feature]) -> None:
+    def expected_input_type(self, i: int) -> Optional[Type[FeatureType]]:
+        """Declared feature type of input ``i`` (None = untyped); for
+        variadic stages the last declared entry repeats."""
         if not self.input_types:
-            return
+            return None
+        return self.input_types[min(i, len(self.input_types) - 1)]
+
+    def check_input_schema(self, features: Sequence[Feature]) -> None:
         for i, f in enumerate(features):
-            exp = self.input_types[min(i, len(self.input_types) - 1)]
-            if not (isinstance(f.ftype, type) and issubclass(f.ftype, exp)):
+            exp = self.expected_input_type(i)
+            if exp is not None and not (isinstance(f.ftype, type)
+                                        and issubclass(f.ftype, exp)):
                 raise SchemaError(
                     f"{type(self).__name__}({self.uid}): input {i} "
                     f"({f.name!r}) must be {exp.__name__}, got "

@@ -31,6 +31,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..features.feature import Feature
+from ..insights.record_insights import (RecordInsightsCorrModel,
+                                        RecordInsightsLOCO)
 from ..models.classification import LogisticRegressionModel
 from ..models.mlp import MLPClassificationModel
 from ..models.regression import (GLMModel, IsotonicRegressionModel,
@@ -107,6 +109,10 @@ CLASS_MAP: Dict[str, Type[PipelineStage]] = {
     "transmogrifai_tpu.models.mlp.MLPClassificationModel":
         MLPClassificationModel,
     "transmogrifai_tpu.selector.model_selector.SelectedModel": SelectedModel,
+    "transmogrifai_tpu.insights.record_insights.RecordInsightsLOCO":
+        RecordInsightsLOCO,
+    "transmogrifai_tpu.insights.record_insights.RecordInsightsCorrModel":
+        RecordInsightsCorrModel,
 }
 _JAX_PATH = {cls: path for path, cls in CLASS_MAP.items()}
 
@@ -280,12 +286,16 @@ def save_workflow_model(model, path: str, overwrite: bool = True) -> None:
                if isinstance(f.origin_stage, FeatureGeneratorStage)]
     for layer in model._scoring_dag().non_generator_layers():
         records += [_stage_record(s, store) for s in layer]
+    rff = getattr(model, "raw_feature_filter_results", None)
     doc = {
         "version": FORMAT_VERSION,
         "versionInfo": version_info().to_json(),
         "resultFeatures": [f.name for f in model.result_features],
         "stages": records,
-        "rawFeatureFilterResults": None,
+        # the results persist in their JSON form; a loaded model carries
+        # the dict (ModelInsights takes either)
+        "rawFeatureFilterResults": (rff.to_json() if hasattr(rff, "to_json")
+                                    else rff),
     }
     # the document first and atomically: a killed save never leaves a
     # truncated op-model.json beside a complete arrays.npz
@@ -412,5 +422,7 @@ def load_workflow_model(path: str, device: DeviceLike = None):
             out.name = saved
         features[out.name] = out
         stages.append(stage)
-    return OpWorkflowModel([features[n] for n in doc["resultFeatures"]],
-                           stages)
+    model = OpWorkflowModel([features[n] for n in doc["resultFeatures"]],
+                            stages)
+    model.raw_feature_filter_results = doc.get("rawFeatureFilterResults")
+    return model

@@ -2,18 +2,21 @@
 of ``transmogrifai_tpu.workflow.workflow``).
 
 Ported: ``OpWorkflow.set_result_features / set_input_data / train`` on the
-in-core path with the train-time serializability gate
-(``allow_non_serializable()`` opts out), ``OpWorkflow.load_model`` and
-``OpWorkflowModel.score / evaluate / score_and_evaluate / save / load``
-(``workflow/persistence.py``) and ``summary / summary_json /
-summary_pretty``.  Every stage that owns a ``device`` runs on
-the workflow's device (``OpWorkflow(device=...)``), which defaults to the
-package default (``cuda`` unless the caller asked for the CPU).
+in-core path with the static DAG lint (``train(validate=True)``, the
+default: ``analysis/linter.py``; errors raise ``PipelineLintError`` before
+any data moves), the train-time serializability gate
+(``allow_non_serializable()`` opts out) and RawFeatureFilter
+(``with_raw_feature_filter``: ``filters/raw_feature_filter.py``),
+``OpWorkflow.load_model`` and ``OpWorkflowModel.score / evaluate /
+score_and_evaluate / save / load`` (``workflow/persistence.py``),
+``summary / summary_json / summary_pretty`` and ``model_insights``
+(``insights/model_insights.py``).  Every stage that owns a ``device``
+runs on the workflow's device (``OpWorkflow(device=...)``), which
+defaults to the package default (``cuda`` unless the caller asked for
+the CPU).
 
-Not ported yet (ROADMAP Queue A): the static DAG lint that
-``train(validate=True)`` runs in the JAX package (so ``validate=True``
-raises here and the default is ``False``), workflow CV, raw feature
-filtering, meshes, checkpoints and out-of-core streaming.
+Not ported yet (ROADMAP Queue A): workflow CV, meshes, checkpoints and
+out-of-core streaming.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from ..features.feature import Feature
 from ..models.trees import clear_sweep_caches
 from ..readers.base import Reader, reader_for
 from ..stages.base import PipelineStage
+from ..stages.generator import FeatureGeneratorStage
 from ..types.columns import ColumnarDataset
 from ..types.feature_types import Prediction
 from .dag import compute_dag, fit_and_transform_dag, transform_dag
@@ -41,6 +45,8 @@ class _WorkflowCore:
     def __init__(self):
         self.result_features: List[Feature] = []
         self.reader: Optional[Reader] = None
+        #: raw features the RawFeatureFilter dropped from the DAG
+        self.blocklisted: List[str] = []
 
     def set_input_data(self, data) -> "_WorkflowCore":
         """Ad-hoc dataset (a ColumnarDataset or pandas DataFrame)."""
@@ -68,6 +74,7 @@ class OpWorkflow(_WorkflowCore):
         super().__init__()
         self.device = device
         self._allow_non_serializable = False
+        self._raw_feature_filter = None
 
     def allow_non_serializable(self) -> "OpWorkflow":
         """Opt out of the train-time serializability gate: train with
@@ -87,18 +94,90 @@ class OpWorkflow(_WorkflowCore):
         self.result_features = list(features)
         return self
 
-    def train(self, validate: bool = False) -> "OpWorkflowModel":
+    def with_raw_feature_filter(self, **kwargs) -> "OpWorkflow":
+        """Profile the raw features before the DAG runs and drop the ones
+        that fail RawFeatureFilter's checks (``kwargs`` are its
+        constructor's)."""
+        from ..filters.raw_feature_filter import RawFeatureFilter
+
+        self._raw_feature_filter = RawFeatureFilter(**kwargs)
+        return self
+
+    def _apply_blocklist(self, dropped: Sequence[str]) -> None:
+        """Prune dropped raw features out of stage inputs: a variadic stage
+        loses the input; a stage whose inputs all drop propagates the
+        drop; a result feature that becomes unreachable is an error."""
+        if not dropped:
+            return
+        self.blocklisted = list(dropped)
+        gone = set(dropped)
+        for layer in compute_dag(self.result_features).layers:
+            for stage in layer:
+                if isinstance(stage, FeatureGeneratorStage):
+                    continue
+                remaining = [f for f in stage.input_features
+                             if f.name not in gone]
+                if len(remaining) == len(stage.input_features):
+                    continue
+                lo, _ = stage.input_arity
+                out = stage.get_output()
+                if remaining and len(remaining) >= max(lo, 1):
+                    stage.input_features = remaining
+                    out.parents = list(remaining)
+                else:
+                    gone.add(out.name)
+        bad = [f.name for f in self.result_features if f.name in gone]
+        if bad:
+            raise ValueError(
+                f"RawFeatureFilter dropped features required by result "
+                f"features {bad}; protect them via protected_features")
+
+    def _lint_dag(self, dag):
+        """The ``train(validate=True)`` gate: errors raise
+        ``PipelineLintError``; the findings come back with the lint's wall
+        seconds."""
+        from ..analysis.diagnostics import PipelineLintError
+        from ..analysis.linter import lint_dag
+
+        t0 = time.perf_counter()
+        findings = lint_dag(dag, result_features=self.result_features,
+                            reader=self.reader)
+        wall = time.perf_counter() - t0
+        if findings.errors:
+            raise PipelineLintError(findings)
+        return findings, wall
+
+    def train(self, validate: bool = True) -> "OpWorkflowModel":
         """Fit every stage of the DAG in layer order on the input data.
+
+        ``validate=True`` (the default) lints the DAG first
+        (``analysis/linter.py``): error-severity findings raise
+        ``PipelineLintError`` before any data is read; the warnings land on
+        the model's ``lint_snapshot`` with the lint's wall seconds.  With a
+        RawFeatureFilter (``with_raw_feature_filter``) the raw data is
+        profiled next, the dropped features leave the DAG, and the pruned
+        DAG is linted again (the snapshot is that lint's, as in the JAX
+        package, which lints after the filter).
 
         The returned model's ``stage_seconds`` maps each stage's class name
         to its fit+transform wall seconds (synchronised with the device).
         The tree fits' sweep memo is cleared at its end."""
-        if validate:
-            raise NotImplementedError(
-                "train(validate=True) runs the DAG lint, which is not "
-                "ported yet (ROADMAP Queue A)")
         dev = resolve_device(self.device)
+        lint = (self._lint_dag(compute_dag(self.result_features))
+                if validate else None)
         data = self.generate_raw_data()
+        filter_results = None
+        rff_seconds = None
+        if self._raw_feature_filter is not None:
+            t0 = time.perf_counter()
+            data, filter_results = self._raw_feature_filter.filter_raw_data(
+                data, self.raw_features(), device=dev)
+            rff_seconds = time.perf_counter() - t0
+            self._apply_blocklist(filter_results.dropped_features)
+            if validate and filter_results.dropped_features:
+                findings, wall = self._lint_dag(
+                    compute_dag(self.result_features))
+                lint = (findings, lint[1] + wall)
         dag = compute_dag(self.result_features)
         _check_unique_uids(dag.all_stages())
         if not self._allow_non_serializable:
@@ -131,6 +210,13 @@ class OpWorkflow(_WorkflowCore):
         model = OpWorkflowModel(self.result_features, fitted, transformed)
         model.reader = self.reader
         model.stage_seconds = seconds
+        model.blocklisted = list(self.blocklisted)
+        model.raw_feature_filter_results = filter_results
+        model.raw_feature_filter_seconds = rff_seconds
+        if lint is not None:
+            from ..analysis.diagnostics import LintSnapshot
+
+            model.lint_snapshot = LintSnapshot.from_findings(*lint)
         return model
 
 
@@ -151,6 +237,13 @@ class OpWorkflowModel(_WorkflowCore):
         self.stages = list(stages)
         self.train_data = train_data
         self.stage_seconds: Dict[str, float] = {}
+        #: ``RawFeatureFilterResults`` of the train (a loaded model: its
+        #: JSON form), else None
+        self.raw_feature_filter_results = None
+        #: the filter's wall seconds in ``train()``, else None
+        self.raw_feature_filter_seconds: Optional[float] = None
+        #: ``LintSnapshot`` from ``OpWorkflow.train(validate=True)``
+        self.lint_snapshot = None
         self._scoring_dag_memo = None
 
     def _scoring_dag(self):
@@ -163,16 +256,31 @@ class OpWorkflowModel(_WorkflowCore):
                  for f in self.result_features])
         return self._scoring_dag_memo
 
-    def score(self, data=None) -> ColumnarDataset:
+    def score(self, data=None, keep_raw_features: bool = False,
+              keep_intermediate_features: bool = False) -> ColumnarDataset:
         """Apply the fitted DAG; returns the responses and result features
-        (every other intermediate is dropped after its last consumer)."""
+        (with ``keep_raw_features`` the raw features first; with
+        ``keep_intermediate_features`` every column is kept, no
+        intermediate dropped after its last consumer)."""
         if data is not None:
             self.set_input_data(data)
-        keep = [f.name for f in self.raw_features() if f.is_response]
-        keep += [f.name for f in self.result_features if f.name not in keep]
+        responses = [f.name for f in self.raw_features() if f.is_response]
+        results = [f.name for f in self.result_features]
+        plan_keep = None
+        if not keep_intermediate_features:
+            plan_keep = set(responses) | set(results)
+            if keep_raw_features:
+                plan_keep |= {f.name for f in self.raw_features()}
         scored = transform_dag(self._scoring_dag(), self.generate_raw_data(),
-                               keep=keep)
-        return scored.select([k for k in keep if k in scored])
+                               keep=sorted(plan_keep)
+                               if plan_keep is not None else None)
+        if keep_raw_features and keep_intermediate_features:
+            return scored
+        keep = results
+        if keep_raw_features:
+            keep = [f.name for f in self.raw_features()] + keep
+        keep = responses + [k for k in keep if k not in responses]
+        return scored.select([k for k in dict.fromkeys(keep) if k in scored])
 
     def evaluate(self, evaluator: OpEvaluatorBase, data=None,
                  scored: Optional[ColumnarDataset] = None) -> Dict[str, float]:
@@ -222,6 +330,15 @@ class OpWorkflowModel(_WorkflowCore):
                     f"SanityChecker dropped {len(sc['dropped'])} columns: "
                     f"{sc['dropped'][:10]}")
         return "\n".join(lines) if lines else "(no fitted summaries)"
+
+    def model_insights(self, feature: Optional[Feature] = None):
+        """One merged document of the trained workflow: the label summary,
+        each raw feature's derived columns with their contributions and
+        SanityChecker statistics, the selector's summary and the
+        RawFeatureFilter results (``insights/model_insights.py``)."""
+        from ..insights.model_insights import extract_model_insights
+
+        return extract_model_insights(self, feature)
 
     def save(self, path: str, overwrite: bool = True) -> None:
         """Write the model in the format both packages read
