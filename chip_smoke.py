@@ -28,6 +28,17 @@ to end at full width through the entry points a user calls:
     RecordInsightsCorr -> save -> load; SanityChecker(correlation_type=
     "spearman"); train() refusing a leaky and a dangling DAG
 
+    FeatureBuilder (the Titanic columns, Email, EmailMap, Phone, Bio,
+    Boarded) -> tokenize, remove_stop_words, ngrams, hashing_tf,
+    word2vec, OpCountVectorizer -> lda, auto_bucketize (the kernel at
+    d = 1), zscore, fill_missing_with_mean, calibrate_percentile, the
+    email, phone and language detectors, to_time_period,
+    jaccard_similarity, transmogrify -> VectorsCombiner
+    -> MinVarianceFilter -> SanityChecker
+    -> BinaryClassificationModelSelector.with_cross_validation()
+    -> OpWorkflow.train() -> score_and_evaluate(AuPR, the full binary
+    metric set) -> save -> load -> score
+
     FeatureBuilder -> transmogrify -> SanityChecker
     -> MultiClassificationModelSelector.with_cross_validation()
     -> OpWorkflow.train() -> score_and_evaluate(F1)
@@ -157,6 +168,33 @@ card's aggregate shared-memory rate):
                 SanityChecker on the slice's 1M x 500 matrix (seconds, 50
                 columns within 1e-5 of float64 numpy) and LOCO through the
                 slice's boosted model on VE_XGB_LOCO_ROWS holdout rows
+  6c. feature_eng  the Titanic phase's 1M + 100k rows with four more raw
+                columns from FE_SEED (``feature_eng_columns``: Email with
+                10% null and 5% malformed, EmailMap of it, Phone with US,
+                +44, invalid and null values, Bio of 4-12 English, German
+                and Spanish words or 2% Cyrillic or CJK text, Boarded over
+                two years) through ``build_feature_eng``'s DAG: the name's
+                tokens -> stop words -> bigrams -> FE_HASH_FEATURES hashed
+                slots and -> Word2Vec (FE_W2V_SIZE), Bio's tokens -> a
+                FE_VOCAB-term count vector -> LDA (FE_TOPICS), Age and Fare
+                through DecisionTreeNumericBucketizer (the kernel at d = 1,
+                5 channels, FE_DT_DEPTH levels), zscore, fill, percentile,
+                the email, phone and language detectors, the day of week,
+                the name/ticket Jaccard similarity and transmogrify, then
+                VectorsCombiner -> MinVarianceFilter -> SanityChecker ->
+                the default binary selector: the train's wall and
+                stage_seconds, Word2Vec's pairs and steps, LDA's seconds,
+                the widths before and after the filters, the bucket
+                splits, every candidate's CV AuPR, holdout AuPR against
+                FE_AUPR_SHARE x the attainable, the evaluator's full metric
+                set, kernel launches against the growers' count plus the
+                bucketizers' levels, peak memory; the bucketizers' splits
+                through the kernel and the plain version on the same rows
+                (equal), their d = 1 levels (and a K = 1 tree's, 3 float
+                channels) held against the plain version (bitwise on
+                integer channels) and timed (``seg_hist`` lines with
+                ``path`` "dt_bucketizer_*": kernel, plain, library, bound);
+                save -> load -> FE_ROUNDTRIP_ROWS holdout rows bitwise
   7. multiclass  the same 500 Real columns with a K = 5 label from its
                 own seed (class logits: log priors 0.40 / 0.25 / 0.15 /
                 0.12 / 0.08, a linear part of standard deviation
@@ -300,7 +338,8 @@ The phases that run torch.profiler come after the slice and the selector,
 so no profiler session runs in the process before their walls are taken.
 Then the ``kernels`` summary line (``launches``: the slice's, the
 selector's, the regression phase's, the titanic phase's (its efb fits
-too), the validate_explain phase's train, the multiclass phase's, the
+too), the validate_explain and feature_eng phases' trains, the
+multiclass phase's, the
 boosted_multi phase's train, xgb_defaults and count_and_subsample fits,
 and the xgb_wide phase's three fits), the card's name and power limit,
 and the result line.  Any
@@ -510,6 +549,32 @@ VE_LOCO_ROWS, VE_XGB_LOCO_ROWS = 10_000, 2_000
 VE_CHECK_COLS, VE_SPEARMAN_CHECK, VE_STACK_COLS = 20, 50, 50
 #: host threads of those checks (numpy's sorts release the GIL)
 VE_HOST_THREADS = 8
+#: the feature_eng phase: the seed of its four extra raw columns; the
+#: widths of its text stages (hashed name bigrams, Word2Vec vectors, the
+#: Bio vocabulary and its LDA topics); the share of the attainable holdout
+#: AuPR (the true probabilities') its selector must reach, stated before
+#: its first chip run (the titanic phase's share: the extra columns carry
+#: no signal, the stages must not lose the demo's); the rows scored after
+#: the save/load round trip; the tree bucketizers' depth and bins (the
+#: JAX package's defaults) and their information-gain gate (a hundredth
+#: of the default 0.01: at 100 000 rows of this label Age's and Fare's
+#: best splits gain less than 0.01 a row, and at 0.001 Age keeps one)
+FE_SEED = 31
+FE_HASH_FEATURES, FE_W2V_SIZE, FE_VOCAB, FE_TOPICS = 512, 50, 256, 10
+FE_AUPR_SHARE = 0.9
+FE_ROUNDTRIP_ROWS = 1000
+FE_DT_DEPTH, FE_DT_BINS, FE_DT_MIN_GAIN = 4, 32, 1e-4
+#: Bio's words: English, German and Spanish stop words (LangDetector's
+#: profiles) and content words; 2% of the rows are Cyrillic or CJK text
+FE_BIO_WORDS = (
+    "the and of to in is that it was for on are with as his they at one "
+    "have this from der die das und ist von zu den nicht mit sich auf "
+    "el la los las de y un una del en es que no se por con para "
+    "travel ocean ship cabin deck harbor journey family captain storm "
+    "letter music garden winter summer city river mountain history "
+    "reise schiff meer stadt familie viaje barco mar ciudad familia").split()
+FE_OTHER_SCRIPTS = ("Привет как дела", "путешествие по морю", "東京から大阪へ",
+                    "海の旅", "家族と一緒に", "Москва и река")
 
 
 def _smi(query: str) -> str:
@@ -1454,14 +1519,9 @@ def make_titanic(rows: int, seed: int = 7) -> dict:
     return cols
 
 
-def titanic_data(rows: int, holdout: int):
-    """The demo's train and holdout datasets, the label regenerated with
-    signal (sigmoid(-1.1 + 2.4 [female] - 1.0 [3rd class] + 0.35
-    log1p(fare) - 0.015 age, 30 where missing) against uniform draws from
-    TITANIC_LABEL_SEED), the holdout's true probabilities and the
-    seconds taken."""
-    t0 = time.perf_counter()
-    n = rows + holdout
+def titanic_columns(n: int):
+    """``make_titanic``'s n rows with the label redrawn with signal (see
+    ``titanic_data``), and the true probabilities."""
     cols = make_titanic(n)
     logit = (-1.1 + 2.4 * (cols["Sex"] == "female")
              - 1.0 * (cols["Pclass"] == "3")
@@ -1470,6 +1530,18 @@ def titanic_data(rows: int, holdout: int):
     p = 1 / (1 + np.exp(-logit))
     u = np.random.default_rng(TITANIC_LABEL_SEED).random(n)
     cols["Survived"] = (p > u).astype(float)
+    return cols, p
+
+
+def titanic_data(rows: int, holdout: int):
+    """The demo's train and holdout datasets, the label regenerated with
+    signal (sigmoid(-1.1 + 2.4 [female] - 1.0 [3rd class] + 0.35
+    log1p(fare) - 0.015 age, 30 where missing) against uniform draws from
+    TITANIC_LABEL_SEED), the holdout's true probabilities and the
+    seconds taken."""
+    t0 = time.perf_counter()
+    n = rows + holdout
+    cols, p = titanic_columns(n)
 
     def ds(lo, hi):
         return ColumnarDataset({
@@ -2089,6 +2161,386 @@ def _spearman_and_loco(data, xgb, cols: int) -> dict:
     check(len(rows) == VE_XGB_LOCO_ROWS and all(len(r) > 0 for r in rows),
           "xgb LOCO rows malformed")
     return {"spearman_s": spearman_s, "xgb_loco_s": loco_s}
+
+
+# ---------------------------------------------------------------------------
+# the feature_eng phase: the rest of feature engineering at 1M + 100k rows
+# ---------------------------------------------------------------------------
+
+def feature_eng_columns(n: int, seed: int = FE_SEED) -> dict:
+    """The phase's extra raw columns, drawn from ``default_rng(seed)``:
+    Email (10% null, 5% malformed), EmailMap ({"primary": Email} where it
+    is present), Phone (US ten-digit 60%, +44 numbers 20%, invalid
+    strings 10%, null 10%), Bio (4-12 words of FE_BIO_WORDS; 2% Cyrillic
+    or CJK text), Boarded (epoch ms over two years from 2023-01-01) and
+    TicketText (filled in by ``feature_eng_data``)."""
+    rng = np.random.default_rng(seed)
+    first = np.array(["john", "mary", "anna", "luis", "wei", "olga", "sam",
+                      "ines", "karl", "yuki"], dtype=object)
+    domains = np.array(["example.com", "mail.example.org", "post.example.de",
+                        "correo.example.es"], dtype=object)
+    u = rng.random(n)
+    fi = rng.integers(0, len(first), n)
+    num = rng.integers(0, 10_000, n)
+    di = rng.integers(0, len(domains), n)
+    email = [None if u[i] < 0.10 else
+             (f"{first[fi[i]]}{num[i]}" + ("@" if u[i] >= 0.15 else ".at.")
+              + domains[di[i]]) for i in range(n)]
+    kind = rng.random(n)
+    area = rng.integers(200, 1000, n)
+    exch = rng.integers(200, 1000, n)
+    line = rng.integers(0, 10_000, n)
+    uk = rng.integers(10_000_000, 100_000_000, n)
+    phone = [None if kind[i] < 0.10 else
+             f"({area[i]}) {exch[i]}-{line[i]:04d}" if kind[i] < 0.70 else
+             f"+44 20 {uk[i] // 10_000} {uk[i] % 10_000:04d}"
+             if kind[i] < 0.90 else f"{line[i] % 1000}-x{area[i]}"
+             for i in range(n)]
+    words = np.array(FE_BIO_WORDS, dtype=object)
+    lens = rng.integers(4, 13, n)
+    idx = rng.integers(0, len(words), (n, 12))
+    other = rng.random(n) < 0.02
+    oi = rng.integers(0, len(FE_OTHER_SCRIPTS), n)
+    bio = [FE_OTHER_SCRIPTS[oi[i]] if other[i] else
+           " ".join(words[idx[i, :lens[i]]]) for i in range(n)]
+    start = 1_672_531_200_000                  # 2023-01-01T00:00:00Z
+    boarded = start + rng.integers(0, 2 * 365 * 86_400_000, n)
+    return {"Email": email,
+            "EmailMap": [None if e is None else {"primary": e}
+                         for e in email],
+            "Phone": phone, "Bio": bio, "Boarded": boarded.astype(float)}
+
+
+FE_SCHEMA = {"Email": ft.Email, "EmailMap": ft.EmailMap, "Phone": ft.Phone,
+             "Bio": ft.Text, "Boarded": ft.Date, "TicketText": ft.Text}
+
+
+def feature_eng_data(train, hold):
+    """The titanic phase's datasets with the feature_eng columns (drawn
+    for train and holdout rows in one call) and TicketText (the Ticket
+    values as Text); the seconds taken."""
+    t0 = time.perf_counter()
+    n = len(train)
+    cols = feature_eng_columns(n + len(hold))
+    out = []
+    for ds, lo, hi in ((train, 0, n), (hold, n, n + len(hold))):
+        extra = {k: FeatureColumn.from_values(FE_SCHEMA[k], v[lo:hi])
+                 for k, v in cols.items()}
+        extra["TicketText"] = FeatureColumn(ft.Text, ds["Ticket"].values)
+        out.append(ds.with_columns(extra))
+    return out[0], out[1], time.perf_counter() - t0
+
+
+def feature_eng_stages() -> dict:
+    """The port's entry points the feature_eng DAG is built from (the
+    tests pass the JAX package's under the same keys)."""
+    from transmogrifai_tpu_torch.ops.detectors import (
+        EmailToPickListMapTransformer, IsValidPhoneDefaultCountry,
+        LangDetector, ValidEmailTransformer)
+    from transmogrifai_tpu_torch.ops.text import OpCountVectorizer
+    from transmogrifai_tpu_torch.ops.vectorizers import VectorsCombiner
+    from transmogrifai_tpu_torch.preparators.sanity_checker import \
+        MinVarianceFilter
+
+    return dict(fb=FeatureBuilder, transmogrify=transmogrify,
+                count_vectorizer=OpCountVectorizer,
+                valid_email=ValidEmailTransformer,
+                email_domains=EmailToPickListMapTransformer,
+                valid_phone=IsValidPhoneDefaultCountry, lang=LangDetector,
+                combiner=VectorsCombiner, min_variance=MinVarianceFilter,
+                checker=SanityChecker,
+                selector=BinaryClassificationModelSelector)
+
+
+def build_feature_eng(pkg: dict, models_and_parameters=None):
+    """The feature_eng DAG: the Titanic demo's raw columns and the four
+    extra ones through the fluent DSL and the feature-engineering stages,
+    then VectorsCombiner -> MinVarianceFilter -> SanityChecker -> the
+    binary selector (its default grid unless ``models_and_parameters``).
+    ``pkg`` names the entry points (``feature_eng_stages``):
+    (prediction, {name: feature}, selector)."""
+    fb = pkg["fb"]
+    survived = fb.RealNN("Survived").as_response()
+    raw = [fb.PickList(k).as_predictor()
+           for k in ("Pclass", "Sex", "Cabin", "Embarked")]
+    raw += [fb.Integral(k).as_predictor() for k in ("SibSp", "Parch")]
+    name = fb.Text("Name").as_predictor()
+    age = fb.Real("Age").as_predictor()
+    fare = fb.Real("Fare").as_predictor()
+    bio = fb.Text("Bio").as_predictor()
+
+    def stage(key, *inputs, **kw):
+        return pkg[key](**kw).set_input(*inputs).get_output()
+
+    name_tokens = name.tokenize()
+    f = {
+        "name_tf": name_tokens.remove_stop_words().ngrams()
+        .hashing_tf(num_features=FE_HASH_FEATURES),
+        "name_w2v": name_tokens.word2vec(vector_size=FE_W2V_SIZE),
+        "bio_counts": stage("count_vectorizer", bio.tokenize(),
+                            vocab_size=FE_VOCAB),
+        "age_buckets": age.auto_bucketize(
+            survived, max_depth=FE_DT_DEPTH, max_bins=FE_DT_BINS,
+            min_info_gain=FE_DT_MIN_GAIN),
+        "fare_buckets": fare.auto_bucketize(
+            survived, max_depth=FE_DT_DEPTH, max_bins=FE_DT_BINS,
+            min_info_gain=FE_DT_MIN_GAIN),
+        "fare_z": fare.zscore(), "age_filled": age.fill_missing_with_mean(),
+        "fare_pct": fare.calibrate_percentile(),
+        "email_ok": stage("valid_email", fb.Email("Email").as_predictor()),
+        "email_domain": stage("email_domains",
+                              fb.EmailMap("EmailMap").as_predictor()),
+        "phone_ok": stage("valid_phone", fb.Phone("Phone").as_predictor()),
+        "bio_lang": stage("lang", bio),
+        "boarded_dow": fb.Date("Boarded").as_predictor()
+        .to_time_period("DayOfWeek"),
+        "name_ticket_jaccard": name.jaccard_similarity(
+            fb.Text("TicketText").as_predictor()),
+    }
+    f["bio_lda"] = f["bio_counts"].lda(k=FE_TOPICS)
+    f["vectorized"] = pkg["transmogrify"]([
+        *raw, f["age_filled"], f["fare_z"], f["fare_pct"], f["email_ok"],
+        f["email_domain"], f["phone_ok"], f["bio_lang"], f["boarded_dow"],
+        f["name_ticket_jaccard"]])
+    f["combined"] = stage("combiner", f["vectorized"], f["name_tf"],
+                          f["name_w2v"], f["bio_lda"], f["age_buckets"],
+                          f["fare_buckets"])
+    f["filtered"] = stage("min_variance", survived, f["combined"])
+    f["checked"] = stage("checker", survived, f["filtered"])
+    sel_cls = pkg["selector"]
+    selector = (sel_cls.with_cross_validation()
+                if models_and_parameters is None else
+                sel_cls.with_cross_validation(
+                    num_folds=3,
+                    models_and_parameters=models_and_parameters))
+    pred = selector.set_input(survived, f["checked"]).get_output()
+    return pred, f, selector
+
+
+class _CapturedLevels:
+    """A ``hist_fn`` that launches the kernel, holds each level against
+    the plain version (its count of unequal levels, and the worst error
+    against the tolerance of |channels| as ``_LevelCheck`` states it)
+    and keeps each level's inputs for timing."""
+
+    def __init__(self):
+        self.levels, self.unequal = 0, 0
+        self.max_err, self.tol_ratio = 0.0, 0.0
+        self.inputs = []
+
+    def __call__(self, binned, slot, ch, M: int, B: int):
+        k = gk.seg_level_hists(binned, slot, ch, M, B)
+        p = gk.seg_level_hists_plain(binned, slot, ch, M, B)
+        mag = gk.seg_level_hists_plain(binned, slot, ch.abs(), M, B)
+        diff = (k - p).abs()
+        self.levels += 1
+        self.unequal += int(not torch.equal(k, p))
+        self.max_err = max(self.max_err, float(diff.max()))
+        self.tol_ratio = max(self.tol_ratio, float(
+            (diff / (ATOL + RTOL * mag)).max()))
+        self.inputs.append((binned, slot.clone(), ch.clone(), M, B))
+        return k
+
+
+def _d1_level_rows(values: np.ndarray, label: np.ndarray, path: str,
+                   reps: int, bw: float, f32: float) -> Tuple[list, dict]:
+    """A tree bucketizer's single-feature tree on the card (FE_DT_DEPTH
+    levels at d = 1) through a capturing ``hist_fn``: each level held
+    against the plain version, then timed: the kernel, the plain version,
+    the library call (one weighted ``torch.bincount`` a channel) and the
+    bound.  Returns the ``seg_hist`` rows and the check's summary."""
+    integer = bool(np.all(label == np.round(label))) and \
+        np.unique(label).size <= 20
+    cap = _CapturedLevels()
+    from transmogrifai_tpu_torch.ops.numeric import tree_split_points
+    splits = tree_split_points(values, label, FE_DT_DEPTH, FE_DT_BINS,
+                               FE_DT_MIN_GAIN, 1.0, "cuda", hist_fn=cap)
+    rows = []
+    for b, slot, ch, M, B in cap.inputs:
+        n, dd = b.shape
+        c = ch.shape[1]
+        args = (b, slot, ch, M, B)
+        nbytes = n * dd + n * 4 + n * c * 4 + c * M * B * dd * 4
+        ops = n * dd * c
+        rows.append({
+            "phase": "seg_hist", "path": path, "N": n, "d": dd, "B": B,
+            "nchan": c, "M": M, "row_stride": b.stride(0),
+            "kernel_ms": time_ms(lambda: gk.seg_level_hists(*args), reps),
+            "plain_ms": time_ms(lambda: gk.seg_level_hists_plain(*args), 3,
+                                1),
+            "library_ms": _library_ms(b, slot, ch, M, B),
+            "bound_ms": max(nbytes / bw, ops / f32) * 1e3,
+            "bound_by": "bytes" if nbytes / bw >= ops / f32
+            else "operations", "bytes": nbytes})
+    check_row = {"levels": cap.levels, "unequal": cap.unequal,
+                 "integer_channels": integer, "max_abs_err": cap.max_err,
+                 "tol_ratio": cap.tol_ratio, "splits": len(splits)}
+    cap.inputs.clear()
+    return rows, check_row
+
+
+def phase_feature_eng(tdata, reps: int, bw: float, f32: float) -> dict:
+    """The rest of feature engineering on the card (the module docstring's
+    phase 6c): the feature_eng DAG trained on the Titanic phase's rows with
+    the four extra columns, evaluated, saved and loaded; the tree
+    bucketizers' splits through the kernel and the plain version; their
+    d = 1 levels held and timed."""
+    phase_t0 = time.perf_counter()
+    train0, hold0, p_hold, _ = tdata
+    train, hold, data_s = feature_eng_data(train0, hold0)
+    pred, f, selector = build_feature_eng(feature_eng_stages())
+    wf = OpWorkflow().set_result_features(pred).set_input_data(train)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.seg_level_hists.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = gk.seg_level_hists.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    scored, metrics = model.score_and_evaluate(
+        Evaluators.BinaryClassification.auPR(), data=hold)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    proba = scored[pred.name].values.probability
+    y_hold = torch.as_tensor(np.asarray(hold["Survived"].values, np.float32))
+    attainable = aupr(y_hold, torch.from_numpy(p_hold.astype(np.float32)))
+    aupr_hold = float(metrics["AuPR"])
+
+    def fitted(key):
+        uid = f[key].origin_stage.uid
+        return next(s for s in model.stages if s.uid == uid)
+
+    w2v = f["name_w2v"].origin_stage
+    widths = {k: int(model.train_data[f[k].name].values.shape[1])
+              for k in ("vectorized", "combined", "filtered", "checked")}
+    buckets = {k: fitted(k).split_points
+               for k in ("age_buckets", "fare_buckets")}
+
+    # the bucketizers' splits through the plain version on the same rows
+    y = np.nan_to_num(np.asarray(train["Survived"].values, np.float64))
+    plain_equal, kernel_rows, level_checks = {}, [], {}
+    for key, col in (("age_buckets", "Age"), ("fare_buckets", "Fare")):
+        c = train[col]
+        m = np.asarray(c.mask)
+        x = np.asarray(c.values, np.float64)[m]
+        args = (x, y[m], FE_DT_DEPTH, FE_DT_BINS, FE_DT_MIN_GAIN, 1.0,
+                "cuda")
+        from transmogrifai_tpu_torch.ops.numeric import tree_split_points
+        kern = tree_split_points(*args)
+        plain = tree_split_points(*args, hist_fn=gk.seg_level_hists_plain)
+        stage_splits = buckets[key][1:-1] if buckets[key] else []
+        plain_equal[key] = kern == plain and kern == stage_splits
+        rows, level_checks[key] = _d1_level_rows(
+            x, y[m], f"dt_bucketizer_{col.lower()}", reps, bw, f32)
+        kernel_rows += rows
+    # K = 1: the bucketizer's tree on a continuous label (log fare against
+    # age), 3 float channels
+    c = train["Age"]
+    m = np.asarray(c.mask) & np.asarray(train["Fare"].mask)
+    rows, level_checks["continuous"] = _d1_level_rows(
+        np.asarray(c.values, np.float64)[m],
+        np.log1p(np.asarray(train["Fare"].values, np.float64)[m]),
+        "dt_bucketizer_continuous", reps, bw, f32)
+    kernel_rows += rows
+
+    # save -> load on the card -> FE_ROUNDTRIP_ROWS holdout rows bitwise
+    tmp = os.path.join(REPO, "smoke_out")
+    path = os.path.join(tmp, "feature_eng")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        t0 = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(path)
+        t0 = time.perf_counter()
+        loaded = OpWorkflowModel.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        # the same rows through both (a batch of another size may take
+        # other product kernels)
+        part = hold.slice(0, FE_ROUNDTRIP_ROWS)
+        before = model.score(part)[pred.name].values.probability
+        again = loaded.score(part)[pred.name].values.probability
+        bitwise = bool(torch.equal(again, before))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    meta = selector.metadata
+    summary = meta["model_selector_summary"]
+    results = summary["validationResults"]
+    new_stages = ("TextTokenizer", "OpStopWordsRemover", "OpNGram",
+                  "OpHashingTF", "OpWord2Vec", "OpCountVectorizer", "OpLDA",
+                  "DecisionTreeNumericBucketizer", "OpScalarStandardScaler",
+                  "FillMissingWithMean", "PercentileCalibrator",
+                  "ValidEmailTransformer", "EmailToPickListMapTransformer",
+                  "IsValidPhoneDefaultCountry", "LangDetector",
+                  "TimePeriodTransformer", "JaccardSimilarity",
+                  "MinVarianceFilter")
+    secs = model.stage_seconds
+    out = {"phase": "feature_eng", "rows": len(train), "holdout": len(hold),
+           "data_s": data_s, "train_s": train_s, "score_s": score_s,
+           "stage_seconds": secs,
+           "new_stage_seconds": {k: secs.get(k) for k in new_stages},
+           "w2v_pairs": w2v.metadata.get("w2v_pairs"),
+           "w2v_steps": w2v.metadata.get("w2v_steps"),
+           "w2v_s": secs.get("OpWord2Vec"), "lda_s": secs.get("OpLDA"),
+           "widths": widths, "bucket_splits": buckets,
+           "min_variance_dropped": len(
+               f["filtered"].origin_stage.metadata["summary"]["dropped"]),
+           "checker_dropped": len(
+               f["checked"].origin_stage.metadata["summary"]["dropped"]),
+           "winner": summary["bestModelType"],
+           "winner_params": summary["bestModelParams"],
+           "cv": [{"model": r["modelType"], "params": r["params"],
+                   "metric": r["metricValue"], "error": r.get("error")}
+                  for r in results],
+           "group_errors": meta["group_errors"],
+           "holdout_aupr": aupr_hold, "attainable_aupr": attainable,
+           "aupr_floor": FE_AUPR_SHARE * attainable,
+           "holdout_metrics": metrics,
+           "seg_hist_launches": launches,
+           "growers_hist_levels": meta["hist_levels"],
+           "max_memory_allocated": peak,
+           "splits_kernel_equal_plain": plain_equal,
+           "d1_level_checks": level_checks,
+           "save_s": save_s, "load_s": load_s, "artifact_bytes": nbytes,
+           "roundtrip_rows": FE_ROUNDTRIP_ROWS,
+           "roundtrip_bitwise": bitwise,
+           "phase_s": time.perf_counter() - phase_t0}
+    emit(out)
+    for r in kernel_rows:
+        emit(r)
+    bucket_levels = sum(c["levels"] for c in level_checks.values())
+    check(tuple(proba.shape) == (len(hold), 2), f"proba shape {proba.shape}")
+    check(bool(torch.isfinite(proba).all()), "non-finite probabilities")
+    errors = [r["error"] for r in results if r.get("error")]
+    check(not errors, f"feature_eng: candidates failed: {errors}")
+    check(not meta["group_errors"],
+          f"feature_eng: grid groups failed: {meta['group_errors']}")
+    check(aupr_hold >= FE_AUPR_SHARE * attainable,
+          f"feature_eng: holdout AuPR {aupr_hold} below {FE_AUPR_SHARE} x "
+          f"the attainable {attainable}")
+    check(all(plain_equal.values()),
+          f"feature_eng: bucketizer splits through the kernel and the "
+          f"plain version differ: {plain_equal}")
+    for key, c in level_checks.items():
+        ok = (c["unequal"] == 0 if c["integer_channels"]
+              else c["tol_ratio"] <= 1.0)
+        check(ok and c["levels"] == FE_DT_DEPTH,
+              f"feature_eng: d = 1 levels of {key} off the plain version: "
+              f"{c}")
+    # the train's launches: the selector's forests and the two
+    # bucketizers' FE_DT_DEPTH levels of 5 channels (one launch each)
+    check(launches == meta["hist_levels"] + 2 * FE_DT_DEPTH,
+          f"feature_eng: seg_hist launches {launches} != the growers' "
+          f"{meta['hist_levels']} + the bucketizers' {2 * FE_DT_DEPTH}")
+    check(bitwise, "feature_eng: scores after save/load differ")
+    return {"seg_hist_launches": launches, "bucket_levels": bucket_levels}
 
 
 # ---------------------------------------------------------------------------
@@ -3801,6 +4253,8 @@ def main() -> int:
     titanic = phase_titanic(tdata, args.reps, bw, f32, smem_bw)
     torch.cuda.empty_cache()
     validate = phase_validate_explain(tdata, data, xgb, args.cols)
+    torch.cuda.empty_cache()
+    feature_eng = phase_feature_eng(tdata, args.reps, bw, f32)
     del tdata
     torch.cuda.empty_cache()
     multi, mc = phase_multiclass(data, args.cols, args.reps, bw, f32)
@@ -3858,6 +4312,7 @@ def main() -> int:
                      + titanic["seg_hist_launches"]
                      + titanic["efb_launches"]
                      + validate["launches_total"]
+                     + feature_eng["seg_hist_launches"]
                      + multi["seg_hist_launches"]
                      + boosted["launches_total"]
                      + wide["launches_total"]),

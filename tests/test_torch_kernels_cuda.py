@@ -831,3 +831,82 @@ def test_loco_on_card_matches_host(cuda_device):
         for k in a:
             np.testing.assert_allclose(json.loads(a[k]), json.loads(b[k]),
                                        rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [3, 5, 41])
+@pytest.mark.parametrize("M", [1, 8])
+def test_seg_hist_single_feature_levels(cuda_device, C, M):
+    """The tree bucketizer's levels: d = 1 in 16-byte rows (``apply_bins``
+    of an (N, 1) column), B = 32, 2K + 1 channels (C = 41: K = 20 classes,
+    four channel groups).  Integer channels (one-hot classes, unit hessians
+    and counts) equal the plain version bitwise; a float label channel
+    within the tolerance."""
+    rng = np.random.default_rng(C * 10 + M)
+    n, B = 200_000, 32
+    X = torch.from_numpy(rng.lognormal(1.0, 0.8, (n, 1)).astype(
+        np.float32)).to(cuda_device)
+    edges = tk.quantile_bins(X, B)
+    binned = tk.apply_bins(X, edges)
+    assert binned.shape == (n, 1) and binned.stride(0) == 16
+    k = (C - 1) // 2
+    if k > 1:
+        cls = rng.integers(0, k, n)
+        G = np.eye(k, dtype=np.float32)[cls]
+    else:
+        G = rng.normal(size=(n, 1)).astype(np.float32)
+    ones = np.ones((n, k), np.float32)
+    ch = torch.from_numpy(np.concatenate([G, ones, ones[:, :1]], 1)).to(
+        cuda_device)
+    slot = torch.from_numpy(rng.integers(0, M, n).astype(np.int32)).to(
+        cuda_device)
+    a = tk.seg_level_hists(binned, slot, ch, M, B)
+    plain = tk.seg_level_hists_plain(binned, slot, ch, M, B)
+    assert a.shape == (C, M, B, 1)
+    if k > 1:
+        assert torch.equal(a, plain)
+    else:
+        np.testing.assert_allclose(a.cpu().numpy(), plain.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+        assert torch.equal(a[1:], plain[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["binary", "multiclass", "continuous"])
+def test_tree_bucketizer_splits_on_card_match_cpu(cuda_device, kind):
+    """DecisionTreeNumericBucketizer's split points grown through the
+    kernel on the card equal the CPU's (the plain version)."""
+    from transmogrifai_tpu_torch.ops.numeric import tree_split_points
+
+    rng = np.random.default_rng(7)
+    n = 100_000
+    x = rng.lognormal(1.0, 0.8, n)
+    z = np.log(x)
+    if kind == "binary":
+        y = (1 / (1 + np.exp(-(2 * z - 1.5))) > rng.random(n)).astype(float)
+    elif kind == "multiclass":
+        y = np.clip(np.floor(z * 2 + rng.normal(0, 0.7, n)), 0, 4)
+    else:
+        y = 3 * np.sin(z) + rng.normal(0, 0.3, n)
+    args = (x, y, 4, 32, 1e-4, 1.0)
+    card = tree_split_points(*args, device=str(cuda_device))
+    cpu = tree_split_points(*args, device="cpu")
+    assert card == cpu and len(card) > 2
+
+
+@pytest.mark.cuda
+def test_word2vec_embedding_on_card_is_bitwise(cuda_device):
+    """The Word2Vec model's row means on the card (dense gathers in token
+    order, no atomics) equal the CPU's bit for bit, run after run."""
+    from transmogrifai_tpu_torch.ops.embeddings import _token_means
+
+    rng = np.random.default_rng(9)
+    vecs = rng.normal(0, 0.1, (500, 50)).astype(np.float32)
+    ids_of = [list(rng.integers(0, 500, rng.integers(0, 13)))
+              for _ in range(20_000)]
+    lens = np.array([len(r) for r in ids_of], np.int64)
+    cpu = _token_means(torch.from_numpy(vecs), ids_of, lens)
+    card = [_token_means(torch.from_numpy(vecs).to(cuda_device), ids_of,
+                         lens) for _ in range(2)]
+    assert torch.equal(card[0], card[1])
+    assert torch.equal(card[0].cpu(), cpu)

@@ -1,7 +1,9 @@
 """Evaluator stages (counterpart of ``transmogrifai_tpu.evaluators.evaluators``).
 
-Ported: the binary classification evaluator with its AuPR metric and the
-``Evaluators.BinaryClassification.auPR()`` factory; the multiclass
+Ported: the binary classification evaluator with the JAX package's full
+metric set (AuROC, AuPR, BrierScore, LogLoss and the counts and rates at
+``threshold``, plus the threshold curves when ``n_thresholds`` > 0) and
+the ``Evaluators.BinaryClassification.auPR()`` factory; the multiclass
 evaluator (F1, Error, Accuracy, Precision, Recall, the confusion matrix,
 LogLoss and the top-N threshold counts) and
 ``Evaluators.MultiClassification.{f1, error}``; the
@@ -17,8 +19,9 @@ import numpy as np
 import torch
 
 from ..types.columns import ColumnarDataset
-from .metrics import (aupr, multiclass_metrics,
-                      multiclass_threshold_metrics, regression_metrics)
+from .metrics import (binary_classification_metrics, multiclass_metrics,
+                      multiclass_threshold_metrics, regression_metrics,
+                      threshold_curves)
 
 __all__ = ["OpEvaluatorBase", "OpBinaryClassificationEvaluator",
            "OpMultiClassificationEvaluator", "OpRegressionEvaluator",
@@ -41,14 +44,40 @@ class OpEvaluatorBase:
 
 
 class OpBinaryClassificationEvaluator(OpEvaluatorBase):
+    """The binary metric set of the positive class's score: the
+    probability, else the raw prediction, else the predicted label; rows
+    weighted by ``sample_weight`` when given.  With ``n_thresholds`` > 0
+    the precision, recall and F1 curves over that many thresholds in [0, 1]
+    come as lists beside them."""
+
     default_metric = "AuPR"
 
-    def evaluate(self, data: ColumnarDataset) -> Dict[str, float]:
+    def __init__(self, label_col=None, prediction_col=None,
+                 threshold: float = 0.5, n_thresholds: int = 0):
+        super().__init__(label_col, prediction_col)
+        self.threshold = threshold
+        self.n_thresholds = n_thresholds
+
+    def evaluate(self, data: ColumnarDataset,
+                 sample_weight=None) -> Dict[str, object]:
         batch = data[self.prediction_col].values
-        score = (batch.probability[:, 1] if batch.probability is not None
-                 else batch.prediction)
+        if batch.probability is not None:
+            score = batch.probability[:, 1]
+        elif batch.raw_prediction is not None:
+            score = batch.raw_prediction[:, 1]
+        else:
+            score = batch.prediction
         y = np.nan_to_num(np.asarray(data[self.label_col].values, np.float64))
-        return {"AuPR": aupr(torch.from_numpy(y).to(score.device), score)}
+        yt = torch.from_numpy(y).to(score.device)
+        w = (None if sample_weight is None
+             else torch.as_tensor(np.asarray(sample_weight, np.float64)))
+        out: Dict[str, object] = dict(binary_classification_metrics(
+            yt, score, w, self.threshold))
+        if self.n_thresholds:
+            curves = threshold_curves(yt, score, self.n_thresholds, w)
+            out.update({k: v.tolist() for k, v in curves.items()
+                        if k != "thresholds"})
+        return out
 
 
 class OpMultiClassificationEvaluator(OpEvaluatorBase):

@@ -21,14 +21,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["MINIMIZE_METRICS", "aupr", "aupr_device", "auroc",
+__all__ = ["MINIMIZE_METRICS", "aupr", "aupr_device", "aupr_es", "auroc",
            "auroc_device", "binary_metric_grid", "binary_metrics_at_threshold",
            "brier_score", "log_loss", "binary_classification_metrics",
            "REGRESSION_METRICS", "regression_metric_device",
            "regression_metric_grid", "regression_metrics",
            "MULTICLASS_METRICS", "multiclass_metric_device",
            "multiclass_metric_grid", "multiclass_metrics",
-           "multiclass_threshold_metrics"]
+           "multiclass_threshold_metrics", "threshold_curves"]
 
 #: metrics where smaller is better (the selector's direction of selection)
 MINIMIZE_METRICS = ("RootMeanSquaredError", "MeanSquaredError",
@@ -83,6 +83,43 @@ def aupr_device(y_true: torch.Tensor, y_score: torch.Tensor,
     pos_g = torch.where(is_last, cy - before, 0.0)
     pos = torch.clamp(cy[-1], min=1e-12)
     precision = cy / torch.clamp(cw, min=1e-12)
+    return torch.clamp(torch.sum(pos_g / pos * precision), 0.0, 1.0)
+
+
+def aupr_es(y_true: torch.Tensor, margin: torch.Tensor) -> torch.Tensor:
+    """The unweighted AuPR of ``sigmoid(margin)`` that boosted early
+    stopping compares, as a 0-d float32 tensor: the JAX package's
+    ``_aupr_dev`` arithmetic (float32 sums of each score tie group in
+    group order, float32 running sums, a float32 total), so that the
+    patience rule's 1e-9 comparisons land as they do there.  Equal margins
+    get one probability: a vectorized sigmoid computes some elements on
+    another code path, which splits a tie of margins by an ulp (both
+    torch's and XLA's CPU kernels do), and a split tie moves the AuPR."""
+    m = margin.to(torch.float32)
+    n = m.shape[0]
+    dev = m.device
+    if n == 0:
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    order = torch.sort(-m, stable=True).indices
+    ms = m[order]
+    pos_idx = torch.arange(n, device=dev)
+    new_m = torch.ones(n, dtype=torch.bool, device=dev)
+    new_m[1:] = ms[1:] != ms[:-1]
+    first = torch.cummax(torch.where(new_m, pos_idx, 0), 0).values
+    s = torch.sigmoid(ms)[first]
+    is_new = torch.ones(n, dtype=torch.bool, device=dev)
+    is_new[1:] = s[1:] != s[:-1]
+    gid = torch.cumsum(is_new.to(torch.int64), 0) - 1
+    wy = torch.as_tensor(y_true).to(dev, torch.float32)[order]
+    # integer-valued float32 sums: exact in any order of addition
+    pos_g = torch.zeros(n, dtype=torch.float32, device=dev).index_add_(
+        0, gid, wy)
+    tot_g = torch.zeros(n, dtype=torch.float32, device=dev).index_add_(
+        0, gid, torch.ones_like(wy))
+    tp = torch.cumsum(pos_g, 0)
+    all_pred = torch.cumsum(tot_g, 0)
+    pos = torch.clamp(wy.sum(), min=1e-12)
+    precision = tp / torch.clamp(all_pred, min=1e-12)
     return torch.clamp(torch.sum(pos_g / pos * precision), 0.0, 1.0)
 
 
@@ -173,6 +210,26 @@ def binary_classification_metrics(y_true, y_prob, sample_weight=None,
     out.update(binary_metrics_at_threshold(y_true, y_prob, threshold,
                                            sample_weight))
     return out
+
+
+def threshold_curves(y_true, y_prob, n_thresholds: int = 100,
+                     sample_weight=None) -> Dict[str, np.ndarray]:
+    """Precision, recall and F1 at each of ``n_thresholds`` evenly spaced
+    thresholds in [0, 1] (``binary_metrics_at_threshold`` at each, as one
+    (N, T) comparison on the scores' device)."""
+    ts = np.linspace(0.0, 1.0, n_thresholds)
+    y, w, s = _prep(y_true, y_prob, sample_weight)
+    thr = torch.as_tensor(ts, dtype=torch.float64, device=s.device)
+    pred = (s.to(torch.float64)[:, None] >= thr[None, :]).to(torch.float64)
+    tp = (w * y) @ pred
+    fp = (w * (1 - y)) @ pred
+    fn = (w * y).sum() - tp
+    precision = tp / torch.clamp(tp + fp, min=1e-12)
+    recall = tp / torch.clamp(tp + fn, min=1e-12)
+    f1 = 2 * precision * recall / torch.clamp(precision + recall, min=1e-12)
+    curves = torch.stack([precision, recall, f1]).cpu().numpy()
+    return {"thresholds": ts, "precisionByThreshold": curves[0],
+            "recallByThreshold": curves[1], "f1ByThreshold": curves[2]}
 
 
 # ---------------------------------------------------------------------------

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from ..device import as_device_tensor, resolve_device
-from ..evaluators.metrics import aupr_device
+from ..evaluators.metrics import aupr_es
 from ..types.columns import ColumnarDataset
 from . import gbdt_kernels
 from .gbdt_kernels import (
@@ -530,10 +530,11 @@ def gbt_grad_hess(objective: str, F: torch.Tensor, y: torch.Tensor,
 def gbt_es_metric(objective: str, F_val: torch.Tensor, y_val: torch.Tensor
                   ) -> torch.Tensor:
     """The early-stopping metric of one chain's validation margins (V, K),
-    larger better: AuPR of the sigmoid, the accuracy of the argmax class
-    (softmax), or minus the unweighted mean squared error."""
+    larger better: AuPR of the sigmoid in the JAX package's float32
+    arithmetic (``aupr_es``), the accuracy of the argmax class (softmax),
+    or minus the unweighted mean squared error."""
     if objective == "binary":
-        return aupr_device(y_val, torch.sigmoid(F_val[:, 0]))
+        return aupr_es(y_val, F_val[:, 0])
     if objective == "multiclass":
         return (F_val.argmax(dim=1) == y_val.long()).to(
             torch.float32).mean()

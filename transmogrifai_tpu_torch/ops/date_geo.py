@@ -8,10 +8,11 @@
    one-hot of the modal day, month or hour (the ``date_list`` group)
  * ``GeolocationVectorizer`` — (lat, lon, accuracy) filled with the mean
    + null indicators (the ``geolocation`` group)
+ * ``TimePeriodTransformer`` / ``TimePeriodMapTransformer`` — a date (or
+   each date of a map) to its calendar period as an integer
 
 The arithmetic is the JAX package's float64 numpy, on the host; each
-stage's block moves to its device in one copy.  ``TimePeriodTransformer``
-and ``TimePeriodMapTransformer`` are not ported yet.
+stage's block moves to its device in one copy.
 """
 from __future__ import annotations
 
@@ -20,9 +21,11 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from ..stages.base import SequenceEstimator, SequenceModel, SequenceTransformer
+from ..stages.base import (SequenceEstimator, SequenceModel,
+                           SequenceTransformer, UnaryTransformer)
 from ..types.columns import ColumnarDataset, FeatureColumn
-from ..types.feature_types import Date, DateList, Geolocation, OPVector
+from ..types.feature_types import (Date, DateList, DateMap, Geolocation,
+                                   Integral, IntegralMap, OPVector)
 from .vector_metadata import (NULL_INDICATOR, VectorColumnMetadata,
                               VectorMetadata)
 from .vectorizers import _host_vec_column
@@ -30,7 +33,8 @@ from .vectorizers import _host_vec_column
 __all__ = ["DateToUnitCircleVectorizer", "DateListVectorizer",
            "DateListVectorizerModel", "GeolocationVectorizer",
            "GeolocationVectorizerModel", "TIME_PERIODS", "TIME_PERIOD_NAMES",
-           "extract_time_period"]
+           "extract_time_period", "TimePeriodTransformer",
+           "TimePeriodMapTransformer"]
 
 _MS_PER_DAY = 86400000.0
 #: period name -> its wavelength in ms
@@ -73,6 +77,51 @@ def extract_time_period(ms: np.ndarray, period: str) -> np.ndarray:
         return (doy - 1) // 7 + 1
     raise ValueError(f"unknown time period {period!r}; "
                      f"one of {TIME_PERIOD_NAMES}")
+
+
+def _check_period(period: str) -> None:
+    if period not in TIME_PERIOD_NAMES:
+        raise ValueError(f"unknown time period {period!r}")
+
+
+class TimePeriodTransformer(UnaryTransformer):
+    """Date -> Integral calendar period; missing stays missing."""
+
+    input_types = (Date,)
+
+    def __init__(self, period: str = "HourOfDay", uid: Optional[str] = None):
+        super().__init__(operation_name="dateToTimePeriod",
+                         output_type=Integral, uid=uid)
+        _check_period(period)
+        self.period = period
+
+    def transform_columns(self, col: FeatureColumn) -> FeatureColumn:
+        ms = np.nan_to_num(np.asarray(col.values, dtype=np.float64))
+        out = extract_time_period(ms.astype(np.int64), self.period)
+        return FeatureColumn(Integral, out.astype(np.float64),
+                             np.asarray(col.mask).copy())
+
+
+class TimePeriodMapTransformer(UnaryTransformer):
+    """DateMap -> IntegralMap of each present key's calendar period."""
+
+    input_types = (DateMap,)
+
+    def __init__(self, period: str = "HourOfDay", uid: Optional[str] = None):
+        super().__init__(operation_name="dateMapToTimePeriod",
+                         output_type=IntegralMap, uid=uid)
+        _check_period(period)
+        self.period = period
+
+    def transform_columns(self, col: FeatureColumn) -> FeatureColumn:
+        out = np.empty(len(col), dtype=object)
+        for i, d in enumerate(col.values):
+            keys = [k for k, ms in (d or {}).items() if ms is not None]
+            vals = extract_time_period(
+                np.asarray([d[k] for k in keys], dtype=np.int64),
+                self.period) if keys else np.empty(0, np.int64)
+            out[i] = {k: int(v) for k, v in zip(keys, vals)}
+        return FeatureColumn(IntegralMap, out)
 
 
 def _clean_events(v) -> List[int]:

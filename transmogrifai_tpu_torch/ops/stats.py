@@ -9,12 +9,12 @@ to chi² on the host.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["ColStats", "col_stats_with_label", "cramers_v",
+__all__ = ["ColStats", "col_stats", "col_stats_with_label", "cramers_v",
            "contingency_stats", "ranks", "spearman_with_label"]
 
 #: rows per float64 block of the two-pass reductions
@@ -32,11 +32,19 @@ class ColStats(NamedTuple):
     corr: np.ndarray
 
 
-def col_stats_with_label(X: torch.Tensor, y: torch.Tensor) -> ColStats:
+def col_stats(X: torch.Tensor) -> ColStats:
+    """Mean, variance (ddof=1), min and max per column of ``X`` (N, D)
+    (``corr`` all 0)."""
+    return col_stats_with_label(X, None)
+
+
+def col_stats_with_label(X: torch.Tensor,
+                         y: Optional[torch.Tensor]) -> ColStats:
     """Mean, variance (ddof=1), min, max and Pearson corr(x_j, y) per column.
 
-    ``X`` (N, D) float32 and ``y`` (N,) on one device.  Columns with no
-    variance get correlation 0 (the JAX package's ``nan_to_num``)."""
+    ``X`` (N, D) float32 and ``y`` (N,) on one device (None: no label,
+    correlations 0).  Columns with no variance get correlation 0 (the JAX
+    package's ``nan_to_num``)."""
     n, d = X.shape
     dev = X.device
     f64 = torch.float64
@@ -49,13 +57,15 @@ def col_stats_with_label(X: torch.Tensor, y: torch.Tensor) -> ColStats:
         mn = torch.minimum(mn, blk.amin(dim=0))
         mx = torch.maximum(mx, blk.amax(dim=0))
     mean = s / n
-    yc = y.to(f64) - y.to(f64).mean()
+    yc = (torch.zeros(n, dtype=f64, device=dev) if y is None
+          else y.to(f64) - y.to(f64).mean())
     ss = torch.zeros(d, dtype=f64, device=dev)
     num = torch.zeros(d, dtype=f64, device=dev)
     for a in range(0, n, STATS_ROW_BLOCK):
         xc = X[a:a + STATS_ROW_BLOCK].to(f64) - mean
         ss += (xc * xc).sum(dim=0)
-        num += yc[a:a + STATS_ROW_BLOCK] @ xc
+        if y is not None:
+            num += yc[a:a + STATS_ROW_BLOCK] @ xc
     var = ss / max(n - 1, 1)
     den = (torch.sqrt(torch.clamp(var, min=1e-30) * (n - 1))
            * torch.sqrt(torch.clamp(yc @ yc, min=1e-30)))

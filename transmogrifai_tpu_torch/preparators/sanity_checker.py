@@ -8,7 +8,8 @@ reductions (``ops.stats``); the label correlation is Pearson's or, with
 ``correlation_type="spearman"``, Spearman's (Pearson on the float32
 average ranks, ``ops.stats.spearman_with_label``).  The fitted model
 gathers the kept columns of the device matrix.  The streaming fit is not
-ported yet.
+ported yet.  ``MinVarianceFilter`` drops the columns whose variance is
+below ``min_variance``, with no label.
 """
 from __future__ import annotations
 
@@ -17,13 +18,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.stats import col_stats_with_label, cramers_v, spearman_with_label
+from ..ops.stats import (col_stats, col_stats_with_label, cramers_v,
+                         spearman_with_label)
 from ..ops.vector_metadata import VectorMetadata
 from ..stages.base import BinaryEstimator, BinaryModel
 from ..types.columns import ColumnarDataset, FeatureColumn
 from ..types.feature_types import OPNumeric, OPVector
 
-__all__ = ["SanityChecker", "SanityCheckerModel"]
+__all__ = ["SanityChecker", "SanityCheckerModel", "MinVarianceFilter",
+           "MinVarianceFilterModel"]
 
 
 def _label_tensor(label_col: FeatureColumn, dev) -> torch.Tensor:
@@ -151,7 +154,35 @@ def _indicator_groups(vmeta: VectorMetadata
     return groups
 
 
-class SanityCheckerModel(BinaryModel):
+class _KeepColumns:
+    """The fitted index filter of SanityChecker and MinVarianceFilter: the
+    kept columns of the last input's device matrix, with the filtered
+    vector metadata persisted under the JAX package's extra-state key."""
+
+    keep_indices: List[int]
+    new_vmeta: Optional[VectorMetadata] = None
+
+    def extra_state(self):
+        return ({"new_vmeta": self.new_vmeta.to_json()}
+                if self.new_vmeta is not None else {})
+
+    def set_extra_state(self, state):
+        if "new_vmeta" in state:
+            self.new_vmeta = VectorMetadata.from_json(state["new_vmeta"])
+
+    def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
+        features_col = cols[-1]
+        X = features_col.values
+        idx = torch.as_tensor(self.keep_indices, dtype=torch.long,
+                              device=X.device)
+        vmeta = self.new_vmeta
+        if vmeta is None and features_col.vmeta is not None:
+            vmeta = features_col.vmeta.select(self.keep_indices)
+        return FeatureColumn(OPVector, X.index_select(1, idx).contiguous(),
+                             vmeta=vmeta)
+
+
+class SanityCheckerModel(_KeepColumns, BinaryModel):
     """Index-filter on the feature vector."""
 
     input_types = (OPNumeric, OPVector)
@@ -161,23 +192,45 @@ class SanityCheckerModel(BinaryModel):
         super().__init__(operation_name="sanityCheck", output_type=OPVector,
                          uid=uid)
         self.keep_indices = list(keep_indices)
-        self.new_vmeta: Optional[VectorMetadata] = None
+        self.new_vmeta = None
 
-    # the JAX package's extra-state key, so one artifact serves both
-    def extra_state(self):
-        return ({"new_vmeta": self.new_vmeta.to_json()}
-                if self.new_vmeta is not None else {})
 
-    def set_extra_state(self, state):
-        if "new_vmeta" in state:
-            self.new_vmeta = VectorMetadata.from_json(state["new_vmeta"])
+class MinVarianceFilter(BinaryEstimator):
+    """Drops the feature columns whose variance (ddof=1) is below
+    ``min_variance``.  Inputs (anything, features OPVector) or (features):
+    the first of two is ignored, so the stage wires like SanityChecker."""
 
-    def transform_columns(self, label_col, features_col) -> FeatureColumn:
+    input_arity = (1, 2)
+    label_input_positions = (0,)
+
+    def __init__(self, min_variance: float = 1e-5, uid: Optional[str] = None):
+        super().__init__(operation_name="minVariance", output_type=OPVector,
+                         uid=uid)
+        self.min_variance = min_variance
+
+    def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
+        features_col = cols[-1]
         X = features_col.values
-        idx = torch.as_tensor(self.keep_indices, dtype=torch.long,
-                              device=X.device)
-        vmeta = self.new_vmeta
-        if vmeta is None and features_col.vmeta is not None:
-            vmeta = features_col.vmeta.select(self.keep_indices)
-        return FeatureColumn(OPVector, X.index_select(1, idx).contiguous(),
-                             vmeta=vmeta)
+        d = X.shape[1]
+        variance = col_stats(X).variance
+        keep = [j for j in range(d) if variance[j] >= self.min_variance]
+        vmeta = features_col.vmeta
+        named = vmeta is not None and vmeta.size == d
+        kept = set(keep)
+        self.metadata["summary"] = {
+            "dropped": ([n for j, n in enumerate(vmeta.column_names())
+                         if j not in kept] if named else [])}
+        model = MinVarianceFilterModel(keep_indices=keep)
+        model.new_vmeta = vmeta.select(keep) if named else None
+        return model
+
+
+class MinVarianceFilterModel(_KeepColumns, BinaryModel):
+    input_arity = (1, 2)
+    label_input_positions = (0,)
+
+    def __init__(self, keep_indices: List[int], uid: Optional[str] = None):
+        super().__init__(operation_name="minVariance", output_type=OPVector,
+                         uid=uid)
+        self.keep_indices = list(keep_indices)
+        self.new_vmeta = None

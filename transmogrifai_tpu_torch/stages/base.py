@@ -4,11 +4,14 @@ Stages transform whole columns, not rows.  An estimator's ``fit`` receives
 the extracted input columns and returns a model that answers for the
 estimator's output feature and uid.  The JAX package's fault-injection
 hooks and streaming-fit protocol are not ported yet (ROADMAP Queue A).
+The arity bases fix each stage's number of inputs: unary, binary,
+ternary, quaternary, sequence (one or more) and binary-sequence (two or
+more) transformers, models and estimators.
 """
 from __future__ import annotations
 
 import inspect
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 
 from ..features.feature import Feature
 from ..types.columns import ColumnarDataset, FeatureColumn
@@ -17,9 +20,13 @@ from ..utils.uid import uid_for
 
 __all__ = [
     "SchemaError", "PipelineStage", "Transformer", "Estimator", "Model",
-    "UnaryTransformer", "BinaryTransformer",
-    "SequenceTransformer", "SequenceEstimator", "SequenceModel",
-    "BinaryEstimator", "BinaryModel",
+    "UnaryTransformer", "BinaryTransformer", "TernaryTransformer",
+    "QuaternaryTransformer", "SequenceTransformer",
+    "BinarySequenceTransformer", "UnaryModel", "BinaryModel",
+    "TernaryModel", "QuaternaryModel", "SequenceModel",
+    "BinarySequenceModel", "UnaryEstimator", "BinaryEstimator",
+    "TernaryEstimator", "QuaternaryEstimator", "SequenceEstimator",
+    "BinarySequenceEstimator", "LambdaTransformer",
 ]
 
 
@@ -183,21 +190,83 @@ class BinaryTransformer(Transformer):
     input_arity = (2, 2)
 
 
+class TernaryTransformer(Transformer):
+    input_arity = (3, 3)
+
+
+class QuaternaryTransformer(Transformer):
+    input_arity = (4, 4)
+
+
 class SequenceTransformer(Transformer):
     input_arity = (1, None)
 
 
-class SequenceModel(Model):
-    input_arity = (1, None)
+class BinarySequenceTransformer(Transformer):
+    """One distinguished input, then one or more of the same type."""
+    input_arity = (2, None)
 
 
-class SequenceEstimator(Estimator):
-    input_arity = (1, None)
+class UnaryModel(Model):
+    input_arity = (1, 1)
 
 
 class BinaryModel(Model):
     input_arity = (2, 2)
 
 
+class TernaryModel(Model):
+    input_arity = (3, 3)
+
+
+class QuaternaryModel(Model):
+    input_arity = (4, 4)
+
+
+class SequenceModel(Model):
+    input_arity = (1, None)
+
+
+class BinarySequenceModel(Model):
+    input_arity = (2, None)
+
+
+class UnaryEstimator(Estimator):
+    input_arity = (1, 1)
+
+
 class BinaryEstimator(Estimator):
     input_arity = (2, 2)
+
+
+class TernaryEstimator(Estimator):
+    input_arity = (3, 3)
+
+
+class QuaternaryEstimator(Estimator):
+    input_arity = (4, 4)
+
+
+class SequenceEstimator(Estimator):
+    input_arity = (1, None)
+
+
+class BinarySequenceEstimator(Estimator):
+    input_arity = (2, None)
+
+
+class LambdaTransformer(UnaryTransformer):
+    """A column function as a stage: ``fn`` maps a FeatureColumn to a
+    FeatureColumn of ``output_type``.  A function does not survive a
+    save: ``train()`` refuses it unless the workflow allows
+    non-serializable stages."""
+
+    def __init__(self, fn: Callable[[FeatureColumn], FeatureColumn],
+                 output_type: Type[FeatureType],
+                 operation_name: str = "lambda", uid: Optional[str] = None):
+        super().__init__(operation_name=operation_name,
+                         output_type=output_type, uid=uid)
+        self.fn = fn
+
+    def transform_columns(self, col: FeatureColumn) -> FeatureColumn:
+        return self.fn(col)

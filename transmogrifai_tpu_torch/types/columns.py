@@ -21,7 +21,7 @@ inputs are device tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterable, Optional, Sequence, Type
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Type
 
 import numpy as np
 
@@ -60,6 +60,25 @@ class FeatureColumn:
         mask = self.mask[start:stop] if self.mask is not None else None
         return FeatureColumn(self.ftype, self.values[start:stop], mask,
                              self.vmeta)
+
+    def to_list(self) -> List[Any]:
+        """Back to plain Python values (None for a missing numeric value;
+        an empty container for a missing collection)."""
+        st = self.ftype.storage
+        if st in _NUMERIC_STORAGE:
+            conv = {"binary": bool, "integral": int, "date": int}.get(st, float)
+            return [conv(v) if m else None
+                    for v, m in zip(np.asarray(self.values),
+                                    np.asarray(self.mask))]
+        if st == "geolocation":
+            return [list(map(float, v)) if m else []
+                    for v, m in zip(self.values, self.mask)]
+        if st == "vector":
+            vals = self.values
+            if hasattr(vals, "cpu"):
+                vals = vals.cpu().numpy()
+            return [np.asarray(v) for v in vals]
+        return list(self.values)
 
     @staticmethod
     def from_values(ftype: Type[FeatureType],

@@ -38,9 +38,11 @@ from ..models.mlp import MLPClassificationModel
 from ..models.regression import (GLMModel, IsotonicRegressionModel,
                                  LinearRegressionModel)
 from ..models.trees import TreeEnsembleModel
-from ..ops import date_geo, dsl_transformers, map_vectorizers, vectorizers
+from ..ops import (date_geo, detectors, dsl_transformers, embeddings,
+                   map_vectorizers, numeric, text, vectorizers)
 from ..ops.vector_metadata import VectorMetadata
-from ..preparators.sanity_checker import SanityCheckerModel
+from ..preparators.sanity_checker import (MinVarianceFilterModel,
+                                          SanityCheckerModel)
 from ..selector.model_selector import SelectedModel
 from ..stages.base import PipelineStage
 from ..stages.generator import FeatureGeneratorStage
@@ -90,14 +92,10 @@ CLASS_MAP: Dict[str, Type[PipelineStage]] = {
         map_vectorizers.GeoMapVectorizerModel,
     "transmogrifai_tpu.ops.map_vectorizers.SmartTextMapVectorizerModel":
         map_vectorizers.SmartTextMapVectorizerModel,
-    "transmogrifai_tpu.ops.dsl_transformers.MathBinaryTransformer":
-        dsl_transformers.MathBinaryTransformer,
-    "transmogrifai_tpu.ops.dsl_transformers.MathScalarTransformer":
-        dsl_transformers.MathScalarTransformer,
-    "transmogrifai_tpu.ops.dsl_transformers.AliasTransformer":
-        dsl_transformers.AliasTransformer,
     "transmogrifai_tpu.preparators.sanity_checker.SanityCheckerModel":
         SanityCheckerModel,
+    "transmogrifai_tpu.preparators.sanity_checker.MinVarianceFilterModel":
+        MinVarianceFilterModel,
     "transmogrifai_tpu.models.classification.LogisticRegressionModel":
         LogisticRegressionModel,
     "transmogrifai_tpu.models.regression.LinearRegressionModel":
@@ -114,6 +112,35 @@ CLASS_MAP: Dict[str, Type[PipelineStage]] = {
     "transmogrifai_tpu.insights.record_insights.RecordInsightsCorrModel":
         RecordInsightsCorrModel,
 }
+#: the stateless stages and fitted models of the feature-engineering
+#: modules, each under its JAX module's path and its own name
+_FEATURE_STAGES = {
+    "date_geo": (date_geo, ("TimePeriodTransformer",
+                            "TimePeriodMapTransformer")),
+    "dsl_transformers": (dsl_transformers, (
+        "MathBinaryTransformer", "MathScalarTransformer", "AliasTransformer",
+        "FilterTransformer", "SubstringTransformer", "JaccardSimilarity",
+        "NGramSimilarity", "ToOccurTransformer", "ExistsTransformer",
+        "ReplaceTransformer", "DropIndicesByTransformer")),
+    "text": (text, ("TextTokenizer", "OpNGram", "OpStopWordsRemover",
+                    "OpCountVectorizerModel", "OpHashingTF",
+                    "OpStringIndexerModel", "OpIndexToString",
+                    "TextLenTransformer")),
+    "numeric": (numeric, ("NumericBucketizer", "_BucketizerModel",
+                          "_FillModel", "_ScalerModel", "ScalerTransformer",
+                          "DescalerTransformer", "_PercentileModel")),
+    "embeddings": (embeddings, ("OpWord2VecModel", "OpLDAModel")),
+    "detectors": (detectors, (
+        "MimeTypeDetector", "MimeTypeMapDetector", "LangDetector",
+        "ParsePhoneNumber", "ParsePhoneDefaultCountry", "IsValidPhoneNumber",
+        "IsValidPhoneDefaultCountry", "IsValidPhoneMapDefaultCountry",
+        "ValidEmailTransformer", "HumanNameDetectorModel",
+        "NameEntityRecognizer", "EmailToPickListMapTransformer",
+        "UrlMapToPickListMapTransformer", "FilterMap")),
+}
+CLASS_MAP.update({f"transmogrifai_tpu.ops.{mod}.{name}": getattr(m, name)
+                  for mod, (m, names) in _FEATURE_STAGES.items()
+                  for name in names})
 _JAX_PATH = {cls: path for path, cls in CLASS_MAP.items()}
 
 #: the ROADMAP item that ports what the map lacks, by JAX module prefix
@@ -122,8 +149,6 @@ _ROADMAP_ITEMS = (
      "ROADMAP Queue A item 3 (the rest of the tree family)"),
     ("transmogrifai_tpu.models.gbdt",
      "ROADMAP Queue A item 3 (the rest of the tree family)"),
-    ("transmogrifai_tpu.ops.",
-     "ROADMAP Queue A item 5 (the rest of feature engineering)"),
     ("transmogrifai_tpu.",
      "ROADMAP Queue A item 6 (remaining model families, selectors and "
      "feature engineering)"),
