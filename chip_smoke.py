@@ -39,6 +39,13 @@ to end at full width through the entry points a user calls:
     -> OpWorkflow.train() -> score_and_evaluate(AuPR, the full binary
     metric set) -> save -> load -> score
 
+    write_avro -> OpWorkflow.set_reader(AvroReader) -> FeatureBuilder
+    -> transmogrify -> SanityChecker -> two
+    BinaryClassificationModelSelector.with_cross_validation() (LR + MLP,
+    forests) -> SelectedModelCombiner("weighted") -> OpWorkflow.train()
+    -> score -> AuPR -> save -> load -> score; OpLinearSVC and
+    OpNaiveBayes -> fit_raw -> predict_batch
+
     FeatureBuilder -> transmogrify -> SanityChecker
     -> MultiClassificationModelSelector.with_cross_validation()
     -> OpWorkflow.train() -> score_and_evaluate(F1)
@@ -195,6 +202,30 @@ card's aggregate shared-memory rate):
                 integer channels) and timed (``seg_hist`` lines with
                 ``path`` "dt_bucketizer_*": kernel, plain, library, bound);
                 save -> load -> FE_ROUNDTRIP_ROWS holdout rows bitwise
+  6d. avro_combined  the reference's Avro ensemble demo
+                (examples/op_titanic_avro_combined.py's ``build`` with the
+                port's imports: ``build_avro_combined``): the titanic
+                phase's 1M + 100k rows' seven demo columns and label
+                written by the port's write_avro (deflate) as two files
+                (``avro_write_s``), read inside train() through
+                OpWorkflow.set_reader(AvroReader(path)) (``avro_read_s``:
+                decode and columns); transmogrify -> SanityChecker -> a
+                linear selector (LR {0.01, 0.1}, MLP [8] x 200 steps of
+                0.1) and a tree selector (50-tree forests at depths 6 and
+                12) under 3-fold CV -> SelectedModelCombiner("weighted"):
+                the train wall, each selector's sweep seconds and winner,
+                the combiner's weights (checked against the weighted rule)
+                and validation AuPRs, the holdout AuPR of each of the
+                three predictions against AVRO_AUPR_SHARE x the attainable,
+                seg_hist launches equal to the forests' levels, the
+                demo's depth-12 forest levels on its checked matrix
+                bitwise against the plain version (a ``seg_hist`` line
+                with ``path`` "avro_combined"), peak memory, save -> load
+                -> AVRO_ROUNDTRIP_ROWS holdout rows bitwise; then
+                OpLinearSVC and OpNaiveBayes ``fit_raw`` on the slice's
+                1M x 500 matrix (fit seconds, the SVC's Newton steps,
+                holdout AuPR against SVC_AUPR_SHARE x the selector
+                phase's and the base rate + NB_AUPR_MARGIN)
   7. multiclass  the same 500 Real columns with a K = 5 label from its
                 own seed (class logits: log priors 0.40 / 0.25 / 0.15 /
                 0.12 / 0.08, a linear part of standard deviation
@@ -338,8 +369,8 @@ The phases that run torch.profiler come after the slice and the selector,
 so no profiler session runs in the process before their walls are taken.
 Then the ``kernels`` summary line (``launches``: the slice's, the
 selector's, the regression phase's, the titanic phase's (its efb fits
-too), the validate_explain and feature_eng phases' trains, the
-multiclass phase's, the
+too), the validate_explain, feature_eng and avro_combined phases'
+trains, the multiclass phase's, the
 boosted_multi phase's train, xgb_defaults and count_and_subsample fits,
 and the xgb_wide phase's three fits), the card's name and power limit,
 and the result line.  Any
@@ -368,6 +399,7 @@ import torch
 
 from transmogrifai_tpu_torch.analysis import PipelineLintError
 from transmogrifai_tpu_torch.cuda_build import build
+from transmogrifai_tpu_torch.device import resolve_device
 from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
 from transmogrifai_tpu_torch.evaluators.metrics import (aupr,
                                                         multiclass_metrics)
@@ -379,8 +411,8 @@ from transmogrifai_tpu_torch.insights import (RecordInsightsCorr,
                                               parse_insights)
 from transmogrifai_tpu_torch.local import score_function_batch
 from transmogrifai_tpu_torch.models import gbdt_kernels as gk
-from transmogrifai_tpu_torch.models.classification import \
-    OpLogisticRegression
+from transmogrifai_tpu_torch.models.classification import (
+    OpLinearSVC, OpLogisticRegression, OpNaiveBayes)
 from transmogrifai_tpu_torch.models.mlp import \
     OpMultilayerPerceptronClassifier
 from transmogrifai_tpu_torch.models.regression import (
@@ -401,7 +433,9 @@ from transmogrifai_tpu_torch.ops.vectorizers import (RealVectorizer,
                                                      SmartTextVectorizer,
                                                      SmartTextVectorizerModel)
 from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
+from transmogrifai_tpu_torch.readers.avro import AvroReader, write_avro
 from transmogrifai_tpu_torch.readers.files import CSVReader
+from transmogrifai_tpu_torch.selector.combiner import SelectedModelCombiner
 from transmogrifai_tpu_torch.selector.model_selector import (
     BinaryClassificationModelSelector, MultiClassificationModelSelector,
     RegressionModelSelector, grid)
@@ -575,6 +609,26 @@ FE_BIO_WORDS = (
     "reise schiff meer stadt familie viaje barco mar ciudad familia").split()
 FE_OTHER_SCRIPTS = ("Привет как дела", "путешествие по морю", "東京から大阪へ",
                     "海の旅", "家族と一緒に", "Москва и река")
+#: the avro_combined phase: the Avro schema of the seven columns the
+#: reference's Avro demo reads and its label; the share of the attainable
+#: holdout AuPR each of its three predictions must reach (the titanic
+#: phase's share, stated before its first chip run); the rows scored
+#: after the save/load round trip; the linear SVC's share of the default
+#: selector's holdout AuPR on the slice's label, and naive Bayes's margin
+#: over the label's base rate (its clipped matrix drops the negative half
+#: of every Gaussian column), both stated before their first chip run
+AVRO_SCHEMA = {"type": "record", "name": "Passenger", "fields": [
+    {"name": "Survived", "type": "double"},
+    {"name": "Pclass", "type": ["null", "string"]},
+    {"name": "Sex", "type": ["null", "string"]},
+    {"name": "Age", "type": ["null", "double"]},
+    {"name": "SibSp", "type": ["null", "long"]},
+    {"name": "Parch", "type": ["null", "long"]},
+    {"name": "Fare", "type": ["null", "double"]},
+    {"name": "Embarked", "type": ["null", "string"]}]}
+AVRO_AUPR_SHARE = 0.9
+AVRO_ROUNDTRIP_ROWS = 1000
+SVC_AUPR_SHARE, NB_AUPR_MARGIN = 0.95, 0.3
 
 
 def _smi(query: str) -> str:
@@ -2544,6 +2598,282 @@ def phase_feature_eng(tdata, reps: int, bw: float, f32: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the avro_combined phase: the reference's Avro ensemble demo
+# ---------------------------------------------------------------------------
+
+def avro_records(cols: dict, lo: int, hi: int) -> list:
+    """Rows ``lo``..``hi`` of ``titanic_columns``' columns as the Avro
+    demo's records (AVRO_SCHEMA: a missing age is null)."""
+    names = [f["name"] for f in AVRO_SCHEMA["fields"]]
+    conv = {"Survived": float, "Pclass": str, "Sex": str, "SibSp": int,
+            "Parch": int, "Fare": float, "Embarked": str,
+            "Age": lambda v: None if v != v else float(v)}
+    lists = [list(map(conv[k], cols[k][lo:hi].tolist())) for k in names]
+    return [dict(zip(names, vals)) for vals in zip(*lists)]
+
+
+def build_avro_combined(avro_path: str):
+    """examples/op_titanic_avro_combined.py's ``build`` with the port's
+    imports: a linear selector (LR {0.01, 0.1}, an MLP [8] of 200 steps of
+    0.1) and a tree selector (50-tree forests at depths 6 and 12, min info
+    gain 0.001), each 3-fold CV on the checked Titanic columns, blended by
+    ``SelectedModelCombiner(combination_strategy="weighted")``; the
+    workflow reads ``avro_path`` through ``AvroReader``.  Returns (wf,
+    combined, linear prediction, tree prediction, checked)."""
+    survived = FeatureBuilder.RealNN("Survived").as_response()
+    predictors = [
+        FeatureBuilder.PickList("Pclass").as_predictor(),
+        FeatureBuilder.PickList("Sex").as_predictor(),
+        FeatureBuilder.Real("Age").as_predictor(),
+        FeatureBuilder.Integral("SibSp").as_predictor(),
+        FeatureBuilder.Integral("Parch").as_predictor(),
+        FeatureBuilder.Real("Fare").as_predictor(),
+        FeatureBuilder.PickList("Embarked").as_predictor(),
+    ]
+    features = transmogrify(predictors)
+    checked = SanityChecker(remove_bad_features=True).set_input(
+        survived, features).get_output()
+    linear = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3,
+        models_and_parameters=[
+            (OpLogisticRegression(), grid(reg_param=[0.01, 0.1])),
+            (OpMultilayerPerceptronClassifier(max_iter=200, step_size=0.1),
+             grid(hidden_layers=[[8]])),
+        ]).set_input(survived, checked)
+    trees = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3,
+        models_and_parameters=[
+            (OpRandomForestClassifier(),
+             grid(num_trees=[50], max_depth=[6, 12],
+                  min_info_gain=[0.001])),
+        ]).set_input(survived, checked)
+    combined = SelectedModelCombiner(
+        combination_strategy="weighted").set_input(
+        survived, linear.get_output(), trees.get_output()).get_output()
+    wf = (OpWorkflow()
+          .set_result_features(combined, linear.get_output(),
+                               trees.get_output())
+          .set_reader(AvroReader(avro_path)))
+    return wf, combined, linear.get_output(), trees.get_output(), checked
+
+
+def _svc_nb_leg(data, selector_aupr: float) -> dict:
+    """``OpLinearSVC().fit_raw`` and ``OpNaiveBayes().fit_raw`` on the
+    slice's 1M x 500 matrix, ``predict_batch`` on its holdout: fit
+    seconds, the SVC's Newton steps, holdout AuPR (the SVC's margin, NB's
+    probability) against its floor."""
+    train, hold, _ = data
+    dev = resolve_device()
+    cols = len([k for k in train.columns if k.startswith("f")])
+
+    def matrix(ds):
+        return torch.from_numpy(np.stack(
+            [np.asarray(ds[f"f{j}"].values, np.float32)
+             for j in range(cols)], 1)).to(dev)
+
+    X, Xh = matrix(train), matrix(hold)
+    y = np.asarray(train["label"].values, np.float32)
+    yh = torch.from_numpy(np.asarray(hold["label"].values, np.float32))
+    out = {"rows": int(X.shape[0]), "cols": cols}
+    floors = {"svc": SVC_AUPR_SHARE * selector_aupr,
+              "nb": float(yh.mean()) + NB_AUPR_MARGIN}
+    for key, est in (("svc", OpLinearSVC()), ("nb", OpNaiveBayes())):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est.fit_raw(X, y, device=dev)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        batch = model.predict_batch(Xh)
+        score = (batch.raw_prediction[:, 1] if batch.probability is None
+                 else batch.probability[:, 1])
+        out[key] = {"fit_s": fit_s, "n_iter": est.metadata.get("n_iter"),
+                    "holdout_aupr": aupr(yh.to(dev), score),
+                    "aupr_floor": floors[key],
+                    "finite": bool(torch.isfinite(score).all())}
+    del X, Xh
+    return out
+
+
+def phase_avro_combined(data, selector_aupr: float, reps: int, bw: float,
+                        f32: float) -> dict:
+    """The reference's Avro ensemble demo on the card (the module
+    docstring's phase 6d): the Titanic columns written to Avro by the
+    port's ``write_avro`` (deflate) and read inside ``train()`` by
+    ``AvroReader``; both selectors, the weighted combiner, holdout AuPRs,
+    the kernel's launches against the forests' levels, the demo's depth-12
+    levels bitwise against the plain version, save/load; then the linear
+    SVC and naive Bayes leg on the slice's matrix (``data``)."""
+    phase_t0 = time.perf_counter()
+    rows, holdout = len(data[0]), len(data[1])
+    t0 = time.perf_counter()
+    cols, p = titanic_columns(rows + holdout)
+    columns_s = time.perf_counter() - t0
+    tmp = os.path.join(REPO, "smoke_out")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    train_path = os.path.join(tmp, "train.avro")
+    hold_path = os.path.join(tmp, "holdout.avro")
+    try:
+        t0 = time.perf_counter()
+        write_avro(train_path, AVRO_SCHEMA, avro_records(cols, 0, rows))
+        write_avro(hold_path, AVRO_SCHEMA,
+                   avro_records(cols, rows, rows + holdout))
+        avro_write_s = time.perf_counter() - t0
+        avro_bytes = os.path.getsize(train_path) + os.path.getsize(
+            hold_path)
+        p_hold = p[rows:]
+        del cols, p
+
+        wf, combined, p_lin, p_tree, checked = build_avro_combined(
+            train_path)
+        reader = wf.reader
+        check(reader.estimate_rows() == rows,
+              f"avro_combined: estimate_rows {reader.estimate_rows()} != "
+              f"{rows}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gk.seg_level_hists.launches = 0
+        t0 = time.perf_counter()
+        model = wf.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = gk.seg_level_hists.launches
+        peak = torch.cuda.max_memory_allocated()
+        read_s = dict(reader.read_seconds)
+
+        hold_reader = AvroReader(hold_path)
+        t0 = time.perf_counter()
+        hold = hold_reader.generate_dataset(model.raw_features())
+        hold_read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scored = model.score(hold)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        y_hold = torch.as_tensor(np.asarray(hold["Survived"].values,
+                                            np.float32))
+        attainable = aupr(y_hold, torch.from_numpy(p_hold.astype(
+            np.float32)))
+        preds = {"linear": p_lin, "trees": p_tree, "combined": combined}
+        probas = {k: scored[f.name].values.probability
+                  for k, f in preds.items()}
+        holdout_aupr = {k: aupr(y_hold.to(v.device), v[:, 1])
+                        for k, v in probas.items()}
+
+        sels = {k: f.origin_stage for k, f in
+                (("linear", p_lin), ("trees", p_tree))}
+        comb_stage = next(s for s in model.stages
+                          if s.uid == combined.origin_stage.uid)
+        info = comb_stage.metadata["combiner"]
+        summaries = {k: s.metadata["model_selector_summary"]
+                     for k, s in sels.items()}
+        forest_levels = sum(s.metadata["hist_levels"]
+                            for s in sels.values())
+
+        # the demo's depth-12 forest levels on the checked matrix, bitwise
+        X = model.train_data[checked.name].values
+        y = np.asarray(model.train_data["Survived"].values, np.float32)
+        kernel_row = _titanic_levels(X, y, int(np.sqrt(X.shape[1])), reps,
+                                     bw, f32)
+        kernel_row["path"] = "avro_combined"
+        checked_cols = int(X.shape[1])
+        del X
+
+        # save -> load on the card -> AVRO_ROUNDTRIP_ROWS holdout rows
+        path = os.path.join(tmp, "avro_combined")
+        t0 = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(path)
+        t0 = time.perf_counter()
+        loaded = OpWorkflowModel.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        part = hold.slice(0, AVRO_ROUNDTRIP_ROWS)
+        before = model.score(part)[combined.name].values.probability
+        again = loaded.score(part)[combined.name].values.probability
+        bitwise = bool(torch.equal(again, before))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    leg = _svc_nb_leg(data, selector_aupr)
+
+    out = {"phase": "avro_combined", "rows": rows, "holdout": holdout,
+           "columns_s": columns_s, "avro_write_s": avro_write_s,
+           "avro_bytes": avro_bytes, "avro_read_s": read_s,
+           "holdout_read_s": hold_read_s, "train_s": train_s,
+           "score_s": score_s, "stage_seconds": model.stage_seconds,
+           "checked_cols": checked_cols,
+           "sweep_seconds": {k: s.metadata["sweep_seconds"]
+                             for k, s in sels.items()},
+           "refit_seconds": {k: s.metadata["refit_seconds"]
+                             for k, s in sels.items()},
+           "sequential_fits": sels["linear"].metadata["sequential_fits"],
+           "group_errors": {k: s.metadata["group_errors"]
+                            for k, s in sels.items()},
+           "winners": {k: [v["bestModelType"], v["bestModelParams"]]
+                       for k, v in summaries.items()},
+           "cv": {k: [{"model": r["modelType"], "params": r["params"],
+                       "metric": r["metricValue"], "error": r.get("error")}
+                      for r in v["validationResults"]]
+                  for k, v in summaries.items()},
+           "combiner": info,
+           "holdout_aupr": holdout_aupr, "attainable_aupr": attainable,
+           "aupr_floor": AVRO_AUPR_SHARE * attainable,
+           "seg_hist_launches": launches, "forest_levels": forest_levels,
+           "max_memory_allocated": peak,
+           "save_s": save_s, "load_s": load_s, "artifact_bytes": nbytes,
+           "roundtrip_rows": AVRO_ROUNDTRIP_ROWS,
+           "roundtrip_bitwise": bitwise, "svc_nb": leg,
+           "phase_s": time.perf_counter() - phase_t0}
+    emit(out)
+    emit(kernel_row)
+    for k, v in probas.items():
+        check(tuple(v.shape) == (holdout, 2) and bool(
+            torch.isfinite(v).all()),
+              f"avro_combined: {k} probabilities {tuple(v.shape)} not "
+              f"finite of the holdout's shape")
+    for k, v in summaries.items():
+        errors = [r["error"] for r in v["validationResults"]
+                  if r.get("error")]
+        check(not errors, f"avro_combined: {k} candidates failed: {errors}")
+        check(not sels[k].metadata["group_errors"],
+              f"avro_combined: {k} grid groups failed: "
+              f"{sels[k].metadata['group_errors']}")
+    # the weighted rule: weights in proportion to the two winners'
+    # validation AuPR (the metric to maximize), summing to 1
+    m1, m2 = info["metricValue1"], info["metricValue2"]
+    check(info["strategy"] == "weighted" and info["metricName"] == "AuPR"
+          and abs(info["weight1"] - m1 / (m1 + m2)) <= 1e-12
+          and abs(info["weight1"] + info["weight2"] - 1.0) <= 1e-12,
+          f"avro_combined: combiner weights {info} break the weighted "
+          f"rule")
+    lin_best = summaries["linear"]
+    check(abs(m1 - next(r["metricValue"]
+                        for r in lin_best["validationResults"]
+                        if r["modelType"] == lin_best["bestModelType"]
+                        and r["params"] == lin_best["bestModelParams"]))
+          == 0.0, "avro_combined: the combiner's first metric is not the "
+          "linear winner's validation AuPR")
+    for k, v in holdout_aupr.items():
+        check(v >= AVRO_AUPR_SHARE * attainable,
+              f"avro_combined: {k} holdout AuPR {v} below "
+              f"{AVRO_AUPR_SHARE} x the attainable {attainable}")
+    check(launches > 0 and launches == forest_levels,
+          f"avro_combined: seg_hist launches {launches} != the forests' "
+          f"{forest_levels} levels")
+    check(kernel_row["bitwise_equal"] and kernel_row["levels_checked"] > 0,
+          f"avro_combined: {kernel_row['levels_unequal']} of "
+          f"{kernel_row['levels_checked']} levels differ from the plain "
+          f"version by up to {kernel_row['max_abs_err']}")
+    check(bitwise, "avro_combined: scores after save/load differ")
+    for key in ("svc", "nb"):
+        r = leg[key]
+        check(r["finite"] and r["holdout_aupr"] >= r["aupr_floor"],
+              f"avro_combined: {key} holdout AuPR {r['holdout_aupr']} "
+              f"below its floor {r['aupr_floor']}")
+    return {"seg_hist_launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # the multiclass phase: the default multiclass selector at 1M + 100k x 500
 # ---------------------------------------------------------------------------
 
@@ -4257,6 +4587,8 @@ def main() -> int:
     feature_eng = phase_feature_eng(tdata, args.reps, bw, f32)
     del tdata
     torch.cuda.empty_cache()
+    avro = phase_avro_combined(data, sel["holdout_aupr"], args.reps, bw, f32)
+    torch.cuda.empty_cache()
     multi, mc = phase_multiclass(data, args.cols, args.reps, bw, f32)
     torch.cuda.empty_cache()
     boosted = phase_boosted_multi(mc, data, args.cols, args.reps, bw, f32,
@@ -4313,6 +4645,7 @@ def main() -> int:
                      + titanic["efb_launches"]
                      + validate["launches_total"]
                      + feature_eng["seg_hist_launches"]
+                     + avro["seg_hist_launches"]
                      + multi["seg_hist_launches"]
                      + boosted["launches_total"]
                      + wide["launches_total"]),

@@ -910,3 +910,54 @@ def test_word2vec_embedding_on_card_is_bitwise(cuda_device):
                          lens) for _ in range(2)]
     assert torch.equal(card[0], card[1])
     assert torch.equal(card[0].cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_avro_combined_demo_levels_on_card(cuda_device, tmp_path):
+    """The reference's Avro ensemble demo (``chip_smoke.build_avro_combined``)
+    trained on the card from an Avro file: the kernel launches once per
+    forest level of the tree selector; the demo's depth-12 forest grown on
+    its checked matrix through the kernel and through the plain version
+    gives identical trees (integer channels); the combined model scores
+    bitwise equal after save and load on the card."""
+    import chip_smoke
+    from transmogrifai_tpu_torch.readers.avro import write_avro
+    from transmogrifai_tpu_torch.selector.validators import make_folds
+    from transmogrifai_tpu_torch.workflow.workflow import OpWorkflowModel
+
+    n = 20_000
+    cols, _ = chip_smoke.titanic_columns(n)
+    path = str(tmp_path / "train.avro")
+    write_avro(path, chip_smoke.AVRO_SCHEMA,
+               chip_smoke.avro_records(cols, 0, n))
+    wf, combined, p_lin, p_tree, checked = \
+        chip_smoke.build_avro_combined(path)
+    wf.device = "cuda"
+    before = tk.seg_level_hists.launches
+    model = wf.train()
+    levels = p_tree.origin_stage.metadata["hist_levels"]
+    assert tk.seg_level_hists.launches - before == levels > 0
+    assert p_lin.origin_stage.metadata["hist_levels"] == 0
+
+    X = model.train_data[checked.name].values
+    y = torch.from_numpy(np.asarray(model.train_data["Survived"].values,
+                                    np.float32)).to(cuda_device)
+    binned = tk.apply_bins(X, tk.quantile_bins(X.cpu(), 32))
+    fold = torch.from_numpy((make_folds(n, 3, seed=42) != 0).astype(
+        np.float32)).to(cuda_device)
+    kw = dict(seed=42, n_trees=10, pair_fold=[0], pair_min_ig=[0.001],
+              pair_min_inst=[1], pair_depth=[12],
+              msub=int(np.sqrt(X.shape[1])), subsample_rate=1.0, n_bins=32)
+    k = tk.grow_rf_grid(binned, y, fold[None], **kw)
+    p = tk.grow_rf_grid(binned, y, fold[None],
+                        hist_fn=tk.seg_level_hists_plain, **kw)
+    assert torch.equal(k.feat, p.feat) and torch.equal(k.thresh, p.thresh)
+    assert torch.equal(k.leaf, p.leaf)
+
+    out = str(tmp_path / "m")
+    model.save(out)
+    loaded = OpWorkflowModel.load(out, device="cuda")
+    data = wf.reader.generate_dataset(model.raw_features()).slice(0, 2000)
+    a = model.score(data)[combined.name].values.probability
+    b = loaded.score(data)[combined.name].values.probability
+    assert a.device.type == "cuda" and torch.equal(a, b)

@@ -87,6 +87,17 @@ B = 32
 PRIORS = {3: [0.5, 0.3, 0.2], 5: [0.40, 0.25, 0.15, 0.12, 0.08]}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one intra-op thread: beside the JAX package's own thread
+    pool in a parallel test run, torch on every thread oversubscribes the
+    host (the default selector's fixture took minutes there)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _mc(n, K, seed, nan_frac=0.05):
     """10 Real columns (some NaN) and a K-class label: class k's score is
     the log of its prior plus a linear part in columns 2k, 2k+1 (mod 10),

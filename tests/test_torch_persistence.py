@@ -3,9 +3,10 @@
 One format serves both: the port writes the JAX package's class paths and
 reads them back through its class map.  Held here: the committed
 ``model_v1`` artifact scores to its frozen expectations in the port
-(within 1e-5, as ``tests/test_backcompat.py`` holds the JAX package);
-``model_v2`` names the classes the port lacks; workflows trained and saved
-by the JAX package load in the port, and the port's load in the JAX
+(within 1e-5, as ``tests/test_backcompat.py`` holds the JAX package), and
+so does ``model_v2`` (an MLP and a forest blended by the combiner); a
+class the port lacks is named with its ROADMAP item; workflows trained and
+saved by the JAX package load in the port, and the port's load in the JAX
 package, with tree ``feat``/``thresh`` equal exactly and probabilities
 within 1e-6 (a boosted model: the same trees summed in another order) or
 1e-5 (a selected model: a logistic margin or a forest's mean, in another
@@ -218,14 +219,58 @@ class TestCommittedArtifacts:
         assert checker.new_vmeta.column_names() == [
             "x_0", "cat_cat_b_1", "cat_cat_a_2"]
 
-    def test_model_v2_names_what_is_not_ported(self):
+    def test_model_v2_names_what_is_not_ported(self, tmp_path):
+        """model_v2 with its combiner's record renamed to a JAX class the
+        port lacks: the load names that class and its ROADMAP item, and
+        nothing the port has (the MLP, the forest, the combiner)."""
+        import json
+        import shutil
+
+        path = str(tmp_path / "m")
+        shutil.copytree(os.path.join(FIXTURES, "model_v2"), path)
+        with open(os.path.join(path, "op-model.json")) as f:
+            doc = json.load(f)
+        assert doc["stages"][-1]["className"] == \
+            "transmogrifai_tpu.selector.combiner.SelectedCombinerModel"
+        doc["stages"][-1]["className"] = (
+            "transmogrifai_tpu.ops.map_vectorizers."
+            "GeolocationMapVectorizerModel")
+        with open(os.path.join(path, "op-model.json"), "w") as f:
+            json.dump(doc, f)
         with pytest.raises(NotImplementedError) as err:
-            OpWorkflowModel.load(os.path.join(FIXTURES, "model_v2"))
+            OpWorkflowModel.load(path)
         msg = str(err.value)
-        # the MLP is ported (its selector loads); the combiner is not
-        assert "MLPClassificationModel" not in msg
-        assert "SelectedCombinerModel" in msg
+        assert "GeolocationMapVectorizerModel" in msg
         assert "ROADMAP Queue A item 6" in msg
+        for ported in ("MLPClassificationModel", "TreeEnsembleModel",
+                       "SelectedCombinerModel"):
+            assert ported not in msg
+
+    def test_model_v2_scores_to_expected(self):
+        """The committed model_v2 (two selectors, an MLP and a forest,
+        blended by SelectedCombinerModel) scores its input within 1e-5 of
+        its frozen expectations, through the workflow and the local
+        scorer."""
+        model = OpWorkflowModel.load(os.path.join(FIXTURES, "model_v2"))
+        expected = np.load(os.path.join(FIXTURES, "model_v2_expected.npy"))
+        name = model.result_features[0].name
+        comb = model.get_fitted_stage("SelectedCombinerModel")
+        assert comb.get_output().name == name
+        assert (comb.strategy, comb.metric) == ("weighted", "AuPR")
+        assert [f.origin_stage.uid for f in comb.input_features[1:]] == [
+            "ModelSelector_000000000017", "ModelSelector_00000000001a"]
+        got = model.score(CSVReader(os.path.join(
+            FIXTURES, "model_v2_input.csv")))[name].values.probability
+        np.testing.assert_allclose(got[:, 1].numpy(), expected, rtol=0,
+                                   atol=1e-5)
+        fn = score_function(load_model_local(os.path.join(FIXTURES,
+                                                          "model_v2")))
+        with open(os.path.join(FIXTURES, "model_v2_input.csv")) as f:
+            rows = list(csv.DictReader(f))
+        for i, r in enumerate(rows[:8]):
+            row = {k: (r[k] if k == "cat" else float(r[k]))
+                   for k in ("x0", "x1", "x2", "x3", "cat")}
+            assert abs(fn(row)[name]["probability_1"] - expected[i]) < 1e-5
 
     def test_unported_tree_mode_names_its_item(self, tmp_path):
         import json

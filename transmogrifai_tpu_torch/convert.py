@@ -16,7 +16,9 @@ import torch
 
 from .device import resolve_device
 from .features.feature import Feature
-from .models.classification import LogisticRegressionModel
+from .models.classification import (LinearSVCModel,
+                                     LogisticRegressionModel,
+                                     NaiveBayesModel)
 from .models.mlp import MLPClassificationModel
 from .models.prediction import PredictorModel
 from .models.regression import LinearRegressionModel
@@ -25,6 +27,7 @@ from .ops.vectorizers import (IntegralVectorizer, OneHotVectorizer,
                               OneHotVectorizerModel, RealVectorizer,
                               RealVectorizerModel)
 from .preparators.sanity_checker import SanityChecker, SanityCheckerModel
+from .selector.combiner import SelectedCombinerModel, SelectedModelCombiner
 from .selector.model_selector import ModelSelector, SelectedModel
 from .stages.base import Estimator, Model, PipelineStage
 from .workflow.dag import compute_dag
@@ -33,7 +36,9 @@ from .workflow.workflow import OpWorkflowModel
 __all__ = ["real_vectorizer", "one_hot_vectorizer", "sanity_checker",
            "tree_ensemble_model", "tree_ensemble",
            "logistic_regression_model", "mlp_model",
-           "linear_regression_model", "selected_model", "workflow_model"]
+           "linear_regression_model", "linear_svc_model",
+           "naive_bayes_model", "selected_model", "selected_combiner",
+           "workflow_model"]
 
 
 def real_vectorizer(est: Union[RealVectorizer, IntegralVectorizer],
@@ -128,12 +133,32 @@ def linear_regression_model(coef: np.ndarray, intercept: float,
                      device=resolve_device(device)), float(intercept))
 
 
+def linear_svc_model(coef: np.ndarray, intercept: float,
+                     device=None) -> LinearSVCModel:
+    """A ``LinearSVCModel`` from its (D,) coefficients and intercept, on
+    ``device`` (else the default device)."""
+    return LinearSVCModel(
+        torch.tensor(np.asarray(coef, np.float32),
+                     device=resolve_device(device)), float(intercept))
+
+
+def naive_bayes_model(log_prior: np.ndarray, log_lik: np.ndarray,
+                      device=None) -> NaiveBayesModel:
+    """A ``NaiveBayesModel`` from its (K,) log priors and (K, D) log
+    likelihoods, on ``device`` (else the default device)."""
+    dev = resolve_device(device)
+    return NaiveBayesModel(
+        torch.tensor(np.asarray(log_prior, np.float32), device=dev),
+        torch.tensor(np.asarray(log_lik, np.float32), device=dev))
+
+
 def selected_model(est: ModelSelector, inner: PredictorModel,
                    best_name: str, best_params: dict,
                    summary: Optional[dict] = None) -> SelectedModel:
     """A fitted selector: the winner ``inner`` (built by
     ``logistic_regression_model``, ``linear_regression_model``,
-    ``mlp_model`` or ``tree_ensemble_model``) with its
+    ``linear_svc_model``, ``naive_bayes_model``, ``mlp_model`` or
+    ``tree_ensemble_model``) with its
     name and params; ``summary`` (the JAX selector's
     ``model_selector_summary``) is carried into the estimator's
     metadata."""
@@ -141,6 +166,19 @@ def selected_model(est: ModelSelector, inner: PredictorModel,
         est.metadata["model_selector_summary"] = summary
     return est.adopt_model(SelectedModel(inner=inner, best_name=best_name,
                                          best_params=dict(best_params)))
+
+
+def selected_combiner(est: SelectedModelCombiner, weight1: float,
+                      weight2: float, strategy: str, metric: str,
+                      combiner: Optional[dict] = None
+                      ) -> SelectedCombinerModel:
+    """A fitted combiner: its two weights, strategy and metric name;
+    ``combiner`` (the JAX stage's ``metadata["combiner"]``) is carried
+    into the estimator's metadata."""
+    if combiner is not None:
+        est.metadata["combiner"] = dict(combiner)
+    return est.adopt_model(SelectedCombinerModel(
+        weight1=weight1, weight2=weight2, strategy=strategy, metric=metric))
 
 
 def workflow_model(result_features: Sequence[Feature],

@@ -3,7 +3,8 @@
 precision-recall and ROC curves from one sort of the scores, evaluated at
 distinct-score boundaries (average-precision style, as sklearn and Spark
 compute them), the metrics at a threshold, Brier score and log loss; the
-weighted regression set (RMSE, MSE, MAE, R2); the weighted multiclass set
+weighted regression set (RMSE, MSE, MAE, R2); the forecast set (SMAPE,
+MASE); the weighted multiclass set
 (F1, Error, Accuracy, Precision, Recall: support-weighted averages over a
 confusion matrix) and the top-N / confidence-threshold counts.
 
@@ -28,11 +29,13 @@ __all__ = ["MINIMIZE_METRICS", "aupr", "aupr_device", "aupr_es", "auroc",
            "regression_metric_grid", "regression_metrics",
            "MULTICLASS_METRICS", "multiclass_metric_device",
            "multiclass_metric_grid", "multiclass_metrics",
+           "forecast_metrics",
            "multiclass_threshold_metrics", "threshold_curves"]
 
 #: metrics where smaller is better (the selector's direction of selection)
 MINIMIZE_METRICS = ("RootMeanSquaredError", "MeanSquaredError",
-                    "MeanAbsoluteError", "Error", "LogLoss", "BrierScore")
+                    "MeanAbsoluteError", "Error", "LogLoss", "BrierScore",
+                    "SMAPE", "MASE", "SeasonalError")
 
 #: the regression metric set, by the JAX package's names
 REGRESSION_METRICS = ("RootMeanSquaredError", "MeanSquaredError",
@@ -278,6 +281,25 @@ def regression_metrics(y_true, y_pred, sample_weight=None
     return {m: float(regression_metric_device(y_true, y_pred, sample_weight,
                                               m))
             for m in REGRESSION_METRICS}
+
+
+def forecast_metrics(y_true, y_pred, seasonal_period: int = 1
+                     ) -> Dict[str, float]:
+    """SMAPE and MASE (OpForecastEvaluator's), in float64 on the
+    predictions' device; MASE's scale is the mean absolute change over
+    ``seasonal_period`` steps of the labels (NaN with no such step)."""
+    p = torch.as_tensor(y_pred).to(torch.float64)
+    y = torch.as_tensor(y_true).to(p.device, torch.float64)
+    err = torch.abs(p - y)
+    smape = float(torch.mean(2.0 * err / torch.clamp(
+        torch.abs(p) + torch.abs(y), min=1e-12)))
+    m = seasonal_period
+    if len(y) > m:
+        scale = float(torch.mean(torch.abs(y[m:] - y[:-m])))
+        mase = float(torch.mean(err)) / max(scale, 1e-12)
+    else:
+        mase = float("nan")
+    return {"SMAPE": smape, "MASE": mase}
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """The port's model stages (counterpart of ``transmogrifai_tpu.models``):
 the estimators a selector grid or a workflow names."""
-from .classification import OpLogisticRegression  # noqa: F401
+from .classification import (  # noqa: F401
+    OpLogisticRegression, OpLinearSVC, OpNaiveBayes,
+)
 from .mlp import (  # noqa: F401
     OpMultilayerPerceptronClassifier, MLPClassificationModel,
 )

@@ -1,9 +1,13 @@
 """Linear classification stages (counterpart of
 ``transmogrifai_tpu.models.classification``): ``OpLogisticRegression``,
-binary or multinomial, and its fitted ``LogisticRegressionModel``.
+binary or multinomial, ``OpLinearSVC`` and ``OpNaiveBayes``, and their
+fitted models.  Each fit and predict is a few plain torch operations on
+the device (no hand-written kernel: the JAX package computes them outside
+any Pallas kernel).
 
-Not ported yet (ROADMAP Queue A): OpLinearSVC, OpNaiveBayes, the sharded
-fit and the AOT scoring specs.
+Not ported yet: the sharded fit (ROADMAP Queue A item 6.7), naive Bayes's
+streaming fit (``begin_fit``..``finish_fit``, with chunked ingestion: item
+6.3) and the AOT scoring specs (item 6.6.2).
 """
 from __future__ import annotations
 
@@ -14,11 +18,23 @@ import torch
 
 from ..device import as_device_tensor, resolve_device
 from ..types.columns import ColumnarDataset
-from .linear import (fit_logistic_regression, fit_multinomial_logreg,
-                     logreg_predict_proba, softmax_predict_proba)
+from .linear import (fit_linear_svc, fit_logistic_regression,
+                     fit_multinomial_logreg, fit_naive_bayes,
+                     logreg_predict_proba, naive_bayes_predict_log_proba,
+                     softmax_predict_proba, svc_decision)
 from .prediction import PredictionBatch, PredictorEstimator, PredictorModel
 
-__all__ = ["OpLogisticRegression", "LogisticRegressionModel"]
+__all__ = ["OpLogisticRegression", "LogisticRegressionModel", "OpLinearSVC",
+           "LinearSVCModel", "OpNaiveBayes", "NaiveBayesModel"]
+
+
+def _labels(label_col) -> np.ndarray:
+    return np.nan_to_num(np.asarray(label_col.values, dtype=np.float32))
+
+
+def _weights(w, dev) -> Optional[torch.Tensor]:
+    return None if w is None else torch.as_tensor(
+        np.asarray(w, np.float32)).to(dev)
 
 
 class OpLogisticRegression(PredictorEstimator):
@@ -26,11 +42,14 @@ class OpLogisticRegression(PredictorEstimator):
     elasticNetParam, maxIter, tol, fitIntercept, standardization), fitted
     on the standardized matrix by ``linear.fit_logistic_regression`` for
     labels in {0, 1}, by ``linear.fit_multinomial_logreg`` for K > 2
-    classes (K = the largest label + 1)."""
+    classes (K = the largest label + 1).  ``sample_weight_col`` names a
+    numeric column of the dataset whose values weight the rows of a
+    workflow fit."""
 
     def __init__(self, reg_param: float = 0.0, elastic_net_param: float = 0.0,
                  max_iter: int = 50, tol: float = 1e-6,
                  fit_intercept: bool = True, standardization: bool = True,
+                 sample_weight_col: Optional[str] = None,
                  device: Optional[str] = None, uid: Optional[str] = None):
         super().__init__(operation_name="logreg", uid=uid)
         self.reg_param = reg_param
@@ -39,11 +58,14 @@ class OpLogisticRegression(PredictorEstimator):
         self.tol = tol
         self.fit_intercept = fit_intercept
         self.standardization = standardization
+        self.sample_weight_col = sample_weight_col
         self.device = device
 
     def fit_columns(self, data: ColumnarDataset, label_col, features_col):
-        y = np.nan_to_num(np.asarray(label_col.values, dtype=np.float32))
-        return self.fit_raw(features_col.values, y)
+        w = None
+        if self.sample_weight_col and self.sample_weight_col in data:
+            w = np.asarray(data[self.sample_weight_col].values, np.float32)
+        return self.fit_raw(features_col.values, _labels(label_col), w)
 
     def fit_raw(self, X, y, w=None, device=None) -> "LogisticRegressionModel":
         """Fit on a (N, D) matrix and labels in {0, .., K-1}, on
@@ -55,8 +77,7 @@ class OpLogisticRegression(PredictorEstimator):
         y = np.asarray(y, np.float32)
         finite = y[~np.isnan(y)]
         n_classes = max(int(finite.max()) + 1 if len(finite) else 2, 2)
-        wt = None if w is None else torch.as_tensor(
-            np.asarray(w, np.float32)).to(dev)
+        wt = _weights(w, dev)
         mu = sigma = None
         if self.standardization:
             mu, sigma = _standardize_stats(X, wt)
@@ -130,3 +151,113 @@ class LogisticRegressionModel(PredictorModel):
         return PredictionBatch(
             prediction=proba.argmax(dim=1).to(torch.float64),
             raw_prediction=raw, probability=proba)
+
+
+class OpLinearSVC(PredictorEstimator):
+    """Squared-hinge linear SVM (Spark's regParam, maxIter, tol,
+    fitIntercept, standardization), fitted on the standardized matrix by
+    ``linear.fit_linear_svc``; labels in {0, 1}.  ``metadata["n_iter"]``
+    counts its Newton steps."""
+
+    def __init__(self, reg_param: float = 1e-4, max_iter: int = 100,
+                 tol: float = 1e-6, fit_intercept: bool = True,
+                 standardization: bool = True,
+                 device: Optional[str] = None, uid: Optional[str] = None):
+        super().__init__(operation_name="linsvc", uid=uid)
+        self.reg_param = reg_param
+        self.max_iter = max_iter
+        self.tol = tol
+        self.fit_intercept = fit_intercept
+        self.standardization = standardization
+        self.device = device
+
+    def fit_columns(self, data: ColumnarDataset, label_col, features_col):
+        return self.fit_raw(features_col.values, _labels(label_col))
+
+    def fit_raw(self, X, y, w=None, device=None) -> "LinearSVCModel":
+        """Fit on a (N, D) matrix and labels in {0, 1}, on ``device``
+        (else the stage's, else the default device); the coefficients
+        come back in raw feature space."""
+        dev = resolve_device(device if device is not None else self.device)
+        X = torch.as_tensor(X, dtype=torch.float32).to(dev)
+        wt = _weights(w, dev)
+        mu = sigma = None
+        if self.standardization:
+            mu, sigma = _standardize_stats(X, wt)
+            X = (X - mu) / sigma
+        fit = fit_linear_svc(
+            X, torch.as_tensor(np.asarray(y, np.float32)).to(dev),
+            sample_weight=wt, reg_param=self.reg_param,
+            max_iter=self.max_iter, tol=self.tol,
+            fit_intercept=self.fit_intercept)
+        self.metadata["n_iter"] = fit.n_iter
+        coef, icpt = fit.coef, float(fit.intercept)
+        if mu is not None:
+            coef = coef / sigma
+            icpt = icpt - float(torch.dot(coef, mu))
+        return LinearSVCModel(coef=coef, intercept=icpt)
+
+
+class LinearSVCModel(PredictorModel):
+    """``coef`` (D,) float32 tensor and the float ``intercept``; a row's
+    raw prediction is (-z, z) of its margin z, its prediction z >= 0.  An
+    array ``coef`` (a loaded artifact's) goes to ``device`` (else the
+    default device)."""
+
+    def __init__(self, coef, intercept: float, device: Optional[str] = None,
+                 uid: Optional[str] = None):
+        super().__init__(operation_name="linsvc", uid=uid)
+        self.coef = as_device_tensor(coef, torch.float32, device)
+        self.intercept = float(intercept)
+        self.device = device
+
+    def predict_batch(self, X: torch.Tensor) -> PredictionBatch:
+        z = svc_decision(self.coef, self.intercept, X)
+        return PredictionBatch(prediction=(z >= 0).to(torch.float64),
+                               raw_prediction=torch.stack([-z, z], 1))
+
+
+class OpNaiveBayes(PredictorEstimator):
+    """Multinomial naive Bayes (Spark's OpNaiveBayes, ``smoothing`` 1.0)
+    on the feature matrix clipped at 0; K = the largest label + 1, at
+    least 2."""
+
+    def __init__(self, smoothing: float = 1.0,
+                 device: Optional[str] = None, uid: Optional[str] = None):
+        super().__init__(operation_name="naivebayes", uid=uid)
+        self.smoothing = smoothing
+        self.device = device
+
+    def fit_columns(self, data: ColumnarDataset, label_col, features_col):
+        return self.fit_raw(features_col.values, _labels(label_col))
+
+    def fit_raw(self, X, y, w=None, device=None) -> "NaiveBayesModel":
+        dev = resolve_device(device if device is not None else self.device)
+        X = torch.as_tensor(X, dtype=torch.float32).to(dev)
+        y = np.asarray(y)
+        n_classes = max(int(y.max()) + 1 if len(y) else 2, 2)
+        log_prior, log_lik = fit_naive_bayes(
+            X, torch.from_numpy(y.astype(np.int64)).to(dev),
+            n_classes=n_classes, sample_weight=_weights(w, dev),
+            smoothing=self.smoothing)
+        return NaiveBayesModel(log_prior=log_prior, log_lik=log_lik)
+
+
+class NaiveBayesModel(PredictorModel):
+    """``log_prior`` (K,) and ``log_lik`` (K, D) float32 tensors; a row's
+    raw prediction is its log posteriors, its probability their exp, its
+    prediction the argmax."""
+
+    def __init__(self, log_prior, log_lik, device: Optional[str] = None,
+                 uid: Optional[str] = None):
+        super().__init__(operation_name="naivebayes", uid=uid)
+        self.log_prior = as_device_tensor(log_prior, torch.float32, device)
+        self.log_lik = as_device_tensor(log_lik, torch.float32, device)
+        self.device = device
+
+    def predict_batch(self, X: torch.Tensor) -> PredictionBatch:
+        logp = naive_bayes_predict_log_proba(self.log_prior, self.log_lik, X)
+        proba = torch.exp(logp)
+        return PredictionBatch(
+            prediction=proba.argmax(dim=1).to(torch.float64),
+            raw_prediction=logp, probability=proba)

@@ -13,6 +13,11 @@ selectors run:
  * ``fit_linear_regression`` — ridge by the normal equations (a damped
    Cholesky solve of the centred weighted Gram), elastic net by FISTA on
    the same Gram; ``linear_predict``;
+ * ``fit_linear_svc`` — the squared-hinge linear SVM with an L2 penalty
+   by damped Newton steps; ``svc_decision``;
+ * ``fit_naive_bayes`` — multinomial naive Bayes on the clipped
+   non-negative matrix (one weighted one-hot product);
+   ``naive_bayes_predict_log_proba``;
  * ``fit_linreg_grid`` — every (fold, candidate) linear-regression fit:
    one weighted Gram per fold, standardization folded into it, then a
    ridge solve or FISTA iterations per (fold, candidate), each pair
@@ -30,8 +35,7 @@ Everything computes in float32 on the inputs' device; loops are Python
 loops that read the stopping test back to the host once per iteration.
 The per-fold Gram ``X' diag(w) X`` and the grid products are plain large
 matrix products (``torch.matmul``), as the JAX package left them to XLA.
-Not ported yet (ROADMAP Queue A): the SVC and naive Bayes trainers and
-the sharded solvers.
+Not ported yet (ROADMAP Queue A item 6.7): the sharded solvers.
 """
 from __future__ import annotations
 
@@ -42,7 +46,9 @@ import torch
 __all__ = ["LinearFit", "fit_logistic_regression", "logreg_predict_proba",
            "fit_logreg_grid", "fit_softmax_grid", "fit_multinomial_logreg",
            "softmax_predict_proba", "fit_linear_regression",
-           "linear_predict", "fit_linreg_grid"]
+           "linear_predict", "fit_linreg_grid", "fit_linear_svc",
+           "svc_decision", "fit_naive_bayes",
+           "naive_bayes_predict_log_proba"]
 
 
 class LinearFit(NamedTuple):
@@ -597,3 +603,85 @@ def fit_linreg_grid(X: torch.Tensor, y: torch.Tensor, W_tr: torch.Tensor,
     icpt = ym[:, None] - (xm[:, None, :] * coef).sum(2)
     preds = (coef.reshape(F * C, d) @ X.T).reshape(F, C, n)
     return preds + icpt[..., None], coef, icpt
+
+
+# ---------------------------------------------------------------------------
+# Linear SVC and multinomial naive Bayes
+# ---------------------------------------------------------------------------
+
+def fit_linear_svc(X: torch.Tensor, y: torch.Tensor,
+                   sample_weight: Optional[torch.Tensor] = None,
+                   reg_param: float = 1e-4, max_iter: int = 50,
+                   tol: float = 1e-6, fit_intercept: bool = True
+                   ) -> LinearFit:
+    """Squared-hinge linear SVM with an L2 penalty (labels in {0, 1}, the
+    loss a weighted mean), by Newton steps on its generalized Hessian
+    over the rows inside the margin, each a damped Cholesky solve; stops
+    when no coefficient moves more than ``tol`` or after ``max_iter``
+    steps."""
+    X = X.to(torch.float32)
+    n, d = X.shape
+    dev = X.device
+    ypm = 2.0 * y.to(dev, torch.float32) - 1.0          # {-1, +1}
+    w = (torch.ones(n, dtype=torch.float32, device=dev)
+         if sample_weight is None
+         else sample_weight.to(dev, torch.float32))
+    wsum = torch.clamp(w.sum(), min=1.0)
+    Xa = (torch.cat([X, torch.ones((n, 1), dtype=X.dtype, device=dev)], 1)
+          if fit_intercept else X)
+    diag = torch.arange(d, device=dev)
+    beta = torch.zeros(Xa.shape[1], dtype=torch.float32, device=dev)
+    dn, it = float("inf"), 0
+    while dn > tol and it < max_iter:
+        margin = 1.0 - ypm * (Xa @ beta)
+        active = (margin > 0).to(X.dtype) * w / wsum
+        grad = Xa.T @ (-2.0 * active * ypm * margin)
+        grad[:d] += reg_param * beta[:d]
+        H = (Xa * (2.0 * active)[:, None]).T @ Xa
+        H[diag, diag] += reg_param
+        new = _finite_or(beta - _damped_solve(H, grad), beta)
+        dn = float(torch.max(torch.abs(new - beta)))
+        beta, it = new, it + 1
+    icpt = beta[d] if fit_intercept else torch.zeros((), device=dev)
+    return LinearFit(beta[:d], icpt, it, dn <= tol)
+
+
+def svc_decision(coef: torch.Tensor, intercept, X: torch.Tensor
+                 ) -> torch.Tensor:
+    """The SVM's margins ``X coef + intercept``."""
+    return X.to(torch.float32) @ coef.to(X.device, torch.float32) + intercept
+
+
+def fit_naive_bayes(X: torch.Tensor, y: torch.Tensor, n_classes: int,
+                    sample_weight: Optional[torch.Tensor] = None,
+                    smoothing: float = 1.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multinomial naive Bayes (Spark's default, smoothing 1): log priors
+    (K,) and log likelihoods (K, D) of the matrix clipped at 0, from the
+    weighted class counts and per-class feature sums (one (K, N) x (N, D)
+    product)."""
+    X = torch.clamp(X.to(torch.float32), min=0.0)
+    n, d = X.shape
+    dev = X.device
+    w = (torch.ones(n, dtype=torch.float32, device=dev)
+         if sample_weight is None
+         else sample_weight.to(dev, torch.float32))
+    Y = torch.nn.functional.one_hot(y.to(dev).long(), n_classes).to(
+        torch.float32) * w[:, None]
+    class_count = Y.sum(0)
+    feat_count = Y.T @ X
+    log_prior = (torch.log(class_count + 1e-12)
+                 - torch.log(torch.clamp(class_count.sum(), min=1e-12)))
+    log_lik = (torch.log(feat_count + smoothing)
+               - torch.log(feat_count.sum(1, keepdim=True)
+                           + smoothing * d))
+    return log_prior, log_lik
+
+
+def naive_bayes_predict_log_proba(log_prior: torch.Tensor,
+                                  log_lik: torch.Tensor, X: torch.Tensor
+                                  ) -> torch.Tensor:
+    """Per-class log posteriors (N, K) of the clipped matrix."""
+    Xc = torch.clamp(X.to(torch.float32), min=0.0)
+    joint = Xc @ log_lik.to(Xc.device).T + log_prior.to(Xc.device)
+    return joint - torch.logsumexp(joint, dim=1, keepdim=True)

@@ -2,7 +2,7 @@
 ``transmogrifai_tpu.models.mlp``): Spark's feed-forward network
 (OpMultilayerPerceptronClassifier.scala:48) with sigmoid hidden units and
 a softmax output, ``layers = [in, hidden..., out]``, on standardized
-inputs.
+inputs (unless ``standardization=False``).
 
 The network is an ``nn.Module`` (``MLPNet``) whose layer weights keep the
 JAX package's (fan_in, fan_out) layout, so fitted weights cross between
@@ -114,22 +114,30 @@ class OpMultilayerPerceptronClassifier(PredictorEstimator):
     """Feed-forward MLP classifier, binary or multiclass.  ``layers`` is
     Spark's full spec ``[input, hidden..., output]`` (checked against the
     data); ``hidden_layers`` the grid-friendly alternative, the input and
-    output widths taken from the data.  Inputs are always standardized;
-    the solver is full-batch Adam."""
+    output widths taken from the data.  Inputs are standardized unless
+    ``standardization`` is False.  The solver is full-batch Adam whatever
+    ``solver`` and ``block_size`` say: both are Spark's options, kept and
+    written in the params as the JAX package keeps them (it runs the same
+    full-batch Adam)."""
 
     _op_name = "mlpCls"
 
     def __init__(self, layers: Optional[Sequence[int]] = None,
                  hidden_layers: Sequence[int] = (10,),
                  max_iter: int = 100, tol: float = 1e-6,
-                 step_size: float = 0.03, seed: int = 42,
-                 device: Optional[str] = None, uid: Optional[str] = None):
+                 step_size: float = 0.03, block_size: int = 128,
+                 solver: str = "adam", standardization: bool = True,
+                 seed: int = 42, device: Optional[str] = None,
+                 uid: Optional[str] = None):
         super().__init__(operation_name=self._op_name, uid=uid)
         self.layers = list(layers) if layers is not None else None
         self.hidden_layers = list(hidden_layers)
         self.max_iter = max_iter
         self.tol = tol
         self.step_size = step_size
+        self.block_size = block_size
+        self.solver = solver
+        self.standardization = standardization
         self.seed = seed
         self.device = device
 
@@ -171,7 +179,11 @@ class OpMultilayerPerceptronClassifier(PredictorEstimator):
             sizes[-1]).to(torch.float32)
         wv = (torch.ones(n, dtype=torch.float32, device=dev) if w is None
               else torch.as_tensor(np.asarray(w, np.float32)).to(dev))
-        mu, sigma = _standardize_stats(X, wv)
+        if self.standardization:
+            mu, sigma = _standardize_stats(X, wv)
+        else:
+            mu = torch.zeros(d, dtype=torch.float32, device=dev)
+            sigma = torch.ones(d, dtype=torch.float32, device=dev)
         net, n_iter, _ = fit_mlp(
             (X - mu) / sigma, Y, wv, init_params(sizes, self.seed, dev),
             max_iter=self.max_iter, tol=self.tol, step_size=self.step_size)

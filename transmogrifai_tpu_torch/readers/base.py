@@ -1,17 +1,20 @@
 """Data readers — host-side ingestion into columnar batches.
 
 Ported: ``reader_for`` with the ``ColumnarDataset`` passthrough, the
-records reader (a list of dicts) and the in-memory pandas DataFrame reader
-(pandas imported only when a frame is given); the CSV and JSON-lines file
-readers are in ``readers/files.py``.  Event, streaming and Avro readers,
-chunked ingestion and the resilience policies are not ported yet.
+records reader (a list of dicts; ``key_fn`` adds a ``key`` ID column) and
+the in-memory pandas DataFrame reader (pandas imported only when a frame
+is given); the CSV and JSON-lines file readers are in ``readers/files.py``,
+the Avro readers in ``readers/avro.py``.  Event, streaming and Parquet
+readers, chunked ingestion and the resilience policies are not ported yet
+(ROADMAP Queue A item 6.3).
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 from ..features.feature import Feature
 from ..types.columns import ColumnarDataset, FeatureColumn
+from ..types.feature_types import ID
 
 __all__ = ["Reader", "DataFrameReader", "RecordsReader", "reader_for"]
 
@@ -23,6 +26,11 @@ class Reader:
                          ) -> ColumnarDataset:
         raise NotImplementedError
 
+    def estimate_rows(self) -> Optional[int]:
+        """The row count before reading, where the source can say without a
+        parse (None otherwise)."""
+        return None
+
     def with_resilience(self, retry=None, bad_records: str = "fail",
                         quarantine_path=None, max_bad_records: int = 1000):
         raise NotImplementedError(
@@ -32,23 +40,34 @@ class Reader:
 
 class RecordsReader(Reader):
     """Wraps a list of dict (or attribute) records; every feature reads
-    its value through its generator (``r.get(name)`` or its extractor)."""
+    its value through its generator (``r.get(name)`` or its extractor).
+    ``key_fn`` maps a record to its entity key: the dataset then has a
+    ``key`` ID column of ``str(key_fn(record))``."""
 
-    def __init__(self, records: Sequence):
+    def __init__(self, records: Sequence[Any],
+                 key_fn: Optional[Callable[[Any], Any]] = None):
         self.records = list(records)
+        self.key_fn = key_fn
 
     def generate_dataset(self, raw_features: Sequence[Feature]
                          ) -> ColumnarDataset:
-        return ColumnarDataset({f.name: f.origin_stage.extract_column(
-            self.records) for f in raw_features})
+        cols = {f.name: f.origin_stage.extract_column(self.records)
+                for f in raw_features}
+        if self.key_fn is not None:
+            cols["key"] = FeatureColumn.from_values(
+                ID, [str(self.key_fn(r)) for r in self.records])
+        return ColumnarDataset(cols)
 
 
 class DataFrameReader(Reader):
     """Wraps an in-memory pandas DataFrame; features read their column by
-    name, or through their ``extract_fn`` over the frame's records."""
+    name, or through their ``extract_fn`` over the frame's records.
+    ``key_col`` names the frame's entity-key column for the joins; as in
+    the JAX package, the dataset itself does not carry it."""
 
-    def __init__(self, df):
+    def __init__(self, df, key_col: Optional[str] = None):
         self.df = df
+        self.key_col = key_col
 
     def generate_dataset(self, raw_features: Sequence[Feature]
                          ) -> ColumnarDataset:

@@ -85,7 +85,10 @@ def _record_values(cells: Sequence[str]) -> list:
 
 
 class CSVReader(Reader):
-    """CSV with a header row, or without one and ``column_names``."""
+    """CSV with a header row, or without one and ``column_names``; with
+    ``skip_initial_space`` spaces after a delimiter are skipped."""
+
+    skip_initial_space = False
 
     def __init__(self, path: str, column_names: Optional[List[str]] = None,
                  has_header: bool = True):
@@ -97,7 +100,8 @@ class CSVReader(Reader):
         """{column name: its cells}; a short row's missing cells are
         empty (an NA string)."""
         with open(self.path, newline="", encoding="utf-8-sig") as fh:
-            reader = csv.reader(fh)
+            reader = csv.reader(fh,
+                                skipinitialspace=self.skip_initial_space)
             header = next(reader, []) if self.has_header else None
             rows = [r for r in reader
                     if len(r) > 1 or (r and r[0].strip())]

@@ -9,6 +9,9 @@ groups; the best candidate is refit on the full training split (from its
 group's full-train row where the group solved one); holdout and training
 metrics are evaluated; everything lands in
 ``metadata["model_selector_summary"]`` with the JAX package's keys.
+``holdout_evaluators`` add their metric sets on the holdout rows under
+``holdoutEvaluation`` (the JAX package keeps the evaluators and evaluates
+none of them).  ``RandomParamBuilder`` draws random-search grids.
 
 Not ported yet (ROADMAP Queue A): successive halving, the sweep mesh
 (``parallel=``, ``with_mesh``), the straggler watchdog, sweep
@@ -16,9 +19,10 @@ checkpoints, workflow-level CV and the tree-prep prefetch thread.
 """
 from __future__ import annotations
 
+import copy
 import itertools
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +43,7 @@ from ..models.trees import (MEMO_STATS, OpGBTRegressor,
                             OpRandomForestRegressor, _GBTBase,
                             _RandomForestBase)
 from ..types.columns import ColumnarDataset, FeatureColumn
+from ..types.feature_types import Prediction, RealNN
 from .grid_groups import TreeGridGroup, make_grid_group
 from .splitters import DataBalancer, DataCutter, DataSplitter
 from .validators import (OpCrossValidation, OpTrainValidationSplit,
@@ -47,7 +52,7 @@ from .validators import (OpCrossValidation, OpTrainValidationSplit,
 __all__ = ["ModelSelector", "SelectedModel", "ModelSelectorSummary",
            "BinaryClassificationModelSelector",
            "MultiClassificationModelSelector", "RegressionModelSelector",
-           "DefaultSelectorParams", "grid"]
+           "DefaultSelectorParams", "RandomParamBuilder", "grid"]
 
 #: the problem types the port selects for, with their default metric
 _DEFAULT_METRIC = {"binary": "AuPR", "multiclass": "F1",
@@ -82,6 +87,36 @@ def grid(**axes) -> List[Dict[str, Any]]:
     keys = list(axes)
     return [dict(zip(keys, combo))
             for combo in itertools.product(*(axes[k] for k in keys))]
+
+
+class RandomParamBuilder:
+    """Random-search grids (RandomParamBuilder.scala:52,169): each axis
+    draws from one ``np.random.default_rng(seed)`` in the order the axes
+    were added, point by point, as the JAX package draws them."""
+
+    def __init__(self, seed: int = 42):
+        self._rng = np.random.default_rng(seed)
+        self._axes: Dict[str, Callable[[], Any]] = {}
+
+    def uniform(self, name: str, lo: float, hi: float
+                ) -> "RandomParamBuilder":
+        self._axes[name] = lambda: float(self._rng.uniform(lo, hi))
+        return self
+
+    def log_uniform(self, name: str, lo: float, hi: float
+                    ) -> "RandomParamBuilder":
+        self._axes[name] = lambda: float(np.exp(
+            self._rng.uniform(np.log(lo), np.log(hi))))
+        return self
+
+    def choice(self, name: str, options: Sequence[Any]
+               ) -> "RandomParamBuilder":
+        opts = list(options)
+        self._axes[name] = lambda: opts[int(self._rng.integers(len(opts)))]
+        return self
+
+    def build(self, n: int) -> List[Dict[str, Any]]:
+        return [{k: fn() for k, fn in self._axes.items()} for _ in range(n)]
 
 
 class ModelSelectorSummary:
@@ -153,6 +188,7 @@ class ModelSelector(PredictorEstimator):
                                                    List[Dict[str, Any]]]],
                  problem_type: str, validator=None, splitter=None,
                  validation_metric: Optional[str] = None,
+                 holdout_evaluators: Sequence = (),
                  strategy: str = "full", halving=None, parallel=None,
                  watchdog: Optional[float] = None,
                  device: Optional[str] = None, uid: Optional[str] = None):
@@ -175,6 +211,7 @@ class ModelSelector(PredictorEstimator):
         self.splitter = splitter
         self.validation_metric = (validation_metric
                                   or _DEFAULT_METRIC[problem_type])
+        self.holdout_evaluators = list(holdout_evaluators)
         self.device = device
 
     def with_mesh(self, mesh) -> "ModelSelector":
@@ -198,7 +235,9 @@ class ModelSelector(PredictorEstimator):
                   ) -> torch.Tensor:
         batch = model.predict_batch(X)
         if self.problem_type == "binary":
-            return batch.probability[:, 1]
+            if batch.probability is not None:
+                return batch.probability[:, 1]
+            return batch.raw_prediction[:, 1]   # a margin (linear SVC)
         return batch.prediction
 
     def _class_count(self, y=None, pred=None) -> int:
@@ -325,6 +364,9 @@ class ModelSelector(PredictorEstimator):
         train_metrics = self._full_metrics(full_batch, y, train_mask)
         holdout_metrics = (self._full_metrics(full_batch, y, ~train_mask)
                            if len(holdout_idx) else {})
+        holdout_evals = (self._holdout_evaluations(full_batch, y, holdout_idx)
+                         if len(holdout_idx) and self.holdout_evaluators
+                         else None)
         metrics_s = time.perf_counter() - t0
 
         tree_groups = [g for g in groups if isinstance(g, TreeGridGroup)]
@@ -358,8 +400,34 @@ class ModelSelector(PredictorEstimator):
                               if splitter.summary else None),
             problem_type=self.problem_type)
         self.metadata["model_selector_summary"] = summary.to_json()
+        if holdout_evals is not None:
+            self.metadata["model_selector_summary"][
+                "holdoutEvaluation"] = holdout_evals
         return SelectedModel(inner=best_model, best_name=best_name,
                              best_params=best_params)
+
+    def _holdout_evaluations(self, full_batch: PredictionBatch,
+                             y: np.ndarray, holdout_idx) -> List[dict]:
+        """Each holdout evaluator's metric set on the holdout rows: its
+        name, its selection metric and the set."""
+        idx = np.sort(np.asarray(holdout_idx))
+        rows = torch.from_numpy(idx).to(full_batch.prediction.device)
+        batch = PredictionBatch(*(None if t is None else
+                                  t.index_select(0, rows) for t in (
+                                      full_batch.prediction,
+                                      full_batch.raw_prediction,
+                                      full_batch.probability)))
+        data = ColumnarDataset({
+            "label": FeatureColumn.from_values(RealNN, y[idx]),
+            "prediction": FeatureColumn(Prediction, batch)})
+        out = []
+        for ev in self.holdout_evaluators:
+            ev = copy.copy(ev)
+            ev.label_col, ev.prediction_col = "label", "prediction"
+            out.append({"evaluator": ev.name,
+                        "metricName": ev.default_metric,
+                        "metrics": ev.evaluate(data)})
+        return out
 
     def _full_metrics(self, full_batch: PredictionBatch, y: np.ndarray,
                       mask: np.ndarray) -> Dict[str, float]:
@@ -376,7 +444,9 @@ class ModelSelector(PredictorEstimator):
             out.pop("confusion")
             return out
         score = (full_batch.probability[:, 1]
-                 if self.problem_type == "binary" else full_batch.prediction)
+                 if self.problem_type == "binary"
+                 and full_batch.probability is not None
+                 else full_batch.prediction)
         rows = torch.from_numpy(idx).to(score.device)
         fn = (binary_classification_metrics if self.problem_type == "binary"
               else regression_metrics)

@@ -124,6 +124,14 @@ class PipelineStage:
                 and p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)
                 and hasattr(self, name)}
 
+    def set_params(self, **params) -> "PipelineStage":
+        """Set hyperparameters by name; an unknown name raises."""
+        for k, v in params.items():
+            if not hasattr(self, k):
+                raise ValueError(f"{type(self).__name__} has no param {k!r}")
+            setattr(self, k, v)
+        return self
+
     def copy(self, **overrides) -> "PipelineStage":
         """A fresh, unwired instance with the same hyperparameters (and a
         new uid), ``overrides`` applied — how the model selector makes one

@@ -205,3 +205,20 @@ class ColumnarDataset:
     def select(self, names: Iterable[str]) -> "ColumnarDataset":
         return ColumnarDataset({n: self.columns[n] for n in names},
                                _validated=True)
+
+    @staticmethod
+    def from_pandas(df, schema: Dict[str, Type[FeatureType]]
+                    ) -> "ColumnarDataset":
+        """The frame's columns named in ``schema``, each read as its
+        feature type."""
+        return ColumnarDataset({
+            name: FeatureColumn.from_values(ftype, df[name].tolist())
+            for name, ftype in schema.items()})
+
+    def to_pandas(self):
+        """A pandas DataFrame of every column's plain values (pandas is
+        imported here only)."""
+        import pandas as pd
+
+        return pd.DataFrame({n: c.to_list()
+                             for n, c in self.columns.items()})

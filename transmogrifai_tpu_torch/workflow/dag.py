@@ -13,7 +13,7 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..features.feature import Feature, FeatureCycleError
-from ..stages.base import Estimator, PipelineStage, Transformer
+from ..stages.base import Estimator, Model, PipelineStage, Transformer
 from ..stages.generator import FeatureGeneratorStage
 from ..types.columns import ColumnarDataset
 
@@ -76,17 +76,22 @@ def compute_dag(result_features: Sequence[Feature]) -> StagesDAG:
 
 def fit_and_transform_dag(
     dag: StagesDAG, train: ColumnarDataset, on_stage=None,
+    fitted_substitutes: Optional[Dict[str, Model]] = None,
 ) -> Tuple[List[PipelineStage], ColumnarDataset]:
     """Fit estimators layer by layer, transforming as we go.  Returns the
     fitted stages in topological order and the transformed data.
-    ``on_stage(stage, seconds)`` is called after each stage."""
+    ``on_stage(stage, seconds)`` is called after each stage.  An estimator
+    whose uid is a key of ``fitted_substitutes`` is not fitted: that
+    model stands for it (the warm start of
+    ``OpWorkflow.with_model_stages``)."""
+    fitted_substitutes = fitted_substitutes or {}
     fitted: List[PipelineStage] = []
     data = train
     for layer in dag.non_generator_layers():
         for stage in layer:
             t0 = time.perf_counter()
             if isinstance(stage, Estimator):
-                model = stage.fit(data)
+                model = fitted_substitutes.get(stage.uid) or stage.fit(data)
             elif isinstance(stage, Transformer):
                 model = stage
             else:

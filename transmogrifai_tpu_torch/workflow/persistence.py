@@ -33,7 +33,9 @@ from ..device import DeviceLike, resolve_device
 from ..features.feature import Feature
 from ..insights.record_insights import (RecordInsightsCorrModel,
                                         RecordInsightsLOCO)
-from ..models.classification import LogisticRegressionModel
+from ..models.classification import (LinearSVCModel,
+                                     LogisticRegressionModel,
+                                     NaiveBayesModel)
 from ..models.mlp import MLPClassificationModel
 from ..models.regression import (GLMModel, IsotonicRegressionModel,
                                  LinearRegressionModel)
@@ -43,6 +45,7 @@ from ..ops import (date_geo, detectors, dsl_transformers, embeddings,
 from ..ops.vector_metadata import VectorMetadata
 from ..preparators.sanity_checker import (MinVarianceFilterModel,
                                           SanityCheckerModel)
+from ..selector.combiner import SelectedCombinerModel
 from ..selector.model_selector import SelectedModel
 from ..stages.base import PipelineStage
 from ..stages.generator import FeatureGeneratorStage
@@ -98,6 +101,10 @@ CLASS_MAP: Dict[str, Type[PipelineStage]] = {
         MinVarianceFilterModel,
     "transmogrifai_tpu.models.classification.LogisticRegressionModel":
         LogisticRegressionModel,
+    "transmogrifai_tpu.models.classification.LinearSVCModel":
+        LinearSVCModel,
+    "transmogrifai_tpu.models.classification.NaiveBayesModel":
+        NaiveBayesModel,
     "transmogrifai_tpu.models.regression.LinearRegressionModel":
         LinearRegressionModel,
     "transmogrifai_tpu.models.regression.GLMModel": GLMModel,
@@ -107,6 +114,8 @@ CLASS_MAP: Dict[str, Type[PipelineStage]] = {
     "transmogrifai_tpu.models.mlp.MLPClassificationModel":
         MLPClassificationModel,
     "transmogrifai_tpu.selector.model_selector.SelectedModel": SelectedModel,
+    "transmogrifai_tpu.selector.combiner.SelectedCombinerModel":
+        SelectedCombinerModel,
     "transmogrifai_tpu.insights.record_insights.RecordInsightsLOCO":
         RecordInsightsLOCO,
     "transmogrifai_tpu.insights.record_insights.RecordInsightsCorrModel":
@@ -150,8 +159,8 @@ _ROADMAP_ITEMS = (
     ("transmogrifai_tpu.models.gbdt",
      "ROADMAP Queue A item 3 (the rest of the tree family)"),
     ("transmogrifai_tpu.",
-     "ROADMAP Queue A item 6 (remaining model families, selectors and "
-     "feature engineering)"),
+     "ROADMAP Queue A item 6 (the rest of ingestion, the selector options, "
+     "streaming, serving and multi-device work)"),
 )
 
 

@@ -1,15 +1,17 @@
 """Workflow engine — the user-facing train/score orchestration (counterpart
 of ``transmogrifai_tpu.workflow.workflow``).
 
-Ported: ``OpWorkflow.set_result_features / set_input_data / train`` on the
+Ported: ``OpWorkflow.set_result_features / set_reader / set_input_data /
+set_parameters / with_model_stages / train / compute_data_up_to`` on the
 in-core path with the static DAG lint (``train(validate=True)``, the
 default: ``analysis/linter.py``; errors raise ``PipelineLintError`` before
 any data moves), the train-time serializability gate
 (``allow_non_serializable()`` opts out) and RawFeatureFilter
 (``with_raw_feature_filter``: ``filters/raw_feature_filter.py``),
 ``OpWorkflow.load_model`` and ``OpWorkflowModel.score / evaluate /
-score_and_evaluate / save / load`` (``workflow/persistence.py``),
-``summary / summary_json / summary_pretty`` and ``model_insights``
+score_and_evaluate / get_fitted_stage / save / load``
+(``workflow/persistence.py``), ``summary / summary_json /
+summary_pretty`` and ``model_insights``
 (``insights/model_insights.py``).  Every stage that owns a ``device``
 runs on the workflow's device (``OpWorkflow(device=...)``), which
 defaults to the package default (``cuda`` unless the caller asked for
@@ -32,7 +34,7 @@ from ..evaluators.evaluators import OpEvaluatorBase
 from ..features.feature import Feature
 from ..models.trees import clear_sweep_caches
 from ..readers.base import Reader, reader_for
-from ..stages.base import PipelineStage
+from ..stages.base import Model, PipelineStage
 from ..stages.generator import FeatureGeneratorStage
 from ..types.columns import ColumnarDataset
 from ..types.feature_types import Prediction
@@ -47,6 +49,14 @@ class _WorkflowCore:
         self.reader: Optional[Reader] = None
         #: raw features the RawFeatureFilter dropped from the DAG
         self.blocklisted: List[str] = []
+        #: per-stage params by uid or class name (``set_parameters``)
+        self.parameters: Dict[str, Dict[str, Any]] = {}
+
+    def set_reader(self, reader) -> "_WorkflowCore":
+        """The data source: a ``Reader`` (or anything ``reader_for``
+        takes)."""
+        self.reader = reader_for(reader)
+        return self
 
     def set_input_data(self, data) -> "_WorkflowCore":
         """Ad-hoc dataset (a ColumnarDataset or pandas DataFrame)."""
@@ -65,7 +75,8 @@ class _WorkflowCore:
 
     def generate_raw_data(self) -> ColumnarDataset:
         if self.reader is None:
-            raise RuntimeError("no reader set — call set_input_data")
+            raise RuntimeError(
+                "no reader set — call set_reader/set_input_data")
         return self.reader.generate_dataset(self.raw_features())
 
 
@@ -75,6 +86,7 @@ class OpWorkflow(_WorkflowCore):
         self.device = device
         self._allow_non_serializable = False
         self._raw_feature_filter = None
+        self._model_stages: Dict[str, Model] = {}
 
     def allow_non_serializable(self) -> "OpWorkflow":
         """Opt out of the train-time serializability gate: train with
@@ -93,6 +105,55 @@ class OpWorkflow(_WorkflowCore):
     def set_result_features(self, *features: Feature) -> "OpWorkflow":
         self.result_features = list(features)
         return self
+
+    def set_parameters(self, params: Dict[str, Dict[str, Any]]
+                       ) -> "OpWorkflow":
+        """Stage params to set at ``train()``, keyed by stage uid or class
+        name (OpWorkflow.setStageParameters); an unknown param name
+        raises there."""
+        self.parameters = dict(params)
+        return self
+
+    def with_model_stages(self, model: "OpWorkflowModel") -> "OpWorkflow":
+        """Warm start: ``train()`` takes ``model``'s fitted models for the
+        estimators of the same uids instead of fitting them."""
+        for s in model.stages:
+            if isinstance(s, Model):
+                self._model_stages[s.uid] = s
+        return self
+
+    def _inject_params(self, dag) -> None:
+        for stage in dag.all_stages():
+            for key in (stage.uid, type(stage).__name__):
+                if key in self.parameters:
+                    stage.set_params(**self.parameters[key])
+
+    def compute_data_up_to(self, feature: Feature,
+                           data=None) -> ColumnarDataset:
+        """The dataset with every feature up to ``feature`` computed, the
+        estimators below it fitted (OpWorkflow.computeDataUpTo)."""
+        if data is not None:
+            self.set_input_data(data)
+        raw = self.generate_raw_data()
+        dag = compute_dag([feature])
+        placed = self._place(dag, resolve_device(self.device))
+        try:
+            _, transformed = fit_and_transform_dag(dag, raw)
+        finally:
+            for s in placed:
+                s.device = None
+            clear_sweep_caches()
+        return transformed
+
+    @staticmethod
+    def _place(dag, dev: torch.device) -> List[PipelineStage]:
+        """Put every stage that owns an unset ``device`` on ``dev``; the
+        stages placed, for the caller to reset."""
+        placed = [s for s in dag.all_stages()
+                  if hasattr(s, "device") and s.device is None]
+        for s in placed:
+            s.device = str(dev)
+        return placed
 
     def with_raw_feature_filter(self, **kwargs) -> "OpWorkflow":
         """Profile the raw features before the DAG runs and drop the ones
@@ -180,6 +241,7 @@ class OpWorkflow(_WorkflowCore):
                 lint = (findings, lint[1] + wall)
         dag = compute_dag(self.result_features)
         _check_unique_uids(dag.all_stages())
+        self._inject_params(dag)
         if not self._allow_non_serializable:
             from .persistence import check_serializable
 
@@ -194,13 +256,11 @@ class OpWorkflow(_WorkflowCore):
             name = type(stage).__name__
             seconds[name] = seconds.get(name, 0.0) + dt
 
-        placed = [s for s in dag.all_stages()
-                  if hasattr(s, "device") and s.device is None]
-        for s in placed:
-            s.device = str(dev)
+        placed = self._place(dag, dev)
         try:
-            fitted, transformed = fit_and_transform_dag(dag, data,
-                                                        on_stage=on_stage)
+            fitted, transformed = fit_and_transform_dag(
+                dag, data, on_stage=on_stage,
+                fitted_substitutes=self._model_stages)
         finally:
             for s in placed:
                 s.device = None
@@ -296,6 +356,14 @@ class OpWorkflowModel(_WorkflowCore):
     def score_and_evaluate(self, evaluator: OpEvaluatorBase, data=None):
         scored = self.score(data)
         return scored, self.evaluate(evaluator, scored=scored)
+
+    def get_fitted_stage(self, uid_or_name: str) -> PipelineStage:
+        """The fitted stage of that uid, else the first of that class
+        name; KeyError if none."""
+        for s in self.stages:
+            if s.uid == uid_or_name or type(s).__name__ == uid_or_name:
+                return s
+        raise KeyError(uid_or_name)
 
     def summary(self) -> Dict[str, Any]:
         """Every fitted stage's metadata, by stage uid."""
