@@ -46,6 +46,14 @@ to end at full width through the entry points a user calls:
     -> score -> AuPR -> save -> load -> score; OpLinearSVC and
     OpNaiveBayes -> fit_raw -> predict_batch
 
+    CSVReader -> FeatureBuilder -> transmogrify -> SanityChecker
+    -> OpNaiveBayes -> OpWorkflow.train(chunk_rows=4096) (every stage
+    streamed) and train(); with_raw_feature_filter -> transmogrify
+    -> SanityChecker -> BinaryClassificationModelSelector
+    .with_cross_validation() -> train(chunk_rows=65536) (the selector
+    in-core on the streamed matrix) -> save -> load -> ModelServer
+    .with_drift_monitor(DriftMonitor.from_model)
+
     FeatureBuilder -> transmogrify -> SanityChecker
     -> MultiClassificationModelSelector.with_cross_validation()
     -> OpWorkflow.train() -> score_and_evaluate(F1)
@@ -226,6 +234,38 @@ card's aggregate shared-memory rate):
                 1M x 500 matrix (fit seconds, the SVC's Newton steps,
                 holdout AuPR against SVC_AUPR_SHARE x the selector
                 phase's and the base rate + NB_AUPR_MARGIN)
+  6e. out_of_core  the Titanic phase's 1M + 100k rows with
+                validate_explain's two planted raw features written to
+                CSV with the ``csv`` module (seconds, bytes). Leg a:
+                examples/bench_ingest.py's DAG (the ten predictors ->
+                transmogrify -> SanityChecker(max_correlation=0.99) ->
+                OpNaiveBayes) trained in-core and with
+                train(chunk_rows=OOC_CHUNK_ROWS), each in a child process
+                of its own (``--ooc-child``): wall, peak RSS sampled from
+                /proc/self/statm and its delta over the post-import
+                baseline, peak device memory, the chunked passes (rows/s,
+                bytes, parse and transform seconds, overlap efficiency),
+                spilled MB; vocabularies and keep lists equal, fills
+                within OOC_FILL_RTOL, naive Bayes within OOC_NB_TOL,
+                holdout AuPRs within OOC_AUPR_GAP and above the base rate
+                + OOC_NB_AUPR_MARGIN, the chunked RSS delta below the
+                in-core one, every estimator streamed. Leg b: a
+                RawFeatureFilter, the same predictors and the planted
+                ones, SanityChecker() and the default binary selector,
+                train(chunk_rows=OOC_SELECTOR_CHUNK_ROWS) and in-core in
+                this process: the filter's pass, each pass's and the
+                tail's seconds, peak device memory; drops exactly leak and
+                rare, the same checked columns and winner, AuPRs within
+                OOC_AUPR_GAP and above OOC_AUPR_SHARE x the attainable,
+                only the selector fitted in-core, launches equal to its
+                forests' levels, and the path's forest shape (d = 23
+                subsets, depth 12) grown on the streamed matrix bitwise
+                against the plain version (a ``seg_hist`` line with
+                ``path`` "out_of_core"). Leg c: the chunked model saved,
+                loaded and served with a DriftMonitor: OOC_DRIFT_ROWS
+                clean holdout rows in one request drift on nothing, the
+                next ones with Fare x 3 and Sex flipped on Fare and Sex;
+                batch-1 p50/p99 with and without the monitor
   7. multiclass  the same 500 Real columns with a K = 5 label from its
                 own seed (class logits: log priors 0.40 / 0.25 / 0.15 /
                 0.12 / 0.08, a linear part of standard deviation
@@ -321,10 +361,11 @@ card's aggregate shared-memory rate):
                 scoring equal to the in-memory model; single-row
                 requests through score_function_batch split by stage
                 (its per-stage hook, synchronised);
-                ModelServer.from_path(max_batch=64): 500 sequential
-                single-row requests (p50/p99), a burst of 4096 single rows
-                from 8 threads (rows/s, mean batch, padded share), 200
-                requests of 64 rows (p50/p99), served scores within 1e-6
+                ModelServer.from_path(max_batch=64): SEQ_REQUESTS (200)
+                sequential single-row requests (p50/p99), a burst of
+                BURST_REQUESTS (1024) single rows from 8 threads (rows/s,
+                mean batch, padded share), BIG_REQUESTS (50) requests of
+                64 rows (p50/p99), served scores within 1e-6
                 of the in-memory model's (and the bitwise share), no shed,
                 device error or host fallback; /score, /healthz and
                 /metrics over HTTP on 127.0.0.1; and the committed
@@ -370,7 +411,8 @@ so no profiler session runs in the process before their walls are taken.
 Then the ``kernels`` summary line (``launches``: the slice's, the
 selector's, the regression phase's, the titanic phase's (its efb fits
 too), the validate_explain, feature_eng and avro_combined phases'
-trains, the multiclass phase's, the
+trains, the out_of_core phase's chunked selector train, the
+multiclass phase's, the
 boosted_multi phase's train, xgb_defaults and count_and_subsample fits,
 and the xgb_wide phase's three fits), the card's name and power limit,
 and the result line.  Any
@@ -389,6 +431,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -441,6 +484,7 @@ from transmogrifai_tpu_torch.selector.model_selector import (
     RegressionModelSelector, grid)
 from transmogrifai_tpu_torch.selector.validators import make_folds
 from transmogrifai_tpu_torch.serving import ModelServer
+from transmogrifai_tpu_torch.stages.base import Estimator
 from transmogrifai_tpu_torch.serving.http import make_http_server
 from transmogrifai_tpu_torch.types import feature_types as ft
 from transmogrifai_tpu_torch.types.columns import ColumnarDataset, FeatureColumn
@@ -463,8 +507,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 #: the serve phase's traffic: holdout rows through CSV, sequential
 #: single-row requests, a burst of single rows from several threads,
 #: 64-row requests, rows over HTTP
-CSV_ROWS, SEQ_REQUESTS, BURST_REQUESTS, BURST_THREADS = 10_000, 500, 4096, 8
-BIG_REQUESTS, HTTP_ROWS, SPLIT_REQUESTS = 200, 4, 20
+# the serve phase's depth, cut (from 500, 4096, 200 and 20 profiled
+# requests) to keep the smoke within its time limit with the out_of_core
+# phase
+CSV_ROWS, SEQ_REQUESTS, BURST_REQUESTS, BURST_THREADS = 10_000, 200, 1024, 8
+BIG_REQUESTS, HTTP_ROWS, SPLIT_REQUESTS = 50, 4, 20
+PROFILE_REQUESTS = 5
 #: boosting rounds of the profiled fit (one early-stopping chunk)
 PROFILE_ROUNDS = 8
 #: the regression phase's label: its seed, the variance of its linear
@@ -629,6 +677,23 @@ AVRO_SCHEMA = {"type": "record", "name": "Passenger", "fields": [
 AVRO_AUPR_SHARE = 0.9
 AVRO_ROUNDTRIP_ROWS = 1000
 SVC_AUPR_SHARE, NB_AUPR_MARGIN = 0.95, 0.3
+# the out_of_core phase (6e): examples/bench_ingest.py's predictors, its
+# chunk_rows, and leg b's chunks
+OOC_PREDICTORS = (("PickList", "Pclass"), ("Text", "Name"),
+                  ("PickList", "Sex"), ("Real", "Age"), ("Integral", "SibSp"),
+                  ("Integral", "Parch"), ("PickList", "Ticket"),
+                  ("Real", "Fare"), ("PickList", "Cabin"),
+                  ("PickList", "Embarked"))
+OOC_CHUNK_ROWS, OOC_SELECTOR_CHUNK_ROWS = 4096, 65536
+#: chunked against in-core: fills (Welford against pairwise sums),
+#: naive Bayes's log parameters (float32 sums over 1M rows in another
+#: order), holdout AuPR
+OOC_FILL_RTOL, OOC_NB_TOL, OOC_AUPR_GAP = 1e-9, 1e-4, 1e-4
+#: leg b's floor; leg a's naive Bayes must beat the base rate by this
+#: (a CPU run of the port and the JAX package at 200k rows: 0.573 against
+#: a base rate of 0.455 and an attainable 0.772)
+OOC_AUPR_SHARE, OOC_NB_AUPR_MARGIN = 0.9, 0.08
+OOC_DRIFT_ROWS, OOC_LATENCY_REQUESTS = 2000, 200
 
 
 def _smi(query: str) -> str:
@@ -639,7 +704,14 @@ def _smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``at_s``, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1108,7 +1180,12 @@ def phase_slice(data, cols: int, rounds: int) -> dict:
            "expected_launches": depth * rounds_grown,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "dropped_columns": len(checked.origin_stage.metadata["summary"]
-                                  ["dropped"])}
+                                  ["dropped"]),
+           # the fit's split: fills and the drift baselines' moments, and
+           # the baselines' histograms
+           "real_vectorizer_fit_s": next(
+               s.fit_seconds for s in compute_dag([pred]).all_stages()
+               if isinstance(s, RealVectorizer))}
     emit(out)
     check(tuple(proba.shape) == (holdout, 2), f"proba shape {proba.shape}")
     check(bool(torch.isfinite(proba).all()), "non-finite probabilities")
@@ -1173,7 +1250,12 @@ def phase_selector(data, cols: int) -> dict:
            "growers_hist_levels": meta["hist_levels"],
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "dropped_columns": len(checked.origin_stage.metadata["summary"]
-                                  ["dropped"])}
+                                  ["dropped"]),
+           # the fit's split: fills and the drift baselines' moments, and
+           # the baselines' histograms
+           "real_vectorizer_fit_s": next(
+               s.fit_seconds for s in compute_dag([pred]).all_stages()
+               if isinstance(s, RealVectorizer))}
     emit(out)
     check(tuple(proba.shape) == (holdout, 2), f"proba shape {proba.shape}")
     check(bool(torch.isfinite(proba).all()), "non-finite probabilities")
@@ -2874,6 +2956,468 @@ def phase_avro_combined(data, selector_aupr: float, reps: int, bw: float,
 
 
 # ---------------------------------------------------------------------------
+# the out_of_core phase: train(chunk_rows=k) from a CSV, the streamed
+# prefix and the default selector as the tail, and the drift monitor
+# ---------------------------------------------------------------------------
+
+def ooc_columns(n: int):
+    """``titanic_columns``' n rows with validate_explain's two planted raw
+    features (``leak``: null exactly where Survived is 1; ``rare``: filled
+    on VE_RARE_SHARE of the rows), and the true probabilities."""
+    cols, p = titanic_columns(n)
+    rng = np.random.default_rng(VE_SEED)
+    cols["leak"] = np.where(cols["Survived"] == 1, np.nan,
+                            rng.normal(size=n))
+    cols["rare"] = np.where(rng.random(n) < VE_RARE_SHARE,
+                            rng.normal(size=n), np.nan)
+    return cols, p
+
+
+def write_ooc_csv(path: str, cols: dict, lo: int, hi: int) -> None:
+    """Rows ``lo``..``hi`` as CSV with the ``csv`` module: floats by repr,
+    a missing value as an empty cell."""
+    names = list(cols)
+
+    def cells(v):
+        if v.dtype.kind == "f":
+            return ["" if x != x else repr(x) for x in v[lo:hi].tolist()]
+        return ["" if x is None else x for x in v[lo:hi].tolist()]
+
+    with open(path, "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(names)
+        w.writerows(zip(*(cells(cols[k]) for k in names)))
+
+
+def build_bench_ingest(extra=()):
+    """examples/bench_ingest.py's DAG with the port's imports: the demo's
+    ten predictors (and ``extra`` Reals) -> transmogrify ->
+    SanityChecker(max_correlation=0.99) -> OpNaiveBayes."""
+    survived = FeatureBuilder.RealNN("Survived").as_response()
+    feats = transmogrify([getattr(FeatureBuilder, t)(n).as_predictor()
+                          for t, n in OOC_PREDICTORS]
+                         + [FeatureBuilder.Real(n).as_predictor()
+                            for n in extra])
+    checked = SanityChecker(max_correlation=0.99).set_input(
+        survived, feats).get_output()
+    return OpNaiveBayes().set_input(survived, checked).get_output()
+
+
+def build_ooc_selector():
+    """Leg b's DAG: the ten predictors and the two planted features ->
+    transmogrify -> SanityChecker() -> the default binary selector.
+    Returns (prediction, checked, selector)."""
+    survived = FeatureBuilder.RealNN("Survived").as_response()
+    feats = transmogrify([getattr(FeatureBuilder, t)(n).as_predictor()
+                          for t, n in OOC_PREDICTORS]
+                         + [FeatureBuilder.Real(n).as_predictor()
+                            for n in ("leak", "rare")])
+    checked = SanityChecker().set_input(survived, feats).get_output()
+    sel = BinaryClassificationModelSelector.with_cross_validation()
+    return sel.set_input(survived, checked).get_output(), checked, sel
+
+
+def _rss_bytes() -> int:
+    """This process's resident set now (``/proc/self/statm``)."""
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class _PeakRSS:
+    """The peak of this process's resident set while the ``with`` block
+    runs, sampled every ``interval_s`` on a thread: a child's
+    ``ru_maxrss`` starts at the forking parent's peak."""
+
+    def __init__(self, interval_s: float = 0.005):
+        self.interval_s = interval_s
+        self.peak = 0
+        self._stop = threading.Event()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self.peak = max(self.peak, _rss_bytes())
+
+    def __enter__(self) -> "_PeakRSS":
+        self.peak = _rss_bytes()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_bytes())
+
+
+def _stage_of(model, cls: str):
+    return [s for s in model.stages if type(s).__name__ == cls]
+
+
+def _model_params(model) -> dict:
+    """The fitted prefix's results a leg compares: fills, vocabularies,
+    text strategies, the checker's keep list, naive Bayes's parameters."""
+    out = {"fills": [m.fills for m in _stage_of(model,
+                                                "RealVectorizerModel")],
+           "vocabs": [m.vocabs for m in _stage_of(model,
+                                                  "OneHotVectorizerModel")],
+           "text": [[m.strategies, m.vocabs] for m in _stage_of(
+               model, "SmartTextVectorizerModel")],
+           "keep": [m.keep_indices for m in _stage_of(
+               model, "SanityCheckerModel")]}
+    nb = _stage_of(model, "NaiveBayesModel")
+    if nb:
+        out["nb"] = [nb[0].log_prior.cpu().tolist(),
+                     nb[0].log_lik.cpu().tolist()]
+    return out
+
+
+def ooc_child(train_csv: str, hold_csv: str, mode: str,
+              chunk_rows: int) -> None:
+    """Leg a's train in this process (each mode runs in a child of its
+    own, so that nothing of the other's memory stays resident): the
+    bench_ingest DAG from ``train_csv``, in-core or chunked; prints one
+    JSON line."""
+    dev = resolve_device()
+    torch.zeros(1, device=dev)           # the CUDA context in the baseline
+    pred = build_bench_ingest()
+    wf = OpWorkflow().set_result_features(pred).set_reader(
+        CSVReader(train_csv))
+    base_rss = _rss_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    with _PeakRSS() as rss:
+        t0 = time.perf_counter()
+        model = wf.train(chunk_rows=chunk_rows if mode == "chunked"
+                         else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak_rss = rss.peak
+    peak_dev = torch.cuda.max_memory_allocated()
+    hold = CSVReader(hold_csv).generate_dataset(model.raw_features())
+    proba = model.score(hold)[pred.name].values.probability
+    y = torch.as_tensor(np.asarray(hold["Survived"].values, np.float32))
+    out = {"mode": mode, "wall_s": wall, "rows": len(model.train_data),
+           "baseline_rss_bytes": base_rss, "peak_rss_bytes": peak_rss,
+           "rss_delta_bytes": peak_rss - base_rss,
+           "max_memory_allocated": peak_dev,
+           "holdout_aupr": aupr(y.to(proba.device), proba[:, 1]),
+           "finite": bool(torch.isfinite(proba).all()),
+           "stage_seconds": model.stage_seconds,
+           "params": _model_params(model)}
+    ip = model.ingest_profile
+    if ip is not None:
+        out.update({
+            "chunk_rows": chunk_rows, "passes": [
+                {k: p.to_json()[k] for k in (
+                    "label", "chunks", "rows", "bytesRead", "readSecs",
+                    "transformSecs", "wallSecs", "rowsPerSec",
+                    "overlapEfficiency")} for p in ip.passes],
+            "bytes_read": ip.total_bytes,
+            "overlap_efficiency": max(p.overlap_efficiency
+                                      for p in ip.passes),
+            "rows_per_s": min(p.rows_per_s for p in ip.passes
+                              if p.rows_per_s > 0),
+            "spilled_mb": ip.spilled_bytes / 1e6,
+            "not_streamed": _not_streamed(pred, model)})
+    print(json.dumps(out), flush=True)
+
+
+def _not_streamed(pred: Feature, model) -> list:
+    """The DAG's estimators that an out-of-core train fitted in-core."""
+    streamed = model.fit_states or {}
+    return [type(s).__name__ for s in compute_dag([pred]).all_stages()
+            if isinstance(s, Estimator) and s.uid not in streamed]
+
+
+def _run_ooc_child(train_csv: str, hold_csv: str, mode: str,
+                   chunk_rows: int) -> dict:
+    cmd = [sys.executable, os.path.abspath(__file__), "--ooc-child", mode,
+           "--ooc-train", train_csv, "--ooc-holdout", hold_csv,
+           "--ooc-chunk-rows", str(chunk_rows)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(proc.returncode == 0 and lines,
+          f"out_of_core: the {mode} child failed (exit {proc.returncode}): "
+          f"{proc.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def _ooc_leg_a(train_csv: str, hold_csv: str, base_rate: float,
+               attainable: float) -> dict:
+    """bench_ingest's DAG at full size, in-core and chunked, each in its
+    own child; the guards of leg a."""
+    inc = _run_ooc_child(train_csv, hold_csv, "in_core", 0)
+    ch = _run_ooc_child(train_csv, hold_csv, "chunked", OOC_CHUNK_ROWS)
+    a, b = ch["params"], inc["params"]
+    fill_err = max((abs(x - y) / max(abs(y), 1e-300)
+                    for fa, fb in zip(a["fills"], b["fills"])
+                    for x, y in zip(fa, fb)), default=0.0)
+    nb_err = max(float(np.abs(np.asarray(x) - np.asarray(y)).max())
+                 for x, y in zip(a["nb"], b["nb"]))
+    floor = base_rate + OOC_NB_AUPR_MARGIN
+    leg = {"in_core": {k: v for k, v in inc.items() if k != "params"},
+           "chunked": {k: v for k, v in ch.items() if k != "params"},
+           "vocabs_equal": a["vocabs"] == b["vocabs"],
+           "text_equal": a["text"] == b["text"],
+           "keep_equal": a["keep"] == b["keep"],
+           "checked_cols": len(a["keep"][0]),
+           "fill_max_rel_err": fill_err, "fill_rtol": OOC_FILL_RTOL,
+           "nb_max_abs_err": nb_err, "nb_tol": OOC_NB_TOL,
+           "aupr_gap": abs(ch["holdout_aupr"] - inc["holdout_aupr"]),
+           "base_rate": base_rate, "attainable_aupr": attainable,
+           "aupr_floor": floor,
+           "aupr_share_of_attainable": ch["holdout_aupr"] / attainable}
+    check(a["vocabs"] == b["vocabs"] and a["text"] == b["text"],
+          "out_of_core a: vocabularies differ between the modes")
+    check(a["keep"] == b["keep"], "out_of_core a: keep lists differ")
+    check(fill_err <= OOC_FILL_RTOL,
+          f"out_of_core a: fills part by {fill_err} relative")
+    check(nb_err <= OOC_NB_TOL,
+          f"out_of_core a: naive Bayes parameters part by {nb_err}")
+    check(inc["finite"] and ch["finite"],
+          "out_of_core a: non-finite probabilities")
+    check(leg["aupr_gap"] <= OOC_AUPR_GAP,
+          f"out_of_core a: holdout AuPRs {ch['holdout_aupr']} and "
+          f"{inc['holdout_aupr']} part by more than {OOC_AUPR_GAP}")
+    for m in (inc, ch):
+        check(m["holdout_aupr"] >= floor,
+              f"out_of_core a: {m['mode']} holdout AuPR "
+              f"{m['holdout_aupr']} below {floor}")
+    check(ch["rss_delta_bytes"] < inc["rss_delta_bytes"],
+          f"out_of_core a: the chunked RSS delta {ch['rss_delta_bytes']} "
+          f"is not below the in-core {inc['rss_delta_bytes']}")
+    check(not ch["not_streamed"],
+          f"out_of_core a: fitted in-core: {ch['not_streamed']}")
+    return leg
+
+
+def _ooc_rows(cols: dict, lo: int, hi: int, shift: bool = False) -> list:
+    """Rows ``lo``..``hi`` as a client sends them (no label; missing
+    values None); with ``shift`` Fare x 3 and Sex flipped."""
+    names = [k for k in cols if k != "Survived"]
+    lists = {k: cols[k][lo:hi].tolist() for k in names}
+    out = []
+    for i in range(hi - lo):
+        r = {k: (None if (v[i] is None or v[i] != v[i]) else v[i])
+             for k, v in lists.items()}
+        if shift:
+            r["Fare"] = r["Fare"] * 3
+            r["Sex"] = "male" if r["Sex"] == "female" else "female"
+        out.append(r)
+    return out
+
+
+def _ooc_leg_c(model, cols: dict, rows: int, tmp: str) -> dict:
+    """Leg b's chunked model saved, loaded and served with a drift
+    monitor: the first OOC_DRIFT_ROWS holdout rows unchanged, then the
+    next ones shifted, each one request (one window); batch-1 latency
+    with and without the monitor."""
+    from transmogrifai_tpu_torch.serving.drift import (DriftConfig,
+                                                       DriftMonitor)
+
+    path = os.path.join(tmp, "ooc_model")
+    model.save(path)
+    loaded = OpWorkflowModel.load(path)
+    n = OOC_DRIFT_ROWS
+    clean = _ooc_rows(cols, rows, rows + n)
+    shifted = _ooc_rows(cols, rows + n, rows + 2 * n, shift=True)
+    # a window's rows come as one request, past the default queue bound
+    srv = ModelServer.from_path(path, name="ooc", warmup_row=clean[0],
+                                max_queue_rows=2 * n)
+    mon = DriftMonitor.from_model(loaded, DriftConfig(min_rows=n))
+    out = {"baselines": sorted(mon.baselines)}
+    with srv:
+        lat = {}
+        for key in ("without_monitor", "with_monitor"):
+            srv.drift_monitor = (None if key == "without_monitor" else
+                                 DriftMonitor.from_model(
+                                     loaded, DriftConfig(min_rows=200)))
+            times = []
+            for r in clean[:OOC_LATENCY_REQUESTS]:
+                t0 = time.perf_counter()
+                srv.score([r])
+                times.append(time.perf_counter() - t0)
+            lat[key] = _pcts(times)
+        srv.with_drift_monitor(mon)
+        t0 = time.perf_counter()
+        scored = srv.score(clean, wait_s=300.0)
+        clean_s = time.perf_counter() - t0
+        clean_eval = mon.last_evaluation
+        srv.score(shifted, wait_s=300.0)
+        shifted_eval = mon.last_evaluation
+        snap = srv.snapshot()
+    # the same clean rows observed one by one (requests of one row): the
+    # window histograms then keep a centroid per request for each
+    # repeated value, which bends the integral columns' CDFs
+    one = DriftMonitor.from_model(loaded, DriftConfig(min_rows=n))
+    for r in clean:
+        one.observe_rows([r])
+    out.update({
+        "clean_psi": {k: v["psi"] for k, v in
+                      clean_eval["features"].items()},
+        "clean_drifted": clean_eval["driftedFeatures"],
+        "shifted_drifted": shifted_eval["driftedFeatures"],
+        "shifted_psi": {k: v["psi"] for k, v in
+                        shifted_eval["features"].items()},
+        "refresh_triggered": mon.refresh_triggered,
+        "clean_request_s": clean_s, "window_rows": n,
+        "batch1_clean_drifted": one.last_evaluation["driftedFeatures"],
+        "latency_batch1": lat, "snapshot_drift": "drift" in snap})
+    name = model.result_features[0].name
+    check(len(scored) == n and all(
+        np.isfinite(s[name]["probability_1"]) for s in scored),
+          "out_of_core c: the served clean rows are not all scored")
+    check(not clean_eval["driftedFeatures"],
+          f"out_of_core c: unchanged rows drift on "
+          f"{clean_eval['driftedFeatures']}")
+    check(mon.refresh_triggered and {"Fare", "Sex"} <= set(
+        shifted_eval["driftedFeatures"]),
+          f"out_of_core c: the shifted rows drift on "
+          f"{shifted_eval['driftedFeatures']}, refresh "
+          f"{mon.refresh_triggered}")
+    check(out["snapshot_drift"], "out_of_core c: no drift in the snapshot")
+    return out
+
+
+def phase_out_of_core(rows: int, holdout: int, reps: int, bw: float,
+                      f32: float) -> dict:
+    """The out-of-core train on the card (the module docstring's phase
+    6e): the Titanic columns with two planted features written to CSV;
+    leg a (bench_ingest's DAG, in-core and chunked, each in a child),
+    leg b (RawFeatureFilter, the streamed prefix and the default selector
+    as the in-core tail, chunked and in-core in this process) and leg c
+    (the drift monitor behind a server)."""
+    phase_t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tmog_ooc_")
+    try:
+        t0 = time.perf_counter()
+        cols, p = ooc_columns(rows + holdout)
+        train_csv = os.path.join(tmp, "train.csv")
+        hold_csv = os.path.join(tmp, "holdout.csv")
+        write_ooc_csv(train_csv, cols, 0, rows)
+        write_ooc_csv(hold_csv, cols, rows, rows + holdout)
+        data = {"seconds": time.perf_counter() - t0,
+                "bytes": os.path.getsize(train_csv)
+                + os.path.getsize(hold_csv)}
+        y_hold = torch.as_tensor(cols["Survived"][rows:rows + holdout],
+                                 dtype=torch.float32)
+        attainable = aupr(y_hold, torch.from_numpy(
+            p[rows:rows + holdout].astype(np.float32)))
+        base_rate = float(y_hold.mean())
+        leg_a = _ooc_leg_a(train_csv, hold_csv, base_rate, attainable)
+
+        # -- leg b: the filter, the streamed prefix, the selector tail ----
+        hold_reader = CSVReader(hold_csv)
+        legs = {}
+        for mode, chunk_rows in (("chunked", OOC_SELECTOR_CHUNK_ROWS),
+                                 ("in_core", None)):
+            pred, checked, sel = build_ooc_selector()
+            wf = (OpWorkflow().set_result_features(pred)
+                  .set_reader(CSVReader(train_csv))
+                  .with_raw_feature_filter(scoring_data=hold_reader))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gk.seg_level_hists.launches = 0
+            t0 = time.perf_counter()
+            model = wf.train(chunk_rows=chunk_rows)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = gk.seg_level_hists.launches
+            hold = hold_reader.generate_dataset(model.raw_features())
+            proba = model.score(hold)[pred.name].values.probability
+            summ = sel.metadata["model_selector_summary"]
+            legs[mode] = dict(
+                model=model, checked=checked, sel=sel, train_s=train_s,
+                tail=_not_streamed(pred, model),
+                launches=launches, peak=torch.cuda.max_memory_allocated(),
+                aupr=aupr(y_hold.to(proba.device), proba[:, 1]),
+                finite=bool(torch.isfinite(proba).all()),
+                winner=[summ["bestModelType"], summ["bestModelParams"]],
+                dropped=model.raw_feature_filter_results.dropped_features,
+                keep=[m.keep_indices for m in _stage_of(
+                    model, "SanityCheckerModel")],
+                names=model.train_data[checked.name].vmeta.column_names())
+            del hold, proba
+        ch, inc = legs["chunked"], legs["in_core"]
+        ip = ch["model"].ingest_profile
+        tail = ch["tail"]
+        streamed = sorted(type(s).__name__ for s in ch["model"].stages
+                          if s.uid in ch["model"].fit_states)
+        sel_name = type(ch["sel"]).__name__
+        X = ch["model"].train_data[ch["checked"].name].values
+        y = np.asarray(ch["model"].train_data["Survived"].values,
+                       np.float32)
+        kernel_row = _titanic_levels(X, y, int(np.sqrt(X.shape[1])), reps,
+                                     bw, f32)
+        kernel_row["path"] = "out_of_core"
+        del X
+        leg_b = {
+            "chunk_rows": OOC_SELECTOR_CHUNK_ROWS,
+            "train_s": {m: legs[m]["train_s"] for m in legs},
+            "max_memory_allocated": {m: legs[m]["peak"] for m in legs},
+            "rff": ip.rff, "passes": [
+                {"label": q.label, "chunks": q.chunks, "rows": q.rows,
+                 "wall_s": q.wall_s, "read_s": q.read_s,
+                 "transform_s": q.transform_s,
+                 "overlap_efficiency": q.overlap_efficiency}
+                for q in ip.passes],
+            "spilled_mb": ip.spilled_bytes / 1e6,
+            "tail_s": ch["model"].stage_seconds[sel_name],
+            "stage_seconds": ch["model"].stage_seconds,
+            "streamed": streamed, "tail": tail,
+            "dropped": {m: legs[m]["dropped"] for m in legs},
+            "checked_cols": len(ch["names"]),
+            "checked_equal": ch["names"] == inc["names"]
+            and ch["keep"] == inc["keep"],
+            "winner": {m: legs[m]["winner"] for m in legs},
+            "holdout_aupr": {m: legs[m]["aupr"] for m in legs},
+            "attainable_aupr": attainable,
+            "aupr_floor": OOC_AUPR_SHARE * attainable,
+            "seg_hist_launches": ch["launches"],
+            "forest_levels": ch["sel"].metadata["hist_levels"],
+            "in_core_launches": inc["launches"],
+            "group_errors": ch["sel"].metadata["group_errors"]}
+        for m in legs:
+            check(legs[m]["dropped"] == ["leak", "rare"],
+                  f"out_of_core b: the {m} filter dropped "
+                  f"{legs[m]['dropped']}")
+            check(legs[m]["finite"] and legs[m]["aupr"]
+                  >= OOC_AUPR_SHARE * attainable,
+                  f"out_of_core b: {m} holdout AuPR {legs[m]['aupr']} "
+                  f"below {OOC_AUPR_SHARE} x {attainable}")
+        check(leg_b["checked_equal"],
+              "out_of_core b: the checked columns differ between modes")
+        check(ch["winner"] == inc["winner"],
+              f"out_of_core b: winners {ch['winner']} and {inc['winner']}")
+        check(abs(ch["aupr"] - inc["aupr"]) <= OOC_AUPR_GAP,
+              f"out_of_core b: holdout AuPRs {ch['aupr']} and "
+              f"{inc['aupr']} part by more than {OOC_AUPR_GAP}")
+        check(tail == [sel_name],
+              f"out_of_core b: fitted in-core: {tail}, not the selector "
+              f"alone")
+        check(not leg_b["group_errors"],
+              f"out_of_core b: grid groups failed: {leg_b['group_errors']}")
+        check(ch["launches"] > 0 and ch["launches"] == leg_b["forest_levels"],
+              f"out_of_core b: seg_hist launches {ch['launches']} != the "
+              f"forests' {leg_b['forest_levels']} levels")
+        check(kernel_row["bitwise_equal"] and kernel_row["levels_checked"]
+              > 0, f"out_of_core b: {kernel_row['levels_unequal']} of "
+              f"{kernel_row['levels_checked']} levels differ from the plain "
+              f"version")
+        model = ch["model"]
+        del legs, ch, inc
+        torch.cuda.empty_cache()
+        leg_c = _ooc_leg_c(model, cols, rows, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"phase": "out_of_core", "rows": rows, "holdout": holdout,
+           "data": data, "a": leg_a, "b": leg_b, "c": leg_c,
+           "phase_s": time.perf_counter() - phase_t0}
+    emit(out)
+    emit(kernel_row)
+    return {"seg_hist_launches": leg_b["seg_hist_launches"]}
+
+
+# ---------------------------------------------------------------------------
 # the multiclass phase: the default multiclass selector at 1M + 100k x 500
 # ---------------------------------------------------------------------------
 
@@ -4545,11 +5089,22 @@ def main() -> int:
     ap.add_argument("--cols", type=int, default=500)
     ap.add_argument("--rounds", type=int, default=FULL_ROUNDS)
     ap.add_argument("--reps", type=int, default=20)
+    # the out_of_core phase runs each leg-a train in a child of its own
+    ap.add_argument("--ooc-child", choices=["in_core", "chunked"],
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--ooc-train", help=argparse.SUPPRESS)
+    ap.add_argument("--ooc-holdout", help=argparse.SUPPRESS)
+    ap.add_argument("--ooc-chunk-rows", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs one",
               file=sys.stderr)
         return 1
+    if args.ooc_child:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ooc_child(args.ooc_train, args.ooc_holdout, args.ooc_child,
+                  args.ooc_chunk_rows)
+        return 0
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     if name != CARD:
@@ -4589,6 +5144,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     avro = phase_avro_combined(data, sel["holdout_aupr"], args.reps, bw, f32)
     torch.cuda.empty_cache()
+    ooc = phase_out_of_core(args.rows, args.holdout, args.reps, bw, f32)
+    torch.cuda.empty_cache()
     multi, mc = phase_multiclass(data, args.cols, args.reps, bw, f32)
     torch.cuda.empty_cache()
     boosted = phase_boosted_multi(mc, data, args.cols, args.reps, bw, f32,
@@ -4614,7 +5171,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_regression_profile(dev, args.rows, args.cols)
     torch.cuda.empty_cache()
-    phase_serve_profile(served, request_rows)
+    phase_serve_profile(served, request_rows[:PROFILE_REQUESTS])
 
     # per-launch means over the six level shapes of a depth-6 round
     levels = [r for r in seg if r["in_mean"]]
@@ -4646,6 +5203,7 @@ def main() -> int:
                      + validate["launches_total"]
                      + feature_eng["seg_hist_launches"]
                      + avro["seg_hist_launches"]
+                     + ooc["seg_hist_launches"]
                      + multi["seg_hist_launches"]
                      + boosted["launches_total"]
                      + wide["launches_total"]),

@@ -326,8 +326,11 @@ def test_avro_reader_dataset_and_key_equal_jax(tmp_path):
     # no key field: no key column
     plain = pa.AvroReader(path).generate_dataset(_features(FeatureBuilder))
     assert "key" not in plain
-    with pytest.raises(NotImplementedError, match="item 6.3"):
-        reader.iter_chunks(_features(FeatureBuilder), 10)
+    # the chunked read (blocks of 50 cut by chunks of 10) gives the same
+    # rows, key included
+    chunks = list(reader.iter_chunks(_features(FeatureBuilder), 10))
+    assert [len(c) for c in chunks] == [10] * 25 + [7]
+    _assert_same_dataset(chunks[5], want.slice(50, 60), names)
 
 
 @pytest.mark.parametrize("n,block_records", [(0, 10), (1, 10), (257, 50),

@@ -334,7 +334,7 @@ def test_invalid_thresholds_and_unported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RawFeatureFilter().with_mesh(None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RawFeatureFilter().filter_streaming(None, [], 10)
+        RawFeatureFilter().filter_streaming(None, [], 10, pod=object())
 
 
 def _titanic(rows, seed):

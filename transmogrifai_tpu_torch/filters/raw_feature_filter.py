@@ -9,8 +9,11 @@ difference or ratio), whose train/score distributions diverge
 (leakage).  The numeric columns are profiled in one batched pass on the
 card (``profile_numeric_batch``); text and map columns on the host.
 The decisions are a pure function of the profiles, as in the JAX
-package.  Not ported: ``with_mesh`` (multi-device) and
-``filter_streaming`` (chunked ingestion), ROADMAP Queue A item 6.
+package.  ``filter_streaming`` profiles a reader one chunk at a time
+(out-of-core trains): the profiles are monoids, so each chunk's merge
+into the running ones, the numeric ones still built on the card, and the
+drop decisions equal the in-core pass's.  Not ported: ``with_mesh``
+(multi-device, ROADMAP Queue A item 6.7).
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import numpy as np
 from ..device import DeviceLike, resolve_device
 from ..types.columns import ColumnarDataset, FeatureColumn
 from .feature_distribution import (NUMERIC_STORAGE, FeatureDistribution,
-                                   profile_column, profile_numeric_batch)
+                                   merge_distributions, profile_column,
+                                   profile_numeric_batch)
 
 __all__ = ["RawFeatureFilter", "RawFeatureFilterResults", "ExclusionReasons"]
 
@@ -104,13 +108,97 @@ class RawFeatureFilter:
     def with_mesh(self, mesh) -> "RawFeatureFilter":
         raise NotImplementedError(
             "RawFeatureFilter.with_mesh (multi-device profiles) is not "
-            "ported yet (ROADMAP Queue A item 6, multi-device)")
+            "ported yet (ROADMAP Queue A item 6.7, multi-device)")
+
+    # -- streaming profile (out-of-core trains) -----------------------------
 
     def filter_streaming(self, reader, raw_features, chunk_rows: int,
-                         pod=None):
-        raise NotImplementedError(
-            "RawFeatureFilter.filter_streaming (chunked ingestion) is not "
-            "ported yet (ROADMAP Queue A item 6, chunked ingestion)")
+                         pod=None, device: DeviceLike = None
+                         ) -> Tuple["RawFeatureFilterResults",
+                                    Dict[str, Any]]:
+        """Profile the train reader (and the scoring data, when given)
+        ``chunk_rows`` rows at a time and decide as the in-core pass
+        does.  Returns (results, stats): stats has the passes, the rows
+        of each and the seconds of the whole."""
+        if pod is not None:
+            raise NotImplementedError(
+                "pod trains are not ported yet (ROADMAP Queue A item 6.7, "
+                "multi-device)")
+        t0 = time.perf_counter()
+        predictors = [f for f in raw_features if not f.is_response]
+        responses = [f for f in raw_features if f.is_response]
+        pred_names = [f.name for f in predictors]
+        seconds: Dict[str, float] = {}
+        stats: Dict[str, Any] = {"passes": 1, "score_rows": 0}
+        train_dists, stats["rows"] = self._profile_reader(
+            reader, list(raw_features), pred_names,
+            responses[0].name if responses else None, chunk_rows, device,
+            seconds)
+        score_dists: List[FeatureDistribution] = []
+        if self.scoring_data is not None:
+            from ..readers.base import reader_for
+
+            stats["passes"] = 2
+            score_dists, stats["score_rows"] = self._profile_reader(
+                reader_for(self.scoring_data), predictors, pred_names, None,
+                chunk_rows, device, seconds)
+        reasons, dropped_features, dropped_map_keys = self._decide(
+            train_dists, score_dists)
+        results = self._results(train_dists, score_dists, reasons,
+                                dropped_features, dropped_map_keys)
+        results.profile_seconds = seconds
+        stats["seconds"] = time.perf_counter() - t0
+        return results, stats
+
+    def _profile_reader(self, reader, read_features, pred_names: List[str],
+                        label_name: Optional[str], chunk_rows: int, device,
+                        seconds: Dict[str, float]
+                        ) -> Tuple[List[FeatureDistribution], int]:
+        """One chunked profile pass over ``reader``: (profiles, rows)."""
+        acc: Dict[tuple, FeatureDistribution] = {}
+        rows = 0
+        lab_n = lab_sum = lab_sum2 = 0.0
+        for chunk in reader.iter_chunks(read_features, chunk_rows):
+            label = None
+            if label_name is not None and label_name in chunk:
+                label = np.nan_to_num(np.asarray(
+                    chunk[label_name].values, np.float64))
+                lab_n += len(label)
+                lab_sum += float(label.sum())
+                lab_sum2 += float((label ** 2).sum())
+            merge_distributions(acc, self._profiles(
+                chunk, pred_names, label, device, seconds))
+            rows += len(chunk)
+        return self._ordered_dists(acc, pred_names, rows,
+                                   (lab_sum, lab_sum2) if lab_n else None
+                                   ), rows
+
+    @staticmethod
+    def _ordered_dists(acc: Dict[tuple, FeatureDistribution],
+                       pred_names: List[str], total_rows: int,
+                       label_totals: Optional[Tuple[float, float]]
+                       ) -> List[FeatureDistribution]:
+        """The in-core order (each feature, then its keys sorted); a map
+        key absent from some chunks has no profile of those rows, so its
+        count and nulls (and null x label co-counts: those rows are all
+        null) are topped up to the full row count."""
+        out: List[FeatureDistribution] = []
+        for name in pred_names:
+            keyed = sorted(k for (n, k) in acc if n == name and k is not None)
+            if (name, None) in acc:
+                out.append(acc[(name, None)])
+            for k in keyed:
+                d = acc[(name, k)]
+                if d.count < total_rows:
+                    d.nulls += total_rows - d.count
+                    d.count = total_rows
+                    if label_totals is not None and d.has_label:
+                        tot_sum, tot_sum2 = label_totals
+                        d.null_lab_sum += tot_sum - d.lab_sum
+                        d.lab_sum = tot_sum
+                        d.lab_sum2 = tot_sum2
+                out.append(d)
+        return out
 
     # -- profiling ----------------------------------------------------------
 
@@ -201,8 +289,10 @@ class RawFeatureFilter:
                     dropped_features: Sequence[str],
                     dropped_map_keys: Dict[str, List[str]]
                     ) -> ColumnarDataset:
-        """Apply drop decisions to a dataset: the dropped columns go, the
-        dropped keys leave their maps (``data`` is not mutated)."""
+        """Apply drop decisions to a dataset or one chunk: the dropped
+        columns go, the dropped keys leave their maps (``data`` is not
+        mutated).  An out-of-core train cleans every chunk of every pass
+        with the decisions of the one profile pass."""
         cleaned = data.drop([n for n in dropped_features if n in data])
         for name, keys in dropped_map_keys.items():
             if name not in cleaned:

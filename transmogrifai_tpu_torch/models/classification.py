@@ -5,9 +5,11 @@ fitted models.  Each fit and predict is a few plain torch operations on
 the device (no hand-written kernel: the JAX package computes them outside
 any Pallas kernel).
 
-Not ported yet: the sharded fit (ROADMAP Queue A item 6.7), naive Bayes's
-streaming fit (``begin_fit``..``finish_fit``, with chunked ingestion: item
-6.3) and the AOT scoring specs (item 6.6.2).
+Naive Bayes also fits streaming (``begin_fit``..``finish_fit``): its
+sufficient statistics, class counts and per-class feature sums, add up
+chunk by chunk on the card, so an out-of-core train never holds its
+matrix.  Not ported yet: the sharded fit (ROADMAP Queue A item 6.7) and
+the AOT scoring specs (item 6.6.2).
 """
 from __future__ import annotations
 
@@ -220,7 +222,15 @@ class LinearSVCModel(PredictorModel):
 class OpNaiveBayes(PredictorEstimator):
     """Multinomial naive Bayes (Spark's OpNaiveBayes, ``smoothing`` 1.0)
     on the feature matrix clipped at 0; K = the largest label + 1, at
-    least 2."""
+    least 2.
+
+    The streaming state maps each label value to [its row count, its
+    float64 (D,) feature sums on the chunk's device]; a chunk adds one
+    float32 product a class, summed in another order than the JAX
+    package's host product (log likelihoods within 1e-5 on indicator
+    columns, within 1e-4 with real-valued ones)."""
+
+    supports_streaming_fit = True
 
     def __init__(self, smoothing: float = 1.0,
                  device: Optional[str] = None, uid: Optional[str] = None):
@@ -241,6 +251,57 @@ class OpNaiveBayes(PredictorEstimator):
             n_classes=n_classes, sample_weight=_weights(w, dev),
             smoothing=self.smoothing)
         return NaiveBayesModel(log_prior=log_prior, log_lik=log_lik)
+
+    def begin_fit(self):
+        return {}
+
+    def update_chunk(self, state, data, label_col, features_col):
+        y = _labels(label_col)
+        X = as_device_tensor(features_col.values, torch.float32,
+                             self.device)
+        Xc = torch.clamp(X.to(torch.float32), min=0.0)
+        yt = torch.from_numpy(y).to(Xc.device)
+        for uv in np.unique(y):
+            sums = ((yt == float(uv)).to(torch.float32) @ Xc).to(
+                torch.float64)
+            cnt = int((y == uv).sum())
+            ent = state.get(float(uv))
+            if ent is None:
+                state[float(uv)] = [cnt, sums]
+            else:
+                ent[0] += cnt
+                ent[1] = ent[1] + sums
+        return state
+
+    def merge_states(self, a, b):
+        for k, (cnt, sums) in b.items():
+            ent = a.get(k)
+            if ent is None:
+                a[k] = [cnt, sums]
+            else:
+                ent[0] += cnt
+                ent[1] = ent[1] + sums
+        return a
+
+    def finish_fit(self, state) -> "NaiveBayesModel":
+        if not state:
+            raise ValueError("NaiveBayes streaming fit saw no rows")
+        n_classes = max(int(max(state)) + 1, 2)
+        first = next(iter(state.values()))[1]
+        d, dev = first.shape[0], first.device
+        class_count = torch.zeros(n_classes, dtype=torch.float64, device=dev)
+        feat_count = torch.zeros((n_classes, d), dtype=torch.float64,
+                                 device=dev)
+        for k, (cnt, sums) in state.items():
+            class_count[int(k)] = cnt
+            feat_count[int(k)] = sums
+        log_prior = (torch.log(class_count + 1e-12)
+                     - torch.log(torch.clamp(class_count.sum(), min=1e-12)))
+        log_lik = (torch.log(feat_count + self.smoothing)
+                   - torch.log(feat_count.sum(1, keepdim=True)
+                               + self.smoothing * d))
+        return NaiveBayesModel(log_prior=log_prior.to(torch.float32),
+                               log_lik=log_lik.to(torch.float32))
 
 
 class NaiveBayesModel(PredictorModel):

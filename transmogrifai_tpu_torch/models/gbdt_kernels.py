@@ -160,6 +160,39 @@ def _sample_rows(X: torch.Tensor, sample_rows: int, seed: int
     return X.index_select(0, idx.to(X.device))
 
 
+def quantile_bins_streaming(hists, max_bins: int = 32) -> np.ndarray:
+    """Bin edges (D, max_bins-1) float32 from per-feature
+    ``StreamingHistogram`` sketches of streamed chunks (the out-of-core
+    ``quantile_bins``): each edge is a sketch quantile, duplicates and
+    non-finite edges +inf.  With the default ``8 * max_bins`` sketch bins
+    an edge's rank lies within about 0.05 of the exact quantile's (the
+    JAX package's stated tolerance); equal to its edges bit for bit."""
+    qs = np.linspace(0, 1, max_bins + 1)[1:-1]
+    edges = np.empty((len(hists), max_bins - 1), np.float32)
+    for j, h in enumerate(hists):
+        e = np.array([h.quantile(q) for q in qs], np.float32)
+        dup = np.concatenate([[False], np.diff(e) <= 1e-7])
+        edges[j] = np.where(dup | ~np.isfinite(e), np.inf, e)
+    return edges
+
+
+def streaming_histograms_for(chunks, hist_bins: int = 256):
+    """Per-feature ``StreamingHistogram`` sketches over (n, D) chunk
+    matrices (arrays or tensors, sketched on the host in float64): the
+    sketch pass of an external-memory tree fit."""
+    from ..utils.streaming_histogram import StreamingHistogram
+
+    hists = None
+    for chunk in chunks:
+        M = (chunk.detach().cpu().numpy() if isinstance(chunk, torch.Tensor)
+             else np.asarray(chunk)).astype(np.float64)
+        if hists is None:
+            hists = [StreamingHistogram(hist_bins) for _ in range(M.shape[1])]
+        for j in range(M.shape[1]):
+            hists[j].update(M[:, j])
+    return hists or []
+
+
 #: a feature at least this fraction zero spends its quantiles on its
 #: nonzero values, with an edge pinned at 0: an all-values sketch of a 95%
 #: zero feature collapses every sub-0.95 quantile to 0 (XGBoost's sketch

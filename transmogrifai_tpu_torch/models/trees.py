@@ -421,6 +421,16 @@ class _GBTBase(PredictorEstimator):
         """The objective a fit on labels ``y`` runs."""
         return self._objective
 
+    def streaming_bin_edges(self, chunks, hist_bins: int = 0) -> np.ndarray:
+        """Quantile bin edges from chunked feature matrices: per-feature
+        sketches of ``hist_bins`` (default ``8 * max_bins``) bins absorb
+        the chunks, and the edges are their quantiles
+        (``gbdt_kernels.quantile_bins_streaming``).  The growth itself
+        reads the packed matrix, as the out-of-core train's tail does."""
+        hists = gbdt_kernels.streaming_histograms_for(
+            chunks, hist_bins=hist_bins or 8 * self.max_bins)
+        return gbdt_kernels.quantile_bins_streaming(hists, self.max_bins)
+
     def fit_raw(self, X, y, w=None, device=None) -> TreeEnsembleModel:
         """Fit on a (N, D) matrix (tensor or array) and labels (in {0, 1}
         for the binary objective, 0..K-1 for the softmax one).  Runs on

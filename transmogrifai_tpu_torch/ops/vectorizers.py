@@ -19,16 +19,31 @@ arithmetic and the same counting order as the JAX package, so fill
 values, vocabularies, strategies and bucket ids match exactly).
 Transforms emit the (N, D) float32 matrix as a tensor on the stage's
 device; the blocks of the host-built vectorizers are made as one host
-array and moved in one copy.  Drift baselines and the streaming-fit
-protocol are not ported yet.
+array and moved in one copy.
+
+Every fit also leaves ``metadata["drift_baseline"]``: {raw feature name:
+baseline}, the train-side distribution a serving ``DriftMonitor``
+(``serving/drift.py``) compares traffic with.  A numeric baseline holds
+the Welford moments and a ``_BASELINE_BINS``-bin histogram (the in-core
+fit's on a stride sample of at most about ``_BASELINE_SAMPLE`` values,
+built on the stage's device by ``batched_histograms``, bin for bin the
+JAX package's numpy histogram), a categorical one the top
+``_BASELINE_CATEGORIES`` counts; both equal the JAX package's bit for
+bit.  The fills, vocabularies and strategies also stream
+(``begin_fit``..``finish_fit``): Welford moments for the reals, merged
+value counts for the integrals, ``TopKSketch`` for the pivots and merged
+``TextStats`` for SmartText, equal to the in-core fit (exactly, the
+reals' means within ``streaming_fit_tol``).
 """
 from __future__ import annotations
 
 import itertools
+import os
 import re
 import time
 from collections import Counter
-from typing import Dict, List, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +53,8 @@ from ..stages.base import SequenceEstimator, SequenceModel, SequenceTransformer
 from ..types.columns import ColumnarDataset, FeatureColumn
 from ..types.feature_types import OPNumeric, OPSet, OPVector, Text
 from ..utils.hashing import murmur3_32
+from ..utils.sketches import TopKSketch, WelfordMoments
+from ..utils.streaming_histogram import StreamingHistogram, batched_histograms
 from .vector_metadata import (
     NULL_INDICATOR, OTHER_INDICATOR, VectorColumnMetadata, VectorMetadata,
 )
@@ -61,26 +78,157 @@ def _host_vec_column(arr: np.ndarray, meta: VectorMetadata,
                        meta)
 
 
-def _pivot_vocab(values, top_k: int, min_support: int) -> List:
-    """TopK pivot vocabulary: ``Counter.most_common(top_k)`` order (ties by
-    first occurrence), keeping values seen at least ``min_support`` times."""
+# ---------------------------------------------------------------------------
+# Drift baselines
+# ---------------------------------------------------------------------------
+
+#: histogram bins of a numeric baseline (the PSI grid's source)
+_BASELINE_BINS = 32
+#: stride-sample cap of the in-core baseline histogram (the moments are
+#: exact: the histogram needs only the distribution's shape)
+_BASELINE_SAMPLE = 65536
+#: categories a categorical baseline keeps (the rest count as OTHER)
+_BASELINE_CATEGORIES = 64
+#: columns a ``batched_histograms`` call takes at once (512 columns of
+#: 65 536 samples: about 2 GB of device scratch)
+_BASELINE_COLS_PER_PASS = 512
+
+
+def _numeric_baseline(mom: WelfordMoments, hist: StreamingHistogram
+                      ) -> Dict[str, Any]:
+    """A numeric baseline from moments and a histogram (ndarrays, which
+    persistence keeps bit for bit in ``arrays.npz``)."""
+    empty = mom.mean is None
+    return {
+        "kind": "numeric", "n": float(mom.n),
+        "mean": 0.0 if empty else float(mom.mean),
+        "m2": 0.0 if empty else float(mom.m2),
+        "min": 0.0 if empty else float(mom.min),
+        "max": 0.0 if empty else float(mom.max),
+        "histCentroids": np.asarray(hist.centroids, np.float64),
+        "histCounts": np.asarray(hist.counts, np.float64),
+    }
+
+
+def _categorical_baseline(values, counts, total) -> Dict[str, Any]:
+    return {"kind": "categorical", "n": float(total),
+            "values": [str(v) for v in values],
+            "counts": np.asarray(counts, np.float64)}
+
+
+def _baseline_sample(present: np.ndarray) -> np.ndarray:
+    """The in-core histogram's stride sample of a column's values."""
+    return present[::max(1, len(present) // _BASELINE_SAMPLE)]
+
+
+def _sample_histograms(samples: Sequence[np.ndarray], device
+                       ) -> List[StreamingHistogram]:
+    """``StreamingHistogram(_BASELINE_BINS).update(sample)`` of every
+    sample, built ``_BASELINE_COLS_PER_PASS`` columns a pass on
+    ``device``; the same bins as the host histogram."""
+    out: List[StreamingHistogram] = []
+    dev = resolve_device(device)
+    step = _BASELINE_COLS_PER_PASS
+    for a in range(0, len(samples), step):
+        group = samples[a:a + step]
+        width = max(len(v) for v in group)
+        if width == 0:
+            out += [StreamingHistogram(_BASELINE_BINS) for _ in group]
+            continue
+        X = np.zeros((len(group), width), np.float64)
+        M = np.zeros((len(group), width), bool)
+        for j, v in enumerate(group):
+            X[j, :len(v)] = v
+            M[j, :len(v)] = True
+        C, N, L = batched_histograms(torch.from_numpy(X).to(dev),
+                                     torch.from_numpy(M).to(dev),
+                                     _BASELINE_BINS)
+        C, N, L = C.cpu().numpy(), N.cpu().numpy(), L.cpu().numpy()
+        out += [StreamingHistogram.from_bins(C[j, :L[j]], N[j, :L[j]],
+                                             _BASELINE_BINS)
+                for j in range(len(group))]
+    return out
+
+
+def _numeric_baseline_from_counts(counts: Dict[float, int]
+                                  ) -> Dict[str, Any]:
+    """An exact numeric baseline from a value -> count map (the integral
+    vectorizer's mode counts)."""
+    if not counts:
+        return _numeric_baseline(WelfordMoments(),
+                                 StreamingHistogram(_BASELINE_BINS))
+    v = np.asarray(list(counts.keys()), np.float64)
+    c = np.asarray(list(counts.values()), np.float64)
+    n = float(c.sum())
+    mean = float((v * c).sum() / n)
+    hist = StreamingHistogram.from_value_counts(v, c, _BASELINE_BINS)
+    return {
+        "kind": "numeric", "n": n, "mean": mean,
+        "m2": float((c * (v - mean) ** 2).sum()),
+        "min": float(v.min()), "max": float(v.max()),
+        "histCentroids": np.asarray(hist.centroids, np.float64),
+        "histCounts": np.asarray(hist.counts, np.float64),
+    }
+
+
+def _categorical_baseline_from_sketch(sk: TopKSketch) -> Dict[str, Any]:
+    """The top categories of a ``TopKSketch`` by (count, first seen)."""
+    ordered = sorted(sk.counts.items(),
+                     key=lambda kv: (-kv[1][0], kv[1][1]))
+    top = ordered[:_BASELINE_CATEGORIES]
+    return _categorical_baseline([k for k, _ in top],
+                                 [ent[0] for _, ent in top], sk.offset)
+
+
+def _pivot_fit(values, top_k: int, min_support: int):
+    """(TopK pivot vocabulary, categorical baseline) from one ``np.unique``
+    pass: ``Counter.most_common(top_k)`` order (ties by first occurrence),
+    keeping values seen at least ``min_support`` times."""
     arr = np.asarray(values, dtype=object)
-    if arr.size == 0:
-        return []
+    total = int(arr.size)
+    if total == 0:
+        return [], _categorical_baseline([], [], 0)
     try:
         uniq, first, cnt = np.unique(arr, return_index=True,
                                      return_counts=True)
     except TypeError:  # non-comparable mix
         counts = Counter(arr.tolist())
-        return [v for v, n in counts.most_common(top_k) if n >= min_support]
+        top = counts.most_common(_BASELINE_CATEGORIES)
+        return ([v for v, n in counts.most_common(top_k) if n >= min_support],
+                _categorical_baseline([v for v, _ in top],
+                                      [n for _, n in top], total))
     order = np.lexsort((first, -cnt))
-    return [uniq[i] for i in order[:top_k] if cnt[i] >= min_support]
+    keep = order[:_BASELINE_CATEGORIES]
+    return ([uniq[i] for i in order[:top_k] if cnt[i] >= min_support],
+            _categorical_baseline(uniq[keep], cnt[keep], total))
+
+
+def _host_map(fn: Callable, items: Sequence) -> List:
+    """``[fn(x) for x in items]`` on a pool of host threads (numpy drops
+    the GIL in its loops; the results are those of the serial loop)."""
+    workers = min(len(items), os.cpu_count() or 1, 8)
+    if workers <= 1:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(workers) as ex:
+        return list(ex.map(fn, items))
+
+
+def _present(c: FeatureColumn) -> np.ndarray:
+    return np.nan_to_num(np.asarray(c.values, np.float64))[
+        np.asarray(c.mask)]
 
 
 class RealVectorizer(SequenceEstimator):
-    """Fill missing reals (mean or constant) + optional null-indicator slots."""
+    """Fill missing reals (mean or constant) + optional null-indicator slots.
+    The streaming fit's Welford means match the in-core means within
+    about 1e-12 relative (chunked float64 sums in another order).
+    ``fit_seconds`` splits the last in-core fit into ``moments_s`` (the
+    fills and the exact moments, on host threads) and ``histograms_s``
+    (the baselines' histograms on the stage's device)."""
 
     input_types = (OPNumeric,)
+    supports_streaming_fit = True
+    streaming_order_insensitive = True
 
     def __init__(self, fill_with_mean: bool = True, fill_value: float = 0.0,
                  track_nulls: bool = True, device: Optional[str] = None,
@@ -91,17 +239,52 @@ class RealVectorizer(SequenceEstimator):
         self.fill_value = fill_value
         self.track_nulls = track_nulls
         self.device = device
+        self.fit_seconds: Dict[str, float] = {}
 
     def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
-        fills = []
-        for c in cols:
-            m = np.asarray(c.mask)
-            present = np.nan_to_num(np.asarray(c.values, np.float64))[m]
-            fills.append(float(present.mean())
-                         if self.fill_with_mean and m.any()
-                         else float(self.fill_value))
+        def one(c):
+            present = _present(c)
+            return WelfordMoments().update(present), _baseline_sample(present)
+
+        t0 = time.perf_counter()
+        fitted = _host_map(one, cols)
+        t1 = time.perf_counter()
+        hists = _sample_histograms([s for _, s in fitted], self.device)
+        self.fit_seconds = {"moments_s": t1 - t0,
+                            "histograms_s": time.perf_counter() - t1}
+        self.metadata["drift_baseline"] = {
+            f.name: _numeric_baseline(mom, h)
+            for f, (mom, _), h in zip(self.input_features, fitted, hists)}
+        return self._model([mom for mom, _ in fitted])
+
+    def _model(self, moms: List[WelfordMoments]) -> "RealVectorizerModel":
+        fills = [float(m.mean) if self.fill_with_mean and m.n > 0
+                 else float(self.fill_value) for m in moms]
         return RealVectorizerModel(fills=fills, track_nulls=self.track_nulls,
                                    device=self.device)
+
+    def begin_fit(self):
+        return [{"mom": WelfordMoments(),
+                 "hist": StreamingHistogram(_BASELINE_BINS)}
+                for _ in self.input_features]
+
+    def update_chunk(self, state, data, *cols):
+        for st, c in zip(state, cols):
+            present = _present(c)
+            st["mom"].update(present)
+            st["hist"].update(present)
+        return state
+
+    def merge_states(self, a, b):
+        return [{"mom": sa["mom"].merge(sb["mom"]),
+                 "hist": sa["hist"].merge(sb["hist"])}
+                for sa, sb in zip(a, b)]
+
+    def finish_fit(self, state):
+        self.metadata["drift_baseline"] = {
+            f.name: _numeric_baseline(st["mom"], st["hist"])
+            for f, st in zip(self.input_features, state)}
+        return self._model([st["mom"] for st in state])
 
 
 class RealVectorizerModel(SequenceModel):
@@ -140,9 +323,12 @@ class RealVectorizerModel(SequenceModel):
 
 class IntegralVectorizer(SequenceEstimator):
     """Fill missing integrals with the mode (0 for a column with no value)
-    + optional null-indicator slots."""
+    + optional null-indicator slots.  The streaming fit merges exact value
+    counts: the same modes (ties to the smallest value)."""
 
     input_types = (OPNumeric,)
+    supports_streaming_fit = True
+    streaming_order_insensitive = True
 
     def __init__(self, track_nulls: bool = True,
                  device: Optional[str] = None, uid: Optional[str] = None):
@@ -152,16 +338,35 @@ class IntegralVectorizer(SequenceEstimator):
         self.device = device
 
     def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
-        fills = []
-        for c in cols:
+        return self.finish_fit(self.update_chunk(self.begin_fit(), data,
+                                                 *cols))
+
+    def begin_fit(self):
+        return [dict() for _ in self.input_features]
+
+    def update_chunk(self, state, data, *cols):
+        for counts, c in zip(state, cols):
             vals = np.asarray(c.values)[np.asarray(c.mask)]
             if len(vals):
-                # unique values ascend, and argmax takes the first of the
-                # tied counts: the smallest value
                 uniq, cnt = np.unique(vals, return_counts=True)
-                fills.append(float(uniq[np.argmax(cnt)]))
-            else:
-                fills.append(0.0)
+                for v, n in zip(uniq, cnt):
+                    counts[float(v)] = counts.get(float(v), 0) + int(n)
+        return state
+
+    def merge_states(self, a, b):
+        for ca, cb in zip(a, b):
+            for v, n in cb.items():
+                ca[v] = ca.get(v, 0) + n
+        return a
+
+    def finish_fit(self, state):
+        # the highest count, ties to the smallest value (the in-core
+        # argmax over ascending unique values)
+        fills = [float(max(counts.items(), key=lambda kv: (kv[1], -kv[0]))[0])
+                 if counts else 0.0 for counts in state]
+        self.metadata["drift_baseline"] = {
+            f.name: _numeric_baseline_from_counts(counts)
+            for f, counts in zip(self.input_features, state)}
         return RealVectorizerModel(fills=fills, track_nulls=self.track_nulls,
                                    device=self.device)
 
@@ -214,12 +419,37 @@ class OneHotVectorizer(SequenceEstimator):
         self.unseen_to_other = unseen_to_other
         self.device = device
 
+    supports_streaming_fit = True
+
     def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
-        vocabs = [_pivot_vocab(c.values[np.not_equal(c.values, None)],
-                               self.top_k, self.min_support) for c in cols]
+        fits = [_pivot_fit(c.values[np.not_equal(c.values, None)],
+                           self.top_k, self.min_support) for c in cols]
+        self.metadata["drift_baseline"] = {
+            f.name: base for f, (_, base) in zip(self.input_features, fits)}
+        return self._model([vocab for vocab, _ in fits])
+
+    def _model(self, vocabs) -> "OneHotVectorizerModel":
         return OneHotVectorizerModel(
             vocabs=vocabs, track_nulls=self.track_nulls,
             unseen_to_other=self.unseen_to_other, device=self.device)
+
+    def begin_fit(self):
+        return [TopKSketch() for _ in self.input_features]
+
+    def update_chunk(self, state, data, *cols):
+        for sk, c in zip(state, cols):
+            sk.add_chunk(c.values[np.not_equal(c.values, None)])
+        return state
+
+    def merge_states(self, a, b):
+        return [sa.merge(sb) for sa, sb in zip(a, b)]
+
+    def finish_fit(self, state):
+        self.metadata["drift_baseline"] = {
+            f.name: _categorical_baseline_from_sketch(sk)
+            for f, sk in zip(self.input_features, state)}
+        return self._model([sk.top_k(self.top_k, self.min_support)
+                            for sk in state])
 
 
 class OneHotVectorizerModel(SequenceModel):
@@ -281,13 +511,38 @@ class MultiPickListVectorizer(SequenceEstimator):
         self.track_nulls = track_nulls
         self.device = device
 
+    supports_streaming_fit = True
+
     def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
         # the cells flattened in iteration order: the first occurrence
         # breaks count ties, as Counter.update over the sets would
-        vocabs = [_pivot_vocab([v for s in c.values for v in s], self.top_k,
-                               self.min_support) for c in cols]
+        fits = [_pivot_fit([v for s in c.values for v in s], self.top_k,
+                           self.min_support) for c in cols]
+        self.metadata["drift_baseline"] = {
+            f.name: base for f, (_, base) in zip(self.input_features, fits)}
+        return self._model([vocab for vocab, _ in fits])
+
+    def _model(self, vocabs) -> "MultiPickListVectorizerModel":
         return MultiPickListVectorizerModel(
             vocabs=vocabs, track_nulls=self.track_nulls, device=self.device)
+
+    def begin_fit(self):
+        return [TopKSketch() for _ in self.input_features]
+
+    def update_chunk(self, state, data, *cols):
+        for sk, c in zip(state, cols):
+            sk.add_chunk([v for s in c.values for v in s])
+        return state
+
+    def merge_states(self, a, b):
+        return [sa.merge(sb) for sa, sb in zip(a, b)]
+
+    def finish_fit(self, state):
+        self.metadata["drift_baseline"] = {
+            f.name: _categorical_baseline_from_sketch(sk)
+            for f, sk in zip(self.input_features, state)}
+        return self._model([sk.top_k(self.top_k, self.min_support)
+                            for sk in state])
 
 
 class MultiPickListVectorizerModel(SequenceModel):
@@ -481,6 +736,17 @@ class TextStats:
     def cardinality(self) -> int:
         return len(self.value_counts)
 
+    def merge(self, other: "TextStats") -> "TextStats":
+        """Monoid combine: ``Counter`` addition keeps the left side's
+        first-occurrence order, then the right side's new values."""
+        out = TextStats(self.max_card)
+        out.value_counts = self.value_counts + other.value_counts
+        out.n = self.n + other.n
+        out.n_null = self.n_null + other.n_null
+        out.saturated = (self.saturated or other.saturated
+                         or len(out.value_counts) > out.max_card)
+        return out
+
     def strategy(self, n_rows: int, min_fill_rate: float,
                  top_k: int, min_support: int) -> Tuple[str, List[str]]:
         """SmartText's rule for one field (or map key) of ``n_rows`` rows:
@@ -499,9 +765,13 @@ class SmartTextVectorizer(SequenceEstimator):
     """Per text field: a categorical pivot when its cardinality is at most
     ``max_cardinality``, murmur3 hashing when above it, nothing when its
     fill rate is below ``min_fill_rate``; + null indicators.
-    ``metadata["text_strategies"]`` records the choice per field."""
+    ``metadata["text_strategies"]`` records the choice per field.  The
+    streaming fit merges each chunk's ``TextStats`` left to right: the
+    same strategies and vocabularies (a chunk that saturates makes the
+    field hash in both paths)."""
 
     input_types = (Text,)
+    supports_streaming_fit = True
 
     PIVOT, HASH, IGNORE = "pivot", "hash", "ignore"
 
@@ -524,20 +794,49 @@ class SmartTextVectorizer(SequenceEstimator):
         #: seconds of the last fit's statistics pass (host)
         self.fit_seconds: Optional[float] = None
 
+    def _stats(self, c: FeatureColumn) -> TextStats:
+        stats = TextStats(self.max_cardinality)
+        for v in c.values:
+            stats.update(v)
+        return stats
+
     def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
         t0 = time.perf_counter()
-        strategies, vocabs = [], []
-        for c in cols:
-            stats = TextStats(self.max_cardinality)
-            for v in c.values:
-                stats.update(v)
+        model = self._decide([self._stats(c) for c in cols])
+        self.fit_seconds = time.perf_counter() - t0
+        return model
+
+    def begin_fit(self):
+        return [TextStats(self.max_cardinality) for _ in self.input_features]
+
+    def update_chunk(self, state, data, *cols):
+        return [st.merge(self._stats(c)) for st, c in zip(state, cols)]
+
+    def merge_states(self, a, b):
+        return [sa.merge(sb) for sa, sb in zip(a, b)]
+
+    def finish_fit(self, state):
+        return self._decide(state)
+
+    def _decide(self, stats_list: List[TextStats]
+                ) -> "SmartTextVectorizerModel":
+        """Strategy and vocabulary per field, and the categorical drift
+        baseline of each unsaturated field (hashed text has no bounded
+        category space)."""
+        strategies, vocabs, baseline = [], [], {}
+        for f, stats in zip(self.input_features, stats_list):
             strat, vocab = stats.strategy(stats.n, self.min_fill_rate,
                                           self.top_k, self.min_support)
             strategies.append(strat)
             vocabs.append(vocab)
+            if not stats.saturated and stats.value_counts:
+                top = stats.value_counts.most_common(_BASELINE_CATEGORIES)
+                baseline[f.name] = _categorical_baseline(
+                    [v for v, _ in top], [cnt for _, cnt in top],
+                    stats.n - stats.n_null)
         self.metadata["text_strategies"] = dict(
             zip([f.name for f in self.input_features], strategies))
-        self.fit_seconds = time.perf_counter() - t0
+        self.metadata["drift_baseline"] = baseline
         return SmartTextVectorizerModel(
             strategies=strategies, vocabs=vocabs,
             num_hash_features=self.num_hash_features,

@@ -7,9 +7,21 @@ of a categorical group above ``max_cramers_v``.  Statistics are device
 reductions (``ops.stats``); the label correlation is Pearson's or, with
 ``correlation_type="spearman"``, Spearman's (Pearson on the float32
 average ranks, ``ops.stats.spearman_with_label``).  The fitted model
-gathers the kept columns of the device matrix.  The streaming fit is not
-ported yet.  ``MinVarianceFilter`` drops the columns whose variance is
-below ``min_variance``, with no label.
+gathers the kept columns of the device matrix, and its metadata carries
+``drift_baseline_vector``: the kept slots' names, mean and variance (the
+drift monitor's feature-space view).  ``MinVarianceFilter`` drops the
+columns whose variance is below ``min_variance``, with no label.
+
+Both stream (``begin_fit``..``finish_fit``) as in the JAX package, with
+its host sketches: each chunk's matrix comes to the host, where a
+``PearsonSketch`` (``WelfordMoments`` for the filter) and, for a
+categorical label, float64 per-label column sums (Cramér's V) accumulate.
+The results equal the JAX package's streaming fit bit for bit, and the
+in-core fit's within the float64 summation order (about 1e-12
+relative); the keep decisions are the same.  Spearman needs a global
+rank sort and does not stream; a sampled checker (``check_sample < 1``)
+draws one PCG64 stream across the chunks, so it keeps the in-core fit's
+rows.
 """
 from __future__ import annotations
 
@@ -18,12 +30,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.stats import (col_stats, col_stats_with_label, cramers_v,
-                         spearman_with_label)
+from ..ops.stats import (ColStats, col_stats, col_stats_with_label,
+                         contingency_stats, cramers_v, spearman_with_label)
 from ..ops.vector_metadata import VectorMetadata
 from ..stages.base import BinaryEstimator, BinaryModel
 from ..types.columns import ColumnarDataset, FeatureColumn
 from ..types.feature_types import OPNumeric, OPVector
+from ..utils.sketches import PearsonSketch, WelfordMoments
 
 __all__ = ["SanityChecker", "SanityCheckerModel", "MinVarianceFilter",
            "MinVarianceFilterModel"]
@@ -34,11 +47,44 @@ def _label_tensor(label_col: FeatureColumn, dev) -> torch.Tensor:
     return torch.from_numpy(y).to(dev)
 
 
+def _host_matrix(features_col: FeatureColumn) -> np.ndarray:
+    """A chunk's feature matrix as float32 on the host (the sketches'
+    side)."""
+    X = features_col.values
+    if isinstance(X, torch.Tensor):
+        return X.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(X, dtype=np.float32)
+
+
+class _StreamState:
+    """The checker's streaming state: the Pearson sketch, the label values
+    seen, the per-label column sums (None once the label cannot be
+    categorical), the vector metadata, the width and the sampling rng."""
+
+    __slots__ = ("pearson", "label_values", "label_sums", "vmeta", "d",
+                 "rng")
+
+    def __init__(self, rng):
+        self.pearson = PearsonSketch()
+        self.label_values = np.zeros(0, np.float64)
+        self.label_sums: Optional[Dict[float, np.ndarray]] = {}
+        self.vmeta = None
+        self.d: Optional[int] = None
+        self.rng = rng
+
+
 class SanityChecker(BinaryEstimator):
     """Inputs: (label RealNN, features OPVector) -> cleaned OPVector."""
 
     input_types = (OPNumeric, OPVector)
     label_input_positions = (0,)
+    #: per-label column sums stop past this many label values when the
+    #: label is declared categorical (else past ``max_label_classes``)
+    _STREAM_LABEL_CAP_HARD = 4096
+
+    @property
+    def supports_streaming_fit(self) -> bool:  # type: ignore[override]
+        return self.correlation_type != "spearman"
 
     def __init__(self, check_sample: float = 1.0, sample_seed: int = 42,
                  min_variance: float = 1e-5, min_correlation: float = 0.0,
@@ -119,13 +165,13 @@ class SanityChecker(BinaryEstimator):
                         f"group Cramér's V {cv:.3f} > {self.max_cramers_v}")
         names = (vmeta.column_names() if vmeta.size == d
                  else [f"f_{j}" for j in range(d)])
+        keep = ([j for j in range(d) if not to_drop[j]]
+                if self.remove_bad_features else list(range(d)))
         parents = ([c.parent_feature for c in vmeta.columns]
                    if vmeta.size == d else ["features"] * d)
         group_of = ([group_cv.get((c.parent_feature, c.grouping))
                      for c in vmeta.columns]
                     if vmeta.size == d else [None] * d)
-        keep = ([j for j in range(d) if not to_drop[j]]
-                if self.remove_bad_features else list(range(d)))
         self.metadata["summary"] = {
             "correlationType": self.correlation_type,
             "sampleSize": float(n),
@@ -140,9 +186,88 @@ class SanityChecker(BinaryEstimator):
                  "dropped": bool(to_drop[j]), "reasons": reasons[j]}
                 for j in range(d)],
         }
+        self.metadata["drift_baseline_vector"] = {
+            "names": [names[j] for j in keep], "n": float(n),
+            "mean": np.asarray(stats.mean, np.float64)[keep],
+            "variance": np.asarray(stats.variance, np.float64)[keep]}
         model = SanityCheckerModel(keep_indices=keep)
         model.new_vmeta = vmeta.select(keep) if vmeta.size == d else None
         return model
+
+    # -- streaming fit ------------------------------------------------------
+
+    def begin_fit(self) -> _StreamState:
+        if self.correlation_type == "spearman":
+            raise ValueError(
+                "SanityChecker streaming fit requires a streamable "
+                "correlation (spearman needs a global rank sort)")
+        return _StreamState(np.random.default_rng(self.sample_seed)
+                            if self.check_sample < 1.0 else None)
+
+    def update_chunk(self, state, data, label_col, features_col):
+        X = _host_matrix(features_col)
+        y = np.nan_to_num(np.asarray(label_col.values, dtype=np.float32))
+        if state.rng is not None:
+            # successive chunk-length draws continue one PCG64 stream: the
+            # rows the in-core fit keeps
+            sel = state.rng.random(len(y)) < self.check_sample
+            X, y = X[sel], y[sel]
+        if state.d is None:
+            state.d = X.shape[1]
+            state.vmeta = features_col.vmeta
+        if len(y) == 0:
+            return state
+        state.pearson.update(X, y)
+        uniq = np.unique(y)
+        state.label_values = np.union1d(state.label_values, uniq)
+        cap = (self._STREAM_LABEL_CAP_HARD if self.categorical_label
+               else self.max_label_classes)
+        if self.categorical_label is False or len(state.label_values) > cap:
+            state.label_sums = None
+        if state.label_sums is not None:
+            for uv in uniq:
+                sums = X[y == uv].sum(axis=0, dtype=np.float64)
+                prev = state.label_sums.get(float(uv))
+                state.label_sums[float(uv)] = (sums if prev is None
+                                               else prev + sums)
+        return state
+
+    def merge_states(self, a, b):
+        if b.d is None:
+            return a
+        if a.d is None:
+            return b
+        a.pearson.merge(b.pearson)
+        a.label_values = np.union1d(a.label_values, b.label_values)
+        if a.label_sums is None or b.label_sums is None:
+            a.label_sums = None
+        else:
+            for k, v in b.label_sums.items():
+                prev = a.label_sums.get(k)
+                a.label_sums[k] = v if prev is None else prev + v
+        return a
+
+    def finish_fit(self, state) -> "SanityCheckerModel":
+        d = state.d or 0
+        n = int(state.pearson.x.n) if state.pearson.c is not None else 0
+        if n == 0 or d == 0:
+            raise ValueError("SanityChecker streaming fit saw no rows")
+        vmeta = state.vmeta or VectorMetadata("features", [])
+        x = state.pearson.x
+        stats = ColStats(np.asarray(x.mean), np.asarray(x.variance(ddof=1)),
+                         np.asarray(x.min), np.asarray(x.max),
+                         state.pearson.correlation())
+        uniq = state.label_values
+        is_cat_label = (self.categorical_label
+                        if self.categorical_label is not None
+                        else len(uniq) <= min(self.max_label_classes,
+                                              n // 2))
+        group_cv: Dict[Tuple[str, Optional[str]], float] = {}
+        if is_cat_label and vmeta.size == d and state.label_sums is not None:
+            tbl = np.stack([state.label_sums[float(v)] for v in uniq])
+            for key, idxs in _indicator_groups(vmeta).items():
+                group_cv[key] = contingency_stats(tbl[:, idxs])["cramersV"]
+        return self._finalize(stats, group_cv, vmeta, n, d)
 
 
 def _indicator_groups(vmeta: VectorMetadata
@@ -202,6 +327,7 @@ class MinVarianceFilter(BinaryEstimator):
 
     input_arity = (1, 2)
     label_input_positions = (0,)
+    supports_streaming_fit = True
 
     def __init__(self, min_variance: float = 1e-5, uid: Optional[str] = None):
         super().__init__(operation_name="minVariance", output_type=OPVector,
@@ -210,11 +336,37 @@ class MinVarianceFilter(BinaryEstimator):
 
     def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
         features_col = cols[-1]
-        X = features_col.values
-        d = X.shape[1]
-        variance = col_stats(X).variance
+        return self._keep(col_stats(features_col.values).variance,
+                          features_col.vmeta)
+
+    def begin_fit(self):
+        return {"moments": WelfordMoments(), "vmeta": None, "d": None}
+
+    def update_chunk(self, state, data, *cols):
+        X = _host_matrix(cols[-1])
+        if state["d"] is None:
+            state["d"] = X.shape[1]
+            state["vmeta"] = cols[-1].vmeta
+        state["moments"].update(X)
+        return state
+
+    def merge_states(self, a, b):
+        if b["d"] is None:
+            return a
+        if a["d"] is None:
+            return b
+        a["moments"].merge(b["moments"])
+        return a
+
+    def finish_fit(self, state) -> "MinVarianceFilterModel":
+        if state["d"] is None:
+            raise ValueError("MinVarianceFilter streaming fit saw no rows")
+        return self._keep(np.asarray(state["moments"].variance(ddof=1)),
+                          state["vmeta"])
+
+    def _keep(self, variance, vmeta) -> "MinVarianceFilterModel":
+        d = len(variance)
         keep = [j for j in range(d) if variance[j] >= self.min_variance]
-        vmeta = features_col.vmeta
         named = vmeta is not None and vmeta.size == d
         kept = set(keep)
         self.metadata["summary"] = {

@@ -16,9 +16,10 @@ Supported schema surface: null, boolean, int, long, float, double, bytes,
 string, fixed, enum, array, map, union, record (with named-type
 references).  Only the fail-fast path runs: a corrupt block raises
 ``AvroBlockError`` or ``AvroRecordError`` (the quarantine policy waits
-for ``readers/resilience.py``), and the block-streaming reads
-(``iter_avro_blocks``, ``AvroReader.iter_chunks``) wait for chunked
-ingestion: both are ROADMAP Queue A item 6.3.
+for ``readers/resilience.py``, ROADMAP Queue A item 6.3).
+``iter_avro_blocks`` streams a file block by block, and the readers'
+``iter_chunks`` regroup the records into chunks of ``chunk_rows``, cut
+across block boundaries, holding at most one block and one chunk.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ import numpy as np
 from ..features.feature import Feature
 from ..types import feature_types as ft
 from ..types.columns import ColumnarDataset, FeatureColumn
-from .base import Reader, RecordsReader
+from .base import (ChunkStream, Reader, RecordsReader, _check_chunk_rows,
+                   _stream)
 
 __all__ = ["read_avro", "write_avro", "iter_avro_blocks", "AvroReader",
            "AvroSchemaCSVReader", "avro_to_feature_type",
@@ -43,8 +45,6 @@ __all__ = ["read_avro", "write_avro", "iter_avro_blocks", "AvroReader",
 _MAGIC = b"Obj\x01"
 _PRIMITIVES = ("null", "boolean", "int", "long", "float", "double",
                "bytes", "string")
-_CHUNKED = ("chunked Avro ingestion is not ported yet (ROADMAP Queue A "
-            "item 6.3: chunked ingestion)")
 
 
 class AvroBlockError(ValueError):
@@ -553,8 +553,35 @@ def read_avro(path: str, resilience=None) -> Tuple[Dict[str, Any],
 
 def iter_avro_blocks(path: str, bytes_pos: Optional[dict] = None,
                      resilience=None):
-    """Block-by-block streaming of an OCF: waits for chunked ingestion."""
-    raise NotImplementedError(_CHUNKED)
+    """Stream an OCF block by block: yields ``(schema, records)`` per
+    container block, never holding the whole file.  ``bytes_pos["bytes"]``
+    (when a dict is given) follows the file position after each block.
+    A corrupt block raises as in ``read_avro``."""
+    _no_resilience(resilience)
+    with open(path, "rb") as fh:
+        dec = _FileDecoder(fh)
+        schema, codec, sync, named = _read_header(dec, path)
+        read = _reader(schema, named, {})
+        block_index = 0
+        while fh.read(1):
+            fh.seek(-1, 1)
+            byte_offset = fh.tell()
+            try:
+                count = dec.read_long()
+                block = dec.read(dec.read_long())
+            except EOFError as exc:
+                raise AvroBlockError(path, block_index, byte_offset,
+                                     f"truncated block framing: {exc}"
+                                     ) from exc
+            records = _decode_block(block, count, codec, schema, named, path,
+                                    block_index, byte_offset, read)
+            if dec.read(16) != sync:
+                raise AvroBlockError(path, block_index, byte_offset,
+                                     "sync marker mismatch")
+            if bytes_pos is not None:
+                bytes_pos["bytes"] = fh.tell()
+            block_index += 1
+            yield schema, records
 
 
 def write_avro(path: str, schema: Dict[str, Any], records: Sequence[dict],
@@ -711,8 +738,27 @@ class AvroReader(Reader):
             return None
 
     def iter_chunks(self, raw_features: Sequence[Feature], chunk_rows: int,
-                    host_range=None):
-        raise NotImplementedError(_CHUNKED)
+                    host_range=None) -> ChunkStream:
+        """Blocks decode one at a time and regroup into ``chunk_rows``
+        records; ``bytes_read`` follows the file position."""
+        _check_chunk_rows(chunk_rows)
+        key_fn = _key_fn(self.key_field)
+        pos = {"bytes": 0}
+
+        def gen():
+            pending: List[dict] = []
+            for _schema, records in iter_avro_blocks(self.path, pos):
+                pending.extend(records)
+                while len(pending) >= chunk_rows:
+                    batch, pending = (pending[:chunk_rows],
+                                      pending[chunk_rows:])
+                    yield RecordsReader(batch, key_fn=key_fn
+                                        ).generate_dataset(raw_features)
+            if pending:
+                yield RecordsReader(pending, key_fn=key_fn
+                                    ).generate_dataset(raw_features)
+
+        return _stream(gen(), host_range, lambda: pos["bytes"])
 
 
 class AvroSchemaCSVReader(Reader):
@@ -733,9 +779,8 @@ class AvroSchemaCSVReader(Reader):
             raise ValueError(f"{schema_path}: expected a record schema")
         self.feature_types = schema_feature_types(self.schema)
 
-    def generate_dataset(self, raw_features: Sequence[Feature]
-                         ) -> ColumnarDataset:
-        from .files import CSVReader, _text
+    def _csv(self, raw_features: Sequence[Feature]):
+        from .files import CSVReader
 
         names = [f["name"] for f in self.schema["fields"]]
         unknown = [f.name for f in raw_features if f.name not in names]
@@ -745,13 +790,30 @@ class AvroSchemaCSVReader(Reader):
         csv_reader = CSVReader(self.csv_path, column_names=names,
                                has_header=False)
         csv_reader.skip_initial_space = True
-        out = csv_reader.generate_dataset(raw_features)
-        if self.key_field and self.key_field in names:
-            cells = csv_reader._columns()[self.key_field]
+        return csv_reader
+
+    def _dataset(self, csv_reader, columns, n: int,
+                 raw_features: Sequence[Feature]) -> ColumnarDataset:
+        from .files import _text
+
+        out = csv_reader._dataset(columns, n, raw_features)
+        if self.key_field and self.key_field in columns:
             out = out.with_columns({"key": FeatureColumn.from_values(
-                ft.ID, [str(v) for v in _text(cells)])})
+                ft.ID, [str(v) for v in _text(columns[self.key_field])])})
         return out
 
+    def generate_dataset(self, raw_features: Sequence[Feature]
+                         ) -> ColumnarDataset:
+        csv_reader = self._csv(raw_features)
+        columns, n = next(csv_reader._tables(None))
+        return self._dataset(csv_reader, columns, n, raw_features)
+
     def iter_chunks(self, raw_features: Sequence[Feature], chunk_rows: int,
-                    host_range=None):
-        raise NotImplementedError(_CHUNKED)
+                    host_range=None) -> ChunkStream:
+        """The schema-typed CSV ``chunk_rows`` rows at a time."""
+        _check_chunk_rows(chunk_rows)
+        csv_reader = self._csv(raw_features)
+        pos = {"bytes": 0}
+        gen = (self._dataset(csv_reader, columns, n, raw_features)
+               for columns, n in csv_reader._tables(chunk_rows, pos))
+        return _stream(gen, host_range, lambda: pos["bytes"])

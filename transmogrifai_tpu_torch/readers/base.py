@@ -4,9 +4,12 @@ Ported: ``reader_for`` with the ``ColumnarDataset`` passthrough, the
 records reader (a list of dicts; ``key_fn`` adds a ``key`` ID column) and
 the in-memory pandas DataFrame reader (pandas imported only when a frame
 is given); the CSV and JSON-lines file readers are in ``readers/files.py``,
-the Avro readers in ``readers/avro.py``.  Event, streaming and Parquet
-readers, chunked ingestion and the resilience policies are not ported yet
-(ROADMAP Queue A item 6.3).
+the Avro readers in ``readers/avro.py``.  Every reader streams bounded
+row chunks through ``iter_chunks`` (a ``ChunkStream`` with byte
+accounting; ``host_range`` windows it through ``window_gen``): the
+in-memory readers slice, the file readers parse chunk by chunk.  Event,
+streaming and Parquet readers and the resilience policies are not ported
+yet (ROADMAP Queue A item 6.3).
 """
 from __future__ import annotations
 
@@ -16,7 +19,65 @@ from ..features.feature import Feature
 from ..types.columns import ColumnarDataset, FeatureColumn
 from ..types.feature_types import ID
 
-__all__ = ["Reader", "DataFrameReader", "RecordsReader", "reader_for"]
+__all__ = ["Reader", "DataFrameReader", "RecordsReader", "reader_for",
+           "ChunkStream", "window_gen"]
+
+
+def _check_chunk_rows(chunk_rows: int) -> None:
+    if chunk_rows <= 0:
+        raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
+
+
+def window_gen(gen, host_range):
+    """Restrict a chunk generator to the global row window [start, stop):
+    chunks before it are read and dropped, chunks across an edge are
+    sliced, and the iteration stops at ``stop``.  Chunk boundaries stay on
+    the source's own grid."""
+    start, stop = int(host_range[0]), int(host_range[1])
+    if start < 0 or stop < start:
+        raise ValueError(f"bad host_range ({start}, {stop})")
+
+    def windowed():
+        offset = 0
+        if start == stop:
+            return
+        for ds in gen:
+            n = len(ds)
+            lo = max(start - offset, 0)
+            hi = min(stop - offset, n)
+            offset += n
+            if hi > lo:
+                yield ds if (lo == 0 and hi == n) else ds.slice(lo, hi)
+            if offset >= stop:
+                break
+
+    return windowed()
+
+
+class ChunkStream:
+    """Iterator of bounded ``ColumnarDataset`` chunks.  ``bytes_read`` is
+    the producing reader's running total (its file position where it has
+    one), read on the thread that advances the iterator; 0 for readers
+    that cannot attribute bytes."""
+
+    def __init__(self, gen, bytes_fn=None):
+        self._gen = iter(gen)
+        self._bytes_fn = bytes_fn
+        self.bytes_read: int = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> ColumnarDataset:
+        ds = next(self._gen)
+        if self._bytes_fn is not None:
+            self.bytes_read = int(self._bytes_fn())
+        return ds
+
+
+def _stream(gen, host_range, bytes_fn=None) -> ChunkStream:
+    return ChunkStream(gen if host_range is None
+                       else window_gen(gen, host_range), bytes_fn)
 
 
 class Reader:
@@ -35,7 +96,21 @@ class Reader:
                         quarantine_path=None, max_bad_records: int = 1000):
         raise NotImplementedError(
             "ingestion retry and the bad-record quarantine policy are not "
-            "ported yet (ROADMAP Queue A item 6: readers/resilience.py)")
+            "ported yet (ROADMAP Queue A item 6.3: readers/resilience.py)")
+
+    def iter_chunks(self, raw_features: Sequence[Feature], chunk_rows: int,
+                    host_range: Optional[tuple] = None) -> ChunkStream:
+        """The dataset as row chunks of at most ``chunk_rows`` rows.  This
+        fallback reads the whole dataset once and yields row slices; the
+        file readers override it with parses that never hold the file."""
+        _check_chunk_rows(chunk_rows)
+
+        def gen():
+            ds = self.generate_dataset(raw_features)
+            for start in range(0, len(ds), chunk_rows):
+                yield ds.slice(start, min(start + chunk_rows, len(ds)))
+
+        return _stream(gen(), host_range)
 
 
 class RecordsReader(Reader):
@@ -57,6 +132,19 @@ class RecordsReader(Reader):
             cols["key"] = FeatureColumn.from_values(
                 ID, [str(self.key_fn(r)) for r in self.records])
         return ColumnarDataset(cols)
+
+    def iter_chunks(self, raw_features: Sequence[Feature], chunk_rows: int,
+                    host_range: Optional[tuple] = None) -> ChunkStream:
+        """Each chunk's records extracted on their own."""
+        _check_chunk_rows(chunk_rows)
+
+        def gen():
+            for start in range(0, len(self.records), chunk_rows):
+                yield RecordsReader(
+                    self.records[start:start + chunk_rows],
+                    key_fn=self.key_fn).generate_dataset(raw_features)
+
+        return _stream(gen(), host_range)
 
 
 class DataFrameReader(Reader):
@@ -88,6 +176,21 @@ class DataFrameReader(Reader):
                     records = self.df.to_dict("records")
                 cols[f.name] = gen.extract_column(records)
         return ColumnarDataset(cols)
+
+    def iter_chunks(self, raw_features: Sequence[Feature], chunk_rows: int,
+                    host_range: Optional[tuple] = None) -> ChunkStream:
+        """Row-range chunks of the frame, each read on its own (a numeric
+        column's dtype is the frame's, so a chunk coerces as the whole)."""
+        _check_chunk_rows(chunk_rows)
+
+        def gen():
+            n = len(self.df)
+            for start in range(0, n, chunk_rows):
+                part = self.df.iloc[start:min(start + chunk_rows, n)]
+                yield DataFrameReader(part, self.key_col).generate_dataset(
+                    raw_features)
+
+        return _stream(gen(), host_range)
 
 
 class _PassthroughReader(Reader):

@@ -25,12 +25,17 @@ CSV rules (pandas ``read_csv`` defaults):
  * a feature with an extractor gets one record per row, numeric-looking
    columns as floats (``NaN`` where missing), others as text (``None``).
 
-``ParquetReader`` and the quarantine policy raise ``NotImplementedError``.
+``iter_chunks`` parses a bounded number of rows at a time (the
+``csv`` module over the file's lines, one JSON line at a time): a chunk's
+columns equal the same rows of the whole-file read, and ``bytes_read``
+follows the file position.  ``ParquetReader`` and the quarantine policy
+raise ``NotImplementedError`` (ROADMAP Queue A item 6.3).
 The JAX readers' ``key_col`` is not taken: it has no effect there either.
 """
 from __future__ import annotations
 
 import csv
+import itertools
 import json
 from typing import Dict, List, Optional, Sequence
 
@@ -38,7 +43,8 @@ import numpy as np
 
 from ..features.feature import Feature
 from ..types.columns import ColumnarDataset, FeatureColumn
-from .base import Reader, RecordsReader
+from .base import (ChunkStream, Reader, RecordsReader, _check_chunk_rows,
+                   _stream)
 
 __all__ = ["CSVReader", "CSVAutoReader", "ParquetReader", "JSONLinesReader",
            "DataReaders", "NA_STRINGS"]
@@ -84,9 +90,26 @@ def _record_values(cells: Sequence[str]) -> list:
         return _text(cells)
 
 
+def _lines(fh):
+    """The lines of a text file through ``readline``, which leaves
+    ``tell()`` usable (iterating the file object disables it)."""
+    while True:
+        line = fh.readline()
+        if not line:
+            return
+        yield line
+
+
+def _nonblank(row: List[str]) -> bool:
+    return len(row) > 1 or bool(row and row[0].strip())
+
+
 class CSVReader(Reader):
     """CSV with a header row, or without one and ``column_names``; with
-    ``skip_initial_space`` spaces after a delimiter are skipped."""
+    ``skip_initial_space`` spaces after a delimiter are skipped.
+    ``iter_chunks`` parses ``chunk_rows`` rows at a time, each chunk's
+    cells read as the whole file's are, and counts the bytes read up to
+    the chunk's last row."""
 
     skip_initial_space = False
 
@@ -96,15 +119,31 @@ class CSVReader(Reader):
         self.column_names = column_names
         self.has_header = has_header
 
-    def _columns(self) -> Dict[str, Sequence[str]]:
-        """{column name: its cells}; a short row's missing cells are
-        empty (an NA string)."""
+    def _tables(self, chunk_rows: Optional[int], pos: Optional[dict] = None):
+        """({column name: its cells}, rows) per ``chunk_rows`` data rows
+        (all of them at once for None); a short row's missing cells are
+        empty (an NA string).  ``pos["bytes"]`` follows the file position
+        after each table's last row."""
         with open(self.path, newline="", encoding="utf-8-sig") as fh:
-            reader = csv.reader(fh,
+            reader = csv.reader(_lines(fh),
                                 skipinitialspace=self.skip_initial_space)
             header = next(reader, []) if self.has_header else None
-            rows = [r for r in reader
-                    if len(r) > 1 or (r and r[0].strip())]
+            rows = filter(_nonblank, reader)
+            names, offset = None, 0
+            while True:
+                batch = list(itertools.islice(rows, chunk_rows))
+                if not batch and (chunk_rows is not None or names is not None):
+                    return
+                if pos is not None:
+                    pos["bytes"] = fh.tell()
+                if names is None:
+                    names = self._names(header, batch)
+                yield self._table(batch, names, offset), len(batch)
+                offset += len(batch)
+                if chunk_rows is None:
+                    return
+
+    def _names(self, header, rows) -> List[str]:
         if header is None:
             header = (list(self.column_names) if self.column_names
                       else [str(i) for i in range(max(map(len, rows),
@@ -114,12 +153,16 @@ class CSVReader(Reader):
             k = seen.get(n, 0)
             seen[n] = k + 1
             names.append(n if k == 0 else f"{n}.{k}")
+        return names
+
+    def _table(self, rows: List[List[str]], names: List[str],
+               offset: int) -> Dict[str, Sequence[str]]:
         width = len(names)
         for i, r in enumerate(rows):
             if len(r) > width:
                 raise ValueError(
-                    f"{self.path}: data row {i} has {len(r)} fields, the "
-                    f"header {width}")
+                    f"{self.path}: data row {offset + i} has {len(r)} "
+                    f"fields, the header {width}")
             if len(r) < width:
                 r += [""] * (width - len(r))
         cols = list(zip(*rows)) if rows else [()] * width
@@ -127,8 +170,19 @@ class CSVReader(Reader):
 
     def generate_dataset(self, raw_features: Sequence[Feature]
                          ) -> ColumnarDataset:
-        columns = self._columns()
-        n = len(next(iter(columns.values()), []))
+        columns, n = next(self._tables(None))
+        return self._dataset(columns, n, raw_features)
+
+    def iter_chunks(self, raw_features: Sequence[Feature], chunk_rows: int,
+                    host_range=None) -> ChunkStream:
+        _check_chunk_rows(chunk_rows)
+        pos = {"bytes": 0}
+        gen = (self._dataset(columns, n, raw_features)
+               for columns, n in self._tables(chunk_rows, pos))
+        return _stream(gen, host_range, lambda: pos["bytes"])
+
+    def _dataset(self, columns: Dict[str, Sequence[str]], n: int,
+                 raw_features: Sequence[Feature]) -> ColumnarDataset:
         missing = [f.name for f in raw_features
                    if f.origin_stage.extract_fn is None
                    and f.name not in columns and not f.is_response]
@@ -165,19 +219,19 @@ class CSVAutoReader(CSVReader):
 class ParquetReader(Reader):
     def __init__(self, path: str):
         raise NotImplementedError(
-            "ParquetReader is not ported yet (ROADMAP Queue A item 6: the "
-            "rest of ingestion)")
+            "ParquetReader is not ported yet (ROADMAP Queue A item 6.3: "
+            "the rest of ingestion)")
 
 
 class JSONLinesReader(Reader):
     """One JSON object a line; blank lines are skipped, a key a record
-    lacks reads as missing."""
+    lacks reads as missing.  ``iter_chunks`` holds at most ``chunk_rows``
+    decoded records and counts the bytes of the lines read."""
 
     def __init__(self, path: str):
         self.path = path
 
-    def generate_dataset(self, raw_features: Sequence[Feature]
-                         ) -> ColumnarDataset:
+    def _records(self, chunk_rows: Optional[int], pos: dict):
         records, offset = [], 0
         with open(self.path, "rb") as fh:
             for line_no, line in enumerate(fh, start=1):
@@ -190,7 +244,26 @@ class JSONLinesReader(Reader):
                             f"{self.path}: line {line_no} (byte {offset}): "
                             f"invalid JSON: {exc}") from exc
                 offset += len(line)
+                if chunk_rows is not None and len(records) >= chunk_rows:
+                    pos["bytes"] = offset
+                    yield records
+                    records = []
+        pos["bytes"] = offset
+        if records or chunk_rows is None:
+            yield records
+
+    def generate_dataset(self, raw_features: Sequence[Feature]
+                         ) -> ColumnarDataset:
+        (records,) = self._records(None, {})
         return RecordsReader(records).generate_dataset(raw_features)
+
+    def iter_chunks(self, raw_features: Sequence[Feature], chunk_rows: int,
+                    host_range=None) -> ChunkStream:
+        _check_chunk_rows(chunk_rows)
+        pos = {"bytes": 0}
+        gen = (RecordsReader(r).generate_dataset(raw_features)
+               for r in self._records(chunk_rows, pos))
+        return _stream(gen, host_range, lambda: pos["bytes"])
 
 
 class DataReaders:

@@ -17,10 +17,12 @@ No host rung: the JAX server scores on the numpy host path after a device
 error; here a batch whose device scoring raises fails its requests with
 the exception (counted in ``deviceErrors``), and while the breaker is open
 requests shed with ``ShedResult(reason="breaker_open")``.
-``hostFallbacks`` stays in the snapshot and reads 0.  Not ported yet
-(ROADMAP Queue A item 6): the host rung, per-bucket device programs and
-their AOT store, drift monitors, guarded swaps, tenancy, the serving
-fabric and spans.
+``hostFallbacks`` stays in the snapshot and reads 0.  A drift monitor
+(``with_drift_monitor``, ``serving/drift.py``) sees every scored batch's
+rows and its snapshot joins ``snapshot()["drift"]`` (``/metrics``).  Not
+ported yet (ROADMAP Queue A item 6.6): the host rung, per-bucket device
+programs and their AOT store, guarded swaps, tenancy, the serving fabric
+and spans.
 """
 from __future__ import annotations
 
@@ -41,9 +43,9 @@ __all__ = ["ModelServer", "ModelRegistry", "ModelEntry", "MicroBatcher",
            "bucket_for"]
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue A item 6: serving)")
+        f"{what} is not ported yet (ROADMAP Queue A item {item}: serving)")
 
 
 class ModelServer:
@@ -60,7 +62,8 @@ class ModelServer:
                  batch_mode: str = "continuous",
                  device_programs: bool = False, aot_store: Any = None):
         if device_programs or aot_store is not None:
-            raise _not_ported("per-bucket device programs and the AOT store")
+            raise _not_ported("per-bucket device programs and the AOT store",
+                              "6.6.2")
         self.registry = registry
         self.name = name
         self.max_batch = int(max_batch)
@@ -80,13 +83,18 @@ class ModelServer:
         self._executors: Dict[int, BucketedExecutor] = {}
         self._exec_lock = threading.Lock()
         self._draining = False
+        #: the drift monitor fed every batch's rows (None: no monitor)
+        self.drift_monitor = None
         registry.on_swap(self._on_swap)
 
     def with_drift_monitor(self, monitor) -> "ModelServer":
-        raise _not_ported("the drift monitor")
+        """Feed each scored batch's rows to a ``serving.drift.
+        DriftMonitor``; its snapshot joins ``snapshot()["drift"]``."""
+        self.drift_monitor = monitor
+        return self
 
     def with_guard(self, guard) -> "ModelServer":
-        raise _not_ported("the guarded swap")
+        raise _not_ported("the guarded swap", "6.6.4")
 
     @classmethod
     def from_path(cls, path: str, name: str = "default",
@@ -190,6 +198,8 @@ class ModelServer:
     def _execute(self, rows: List[Dict[str, Any]]) -> List[Any]:
         """One batch on the dispatch thread: shed while the breaker holds
         the device path closed; a failure counts and re-raises."""
+        if self.drift_monitor is not None:
+            self.drift_monitor.observe_rows(rows)
         entry = self.registry.get(self.name)
         executor = self._executor_for(entry)
         if not self.breaker.allow_device():
@@ -218,4 +228,6 @@ class ModelServer:
         snap["batchMode"] = self.batcher.mode
         if self.batcher.cost_lookup is not None:
             snap["batchCost"] = self.batcher.cost_lookup.snapshot()
+        if self.drift_monitor is not None:
+            snap["drift"] = self.drift_monitor.snapshot()
         return snap

@@ -2,8 +2,12 @@
 
 Stages transform whole columns, not rows.  An estimator's ``fit`` receives
 the extracted input columns and returns a model that answers for the
-estimator's output feature and uid.  The JAX package's fault-injection
-hooks and streaming-fit protocol are not ported yet (ROADMAP Queue A).
+estimator's output feature and uid, or is built chunk by chunk through
+the streaming-fit protocol (``begin_fit``/``update_chunk``/
+``merge_states``/``finish_fit``, driven by ``fit_streaming`` and the
+out-of-core train, ``workflow/streaming.py``).  The JAX package's
+fault-injection hooks and the fit-state checkpoint hooks are not ported
+yet (ROADMAP Queue A item 6.5).
 The arity bases fix each stage's number of inputs: unary, binary,
 ternary, quaternary, sequence (one or more) and binary-sequence (two or
 more) transformers, models and estimators.
@@ -169,11 +173,57 @@ class Model(Transformer):
 
 
 class Estimator(PipelineStage):
-    """A stage that must be fit before it can transform."""
+    """A stage that must be fit before it can transform.
+
+    The streaming-fit protocol, for the estimators that set
+    ``supports_streaming_fit`` (a property where it depends on a param)::
+
+        state = est.begin_fit()
+        for chunk in chunks:  state = est.update_chunk(state, chunk, *cols)
+        state = est.merge_states(a, b)   # associative combine
+        model = est.finish_fit(state)    # not uid-wired: fit_streaming
+                                         # and adopt_model wire it
+
+    It must give ``fit_columns``'s model on the concatenated chunks:
+    exactly for counting fits (vocabularies, modes), within
+    ``streaming_fit_tol`` on the transform outputs for moment fits.
+    ``streaming_order_insensitive`` says ``merge_states`` also commutes
+    (first-seen tie order makes most counting fits order-sensitive).
+    """
+
+    supports_streaming_fit: bool = False
+    streaming_fit_tol: float = 1e-6
+    streaming_order_insensitive: bool = False
 
     def fit_columns(self, data: ColumnarDataset,
                     *cols: FeatureColumn) -> Model:
         raise NotImplementedError
+
+    def _no_streaming(self) -> NotImplementedError:
+        return NotImplementedError(
+            f"{type(self).__name__} does not support streaming fit")
+
+    def begin_fit(self):
+        raise self._no_streaming()
+
+    def update_chunk(self, state, data: ColumnarDataset,
+                     *cols: FeatureColumn):
+        raise self._no_streaming()
+
+    def merge_states(self, a, b):
+        raise self._no_streaming()
+
+    def finish_fit(self, state) -> Model:
+        raise self._no_streaming()
+
+    def fit_streaming(self, chunks) -> Model:
+        """Fit from an iterable of ``ColumnarDataset`` chunks through the
+        protocol; the model is wired as ``fit``'s is."""
+        state = self.begin_fit()
+        for chunk in chunks:
+            state = self.update_chunk(
+                state, chunk, *[chunk[n] for n in self.input_names])
+        return self.adopt_model(self.finish_fit(state))
 
     def adopt_model(self, model: Model) -> Model:
         """Wire a freshly built model to answer for this estimator's output

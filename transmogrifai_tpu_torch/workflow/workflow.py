@@ -17,8 +17,14 @@ runs on the workflow's device (``OpWorkflow(device=...)``), which
 defaults to the package default (``cuda`` unless the caller asked for
 the CPU).
 
-Not ported yet (ROADMAP Queue A): workflow CV, meshes, checkpoints and
-out-of-core streaming.
+``train(chunk_rows=k)`` is the out-of-core train
+(``workflow/streaming.py``): the reader streams chunks of k rows, the
+streamable estimators fit from mergeable states, RawFeatureFilter profiles
+chunk by chunk, and only the kept columns (the packed feature matrix,
+the response) are ever held whole; a model selector fits in-core on them.
+
+Not ported yet (ROADMAP Queue A): workflow CV (item 6.4), checkpoints,
+the tuner and the plan profiler (6.5), meshes and pods (6.7).
 """
 from __future__ import annotations
 
@@ -155,6 +161,16 @@ class OpWorkflow(_WorkflowCore):
             s.device = str(dev)
         return placed
 
+    def with_workflow_cv(self) -> "OpWorkflow":
+        raise NotImplementedError(
+            "workflow-level CV is not ported yet (ROADMAP Queue A item "
+            "6.4: the selector options)")
+
+    def with_mesh(self, mesh) -> "OpWorkflow":
+        raise NotImplementedError(
+            "multi-device trains are not ported yet (ROADMAP Queue A item "
+            "6.7: meshes and pods)")
+
     def with_raw_feature_filter(self, **kwargs) -> "OpWorkflow":
         """Profile the raw features before the DAG runs and drop the ones
         that fail RawFeatureFilter's checks (``kwargs`` are its
@@ -208,7 +224,11 @@ class OpWorkflow(_WorkflowCore):
             raise PipelineLintError(findings)
         return findings, wall
 
-    def train(self, validate: bool = True) -> "OpWorkflowModel":
+    def train(self, profile: bool = False, chunk_rows: Optional[int] = None,
+              prefetch_chunks: int = 2, validate: bool = True,
+              checkpoint_dir: Optional[str] = None,
+              checkpoint_every_chunks: int = 16,
+              tuner=None) -> "OpWorkflowModel":
         """Fit every stage of the DAG in layer order on the input data.
 
         ``validate=True`` (the default) lints the DAG first
@@ -220,19 +240,54 @@ class OpWorkflow(_WorkflowCore):
         DAG is linted again (the snapshot is that lint's, as in the JAX
         package, which lints after the filter).
 
+        ``chunk_rows=k`` trains out-of-core (``workflow/streaming.py``),
+        the reader parsing up to ``prefetch_chunks`` chunks ahead on a
+        host thread; the model then carries ``ingest_profile`` (its
+        ``rff``: the filter's chunked pass) and ``fit_states`` (each
+        streamed estimator's final state).  ``chunk_rows=None`` is the
+        in-core train.  ``profile``, ``checkpoint_dir`` and ``tuner`` are
+        not ported yet.
+
         The returned model's ``stage_seconds`` maps each stage's class name
-        to its fit+transform wall seconds (synchronised with the device).
-        The tree fits' sweep memo is cleared at its end."""
+        to its fit+transform wall seconds (synchronised with the device;
+        out-of-core, a prefix stage's host seconds over every pass).  The
+        tree fits' sweep memo is cleared at its end."""
+        if profile:
+            raise NotImplementedError(
+                "train(profile=True) needs the plan profiler, not ported "
+                "yet (ROADMAP Queue A item 6.5)")
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "train(checkpoint_dir=) is not ported yet (ROADMAP Queue A "
+                "item 6.5: checkpoints)")
+        if tuner is not None:
+            raise NotImplementedError(
+                "train(tuner=) is not ported yet (ROADMAP Queue A item 6.5: "
+                "tuning)")
         dev = resolve_device(self.device)
         lint = (self._lint_dag(compute_dag(self.result_features))
                 if validate else None)
-        data = self.generate_raw_data()
-        filter_results = None
+        if self.reader is None:
+            raise RuntimeError(
+                "no reader set — call set_reader/set_input_data")
+        data = None if chunk_rows is not None else self.generate_raw_data()
+        filter_results = rff_stats = chunk_filter = None
         rff_seconds = None
         if self._raw_feature_filter is not None:
+            rff = self._raw_feature_filter
             t0 = time.perf_counter()
-            data, filter_results = self._raw_feature_filter.filter_raw_data(
-                data, self.raw_features(), device=dev)
+            if chunk_rows is None:
+                data, filter_results = rff.filter_raw_data(
+                    data, self.raw_features(), device=dev)
+            else:
+                filter_results, rff_stats = rff.filter_streaming(
+                    self.reader, self.raw_features(), chunk_rows,
+                    device=dev)
+                if filter_results.dropped_map_keys:
+                    dropped = list(filter_results.dropped_features)
+                    keys = dict(filter_results.dropped_map_keys)
+                    chunk_filter = (lambda ds: rff.clean_chunk(ds, dropped,
+                                                               keys))
             rff_seconds = time.perf_counter() - t0
             self._apply_blocklist(filter_results.dropped_features)
             if validate and filter_results.dropped_features:
@@ -257,10 +312,22 @@ class OpWorkflow(_WorkflowCore):
             seconds[name] = seconds.get(name, 0.0) + dt
 
         placed = self._place(dag, dev)
+        ingest = fit_states = None
         try:
-            fitted, transformed = fit_and_transform_dag(
-                dag, data, on_stage=on_stage,
-                fitted_substitutes=self._model_stages)
+            if chunk_rows is None:
+                fitted, transformed = fit_and_transform_dag(
+                    dag, data, on_stage=on_stage,
+                    fitted_substitutes=self._model_stages)
+            else:
+                from .streaming import fit_dag_streaming
+
+                fitted, transformed, ingest, fit_states = fit_dag_streaming(
+                    dag, self.reader, self.raw_features(), chunk_rows,
+                    keep=self._train_keep_columns(),
+                    fitted_substitutes=self._model_stages,
+                    prefetch=prefetch_chunks, chunk_filter=chunk_filter,
+                    on_stage=on_stage)
+                ingest.rff = rff_stats
         finally:
             for s in placed:
                 s.device = None
@@ -273,11 +340,23 @@ class OpWorkflow(_WorkflowCore):
         model.blocklisted = list(self.blocklisted)
         model.raw_feature_filter_results = filter_results
         model.raw_feature_filter_seconds = rff_seconds
+        model.ingest_profile = ingest
+        model.fit_states = fit_states
         if lint is not None:
             from ..analysis.diagnostics import LintSnapshot
 
             model.lint_snapshot = LintSnapshot.from_findings(*lint)
         return model
+
+    def _train_keep_columns(self) -> List[str]:
+        """The columns an out-of-core train keeps whole: the result
+        features, the response and the result stages' direct inputs."""
+        keep = {f.name for f in self.result_features}
+        keep |= {f.name for f in self.raw_features() if f.is_response}
+        for f in self.result_features:
+            if f.origin_stage is not None:
+                keep |= {ff.name for ff in f.origin_stage.input_features}
+        return sorted(keep)
 
 
 def _check_unique_uids(stages: Sequence[PipelineStage]) -> None:
@@ -304,6 +383,10 @@ class OpWorkflowModel(_WorkflowCore):
         self.raw_feature_filter_seconds: Optional[float] = None
         #: ``LintSnapshot`` from ``OpWorkflow.train(validate=True)``
         self.lint_snapshot = None
+        #: ``IngestProfiler`` of an out-of-core train, else None
+        self.ingest_profile = None
+        #: each streamed estimator's final state by uid (out-of-core)
+        self.fit_states = None
         self._scoring_dag_memo = None
 
     def _scoring_dag(self):
