@@ -54,6 +54,16 @@ to end at full width through the entry points a user calls:
     in-core on the streamed matrix) -> save -> load -> ModelServer
     .with_drift_monitor(DriftMonitor.from_model)
 
+    JSONL clickstream -> ConditionalDataReader (in-core) and
+    StreamingConditionalReader(JSONLinesReader) -> FeatureBuilder
+    .extract(event_field=).aggregate() -> transmogrify -> SanityChecker
+    -> BinaryClassificationModelSelector.with_cross_validation()
+    -> OpWorkflow.train() and train(chunk_rows=4096); with_resilience
+    (quarantine, RetryPolicy), TM060, DriftMonitor
+
+    python -m transmogrifai_tpu_torch gen -> the generated App
+    (OpApp/OpWorkflowRunner: train, evaluate) -> run.py --run-type score
+
     FeatureBuilder -> transmogrify -> SanityChecker
     -> MultiClassificationModelSelector.with_cross_validation()
     -> OpWorkflow.train() -> score_and_evaluate(F1)
@@ -234,7 +244,8 @@ card's aggregate shared-memory rate):
                 1M x 500 matrix (fit seconds, the SVC's Newton steps,
                 holdout AuPR against SVC_AUPR_SHARE x the selector
                 phase's and the base rate + NB_AUPR_MARGIN)
-  6e. out_of_core  the Titanic phase's 1M + 100k rows with
+  6e. out_of_core  the Titanic recipe's rows (the smoke's rows and
+                holdout divided by OOC_DEPTH_CUT: 500k + 50k) with
                 validate_explain's two planted raw features written to
                 CSV with the ``csv`` module (seconds, bytes). Leg a:
                 examples/bench_ingest.py's DAG (the ten predictors ->
@@ -266,6 +277,41 @@ card's aggregate shared-memory rate):
                 clean holdout rows in one request drift on nothing, the
                 next ones with Fare x 3 and Sex flipped on Fare and Sex;
                 batch-1 p50/p99 with and without the monitor
+  6f. events    event-time AutoML: examples/bench_events.py's JSONL
+                clickstream (``make_clickstream``, drawn vectorised) of
+                EV_USERS users (~400 000 events, ~100 MB) and a holdout
+                log of EV_HOLD_USERS; the events DAG (``build_events``:
+                n_events, total_dwell, n_checkout, pages_seen ->
+                transmogrify -> SanityChecker -> the default binary
+                selector; purchased the response). Leg a: the record log
+                parsed whole into a ConditionalDataReader and trained
+                in-core, and StreamingConditionalReader(JSONLinesReader)
+                with train(chunk_rows=EV_CHUNK_ROWS), each in a child
+                (``--events-child``, warmed by a train on a small log
+                before its RSS baseline): wall, each pass's rows/s, rows,
+                RSS delta, peak device memory; rows and keys equal, the
+                same winner, holdout probabilities within EV_PROBA_TOL,
+                holdout AuROC at least EV_AUROC_FLOOR, the streamed RSS
+                delta below EV_RSS_RATIO x the in-core one, launches equal
+                to the forests' levels; the streamed model's checked
+                matrix grown as the forests grow it, every level bitwise
+                (a ``seg_hist`` line with ``path`` "events"). Leg b, on
+                EV_B_USERS users with an LR grid, chunked: a log with
+                EV_BAD_LINES invalid lines under the quarantine policy
+                (each quarantined once over the passes, the sidecar and
+                the rows reconciled), an IO error injected at
+                ``event.window`` under a RetryPolicy (one retry, the clean
+                run's scores), train() refusing a reader with no cutoff
+                (TM060), and DriftMonitor quiet on a fresh log and fired
+                on 3x the event rate
+  6g. app       APP_ROWS Titanic rows with a PassengerId written to CSV;
+                ``python -m transmogrifai_tpu_torch gen Titanic`` in a
+                child; the generated App in this process: --run-type
+                train (the default selector, 3-fold CV) and evaluate
+                (which writes its scores); the generated run.py's score
+                in a child, its scores equal to the evaluate run's within
+                APP_SCORE_TOL; the metrics JSON with the JAX runner's
+                keys; the train's launches
   7. multiclass  the same 500 Real columns with a K = 5 label from its
                 own seed (class logits: log priors 0.40 / 0.25 / 0.15 /
                 0.12 / 0.08, a linear part of standard deviation
@@ -411,7 +457,8 @@ so no profiler session runs in the process before their walls are taken.
 Then the ``kernels`` summary line (``launches``: the slice's, the
 selector's, the regression phase's, the titanic phase's (its efb fits
 too), the validate_explain, feature_eng and avro_combined phases'
-trains, the out_of_core phase's chunked selector train, the
+trains, the out_of_core phase's chunked selector train, the events
+phase's two leg-a trains, the app phase's train, the
 multiclass phase's, the
 boosted_multi phase's train, xgb_defaults and count_and_subsample fits,
 and the xgb_wide phase's three fits), the card's name and power limit,
@@ -424,6 +471,7 @@ Usage: python3 chip_smoke.py [--rows N] [--holdout N] [--cols D]
 """
 import argparse
 import csv
+import gc
 import json
 import os
 import re
@@ -694,6 +742,36 @@ OOC_FILL_RTOL, OOC_NB_TOL, OOC_AUPR_GAP = 1e-9, 1e-4, 1e-4
 #: a base rate of 0.455 and an attainable 0.772)
 OOC_AUPR_SHARE, OOC_NB_AUPR_MARGIN = 0.9, 0.08
 OOC_DRIFT_ROWS, OOC_LATENCY_REQUESTS = 2000, 200
+#: the out_of_core phase runs on the smoke's rows divided by this (1M +
+#: 100k -> 500k + 50k), which pays for the events and app phases within
+#: the smoke's time limit
+OOC_DEPTH_CUT = 2
+
+# the events phase (6f): examples/bench_events.py's clickstream (its
+# per-user distributions; seed 9 for the train log, 10 for the holdout
+# log), leg a's users and chunk rows, leg b's users, its corrupted lines
+# and its drift monitor's window
+EV_SEED, EV_HOLD_SEED = 9, 10
+EV_USERS, EV_HOLD_USERS, EV_B_USERS = 25_000, 5_000, 2_000
+EV_CHUNK_ROWS, EV_B_CHUNK_ROWS = 4096, 256
+EV_BAD_LINES = 5
+EV_DRIFT_ROWS = 20
+#: users of the small log each leg-a child trains on before its baseline
+EV_WARM_USERS = 200
+HOUR = 3_600_000
+DAY = 24 * HOUR
+#: streamed against in-core holdout probabilities; the streamed child's
+#: RSS delta over the in-core child's (bench_events.py's contract)
+EV_PROBA_TOL, EV_RSS_RATIO = 1e-6, 0.5
+#: leg a's holdout AuROC floor, fixed before the first chip run: the JAX
+#: package's holdout AuROC on this recipe at 5 000 users on the CPU
+#: (scripts/events_auroc_floor.py: 0.9576739050423261, LR the winner)
+#: less 0.02
+EV_AUROC_FLOOR = 0.9576739050423261 - 0.02
+# the app phase (6g): the generated Titanic project on a Titanic-shaped
+# CSV; its scores against the in-process ones
+APP_ROWS = 200_000
+APP_SCORE_TOL = 1e-6
 
 
 def _smi(query: str) -> str:
@@ -3418,6 +3496,577 @@ def phase_out_of_core(rows: int, holdout: int, reps: int, bw: float,
 
 
 # ---------------------------------------------------------------------------
+# the events phase: event-time AutoML on a JSONL clickstream
+# ---------------------------------------------------------------------------
+
+_EV_PAGES = ("home", "search", "product", "checkout")
+_EV_UAS = tuple(f"Mozilla/5.0 (dev-{i}; rv:{100 + i}) Gecko/2026 shop/{i}.0"
+                for i in range(24))
+
+
+def make_clickstream(path: str, n_users: int, seed: int = EV_SEED,
+                     rate: float = 1.0, bad_lines=()) -> int:
+    """examples/bench_events.py's JSONL event log (the same fields and
+    per-user distributions: half the users engaged, 6-17 events plus 8
+    for the engaged, scaled by ``rate``, 1-11 hours apart, pages 30/30/30/
+    10%, gamma dwell doubled for the engaged, and an order an hour after
+    the last event for 80% of the engaged users who saw checkout), drawn
+    vectorised with numpy (the draws differ from the script's
+    per-event ``rng.choice``).  ``bad_lines`` are record ordinals written
+    as invalid JSON instead.  Returns the records written."""
+    rng = np.random.default_rng(seed)
+    engaged = rng.random(n_users) < 0.5
+    start = rng.integers(0, 30, n_users) * DAY
+    n_ev = ((rng.integers(6, 18, n_users) + 8 * engaged) * rate).astype(
+        np.int64)
+    ua = rng.integers(0, len(_EV_UAS), n_users)
+    n = int(n_ev.sum())
+    user = np.repeat(np.arange(n_users), n_ev)
+    first = np.cumsum(n_ev) - n_ev
+    seq = np.arange(n) - np.repeat(first, n_ev)
+    gaps = rng.integers(1, 12, n) * HOUR
+    cum = np.cumsum(gaps)
+    t = start[user] + cum - np.repeat(cum[first] - gaps[first], n_ev)
+    page = rng.choice(4, n, p=[0.3, 0.3, 0.3, 0.1])
+    dwell = np.round(rng.gamma(2.0, 20.0, n) * (1.0 + engaged[user]), 6)
+    cid = rng.integers(0, 9999, n)
+    saw = np.bincount(user, weights=page == 3, minlength=n_users) > 0
+    buys = np.flatnonzero(saw & engaged & (rng.random(n_users) < 0.8))
+    last_t = t[first + n_ev - 1]
+    lines = [
+        f'{{"user": "u{u}", "time": {tt}, "page": "{_EV_PAGES[p]}", '
+        f'"dwell_s": {d!r}, "purchase": 0.0, "session": '
+        f'"s-{u}-{i // 6}-{tt % DAY:08d}", "referrer": '
+        f'"https://shop.example.com/{_EV_PAGES[p]}?cid=c{c:04d}'
+        f'&src=organic", "ua": "{_EV_UAS[a]}"}}'
+        for u, tt, p, d, i, c, a in zip(
+            user.tolist(), t.tolist(), page.tolist(), dwell.tolist(),
+            seq.tolist(), cid.tolist(), ua[user].tolist())]
+    for u in buys.tolist()[::-1]:
+        tt = int(last_t[u]) + HOUR
+        lines.insert(int(first[u] + n_ev[u]), (
+            f'{{"user": "u{u}", "time": {tt}, "page": "order", '
+            f'"dwell_s": 30.0, "purchase": 1.0, "session": '
+            f'"s-{u}-{int(n_ev[u]) // 6}-{tt % DAY:08d}", "referrer": '
+            f'"https://shop.example.com/order", "ua": "{_EV_UAS[ua[u]]}"}}'))
+    for i in bad_lines:
+        lines[i] = '{"user": "u0", "time": ' + "}" * 3
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return len(lines)
+
+
+def _ev_user(r):
+    return r["user"]
+
+
+def _ev_time(r):
+    return r["time"]
+
+
+def _ev_is_checkout(r):
+    return r["page"] == "checkout"
+
+
+def events_reader(source, streamed: bool = True, cutoff: bool = True,
+                  ns=None):
+    """bench_events.py's reader over ``source``: each user's cutoff at
+    their first checkout visit, predictors over the 30 days before it, the
+    response over the day after.  ``streamed``: a
+    ``StreamingConditionalReader`` over a JSON-lines path, else a
+    ``ConditionalDataReader`` over parsed records; without ``cutoff`` a
+    leaky ``StreamingAggregateReader`` that declares none.  ``ns``: the
+    package's reader classes (the port's by default)."""
+    ns = ns or _port_events_ns()
+    if not cutoff:
+        return ns["StreamingAggregateReader"](
+            ns["JSONLinesReader"](source), key_fn=_ev_user,
+            time_fn=_ev_time, cutoff=ns["CutOffTime"].no_cutoff())
+    kw = dict(key_fn=_ev_user, time_fn=_ev_time,
+              target_condition=_ev_is_checkout,
+              predictor_window_ms=30 * DAY, response_window_ms=DAY)
+    if streamed:
+        return ns["StreamingConditionalReader"](ns["JSONLinesReader"](source),
+                                                **kw)
+    return ns["ConditionalDataReader"](source, **kw)
+
+
+def _port_events_ns() -> dict:
+    from transmogrifai_tpu_torch.aggregators import CutOffTime
+    from transmogrifai_tpu_torch.readers import (
+        ConditionalDataReader, JSONLinesReader, StreamingAggregateReader,
+        StreamingConditionalReader)
+
+    return {"FeatureBuilder": FeatureBuilder, "transmogrify": transmogrify,
+            "SanityChecker": SanityChecker,
+            "BinaryClassificationModelSelector":
+                BinaryClassificationModelSelector,
+            "CutOffTime": CutOffTime,
+            "ConditionalDataReader": ConditionalDataReader,
+            "JSONLinesReader": JSONLinesReader,
+            "StreamingAggregateReader": StreamingAggregateReader,
+            "StreamingConditionalReader": StreamingConditionalReader}
+
+
+def build_events(ns=None, models_and_parameters=None):
+    """The events DAG (examples/op_event_aggregation.py's and
+    bench_events.py's features): n_events, total_dwell and n_checkout
+    (sumNumeric), pages_seen (MultiPickList), purchased (maxBoolean) ->
+    transmogrify -> SanityChecker -> the default binary selector (or
+    ``models_and_parameters``).  Returns (prediction, checked, selector)."""
+    ns = ns or _port_events_ns()
+    FB = ns["FeatureBuilder"]
+    visits = (FB.Integral("n_events").extract(lambda r: 1)
+              .aggregate("sumNumeric").as_predictor())
+    dwell = (FB.Real("total_dwell").extract(lambda r: r["dwell_s"])
+             .aggregate("sumNumeric").as_predictor())
+    checkouts = (FB.Integral("n_checkout")
+                 .extract(lambda r: int(r["page"] == "checkout"),
+                          event_field="page")
+                 .aggregate("sumNumeric").as_predictor())
+    pages = (FB.MultiPickList("pages_seen")
+             .extract(lambda r: {r["page"]}, event_field="page")
+             .as_predictor())
+    bought = (FB.Binary("purchased")
+              .extract(lambda r: bool(r["purchase"]),
+                       event_field="purchase")
+              .aggregate("maxBoolean").as_response())
+    feats = ns["transmogrify"]([visits, dwell, checkouts, pages])
+    checked = ns["SanityChecker"]().set_input(bought, feats).get_output()
+    sel = ns["BinaryClassificationModelSelector"].with_cross_validation(
+        models_and_parameters=models_and_parameters)
+    return sel.set_input(bought, checked).get_output(), checked, sel
+
+
+def events_child(train_jsonl: str, hold_jsonl: str, mode: str,
+                 chunk_rows: int, out_npz: str) -> None:
+    """Leg a's train in this process (each mode in a child of its own):
+    the events DAG over the ``train_jsonl`` log, in-core (the record log
+    parsed whole into a ``ConditionalDataReader``) or streamed
+    (``StreamingConditionalReader`` with ``train(chunk_rows=)``); the
+    holdout log scored.  Prints one JSON line; the holdout probabilities,
+    the keys and (streamed) the checked matrix go to ``out_npz``."""
+    dev = resolve_device()
+    torch.zeros(1, device=dev)           # the CUDA context in the baseline
+    # the libraries and kernels the train loads (cuBLAS, the solver, the
+    # forests' code) resident before the baseline, as bench_events.py
+    # warms its backend: a train of this mode on a small log
+    warm_log = out_npz + ".warm.jsonl"
+    make_clickstream(warm_log, EV_WARM_USERS, EV_HOLD_SEED + 10)
+    warm, _, _ = build_events(models_and_parameters=[
+        (OpLogisticRegression(), grid(reg_param=[0.1])),
+        (OpRandomForestClassifier(), grid(num_trees=[2], max_depth=[3]))])
+    with open(warm_log) as fh:
+        warm_src = ([json.loads(line) for line in fh]
+                    if mode == "in_core" else warm_log)
+    (OpWorkflow().allow_non_serializable().set_result_features(warm)
+     .set_reader(events_reader(warm_src, streamed=mode != "in_core"))
+     .train(chunk_rows=chunk_rows if mode == "streamed" else None))
+    del warm, warm_src
+    gc.collect()
+    pred, checked, sel = build_events()
+    gk.seg_level_hists.launches = 0
+    base_rss = _rss_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    with _PeakRSS() as rss:
+        t0 = time.perf_counter()
+        if mode == "in_core":
+            with open(train_jsonl) as fh:
+                records = [json.loads(line) for line in fh]
+            reader = events_reader(records, streamed=False)
+        else:
+            reader = events_reader(train_jsonl)
+        parse_s = time.perf_counter() - t0
+        wf = (OpWorkflow().allow_non_serializable()
+              .set_result_features(pred).set_reader(reader))
+        model = wf.train(chunk_rows=chunk_rows if mode == "streamed"
+                         else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = gk.seg_level_hists.launches
+    peak_dev = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    hold = events_reader(hold_jsonl).generate_dataset(
+        list(wf.raw_features()))
+    scored, metrics = model.score_and_evaluate(
+        Evaluators.BinaryClassification.auROC(), data=hold)
+    score_s = time.perf_counter() - t0
+    proba = scored[pred.name].values.probability[:, 1]
+    td = model.train_data
+    arrays = {"proba": proba.double().cpu().numpy(),
+              "keys": np.asarray(td["key"].to_list(), dtype=str)}
+    if mode == "streamed":
+        arrays["X"] = td[checked.name].values.cpu().numpy()
+        arrays["y"] = np.asarray(td["purchased"].values, np.float32)
+    np.savez(out_npz, **arrays)
+    summ = sel.metadata["model_selector_summary"]
+    out = {"mode": mode, "wall_s": wall, "parse_s": parse_s,
+           "rows": len(td), "holdout_rows": len(hold),
+           "holdout_score_s": score_s,
+           "baseline_rss_bytes": base_rss, "peak_rss_bytes": rss.peak,
+           "rss_delta_bytes": rss.peak - base_rss,
+           "max_memory_allocated": peak_dev,
+           "holdout_auroc": metrics["AuROC"],
+           "finite": bool(torch.isfinite(proba).all()),
+           "winner": [summ["bestModelType"], summ["bestModelParams"]],
+           "seg_hist_launches": launches,
+           "forest_levels": sel.metadata["hist_levels"],
+           "group_errors": sel.metadata["group_errors"],
+           "checked_cols": int(td[checked.name].values.shape[1]),
+           "stage_seconds": model.stage_seconds}
+    ip = model.ingest_profile
+    if ip is not None:
+        out.update({"chunk_rows": chunk_rows, "passes": [
+            {"label": p.label, "chunks": p.chunks, "rows": p.rows,
+             "wall_s": p.wall_s, "read_s": p.read_s,
+             "transform_s": p.transform_s, "rows_per_s": p.rows_per_s}
+            for p in ip.passes]})
+    print(json.dumps(out), flush=True)
+
+
+def _run_events_child(train: str, hold: str, mode: str, chunk_rows: int,
+                      out_npz: str) -> dict:
+    cmd = [sys.executable, os.path.abspath(__file__), "--events-child",
+           mode, "--events-train", train, "--events-holdout", hold,
+           "--events-chunk-rows", str(chunk_rows), "--events-out", out_npz]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(proc.returncode == 0 and lines,
+          f"events: the {mode} child failed (exit {proc.returncode}): "
+          f"{proc.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def _events_leg_a(tmp: str, reps: int, bw: float, f32: float):
+    """The events DAG on EV_USERS users, in-core and streamed, each in a
+    child; the guards of leg a; the widest forest level of the streamed
+    model's checked matrix held bitwise to the plain version."""
+    t0 = time.perf_counter()
+    train = os.path.join(tmp, "train.jsonl")
+    hold = os.path.join(tmp, "holdout.jsonl")
+    n_train = make_clickstream(train, EV_USERS, EV_SEED)
+    n_hold = make_clickstream(hold, EV_HOLD_USERS, EV_HOLD_SEED)
+    data = {"seconds": time.perf_counter() - t0, "events": n_train,
+            "holdout_events": n_hold, "bytes": os.path.getsize(train)}
+    runs, arrays = {}, {}
+    for mode, chunk_rows in (("in_core", 0), ("streamed", EV_CHUNK_ROWS)):
+        npz = os.path.join(tmp, f"{mode}.npz")
+        runs[mode] = _run_events_child(train, hold, mode, chunk_rows, npz)
+        with np.load(npz) as z:
+            arrays[mode] = {k: z[k] for k in z.files}
+    inc, st = runs["in_core"], runs["streamed"]
+    a, b = arrays["streamed"], arrays["in_core"]
+    proba_err = float(np.abs(a["proba"] - b["proba"]).max())
+    rss_ratio = st["rss_delta_bytes"] / max(inc["rss_delta_bytes"], 1)
+    leg = {"data": data, "in_core": inc, "streamed": st,
+           "keys_equal": bool(np.array_equal(a["keys"], b["keys"])),
+           "proba_max_abs_err": proba_err, "proba_tol": EV_PROBA_TOL,
+           "rss_ratio": rss_ratio, "rss_ratio_limit": EV_RSS_RATIO,
+           "auroc_floor": EV_AUROC_FLOOR}
+    emit({"phase": "events_a", **leg})
+    check(inc["rows"] == st["rows"] and leg["keys_equal"],
+          f"events a: rows {inc['rows']} and {st['rows']} or their keys "
+          f"differ between the modes")
+    check(inc["winner"] == st["winner"],
+          f"events a: winners {inc['winner']} and {st['winner']}")
+    check(proba_err <= EV_PROBA_TOL,
+          f"events a: holdout probabilities part by {proba_err}")
+    for m in (inc, st):
+        check(m["finite"] and m["holdout_auroc"] >= EV_AUROC_FLOOR,
+              f"events a: {m['mode']} holdout AuROC {m['holdout_auroc']} "
+              f"below {EV_AUROC_FLOOR}")
+        check(not m["group_errors"],
+              f"events a: grid groups failed: {m['group_errors']}")
+        check(m["seg_hist_launches"] > 0
+              and m["seg_hist_launches"] == m["forest_levels"],
+              f"events a: {m['mode']} seg_hist launches "
+              f"{m['seg_hist_launches']} != the forests' "
+              f"{m['forest_levels']} levels")
+    check(rss_ratio < EV_RSS_RATIO,
+          f"events a: the streamed RSS delta is {rss_ratio} x the "
+          f"in-core one")
+    X = torch.from_numpy(a["X"]).to("cuda")
+    kernel_row = _titanic_levels(X, a["y"], max(1, int(np.sqrt(
+        X.shape[1]))), reps, bw, f32)
+    kernel_row["path"] = "events"
+    check(kernel_row["bitwise_equal"] and kernel_row["levels_checked"] > 0,
+          f"events: {kernel_row['levels_unequal']} of "
+          f"{kernel_row['levels_checked']} levels differ from the plain "
+          f"version")
+    del X
+    return leg, kernel_row
+
+
+def _lr_grid():
+    return [(OpLogisticRegression(), grid(reg_param=[0.01, 0.1]))]
+
+
+def _ev_rows(ds, names) -> list:
+    cols = [ds[n].to_list() for n in names]
+    return list(zip(*cols))
+
+
+def _events_leg_b(tmp: str) -> dict:
+    """On EV_B_USERS users, with an LR grid: a log with EV_BAD_LINES
+    corrupted lines under the quarantine policy, a transient IO error at
+    ``event.window`` under a RetryPolicy, TM060 refusing a reader without
+    a cutoff, and the drift monitor on a fresh and on a 3x-rate log."""
+    from transmogrifai_tpu_torch.readers.resilience import RetryPolicy
+    from transmogrifai_tpu_torch.serving.drift import (DriftConfig,
+                                                       DriftMonitor)
+    from transmogrifai_tpu_torch.utils import faults
+
+    clean = os.path.join(tmp, "b_clean.jsonl")
+    n = make_clickstream(clean, EV_B_USERS, EV_SEED)
+    bad = np.linspace(n // 7, n - n // 7, EV_BAD_LINES).astype(int).tolist()
+    dirty = os.path.join(tmp, "b_dirty.jsonl")
+    make_clickstream(dirty, EV_B_USERS, EV_SEED, bad_lines=bad)
+    kept = os.path.join(tmp, "b_kept.jsonl")
+    dropped = set(bad)
+    with open(clean) as src, open(kept, "w") as dst:
+        dst.writelines(ln for i, ln in enumerate(src) if i not in dropped)
+
+    def train(reader):
+        pred, checked, sel = build_events(models_and_parameters=_lr_grid())
+        wf = (OpWorkflow().allow_non_serializable()
+              .set_result_features(pred).set_reader(reader))
+        return wf, pred, wf.train(chunk_rows=EV_B_CHUNK_ROWS)
+
+    # quarantine: each bad line once across the passes, the sidecar and
+    # the aggregated rows reconciled with the log less those lines
+    qpath = os.path.join(tmp, "quarantine.jsonl")
+    qreader = events_reader(dirty).with_resilience(
+        bad_records="quarantine", quarantine_path=qpath)
+    wf, pred, qmodel = train(qreader)
+    sink = qreader.resilience.sink()
+    with open(qpath) as fh:
+        entries = [json.loads(line) for line in fh]
+    raw = [f for f in wf.raw_features()]
+    names = ["key"] + [f.name for f in raw]
+    q_rows = _ev_rows(qreader.generate_dataset(raw), names)
+    k_rows = _ev_rows(events_reader(kept).generate_dataset(raw), names)
+    quarantine = {
+        "bad_lines": [i + 1 for i in bad], "sink_records": sink.count,
+        "sink_rows": sink.rows, "sidecar_entries": len(entries),
+        "passes": len(qmodel.ingest_profile.passes),
+        "profile_quarantined": qmodel.ingest_profile.quarantined_records,
+        "locations": [e["location"] for e in entries],
+        "rows_reconcile": q_rows == k_rows, "rows": len(q_rows)}
+    lines_seen = sorted(int(e["location"].split()[1]) for e in entries)
+    check(sink.count == EV_BAD_LINES and sink.rows == EV_BAD_LINES
+          and len(entries) == EV_BAD_LINES
+          and lines_seen == quarantine["bad_lines"],
+          f"events b: quarantine {quarantine}")
+    check(quarantine["profile_quarantined"] == EV_BAD_LINES,
+          f"events b: the ingest profile counts "
+          f"{quarantine['profile_quarantined']} quarantined records")
+    check(quarantine["rows_reconcile"],
+          "events b: the quarantined reader's rows differ from the log's "
+          "less the bad lines")
+
+    # retry: an IO error at the second key-window chunk, retried
+    hold = events_reader(clean).generate_dataset(raw)
+    _, cpred, cmodel = train(events_reader(clean))
+    clean_p = cmodel.score(hold)[cpred.name].values.probability[:, 1]
+    rreader = events_reader(clean).with_resilience(
+        retry=RetryPolicy(max_attempts=3, base_delay_s=0.0))
+    with faults.inject(faults.FaultSpec(point="event.window",
+                                        action="io_error", at=1,
+                                        times=1)) as plan:
+        _, rpred, rmodel = train(rreader)
+    retry_p = rmodel.score(hold)[rpred.name].values.probability[:, 1]
+    retry = {"fired": len(plan.log),
+             "retries": rmodel.ingest_profile.total_retries,
+             "max_abs_diff": float((retry_p - clean_p).abs().max())}
+    check(retry["fired"] == 1 and retry["retries"] == 1,
+          f"events b: retry {retry}")
+    check(retry["max_abs_diff"] <= EV_PROBA_TOL,
+          f"events b: the retried train's scores part by "
+          f"{retry['max_abs_diff']} from the clean run's")
+
+    # TM060: a reader with no cutoff is refused before any data moves
+    lpred, _, _ = build_events(models_and_parameters=_lr_grid())
+    leaky = (OpWorkflow().allow_non_serializable()
+             .set_result_features(lpred)
+             .set_reader(events_reader(clean, cutoff=False)))
+    try:
+        leaky.train()
+        refused = None
+    except PipelineLintError as exc:
+        refused = sorted({d.rule for d in exc.findings.errors})
+    check(refused == ["TM060"], f"events b: the leaky train gave {refused}")
+
+    # drift: quiet on a fresh log, fired on 3x the event rate
+    drift_names = ["n_events", "total_dwell", "n_checkout", "purchased"]
+    drift_feats = [f for f in raw if f.name in drift_names]
+
+    def observed(path):
+        ds = events_reader(path).generate_dataset(drift_feats)
+        cols = {f.name: ds[f.name].to_list() for f in drift_feats}
+        return [dict(zip(cols, v)) for v in zip(*cols.values())]
+
+    mon = DriftMonitor.from_model(rmodel, DriftConfig(
+        min_rows=EV_DRIFT_ROWS, check_every=EV_DRIFT_ROWS))
+    fresh = os.path.join(tmp, "b_fresh.jsonl")
+    make_clickstream(fresh, EV_B_USERS, EV_HOLD_SEED)
+    mon.observe_rows(observed(fresh))
+    quiet = not mon.refresh_triggered
+    fired, shifts = False, 0
+    for k in range(3):
+        shifted = os.path.join(tmp, f"b_shift{k}.jsonl")
+        make_clickstream(shifted, EV_B_USERS, EV_HOLD_SEED + 1 + k,
+                         rate=3.0)
+        mon.observe_rows(observed(shifted))
+        shifts += 1
+        fired = mon.refresh_triggered
+        if fired:
+            break
+    drift = {"quiet_on_fresh": quiet, "fired_on_3x_rate": fired,
+             "shifted_logs": shifts, "drifted": list(
+                 (mon.last_evaluation or {}).get("driftedFeatures", []))}
+    check(quiet and fired, f"events b: drift {drift}")
+    return {"users": EV_B_USERS, "events": n, "quarantine": quarantine,
+            "retry": retry, "tm060_refused": refused, "drift": drift}
+
+
+def phase_events(reps: int, bw: float, f32: float) -> dict:
+    """Event-time AutoML on the card (the module docstring's phase 6f):
+    leg a (the events DAG on EV_USERS users, in-core and streamed, each
+    in a child; the kernel on the streamed model's checked matrix) and
+    leg b (quarantine, retry, TM060, drift on EV_B_USERS users)."""
+    phase_t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tmog_events_")
+    try:
+        leg_a, kernel_row = _events_leg_a(tmp, reps, bw, f32)
+        leg_b = _events_leg_b(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "events", "a": {k: leg_a[k] for k in (
+        "keys_equal", "proba_max_abs_err", "rss_ratio")}, "b": leg_b,
+          "phase_s": time.perf_counter() - phase_t0})
+    emit(kernel_row)
+    return {"seg_hist_launches": leg_a["in_core"]["seg_hist_launches"]
+            + leg_a["streamed"]["seg_hist_launches"]}
+
+
+# ---------------------------------------------------------------------------
+# the app phase: the generated project of `python -m transmogrifai_tpu_torch
+# gen` on a Titanic-shaped CSV
+# ---------------------------------------------------------------------------
+
+def _score_column(path: str) -> np.ndarray:
+    """probability_1 of every row of a runner's scores CSV."""
+    import ast
+
+    with open(path, newline="") as fh:
+        rows = csv.reader(fh)
+        header = next(rows)
+        j = next(i for i, h in enumerate(header) if h != "Survived")
+        return np.array([ast.literal_eval(r[j])["probability_1"]
+                         for r in rows])
+
+
+def phase_app() -> dict:
+    """The app entry points on the card (the module docstring's phase
+    6g): APP_ROWS Titanic rows with an id written to CSV; ``gen`` in a
+    child; the generated App in this process (train with the default
+    selector, then evaluate, which writes its scores); the generated
+    run.py's score in a child, whose scores must equal the evaluate
+    run's; the metrics JSON's keys."""
+    import importlib.util
+
+    phase_t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tmog_app_")
+    try:
+        cols, _ = titanic_columns(APP_ROWS)
+        cols = {"PassengerId": np.arange(1, APP_ROWS + 1), **cols}
+        data_csv = os.path.join(tmp, "titanic.csv")
+        write_ooc_csv(data_csv, cols, 0, APP_ROWS)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        gen = subprocess.run(
+            [sys.executable, "-m", "transmogrifai_tpu_torch", "gen",
+             "Titanic", "--input", data_csv, "--id", "PassengerId",
+             "--response", "Survived", "--dest", tmp],
+            capture_output=True, text=True, env=env, timeout=600)
+        gen_s = time.perf_counter() - t0
+        check(gen.returncode == 0, f"app: gen failed: {gen.stderr[-2000:]}")
+        root = os.path.join(tmp, "titanic")
+        files = sorted(os.path.relpath(os.path.join(d, f), root)
+                       for d, _, fs in os.walk(root) for f in fs
+                       if not f.endswith(".pyc"))
+        spec = importlib.util.spec_from_file_location(
+            "titanic_run", os.path.join(root, "run.py"))
+        run_mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(run_mod)
+        app_mod = sys.modules["titanic.app"]
+        model_dir = os.path.join(tmp, "model")
+        eval_dir = os.path.join(tmp, "eval_scores")
+        metrics_dir = os.path.join(tmp, "metrics")
+        reader = run_mod.make_reader(data_csv)
+        gk.seg_level_hists.launches = 0
+        t0 = time.perf_counter()
+        trained = app_mod.App(reader=reader).main(
+            ["--run-type", "train", "--model-location", model_dir])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = gk.seg_level_hists.launches
+        summ = next(v["model_selector_summary"]
+                    for v in trained.summary.values()
+                    if "model_selector_summary" in v)
+        t0 = time.perf_counter()
+        evaluated = app_mod.App(reader=reader).main(
+            ["--run-type", "evaluate", "--model-location", model_dir,
+             "--write-location", eval_dir,
+             "--metrics-location", metrics_dir])
+        eval_s = time.perf_counter() - t0
+        score_dir = os.path.join(tmp, "child_scores")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, os.path.join(root, "run.py"), "--run-type",
+             "score", "--model-location", model_dir, "--write-location",
+             score_dir], capture_output=True, text=True, env=env,
+            timeout=900)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == 0,
+              f"app: run.py score failed: {child.stderr[-2000:]}")
+        in_proc = _score_column(evaluated.scores_location)
+        written = _score_column(os.path.join(score_dir, "scores.csv"))
+        with open(os.path.join(metrics_dir, "op_metrics.json")) as fh:
+            doc = json.load(fh)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    diff = (float(np.abs(in_proc - written).max())
+            if len(in_proc) == len(written) else float("inf"))
+    out = {"phase": "app", "rows": APP_ROWS, "gen_s": gen_s,
+           "files": files, "winner": [summ["bestModelType"],
+                                      summ["bestModelParams"]],
+           "train_s": train_s, "seg_hist_launches": launches,
+           "evaluate_s": eval_s, "evaluate_metrics": evaluated.metrics,
+           "child_score_s": child_s, "scored_rows": len(written),
+           "scores_max_abs_diff": diff, "scores_tol": APP_SCORE_TOL,
+           "metrics_keys": sorted(doc), "app_keys": sorted(doc["app"]),
+           "steps": sorted(m["step"] for m in doc["app"]["stepMetrics"]),
+           "phase_s": time.perf_counter() - phase_t0}
+    emit(out)
+    check(files == sorted(["README.md", "__init__.py", "app.py",
+                           "features.py", "run.py", "tests/test_app.py"]),
+          f"app: gen wrote {files}")
+    check(len(written) == APP_ROWS and diff <= APP_SCORE_TOL,
+          f"app: run.py's {len(written)} scores part by {diff} from the "
+          f"in-process ones")
+    check(set(doc) == {"runType", "metrics", "app"} and set(doc["app"]) == {
+        "appName", "runType", "appDurationSecs", "stepMetrics",
+        "customTags"}, f"app: metrics JSON keys {out['metrics_keys']}, "
+          f"{out['app_keys']}")
+    check(launches > 0, "app: the train launched no seg_hist")
+    check(np.isfinite(evaluated.metrics["AuPR"]),
+          f"app: evaluate gave {evaluated.metrics}")
+    return {"seg_hist_launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # the multiclass phase: the default multiclass selector at 1M + 100k x 500
 # ---------------------------------------------------------------------------
 
@@ -5095,6 +5744,13 @@ def main() -> int:
     ap.add_argument("--ooc-train", help=argparse.SUPPRESS)
     ap.add_argument("--ooc-holdout", help=argparse.SUPPRESS)
     ap.add_argument("--ooc-chunk-rows", type=int, help=argparse.SUPPRESS)
+    # the events phase runs each leg-a train in a child of its own
+    ap.add_argument("--events-child", choices=["in_core", "streamed"],
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--events-train", help=argparse.SUPPRESS)
+    ap.add_argument("--events-holdout", help=argparse.SUPPRESS)
+    ap.add_argument("--events-chunk-rows", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--events-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs one",
@@ -5104,6 +5760,12 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         ooc_child(args.ooc_train, args.ooc_holdout, args.ooc_child,
                   args.ooc_chunk_rows)
+        return 0
+    if args.events_child:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        events_child(args.events_train, args.events_holdout,
+                     args.events_child, args.events_chunk_rows,
+                     args.events_out)
         return 0
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -5144,7 +5806,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     avro = phase_avro_combined(data, sel["holdout_aupr"], args.reps, bw, f32)
     torch.cuda.empty_cache()
-    ooc = phase_out_of_core(args.rows, args.holdout, args.reps, bw, f32)
+    ooc = phase_out_of_core(args.rows // OOC_DEPTH_CUT,
+                            args.holdout // OOC_DEPTH_CUT, args.reps, bw, f32)
+    torch.cuda.empty_cache()
+    events = phase_events(args.reps, bw, f32)
+    torch.cuda.empty_cache()
+    app = phase_app()
     torch.cuda.empty_cache()
     multi, mc = phase_multiclass(data, args.cols, args.reps, bw, f32)
     torch.cuda.empty_cache()
@@ -5204,6 +5871,8 @@ def main() -> int:
                      + feature_eng["seg_hist_launches"]
                      + avro["seg_hist_launches"]
                      + ooc["seg_hist_launches"]
+                     + events["seg_hist_launches"]
+                     + app["seg_hist_launches"]
                      + multi["seg_hist_launches"]
                      + boosted["launches_total"]
                      + wide["launches_total"]),

@@ -234,8 +234,15 @@ def test_corrupt_files_raise_attributed_errors(tmp_path):
     with pytest.raises(pa.AvroBlockError) as err:
         pa.read_avro(path)
     assert err.value.block_index == 3
-    with pytest.raises(NotImplementedError, match="item 6.3"):
-        pa.read_avro(path, resilience=object())
+    # broken framing raises under the quarantine policy too: past it the
+    # blocks cannot be found (tests/test_torch_resilience.py quarantines
+    # a block whose payload is corrupt)
+    from transmogrifai_tpu_torch.readers.resilience import (
+        BadRecordPolicy, ResilienceConfig)
+    cfg = ResilienceConfig(bad_records=BadRecordPolicy(
+        "quarantine", str(tmp_path / "q.jsonl")))
+    with pytest.raises(pa.AvroBlockError, match="truncated block framing"):
+        pa.read_avro(path, resilience=cfg)
 
 
 def test_feature_types_match_jax():

@@ -168,7 +168,7 @@ class TestCSV:
         assert issubclass(CSVAutoReader, CSVReader)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ParquetReader(path)
-        with pytest.raises(NotImplementedError, match="quarantine"):
+        with pytest.raises(ValueError, match="quarantine"):
             CSVReader(path).with_resilience(bad_records="quarantine")
         # the JAX readers' key_col has no effect there: the port does not
         # take it, so setting it fails instead of being ignored

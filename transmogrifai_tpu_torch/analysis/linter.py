@@ -15,10 +15,12 @@ messages):
   stages; the declared label slots of label-aware stages
   (``label_input_positions``) absorb it, and a tainted wire anywhere else
   in such a stage, or into a vectorizer, is the finding.
-* TM060 event-time leakage needs the event readers
-  (``readers/aggregates.py``, ``readers/events.py``), which are not
-  ported: with no event reader there is nothing to check, so it reports
-  nothing (ROADMAP Queue A item 6).
+* TM060 event-time leakage over an event reader
+  (``readers/aggregates.py``, ``readers/events.py``): a raw predictor
+  whose events are not provably before the key's cutoff — the reader has
+  no cutoff, or the predictor reads an event field a response reads.
+  Findings point at the feature's construction site, where
+  ``# tmog: disable=TM060`` suppresses them.
 """
 from __future__ import annotations
 
@@ -194,11 +196,74 @@ def _suppressed_at(rule: str, location: Optional[str]) -> bool:
     return sup is not None and sup.suppressed(rule, extra_lines=(line,))
 
 
+def _event_reader(reader):
+    """The event-time reader behind ``reader`` (through ``inner_reader``
+    wrappers), or None."""
+    from ..readers.aggregates import AggregateDataReader
+    from ..readers.events import StreamingAggregateReader
+
+    for _ in range(8):
+        if reader is None:
+            return None
+        if isinstance(reader, (AggregateDataReader,
+                               StreamingAggregateReader)):
+            return reader
+        reader = getattr(reader, "inner_reader", None)
+    return None
+
+
 def _lint_event_windows(dag, reader) -> Findings:
-    """TM060: event-time leakage over aggregate/conditional readers.  The
-    port has no event reader yet, so no reader can carry event data and
-    the rule has nothing to report."""
-    return Findings()
+    """TM060: event-time leakage over aggregate/conditional readers.
+
+    A raw predictor over an event reader is safe only when its events are
+    provably before the key's cutoff.  Two violations: the reader
+    declares no cutoff (``CutOffTime.no_cutoff`` and no target
+    condition), or the predictor reads an event field a response reads
+    (``event_field``, else the implicit ``r.get(name)`` of a feature
+    without an extractor)."""
+    findings = Findings()
+    er = _event_reader(reader)
+    if er is None:
+        return findings
+    gens = [s for layer in dag.layers for s in layer if _is_generator(s)]
+    predictors = [s for s in gens if not s.get_output().is_response]
+    responses = [s for s in gens if s.get_output().is_response]
+    if not predictors or not responses:
+        return findings
+
+    cutoff = getattr(er, "cutoff", None)
+    has_cutoff = (getattr(er, "target_condition", None) is not None
+                  or (cutoff is not None and cutoff.kind != "no_cutoff"))
+
+    def field_of(s) -> Optional[str]:
+        if s.event_field is not None:
+            return s.event_field
+        return s.name if s.extract_fn is None else None
+
+    response_fields = {field_of(s) for s in responses} - {None}
+    for s in predictors:
+        problems = []
+        if not has_cutoff:
+            problems.append(
+                "the reader declares no cutoff (CutOffTime.no_cutoff, no "
+                "target condition), so predictor events are not provably "
+                "before the key's cutoff")
+        fld = field_of(s)
+        if fld is not None and fld in response_fields:
+            problems.append(
+                f"event field {fld!r} is also read by a response feature "
+                "(outcome data consumed as a predictor)")
+        if not problems:
+            continue
+        site = s.source_location
+        if _suppressed_at("TM060", site):
+            continue
+        findings.add(
+            "TM060",
+            f"event-time leakage in raw feature {s.name!r}: "
+            + "; ".join(problems),
+            stage_uid=s.uid, location=site or _stage_location(s))
+    return findings
 
 
 def lint_workflow(wf, suppress: Iterable[str] = ()) -> Findings:

@@ -14,9 +14,11 @@ the same schema, records, codec and sync marker.
 
 Supported schema surface: null, boolean, int, long, float, double, bytes,
 string, fixed, enum, array, map, union, record (with named-type
-references).  Only the fail-fast path runs: a corrupt block raises
-``AvroBlockError`` or ``AvroRecordError`` (the quarantine policy waits
-for ``readers/resilience.py``, ROADMAP Queue A item 6.3).
+references).  A corrupt block raises ``AvroBlockError`` or
+``AvroRecordError``; under a quarantine policy (``resilience=``, a
+``readers.resilience.ResilienceConfig``) its lost rows go to the sidecar
+as ``block k (byte b)``, its records before the bad one are kept and the
+read goes on at the next block.  A broken sync marker always raises.
 ``iter_avro_blocks`` streams a file block by block, and the readers'
 ``iter_chunks`` regroup the records into chunks of ``chunk_rows``, cut
 across block boundaries, holding at most one block and one chunk.
@@ -35,6 +37,7 @@ import numpy as np
 from ..features.feature import Feature
 from ..types import feature_types as ft
 from ..types.columns import ColumnarDataset, FeatureColumn
+from ..utils import faults
 from .base import (ChunkStream, Reader, RecordsReader, _check_chunk_rows,
                    _stream)
 
@@ -513,19 +516,25 @@ def _decode_block(block: bytes, count: int, codec: str, schema, named,
     return out
 
 
-def _no_resilience(resilience) -> None:
-    if resilience is not None:
-        raise NotImplementedError(
-            "the Avro bad-record quarantine is not ported yet (ROADMAP "
-            "Queue A item 6.3: readers/resilience.py)")
+def _handle_block_error(exc: AvroBlockError, count: int, resilience):
+    """Quarantine a corrupt block's lost rows (when the policy says so)
+    and return the records decoded before the failure; re-raise under
+    ``fail``."""
+    if resilience is None or not resilience.quarantines:
+        raise exc
+    decoded = list(getattr(exc, "decoded", []) or [])
+    resilience.handle_bad_record(
+        exc.path, f"block {exc.block_index} (byte {exc.byte_offset})",
+        exc.reason, rows=max(count - len(decoded), 1))
+    return decoded
 
 
 def read_avro(path: str, resilience=None) -> Tuple[Dict[str, Any],
                                                    List[dict]]:
     """Read an Avro OCF: (writer schema, records).  A corrupt block raises
-    an attributed ``AvroBlockError``; so does a sync-marker mismatch (past
-    it the block framing is gone)."""
-    _no_resilience(resilience)
+    an attributed ``AvroBlockError``, or goes to the quarantine sidecar of
+    ``resilience`` under that policy; a sync-marker mismatch always raises
+    (past it the block framing is gone)."""
     with open(path, "rb") as fh:
         raw = fh.read()
     dec = _Decoder(raw)
@@ -542,8 +551,12 @@ def read_avro(path: str, resilience=None) -> Tuple[Dict[str, Any],
         except (EOFError, IndexError) as exc:
             raise AvroBlockError(path, block_index, byte_offset,
                                  f"truncated block framing: {exc}") from exc
-        records.extend(_decode_block(block, count, codec, schema, named,
-                                     path, block_index, byte_offset, read))
+        try:
+            records.extend(_decode_block(block, count, codec, schema,
+                                         named, path, block_index,
+                                         byte_offset, read))
+        except AvroBlockError as exc:
+            records.extend(_handle_block_error(exc, count, resilience))
         if dec.read(16) != sync:
             raise AvroBlockError(path, block_index, byte_offset,
                                  "sync marker mismatch")
@@ -556,8 +569,8 @@ def iter_avro_blocks(path: str, bytes_pos: Optional[dict] = None,
     """Stream an OCF block by block: yields ``(schema, records)`` per
     container block, never holding the whole file.  ``bytes_pos["bytes"]``
     (when a dict is given) follows the file position after each block.
-    A corrupt block raises as in ``read_avro``."""
-    _no_resilience(resilience)
+    A corrupt block raises, or is quarantined, as in ``read_avro``; each
+    block first passes the ``avro.block`` fault point."""
     with open(path, "rb") as fh:
         dec = _FileDecoder(fh)
         schema, codec, sync, named = _read_header(dec, path)
@@ -566,6 +579,7 @@ def iter_avro_blocks(path: str, bytes_pos: Optional[dict] = None,
         while fh.read(1):
             fh.seek(-1, 1)
             byte_offset = fh.tell()
+            faults.fire("avro.block", index=block_index)
             try:
                 count = dec.read_long()
                 block = dec.read(dec.read_long())
@@ -573,8 +587,11 @@ def iter_avro_blocks(path: str, bytes_pos: Optional[dict] = None,
                 raise AvroBlockError(path, block_index, byte_offset,
                                      f"truncated block framing: {exc}"
                                      ) from exc
-            records = _decode_block(block, count, codec, schema, named, path,
-                                    block_index, byte_offset, read)
+            try:
+                records = _decode_block(block, count, codec, schema, named,
+                                        path, block_index, byte_offset, read)
+            except AvroBlockError as exc:
+                records = _handle_block_error(exc, count, resilience)
             if dec.read(16) != sync:
                 raise AvroBlockError(path, block_index, byte_offset,
                                      "sync marker mismatch")
@@ -698,7 +715,7 @@ class AvroReader(Reader):
 
     def _load(self) -> Tuple[Dict, List[dict]]:
         if self._cache is None:
-            self._cache = read_avro(self.path)
+            self._cache = read_avro(self.path, resilience=self.resilience)
         return self._cache
 
     @property
@@ -723,7 +740,11 @@ class AvroReader(Reader):
     def estimate_rows(self) -> Optional[int]:
         """The exact record count, from the block headers alone: each
         block's framing carries its count and payload size, so the scan
-        seeks past every payload without decoding a record."""
+        seeks past every payload without decoding a record.  None under a
+        quarantine policy, which can drop records mid-block."""
+        cfg = self.resilience
+        if cfg is not None and cfg.quarantines:
+            return None
         try:
             with open(self.path, "rb") as fh:
                 dec = _FileDecoder(fh)
@@ -737,6 +758,9 @@ class AvroReader(Reader):
         except (OSError, EOFError, ValueError):
             return None
 
+    def estimate_rows_exact(self) -> bool:
+        return self.estimate_rows() is not None
+
     def iter_chunks(self, raw_features: Sequence[Feature], chunk_rows: int,
                     host_range=None) -> ChunkStream:
         """Blocks decode one at a time and regroup into ``chunk_rows``
@@ -747,7 +771,8 @@ class AvroReader(Reader):
 
         def gen():
             pending: List[dict] = []
-            for _schema, records in iter_avro_blocks(self.path, pos):
+            for _schema, records in iter_avro_blocks(
+                    self.path, pos, resilience=self.resilience):
                 pending.extend(records)
                 while len(pending) >= chunk_rows:
                     batch, pending = (pending[:chunk_rows],

@@ -7,9 +7,13 @@ is given); the CSV and JSON-lines file readers are in ``readers/files.py``,
 the Avro readers in ``readers/avro.py``.  Every reader streams bounded
 row chunks through ``iter_chunks`` (a ``ChunkStream`` with byte
 accounting; ``host_range`` windows it through ``window_gen``): the
-in-memory readers slice, the file readers parse chunk by chunk.  Event,
-streaming and Parquet readers and the resilience policies are not ported
-yet (ROADMAP Queue A item 6.3).
+in-memory readers slice, the file readers parse chunk by chunk, and
+every chunk passes the ``reader.chunk`` fault point (utils/faults.py).
+``Reader.with_resilience`` attaches the retry and bad-record policies of
+``readers/resilience.py``.  The event readers are in
+``readers/aggregates.py`` and ``readers/events.py``, the micro-batch
+streaming readers in ``readers/streaming.py``; Parquet is not ported
+(ROADMAP Queue A item 6.3).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 from ..features.feature import Feature
 from ..types.columns import ColumnarDataset, FeatureColumn
 from ..types.feature_types import ID
+from ..utils import faults
 
 __all__ = ["Reader", "DataFrameReader", "RecordsReader", "reader_for",
            "ChunkStream", "window_gen"]
@@ -58,18 +63,24 @@ class ChunkStream:
     """Iterator of bounded ``ColumnarDataset`` chunks.  ``bytes_read`` is
     the producing reader's running total (its file position where it has
     one), read on the thread that advances the iterator; 0 for readers
-    that cannot attribute bytes."""
+    that cannot attribute bytes.  Each chunk first passes the
+    ``reader.chunk`` fault point, keyed by its index: the retry wrapper
+    (``readers/resilience.RetryingChunkStream``) sits above this stream,
+    so an injected IO error takes the real recovery path."""
 
     def __init__(self, gen, bytes_fn=None):
         self._gen = iter(gen)
         self._bytes_fn = bytes_fn
+        self._idx = 0
         self.bytes_read: int = 0
 
     def __iter__(self):
         return self
 
     def __next__(self) -> ColumnarDataset:
+        faults.fire("reader.chunk", index=self._idx)
         ds = next(self._gen)
+        self._idx += 1
         if self._bytes_fn is not None:
             self.bytes_read = int(self._bytes_fn())
         return ds
@@ -83,6 +94,10 @@ def _stream(gen, host_range, bytes_fn=None) -> ChunkStream:
 class Reader:
     """Produces the raw-feature dataset for a workflow."""
 
+    #: the ingestion resilience (retry and bad-record policy) attached by
+    #: ``with_resilience``; None keeps the fail-fast behaviour
+    resilience = None
+
     def generate_dataset(self, raw_features: Sequence[Feature]
                          ) -> ColumnarDataset:
         raise NotImplementedError
@@ -92,11 +107,32 @@ class Reader:
         parse (None otherwise)."""
         return None
 
+    def estimate_rows_exact(self) -> bool:
+        """True when ``estimate_rows`` is the exact row count after every
+        policy (Avro block headers, the event readers)."""
+        return False
+
     def with_resilience(self, retry=None, bad_records: str = "fail",
-                        quarantine_path=None, max_bad_records: int = 1000):
-        raise NotImplementedError(
-            "ingestion retry and the bad-record quarantine policy are not "
-            "ported yet (ROADMAP Queue A item 6.3: readers/resilience.py)")
+                        quarantine_path: Optional[str] = None,
+                        max_bad_records: int = 1000) -> "Reader":
+        """Attach a ``readers.resilience.ResilienceConfig``.
+
+        ``retry``: a ``RetryPolicy``, True for its defaults, or None (no
+        retries).  ``bad_records``: ``"fail"`` (the default) or
+        ``"quarantine"`` (needs ``quarantine_path``: unparseable records
+        go to that JSONL sidecar until more than ``max_bad_records`` rows
+        have, then the read fails)."""
+        from .resilience import (BadRecordPolicy, ResilienceConfig,
+                                 RetryPolicy)
+
+        if retry is True:
+            retry = RetryPolicy()
+        self.resilience = ResilienceConfig(
+            retry=retry,
+            bad_records=BadRecordPolicy(
+                mode=bad_records, quarantine_path=quarantine_path,
+                max_bad_records=max_bad_records))
+        return self
 
     def iter_chunks(self, raw_features: Sequence[Feature], chunk_rows: int,
                     host_range: Optional[tuple] = None) -> ChunkStream:

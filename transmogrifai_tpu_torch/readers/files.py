@@ -28,9 +28,17 @@ CSV rules (pandas ``read_csv`` defaults):
 ``iter_chunks`` parses a bounded number of rows at a time (the
 ``csv`` module over the file's lines, one JSON line at a time): a chunk's
 columns equal the same rows of the whole-file read, and ``bytes_read``
-follows the file position.  ``ParquetReader`` and the quarantine policy
-raise ``NotImplementedError`` (ROADMAP Queue A item 6.3).
-The JAX readers' ``key_col`` is not taken: it has no effect there either.
+follows the file position.
+
+Bad records (``Reader.with_resilience``, readers/resilience.py): a CSV
+row with more fields than the header raises, or under the quarantine
+policy goes to the sidecar as ``bad-line#k`` (its ordinal among the
+file's bad rows, as the JAX reader's pandas ``on_bad_lines`` callback
+numbers them); an invalid JSON line raises ``BadRecordError`` naming its
+line and byte offset, or goes to the sidecar under that location.
+``ParquetReader`` raises ``NotImplementedError`` (ROADMAP Queue A item
+6.3).  The JAX readers' ``key_col`` is not taken: it has no effect there
+either.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ from ..features.feature import Feature
 from ..types.columns import ColumnarDataset, FeatureColumn
 from .base import (ChunkStream, Reader, RecordsReader, _check_chunk_rows,
                    _stream)
+from .resilience import BadRecordError
 
 __all__ = ["CSVReader", "CSVAutoReader", "ParquetReader", "JSONLinesReader",
            "DataReaders", "NA_STRINGS"]
@@ -90,6 +99,36 @@ def _record_values(cells: Sequence[str]) -> list:
         return _text(cells)
 
 
+def _as_int(c: str) -> int:
+    if not c.lstrip("+-").isdigit():
+        raise ValueError(c)
+    return int(c)
+
+
+def infer_cells(cells: Sequence[str]) -> tuple:
+    """(kind, values) of a column's cells typed as pandas' ``read_csv``
+    types a column: ``"i"`` Python ints when every cell is an integer,
+    ``"f"`` floats (NaN where missing) when every present cell is a
+    number, ``"b"`` bools when every cell is a boolean, else ``"O"`` the
+    text with NaN where missing (a boolean column with a missing cell is
+    text too, as pandas gives an object column of True/False/NaN)."""
+    present = [c for c in cells if c not in NA_STRINGS]
+    nan = float("nan")
+    if present and len(present) == len(cells):
+        try:
+            return "i", [_as_int(c) for c in cells]
+        except ValueError:
+            pass
+    if present and all(c in _BOOLS for c in present):
+        vals = [nan if c in NA_STRINGS else bool(_BOOLS[c]) for c in cells]
+        return ("b" if len(present) == len(cells) else "O"), vals
+    try:
+        return "f", _parse_floats(cells, "").tolist()
+    except ValueError:
+        pass
+    return "O", [nan if c in NA_STRINGS else c for c in cells]
+
+
 def _lines(fh):
     """The lines of a text file through ``readline``, which leaves
     ``tell()`` usable (iterating the file object disables it)."""
@@ -129,6 +168,8 @@ class CSVReader(Reader):
                                 skipinitialspace=self.skip_initial_space)
             header = next(reader, []) if self.has_header else None
             rows = filter(_nonblank, reader)
+            if header is not None or self.column_names:
+                rows = self._screen(rows, len(self._names(header, [])))
             names, offset = None, 0
             while True:
                 batch = list(itertools.islice(rows, chunk_rows))
@@ -142,6 +183,24 @@ class CSVReader(Reader):
                 offset += len(batch)
                 if chunk_rows is None:
                     return
+
+    def _screen(self, rows, width: int):
+        """The rows, with those wider than the header sent to the
+        quarantine sidecar under that policy (else left for ``_table`` to
+        raise on)."""
+        cfg = self.resilience
+        if cfg is None or not cfg.quarantines:
+            yield from rows
+            return
+        bad = 0
+        for r in rows:
+            if len(r) <= width:
+                yield r
+                continue
+            cfg.handle_bad_record(self.path, f"bad-line#{bad}",
+                                  f"malformed CSV row ({len(r)} fields)",
+                                  record=[str(c) for c in r])
+            bad += 1
 
     def _names(self, header, rows) -> List[str]:
         if header is None:
@@ -231,18 +290,31 @@ class JSONLinesReader(Reader):
     def __init__(self, path: str):
         self.path = path
 
+    def _parse_line(self, raw: bytes, line_no: int, offset: int):
+        """One record, or None when the bad line went to the quarantine
+        sidecar; under the ``fail`` policy a bad line raises
+        ``BadRecordError`` naming its line number and byte offset."""
+        try:
+            return json.loads(raw)
+        except (ValueError, UnicodeDecodeError) as exc:
+            cfg = self.resilience
+            reason = f"invalid JSON: {exc}"
+            location = f"line {line_no} (byte {offset})"
+            if cfg is not None and cfg.quarantines:
+                cfg.handle_bad_record(self.path, location, reason,
+                                      record=raw.decode("utf-8", "replace"))
+                return None
+            raise BadRecordError(self.path, location, reason) from exc
+
     def _records(self, chunk_rows: Optional[int], pos: dict):
         records, offset = [], 0
         with open(self.path, "rb") as fh:
             for line_no, line in enumerate(fh, start=1):
                 s = line.strip()
                 if s:
-                    try:
-                        records.append(json.loads(s))
-                    except (ValueError, UnicodeDecodeError) as exc:
-                        raise ValueError(
-                            f"{self.path}: line {line_no} (byte {offset}): "
-                            f"invalid JSON: {exc}") from exc
+                    rec = self._parse_line(s, line_no, offset)
+                    if rec is not None:
+                        records.append(rec)
                 offset += len(line)
                 if chunk_rows is not None and len(records) >= chunk_rows:
                     pos["bytes"] = offset
@@ -267,7 +339,63 @@ class JSONLinesReader(Reader):
 
 
 class DataReaders:
-    """Factory catalogue (DataReaders.scala:44-270), the ported readers."""
+    """Factory catalogue (DataReaders.scala:44-270)."""
+
+    class Aggregate:
+        @staticmethod
+        def records(source, key_fn, time_fn, cutoff=None,
+                    predictor_window_ms=None, response_window_ms=None):
+            from .aggregates import AggregateDataReader
+
+            return AggregateDataReader(source, key_fn, time_fn, cutoff,
+                                       predictor_window_ms,
+                                       response_window_ms)
+
+        @staticmethod
+        def avro(path, key_fn, time_fn, cutoff=None,
+                 predictor_window_ms=None, response_window_ms=None):
+            """Aggregate reader over an Avro file's records
+            (DataReaders.scala:108-130), decoded at the first read."""
+            from .aggregates import AggregateDataReader
+            from .avro import AvroReader
+
+            return AggregateDataReader(AvroReader(path), key_fn, time_fn,
+                                       cutoff, predictor_window_ms,
+                                       response_window_ms)
+
+    class Conditional:
+        @staticmethod
+        def records(source, key_fn, time_fn, target_condition,
+                    drop_if_no_target=True, predictor_window_ms=None,
+                    response_window_ms=None):
+            from .aggregates import ConditionalDataReader
+
+            return ConditionalDataReader(source, key_fn, time_fn,
+                                         target_condition,
+                                         drop_if_no_target,
+                                         predictor_window_ms,
+                                         response_window_ms)
+
+        @staticmethod
+        def avro(path, key_fn, time_fn, target_condition,
+                 drop_if_no_target=True, predictor_window_ms=None,
+                 response_window_ms=None):
+            """Conditional reader over an Avro file's records
+            (DataReaders.scala:214-248), decoded at the first read."""
+            from .aggregates import ConditionalDataReader
+            from .avro import AvroReader
+
+            return ConditionalDataReader(AvroReader(path), key_fn, time_fn,
+                                         target_condition, drop_if_no_target,
+                                         predictor_window_ms,
+                                         response_window_ms)
+
+    @staticmethod
+    def dataframe(df, key_col: Optional[str] = None):
+        """Wrap an in-memory pandas DataFrame."""
+        from .base import DataFrameReader
+
+        return DataFrameReader(df, key_col)
 
     class Simple:
         @staticmethod

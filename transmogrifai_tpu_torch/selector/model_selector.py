@@ -506,6 +506,26 @@ class BinaryClassificationModelSelector:
             validation_metric=validation_metric, strategy=strategy,
             halving=halving, parallel=parallel, watchdog=watchdog)
 
+    @staticmethod
+    def with_train_validation_split(
+        train_ratio: float = 0.75, validation_metric: str = "AuPR",
+        splitter=None, seed: int = 42, models_and_parameters=None,
+        parallelism: Optional[int] = None, max_wait: Optional[float] = None,
+        strategy: str = "full", halving=None, parallel=None,
+        watchdog: Optional[float] = None,
+    ) -> ModelSelector:
+        return ModelSelector(
+            models_and_params=models_and_parameters or _binary_defaults(),
+            problem_type="binary",
+            validator=OpTrainValidationSplit(train_ratio=train_ratio,
+                                             seed=seed, stratify=True,
+                                             parallelism=parallelism,
+                                             max_wait=max_wait),
+            splitter=(splitter if splitter is not None
+                      else DataBalancer(seed=seed)),
+            validation_metric=validation_metric, strategy=strategy,
+            halving=halving, parallel=parallel, watchdog=watchdog)
+
 
 def _multiclass_defaults() -> List[Tuple[PredictorEstimator,
                                          List[Dict[str, Any]]]]:

@@ -36,9 +36,14 @@ file goes on success and on error.  The prefetch thread (``AsyncBatcher``)
 only parses: the transforms, and every copy to the card, run on the
 calling thread.
 
+With a reader-side retry policy (``reader.with_resilience(retry=...)``,
+readers/resilience.py) every pass's chunk stream is wrapped in a
+``RetryingChunkStream``: a transient IO error backs off, reopens the
+reader and skips exactly the chunks already delivered.  Retries, backoff
+seconds and quarantined records land in the ``IngestProfiler``.
+
 Not ported: checkpoints and warm-start refresh (ROADMAP Queue A item
-6.5), workflow CV (6.4), pods and meshes (6.7), the reader retry policy
-(6.3).
+6.5), workflow CV (6.4), pods and meshes (6.7).
 """
 from __future__ import annotations
 
@@ -344,6 +349,10 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
     total_rows: Optional[int] = None
     extras: Set[str] = set()   # reader columns the DAG does not know (key)
     final_states: Dict[str, object] = {}
+    rcfg = getattr(reader, "resilience", None)
+    sink = rcfg.sink() if (rcfg is not None and rcfg.quarantines) else None
+    q0_records, q0_rows = (sink.count, sink.rows) if sink is not None \
+        else (0, 0)
 
     def fitted_of(stage: PipelineStage) -> PipelineStage:
         if isinstance(stage, Estimator):
@@ -363,14 +372,25 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
                         keep_unknown: bool) -> int:
         """One prefetch-overlapped pass over the reader: each chunk goes
         through ``ordered`` (pruned by liveness) to ``per_chunk``; returns
-        the rows."""
+        the rows.  Under a retry policy the reader's stream is wrapped in
+        a ``RetryingChunkStream``."""
         pass_stats = ingest.begin_pass(label)
         needed_after = _liveness(ordered, final_needed)
         rows = 0
         t_pass = time.perf_counter()
-        batcher = AsyncBatcher(
-            _TimedChunks(reader.iter_chunks(raw_features, chunk_rows),
-                         pass_stats), depth=prefetch)
+
+        def open_stream():
+            return reader.iter_chunks(raw_features, chunk_rows)
+
+        if rcfg is not None and rcfg.retry is not None:
+            from ..readers.resilience import RetryingChunkStream
+
+            stream = RetryingChunkStream(open_stream, rcfg.retry,
+                                         on_retry=pass_stats.note_retry)
+        else:
+            stream = open_stream()
+        batcher = AsyncBatcher(_TimedChunks(stream, pass_stats),
+                               depth=prefetch)
         try:
             for idx, chunk in enumerate(batcher):
                 t0 = time.perf_counter()
@@ -625,4 +645,7 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
         keep_set = set(keep)
         data = data.select([c for c in data.names()
                             if c in keep_set or c not in known_universe])
+    if sink is not None:
+        ingest.quarantined_records = sink.count - q0_records
+        ingest.quarantined_rows = sink.rows - q0_rows
     return fitted, data, ingest, final_states

@@ -44,6 +44,7 @@ from ..stages.base import Model, PipelineStage
 from ..stages.generator import FeatureGeneratorStage
 from ..types.columns import ColumnarDataset
 from ..types.feature_types import Prediction
+from ..utils.profiling import OpStep, with_job_group
 from .dag import compute_dag, fit_and_transform_dag, transform_dag
 
 __all__ = ["OpWorkflow", "OpWorkflowModel"]
@@ -270,19 +271,22 @@ class OpWorkflow(_WorkflowCore):
         if self.reader is None:
             raise RuntimeError(
                 "no reader set — call set_reader/set_input_data")
-        data = None if chunk_rows is not None else self.generate_raw_data()
+        with with_job_group(OpStep.DataReadingAndFiltering):
+            data = (None if chunk_rows is not None
+                    else self.generate_raw_data())
         filter_results = rff_stats = chunk_filter = None
         rff_seconds = None
         if self._raw_feature_filter is not None:
             rff = self._raw_feature_filter
             t0 = time.perf_counter()
-            if chunk_rows is None:
-                data, filter_results = rff.filter_raw_data(
-                    data, self.raw_features(), device=dev)
-            else:
-                filter_results, rff_stats = rff.filter_streaming(
-                    self.reader, self.raw_features(), chunk_rows,
-                    device=dev)
+            with with_job_group(OpStep.DataReadingAndFiltering):
+                if chunk_rows is None:
+                    data, filter_results = rff.filter_raw_data(
+                        data, self.raw_features(), device=dev)
+                else:
+                    filter_results, rff_stats = rff.filter_streaming(
+                        self.reader, self.raw_features(), chunk_rows,
+                        device=dev)
                 if filter_results.dropped_map_keys:
                     dropped = list(filter_results.dropped_features)
                     keys = dict(filter_results.dropped_map_keys)
@@ -314,20 +318,22 @@ class OpWorkflow(_WorkflowCore):
         placed = self._place(dag, dev)
         ingest = fit_states = None
         try:
-            if chunk_rows is None:
-                fitted, transformed = fit_and_transform_dag(
-                    dag, data, on_stage=on_stage,
-                    fitted_substitutes=self._model_stages)
-            else:
-                from .streaming import fit_dag_streaming
+            with with_job_group(OpStep.FeatureEngineering):
+                if chunk_rows is None:
+                    fitted, transformed = fit_and_transform_dag(
+                        dag, data, on_stage=on_stage,
+                        fitted_substitutes=self._model_stages)
+                else:
+                    from .streaming import fit_dag_streaming
 
-                fitted, transformed, ingest, fit_states = fit_dag_streaming(
-                    dag, self.reader, self.raw_features(), chunk_rows,
-                    keep=self._train_keep_columns(),
-                    fitted_substitutes=self._model_stages,
-                    prefetch=prefetch_chunks, chunk_filter=chunk_filter,
-                    on_stage=on_stage)
-                ingest.rff = rff_stats
+                    fitted, transformed, ingest, fit_states = \
+                        fit_dag_streaming(
+                            dag, self.reader, self.raw_features(),
+                            chunk_rows, keep=self._train_keep_columns(),
+                            fitted_substitutes=self._model_stages,
+                            prefetch=prefetch_chunks,
+                            chunk_filter=chunk_filter, on_stage=on_stage)
+                    ingest.rff = rff_stats
         finally:
             for s in placed:
                 s.device = None
