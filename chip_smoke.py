@@ -80,7 +80,7 @@ to end at full width through the entry points a user calls:
     OpGeneralizedLinearRegression (poisson) -> fit_raw -> predict_batch;
     IsotonicRegressionCalibrator -> fit_raw -> predict_batch
 
-    OpXGBoostClassifier (the reference's defaults) -> fit_raw on 1M x 2000
+    OpXGBoostClassifier (the reference's defaults) -> fit_raw on 500k x 2000
     wide sparse rows (BASELINE.md config 5) -> predict_batch; the same
     with TMOG_SPARSE_HIST=1 (the CSR histogram) and with TMOG_EFB
 
@@ -113,8 +113,46 @@ card's aggregate shared-memory rate):
                 under 3-fold CV, the winner refit; the train's split by
                 stage and sweep group, every candidate's CV metric, the
                 summary's metrics, holdout AuPR, trees grown and kernel
-                launches against the growers' count, peak memory
-  5. regression  the same 500 Real columns plus one Integral column (30
+                launches against the growers' count, peak memory, the
+                tree-prep prefetch thread's seconds
+                (``prefetchTreePrepSecs``) and its state after the fit
+                (it must be joined)
+  4b. selector_options  the selector's options, four legs, a
+                ``selector_options`` line each. Leg a: the default
+                selector with strategy="halving" on the same 1M + 100k
+                rows: the rungs (37 038 / 111 112 / 333 334 / 1 000 000
+                rows, 26 / 9 / 3 / 1 candidates: SO_SCHEDULE, the JAX
+                package's rung_schedule), each rung's wall and
+                candidate-fold fits, launches against the growers'
+                levels, holdout AuPR within SO_AUPR_GAP of the selector
+                phase's; SO_CHECK_TREES forest trees grown on the rung-0
+                rows of the checked matrix, every level bitwise to the
+                plain version, the widest timed (a ``seg_hist`` line with
+                ``path`` "halving"). Leg b, on SO_ROWS + SO_HOLDOUT rows
+                of the same recipe: the default selector with a sweep
+                checkpoint in a child (``--sweep-child``) killed by
+                TMOG_FAULTS at the SO_KILL_AT-th save; the resume (units
+                restored and refit), the uninterrupted sweep under
+                TMOG_SYNC_SWEEP=1 (the same winner, fold metrics within
+                SO_METRIC_TOL, bitwise or not), and another grid's
+                checkpoint refused with the differing key. Leg c, on leg
+                b's checked matrix (an LR grid and one forest, one fit a
+                unit): one injected device loss (retries 1, quarantined
+                0, the reference's metrics), a persistent one on the
+                forest (it alone quarantined), the watchdog at
+                SO_WATCHDOG_FACTOR over a CostModel fitted on leg b's
+                group walls with an injected sleep of SO_SLOW_FACTOR
+                deadlines (degraded, then ``failed: straggler``), and
+                the tree-prep prefetch thread joined after a loss. Leg
+                d: the Titanic demo with the default selector under
+                with_workflow_cv() on SO_ROWS + SO_HOLDOUT rows
+                (SanityChecker in the during-DAG, 26 fold-refit results)
+                and a plain train of it: holdout AuPRs within
+                SO_CV_AUPR_GAP, launches of both
+  5. regression  the first 1/MODEL_DEPTH_CUT of the slice's rows and
+                holdout (500k + 50k, cut from 1M + 100k to keep the
+                smoke within its time limit): the same 500 Real columns
+                plus one Integral column (30
                 values, 5% missing) and one PickList (5 values, 5% null), a
                 RealNN label from its own seed (22.5 + a linear part of
                 variance 49 + 4 tanh(f10 f11) + the Integral and PickList
@@ -167,7 +205,9 @@ card's aggregate shared-memory rate):
                 (the holdout bitwise), the local scorer's rows, and
                 TITANIC_SERVE_REQUESTS single rows with text through
                 ModelServer (p50/p99, ``request_split``)
-  6b. validate_explain  the Titanic phase's 1M + 100k rows with two
+  6b. validate_explain  the first 1/VE_DEPTH_CUT of the Titanic phase's
+                rows and holdout (500k + 50k, cut from 1M + 100k to keep
+                the smoke within its time limit) with two
                 planted raw features (seed VE_SEED): ``leak``, null exactly
                 where Survived is 1, and ``rare``, filled on VE_RARE_SHARE
                 of the rows; the demo trained with a RawFeatureFilter
@@ -193,7 +233,10 @@ card's aggregate shared-memory rate):
                 SanityChecker on the slice's 1M x 500 matrix (seconds, 50
                 columns within 1e-5 of float64 numpy) and LOCO through the
                 slice's boosted model on VE_XGB_LOCO_ROWS holdout rows
-  6c. feature_eng  the Titanic phase's 1M + 100k rows with four more raw
+  6c. feature_eng  the first 1/FE_DEPTH_CUT of the Titanic phase's rows
+                and holdout (250k + 25k, cut from 1M + 100k to pay for
+                the selector_options phase)
+                with four more raw
                 columns from FE_SEED (``feature_eng_columns``: Email with
                 10% null and 5% malformed, EmailMap of it, Phone with US,
                 +44, invalid and null values, Bio of 4-12 English, German
@@ -222,8 +265,11 @@ card's aggregate shared-memory rate):
                 save -> load -> FE_ROUNDTRIP_ROWS holdout rows bitwise
   6d. avro_combined  the reference's Avro ensemble demo
                 (examples/op_titanic_avro_combined.py's ``build`` with the
-                port's imports: ``build_avro_combined``): the titanic
-                phase's 1M + 100k rows' seven demo columns and label
+                port's imports: ``build_avro_combined``): the Titanic
+                recipe's first rows / AVRO_DEPTH_CUT and holdout /
+                AVRO_DEPTH_CUT (250k + 25k, cut from 1M + 100k to pay
+                for the selector_options phase): their seven demo
+                columns and label
                 written by the port's write_avro (deflate) as two files
                 (``avro_write_s``), read inside train() through
                 OpWorkflow.set_reader(AvroReader(path)) (``avro_read_s``:
@@ -312,7 +358,9 @@ card's aggregate shared-memory rate):
                 in a child, its scores equal to the evaluate run's within
                 APP_SCORE_TOL; the metrics JSON with the JAX runner's
                 keys; the train's launches
-  7. multiclass  the same 500 Real columns with a K = 5 label from its
+  7. multiclass  the regression phase's rows (500k + 50k: the slice's
+                divided by MODEL_DEPTH_CUT) of the same 500 Real columns
+                with a K = 5 label from its
                 own seed (class logits: log priors 0.40 / 0.25 / 0.15 /
                 0.12 / 0.08, a linear part of standard deviation
                 MC_LINEAR_SD in MC_GROUP_COLS columns of the class's
@@ -373,8 +421,11 @@ card's aggregate shared-memory rate):
                 calibrated AuPR within ISO_AUPR_GAP of the raw one
  10. xgb_wide  BASELINE.md config 5: examples/bench_xgb_wide.py's
                 make_sparse_data recipe (seed 17, 5% density, 2000
-                columns; 1 100 000 rows made in one call, the first 1M to
-                train, the last 100 000 held out), one OpXGBoostClassifier
+                columns; the smoke's rows and holdout divided by
+                MODEL_DEPTH_CUT, 550 000 rows made in one call, the first
+                500k to train, the last 50 000 held out: cut from 1M +
+                100k to keep the smoke within its time limit), one
+                OpXGBoostClassifier
                 at the reference's defaults (200 rounds, eta 0.02, depth
                 10, gamma 0.8, early stopping 20, seed 13) through fit_raw:
                 data_s, the sketch (must be ``sparse_aware``), the EFB
@@ -389,7 +440,7 @@ card's aggregate shared-memory rate):
                 took through the CSR, trees equal up to exact ties,
                 holdout AuPR within 1e-3), 2 rounds of each leg's levels
                 held against the plain version; ``seg_hist`` lines with
-                ``path`` "xgb_wide" (d = 2000, M = 1, 32, 512 on 1M rows,
+                ``path`` "xgb_wide" (d = 2000, M = 1, 32, 512 on 500k rows,
                 and M = 32 on one GOSS sample)
  11. iris      the reference's Iris demo (examples/op_iris_simple.py's
                 DAG and grid: LR {0.01, 0.1}, MLP [5, 4] and [10], a
@@ -402,7 +453,7 @@ card's aggregate shared-memory rate):
   12. serve     both trained models (the slice's boosted model, the
                 selector's winner): save (seconds, bytes) and load on the
                 card (seconds); the holdout scored after the round trip
-                bitwise equal to the in-memory model; 10k holdout rows
+                bitwise equal to the in-memory model; CSV_ROWS (5k) holdout rows
                 written as CSV (floats by repr) and read back by CSVReader
                 scoring equal to the in-memory model; single-row
                 requests through score_function_batch split by stage
@@ -455,7 +506,8 @@ card's aggregate shared-memory rate):
 The phases that run torch.profiler come after the slice and the selector,
 so no profiler session runs in the process before their walls are taken.
 Then the ``kernels`` summary line (``launches``: the slice's, the
-selector's, the regression phase's, the titanic phase's (its efb fits
+selector's, the selector_options phase's trains and sweeps, the
+regression phase's, the titanic phase's (its efb fits
 too), the validate_explain, feature_eng and avro_combined phases'
 trains, the out_of_core phase's chunked selector train, the events
 phase's two leg-a trains, the app phase's train, the
@@ -471,6 +523,7 @@ Usage: python3 chip_smoke.py [--rows N] [--holdout N] [--cols D]
 """
 import argparse
 import csv
+import faulthandler
 import gc
 import json
 import os
@@ -482,6 +535,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
 
@@ -528,14 +582,19 @@ from transmogrifai_tpu_torch.readers.avro import AvroReader, write_avro
 from transmogrifai_tpu_torch.readers.files import CSVReader
 from transmogrifai_tpu_torch.selector.combiner import SelectedModelCombiner
 from transmogrifai_tpu_torch.selector.model_selector import (
-    BinaryClassificationModelSelector, MultiClassificationModelSelector,
-    RegressionModelSelector, grid)
-from transmogrifai_tpu_torch.selector.validators import make_folds
+    BinaryClassificationModelSelector, ModelSelector,
+    MultiClassificationModelSelector, RegressionModelSelector, grid)
+from transmogrifai_tpu_torch.selector.validators import (OpCrossValidation,
+                                                         make_folds)
 from transmogrifai_tpu_torch.serving import ModelServer
 from transmogrifai_tpu_torch.stages.base import Estimator
 from transmogrifai_tpu_torch.serving.http import make_http_server
 from transmogrifai_tpu_torch.types import feature_types as ft
+from transmogrifai_tpu_torch.tuning.halving import (HalvingConfig,
+                                                    nested_subsample_order)
 from transmogrifai_tpu_torch.types.columns import ColumnarDataset, FeatureColumn
+from transmogrifai_tpu_torch.utils.profiling import (MetricsCollector,
+                                                     install_collector)
 from transmogrifai_tpu_torch.utils.streaming_histogram import \
     StreamingHistogram
 from transmogrifai_tpu_torch.workflow.dag import compute_dag, transform_dag
@@ -556,9 +615,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 #: single-row requests, a burst of single rows from several threads,
 #: 64-row requests, rows over HTTP
 # the serve phase's depth, cut (from 500, 4096, 200 and 20 profiled
-# requests) to keep the smoke within its time limit with the out_of_core
-# phase
-CSV_ROWS, SEQ_REQUESTS, BURST_REQUESTS, BURST_THREADS = 10_000, 200, 1024, 8
+# requests, and from 10k CSV rows) to keep the smoke within its time limit
+CSV_ROWS, SEQ_REQUESTS, BURST_REQUESTS, BURST_THREADS = 5_000, 200, 1024, 8
 BIG_REQUESTS, HTTP_ROWS, SPLIT_REQUESTS = 50, 4, 20
 PROFILE_REQUESTS = 5
 #: boosting rounds of the profiled fit (one early-stopping chunk)
@@ -744,7 +802,8 @@ OOC_AUPR_SHARE, OOC_NB_AUPR_MARGIN = 0.9, 0.08
 OOC_DRIFT_ROWS, OOC_LATENCY_REQUESTS = 2000, 200
 #: the out_of_core phase runs on the smoke's rows divided by this (1M +
 #: 100k -> 500k + 50k), which pays for the events and app phases within
-#: the smoke's time limit
+#: the smoke's time limit.  (At 4, 250k + 25k rows, leg c's clean rows
+#: drift on Cabin: its PSI sits at the 0.25 threshold, 0.248 at 500k.)
 OOC_DEPTH_CUT = 2
 
 # the events phase (6f): examples/bench_events.py's clickstream (its
@@ -769,9 +828,43 @@ EV_PROBA_TOL, EV_RSS_RATIO = 1e-6, 0.5
 #: less 0.02
 EV_AUROC_FLOOR = 0.9576739050423261 - 0.02
 # the app phase (6g): the generated Titanic project on a Titanic-shaped
-# CSV; its scores against the in-process ones
-APP_ROWS = 200_000
+# CSV; its scores against the in-process ones (200 000 rows before the
+# selector_options phase)
+APP_ROWS = 100_000
 APP_SCORE_TOL = 1e-6
+#: the selector_options phase: legs b-d's rows (the selector
+#: recipe and the Titanic demo's; cut from 200 000 + 20 000 to keep the
+#: smoke within its time limit on a slow host), the halving schedule of the default
+#: selector's 26 candidates on 1M rows (the JAX package's rung_schedule),
+#: the halving winner's holdout AuPR gap to the full sweep's, workflow CV's
+#: to the plain train's, the resume's fold-metric tolerance, the kill's
+#: save index, the watchdog's factor and the injected sleep in deadlines,
+#: leg c's forest size and the halving level check's trees
+SO_ROWS, SO_HOLDOUT = 100_000, 10_000
+SO_SCHEDULE = [(37_038, 26), (111_112, 9), (333_334, 3), (1_000_000, 1)]
+SO_AUPR_GAP = 0.01
+SO_CV_AUPR_GAP = 0.02
+SO_METRIC_TOL = 1e-6
+SO_KILL_AT = 2
+SO_WATCHDOG_FACTOR = 2.0
+SO_SLOW_FACTOR = 2.5
+SO_C_TREES = 20
+SO_CHECK_TREES = 10
+#: depth cuts that pay for the selector_options phase within
+#: the smoke's time limit: the feature_eng and avro_combined phases run on
+#: the Titanic rows and holdout divided by these (1M + 100k before it)
+FE_DEPTH_CUT = 4
+AVRO_DEPTH_CUT = 4
+#: the regression, multiclass, boosted_multi and xgb_wide phases run on
+#: the smoke's rows and holdout divided by this (1M + 100k before it), so
+#: that the smoke ends well within its time limit on a slow host
+MODEL_DEPTH_CUT = 2
+#: the validate_explain phase runs on the Titanic rows and holdout divided
+#: by this (1M + 100k before it)
+VE_DEPTH_CUT = 2
+#: seconds after which the script writes every thread's stack to stderr
+#: (it goes on running): what a run stopped at the 1 200 s limit was doing
+STACKS_AT_S = 1_100
 
 
 def _smi(query: str) -> str:
@@ -787,9 +880,12 @@ _T0 = time.perf_counter()
 
 def emit(obj) -> None:
     """One JSON line; a phase's line carries ``at_s``, the seconds since
-    the script started."""
+    the script started, and is announced on stderr as well (the end of
+    stderr then shows how far a run got)."""
     if "phase" in obj:
         obj = {**obj, "at_s": time.perf_counter() - _T0}
+        print(f"chip_smoke: {obj['phase']} at {obj['at_s']:.1f} s",
+              file=sys.stderr, flush=True)
     print(json.dumps(obj), flush=True)
 
 
@@ -1204,6 +1300,14 @@ def _dataset(X, y) -> ColumnarDataset:
     return ColumnarDataset(cols)
 
 
+def _rows_cut(data, k: int):
+    """``make_datasets``' datasets cut to the first 1/k of the rows and
+    of the holdout (views, not copies)."""
+    train, hold, data_s = data
+    return (train.slice(0, len(train) // k), hold.slice(0, len(hold) // k),
+            data_s)
+
+
 def make_datasets(rows: int, holdout: int, cols: int):
     """(train, holdout, seconds): the slice's and the selector's data, made
     once (set-up, not part of either train)."""
@@ -1290,8 +1394,10 @@ def phase_selector(data, cols: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gk.seg_level_hists.launches = 0
+    coll = MetricsCollector()
     t0 = time.perf_counter()
-    model = wf.train()
+    with install_collector(coll):
+        model = wf.train()
     train_s = time.perf_counter() - t0
     launches = gk.seg_level_hists.launches
     t0 = time.perf_counter()
@@ -1333,10 +1439,19 @@ def phase_selector(data, cols: int) -> dict:
            # the baselines' histograms
            "real_vectorizer_fit_s": next(
                s.fit_seconds for s in compute_dag([pred]).all_stages()
-               if isinstance(s, RealVectorizer))}
+               if isinstance(s, RealVectorizer)),
+           # the tree-prep prefetch thread: its seconds (the collector's
+           # tag) and its state after the fit
+           "prefetchTreePrepSecs": coll.metrics.custom_tags.get(
+               "prefetchTreePrepSecs"),
+           "tree_prefetch": meta.get("tree_prefetch")}
     emit(out)
     check(tuple(proba.shape) == (holdout, 2), f"proba shape {proba.shape}")
     check(bool(torch.isfinite(proba).all()), "non-finite probabilities")
+    check((meta.get("tree_prefetch") or {}).get("joined")
+          and selector._prep_thread is None,
+          f"the tree-prep prefetch thread was not joined: "
+          f"{meta.get('tree_prefetch')}")
     check(len(results) == 26, f"{len(results)} validation results, not 26")
     errors = [r["error"] for r in results if r.get("error")]
     check(not errors, f"candidates failed: {errors}")
@@ -1747,6 +1862,14 @@ def titanic_columns(n: int):
     return cols, p
 
 
+def _depth_cut(tdata, k: int):
+    """``titanic_data``'s datasets cut to the first 1/k of the rows and of
+    the holdout (views, not copies)."""
+    train, hold, p_hold, data_s = tdata
+    n, h = len(train) // k, len(hold) // k
+    return train.slice(0, n), hold.slice(0, h), p_hold[:h], data_s
+
+
 def titanic_data(rows: int, holdout: int):
     """The demo's train and holdout datasets, the label regenerated with
     signal (sigmoid(-1.1 + 2.4 [female] - 1.0 [3rd class] + 0.35
@@ -1766,10 +1889,11 @@ def titanic_data(rows: int, holdout: int):
     return train, hold, p[rows:], time.perf_counter() - t0
 
 
-def build_titanic(extra=()):
+def build_titanic(extra=(), selector=None):
     """The demo's DAG exactly as examples/op_titanic_simple.py builds it,
     with the port's imports: (prediction, features, checked, selector);
-    ``extra`` predictors join its ``transmogrify`` list."""
+    ``extra`` predictors join its ``transmogrify`` list; ``selector``
+    replaces the demo's selector."""
     survived = FeatureBuilder.RealNN("Survived").as_response()
     pclass = FeatureBuilder.PickList("Pclass").as_predictor()
     name = FeatureBuilder.Text("Name").as_predictor()
@@ -1791,15 +1915,17 @@ def build_titanic(extra=()):
                              estimated_cost, pivoted_sex, *extra])
     checked = SanityChecker(remove_bad_features=True).set_input(
         survived, features).get_output()
-    selector = BinaryClassificationModelSelector.with_cross_validation(
-        num_folds=3,
-        models_and_parameters=[
-            (OpLogisticRegression(), grid(
-                reg_param=[0.01, 0.1, 0.3], elastic_net_param=[0.0])),
-            (OpRandomForestClassifier(), grid(
-                num_trees=[50], max_depth=[6, 12], min_info_gain=[0.001])),
-        ],
-    )
+    selector = selector or \
+        BinaryClassificationModelSelector.with_cross_validation(
+            num_folds=3,
+            models_and_parameters=[
+                (OpLogisticRegression(), grid(
+                    reg_param=[0.01, 0.1, 0.3], elastic_net_param=[0.0])),
+                (OpRandomForestClassifier(), grid(
+                    num_trees=[50], max_depth=[6, 12],
+                    min_info_gain=[0.001])),
+            ],
+        )
     prediction = selector.set_input(survived, checked).get_output()
     return prediction, features, checked, selector
 
@@ -2115,15 +2241,16 @@ def _np_spearman(x: np.ndarray, y: np.ndarray) -> float:
     return float(rx @ ry / np.sqrt((rx @ rx) * (ry @ ry)))
 
 
-def _device_matrix(ds, names) -> torch.Tensor:
-    """Columns ``names`` of a host dataset as one float32 (N, d) matrix on
-    the card, stacked VE_STACK_COLS at a time."""
-    X = torch.empty((len(ds), len(names)), dtype=torch.float32,
-                    device="cuda")
+def _device_matrix(ds, names, dev="cuda") -> torch.Tensor:
+    """Columns ``names`` of a host dataset as one contiguous float32 (N, d)
+    matrix on ``dev``, VE_STACK_COLS at a time: each block stacked as
+    contiguous host rows (a column-interleaved host stack costs several
+    times the copy) and transposed on the device."""
+    X = torch.empty((len(ds), len(names)), dtype=torch.float32, device=dev)
     for a in range(0, len(names), VE_STACK_COLS):
         blk = np.stack([np.asarray(ds[n].values, np.float32)
-                        for n in names[a:a + VE_STACK_COLS]], axis=1)
-        X[:, a:a + VE_STACK_COLS] = torch.from_numpy(blk).cuda()
+                        for n in names[a:a + VE_STACK_COLS]])
+        X[:, a:a + len(blk)] = torch.from_numpy(blk).to(dev).T
     return X
 
 
@@ -2826,12 +2953,8 @@ def _svc_nb_leg(data, selector_aupr: float) -> dict:
     dev = resolve_device()
     cols = len([k for k in train.columns if k.startswith("f")])
 
-    def matrix(ds):
-        return torch.from_numpy(np.stack(
-            [np.asarray(ds[f"f{j}"].values, np.float32)
-             for j in range(cols)], 1)).to(dev)
-
-    X, Xh = matrix(train), matrix(hold)
+    names = [f"f{j}" for j in range(cols)]
+    X, Xh = (_device_matrix(ds, names, dev) for ds in (train, hold))
     y = np.asarray(train["label"].values, np.float32)
     yh = torch.from_numpy(np.asarray(hold["label"].values, np.float32))
     out = {"rows": int(X.shape[0]), "cols": cols}
@@ -2855,16 +2978,17 @@ def _svc_nb_leg(data, selector_aupr: float) -> dict:
 
 
 def phase_avro_combined(data, selector_aupr: float, reps: int, bw: float,
-                        f32: float) -> dict:
+                        f32: float, rows: int = 0, holdout: int = 0) -> dict:
     """The reference's Avro ensemble demo on the card (the module
     docstring's phase 6d): the Titanic columns written to Avro by the
     port's ``write_avro`` (deflate) and read inside ``train()`` by
     ``AvroReader``; both selectors, the weighted combiner, holdout AuPRs,
     the kernel's launches against the forests' levels, the demo's depth-12
     levels bitwise against the plain version, save/load; then the linear
-    SVC and naive Bayes leg on the slice's matrix (``data``)."""
+    SVC and naive Bayes leg on the slice's matrix (``data``).  The demo
+    runs on ``rows`` + ``holdout`` Titanic rows (0: ``data``'s)."""
     phase_t0 = time.perf_counter()
-    rows, holdout = len(data[0]), len(data[1])
+    rows, holdout = rows or len(data[0]), holdout or len(data[1])
     t0 = time.perf_counter()
     cols, p = titanic_columns(rows + holdout)
     columns_s = time.perf_counter() - t0
@@ -4070,6 +4194,420 @@ def phase_app() -> dict:
 # the multiclass phase: the default multiclass selector at 1M + 100k x 500
 # ---------------------------------------------------------------------------
 
+def _selector_pipeline(cols: int, selector):
+    """The selector phase's DAG over ``cols`` Real columns with
+    ``selector``: (prediction, checked vector)."""
+    label = FeatureBuilder.RealNN("label").as_response()
+    preds = [FeatureBuilder.Real(f"f{j}").as_predictor() for j in range(cols)]
+    checked = label.transform_with(SanityChecker(max_correlation=0.99),
+                                   transmogrify(preds))
+    return label.transform_with(selector, checked), checked
+
+
+def _train_counted(wf):
+    """(model, seconds, seg_hist launches) of ``wf.train()``."""
+    torch.cuda.synchronize()
+    gk.seg_level_hists.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train()
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0, gk.seg_level_hists.launches
+
+
+def _forest_level_row(X: torch.Tensor, y: np.ndarray, msub: int, path: str,
+                      reps: int, bw: float, f32: float) -> dict:
+    """SO_CHECK_TREES forest trees (depth 12, min instances 10, min info
+    gain 0.001, ``msub``-column subsets, the first of 3 stratified folds)
+    grown on ``X`` binned at 32 bins, every level held bitwise to the
+    plain version; the level of most slots timed: the kernel, the plain
+    version, the library call and the bound."""
+    dev = X.device
+    _, binned = prep_tree_inputs(X, 32)
+    fold = torch.from_numpy((make_folds(X.shape[0], 3, y=y, stratify=True,
+                                        seed=42) != 0)
+                            .astype(np.float32)).to(dev)
+    chk = _BitwiseLevels()
+    gk.grow_rf_grid(
+        binned, torch.from_numpy(y).to(dev), fold[None], seed=42,
+        n_trees=SO_CHECK_TREES, pair_fold=[0], pair_min_ig=[0.001],
+        pair_min_inst=[10], pair_depth=[12], msub=msub, subsample_rate=1.0,
+        n_bins=32, hist_fn=chk)
+    b, slot, ch, M, B = chk.widest
+    del binned, chk.widest
+    n, dd = b.shape
+    args = (b, slot, ch, M, B)
+    nbytes = n * dd + n * 4 + n * 2 * 4 + M * 2 * B * dd * 4
+    ops = n * dd * 2
+    return {"phase": "seg_hist", "path": path, "N": n, "d": dd, "B": B,
+            "nchan": 2, "M": M, "row_stride": b.stride(0),
+            "trees": SO_CHECK_TREES, "levels_checked": chk.levels,
+            "levels_unequal": chk.unequal, "max_abs_err": chk.max_err,
+            "bitwise_equal": chk.unequal == 0,
+            "kernel_ms": time_ms(lambda: gk.seg_level_hists(*args), reps),
+            "plain_ms": time_ms(lambda: gk.seg_level_hists_plain(*args), 3,
+                                1),
+            "library_ms": _library_ms(b, slot, ch, M, B),
+            "bound_ms": max(nbytes / bw, ops / f32) * 1e3,
+            "bound_by": "bytes" if nbytes / bw >= ops / f32
+            else "operations", "bytes": nbytes}
+
+
+def _so_leg_a(data, cols: int, full_aupr: float, reps: int, bw: float,
+              f32: float):
+    """Leg a: the default selector under successive halving on the
+    selector phase's 1M + 100k rows."""
+    train, hold, _ = data
+    selector = BinaryClassificationModelSelector.with_cross_validation(
+        strategy="halving")
+    pred, checked = _selector_pipeline(cols, selector)
+    model, train_s, launches = _train_counted(
+        OpWorkflow().set_result_features(pred).set_input_data(train))
+    _, metrics = model.score_and_evaluate(
+        Evaluators.BinaryClassification.auPR(), data=hold)
+    aupr_h = float(metrics["AuPR"])
+    meta = selector.metadata
+    sched = meta["halving_schedule"]
+    rungs = sched["rungs"]
+    folds = selector.validator.num_folds
+    summary = meta["model_selector_summary"]
+    X = model.train_data[checked.name].values
+    y = np.asarray(train["label"].values, np.float32)
+    idx = np.sort(nested_subsample_order(y, HalvingConfig().seed)
+                  [:rungs[0]["rows"]])
+    Xs = X.index_select(0, torch.from_numpy(idx).to(X.device))
+    msub = int(np.sqrt(X.shape[1]))
+    level = _forest_level_row(Xs, y[idx], msub, "halving", reps, bw, f32)
+    del X, Xs
+    out = {"leg": "a", "rows": len(train), "train_s": train_s,
+           "rungs": [{"rows": r["rows"], "candidates": r["survivorsIn"],
+                      "promoted": r["promoted"], "wall_s": r["wallSecs"],
+                      "candidate_fold_fits": r["survivorsIn"] * folds}
+                     for r in rungs],
+           "winner": summary["bestModelType"],
+           "winner_params": summary["bestModelParams"],
+           "holdout_aupr": aupr_h, "full_sweep_holdout_aupr": full_aupr,
+           "seg_hist_launches": launches,
+           "growers_hist_levels": meta["hist_levels"],
+           "elastic": meta["elastic"]}
+    check([(r["rows"], r["survivorsIn"]) for r in rungs] == SO_SCHEDULE,
+          f"selector_options: halving schedule {rungs} != {SO_SCHEDULE}")
+    check(abs(aupr_h - full_aupr) <= SO_AUPR_GAP,
+          f"selector_options: halving AuPR {aupr_h} not within "
+          f"{SO_AUPR_GAP} of the full sweep's {full_aupr}")
+    check(launches > 0 and launches == meta["hist_levels"],
+          f"selector_options: halving launches {launches} != the growers' "
+          f"{meta['hist_levels']} levels")
+    check(level["bitwise_equal"], "selector_options: the halving forest's "
+                                  "levels are not bitwise equal to plain")
+    return out, level
+
+
+def sweep_child(ckpt: str, cols: int) -> None:
+    """Leg b's child: the default selector with a sweep checkpoint at
+    ``ckpt`` on SO_ROWS + SO_HOLDOUT rows (the process is killed at the
+    ``sweep.checkpoint`` fault point its TMOG_FAULTS arms)."""
+    train, _, _ = make_datasets(SO_ROWS, SO_HOLDOUT, cols)
+    selector = BinaryClassificationModelSelector.with_cross_validation() \
+        .with_sweep_checkpoint(ckpt)
+    pred, _ = _selector_pipeline(cols, selector)
+    OpWorkflow().set_result_features(pred).set_input_data(train).train()
+    print(json.dumps({"child": "finished without the kill"}), flush=True)
+
+
+def _so_fold_values(selector) -> list:
+    return [r["foldValues"] for r in
+            selector.metadata["model_selector_summary"]["validationResults"]]
+
+
+def _so_leg_b(cols: int, tmp: str):
+    """Leg b: a child killed at ``sweep.checkpoint``, the resume, the
+    uninterrupted synchronous sweep, and a checkpoint of another grid."""
+    from transmogrifai_tpu_torch.workflow.checkpoint import (
+        SWEEP_CHECKPOINT_JSON, CheckpointMismatchError)
+
+    data_b = make_datasets(SO_ROWS, SO_HOLDOUT, cols)
+    ckpt = os.path.join(tmp, "sweep")
+    env = dict(os.environ, TMOG_FAULTS=json.dumps({"faults": [{
+        "point": "sweep.checkpoint", "action": "kill", "at": SO_KILL_AT}]}))
+    env.pop("TMOG_SYNC_SWEEP", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--sweep-child", ckpt, "--cols", str(cols)],
+                          env=env, capture_output=True, text=True,
+                          timeout=900)
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == -9, f"selector_options: the sweep child was "
+                                 f"not killed (exit {proc.returncode}): "
+                                 f"{proc.stderr[-2000:]}")
+    with open(os.path.join(ckpt, SWEEP_CHECKPOINT_JSON)) as f:
+        saved = len(json.load(f)["units"])
+    other_dir = os.path.join(tmp, "other")
+    os.makedirs(other_dir)
+    shutil.copy(os.path.join(ckpt, SWEEP_CHECKPOINT_JSON), other_dir)
+    other = BinaryClassificationModelSelector.with_cross_validation(
+        models_and_parameters=[(OpLogisticRegression(),
+                                grid(reg_param=[0.001, 0.01]))]) \
+        .with_sweep_checkpoint(other_dir)
+    mismatch = None
+    try:
+        other._sweep_checkpoint(other._candidates(), SO_ROWS)
+    except CheckpointMismatchError as e:
+        mismatch = str(e).split("differing keys:")[-1].strip().splitlines()
+
+    resumed_sel = BinaryClassificationModelSelector.with_cross_validation() \
+        .with_sweep_checkpoint(ckpt)
+    pred, checked = _selector_pipeline(cols, resumed_sel)
+    model, resume_s, resume_launches = _train_counted(
+        OpWorkflow().set_result_features(pred).set_input_data(data_b[0]))
+    restored = resumed_sel.metadata["sweep_checkpoint"]["restoredUnits"]
+    X = model.train_data[checked.name].values
+    y = np.asarray(data_b[0]["label"].values, np.float32)
+    del model
+
+    os.environ["TMOG_SYNC_SWEEP"] = "1"
+    try:
+        ref_sel = BinaryClassificationModelSelector.with_cross_validation()
+        pred, _ = _selector_pipeline(cols, ref_sel)
+        _, ref_s, ref_launches = _train_counted(
+            OpWorkflow().set_result_features(pred).set_input_data(
+                data_b[0]))
+    finally:
+        del os.environ["TMOG_SYNC_SWEEP"]
+    a, b = _so_fold_values(resumed_sel), _so_fold_values(ref_sel)
+    worst = max(abs(u - v) for fa, fb in zip(a, b) for u, v in zip(fa, fb))
+    ra = resumed_sel.metadata["model_selector_summary"]
+    rb = ref_sel.metadata["model_selector_summary"]
+    out = {"leg": "b", "rows": SO_ROWS, "child_s": child_s,
+           "kill_at_save": SO_KILL_AT, "units_saved_by_child": saved,
+           "units_restored": restored,
+           "units_refit": len(a) - restored, "resume_s": resume_s,
+           "sync_reference_s": ref_s,
+           "winner": ra["bestModelType"], "winner_params":
+               ra["bestModelParams"],
+           "reference_winner": rb["bestModelType"],
+           "max_fold_metric_diff": worst, "bitwise_equal": a == b,
+           "mismatch_diff": mismatch,
+           "reference_sweep_seconds": ref_sel.metadata["sweep_seconds"]}
+    check(saved == SO_KILL_AT + 1 and restored == saved,
+          f"selector_options: {saved} units saved, {restored} restored")
+    check((ra["bestModelType"], ra["bestModelParams"]) ==
+          (rb["bestModelType"], rb["bestModelParams"]),
+          "selector_options: the resumed sweep's winner differs from the "
+          "uninterrupted sweep's")
+    check(worst <= SO_METRIC_TOL, f"selector_options: resumed fold metrics "
+                                  f"differ by {worst}")
+    check(mismatch is not None and "candidates" in mismatch[0],
+          f"selector_options: another grid's checkpoint did not raise a "
+          f"mismatch naming the candidates: {mismatch}")
+    return out, resume_launches + ref_launches, X, y
+
+
+def _so_validate(sel, X, y, elastic=None):
+    w = np.ones(len(y), np.float32)
+    t0 = time.perf_counter()
+    best, res = sel.validator.validate(
+        sel._candidates(with_groups=False), X, y, w, eval_fn=sel._metric,
+        metric_name=sel.validation_metric, larger_better=sel.larger_better,
+        elastic=elastic)
+    torch.cuda.synchronize()
+    return best, res, time.perf_counter() - t0
+
+
+def _so_leg_c(X: torch.Tensor, y: np.ndarray, sweep_seconds: dict):
+    """Leg c: the device-loss ladder and the straggler watchdog on leg
+    b's checked matrix, an LR grid and one forest, one fit a unit."""
+    from transmogrifai_tpu_torch.tuning.costmodel import (CostModel,
+                                                          StageObservation)
+    from transmogrifai_tpu_torch.utils import faults
+
+    def selector():
+        return ModelSelector(
+            [(OpLogisticRegression(), grid(reg_param=[0.001, 0.01, 0.1,
+                                                      0.2])),
+             (OpRandomForestClassifier(num_trees=SO_C_TREES),
+              [{"max_depth": 6}])],
+            problem_type="binary",
+            validator=OpCrossValidation(num_folds=3, stratify=True))
+
+    n, d = X.shape
+    gk.seg_level_hists.launches = 0
+    best0, ref, ref_s = _so_validate(selector(), X, y)
+    runs = {}
+    for name, spec in (
+            ("one_loss", faults.FaultSpec(point="device.loss",
+                                          action="device_loss", at=1,
+                                          times=1)),
+            ("persistent_loss", faults.FaultSpec(
+                point="device.loss", action="device_loss", at=4,
+                times=None))):
+        sel = selector()
+        ctx = sel._elastic_context(n, d, 5, "cuda")
+        with faults.inject(spec):
+            best, res, secs = _so_validate(sel, X, y, ctx)
+        runs[name] = (best, res, ctx.counters.to_json(), secs)
+    # the watchdog: a cost model fitted on leg b's group walls on this card
+    cm = CostModel().fit([
+        StageObservation("ModelSelector:fit", n, d, "float32", "cuda",
+                         sweep_seconds["LogRegGridGroup"]),
+        StageObservation("RandomForest:fit-grid", n, d, "float32", "cuda",
+                         sweep_seconds["RFGridGroup"])])
+    sel = selector().with_watchdog(SO_WATCHDOG_FACTOR, cost_model=cm)
+    ctx = sel._elastic_context(n, d, 5, "cuda")
+    deadline = ctx.unit_deadline_s
+    with faults.inject(faults.FaultSpec(
+            point="unit.slow", action="slow", at=1, times=2,
+            delay_s=SO_SLOW_FACTOR * deadline)):
+        best, res, secs = _so_validate(sel, X, y, ctx)
+    runs["watchdog"] = (best, res, ctx.counters.to_json(), secs)
+    launches = gk.seg_level_hists.launches
+
+    # the prefetch thread joined after a loss, through fit_columns
+    sel = selector()
+    drains = []
+    drain = sel._drain_tree_prefetch
+
+    def recording_drain(*a, **k):
+        t = sel._prep_thread
+        drain(*a, **k)
+        drains.append(t is None or not t.is_alive())
+
+    sel._drain_tree_prefetch = recording_drain
+    gk.seg_level_hists.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        with faults.inject(faults.FaultSpec(point="device.loss",
+                                            action="device_loss", at=0,
+                                            times=1)):
+            sel.fit_columns(None, FeatureColumn.from_values(
+                ft.RealNN, y.astype(np.float64)),
+                FeatureColumn(ft.OPVector, X))
+    launches += gk.seg_level_hists.launches
+
+    def diff(res):
+        return max((abs(u - v) for a, b in zip(res, ref) if a.error is None
+                    for u, v in zip(a.fold_values, b.fold_values)),
+                   default=0.0)
+
+    out = {"leg": "c", "units": 5, "reference_s": ref_s,
+           "watchdog_deadline_s": deadline,
+           "slow_delay_s": SO_SLOW_FACTOR * deadline,
+           "prefetch": sel.metadata.get("tree_prefetch"),
+           "prefetch_drains_joined": drains,
+           "prefetch_elastic": sel.metadata["elastic"]}
+    for name, (best, res, counters, secs) in runs.items():
+        out[name] = {"seconds": secs, "counters": counters,
+                     "errors": [r.error for r in res],
+                     "winner_index": best, "max_fold_metric_diff": diff(res)}
+    one, per, wd = runs["one_loss"], runs["persistent_loss"], runs["watchdog"]
+    check(one[2]["retries"] == 1 and one[2]["quarantined"] == 0
+          and all(r.error is None for r in one[1]) and one[0] == best0
+          and diff(one[1]) <= SO_METRIC_TOL,
+          f"selector_options: one device loss {out['one_loss']}")
+    check(per[2]["quarantined"] == 1 and per[1][4].error.startswith(
+        "failed: device_loss") and sum(r.error is not None
+                                       for r in per[1]) == 1,
+          f"selector_options: persistent loss {out['persistent_loss']}")
+    check(wd[2]["watchdogFires"] == 2 and wd[2]["retries"] == 1
+          and wd[2]["quarantined"] == 1 and wd[1][1].error.startswith(
+              "failed: straggler")
+          and sum(r.error is not None for r in wd[1]) == 1,
+          f"selector_options: watchdog {out['watchdog']}")
+    check(sel.metadata["elastic"]["deviceLosses"] == 1 and drains
+          and all(drains) and sel._prep_thread is None
+          and (sel.metadata.get("tree_prefetch") or {}).get("joined"),
+          f"selector_options: the prefetch thread after a loss: {drains}, "
+          f"{sel.metadata.get('tree_prefetch')}")
+    return out, launches
+
+
+def _so_leg_d():
+    """Leg d: the Titanic demo with the default selector under workflow
+    CV on SO_ROWS + SO_HOLDOUT rows, and a plain train of it."""
+    from transmogrifai_tpu_torch.workflow.dag import cut_dag_cv
+
+    train, hold, p_hold, _ = titanic_data(SO_ROWS, SO_HOLDOUT)
+    out = {"leg": "d", "rows": SO_ROWS}
+    launches = 0
+    for mode in ("workflow_cv", "plain"):
+        pred, _, _, selector = build_titanic(
+            selector=BinaryClassificationModelSelector.with_cross_validation())
+        wf = OpWorkflow().set_result_features(pred).set_input_data(train)
+        if mode == "workflow_cv":
+            cut = cut_dag_cv(compute_dag([pred]))
+            during = sorted({type(s).__name__
+                             for s in cut.during.all_stages()})
+            wf = wf.with_workflow_cv()
+        model, train_s, n = _train_counted(wf)
+        launches += n
+        _, metrics = model.score_and_evaluate(
+            Evaluators.BinaryClassification.auPR(), data=hold)
+        summ = selector.metadata["model_selector_summary"]
+        out[mode] = {"train_s": train_s, "seg_hist_launches": n,
+                     "holdout_aupr": float(metrics["AuPR"]),
+                     "winner": summ["bestModelType"],
+                     "winner_params": summ["bestModelParams"],
+                     "growers_hist_levels": selector.metadata["hist_levels"]}
+        if mode == "workflow_cv":
+            out["during_stages"] = during
+            out["workflow_cv_results"] = len(
+                selector.metadata["workflow_cv_results"])
+    gap = abs(out["workflow_cv"]["holdout_aupr"]
+              - out["plain"]["holdout_aupr"])
+    out["aupr_gap"] = gap
+    check("SanityChecker" in out["during_stages"],
+          f"selector_options: SanityChecker not in the during-DAG "
+          f"{out['during_stages']}")
+    check(out["workflow_cv_results"] == 26,
+          f"selector_options: {out['workflow_cv_results']} workflow CV "
+          f"results, not 26")
+    check(gap <= SO_CV_AUPR_GAP, f"selector_options: workflow CV AuPR "
+                                 f"differs from the plain train's by {gap}")
+    return out, launches
+
+
+def phase_selector_options(data, full_aupr: float, cols: int, reps: int,
+                           bw: float, f32: float) -> Tuple[dict, dict]:
+    """The selector options on the card (the module docstring's phase 4b):
+    legs a (halving at full size), b (checkpoint, kill, resume), c (the
+    elastic ladder and the watchdog) and d (workflow CV), each printed as
+    a ``selector_options`` line, then the ``seg_hist`` line of the halving
+    rung-0 forest's widest level.  Returns the phase's summary and that
+    line."""
+    phase_t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tmog_sweep_")
+    try:
+        t0 = time.perf_counter()
+        a, level = _so_leg_a(data, cols, full_aupr, reps, bw, f32)
+        a["leg_s"] = time.perf_counter() - t0
+        emit(dict(phase="selector_options", **a))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        b, b_launches, X, y = _so_leg_b(cols, tmp)
+        b["leg_s"] = time.perf_counter() - t0
+        emit(dict(phase="selector_options", **b))
+        t0 = time.perf_counter()
+        c, c_launches = _so_leg_c(X, y, b["reference_sweep_seconds"])
+        c["leg_s"] = time.perf_counter() - t0
+        emit(dict(phase="selector_options", **c))
+        del X
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        d, d_launches = _so_leg_d()
+        d["leg_s"] = time.perf_counter() - t0
+        emit(dict(phase="selector_options", **d))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(level)
+    out = {"phase": "selector_options_summary",
+           "seconds": time.perf_counter() - phase_t0,
+           "seg_hist_launches": (a["seg_hist_launches"] + b_launches
+                                 + c_launches + d_launches),
+           "launches_by_leg": {"a": a["seg_hist_launches"], "b": b_launches,
+                               "c": c_launches, "d": d_launches}}
+    emit(out)
+    return out, level
+
+
 def _softmax_np(z: np.ndarray) -> np.ndarray:
     e = np.exp(z - z.max(axis=1, keepdims=True))
     return e / e.sum(axis=1, keepdims=True)
@@ -4331,7 +4869,7 @@ def phase_multiclass(data, cols: int, reps: int, bw: float,
 
 # ---------------------------------------------------------------------------
 # the boosted_multi phase: the general grower (softmax boosting, decision
-# trees, count-gated and subsampled boosting) at 1M + 100k rows
+# trees, count-gated and subsampled boosting) at 500k + 50k rows
 # ---------------------------------------------------------------------------
 
 def _softmax_check(X: torch.Tensor, y: np.ndarray, est, fold) -> dict:
@@ -4832,8 +5370,8 @@ def _fit_row(est, X, y, Xh, yh) -> Tuple[object, dict]:
 
 
 # ---------------------------------------------------------------------------
-# the xgb_wide phase: BASELINE.md config 5, XGBoost on 1M x 2000 wide sparse
-# rows
+# the xgb_wide phase: BASELINE.md config 5, XGBoost on wide sparse rows
+# (500k x 2000 in the smoke)
 # ---------------------------------------------------------------------------
 
 def make_sparse_data(rows: int, cols: int, density: float = 0.05,
@@ -4887,9 +5425,9 @@ def _wide_seg_rows(binned, goss, reps: int, bw: float, f32: float,
 
 def phase_xgb_wide(rows: int, hold: int, reps: int, bw: float, f32: float,
                    smem_bw: float) -> dict:
-    """BASELINE.md config 5 on the card: ``make_sparse_data``'s 1.1M x
-    2000 rows at 5% density (the first 1M to train, the last 100 000
-    held out), one ``OpXGBoostClassifier`` at the reference's defaults
+    """BASELINE.md config 5 on the card: ``make_sparse_data``'s
+    ``rows + hold`` x 2000 rows at 5% density (the first ``rows`` to
+    train, the last ``hold`` held out), one ``OpXGBoostClassifier`` at the reference's defaults
     through ``fit_raw``, as ``bench_xgb_wide.run`` fits it; the CSR leg
     (two depth-6 fits with and without ``TMOG_SPARSE_HIST=1``, trees and
     AuPR compared, two rounds of each leg's levels held against the plain
@@ -5167,12 +5705,8 @@ def phase_glm_isotonic(data, served: dict) -> dict:
     dev = torch.device("cuda")
     cols = len([k for k in train.columns if k.startswith("f")])
 
-    def matrix(ds):
-        return torch.from_numpy(np.stack(
-            [np.asarray(ds[f"f{j}"].values, np.float32)
-             for j in range(cols)], 1)).to(dev)
-
-    X, Xh = matrix(train), matrix(hold)
+    names = [f"f{j}" for j in range(cols)]
+    X, Xh = (_device_matrix(ds, names, dev) for ds in (train, hold))
     rng = np.random.default_rng(GLM_SEED)
     beta = np.zeros(cols, np.float32)
     beta[rng.choice(cols, GLM_INFORMATIVE, replace=False)] = rng.normal(
@@ -5406,7 +5940,7 @@ def _serve_model(m: dict, rows: list, tmp: str) -> dict:
     score_s = time.perf_counter() - t0
     bitwise_holdout = bool(torch.equal(proba, m["proba"]))
 
-    # 10k holdout rows through a CSV file, floats written by repr
+    # CSV_ROWS holdout rows through a CSV file, floats written by repr
     n_csv = min(CSV_ROWS, len(hold))
     names = [n for n in hold.names()]
     csv_path = os.path.join(tmp, f"{name}.csv")
@@ -5737,7 +6271,7 @@ def main() -> int:
     ap.add_argument("--holdout", type=int, default=100_000)
     ap.add_argument("--cols", type=int, default=500)
     ap.add_argument("--rounds", type=int, default=FULL_ROUNDS)
-    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--reps", type=int, default=10)
     # the out_of_core phase runs each leg-a train in a child of its own
     ap.add_argument("--ooc-child", choices=["in_core", "chunked"],
                     help=argparse.SUPPRESS)
@@ -5751,6 +6285,8 @@ def main() -> int:
     ap.add_argument("--events-holdout", help=argparse.SUPPRESS)
     ap.add_argument("--events-chunk-rows", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--events-out", help=argparse.SUPPRESS)
+    # the selector_options phase's leg b runs a sweep in a child it kills
+    ap.add_argument("--sweep-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs one",
@@ -5761,12 +6297,17 @@ def main() -> int:
         ooc_child(args.ooc_train, args.ooc_holdout, args.ooc_child,
                   args.ooc_chunk_rows)
         return 0
+    if args.sweep_child:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sweep_child(args.sweep_child, args.cols)
+        return 0
     if args.events_child:
         torch.backends.cuda.matmul.allow_tf32 = False
         events_child(args.events_train, args.events_holdout,
                      args.events_child, args.events_chunk_rows,
                      args.events_out)
         return 0
+    faulthandler.dump_traceback_later(STACKS_AT_S, exit=False)
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     if name != CARD:
@@ -5786,25 +6327,36 @@ def main() -> int:
                             f"(nvidia-smi clocks.max.sm)",
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    phase_build()
-    phase_tree(dev)
+    # the slice's data is drawn on a host thread while nvcc builds the
+    # kernel (the build waits on a subprocess; numpy's draws drop the GIL)
+    with ThreadPoolExecutor(1) as pool:
+        made = pool.submit(make_datasets, args.rows, args.holdout, args.cols)
+        phase_build()
+        phase_tree(dev)
+        data = made.result()
     torch.cuda.empty_cache()
-    data = make_datasets(args.rows, args.holdout, args.cols)
     sl, xgb = phase_slice(data, args.cols, args.rounds)
     torch.cuda.empty_cache()
     sel, lr = phase_selector(data, args.cols)
     torch.cuda.empty_cache()
-    reg = phase_regression(data, args.cols)
+    options, _ = phase_selector_options(data, sel["holdout_aupr"], args.cols,
+                                        args.reps, bw, f32)
+    torch.cuda.empty_cache()
+    reg = phase_regression(_rows_cut(data, MODEL_DEPTH_CUT), args.cols)
     torch.cuda.empty_cache()
     tdata = titanic_data(args.rows, args.holdout)
     titanic = phase_titanic(tdata, args.reps, bw, f32, smem_bw)
     torch.cuda.empty_cache()
-    validate = phase_validate_explain(tdata, data, xgb, args.cols)
+    validate = phase_validate_explain(_depth_cut(tdata, VE_DEPTH_CUT), data,
+                                      xgb, args.cols)
     torch.cuda.empty_cache()
-    feature_eng = phase_feature_eng(tdata, args.reps, bw, f32)
+    feature_eng = phase_feature_eng(_depth_cut(tdata, FE_DEPTH_CUT),
+                                    args.reps, bw, f32)
     del tdata
     torch.cuda.empty_cache()
-    avro = phase_avro_combined(data, sel["holdout_aupr"], args.reps, bw, f32)
+    avro = phase_avro_combined(data, sel["holdout_aupr"], args.reps, bw, f32,
+                               rows=args.rows // AVRO_DEPTH_CUT,
+                               holdout=args.holdout // AVRO_DEPTH_CUT)
     torch.cuda.empty_cache()
     ooc = phase_out_of_core(args.rows // OOC_DEPTH_CUT,
                             args.holdout // OOC_DEPTH_CUT, args.reps, bw, f32)
@@ -5813,16 +6365,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     app = phase_app()
     torch.cuda.empty_cache()
-    multi, mc = phase_multiclass(data, args.cols, args.reps, bw, f32)
+    model_data = _rows_cut(data, MODEL_DEPTH_CUT)
+    multi, mc = phase_multiclass(model_data, args.cols, args.reps, bw, f32)
     torch.cuda.empty_cache()
-    boosted = phase_boosted_multi(mc, data, args.cols, args.reps, bw, f32,
-                                  smem_bw)
+    boosted = phase_boosted_multi(mc, model_data, args.cols, args.reps, bw,
+                                  f32, smem_bw)
+    del model_data
     del mc
     torch.cuda.empty_cache()
     phase_glm_isotonic(data, xgb)
     torch.cuda.empty_cache()
-    wide = phase_xgb_wide(args.rows, args.holdout, args.reps, bw, f32,
-                          smem_bw)
+    wide = phase_xgb_wide(args.rows // MODEL_DEPTH_CUT,
+                          args.holdout // MODEL_DEPTH_CUT, args.reps, bw,
+                          f32, smem_bw)
     torch.cuda.empty_cache()
     phase_iris(args.rows, args.holdout)
     torch.cuda.empty_cache()
@@ -5864,6 +6419,7 @@ def main() -> int:
         "name": "seg_hist", "route": "cuda", "source": SEG_HIST_SOURCE,
         "replaces": SEG_HIST_REPLACES,
         "launches": (sl["seg_hist_launches"] + sel["seg_hist_launches"]
+                     + options["seg_hist_launches"]
                      + reg["seg_hist_launches_total"]
                      + titanic["seg_hist_launches"]
                      + titanic["efb_launches"]
@@ -5881,6 +6437,7 @@ def main() -> int:
         "bound_ms": mean("bound_ms"), "bound_by": levels[-1]["bound_by"],
         "library_ms": mean("library_ms")}]})
     print(_smi("name,power.limit"), flush=True)
+    faulthandler.cancel_dump_traceback_later()
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -209,3 +209,199 @@ def test_selector_counts_binnings():
     assert fits[0]["binnings_built"] == 1
     assert sel.metadata["tree_binnings"]["binnings"] == 1
     assert sel.metadata["tree_binnings"]["binning_hits"] >= 12
+
+
+# -- the in-flight dedupe and the tree-prep prefetch thread -----------------
+
+def _concurrently(*fns):
+    import threading
+
+    out = [None] * len(fns)
+    errs = []
+
+    def run(i, fn):
+        try:
+            out[i] = fn()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errs.append(e)
+
+    ts = [threading.Thread(target=run, args=(i, fn))
+          for i, fn in enumerate(fns)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(30)
+    return out, errs
+
+
+def test_two_threads_on_one_key_build_once():
+    import threading
+    import time
+
+    X = torch.zeros(10, 2)
+    builds = []
+    started = threading.Event()
+
+    def build():
+        builds.append(1)
+        started.set()
+        time.sleep(0.3)
+        return torch.ones(3)
+
+    def second():
+        started.wait(5)
+        return ttr.memo_get(X, "probe", (1,), build)
+
+    out, errs = _concurrently(
+        lambda: ttr.memo_get(X, "probe", (1,), build), second)
+    assert not errs and len(builds) == 1
+    assert out[0] is out[1]
+
+
+def test_a_failed_owner_lets_the_waiter_build():
+    import threading
+    import time
+
+    X = torch.zeros(10, 2)
+    started = threading.Event()
+    calls = []
+
+    def failing():
+        calls.append("owner")
+        started.set()
+        time.sleep(0.3)
+        raise RuntimeError("owner's build failed")
+
+    def waiter():
+        started.wait(5)
+        return ttr.memo_get(X, "probe", (2,), lambda: (calls.append(
+            "waiter"), torch.full((2,), 7.0))[1])
+
+    out, errs = _concurrently(
+        lambda: ttr.memo_get(X, "probe", (2,), failing), waiter)
+    assert [str(e) for e in errs] == ["owner's build failed"]
+    assert calls == ["owner", "waiter"]
+    assert torch.equal(out[1], torch.full((2,), 7.0))
+    assert not ttr._MEMO_INFLIGHT
+
+
+def test_a_clear_during_a_build_drops_its_insert():
+    X = torch.zeros(10, 2)
+
+    def build():
+        ttr.clear_sweep_caches()   # a train ends while the build runs
+        return torch.ones(1)
+
+    val = ttr.memo_get(X, "probe", (3,), build)
+    assert torch.equal(val, torch.ones(1)) and len(ttr._MEMO) == 0
+    # the next build of the key is inserted
+    ttr.memo_get(X, "probe", (3,), lambda: torch.ones(1))
+    assert len(ttr._MEMO) == 1
+
+
+def _prefetch_selector():
+    from transmogrifai_tpu_torch.models.classification import \
+        OpLogisticRegression
+    from transmogrifai_tpu_torch.selector.model_selector import (
+        ModelSelector, grid)
+    from transmogrifai_tpu_torch.selector.validators import \
+        OpCrossValidation
+
+    return ModelSelector(
+        [(OpLogisticRegression(), grid(reg_param=[0.01, 0.1])),
+         (ttr.OpRandomForestClassifier(num_trees=4, seed=3),
+          [{"max_depth": 3}, {"max_depth": 4}])],
+        problem_type="binary",
+        validator=OpCrossValidation(num_folds=2, stratify=True))
+
+
+def _fit_selector(sel, X, y):
+    from transmogrifai_tpu_torch.types import feature_types as ft
+    from transmogrifai_tpu_torch.types.columns import FeatureColumn
+
+    return sel.fit_columns(None, FeatureColumn.from_values(
+        ft.RealNN, y.astype(np.float64)), FeatureColumn(ft.OPVector, X))
+
+
+def test_prefetch_drained_after_a_fit(monkeypatch):
+    """The prefetch thread builds the forests' binning (the group then
+    finds it in the memo) and is joined by the end of the fit."""
+    from transmogrifai_tpu_torch.selector.model_selector import ModelSelector
+    from transmogrifai_tpu_torch.utils.profiling import (MetricsCollector,
+                                                         install_collector)
+
+    monkeypatch.setattr(ModelSelector, "_PREFETCH_MIN_ELEMS", 0)
+    X, y = _data(n=400, d=6, seed=13)
+    sel = _prefetch_selector()
+    built = STATS["binnings"]
+    coll = MetricsCollector()
+    with install_collector(coll):
+        _fit_selector(sel, X, y)
+    assert sel._prep_thread is None
+    assert sel.metadata["tree_prefetch"]["joined"] is True
+    assert sel.metadata["tree_prefetch"]["seconds"] >= 0
+    assert "prefetchTreePrepSecs" in coll.metrics.custom_tags
+    assert STATS["binnings"] - built == 1      # one binning, shared
+
+
+def test_prefetch_drained_on_an_injected_device_loss(monkeypatch):
+    """A device loss in the LR group fires the elastic shrink hook, which
+    joins the prefetch thread before the members re-run; the fit ends
+    with no thread alive."""
+    from transmogrifai_tpu_torch.selector.model_selector import ModelSelector
+    from transmogrifai_tpu_torch.utils import faults
+
+    monkeypatch.setattr(ModelSelector, "_PREFETCH_MIN_ELEMS", 0)
+    X, y = _data(n=400, d=6, seed=14)
+    sel = _prefetch_selector()
+    seen = []
+    drain = sel._drain_tree_prefetch
+
+    def recording_drain(*a, **k):
+        t = sel._prep_thread
+        drain(*a, **k)
+        seen.append(t is None or not t.is_alive())
+
+    monkeypatch.setattr(sel, "_drain_tree_prefetch", recording_drain)
+    with pytest.warns(RuntimeWarning, match="falling back"):
+        with faults.inject(faults.FaultSpec(
+                point="device.loss", action="device_loss", at=1, times=1)):
+            _fit_selector(sel, X, y)
+    assert sel.metadata["elastic"]["deviceLosses"] == 1
+    assert sel.metadata["elastic"]["retries"] == 1
+    assert len(seen) >= 2 and all(seen)
+    assert sel._prep_thread is None
+
+
+def test_memo_under_thread_contention():
+    """24 threads, more than the cores, over 6 keys of one matrix with a
+    short switch interval: every key is built exactly once and every
+    caller gets that build's value (a lost update or a double build would
+    break it)."""
+    import sys
+    import threading
+
+    X = torch.zeros(10, 2)
+    builds: dict = {}
+    lock = threading.Lock()
+
+    def builder(k):
+        def build():
+            with lock:
+                builds[k] = builds.get(k, 0) + 1
+            return torch.full((1,), float(k))
+        return build
+
+    got = []
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        out, errs = _concurrently(*[
+            (lambda k=i % 6: ttr.memo_get(X, "stress", (k,), builder(k)))
+            for i in range(24)])
+        got = [float(v) for v in out]
+    finally:
+        sys.setswitchinterval(old)
+    assert not errs
+    assert builds == {k: 1 for k in range(6)}
+    assert got == [float(i % 6) for i in range(24)]

@@ -393,8 +393,9 @@ def test_not_ported_options_raise():
                          (dict(tuner=object()), "6.5")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             wf.train(**kwargs)
-    with pytest.raises(NotImplementedError, match="item 6.4"):
-        OpWorkflow().with_workflow_cv()
+    with pytest.raises(NotImplementedError, match="item 6.5"):
+        OpWorkflow().set_result_features(pred).set_input_data(
+            train).with_workflow_cv().train(chunk_rows=8)
     with pytest.raises(NotImplementedError, match="item 6.7"):
         OpWorkflow().with_mesh(object())
     with pytest.raises(ValueError, match="chunk_rows"):

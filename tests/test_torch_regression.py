@@ -781,24 +781,28 @@ def test_no_card_raises(entry, monkeypatch):
 
 def test_selector_refuses_what_is_not_ported():
     """A problem type outside binary, multiclass and regression raises;
-    the regression and multiclass selectors' dispatch options raise as
-    the binary one's do."""
+    the regression and multiclass selectors refuse a sweep mesh as the
+    binary one does, and accept the other selector options."""
     from transmogrifai_tpu_torch.selector.model_selector import \
         MultiClassificationModelSelector
 
     with pytest.raises(NotImplementedError):
         ModelSelector([], problem_type="forecast")
-    for kw in (dict(parallelism=8), dict(parallel=2)):
+    for kw in (dict(parallel="auto"), dict(parallel=object())):
         with pytest.raises(NotImplementedError):
             MultiClassificationModelSelector.with_cross_validation(**kw)
         with pytest.raises(NotImplementedError):
             MultiClassificationModelSelector.with_train_validation_split(**kw)
-    for kw in (dict(parallelism=8), dict(max_wait=1.0), dict(parallel=2),
-               dict(strategy="halving"), dict(watchdog=2.0)):
         with pytest.raises(NotImplementedError):
             RegressionModelSelector.with_cross_validation(**kw)
         with pytest.raises(NotImplementedError):
             RegressionModelSelector.with_train_validation_split(**kw)
+    for kw in (dict(parallelism=8), dict(max_wait=1.0), dict(parallel=1),
+               dict(strategy="halving"), dict(watchdog=2.0)):
+        for make in (RegressionModelSelector.with_cross_validation,
+                     RegressionModelSelector.with_train_validation_split,
+                     MultiClassificationModelSelector.with_cross_validation):
+            make(**kw)
     sel = RegressionModelSelector.with_cross_validation()
     assert sel.validation_metric == "RootMeanSquaredError"
     assert not sel.larger_better and not sel.validator.stratify

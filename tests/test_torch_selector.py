@@ -409,29 +409,39 @@ def test_balancer_weights_regime():
                                atol=1e-5)
 
 
-def test_dropped_options_raise():
-    """What the port's selector leaves out raises instead of being
-    ignored."""
+def test_dropped_options_raise(monkeypatch):
+    """What the port's selector still leaves out raises, naming its
+    ROADMAP item; the selector options it has are accepted and kept."""
     from transmogrifai_tpu_torch.selector.model_selector import ModelSelector
     from transmogrifai_tpu_torch.selector.validators import OpCrossValidation
 
     mk = BinaryClassificationModelSelector.with_cross_validation
     for kw in (dict(max_wait=10.0), dict(strategy="halving"),
-               dict(parallel=2), dict(watchdog=3.0), dict(parallelism=8)):
-        with pytest.raises(NotImplementedError):
-            mk(**kw)
+               dict(parallel=1), dict(parallel=2), dict(watchdog=3.0),
+               dict(parallelism=8)):
+        sel = mk(**kw)
+        for k, v in kw.items():
+            assert getattr(sel, k, getattr(sel.validator, k, None)) == v
+    assert mk().validator.parallelism == 8
+    with pytest.raises(NotImplementedError, match="item 6.5"):
+        mk(parallel="auto")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="item 6.7"):
+        mk(parallel=2)
+    assert mk(parallel=1).parallel == 1
+    monkeypatch.undo()
     with pytest.raises(ValueError):
         mk(strategy="fastest")
-    for kw in (dict(max_wait=1.0), dict(parallelism=4)):
-        with pytest.raises(NotImplementedError):
-            OpCrossValidation(**kw)
+    cv = OpCrossValidation(max_wait=1.0, parallelism=4)
+    assert (cv.max_wait, cv.parallelism) == (1.0, 4)
     with pytest.raises(NotImplementedError):
         ModelSelector([], problem_type="forecast")
     sel = mk()
-    for call in (lambda: sel.with_mesh(None), lambda: sel.with_watchdog(2.0),
-                 lambda: sel.with_sweep_checkpoint("ckpt")):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError, match="item 6.7"):
+        sel.with_mesh(None)
+    assert sel.with_watchdog(2.0) is sel and sel.watchdog == 2.0
+    assert sel.with_sweep_checkpoint("ckpt") is sel
+    assert sel.sweep_checkpoint_dir == "ckpt"
 
 
 _ISOLATED = r"""

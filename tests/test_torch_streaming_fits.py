@@ -20,7 +20,9 @@ Tolerances, and why:
  * naive Bayes: log likelihoods within 1e-5 of the JAX package's and of
    the in-core fit (float32 products summed in another order, on
    indicator and small integer columns);
- * ``streaming_bin_edges`` and ``quantile_bins_streaming``: bit-equal.
+ * ``streaming_bin_edges`` and ``quantile_bins_streaming``: bit-equal;
+ * the real vectorizer model's vector, filled in blocks of columns: equal
+   bit for bit to the JAX package's.
 """
 import numpy as np
 import pytest
@@ -173,6 +175,36 @@ def test_real_vectorizer():
     assert base["kind"] == "numeric" and base["n"] == pim[
         "drift_baseline"]["r1"]["n"]
     assert len(base["histCentroids"]) <= tv._BASELINE_BINS
+
+
+@pytest.mark.parametrize("block_elems", [1 << 24, 2 * N])
+@pytest.mark.parametrize("track_nulls", [True, False])
+def test_real_vectorizer_transform_blocks(monkeypatch, block_elems,
+                                          track_nulls):
+    """The model fills its columns in blocks (one block for a single row,
+    several for a tall matrix, a ragged last one): the vector equals the
+    JAX package's bitwise, infinities and NaN included."""
+    monkeypatch.setattr(tv.RealVectorizerModel, "_BLOCK_ELEMS", block_elems)
+    raw = _raw()
+    raw["r2"] = np.where(np.arange(N) % 17 == 3, np.inf, raw["r2"])
+    raw["r2"] = np.where(np.arange(N) % 19 == 4, -np.inf, raw["r2"])
+    names = ["r1", "r2", "i1"]
+    outs = []
+    for pkg, mod in ((PORT, tv), (JAX, jv)):
+        ds = _dataset(pkg, raw, names)
+        est = _wire(pkg, mod.RealVectorizer(track_nulls=track_nulls), names)
+        model = est.adopt_model(est.fit_columns(ds, *[ds[n] for n in names]))
+        outs.append(np.asarray(model.transform_columns(
+            *[ds[n] for n in names]).values))
+        for lo, hi in ((0, 1), (5, 6)):   # single rows, as requests send
+            part = ds.slice(lo, hi)
+            outs.append(np.asarray(model.transform_columns(
+                *[part[n] for n in names]).values))
+    half = len(outs) // 2
+    for p, j in zip(outs[:half], outs[half:]):
+        assert p.dtype == j.dtype == np.float32
+        np.testing.assert_array_equal(p, j)
+    assert outs[0].shape == (N, 3 * (2 if track_nulls else 1))
 
 
 def test_real_vectorizer_in_core_sample_strides(monkeypatch):

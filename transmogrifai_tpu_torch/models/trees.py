@@ -656,6 +656,11 @@ _MEMO: "OrderedDict" = OrderedDict()
 #: id of a matrix tensor -> (weak reference to it, its entries' keys)
 _MEMO_OWNERS: Dict[int, Tuple[weakref.ref, set]] = {}
 _MEMO_LOCK = threading.RLock()
+#: key -> threading.Event of a build in flight
+_MEMO_INFLIGHT: Dict[tuple, threading.Event] = {}
+#: bumped by ``clear_sweep_caches``: a build that began before a clear is
+#: not inserted after it
+_MEMO_GEN = [0]
 #: binnings built and binned matrices served from the memo (running
 #: counts; read differences)
 MEMO_STATS = {"binnings": 0, "binning_hits": 0}
@@ -682,44 +687,118 @@ def _drop_owner(oid: int, ref: weakref.ref, memo=_MEMO,
             del owners[oid]
 
 
+def _tensors_in(val) -> list:
+    """The tensors a memo value holds (itself, or those of a tuple)."""
+    if isinstance(val, torch.Tensor):
+        return [val]
+    if isinstance(val, (tuple, list)):
+        return [t for v in val for t in _tensors_in(v)]
+    return []
+
+
+def _ready_event(owner: torch.Tensor, val):
+    """A value built on a side CUDA stream (the tree-prep prefetch
+    thread's) is handed over with an event recorded after its build, and
+    its tensors are marked as used on the device's default stream, where
+    the sweep consumes them; None for anything else."""
+    if owner.device.type != "cuda":
+        return None
+    side = torch.cuda.current_stream(owner.device)
+    main = torch.cuda.default_stream(owner.device)
+    if side == main:
+        return None
+    for t in _tensors_in(val):
+        if t.is_cuda:
+            t.record_stream(main)
+    ev = torch.cuda.Event()
+    ev.record(side)
+    return ev
+
+
+def _handed(owner: torch.Tensor, entry):
+    """A memo entry's value, the current stream first made to wait for
+    its build where one was recorded."""
+    val, ev = entry
+    if ev is not None:
+        torch.cuda.current_stream(owner.device).wait_event(ev)
+    return val
+
+
+def _memo_probe(key, owner: torch.Tensor):
+    """The entry of ``key`` if it is ``owner``'s (call under the lock)."""
+    if key in _MEMO:
+        ref = _MEMO_OWNERS.get(id(owner))
+        if ref is not None and ref[0]() is owner:
+            _MEMO.move_to_end(key)
+            return _MEMO[key]
+    return None
+
+
 def memo_get(owner: torch.Tensor, tag: str, extra: tuple,
              build: Callable[[], object]):
     """The memoized value of ``build()`` for the tensor ``owner`` under
     ``tag`` and ``extra`` (hashable parameters of the build), built on a
     miss.  Entries go oldest first past ``_BIN_CACHE_CAPACITY`` and with
-    their owner tensor."""
+    their owner tensor.
+
+    Concurrent builders of one key build once (the selector's tree-prep
+    prefetch thread and the sweep's tree group may reach one prep
+    together): the first owns the build, a later one waits on the
+    owner's event and probes again; where the owner failed (or a clear
+    raced it), the waiter builds itself.  ``clear_sweep_caches`` bumps a
+    generation, and a build that began before a clear is not inserted."""
     key = (tag, _tensor_key(owner)) + tuple(extra)
     oid = id(owner)
     with _MEMO_LOCK:
-        if key in _MEMO:
-            ref = _MEMO_OWNERS.get(oid)
-            if ref is not None and ref[0]() is owner:
-                _MEMO.move_to_end(key)
-                return _MEMO[key]
-    val = build()
-    if _BIN_CACHE_CAPACITY <= 0:
-        return val
-    with _MEMO_LOCK:
-        while len(_MEMO) >= _BIN_CACHE_CAPACITY:
-            old, _ = _MEMO.popitem(last=False)
-            entry = _MEMO_OWNERS.get(old[1][0])
-            if entry is not None:
-                entry[1].discard(old)
-        entry = _MEMO_OWNERS.get(oid)
-        if entry is None or entry[0]() is not owner:
-            ref = weakref.ref(owner, lambda r, oid=oid: _drop_owner(oid, r))
-            entry = (ref, set())
-            _MEMO_OWNERS[oid] = entry
-        entry[1].add(key)
-        _MEMO[key] = val
+        hit = _memo_probe(key, owner)
+        if hit is not None:
+            return _handed(owner, hit)
+        flight = _MEMO_INFLIGHT.get(key)
+        owns = flight is None
+        if owns:
+            flight = threading.Event()
+            _MEMO_INFLIGHT[key] = flight
+        gen = _MEMO_GEN[0]
+    if not owns:
+        flight.wait()
+        with _MEMO_LOCK:
+            hit = _memo_probe(key, owner)
+        if hit is not None:
+            return _handed(owner, hit)
+    try:
+        val = build()
+        if _BIN_CACHE_CAPACITY > 0:
+            entry = (val, _ready_event(owner, val))
+            with _MEMO_LOCK:
+                # inserted before the waiters wake (they probe again)
+                if _MEMO_GEN[0] == gen:
+                    while len(_MEMO) >= _BIN_CACHE_CAPACITY:
+                        old, _ = _MEMO.popitem(last=False)
+                        held = _MEMO_OWNERS.get(old[1][0])
+                        if held is not None:
+                            held[1].discard(old)
+                    held = _MEMO_OWNERS.get(oid)
+                    if held is None or held[0]() is not owner:
+                        ref = weakref.ref(
+                            owner, lambda r, oid=oid: _drop_owner(oid, r))
+                        held = (ref, set())
+                        _MEMO_OWNERS[oid] = held
+                    held[1].add(key)
+                    _MEMO[key] = entry
+    finally:
+        if owns:
+            with _MEMO_LOCK:
+                _MEMO_INFLIGHT.pop(key, None)
+            flight.set()
     return val
 
 
 def clear_sweep_caches() -> None:
     """Release every memoized sketch, binned matrix, bundling plan and CSR
     (``OpWorkflow.train`` calls it at its end, as the JAX package's
-    does)."""
+    does); a build in flight is not inserted after it."""
     with _MEMO_LOCK:
+        _MEMO_GEN[0] += 1
         _MEMO.clear()
         _MEMO_OWNERS.clear()
 

@@ -298,23 +298,41 @@ class RealVectorizerModel(SequenceModel):
         self.track_nulls = track_nulls
         self.device = device
 
+    #: elements of the block of columns stacked on the host and filled on
+    #: the device at once: a single-row request fills every column in one
+    #: pass, a large matrix in blocks of columns
+    _BLOCK_ELEMS = 1 << 24
+
     def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
         dev = resolve_device(self.device)
-        n = len(cols[0])
+        n, k = len(cols[0]), len(cols)
         step = 2 if self.track_nulls else 1
-        out = torch.empty((n, len(cols) * step), dtype=torch.float32,
-                          device=dev)
-        meta = []
-        for j, (f, fill, c) in enumerate(zip(self.input_features, self.fills,
-                                             cols)):
-            vals = torch.from_numpy(np.asarray(c.values, np.float32)).to(dev)
-            m = torch.from_numpy(np.asarray(c.mask, bool)).to(dev)
-            row = torch.where(m, vals, float(np.float32(fill)))
+        out = torch.empty((n, k * step), dtype=torch.float32, device=dev)
+        fills = torch.from_numpy(np.asarray(self.fills, np.float32)).to(dev)
+        per = max(1, self._BLOCK_ELEMS // max(n, 1))
+        # a block is gathered column by column into contiguous host rows
+        # (a column-interleaved stack costs ~4x the copy) and turned to
+        # (rows, columns) on the device; each copy to the device is
+        # synchronous, so the buffers serve the next block
+        vals_h = np.empty((min(per, k), n), np.float32)
+        mask_h = np.empty((min(per, k), n), bool)
+        for lo in range(0, k, per):
+            blk = cols[lo:lo + per]
+            hi = lo + len(blk)
+            for i, c in enumerate(blk):
+                vals_h[i] = c.values
+                mask_h[i] = c.mask
+            vals = torch.from_numpy(vals_h[:len(blk)]).to(dev).T
+            m = torch.from_numpy(mask_h[:len(blk)]).to(dev).T
             # non-finite survivors: NaN -> 0, inf -> the float32 extremes
-            out[:, j * step] = torch.nan_to_num(row)
+            out[:, lo * step:hi * step:step] = torch.nan_to_num(
+                torch.where(m, vals, fills[lo:hi]))
+            if self.track_nulls:
+                out[:, lo * step + 1:hi * step:step] = (~m).to(torch.float32)
+        meta = []
+        for f in self.input_features:
             meta.append(VectorColumnMetadata(f.name, f.ftype.type_name()))
             if self.track_nulls:
-                out[:, j * step + 1] = (~m).to(torch.float32)
                 meta.append(VectorColumnMetadata(
                     f.name, f.ftype.type_name(),
                     indicator_value=NULL_INDICATOR))

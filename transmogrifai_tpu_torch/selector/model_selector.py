@@ -13,20 +13,31 @@ metrics are evaluated; everything lands in
 ``holdoutEvaluation`` (the JAX package keeps the evaluators and evaluates
 none of them).  ``RandomParamBuilder`` draws random-search grids.
 
-Not ported yet (ROADMAP Queue A): successive halving, the sweep mesh
-(``parallel=``, ``with_mesh``), the straggler watchdog, sweep
-checkpoints, workflow-level CV and the tree-prep prefetch thread.
+The selector's options: ``strategy="halving"`` (``tuning/halving.py``,
+with ``metadata["halving_schedule"]``), ``with_sweep_checkpoint`` (a
+mid-sweep cursor, ``workflow/checkpoint.py``), ``with_watchdog`` (the
+straggler watchdog over a fitted ``CostModel``), the device-loss retry
+ladder on every fit (``metadata["elastic"]``), ``parallel=1`` and
+``find_best_estimator`` (workflow-level CV).  A full sweep over a matrix
+of at least 2^24 elements builds the tree families' sketch and binning
+on a thread of its own, on its own CUDA stream, while the linear groups
+run (the sweep memo hands its result to the tree group).  Not ported
+yet: a sweep mesh (``parallel=k`` over several cards, ``with_mesh``:
+ROADMAP Queue A item 6.7) and ``parallel="auto"`` (item 6.5).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..evaluators.metrics import (MINIMIZE_METRICS, MULTICLASS_METRICS,
                                   aupr_device, auroc_device,
                                   binary_classification_metrics,
@@ -41,7 +52,7 @@ from ..models.regression import OpLinearRegression
 from ..models.trees import (MEMO_STATS, OpGBTRegressor,
                             OpRandomForestClassifier,
                             OpRandomForestRegressor, _GBTBase,
-                            _RandomForestBase)
+                            _RandomForestBase, prep_tree_inputs)
 from ..types.columns import ColumnarDataset, FeatureColumn
 from ..types.feature_types import Prediction, RealNN
 from .grid_groups import TreeGridGroup, make_grid_group
@@ -151,8 +162,9 @@ class ModelSelectorSummary:
         }
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A)")
+def _not_ported(what: str, item: str = "") -> NotImplementedError:
+    where = f"ROADMAP Queue A item {item}" if item else "ROADMAP Queue A"
+    return NotImplementedError(f"{what} is not ported yet ({where})")
 
 
 def _sync(dev: torch.device) -> None:
@@ -198,12 +210,6 @@ class ModelSelector(PredictorEstimator):
         if strategy not in ("full", "halving"):
             raise ValueError(f"unknown selector strategy {strategy!r}; "
                              f"expected 'full' or 'halving'")
-        if strategy == "halving" or halving is not None:
-            raise _not_ported("successive halving")
-        if parallel is not None:
-            raise _not_ported("the sweep mesh (parallel=)")
-        if watchdog is not None:
-            raise _not_ported("the straggler watchdog")
         self.models_and_params = list(models_and_params)
         self.problem_type = problem_type
         self.validator = validator or OpCrossValidation(
@@ -213,17 +219,220 @@ class ModelSelector(PredictorEstimator):
                                   or _DEFAULT_METRIC[problem_type])
         self.holdout_evaluators = list(holdout_evaluators)
         self.device = device
+        #: "full" fits every candidate; "halving" runs successive halving
+        #: (``halving``: a ``tuning.HalvingConfig``)
+        self.strategy = strategy
+        self.halving = halving
+        #: None, or a card count (``_resolve_parallel``)
+        self.parallel = parallel
+        self._resolve_parallel()
+        #: the straggler watchdog's deadline factor over the cost model's
+        #: prediction (None: off), and the model (None: the history's)
+        self.watchdog = watchdog
+        self.watchdog_cost_model = None
+        #: device-loss retries of a unit before it is quarantined
+        self.elastic_max_retries: int = 2
+        self.sweep_checkpoint_dir: Optional[str] = None
+        self.sweep_checkpoint_every: int = 1
+        #: the workflow-CV winner (``find_best_estimator``): the next fit
+        #: refits it without validating, and consumes it
+        self.best_estimator: Optional[Tuple[str, Dict[str, Any],
+                                            List[ValidationResult]]] = None
+        self._prep_thread: Optional[threading.Thread] = None
+        self._seq_levels, self._seq_trees, self._seq_fits = 0, 0, []
 
     def with_mesh(self, mesh) -> "ModelSelector":
-        raise _not_ported("the sweep mesh")
+        raise _not_ported("the sweep mesh", "6.7")
 
     def with_watchdog(self, factor: float,
                       cost_model=None) -> "ModelSelector":
-        raise _not_ported("the straggler watchdog")
+        """Arm the straggler watchdog: each sweep unit gets a deadline of
+        ``factor`` x the cost model's prediction of the sweep over the
+        queue width.  A unit past it is re-run with twice the deadline,
+        then quarantined as ``failed: straggler``.  Only a fitted tier
+        arms it (``cost_model``: the model to read; None: the history's
+        at ``TMOG_COST_HISTORY``)."""
+        self.watchdog = float(factor)
+        self.watchdog_cost_model = cost_model
+        return self
 
     def with_sweep_checkpoint(self, directory: str,
                               every_units: int = 1) -> "ModelSelector":
-        raise _not_ported("sweep checkpoints")
+        """Mid-sweep checkpoint and resume: the finished units' fold
+        metrics (and the halving rung state) persist atomically under
+        ``directory`` as the sweep advances; a re-run on the same
+        directory restores them and fits only the rest."""
+        self.sweep_checkpoint_dir = directory
+        self.sweep_checkpoint_every = int(every_units)
+        return self
+
+    def _resolve_parallel(self) -> None:
+        """``parallel``: None, or a card count clamped to the visible
+        cards; one card (or none) is the single-card sweep.  More cards
+        need a sweep mesh (ROADMAP Queue A item 6.7), and "auto" the cost
+        planner (item 6.5)."""
+        p = self.parallel
+        if p is None:
+            return
+        if p == "auto":
+            raise _not_ported('parallel="auto" (the cost planner)', "6.5")
+        if not isinstance(p, int):
+            raise _not_ported("a prebuilt sweep mesh (parallel=)", "6.7")
+        n = min(int(p), torch.cuda.device_count())
+        if n > 1:
+            raise _not_ported(f"a sweep over {n} cards (parallel={p})",
+                              "6.7")
+
+    # -- elastic execution ---------------------------------------------------
+
+    def _elastic_context(self, n_rows: int, n_cols: int, queue_width: int,
+                         backend: str = "cuda"):
+        """The fit's elastic policy: device-loss retries always, the
+        watchdog where armed.  Its shrink hook joins the tree-prep
+        prefetch thread and changes nothing else (one card, no mesh)."""
+        from ..parallel.elastic import ElasticContext
+
+        def shrink() -> bool:
+            self._drain_tree_prefetch()
+            return False
+
+        return ElasticContext(
+            shrink=shrink, max_unit_retries=self.elastic_max_retries,
+            unit_deadline_s=self._watchdog_deadline(n_rows, n_cols,
+                                                    queue_width, backend))
+
+    def _watchdog_deadline(self, n_rows: int, n_cols: int,
+                           queue_width: int,
+                           backend: str = "cuda") -> Optional[float]:
+        """``factor`` x the predicted sweep wall / the queue width, or None
+        where the watchdog is off or every cost tier it reads is cold."""
+        if not self.watchdog:
+            return None
+        from ..parallel.elastic import mesh_device_count
+        from ..tuning.costmodel import CostModel
+
+        cm = self.watchdog_cost_model or CostModel.from_history()
+        kind = ("ModelSelector:fit-halving" if self.strategy == "halving"
+                else "ModelSelector:fit")
+        fitted = [k for k in [kind] + self._tree_grid_kinds()
+                  if cm.source(k, backend) == "fitted"]
+        if not fitted:
+            return None
+        total = sum(cm.predict(k, n_rows, n_cols, backend=backend,
+                               n_devices=mesh_device_count(None))
+                    for k in fitted)
+        return max(float(self.watchdog) * total / max(queue_width, 1),
+                   1e-3)
+
+    def _tree_grid_kinds(self) -> List[str]:
+        """The tree-grid cost kinds of this grid."""
+        kinds = []
+        for proto, _ in self.models_and_params:
+            if isinstance(proto, _RandomForestBase):
+                kinds.append("RandomForest:fit-grid")
+            elif isinstance(proto, _GBTBase):
+                kinds.append("GBT:fit-grid")
+        return sorted(set(kinds))
+
+    def _sweep_checkpoint(self, candidates, n_rows: int):
+        """This fit's sweep cursor, primed from disk, or None.  A
+        checkpoint of another sweep raises ``CheckpointMismatchError``."""
+        if self.sweep_checkpoint_dir is None:
+            return None
+        from ..workflow.checkpoint import (SweepCheckpointManager,
+                                           sweep_fingerprint)
+
+        v = self.validator
+        vdesc = (f"{type(v).__name__}("
+                 f"folds={getattr(v, 'num_folds', None)},"
+                 f"ratio={getattr(v, 'train_ratio', None)},"
+                 f"seed={getattr(v, 'seed', None)},"
+                 f"stratify={getattr(v, 'stratify', None)})")
+        manager = SweepCheckpointManager(
+            self.sweep_checkpoint_dir,
+            sweep_fingerprint(candidates, self.validation_metric, vdesc,
+                              strategy=self.strategy, n_rows=n_rows),
+            every_units=self.sweep_checkpoint_every)
+        manager.load()
+        self.metadata["sweep_checkpoint"] = {
+            "restoredUnits": manager.restored_units,
+            "restoredRung": (manager.rung_state() or {}).get("nextRung")}
+        return manager
+
+    # -- the tree-prep prefetch thread ---------------------------------------
+
+    #: below this many elements the prep is too short to overlap
+    _PREFETCH_MIN_ELEMS = 1 << 24
+
+    def _start_tree_prep_prefetch(self, X: torch.Tensor,
+                                  row_weight: np.ndarray):
+        """Build the tree groups' sketch and binning of ``X`` (at their
+        ``max_bins``, on the sketch rows ``row_weight`` gives, as the
+        groups will ask for them) on a daemon thread while the sweep's
+        linear groups run.  On the card the thread works on a CUDA stream
+        of its own that first waits for the work queued so far; the memo
+        hands each built entry to the tree group with an event it waits
+        on (``trees.memo_get``), or makes the group wait for the build in
+        flight.  Records ``prefetchTreePrepSecs`` in the current metrics
+        collector's custom tags."""
+        from ..utils.profiling import current_collector
+
+        if X.numel() < self._PREFETCH_MIN_ELEMS:
+            return None
+        bins = sorted({int(p.max_bins) for p, _ in self.models_and_params
+                       if isinstance(p, (_RandomForestBase, _GBTBase))})
+        if not bins:
+            return None
+        coll = current_collector()   # thread-local: captured here
+        cancel = threading.Event()
+        stream = None
+        if X.device.type == "cuda":
+            stream = torch.cuda.Stream(device=X.device)
+            stream.wait_stream(torch.cuda.current_stream(X.device))
+        box: Dict[str, float] = {}
+
+        def work():
+            t0 = time.perf_counter()
+            ctx = (torch.cuda.stream(stream) if stream is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                for mb in bins:
+                    if cancel.is_set():   # drained: stop between bins
+                        return
+                    try:
+                        prep_tree_inputs(X, mb, row_weight=row_weight)
+                    except Exception:   # the sweep's own prep raises it
+                        return
+                if stream is not None:
+                    stream.synchronize()
+            box["seconds"] = time.perf_counter() - t0
+            if coll is not None:
+                coll.metrics.custom_tags["prefetchTreePrepSecs"] = round(
+                    box["seconds"], 3)
+
+        t = threading.Thread(target=work, name="tree-prep-prefetch",
+                             daemon=True)
+        self._prep_thread, self._prep_cancel, self._prep_box = t, cancel, box
+        t.start()
+        return t
+
+    def _drain_tree_prefetch(self, timeout_s: float = 30.0) -> None:
+        """Cancel and join the prefetch thread (no-op when none runs);
+        called at the end of every fit and by the elastic shrink hook, so
+        that no prep outlives the sweep that started it.  Records
+        ``metadata["tree_prefetch"]``: its seconds and whether it was
+        joined."""
+        t = self._prep_thread
+        if t is None:
+            return
+        self._prep_cancel.set()
+        t0 = time.perf_counter()
+        t.join(timeout_s)
+        self.metadata["tree_prefetch"] = {
+            "seconds": self._prep_box.get("seconds"),
+            "join_wait_seconds": time.perf_counter() - t0,
+            "joined": not t.is_alive()}
+        self._prep_thread = None
 
     @property
     def larger_better(self) -> bool:
@@ -267,12 +476,15 @@ class ModelSelector(PredictorEstimator):
             return fn(y, scores, w)
         return binary_classification_metrics(y, scores, w)[m]
 
-    def _candidates(self):
+    def _candidates(self, with_groups: bool = True):
+        """(name, params, fitter, group) a grid point; ``with_groups=False``
+        (halving, workflow CV) leaves every candidate to its own fit."""
         out = []
         for proto, grid_points in self.models_and_params:
-            group = make_grid_group(proto, grid_points, self.problem_type,
-                                    self.validation_metric,
-                                    n_classes=self._class_count())
+            group = (make_grid_group(proto, grid_points, self.problem_type,
+                                     self.validation_metric,
+                                     n_classes=self._class_count())
+                     if with_groups else None)
             for params in grid_points:
                 def fitter(X, y, w, p, proto=proto):
                     est = proto.copy(**p)
@@ -305,35 +517,120 @@ class ModelSelector(PredictorEstimator):
 
     # -- fit -----------------------------------------------------------------
 
+    def _split(self, y: np.ndarray):
+        """(splitter, train mask, holdout indices, base training weights):
+        the set splitter, else a fresh one of the problem's default."""
+        splitter = (self.splitter if self.splitter is not None
+                    else {"binary": DataBalancer, "multiclass": DataCutter,
+                          "regression": DataSplitter}[self.problem_type]())
+        train_idx, holdout_idx = splitter.split_indices(len(y), y)
+        train_mask = np.zeros(len(y), dtype=bool)
+        train_mask[train_idx] = True
+        return (splitter, train_mask, holdout_idx,
+                splitter.train_weights(y, train_mask))
+
+    def find_best_estimator(self, data: ColumnarDataset,
+                            during_dag) -> Tuple[str, Dict[str, Any]]:
+        """Workflow-level CV (ModelSelector.findBestEstimator): validate
+        the candidates with ``during_dag`` refit inside every fold of the
+        training split, and keep the winner for the next fit, which then
+        skips validation.  ``metadata["workflow_cv_results"]`` keeps the
+        fold-refit results."""
+        label_name = self.input_features[0].name
+        if label_name not in data:
+            raise RuntimeError(
+                f"label column {label_name!r} not materialized before the "
+                f"CV cut — it must be produced by the before-DAG")
+        y = np.nan_to_num(np.asarray(data[label_name].values,
+                                     dtype=np.float32))
+        self._n_classes = (max(int(y.max()) + 1, 2)
+                           if self.problem_type == "multiclass" and len(y)
+                           else 0)
+        _, train_mask, _, base_w = self._split(y)
+        train_idx = np.flatnonzero(train_mask)
+        self._seq_levels, self._seq_trees, self._seq_fits = 0, 0, []
+        candidates = self._candidates(with_groups=False)
+        best_i, results = self.validator.validate_with_dag(
+            candidates, data.take(train_idx), during_dag,
+            label_name=label_name,
+            features_name=self.input_features[1].name,
+            y=y[train_idx], base_weights=base_w[train_idx],
+            eval_fn=self._metric, metric_name=self.validation_metric,
+            larger_better=self.larger_better,
+            device=resolve_device(self.device))
+        best_name, best_params = candidates[best_i][:2]
+        self.best_estimator = (best_name, best_params, results)
+        self.metadata["workflow_cv_results"] = [r.to_json() for r in results]
+        return best_name, best_params
+
     def fit_columns(self, data: ColumnarDataset, label_col: FeatureColumn,
                     features_col: FeatureColumn):
+        try:
+            return self._fit_columns(label_col, features_col)
+        finally:
+            # no prefetch thread outlives the fit, whether the sweep
+            # finished or raised
+            self._drain_tree_prefetch()
+
+    def _sweep(self, X: torch.Tensor, y: np.ndarray, base_w: np.ndarray,
+               elastic):
+        """(winner's name, params, group or None, results, grid groups)
+        of the configured strategy; a workflow-CV winner is consumed."""
+        if self.best_estimator is not None:
+            best_name, best_params, results = self.best_estimator
+            self.best_estimator = None
+            return best_name, best_params, None, results, []
+        if self.strategy == "halving":
+            from ..tuning.halving import halving_validate
+
+            candidates = self._candidates(with_groups=False)
+            ckpt = self._sweep_checkpoint(candidates, len(y))
+            best_i, results, schedule = halving_validate(
+                self.validator, candidates, X, y, base_w,
+                eval_fn=self._metric, metric_name=self.validation_metric,
+                larger_better=self.larger_better, config=self.halving,
+                stratify=self.problem_type != "regression",
+                checkpoint=ckpt, elastic=elastic)
+            self.metadata["halving_schedule"] = schedule
+        else:
+            self._start_tree_prep_prefetch(X, base_w)
+            candidates = self._candidates()
+            ckpt = self._sweep_checkpoint(candidates, len(y))
+            best_i, results = self.validator.validate(
+                candidates, X, y, base_w, eval_fn=self._metric,
+                metric_name=self.validation_metric,
+                larger_better=self.larger_better, checkpoint=ckpt,
+                elastic=elastic)
+        if ckpt is not None:
+            ckpt.finish()
+        best_name, best_params, _, best_group = candidates[best_i]
+        groups = list({id(c[3]): c[3] for c in candidates
+                       if c[3] is not None}.values())
+        return best_name, best_params, best_group, results, groups
+
+    def _fit_columns(self, label_col: FeatureColumn,
+                     features_col: FeatureColumn):
         X = features_col.values
         dev = X.device
         y = np.nan_to_num(np.asarray(label_col.values, dtype=np.float32))
         n = len(y)
         self._n_classes = (max(int(y.max()) + 1, 2)
                            if self.problem_type == "multiclass" and n else 0)
-        splitter = (self.splitter if self.splitter is not None
-                    else {"binary": DataBalancer, "multiclass": DataCutter,
-                          "regression": DataSplitter}[self.problem_type]())
-        train_idx, holdout_idx = splitter.split_indices(n, y)
-        train_mask = np.zeros(n, dtype=bool)
-        train_mask[train_idx] = True
-        base_w = splitter.train_weights(y, train_mask)
+        self._resolve_parallel()
+        splitter, train_mask, holdout_idx, base_w = self._split(y)
 
         self._seq_levels, self._seq_trees, self._seq_fits = 0, 0, []
         memo0 = dict(MEMO_STATS)
-        candidates = self._candidates()
+        elastic = self._elastic_context(
+            n, int(X.shape[1]),
+            sum(len(g) for _, g in self.models_and_params), dev.type)
         t0 = time.perf_counter()
-        best_i, results = self.validator.validate(
-            candidates, X, y, base_w, eval_fn=self._metric,
-            metric_name=self.validation_metric,
-            larger_better=self.larger_better)
+        best_name, best_params, best_group, results, groups = self._sweep(
+            X, y, base_w, elastic)
         _sync(dev)
         sweep_s = time.perf_counter() - t0
-        best_name, best_params, _, best_group = candidates[best_i]
-        groups = list({id(c[3]): c[3] for c in candidates
-                       if c[3] is not None}.values())
+        self._drain_tree_prefetch()
+        self.metadata["elastic"] = elastic.counters.to_json()
         seconds = {type(g).__name__: g.seconds for g in groups
                    if g.seconds is not None}
         seconds["rest"] = sweep_s - sum(seconds.values())
@@ -490,7 +787,7 @@ class BinaryClassificationModelSelector:
     def with_cross_validation(
         num_folds: int = 3, validation_metric: str = "AuPR",
         splitter=None, seed: int = 42, models_and_parameters=None,
-        parallelism: Optional[int] = None, max_wait: Optional[float] = None,
+        parallelism: int = 8, max_wait: Optional[float] = None,
         strategy: str = "full", halving=None, parallel=None,
         watchdog: Optional[float] = None,
     ) -> ModelSelector:
@@ -510,7 +807,7 @@ class BinaryClassificationModelSelector:
     def with_train_validation_split(
         train_ratio: float = 0.75, validation_metric: str = "AuPR",
         splitter=None, seed: int = 42, models_and_parameters=None,
-        parallelism: Optional[int] = None, max_wait: Optional[float] = None,
+        parallelism: int = 8, max_wait: Optional[float] = None,
         strategy: str = "full", halving=None, parallel=None,
         watchdog: Optional[float] = None,
     ) -> ModelSelector:
@@ -540,7 +837,7 @@ class MultiClassificationModelSelector:
     def with_cross_validation(
         num_folds: int = 3, validation_metric: str = "F1",
         splitter=None, seed: int = 42, models_and_parameters=None,
-        parallelism: Optional[int] = None, max_wait: Optional[float] = None,
+        parallelism: int = 8, max_wait: Optional[float] = None,
         strategy: str = "full", halving=None, parallel=None,
         watchdog: Optional[float] = None,
     ) -> ModelSelector:
@@ -561,7 +858,7 @@ class MultiClassificationModelSelector:
     def with_train_validation_split(
         train_ratio: float = 0.75, validation_metric: str = "F1",
         splitter=None, seed: int = 42, models_and_parameters=None,
-        parallelism: Optional[int] = None, max_wait: Optional[float] = None,
+        parallelism: int = 8, max_wait: Optional[float] = None,
         strategy: str = "full", halving=None, parallel=None,
         watchdog: Optional[float] = None,
     ) -> ModelSelector:
@@ -605,7 +902,7 @@ class RegressionModelSelector:
     def with_cross_validation(
         num_folds: int = 3, validation_metric: str = "RootMeanSquaredError",
         splitter=None, seed: int = 42, models_and_parameters=None,
-        parallelism: Optional[int] = None, max_wait: Optional[float] = None,
+        parallelism: int = 8, max_wait: Optional[float] = None,
         strategy: str = "full", halving=None, parallel=None,
         watchdog: Optional[float] = None,
     ) -> ModelSelector:
@@ -625,7 +922,7 @@ class RegressionModelSelector:
         train_ratio: float = 0.75,
         validation_metric: str = "RootMeanSquaredError",
         splitter=None, seed: int = 42, models_and_parameters=None,
-        parallelism: Optional[int] = None, max_wait: Optional[float] = None,
+        parallelism: int = 8, max_wait: Optional[float] = None,
         strategy: str = "full", halving=None, parallel=None,
         watchdog: Optional[float] = None,
     ) -> ModelSelector:

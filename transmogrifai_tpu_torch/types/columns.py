@@ -61,6 +61,23 @@ class FeatureColumn:
         return FeatureColumn(self.ftype, self.values[start:stop], mask,
                              self.vmeta)
 
+    def take(self, idx: np.ndarray) -> "FeatureColumn":
+        """The rows ``idx`` (a copy): a tensor's through ``index_select``
+        on its device, an array's through numpy indexing."""
+        idx = np.asarray(idx, dtype=np.int64)
+        vals = self.values
+        if hasattr(vals, "index_select"):
+            import torch
+
+            vals = vals.index_select(
+                0, torch.from_numpy(idx).to(vals.device))
+        elif isinstance(vals, np.ndarray):
+            vals = vals[idx]
+        else:
+            vals = [vals[i] for i in idx]
+        mask = self.mask[idx] if self.mask is not None else None
+        return FeatureColumn(self.ftype, vals, mask, self.vmeta)
+
     def to_list(self) -> List[Any]:
         """Back to plain Python values (None for a missing numeric value;
         an empty container for a missing collection)."""
@@ -201,6 +218,12 @@ class ColumnarDataset:
         return ColumnarDataset(
             {n: c.slice(start, stop) for n, c in self.columns.items()},
             _validated=True)
+
+    def take(self, idx: np.ndarray) -> "ColumnarDataset":
+        """The rows ``idx`` of every column (a copy)."""
+        return ColumnarDataset({n: c.take(idx)
+                                for n, c in self.columns.items()},
+                               _validated=True)
 
     def select(self, names: Iterable[str]) -> "ColumnarDataset":
         return ColumnarDataset({n: self.columns[n] for n in names},

@@ -16,10 +16,17 @@ global check when no plan is armed):
                       is the output chunk ordinal
   ``join.chunk``      before each streamed sort-merge join chunk
                       (readers/events.py ``stream_join``)
+  ``unit.slow``       at the top of every sweep-unit attempt
+  ``device.loss``     the same, and for each member of a grid-group
+                      block (selector/validators.py; ``index`` is the
+                      unit's queue index)
+  ``sweep.checkpoint`` after each durable save of the sweep cursor
+                      (workflow/checkpoint.py; ``index`` is the save
+                      ordinal)
 
 The JAX package's other points (stages, RawFeatureFilter, drift, the
-selector's sweep, checkpoints, serving, pods) wait for the features that
-own them (ROADMAP Queue A items 6.5 and 6.7).
+streaming checkpoints, serving, pods) wait for the features that own
+them (ROADMAP Queue A items 6.5 and 6.7).
 
 Actions: ``io_error`` (raise OSError, the transient class the reader
 retry policy handles), ``raise`` (``FaultError``, non-transient),

@@ -7,7 +7,7 @@ import json
 import os
 from typing import Any, Optional
 
-__all__ = ["write_json_atomic", "dumps_canonical"]
+__all__ = ["write_json_atomic", "dumps_canonical", "read_json_tolerant"]
 
 
 def dumps_canonical(obj: Any, indent: Optional[int] = 2,
@@ -28,3 +28,13 @@ def write_json_atomic(path: str, obj: Any, indent: Optional[int] = 2,
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
+
+
+def read_json_tolerant(path: str, default: Any = None) -> Any:
+    """The JSON at ``path``, or ``default`` (``{}`` when None) where the
+    file is missing or corrupt: a history file is advisory state."""
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return default if default is not None else {}

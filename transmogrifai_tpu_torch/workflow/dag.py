@@ -4,21 +4,23 @@
 ``compute_dag`` layers stages by longest path from the raw generators;
 ``fit_and_transform_dag`` walks the layers in order, fitting estimators and
 applying transformers; ``transform_dag`` applies a fitted DAG through the
-memoized execution plan (``workflow/plan.py``: column liveness).  The
-intra-layer host threads and the workflow-CV cut are not ported.
+memoized execution plan (``workflow/plan.py``: column liveness);
+``cut_dag_cv`` splits a DAG for workflow-level CV.  The intra-layer host
+threads are not ported.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from ..features.feature import Feature, FeatureCycleError
 from ..stages.base import Estimator, Model, PipelineStage, Transformer
 from ..stages.generator import FeatureGeneratorStage
 from ..types.columns import ColumnarDataset
 
-__all__ = ["StagesDAG", "compute_dag", "fit_and_transform_dag",
-           "transform_dag"]
+__all__ = ["StagesDAG", "CutDAG", "compute_dag", "cut_dag_cv",
+           "fit_and_transform_dag", "transform_dag"]
 
 
 class StagesDAG:
@@ -113,3 +115,67 @@ def transform_dag(dag: StagesDAG, data: ColumnarDataset,
     from .plan import plan_for
 
     return plan_for(dag, keep=keep).transform(data, on_stage=on_stage)
+
+
+@dataclasses.dataclass
+class CutDAG:
+    """The DAG split for workflow-level CV: ``before`` fits once on the
+    training data, ``during`` refits inside every CV fold, ``after``
+    (the stages that do not feed the selector) fits with the rest."""
+
+    selector: Optional[PipelineStage]
+    before: StagesDAG
+    during: StagesDAG
+    after: StagesDAG
+
+
+def cut_dag_cv(dag: StagesDAG) -> CutDAG:
+    """Split the DAG at its ModelSelector (FitStagesUtil.cutDAG): in the
+    selector's ancestors, the first layer with a stage whose inputs mix
+    response and predictor features (one that may leak the label, such as
+    SanityChecker) starts the during-DAG; the layers above it are the
+    before-DAG.  At most one ModelSelector is allowed."""
+    from ..selector.model_selector import ModelSelector
+
+    selectors = [s for layer in dag.layers for s in layer
+                 if isinstance(s, ModelSelector)]
+    if not selectors:
+        return CutDAG(None, StagesDAG([]), StagesDAG([]), dag)
+    if len(selectors) > 1:
+        raise ValueError(
+            f"workflow can contain at most 1 ModelSelector, found "
+            f"{len(selectors)}: {[s.uid for s in selectors]}")
+    selector = selectors[0]
+
+    ancestors: Set[str] = set()
+
+    def collect(s: PipelineStage):
+        for f in s.input_features:
+            p = f.origin_stage
+            if p is not None and p.uid not in ancestors:
+                ancestors.add(p.uid)
+                collect(p)
+
+    collect(selector)
+
+    def mixes_response(s: PipelineStage) -> bool:
+        ins = s.input_features
+        return (any(f.is_response for f in ins)
+                and any(not f.is_response for f in ins))
+
+    anc_layers = [[s for s in layer if s.uid in ancestors]
+                  for layer in dag.layers]
+    anc_layers = [layer for layer in anc_layers if layer]
+    first_cv = next((i for i, layer in enumerate(anc_layers)
+                     if any(mixes_response(s) for s in layer)), None)
+    if first_cv is None:
+        before_layers, during_layers = anc_layers, []
+    else:
+        before_layers = anc_layers[:first_cv]
+        during_layers = anc_layers[first_cv:]
+    after_layers = [[s for s in layer
+                     if s.uid not in ancestors and s is not selector]
+                    for layer in dag.layers]
+    after_layers = [layer for layer in after_layers if layer]
+    return CutDAG(selector, StagesDAG(before_layers),
+                  StagesDAG(during_layers), StagesDAG(after_layers))

@@ -23,7 +23,14 @@ streamable estimators fit from mergeable states, RawFeatureFilter profiles
 chunk by chunk, and only the kept columns (the packed feature matrix,
 the response) are ever held whole; a model selector fits in-core on them.
 
-Not ported yet (ROADMAP Queue A): workflow CV (item 6.4), checkpoints,
+``with_workflow_cv()`` is workflow-level CV on the in-core train: the
+DAG is cut at the model selector (``workflow/dag.py::cut_dag_cv``), the
+before-DAG fits once, the selector validates with the during-DAG (the
+label-aware stages, such as SanityChecker) refit inside every fold, and
+the full DAG then fits with the before-DAG's models in place and the
+selector refitting its CV winner.
+
+Not ported yet (ROADMAP Queue A): the streaming workflow CV, checkpoints,
 the tuner and the plan profiler (6.5), meshes and pods (6.7).
 """
 from __future__ import annotations
@@ -45,7 +52,8 @@ from ..stages.generator import FeatureGeneratorStage
 from ..types.columns import ColumnarDataset
 from ..types.feature_types import Prediction
 from ..utils.profiling import OpStep, with_job_group
-from .dag import compute_dag, fit_and_transform_dag, transform_dag
+from .dag import (compute_dag, cut_dag_cv, fit_and_transform_dag,
+                  transform_dag)
 
 __all__ = ["OpWorkflow", "OpWorkflowModel"]
 
@@ -94,6 +102,7 @@ class OpWorkflow(_WorkflowCore):
         self._allow_non_serializable = False
         self._raw_feature_filter = None
         self._model_stages: Dict[str, Model] = {}
+        self._workflow_cv = False
 
     def allow_non_serializable(self) -> "OpWorkflow":
         """Opt out of the train-time serializability gate: train with
@@ -163,9 +172,25 @@ class OpWorkflow(_WorkflowCore):
         return placed
 
     def with_workflow_cv(self) -> "OpWorkflow":
-        raise NotImplementedError(
-            "workflow-level CV is not ported yet (ROADMAP Queue A item "
-            "6.4: the selector options)")
+        """Refit the label-aware feature engineering inside every CV fold
+        of the model selector (OpWorkflow.withWorkflowCV)."""
+        self._workflow_cv = True
+        return self
+
+    def _workflow_cv_models(self, dag, data: ColumnarDataset,
+                            substitutes: Dict[str, Model]
+                            ) -> Dict[str, Model]:
+        """The workflow-CV step: fit the before-DAG once, let the selector
+        find its winner with the during-DAG refit in every fold, and
+        return the before-DAG's models by uid (none where the DAG has no
+        selector or nothing to refit)."""
+        cut = cut_dag_cv(dag)
+        if cut.selector is None or not cut.during.layers:
+            return {}
+        before_fitted, before_data = fit_and_transform_dag(
+            cut.before, data, fitted_substitutes=substitutes)
+        cut.selector.find_best_estimator(before_data, cut.during)
+        return {m.uid: m for m in before_fitted if isinstance(m, Model)}
 
     def with_mesh(self, mesh) -> "OpWorkflow":
         raise NotImplementedError(
@@ -265,6 +290,10 @@ class OpWorkflow(_WorkflowCore):
             raise NotImplementedError(
                 "train(tuner=) is not ported yet (ROADMAP Queue A item 6.5: "
                 "tuning)")
+        if self._workflow_cv and chunk_rows is not None:
+            raise NotImplementedError(
+                "train(chunk_rows=) with workflow CV is not ported yet "
+                "(ROADMAP Queue A item 6.5: streaming_cv)")
         dev = resolve_device(self.device)
         lint = (self._lint_dag(compute_dag(self.result_features))
                 if validate else None)
@@ -317,12 +346,17 @@ class OpWorkflow(_WorkflowCore):
 
         placed = self._place(dag, dev)
         ingest = fit_states = None
+        substitutes = dict(self._model_stages)
         try:
+            if self._workflow_cv:
+                with with_job_group(OpStep.CrossValidation):
+                    substitutes.update(
+                        self._workflow_cv_models(dag, data, substitutes))
             with with_job_group(OpStep.FeatureEngineering):
                 if chunk_rows is None:
                     fitted, transformed = fit_and_transform_dag(
                         dag, data, on_stage=on_stage,
-                        fitted_substitutes=self._model_stages)
+                        fitted_substitutes=substitutes)
                 else:
                     from .streaming import fit_dag_streaming
 
