@@ -204,7 +204,11 @@ card's aggregate shared-memory rate):
                 ``path`` "efb" at the bundled width; save -> load
                 (the holdout bitwise), the local scorer's rows, and
                 TITANIC_SERVE_REQUESTS single rows with text through
-                ModelServer (p50/p99, ``request_split``)
+                ModelServer (p50/p99, ``request_split``); a
+                ``pivot_block`` line (``pivot_checks``): each OneHot and
+                SmartText model's pivot block built on the card from its
+                int32 indices on PIVOT_CHECK_ROWS holdout rows, bitwise
+                against the host build of the same indices, both timed
   6b. validate_explain  the first 1/VE_DEPTH_CUT of the Titanic phase's
                 rows and holdout (500k + 50k, cut from 1M + 100k to keep
                 the smoke within its time limit) with two
@@ -262,13 +266,27 @@ card's aggregate shared-memory rate):
                 channels) held against the plain version (bitwise on
                 integer channels) and timed (``seg_hist`` lines with
                 ``path`` "dt_bucketizer_*": kernel, plain, library, bound);
-                save -> load -> FE_ROUNDTRIP_ROWS holdout rows bitwise
+                save -> load -> FE_ROUNDTRIP_ROWS holdout rows bitwise.
+                Leg ``options`` (``build_fe_options`` on
+                FE_OPTIONS_ROWS + FE_OPTIONS_HOLDOUT of the phase's rows
+                with map, geolocation, integral and set columns made from
+                their own columns, ``fe_options_data``): every option of
+                the feature-engineering stages off its default (the map
+                vectorizers' allow_keys/block_keys, fill_with_mean=False,
+                IntegralVectorizer(fill_with_mode=False, fill_value=
+                FE_OPTIONS_FILL), SmartTextVectorizer(
+                auto_detect_languages=True), SanityChecker(
+                remove_feature_group=False)) trained on the card: the
+                vector names only the allowed keys, the fills are the
+                configured ones, save -> load -> score bitwise, and a
+                ``pivot_block`` line (SmartText, MultiPickList, OneHot)
   6d. avro_combined  the reference's Avro ensemble demo
                 (examples/op_titanic_avro_combined.py's ``build`` with the
                 port's imports: ``build_avro_combined``): the Titanic
                 recipe's first rows / AVRO_DEPTH_CUT and holdout /
-                AVRO_DEPTH_CUT (250k + 25k, cut from 1M + 100k to pay
-                for the selector_options phase): their seven demo
+                AVRO_DEPTH_CUT (125k + 12.5k, cut from 1M + 100k to pay
+                for the selector_options phase and the out_of_core
+                phase's leg d): their seven demo
                 columns and label
                 written by the port's write_avro (deflate) as two files
                 (``avro_write_s``), read inside train() through
@@ -322,7 +340,21 @@ card's aggregate shared-memory rate):
                 loaded and served with a DriftMonitor: OOC_DRIFT_ROWS
                 clean holdout rows in one request drift on nothing, the
                 next ones with Fare x 3 and Sex flipped on Fare and Sex;
-                batch-1 p50/p99 with and without the monitor
+                batch-1 p50/p99 with and without the monitor. Leg d
+                (kill and resume): the first OOC_CKPT_ROWS train rows and
+                OOC_CKPT_HOLDOUT holdout rows; leg b's DAG trained with
+                train(chunk_rows=OOC_CKPT_CHUNK_ROWS, checkpoint_dir=,
+                checkpoint_every_chunks=OOC_CKPT_EVERY): uninterrupted,
+                then in a child (``--ckpt-child``) that TMOG_FAULTS kills
+                at checkpoint save OOC_CKPT_KILL_AT inside the first fit
+                pass, then resumed here from the child's directory (after
+                another chunk_rows is refused against it with
+                CheckpointMismatchError naming ``chunkRows``): each wall,
+                the saves and their seconds, the resume's
+                ``chunks_skipped``; vocabularies, the filter's drop list
+                and the checker's keep list equal, holdout probabilities
+                within OOC_CKPT_PROBA_TOL (bitwise said), the checkpoint
+                directories gone after success, launches of both trains
   6f. events    event-time AutoML: examples/bench_events.py's JSONL
                 clickstream (``make_clickstream``, drawn vectorised) of
                 EV_USERS users (~400 000 events, ~100 MB) and a holdout
@@ -349,7 +381,8 @@ card's aggregate shared-memory rate):
                 ``event.window`` under a RetryPolicy (one retry, the clean
                 run's scores), train() refusing a reader with no cutoff
                 (TM060), and DriftMonitor quiet on a fresh log and fired
-                on 3x the event rate
+                on 3x the event rate; a ``pivot_block`` line (the
+                MultiPickList of pages_seen)
   6g. app       APP_ROWS Titanic rows with a PassengerId written to CSV;
                 ``python -m transmogrifai_tpu_torch gen Titanic`` in a
                 child; the generated App in this process: --run-type
@@ -509,7 +542,8 @@ Then the ``kernels`` summary line (``launches``: the slice's, the
 selector's, the selector_options phase's trains and sweeps, the
 regression phase's, the titanic phase's (its efb fits
 too), the validate_explain, feature_eng and avro_combined phases'
-trains, the out_of_core phase's chunked selector train, the events
+trains, the out_of_core phase's chunked selector train and leg d's two
+trains (the killed child stops before its selector), the events
 phase's two leg-a trains, the app phase's train, the
 multiclass phase's, the
 boosted_multi phase's train, xgb_defaults and count_and_subsample fits,
@@ -537,7 +571,7 @@ import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -574,9 +608,10 @@ from transmogrifai_tpu_torch.models.trees import (MEMO_STATS, SKETCH_KINDS,
                                                   prep_tree_csr,
                                                   prep_tree_inputs)
 from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
-from transmogrifai_tpu_torch.ops.vectorizers import (RealVectorizer,
-                                                     SmartTextVectorizer,
-                                                     SmartTextVectorizerModel)
+from transmogrifai_tpu_torch.ops.vectorizers import (
+    MultiPickListVectorizerModel, OneHotVectorizerModel, RealVectorizer,
+    SmartTextVectorizer, SmartTextVectorizerModel, pivot_block,
+    pivot_block_host)
 from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
 from transmogrifai_tpu_torch.readers.avro import AvroReader, write_avro
 from transmogrifai_tpu_torch.readers.files import CSVReader
@@ -805,6 +840,22 @@ OOC_DRIFT_ROWS, OOC_LATENCY_REQUESTS = 2000, 200
 #: the smoke's time limit.  (At 4, 250k + 25k rows, leg c's clean rows
 #: drift on Cabin: its PSI sits at the 0.25 threshold, 0.248 at 500k.)
 OOC_DEPTH_CUT = 2
+#: the out_of_core phase's leg d (kill and resume): the first
+#: OOC_CKPT_ROWS rows of the phase's train CSV and OOC_CKPT_HOLDOUT of its
+#: holdout rows, chunks of OOC_CKPT_CHUNK_ROWS (7 chunks), a checkpoint
+#: every OOC_CKPT_EVERY chunks, the child killed at save OOC_CKPT_KILL_AT
+#: (chunk 4, inside the first fit pass), the resumed probabilities'
+#: tolerance against the uninterrupted train's
+OOC_CKPT_ROWS, OOC_CKPT_HOLDOUT = 100_000, 10_000
+OOC_CKPT_CHUNK_ROWS, OOC_CKPT_EVERY, OOC_CKPT_KILL_AT = 16_384, 2, 1
+OOC_CKPT_PROBA_TOL = 1e-6
+#: leg d's numbers as predicted before its first run on the card (PERF.md
+#: section 6), for a host like the previous final proof run's: seconds of
+#: the uninterrupted train, the killed child (its start included) and the
+#: resume, the saves of the uninterrupted train and their seconds
+OOC_CKPT_PREDICTED = {"uninterrupted_s": [8.0, 20.0],
+                      "child_s": [12.0, 25.0], "resume_s": [7.0, 18.0],
+                      "checkpoint_saves": 4, "checkpoint_s": [0.1, 2.0]}
 
 # the events phase (6f): examples/bench_events.py's clickstream (its
 # per-user distributions; seed 9 for the train log, 10 for the holdout
@@ -829,8 +880,8 @@ EV_PROBA_TOL, EV_RSS_RATIO = 1e-6, 0.5
 EV_AUROC_FLOOR = 0.9576739050423261 - 0.02
 # the app phase (6g): the generated Titanic project on a Titanic-shaped
 # CSV; its scores against the in-process ones (200 000 rows before the
-# selector_options phase)
-APP_ROWS = 100_000
+# selector_options phase, 100 000 before the out_of_core phase's leg d)
+APP_ROWS = 50_000
 APP_SCORE_TOL = 1e-6
 #: the selector_options phase: legs b-d's rows (the selector
 #: recipe and the Titanic demo's; cut from 200 000 + 20 000 to keep the
@@ -852,9 +903,10 @@ SO_C_TREES = 20
 SO_CHECK_TREES = 10
 #: depth cuts that pay for the selector_options phase within
 #: the smoke's time limit: the feature_eng and avro_combined phases run on
-#: the Titanic rows and holdout divided by these (1M + 100k before it)
+#: the Titanic rows and holdout divided by these (1M + 100k before it;
+#: avro_combined 4 before the out_of_core phase's leg d)
 FE_DEPTH_CUT = 4
-AVRO_DEPTH_CUT = 4
+AVRO_DEPTH_CUT = 8
 #: the regression, multiclass, boosted_multi and xgb_wide phases run on
 #: the smoke's rows and holdout divided by this (1M + 100k before it), so
 #: that the smoke ends well within its time limit on a slow host
@@ -862,6 +914,18 @@ MODEL_DEPTH_CUT = 2
 #: the validate_explain phase runs on the Titanic rows and holdout divided
 #: by this (1M + 100k before it)
 VE_DEPTH_CUT = 2
+#: the pivot-block checks: rows (the first of a phase's dataset), timing
+#: repetitions, and the times predicted before the first chip run
+#: (PERF.md section 6): the card's build and the host's build with
+#: its copy, ms at 100 000 rows of the Titanic demo's pivots
+PIVOT_CHECK_ROWS, PIVOT_REPS = 100_000, 5
+PIVOT_PREDICTED = {"card_ms": [0.1, 2.0], "host_ms": [15.0, 150.0]}
+#: the feature_eng phase's options leg: rows and holdout rows (the first
+#: of the phase's), the integral fill, its selector's LR regularisation,
+#: and its train's seconds as predicted before the first chip run
+FE_OPTIONS_ROWS, FE_OPTIONS_HOLDOUT = 100_000, 10_000
+FE_OPTIONS_FILL = 7
+FE_OPTIONS_PREDICTED = {"train_s": [4.0, 12.0]}
 #: seconds after which the script writes every thread's stack to stderr
 #: (it goes on running): what a run stopped at the 1 200 s limit was doing
 STACKS_AT_S = 1_100
@@ -938,6 +1002,42 @@ def device_ms(fn, reps: int = 5, tries: int = 10) -> dict:
               "reps": reps, "counts": counts})
     raise RuntimeError(f"check failed: the profiler dropped device events "
                        f"in {tries} sessions")
+
+
+def pivot_checks(model, ds, path: str) -> dict:
+    """The card-built pivot block of every OneHot, MultiPickList and
+    SmartText model of ``model`` on the first PIVOT_CHECK_ROWS rows of
+    ``ds`` (which holds their inputs) against the host build of the same
+    indices (``pivot_block_host`` and one copy): bitwise, both timed.
+    Emits a ``pivot_block`` line."""
+    kinds = (OneHotVectorizerModel, MultiPickListVectorizerModel,
+             SmartTextVectorizerModel)
+    part = ds.slice(0, min(len(ds), PIVOT_CHECK_ROWS))
+    rows = []
+    for st in model.stages:
+        if not isinstance(st, kinds):
+            continue
+        t0 = time.perf_counter()
+        n, width, r, c = st.pivot_ones(*[part[k] for k in st.input_names])
+        indices_s = time.perf_counter() - t0
+        card = pivot_block(n, width, r, c, "cuda")
+        host = torch.from_numpy(pivot_block_host(n, width, r, c)).cuda()
+        rows.append({
+            "stage": type(st).__name__, "rows": n, "width": width,
+            "ones": len(r), "indices_s": indices_s,
+            "bitwise_equal": bool(torch.equal(card, host)),
+            "card_ms": time_ms(lambda: pivot_block(n, width, r, c, "cuda"),
+                               PIVOT_REPS, warmup=1),
+            "host_ms": time_ms(lambda: torch.from_numpy(pivot_block_host(
+                n, width, r, c)).cuda(), PIVOT_REPS, warmup=1)})
+        del card, host
+    line = {"phase": "pivot_block", "path": path, "stages": rows,
+            "predicted": PIVOT_PREDICTED}
+    emit(line)
+    check(rows and all(x["bitwise_equal"] for x in rows),
+          f"pivot_block {path}: the card's block differs from the host's "
+          f"or no pivot ran: {rows}")
+    return line
 
 
 def pass_ms(by_kernel: dict, name: str) -> float:
@@ -2060,6 +2160,7 @@ def phase_titanic(tdata, reps: int, bw: float, f32: float, smem_bw: float):
     Xh = _checked_matrix(model, checked, hold)
     efb = _efb_line(X, y, Xh, y_hold, reps, bw, f32, smem_bw)
     del X, Xh
+    pivot = pivot_checks(model, hold, "titanic")
 
     # save -> load on the card -> the holdout bitwise; the local scorer
     tmp = os.path.join(REPO, "smoke_out")
@@ -2134,7 +2235,8 @@ def phase_titanic(tdata, reps: int, bw: float, f32: float, smem_bw: float):
            "serve_batch1": _pcts(lat), "served_max_abs_diff": served_diff,
            "server_shed": snap["shed"],
            "server_device_errors": snap["deviceErrors"],
-           "efb_launches": efb["launches_total"]}
+           "efb_launches": efb["launches_total"],
+           "pivot_stages": [x["stage"] for x in pivot["stages"]]}
     emit(out)
     emit(kernel_row)
     check(tuple(proba.shape) == (holdout, 2), f"proba shape {proba.shape}")
@@ -2720,6 +2822,181 @@ def _d1_level_rows(values: np.ndarray, label: np.ndarray, path: str,
     return rows, check_row
 
 
+FE_OPTIONS_SCHEMA = {"NumMap": ft.RealMap, "TextMap": ft.TextMap,
+                     "TagMap": ft.MultiPickListMap,
+                     "GeoMap": ft.GeolocationMap, "Geo": ft.Geolocation,
+                     "AgeYears": ft.Integral, "Words": ft.MultiPickList}
+
+
+def fe_options_data(ds):
+    """``ds`` (the feature_eng phase's rows) with the options leg's
+    columns, each made from its own columns: NumMap {age, fare, sibsp},
+    TextMap {sex, embarked, cabin}, TagMap {bio: Bio's first two words,
+    deck: Cabin's deck}, GeoMap {home, work} and Geo (triples from Age,
+    Fare, SibSp and Parch), AgeYears (Age's whole years, missing with
+    it) and Words (Bio's first three words)."""
+    def vals(name):
+        c = ds[name]
+        v = c.values.tolist()
+        if c.mask is None:
+            return v
+        return [x if ok else None for x, ok in zip(v, c.mask.tolist())]
+
+    age, fare, sib, par = (vals(k) for k in ("Age", "Fare", "SibSp",
+                                             "Parch"))
+    sex, emb, cab, bio = (vals(k) for k in ("Sex", "Embarked", "Cabin",
+                                            "Bio"))
+
+    def present(d):
+        return {k: v for k, v in d.items() if v is not None}
+
+    words = [b.split()[:3] for b in bio]
+    home = [None if a is None or fare[i] is None else
+            [fare[i] % 180 - 90, a * 3 % 360 - 180, 1.0]
+            for i, a in enumerate(age)]
+    cols = {
+        "NumMap": [present({"age": age[i], "fare": fare[i],
+                            "sibsp": sib[i]}) for i in range(len(ds))],
+        "TextMap": [present({"sex": sex[i], "embarked": emb[i],
+                             "cabin": cab[i]}) for i in range(len(ds))],
+        "TagMap": [present({"bio": set(words[i][:2]),
+                            "deck": None if cab[i] is None
+                            else {cab[i][0]}}) for i in range(len(ds))],
+        "GeoMap": [present({"home": home[i],
+                            "work": None if not par[i] or sib[i] is None
+                            else [sib[i] * 10 - 45, par[i] * 20 - 90, 2.0]})
+                   for i in range(len(ds))],
+        "Geo": home,
+        "AgeYears": [None if a is None else float(int(a)) for a in age],
+        "Words": [set(w) for w in words]}
+    return ds.with_columns({k: FeatureColumn.from_values(
+        FE_OPTIONS_SCHEMA[k], v) for k, v in cols.items()})
+
+
+def build_fe_options():
+    """The options leg's DAG: every option of the feature-engineering
+    stages off its JAX default -> VectorsCombiner ->
+    SanityChecker(remove_feature_group=False) -> an LR selector.
+    Returns (prediction, {name: estimator}, combined, checked)."""
+    from transmogrifai_tpu_torch.ops import map_vectorizers as mv
+    from transmogrifai_tpu_torch.ops.date_geo import GeolocationVectorizer
+    from transmogrifai_tpu_torch.ops.vectorizers import (
+        IntegralVectorizer, MultiPickListVectorizer, OneHotVectorizer,
+        VectorsCombiner)
+
+    fb = FeatureBuilder
+    survived = fb.RealNN("Survived").as_response()
+    f = {k: getattr(fb, t.__name__)(k).as_predictor()
+         for k, t in FE_OPTIONS_SCHEMA.items()}
+    f.update({k: getattr(fb, t)(k).as_predictor() for k, t in (
+        ("Name", "Text"), ("Bio", "Text"), ("Sex", "PickList"))})
+    ests = {
+        "num_map": mv.NumericMapVectorizer(
+            allow_keys=["age", "fare"], block_keys=["fare"],
+            fill_with_mean=False).set_input(f["NumMap"]),
+        "text_map": mv.TextMapPivotVectorizer(
+            allow_keys=["sex", "embarked"]).set_input(f["TextMap"]),
+        "smart_text_map": mv.SmartTextMapVectorizer(
+            block_keys=["cabin"]).set_input(f["TextMap"]),
+        "tag_map": mv.MultiPickListMapVectorizer(
+            block_keys=["deck"]).set_input(f["TagMap"]),
+        "geo_map": mv.GeolocationMapVectorizer(
+            allow_keys=["home"]).set_input(f["GeoMap"]),
+        "geo": GeolocationVectorizer(fill_with_mean=False).set_input(
+            f["Geo"]),
+        "age_years": IntegralVectorizer(
+            fill_with_mode=False, fill_value=FE_OPTIONS_FILL).set_input(
+            f["AgeYears"]),
+        "text": SmartTextVectorizer(auto_detect_languages=True).set_input(
+            f["Name"], f["Bio"]),
+        "words": MultiPickListVectorizer().set_input(f["Words"]),
+        "sex": OneHotVectorizer().set_input(f["Sex"]),
+    }
+    combined = VectorsCombiner().set_input(
+        *[e.get_output() for e in ests.values()]).get_output()
+    checked = SanityChecker(remove_feature_group=False).set_input(
+        survived, combined).get_output()
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3, models_and_parameters=[
+            (OpLogisticRegression(), grid(reg_param=[0.01]))])
+    return (sel.set_input(survived, checked).get_output(), ests, combined,
+            checked)
+
+
+#: (map feature, its allowed keys): the options leg's vector may name
+#: only these keys under each map, never a blocked one
+FE_OPTIONS_KEYS = {"NumMap": {"age"}, "TextMap": {"sex", "embarked"},
+                   "TagMap": {"bio"}, "GeoMap": {"home"}}
+
+
+def _fe_options_leg(train, hold) -> dict:
+    """Every item of the feature-engineering options off its default,
+    trained on the card (FE_OPTIONS_ROWS + FE_OPTIONS_HOLDOUT rows of the
+    phase's data): the vector names only allowed keys, the fills are the
+    configured ones, save -> load -> score bitwise, the pivots' blocks."""
+    train = fe_options_data(train.slice(0, FE_OPTIONS_ROWS))
+    hold = fe_options_data(hold.slice(0, FE_OPTIONS_HOLDOUT))
+    pred, ests, combined, checked = build_fe_options()
+    wf = OpWorkflow().set_result_features(pred).set_input_data(train)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = wf.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+
+    def fitted(key):
+        return next(s for s in model.stages if s.uid == ests[key].uid)
+
+    names = model.train_data[combined.name].vmeta.columns
+    keys = {}
+    for c in names:
+        if c.parent_feature in FE_OPTIONS_KEYS:
+            keys.setdefault(c.parent_feature, set()).add(c.grouping)
+    fills = {"num_map": fitted("num_map").fills,
+             "geo": fitted("geo").fills,
+             "age_years": fitted("age_years").fills}
+    proba = model.score(hold)[pred.name].values.probability
+    tmp = os.path.join(REPO, "smoke_out")
+    path = os.path.join(tmp, "fe_options")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        model.save(path)
+        loaded = OpWorkflowModel.load(path)
+        again = loaded.score(hold)[pred.name].values.probability
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pivot = pivot_checks(model, train, "fe_options")
+    leg = {"rows": len(train), "holdout": len(hold), "train_s": train_s,
+           "width": len(names),
+           "checked_width": int(model.train_data[checked.name]
+                                .values.shape[1]),
+           "map_keys": {k: sorted(v) for k, v in keys.items()},
+           "fills": fills,
+           "inert_recorded": {
+               "auto_detect_languages": ests["text"].auto_detect_languages,
+               "remove_feature_group": checked.origin_stage
+               .remove_feature_group},
+           "roundtrip_bitwise": bool(torch.equal(again, proba)),
+           "finite": bool(torch.isfinite(proba).all()),
+           "pivot_stages": [x["stage"] for x in pivot["stages"]],
+           "predicted": FE_OPTIONS_PREDICTED}
+    check(all(keys.get(k, set()) == v for k, v in FE_OPTIONS_KEYS.items()),
+          f"feature_eng options: map keys {leg['map_keys']} are not the "
+          f"allowed ones {FE_OPTIONS_KEYS}")
+    check(fills["num_map"] == [{"age": 0.0}]
+          and fills["geo"] == [[0.0, 0.0, 0.0]]
+          and fills["age_years"] == [float(FE_OPTIONS_FILL)],
+          f"feature_eng options: fills {fills}")
+    check(leg["inert_recorded"] == {"auto_detect_languages": True,
+                                    "remove_feature_group": False},
+          f"feature_eng options: the inert options recorded as "
+          f"{leg['inert_recorded']}")
+    check(leg["roundtrip_bitwise"] and leg["finite"],
+          "feature_eng options: scores after save/load differ")
+    return leg
+
+
 def phase_feature_eng(tdata, reps: int, bw: float, f32: float) -> dict:
     """The rest of feature engineering on the card (the module docstring's
     phase 6c): the feature_eng DAG trained on the Titanic phase's rows with
@@ -2811,6 +3088,8 @@ def phase_feature_eng(tdata, reps: int, bw: float, f32: float) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    options = _fe_options_leg(train, hold)
+
     meta = selector.metadata
     summary = meta["model_selector_summary"]
     results = summary["validationResults"]
@@ -2851,7 +3130,7 @@ def phase_feature_eng(tdata, reps: int, bw: float, f32: float) -> dict:
            "d1_level_checks": level_checks,
            "save_s": save_s, "load_s": load_s, "artifact_bytes": nbytes,
            "roundtrip_rows": FE_ROUNDTRIP_ROWS,
-           "roundtrip_bitwise": bitwise,
+           "roundtrip_bitwise": bitwise, "options": options,
            "phase_s": time.perf_counter() - phase_t0}
     emit(out)
     for r in kernel_rows:
@@ -3330,6 +3609,149 @@ def _not_streamed(pred: Feature, model) -> list:
             if isinstance(s, Estimator) and s.uid not in streamed]
 
 
+def _ckpt_train(train_csv: str, hold_csv: str, ckpt: str,
+                chunk_rows: Optional[int] = None):
+    """Leg d's train: leg b's DAG (the filter, the streamed prefix, the
+    default selector) chunked (OOC_CKPT_CHUNK_ROWS unless ``chunk_rows``)
+    with a checkpoint in ``ckpt``: (model, prediction, wall seconds,
+    seg_hist launches).  The stages are numbered from 1, as the same
+    script's first run numbers them, so a resume's fingerprint matches."""
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+
+    reset_uids()
+    pred, _, _ = build_ooc_selector()
+    wf = (OpWorkflow().set_result_features(pred)
+          .set_reader(CSVReader(train_csv))
+          .with_raw_feature_filter(scoring_data=CSVReader(hold_csv)))
+    torch.cuda.synchronize()
+    gk.seg_level_hists.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train(chunk_rows=chunk_rows or OOC_CKPT_CHUNK_ROWS,
+                     checkpoint_dir=ckpt,
+                     checkpoint_every_chunks=OOC_CKPT_EVERY)
+    torch.cuda.synchronize()
+    return (model, pred, time.perf_counter() - t0,
+            gk.seg_level_hists.launches)
+
+
+def ckpt_child(train_csv: str, hold_csv: str, ckpt: str) -> None:
+    """Leg d's train in a child process, which the parent's TMOG_FAULTS
+    kills at a checkpoint save; the line below prints only if it was
+    not killed."""
+    _ckpt_train(train_csv, hold_csv, ckpt)
+    print("chip_smoke: the checkpointed train finished", flush=True)
+
+
+def _ooc_leg_d(cols: dict, rows: int, tmp: str) -> dict:
+    """Kill and resume: the first OOC_CKPT_ROWS train rows and
+    OOC_CKPT_HOLDOUT holdout rows of the phase's columns; leg b's DAG
+    trained chunked with a checkpoint, uninterrupted, then in a child
+    killed at checkpoint save OOC_CKPT_KILL_AT, then resumed here from
+    the child's directory."""
+    from transmogrifai_tpu_torch.workflow.checkpoint import (
+        CHECKPOINT_JSON, CheckpointMismatchError)
+
+    train_csv = os.path.join(tmp, "d_train.csv")
+    hold_csv = os.path.join(tmp, "d_holdout.csv")
+    write_ooc_csv(train_csv, cols, 0, OOC_CKPT_ROWS)
+    write_ooc_csv(hold_csv, cols, rows, rows + OOC_CKPT_HOLDOUT)
+    hold_reader = CSVReader(hold_csv)
+
+    def results(model, pred):
+        hold = hold_reader.generate_dataset(model.raw_features())
+        return ({"vocabs": [m.vocabs for m in _stage_of(
+                    model, "OneHotVectorizerModel")],
+                 "text": [[m.strategies, m.vocabs] for m in _stage_of(
+                     model, "SmartTextVectorizerModel")],
+                 "dropped": model.raw_feature_filter_results
+                 .dropped_features,
+                 "keep": [m.keep_indices for m in _stage_of(
+                     model, "SanityCheckerModel")]},
+                model.score(hold)[pred.name].values.probability)
+
+    ref_dir = os.path.join(tmp, "ckpt_uninterrupted")
+    m0, pred0, wall0, launches0 = _ckpt_train(train_csv, hold_csv, ref_dir)
+    r0, p0 = results(m0, pred0)
+    ip0 = m0.ingest_profile
+    ref_gone = not os.path.exists(ref_dir)
+
+    killed_dir = os.path.join(tmp, "ckpt_killed")
+    env = dict(os.environ, TMOG_FAULTS=json.dumps({"faults": [
+        {"point": "checkpoint.barrier", "action": "kill",
+         "at": OOC_CKPT_KILL_AT}]}))
+    cmd = [sys.executable, os.path.abspath(__file__), "--ckpt-child",
+           killed_dir, "--ooc-train", train_csv, "--ooc-holdout", hold_csv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=600)
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == -9 and "finished" not in proc.stdout,
+          f"out_of_core d: the child was not killed at its checkpoint "
+          f"(exit {proc.returncode}): {proc.stderr[-2000:]}")
+    with open(os.path.join(killed_dir, CHECKPOINT_JSON)) as fh:
+        saved = json.load(fh)["current"]
+    # another chunk geometry against the kept checkpoint: refused
+    try:
+        _ckpt_train(train_csv, hold_csv, killed_dir,
+                    chunk_rows=OOC_CKPT_CHUNK_ROWS // 2)
+        mismatch = None
+    except CheckpointMismatchError as exc:
+        mismatch = str(exc)
+    kept = os.path.exists(os.path.join(killed_dir, CHECKPOINT_JSON))
+
+    m1, pred1, wall1, launches1 = _ckpt_train(train_csv, hold_csv,
+                                              killed_dir)
+    r1, p1 = results(m1, pred1)
+    ip1 = m1.ingest_profile
+    skipped = ip1.passes[0].chunks_skipped
+    err = float((p1 - p0).abs().max())
+    leg = {"rows": OOC_CKPT_ROWS, "holdout": OOC_CKPT_HOLDOUT,
+           "chunk_rows": OOC_CKPT_CHUNK_ROWS,
+           "chunks": ip0.passes[0].chunks,
+           "checkpoint_every": OOC_CKPT_EVERY,
+           "kill_at_save": OOC_CKPT_KILL_AT,
+           "uninterrupted_s": wall0, "child_s": child_s, "resume_s": wall1,
+           "checkpoint_saves": ip0.checkpoint_saves,
+           "checkpoint_s": ip0.checkpoint_wall_s,
+           "checkpoint_share": ip0.checkpoint_wall_s / wall0,
+           "resume_checkpoint_saves": ip1.checkpoint_saves,
+           "killed_at_chunks_done": saved["chunks_done"],
+           "resumed": ip1.resumed, "chunks_skipped": skipped,
+           "passes": {"uninterrupted": [q.label for q in ip0.passes],
+                      "resumed": [q.label for q in ip1.passes]},
+           "vocabs_equal": r1["vocabs"] == r0["vocabs"]
+           and r1["text"] == r0["text"],
+           "dropped": r1["dropped"],
+           "dropped_equal": r1["dropped"] == r0["dropped"],
+           "keep_equal": r1["keep"] == r0["keep"],
+           "proba_max_abs_err": err, "proba_tol": OOC_CKPT_PROBA_TOL,
+           "proba_bitwise": bool(torch.equal(p1, p0)),
+           "checkpoint_removed": ref_gone and not os.path.exists(killed_dir),
+           "mismatch_refused": mismatch is not None and "chunkRows"
+           in mismatch, "checkpoint_kept_after_refusal": kept,
+           "seg_hist_launches": {"uninterrupted": launches0,
+                                 "resumed": launches1},
+           "predicted": OOC_CKPT_PREDICTED}
+    check(leg["resumed"] and skipped > 0
+          and skipped == saved["chunks_done"],
+          f"out_of_core d: the resume skipped {skipped} chunks of the "
+          f"{saved['chunks_done']} saved (resumed {leg['resumed']})")
+    check(leg["vocabs_equal"] and leg["dropped_equal"] and leg["keep_equal"],
+          "out_of_core d: the resumed train's vocabularies, drop list or "
+          "keep list differ from the uninterrupted train's")
+    check(bool(torch.isfinite(p1).all()) and err <= OOC_CKPT_PROBA_TOL,
+          f"out_of_core d: resumed probabilities {err} from the "
+          f"uninterrupted train's")
+    check(leg["checkpoint_removed"],
+          "out_of_core d: a checkpoint directory outlived its train")
+    check(leg["mismatch_refused"] and kept,
+          f"out_of_core d: another chunk_rows was not refused by name: "
+          f"{mismatch}")
+    check(launches0 > 0 and launches1 > 0,
+          f"out_of_core d: seg_hist launches {launches0}, {launches1}")
+    return leg
+
+
 def _run_ooc_child(train_csv: str, hold_csv: str, mode: str,
                    chunk_rows: int) -> dict:
     cmd = [sys.executable, os.path.abspath(__file__), "--ooc-child", mode,
@@ -3609,14 +4031,18 @@ def phase_out_of_core(rows: int, holdout: int, reps: int, bw: float,
         del legs, ch, inc
         torch.cuda.empty_cache()
         leg_c = _ooc_leg_c(model, cols, rows, tmp)
+        del model
+        torch.cuda.empty_cache()
+        leg_d = _ooc_leg_d(cols, rows, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out = {"phase": "out_of_core", "rows": rows, "holdout": holdout,
-           "data": data, "a": leg_a, "b": leg_b, "c": leg_c,
+           "data": data, "a": leg_a, "b": leg_b, "c": leg_c, "d": leg_d,
            "phase_s": time.perf_counter() - phase_t0}
     emit(out)
     emit(kernel_row)
-    return {"seg_hist_launches": leg_b["seg_hist_launches"]}
+    return {"seg_hist_launches": leg_b["seg_hist_launches"]
+            + sum(leg_d["seg_hist_launches"].values())}
 
 
 # ---------------------------------------------------------------------------
@@ -3992,6 +4418,7 @@ def _events_leg_b(tmp: str) -> dict:
     hold = events_reader(clean).generate_dataset(raw)
     _, cpred, cmodel = train(events_reader(clean))
     clean_p = cmodel.score(hold)[cpred.name].values.probability[:, 1]
+    pivot_checks(cmodel, hold, "events")
     rreader = events_reader(clean).with_resilience(
         retry=RetryPolicy(max_attempts=3, base_delay_s=0.0))
     with faults.inject(faults.FaultSpec(point="event.window",
@@ -6287,6 +6714,9 @@ def main() -> int:
     ap.add_argument("--events-out", help=argparse.SUPPRESS)
     # the selector_options phase's leg b runs a sweep in a child it kills
     ap.add_argument("--sweep-child", help=argparse.SUPPRESS)
+    # the out_of_core phase's leg d runs a checkpointed train in a child
+    # it kills
+    ap.add_argument("--ckpt-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs one",
@@ -6300,6 +6730,10 @@ def main() -> int:
     if args.sweep_child:
         torch.backends.cuda.matmul.allow_tf32 = False
         sweep_child(args.sweep_child, args.cols)
+        return 0
+    if args.ckpt_child:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ckpt_child(args.ooc_train, args.ooc_holdout, args.ckpt_child)
         return 0
     if args.events_child:
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -267,3 +267,41 @@ def test_unported_subcommands_name_their_items(command, item):
         pmain([command, "anything"])
     with pytest.raises(SystemExit):
         pmain(["nope"])
+
+
+def _typing_samples(tmp_path, n=80):
+    """80 rows of a JSON-lines and a CSV sample whose columns pandas types
+    in ways a plain parser would not: epoch-ms and ISO date columns under
+    date-like names, padded integers, a True/1/0 mix, digits with
+    underscores."""
+    jsonl = str(tmp_path / "dates.jsonl")
+    with open(jsonl, "w") as fh:
+        for i in range(n):
+            fh.write(json.dumps({
+                "id": i, "y": i % 2,
+                "signup_time": 1600000000000 + i * 86400000,
+                "date": "2020-02-%02d" % (i % 28 + 1)}) + "\n")
+    path = str(tmp_path / "cells.csv")
+    with open(path, "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["id", "y", "padded", "flag_mix", "code"])
+        for i in range(n):
+            w.writerow([i, i % 2, f" {i % 7}", ["True", "1", "0"][i % 3],
+                        f"{i}_{i % 4}"])
+    return {"signup_time": jsonl, "date": jsonl, "padded": path,
+            "flag_mix": path, "code": path}
+
+
+@pytest.mark.parametrize("column,expected", [
+    ("signup_time", "DateTime"), ("date", "DateTime"),
+    ("padded", "Integral"), ("flag_mix", "PickList"), ("code", "Text")])
+def test_sample_columns_type_as_pandas_does(tmp_path, column, expected):
+    """Each column of the repaired schema inference types as the JAX
+    package's pandas reads type it, and the whole sample's schema is
+    equal."""
+    path = _typing_samples(tmp_path)[column]
+    port = pcli.ProblemSchema.from_file("S", path, "y", "id").features
+    jax = jcli.ProblemSchema.from_file("S", path, "y", "id").features
+    assert port[column].__name__ == jax[column].__name__ == expected
+    assert {k: t.__name__ for k, t in port.items()} == {
+        k: t.__name__ for k, t in jax.items()}

@@ -388,11 +388,12 @@ def test_not_ported_options_raise():
         ft.RealNN, [1.0])})
     wf = OpWorkflow().set_result_features(pred).set_input_data(train)
     for kwargs, item in ((dict(profile=True), "6.5"),
-                         (dict(checkpoint_dir="/nonexistent",
-                               chunk_rows=8), "6.5"),
                          (dict(tuner=object()), "6.5")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             wf.train(**kwargs)
+    # checkpoints are ported: in-core, only a selector's sweep checkpoints
+    with pytest.raises(ValueError, match="chunk_rows"):
+        wf.train(checkpoint_dir="/nonexistent")
     with pytest.raises(NotImplementedError, match="item 6.5"):
         OpWorkflow().set_result_features(pred).set_input_data(
             train).with_workflow_cv().train(chunk_rows=8)

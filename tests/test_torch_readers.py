@@ -166,8 +166,10 @@ class TestCSV:
         _write_csv(path, _cells(7), HEADER)
         assert isinstance(DataReaders.Simple.csv(path), CSVReader)
         assert issubclass(CSVAutoReader, CSVReader)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ParquetReader(path)
+        # Parquet is ported (tests/test_torch_parquet.py); its factory
+        # takes the JAX reader's key_col
+        pr = DataReaders.Simple.parquet(path, key_col="id")
+        assert isinstance(pr, ParquetReader) and pr.key_col == "id"
         with pytest.raises(ValueError, match="quarantine"):
             CSVReader(path).with_resilience(bad_records="quarantine")
         # the JAX readers' key_col has no effect there: the port does not

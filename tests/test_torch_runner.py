@@ -251,9 +251,16 @@ class TestStreamingReaders:
         reader = FileStreamingReader(str(watch), max_polls=None)
         reader.stop()
         assert list(reader.stream(feats)) == []
-        with pytest.raises(NotImplementedError, match="6.3"):
-            (watch / "d.parquet").write_text("")
-            list(FileStreamingReader(str(watch)).stream(feats))
+        # a Parquet file is read too (ParquetReader, pyarrow)
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        for name in ("a.csv", "b.jsonl", "c.json"):
+            (watch / name).unlink()
+        x1 = [float(v) for v in range(7)]
+        pq.write_table(pa.table({"x1": x1}), str(watch / "d.parquet"))
+        (batch,) = list(FileStreamingReader(str(watch)).stream(feats))
+        assert batch["x1"].values.tolist() == x1
 
     def test_async_batcher_order_and_errors(self):
         assert list(AsyncBatcher(iter(range(20)), depth=3)) == list(range(20))

@@ -4,23 +4,33 @@
 Reference: ``gen/ProblemSchema.scala:51-99`` (schema + response/id fields
 -> ProblemSchema), ``gen/ProblemKind.scala:36-66`` (binary, multiclass,
 regression).  The sample's columns are typed as pandas' ``read_csv`` /
-``read_json`` type them (``readers/files.infer_cells`` for CSV cells;
-for JSON, numeric text as numbers and all-integral numbers as integers),
-then mapped to feature types by the
-rules of the JAX package's ``infer_schema_from_pandas``: booleans Binary,
-integers Integral (Binary when only 0 and 1 occur), floats Real, other
-columns PickList up to max(50, 10% of the rows) distinct values, else
-Text.
+``read_json`` / ``read_parquet`` type them (``readers/files.infer_cells``
+for CSV cells; for JSON, a date-like column of dates as datetimes,
+numeric text as numbers and all-integral numbers as integers; for
+Parquet, ``ParquetReader``'s columns as ``to_pandas()`` gives them),
+then mapped to feature types by the rules of the JAX package's
+``infer_schema_from_pandas``: booleans Binary, integers Integral (Binary
+when only 0 and 1 occur), floats Real, datetimes DateTime, other columns
+PickList up to max(50, 10% of the rows) distinct values, else Text.
+
+JSON dates follow ``read_json``'s default conversion: a column whose name
+is date-like (ending in ``_at`` or ``_time``, starting with
+``timestamp``, or ``date``, ``datetime``, ``modified``) converts when its
+values are all epoch numbers above a year of seconds, or all date
+strings.  Pandas' ``to_datetime`` takes more string formats than ISO
+8601; the port takes ISO 8601 (``datetime.fromisoformat``), so such a
+column of other date formats stays text here.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import enum
 import json
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
-from ..readers.files import CSVReader, infer_cells
+from ..readers.files import CSVReader, ParquetReader, infer_cells
 from ..types import feature_types as ft
 
 __all__ = ["ProblemKind", "ProblemSchema", "infer_problem_kind",
@@ -54,10 +64,69 @@ def value_kind(values: Sequence[Any]) -> str:
     return "O"
 
 
-def _json_column(values: Sequence[Any]) -> Tuple[str, list]:
+#: pandas' ``read_json`` converts a date-like column only when every
+#: number is above this (a year of seconds, its ``min_stamp``)
+_MIN_STAMP = 31_536_000
+#: epoch units tried in order, in nanoseconds a unit; the first whose
+#: values fit a nanosecond int64 is the column's
+_STAMP_UNITS = (10 ** 9, 10 ** 6, 10 ** 3, 1)
+
+
+def _date_like(name: str) -> bool:
+    """``read_json``'s default date columns (``keep_default_dates``)."""
+    low = name.lower()
+    return (low.endswith(("_at", "_time")) or low.startswith("timestamp")
+            or low in ("date", "datetime", "modified"))
+
+
+def _json_dates(values: Sequence[Any]) -> Optional[list]:
+    """Epoch milliseconds (NaN where missing) of a date-like JSON column
+    that ``read_json`` converts to datetimes, else None: every present
+    value a number (or integer text) above ``_MIN_STAMP``, or every one an
+    ISO 8601 date string."""
+    present = [v for v in values if not _missing(v)]
+    if not present or any(isinstance(v, bool) for v in present):
+        return None
+    nums = present
+    if all(isinstance(v, str) for v in present):
+        if len(present) == len(values):
+            try:
+                nums = [int(v) for v in present]
+            except ValueError:
+                pass
+        if nums is present:
+            try:
+                stamps = {v: datetime.datetime.fromisoformat(v)
+                          for v in present}
+            except ValueError:
+                return None
+
+            def ms(d: datetime.datetime) -> float:
+                if d.tzinfo is None:
+                    d = d.replace(tzinfo=datetime.timezone.utc)
+                return d.timestamp() * 1e3
+
+            return [float("nan") if _missing(v) else ms(stamps[v])
+                    for v in values]
+        values = nums
+    if not all(isinstance(v, (int, float)) for v in nums) or any(
+            v <= _MIN_STAMP for v in nums):
+        return None
+    scale = next((u for u in _STAMP_UNITS
+                  if all(abs(v) * u < 2 ** 63 for v in nums)), 1)
+    return [float("nan") if _missing(v) else v * scale / 1e6
+            for v in values]
+
+
+def _json_column(name: str, values: Sequence[Any]) -> Tuple[str, list]:
     """(kind, values) of a JSON column as pandas' ``read_json`` types it:
-    numeric text converts to numbers, and numbers that are all integral
-    and present become integers."""
+    a date-like column of dates converts to datetimes (``"M"``, epoch
+    milliseconds), numeric text converts to numbers, and numbers that are
+    all integral and present become integers."""
+    if _date_like(name):
+        stamps = _json_dates(values)
+        if stamps is not None:
+            return "M", stamps
     vals = [float("nan") if v is None else v for v in values]
     present = [v for v in vals if not _missing(v)]
     if present and all(isinstance(v, str) for v in present):
@@ -85,6 +154,8 @@ def _column_type(kind: str, values: Sequence[Any],
         return ft.Binary if len(d) <= 2 and d <= {0, 1} else ft.Integral
     if kind == "f":
         return ft.Real
+    if kind == "M":
+        return ft.DateTime
     return (ft.PickList if len(_distinct(values)) <= max(50, 0.1 * n_rows)
             else ft.Text)
 
@@ -112,10 +183,10 @@ def infer_problem_kind(values) -> ProblemKind:
 def read_sample(path: str, columns: Optional[List[str]] = None
                 ) -> Tuple[Dict[str, Tuple[str, list]], int]:
     """({column: (kind, values)}, rows) of a CSV (with a header, or
-    headerless with ``columns``), JSON-lines or JSON-array file."""
+    headerless with ``columns``), JSON-lines, JSON-array or Parquet
+    file."""
     if path.endswith(".parquet"):
-        raise NotImplementedError(
-            "Parquet samples are not ported (ROADMAP Queue A item 6.3)")
+        return ParquetReader(path).sample_columns()
     if path.endswith((".json", ".jsonl")):
         with open(path) as fh:
             if path.endswith(".jsonl"):
@@ -125,7 +196,7 @@ def read_sample(path: str, columns: Optional[List[str]] = None
         names: List[str] = []
         for r in records:
             names += [k for k in r if k not in names]
-        return {k: _json_column([r.get(k) for r in records])
+        return {k: _json_column(k, [r.get(k) for r in records])
                 for k in names}, len(records)
     reader = (CSVReader(path, column_names=list(columns), has_header=False)
               if columns else CSVReader(path))

@@ -12,7 +12,8 @@ from typing import Union
 import numpy as np
 import torch
 
-__all__ = ["set_device", "resolve_device", "as_device_tensor"]
+__all__ = ["set_device", "resolve_device", "as_device_tensor",
+           "device_vector"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -46,3 +47,19 @@ def as_device_tensor(value, dtype: torch.dtype,
         return value
     return torch.as_tensor(np.asarray(value), dtype=dtype).to(
         resolve_device(device))
+
+
+def device_vector(col, device: DeviceLike = None):
+    """An ``OPVector`` column (a ``FeatureColumn``) as a float32 tensor: a
+    tensor column is returned as it is, a host array (a raw vector
+    feature) is moved to the resolved device in one copy, its metadata
+    kept.  Every stage that takes a vector on the device takes it through
+    here."""
+    if isinstance(col.values, torch.Tensor):
+        return col
+    from .types.columns import FeatureColumn
+
+    mat = np.ascontiguousarray(col.values, dtype=np.float32)
+    return FeatureColumn(col.ftype,
+                         torch.from_numpy(mat).to(resolve_device(device)),
+                         col.mask, col.vmeta)

@@ -25,6 +25,7 @@ import numpy as np
 
 from ..device import DeviceLike, resolve_device
 from ..types.columns import ColumnarDataset, FeatureColumn
+from ..utils import faults
 from .feature_distribution import (NUMERIC_STORAGE, FeatureDistribution,
                                    merge_distributions, profile_column,
                                    profile_numeric_batch)
@@ -119,7 +120,8 @@ class RawFeatureFilter:
         """Profile the train reader (and the scoring data, when given)
         ``chunk_rows`` rows at a time and decide as the in-core pass
         does.  Returns (results, stats): stats has the passes, the rows
-        of each and the seconds of the whole."""
+        of each and the seconds of the whole.  The ``rff.pass`` fault
+        point fires before each pass (index 0 ``train``, 1 ``score``)."""
         if pod is not None:
             raise NotImplementedError(
                 "pod trains are not ported yet (ROADMAP Queue A item 6.7, "
@@ -130,6 +132,7 @@ class RawFeatureFilter:
         pred_names = [f.name for f in predictors]
         seconds: Dict[str, float] = {}
         stats: Dict[str, Any] = {"passes": 1, "score_rows": 0}
+        faults.fire("rff.pass", index=0, tag="train")
         train_dists, stats["rows"] = self._profile_reader(
             reader, list(raw_features), pred_names,
             responses[0].name if responses else None, chunk_rows, device,
@@ -138,6 +141,7 @@ class RawFeatureFilter:
         if self.scoring_data is not None:
             from ..readers.base import reader_for
 
+            faults.fire("rff.pass", index=1, tag="score")
             stats["passes"] = 2
             score_dists, stats["score_rows"] = self._profile_reader(
                 reader_for(self.scoring_data), predictors, pred_names, None,

@@ -15,6 +15,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..device import device_vector
 from ..stages.base import BinaryEstimator, BinaryModel
 from ..types.columns import FeatureColumn
 from ..types.feature_types import OPNumeric, OPVector, Prediction
@@ -95,4 +96,5 @@ class PredictorModel(BinaryModel):
         raise NotImplementedError
 
     def transform_columns(self, label_col, features_col) -> FeatureColumn:
-        return FeatureColumn(Prediction, self.predict_batch(features_col.values))
+        return FeatureColumn(Prediction, self.predict_batch(
+            device_vector(features_col, getattr(self, "device", None)).values))

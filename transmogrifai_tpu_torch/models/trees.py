@@ -33,12 +33,14 @@ when the matrix is freed, and ``clear_sweep_caches`` (which
 ``OpWorkflow.train`` calls at its end) empties it.  Boosted fits bundle
 mutually exclusive columns (EFB, ``TMOG_EFB``) where the JAX package does,
 and grow through the CSR histogram path under ``TMOG_SPARSE_HIST=1``.
+The memo dedupes builds in flight: a fit that asks for an entry the
+selector's prefetch thread is building waits for it instead of building
+it twice.
 
-Not ported (each has no counterpart here): the JAX package's bf16 upload
+Not ported (it has no counterpart here): the JAX package's bf16 upload
 of large matrices (``_dev_f32``), which saves bytes on a remote TPU's
-link, and the memo's in-flight dedupe for the selector's prefetch thread
-(that thread is ROADMAP Queue A item 6).  Not ported yet (ROADMAP Queue
-A): the ``with_mesh`` paths.
+link.  Not ported yet (ROADMAP Queue A item 6.7): the ``with_mesh``
+paths.
 """
 from __future__ import annotations
 

@@ -267,15 +267,16 @@ class DateToUnitCircleVectorizer(SequenceTransformer):
 
 
 class GeolocationVectorizer(SequenceEstimator):
-    """(lat, lon, accuracy) -> the triple filled with the column mean + a
-    null indicator."""
+    """(lat, lon, accuracy) -> the triple filled with the column mean (or
+    zeros with ``fill_with_mean=False``) + a null indicator."""
 
     input_types = (Geolocation,)
 
-    def __init__(self, track_nulls: bool = True,
+    def __init__(self, fill_with_mean: bool = True, track_nulls: bool = True,
                  device: Optional[str] = None, uid: Optional[str] = None):
         super().__init__(operation_name="vecGeo", output_type=OPVector,
                          uid=uid)
+        self.fill_with_mean = fill_with_mean
         self.track_nulls = track_nulls
         self.device = device
 
@@ -283,7 +284,7 @@ class GeolocationVectorizer(SequenceEstimator):
         fills = []
         for c in cols:
             m = np.asarray(c.mask)
-            if m.any():
+            if self.fill_with_mean and m.any():
                 fills.append(np.nan_to_num(
                     np.asarray(c.values, dtype=np.float64)[m].mean(axis=0)
                 ).tolist())

@@ -6,13 +6,16 @@ each (map, key) pair becomes a column group
 vectorized like its scalar value type, the key recorded as the slot's
 ``grouping``: numeric maps (fill + null indicator), pivoted text maps,
 multi-pick-list maps, geolocation maps and SmartText maps (pivot, hash or
-ignore per key).  The blocks are built on the host with the JAX
-package's arithmetic and moved to the stage's device in one copy.
+ignore per key).  Every estimator takes ``allow_keys`` (keep only these
+keys) and ``block_keys`` (drop these); the kept keys are sorted, as in
+the JAX package, which sets the column order.  The blocks are built on
+the host with the JAX package's arithmetic and moved to the stage's
+device in one copy.
 """
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -32,36 +35,54 @@ __all__ = ["NumericMapVectorizer", "NumericMapVectorizerModel",
            "MultiPickListMapVectorizer", "MultiPickListMapVectorizerModel",
            "SmartTextMapVectorizer", "SmartTextMapVectorizerModel",
            "GeoMapVectorizer", "GeoMapVectorizerModel",
+           "GeolocationMapVectorizer", "GeolocationMapVectorizerModel",
            "transmogrify_map_group"]
 
 
-def _discover_keys(col: FeatureColumn) -> List[str]:
-    return sorted({k for m in col.values for k in m})
+def _key_filter(allow: Optional[Sequence[str]], block: Sequence[str]):
+    """The key test of ``allow_keys``/``block_keys`` (an empty allow list
+    allows every key, as in the JAX package)."""
+    allow_set = set(allow) if allow else None
+    block_set = set(block)
+    return lambda k: k not in block_set and (allow_set is None
+                                             or k in allow_set)
+
+
+def _discover_keys(col: FeatureColumn, allow: Optional[Sequence[str]],
+                   block: Sequence[str]) -> List[str]:
+    ok = _key_filter(allow, block)
+    return sorted(k for k in {k for m in col.values for k in m} if ok(k))
 
 
 class NumericMapVectorizer(SequenceEstimator):
-    """RealMap/IntegralMap/BinaryMap... -> per-key mean fill + null
-    indicators."""
+    """RealMap/IntegralMap/BinaryMap... -> per-key fill (the key's mean,
+    or 0 with ``fill_with_mean=False``) + null indicators."""
 
     input_types = (OPMap,)
 
-    def __init__(self, track_nulls: bool = True, device: Optional[str] = None,
-                 uid: Optional[str] = None):
+    def __init__(self, fill_with_mean: bool = True, track_nulls: bool = True,
+                 allow_keys: Optional[List[str]] = None,
+                 block_keys: Sequence[str] = (),
+                 device: Optional[str] = None, uid: Optional[str] = None):
         super().__init__(operation_name="vecNumMap", output_type=OPVector,
                          uid=uid)
         self.device = device
+        self.fill_with_mean = fill_with_mean
         self.track_nulls = track_nulls
+        self.allow_keys = list(allow_keys) if allow_keys else None
+        self.block_keys = list(block_keys)
 
     def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
         keysets, fills = [], []
         for c in cols:
-            keys = _discover_keys(c)
+            keys = _discover_keys(c, self.allow_keys, self.block_keys)
             keysets.append(keys)
             kf = {}
             for k in keys:
                 vals = [float(m[k]) for m in c.values
                         if k in m and m[k] is not None]
-                kf[k] = float(np.mean(vals)) if vals else 0.0
+                kf[k] = (float(np.mean(vals))
+                         if vals and self.fill_with_mean else 0.0)
             fills.append(kf)
         return NumericMapVectorizerModel(keysets=keysets, fills=fills,
                                          track_nulls=self.track_nulls,
@@ -118,19 +139,23 @@ class TextMapPivotVectorizer(SequenceEstimator):
     input_types = (OPMap,)
 
     def __init__(self, top_k: int = 20, min_support: int = 10,
-                 track_nulls: bool = True, device: Optional[str] = None,
-                 uid: Optional[str] = None):
+                 track_nulls: bool = True,
+                 allow_keys: Optional[List[str]] = None,
+                 block_keys: Sequence[str] = (),
+                 device: Optional[str] = None, uid: Optional[str] = None):
         super().__init__(operation_name="pivotTextMap",
                          output_type=OPVector, uid=uid)
         self.device = device
         self.top_k = top_k
         self.min_support = min_support
         self.track_nulls = track_nulls
+        self.allow_keys = list(allow_keys) if allow_keys else None
+        self.block_keys = list(block_keys)
 
     def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
         keysets, vocabs = [], []
         for c in cols:
-            keys = _discover_keys(c)
+            keys = _discover_keys(c, self.allow_keys, self.block_keys)
             keysets.append(keys)
             kv = {}
             for k in keys:
@@ -204,7 +229,7 @@ class MultiPickListMapVectorizer(TextMapPivotVectorizer):
     def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
         keysets, vocabs = [], []
         for c in cols:
-            keys = _discover_keys(c)
+            keys = _discover_keys(c, self.allow_keys, self.block_keys)
             keysets.append(keys)
             kv = {}
             for k in keys:
@@ -306,15 +331,20 @@ class GeoMapVectorizer(SequenceEstimator):
 
     input_types = (OPMap,)
 
-    def __init__(self, track_nulls: bool = True, device: Optional[str] = None,
-                 uid: Optional[str] = None):
+    def __init__(self, track_nulls: bool = True,
+                 allow_keys: Optional[List[str]] = None,
+                 block_keys: Sequence[str] = (),
+                 device: Optional[str] = None, uid: Optional[str] = None):
         super().__init__(operation_name="vecGeoMap", output_type=OPVector,
                          uid=uid)
         self.device = device
         self.track_nulls = track_nulls
+        self.allow_keys = list(allow_keys) if allow_keys else None
+        self.block_keys = list(block_keys)
 
     def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
-        keysets = [_discover_keys(c) for c in cols]
+        keysets = [_discover_keys(c, self.allow_keys, self.block_keys)
+                   for c in cols]
         return GeoMapVectorizerModel(keysets=keysets,
                                      track_nulls=self.track_nulls,
                                      device=self.device)
@@ -360,6 +390,11 @@ class GeoMapVectorizerModel(SequenceModel):
                                 self.device)
 
 
+#: the reference's names (GeolocationMapVectorizer.scala)
+GeolocationMapVectorizer = GeoMapVectorizer
+GeolocationMapVectorizerModel = GeoMapVectorizerModel
+
+
 # ---------------------------------------------------------------------------
 # SmartTextMapVectorizer
 # ---------------------------------------------------------------------------
@@ -381,8 +416,9 @@ class SmartTextMapVectorizer(SequenceEstimator):
     def __init__(self, max_cardinality: int = 100, top_k: int = 20,
                  min_support: int = 10, num_hash_features: int = 512,
                  min_fill_rate: float = 0.001, track_nulls: bool = True,
-                 seed: int = 42, device: Optional[str] = None,
-                 uid: Optional[str] = None):
+                 seed: int = 42, allow_keys: Optional[List[str]] = None,
+                 block_keys: Sequence[str] = (),
+                 device: Optional[str] = None, uid: Optional[str] = None):
         super().__init__(operation_name="smartTxtMapVec",
                          output_type=OPVector, uid=uid)
         self.device = device
@@ -393,9 +429,12 @@ class SmartTextMapVectorizer(SequenceEstimator):
         self.min_fill_rate = min_fill_rate
         self.track_nulls = track_nulls
         self.seed = seed
+        self.allow_keys = list(allow_keys) if allow_keys else None
+        self.block_keys = list(block_keys)
 
     def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
         keysets, strategies, vocabs = [], [], []
+        key_ok = _key_filter(self.allow_keys, self.block_keys)
         for c in cols:
             # single pass: one TextStats per key encountered (present values
             # only; null counts derive from per-key presence vs row count)
@@ -405,6 +444,8 @@ class SmartTextMapVectorizer(SequenceEstimator):
                 if not m:
                     continue
                 for k, v in m.items():
+                    if not key_ok(k):
+                        continue
                     st = stats_by_key.get(k)
                     if st is None:
                         st = stats_by_key[k] = TextStats(self.max_cardinality)

@@ -19,7 +19,13 @@ arithmetic and the same counting order as the JAX package, so fill
 values, vocabularies, strategies and bucket ids match exactly).
 Transforms emit the (N, D) float32 matrix as a tensor on the stage's
 device; the blocks of the host-built vectorizers are made as one host
-array and moved in one copy.
+array and moved in one copy.  The pivots (OneHot, MultiPickList and
+SmartText's pivoted fields and null indicators) are made by one
+function, ``pivot_block``: the host computes only the int32 (row,
+column) indices of the ones, and the device scatters them into a zeroed
+block, bitwise the host-built block (``pivot_block_host``).  A raw ``OPVector`` column
+(a host array) moves to the device once, where it enters a device stage
+(``device.device_vector``).
 
 Every fit also leaves ``metadata["drift_baseline"]``: {raw feature name:
 baseline}, the train-side distribution a serving ``DriftMonitor``
@@ -48,7 +54,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import device_vector, resolve_device
 from ..stages.base import SequenceEstimator, SequenceModel, SequenceTransformer
 from ..types.columns import ColumnarDataset, FeatureColumn
 from ..types.feature_types import OPNumeric, OPSet, OPVector, Text
@@ -59,7 +65,8 @@ from .vector_metadata import (
     NULL_INDICATOR, OTHER_INDICATOR, VectorColumnMetadata, VectorMetadata,
 )
 
-__all__ = ["RealVectorizer", "RealVectorizerModel", "IntegralVectorizer",
+__all__ = ["pivot_block", "pivot_block_host",
+           "RealVectorizer", "RealVectorizerModel", "IntegralVectorizer",
            "BinaryVectorizer", "OneHotVectorizer", "OneHotVectorizerModel",
            "MultiPickListVectorizer", "MultiPickListVectorizerModel",
            "TextHashingVectorizer", "TextStats", "SmartTextVectorizer",
@@ -76,6 +83,38 @@ def _host_vec_column(arr: np.ndarray, meta: VectorMetadata,
     block = np.ascontiguousarray(arr, dtype=np.float32)
     return _vec_column(torch.from_numpy(block).to(resolve_device(device)),
                        meta)
+
+
+def pivot_block(n: int, width: int, rows: np.ndarray, cols: np.ndarray,
+                device=None) -> torch.Tensor:
+    """The (n, width) float32 block with a one at each (``rows[i]``,
+    ``cols[i]``) and zeros elsewhere, built on ``device``: the indices
+    cross as one int32 copy and the device scatters them into a zeroed
+    block (a repeated index is one one)."""
+    dev = resolve_device(device)
+    out = torch.zeros((n, width), dtype=torch.float32, device=dev)
+    if len(rows):
+        idx = torch.from_numpy(np.stack([np.asarray(rows, np.int32),
+                                         np.asarray(cols, np.int32)]))
+        idx = idx.to(dev).to(torch.int64)
+        out.view(-1).index_fill_(0, idx[0] * width + idx[1], 1.0)
+    return out
+
+
+def pivot_block_host(n: int, width: int, rows: np.ndarray,
+                     cols: np.ndarray) -> np.ndarray:
+    """``pivot_block``'s block built on the host (the reference)."""
+    out = np.zeros((n, width), dtype=np.float32)
+    out[np.asarray(rows, np.intp), np.asarray(cols, np.intp)] = 1.0
+    return out
+
+
+def _slot_ones(slot: np.ndarray, offset: int) -> Tuple[np.ndarray,
+                                                       np.ndarray]:
+    """(rows, columns) of the ones of a one-slot-a-row pivot: the rows
+    whose slot is not -1, at ``offset`` + their slot."""
+    rows = np.flatnonzero(slot >= 0)
+    return rows, offset + slot[rows]
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +252,11 @@ def _host_map(fn: Callable, items: Sequence) -> List:
         return list(ex.map(fn, items))
 
 
+def _cat_ints(parts: List[np.ndarray]) -> np.ndarray:
+    return (np.concatenate(parts).astype(np.int32) if parts
+            else np.zeros(0, np.int32))
+
+
 def _present(c: FeatureColumn) -> np.ndarray:
     return np.nan_to_num(np.asarray(c.values, np.float64))[
         np.asarray(c.mask)]
@@ -340,18 +384,22 @@ class RealVectorizerModel(SequenceModel):
 
 
 class IntegralVectorizer(SequenceEstimator):
-    """Fill missing integrals with the mode (0 for a column with no value)
-    + optional null-indicator slots.  The streaming fit merges exact value
+    """Fill missing integrals with the mode (``fill_value`` for a column
+    with no value, or for every column with ``fill_with_mode=False``) +
+    optional null-indicator slots.  The streaming fit merges exact value
     counts: the same modes (ties to the smallest value)."""
 
     input_types = (OPNumeric,)
     supports_streaming_fit = True
     streaming_order_insensitive = True
 
-    def __init__(self, track_nulls: bool = True,
-                 device: Optional[str] = None, uid: Optional[str] = None):
+    def __init__(self, fill_with_mode: bool = True, fill_value: int = 0,
+                 track_nulls: bool = True, device: Optional[str] = None,
+                 uid: Optional[str] = None):
         super().__init__(operation_name="vecIntegral", output_type=OPVector,
                          uid=uid)
+        self.fill_with_mode = fill_with_mode
+        self.fill_value = fill_value
         self.track_nulls = track_nulls
         self.device = device
 
@@ -381,7 +429,8 @@ class IntegralVectorizer(SequenceEstimator):
         # the highest count, ties to the smallest value (the in-core
         # argmax over ascending unique values)
         fills = [float(max(counts.items(), key=lambda kv: (kv[1], -kv[0]))[0])
-                 if counts else 0.0 for counts in state]
+                 if counts and self.fill_with_mode
+                 else float(self.fill_value) for counts in state]
         self.metadata["drift_baseline"] = {
             f.name: _numeric_baseline_from_counts(counts)
             for f, counts in zip(self.input_features, state)}
@@ -483,23 +532,30 @@ class OneHotVectorizerModel(SequenceModel):
         self.unseen_to_other = unseen_to_other
         self.device = device
 
-    def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
-        dev = resolve_device(self.device)
+    def pivot_ones(self, *cols: FeatureColumn):
+        """(rows, width, row indices, column indices) of the block's ones:
+        one slot a row and field (-1, no one, for a missing value without
+        a null column or an unseen one without OTHER)."""
         n = len(cols[0])
-        parts, meta = [], []
-        for f, vocab, c in zip(self.input_features, self.vocabs, cols):
+        rows, idx, off = [], [], 0
+        for vocab, c in zip(self.vocabs, cols):
             index = {v: i for i, v in enumerate(vocab)}
             k = len(vocab)
             width = (k + (1 if self.unseen_to_other else 0)
                      + (1 if self.track_nulls else 0))
-            # slot per row on the host (-1 = no slot), one-hot on the device
             slot = np.fromiter(
                 ((width - 1 if self.track_nulls else -1) if v is None
                  else index.get(v, k if self.unseen_to_other else -1)
                  for v in c.values), dtype=np.int64, count=n)
-            s = torch.from_numpy(slot).to(dev)
-            block = (s[:, None] == torch.arange(width, device=dev)[None, :])
-            parts.append(block.to(torch.float32))
+            r, j = _slot_ones(slot, off)
+            rows.append(r)
+            idx.append(j)
+            off += width
+        return n, off, _cat_ints(rows), _cat_ints(idx)
+
+    def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
+        meta = []
+        for f, vocab in zip(self.input_features, self.vocabs):
             tname = f.ftype.type_name()
             names = list(vocab)
             if self.unseen_to_other:
@@ -508,8 +564,7 @@ class OneHotVectorizerModel(SequenceModel):
                 names.append(NULL_INDICATOR)
             meta += [VectorColumnMetadata(f.name, tname, grouping=f.name,
                                           indicator_value=v) for v in names]
-        out = (torch.cat(parts, dim=1) if parts
-               else torch.zeros((n, 0), dtype=torch.float32, device=dev))
+        out = pivot_block(*self.pivot_ones(*cols), device=self.device)
         return _vec_column(out, VectorMetadata("onehot_vec", meta))
 
 
@@ -574,40 +629,43 @@ class MultiPickListVectorizerModel(SequenceModel):
         self.track_nulls = track_nulls
         self.device = device
 
-    def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
+    def pivot_ones(self, *cols: FeatureColumn):
+        """(rows, width, row indices, column indices) of the block's ones:
+        each vocabulary value of a row's set, OTHER when none is, the
+        null column (with ``track_nulls``) for an empty set."""
         n = len(cols[0])
         step = 1 + (1 if self.track_nulls else 0)
-        widths = [len(v) + step for v in self.vocabs]
-        out = np.zeros((n, sum(widths)), dtype=np.float32)
-        meta = []
+        rows: List[int] = []
+        idx: List[int] = []
         off = 0
-        for f, vocab, c, w in zip(self.input_features, self.vocabs, cols,
-                                  widths):
+        for vocab, c in zip(self.vocabs, cols):
             index = {v: i for i, v in enumerate(vocab)}
             k = len(vocab)
-            block = out[:, off:off + w]
+            w = k + step
             for row, s in enumerate(c.values):
                 if not s:
                     if self.track_nulls:
-                        block[row, w - 1] = 1.0
+                        rows.append(row)
+                        idx.append(off + w - 1)
                     continue
-                hit = False
-                for v in s:
-                    j = index.get(v)
-                    if j is not None:
-                        block[row, j] = 1.0
-                        hit = True
-                if not hit:
-                    block[row, k] = 1.0
+                hits = {index[v] for v in s if v in index}
+                rows += [row] * max(len(hits), 1)
+                idx += [off + j for j in hits] if hits else [off + k]
+            off += w
+        return (n, off, np.asarray(rows, np.int32),
+                np.asarray(idx, np.int32))
+
+    def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
+        meta = []
+        for f, vocab in zip(self.input_features, self.vocabs):
             tname = f.ftype.type_name()
             names = list(vocab) + [OTHER_INDICATOR]
             if self.track_nulls:
                 names.append(NULL_INDICATOR)
             meta += [VectorColumnMetadata(f.name, tname, grouping=f.name,
                                           indicator_value=v) for v in names]
-            off += w
-        return _host_vec_column(out, VectorMetadata("set_vec", meta),
-                                self.device)
+        out = pivot_block(*self.pivot_ones(*cols), device=self.device)
+        return _vec_column(out, VectorMetadata("set_vec", meta))
 
 
 # ---------------------------------------------------------------------------
@@ -729,13 +787,16 @@ class TextHashingVectorizer(SequenceTransformer):
 
 class TextStats:
     """Text statistics of one field: value counts (until more than
-    ``max_card`` distinct values are seen: saturated), rows and nulls.
-    Counting stops at saturation and the ``Counter``'s insertion order
-    breaks ``most_common`` ties, both as in the JAX package."""
+    ``max_card`` distinct values are seen: saturated), value lengths,
+    rows and nulls.  Counting stops at saturation and the ``Counter``'s
+    insertion order breaks ``most_common`` ties, both as in the JAX
+    package.  ``to_state``/``from_state`` are the checkpoint codec's
+    hooks (``workflow/checkpoint.py``), key for key the JAX package's."""
 
     def __init__(self, max_card: int = 100):
         self.max_card = max_card
         self.value_counts: Counter = Counter()
+        self.length_counts: Counter = Counter()
         self.n = 0
         self.n_null = 0
         self.saturated = False
@@ -745,6 +806,7 @@ class TextStats:
         if v is None:
             self.n_null += 1
             return
+        self.length_counts[len(v)] += 1
         if not self.saturated:
             self.value_counts[v] += 1
             if len(self.value_counts) > self.max_card:
@@ -759,10 +821,34 @@ class TextStats:
         first-occurrence order, then the right side's new values."""
         out = TextStats(self.max_card)
         out.value_counts = self.value_counts + other.value_counts
+        out.length_counts = self.length_counts + other.length_counts
         out.n = self.n + other.n
         out.n_null = self.n_null + other.n_null
         out.saturated = (self.saturated or other.saturated
                          or len(out.value_counts) > out.max_card)
+        return out
+
+    def to_state(self) -> dict:
+        """The counters as parallel ordered lists (their insertion order
+        is the ``most_common`` tie order)."""
+        return {"max_card": self.max_card,
+                "values": list(self.value_counts.keys()),
+                "value_ns": list(self.value_counts.values()),
+                "lengths": list(self.length_counts.keys()),
+                "length_ns": list(self.length_counts.values()),
+                "n": self.n, "n_null": self.n_null,
+                "saturated": self.saturated}
+
+    @classmethod
+    def from_state(cls, state: dict) -> "TextStats":
+        out = cls(int(state["max_card"]))
+        out.value_counts = Counter(dict(zip(state["values"],
+                                            state["value_ns"])))
+        out.length_counts = Counter(dict(zip(
+            (int(k) for k in state["lengths"]), state["length_ns"])))
+        out.n = int(state["n"])
+        out.n_null = int(state["n_null"])
+        out.saturated = bool(state["saturated"])
         return out
 
     def strategy(self, n_rows: int, min_fill_rate: float,
@@ -786,7 +872,9 @@ class SmartTextVectorizer(SequenceEstimator):
     ``metadata["text_strategies"]`` records the choice per field.  The
     streaming fit merges each chunk's ``TextStats`` left to right: the
     same strategies and vocabularies (a chunk that saturates makes the
-    field hash in both paths)."""
+    field hash in both paths).  ``auto_detect_languages`` is taken and
+    recorded (``get_params``) and changes nothing: the JAX package stores
+    it and reads it nowhere either."""
 
     input_types = (Text,)
     supports_streaming_fit = True
@@ -795,6 +883,7 @@ class SmartTextVectorizer(SequenceEstimator):
 
     def __init__(self, max_cardinality: int = 100, top_k: int = 20,
                  min_support: int = 10, num_hash_features: int = 512,
+                 auto_detect_languages: bool = False,
                  min_fill_rate: float = 0.001, track_nulls: bool = True,
                  track_text_len: bool = False, seed: int = 42,
                  device: Optional[str] = None, uid: Optional[str] = None):
@@ -804,6 +893,7 @@ class SmartTextVectorizer(SequenceEstimator):
         self.top_k = top_k
         self.min_support = min_support
         self.num_hash_features = num_hash_features
+        self.auto_detect_languages = auto_detect_languages
         self.min_fill_rate = min_fill_rate
         self.track_nulls = track_nulls
         self.track_text_len = track_text_len
@@ -878,8 +968,9 @@ class SmartTextVectorizerModel(SequenceModel):
         self.track_text_len = track_text_len
         self.seed = seed
         self.device = device
-        #: host seconds of the last transform: pivots, hashing, the rest
-        #: (lengths, nulls) and the copy to the device
+        #: host seconds of the last transform: the pivot's indices (with
+        #: the null indicators'), hashing (with the text lengths) and the
+        #: block's build on the device
         self.transform_seconds: Dict[str, float] = {}
 
     def _widths(self) -> List[int]:
@@ -889,61 +980,88 @@ class SmartTextVectorizerModel(SequenceModel):
                          else self.num_hash_features)
                 for s, v in zip(self.strategies, self.vocabs)]
 
-    def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
+    def pivot_ones(self, *cols: FeatureColumn):
+        """(rows, width, row indices, column indices) of the block's ones:
+        the pivoted fields' slots and the null indicators; the hashed
+        fields' counts and the text lengths are not ones (``_dense``)."""
         n = len(cols[0])
-        nf = self.num_hash_features
-        widths = self._widths()
-        out = np.zeros((n, sum(widths)), dtype=np.float32)
-        meta: List[VectorColumnMetadata] = []
-        secs = dict.fromkeys(("pivot_s", "hash_s", "other_s", "copy_s"), 0.0)
+        rows, idx = [], []
         off = 0
-        for f, strat, vocab, c, w in zip(self.input_features,
-                                         self.strategies, self.vocabs, cols,
-                                         widths):
-            tname = f.ftype.type_name()
+        for strat, vocab, c, w in zip(self.strategies, self.vocabs, cols,
+                                      self._widths()):
             vals = c.values
-            j = off
-            t0 = time.perf_counter()
             if strat == SmartTextVectorizer.PIVOT:
                 index = {v: i for i, v in enumerate(vocab)}
                 k = len(vocab)
                 slot = np.fromiter((-1 if v is None else index.get(v, k)
                                     for v in vals), dtype=np.int64, count=n)
-                hit = np.flatnonzero(slot >= 0)
-                out[hit, j + slot[hit]] = 1.0
+                r, j = _slot_ones(slot, off)
+                rows.append(r)
+                idx.append(j)
+            if self.track_nulls:
+                r = np.flatnonzero(np.equal(vals, None))
+                rows.append(r)
+                idx.append(np.full(len(r), off + w - 1, np.int64))
+            off += w
+        return n, off, _cat_ints(rows), _cat_ints(idx)
+
+    def _dense(self, *cols: FeatureColumn):
+        """[(first column, host block)] of the parts that are not ones:
+        each hashed field's token counts and the text lengths."""
+        n = len(cols[0])
+        nf = self.num_hash_features
+        parts = []
+        off = 0
+        for strat, vocab, c, w in zip(self.strategies, self.vocabs, cols,
+                                      self._widths()):
+            j = off
+            if strat == SmartTextVectorizer.PIVOT:
+                j += len(vocab) + 1
+            elif strat == SmartTextVectorizer.HASH:
+                block = np.zeros((n, nf), dtype=np.float32)
+                _hash_rows(c.values, block, 0, nf, self.seed)
+                parts.append((j, block))
+                j += nf
+            if self.track_text_len:
+                parts.append((j, np.fromiter(
+                    (0.0 if v is None else float(len(v)) for v in c.values),
+                    dtype=np.float32, count=n)[:, None]))
+            off += w
+        return parts
+
+    def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
+        nf = self.num_hash_features
+        meta: List[VectorColumnMetadata] = []
+        for f, strat, vocab in zip(self.input_features, self.strategies,
+                                   self.vocabs):
+            tname = f.ftype.type_name()
+            if strat == SmartTextVectorizer.PIVOT:
                 meta += [VectorColumnMetadata(f.name, tname, grouping=f.name,
                                               indicator_value=v)
                          for v in list(vocab) + [OTHER_INDICATOR]]
-                j += k + 1
-                secs["pivot_s"] += time.perf_counter() - t0
             elif strat == SmartTextVectorizer.HASH:
-                _hash_rows(vals, out, j, nf, self.seed)
                 meta += [VectorColumnMetadata(f.name, tname,
                                               descriptor_value=f"hash_{b}")
                          for b in range(nf)]
-                j += nf
-                secs["hash_s"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
             if self.track_text_len:
-                out[:, j] = np.fromiter(
-                    (0.0 if v is None else float(len(v)) for v in vals),
-                    dtype=np.float64, count=n)
                 meta.append(VectorColumnMetadata(f.name, tname,
                                                  descriptor_value="textLen"))
-                j += 1
             if self.track_nulls:
-                out[:, j] = np.equal(vals, None)
                 meta.append(VectorColumnMetadata(
                     f.name, tname, grouping=f.name,
                     indicator_value=NULL_INDICATOR))
-            secs["other_s"] += time.perf_counter() - t0
-            off += w
         t0 = time.perf_counter()
-        col = _host_vec_column(out, VectorMetadata("smart_text_vec", meta),
-                               self.device)
-        secs["copy_s"] = time.perf_counter() - t0
-        self.transform_seconds = secs
-        return col
+        ones = self.pivot_ones(*cols)
+        t1 = time.perf_counter()
+        dense = self._dense(*cols)
+        t2 = time.perf_counter()
+        out = pivot_block(*ones, device=self.device)
+        for j, block in dense:
+            out[:, j:j + block.shape[1]] = torch.from_numpy(block).to(
+                out.device)
+        self.transform_seconds = {"pivot_s": t1 - t0, "hash_s": t2 - t1,
+                                  "copy_s": time.perf_counter() - t2}
+        return _vec_column(out, VectorMetadata("smart_text_vec", meta))
 
 
 # ---------------------------------------------------------------------------
@@ -971,9 +1089,5 @@ class VectorsCombiner(SequenceTransformer):
                          for i in range(c.values.shape[1])]))
         vm = VectorMetadata.flatten(self.get_output().name, metas)
         self.metadata["vector_metadata"] = vm.to_json()
-        mats = [c.values for c in cols]
-        if not all(isinstance(m, torch.Tensor) for m in mats):
-            dev = resolve_device(self.device)
-            mats = [torch.as_tensor(np.asarray(m, np.float32)).to(dev)
-                    if not isinstance(m, torch.Tensor) else m for m in mats]
+        mats = [device_vector(c, self.device).values for c in cols]
         return _vec_column(torch.cat(mats, dim=1), vm)

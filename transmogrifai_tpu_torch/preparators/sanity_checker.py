@@ -21,7 +21,11 @@ in-core fit's within the float64 summation order (about 1e-12
 relative); the keep decisions are the same.  Spearman needs a global
 rank sort and does not stream; a sampled checker (``check_sample < 1``)
 draws one PCG64 stream across the chunks, so it keeps the in-core fit's
-rows.
+rows.  ``export_fit_state``/``import_fit_state`` carry the streaming
+state through a checkpoint exactly, the generator's position included,
+so a resumed sampled fit draws the rows it would have drawn
+uninterrupted.  A raw ``OPVector`` input (a host array) moves to the
+device once, where the stage takes it (``device.device_vector``).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import device_vector
 from ..ops.stats import (ColStats, col_stats, col_stats_with_label,
                          contingency_stats, cramers_v, spearman_with_label)
 from ..ops.vector_metadata import VectorMetadata
@@ -91,8 +96,10 @@ class SanityChecker(BinaryEstimator):
                  max_correlation: float = 0.95, max_cramers_v: float = 0.95,
                  correlation_type: str = "pearson",
                  remove_bad_features: bool = True,
+                 remove_feature_group: bool = True,
                  categorical_label: Optional[bool] = None,
-                 max_label_classes: int = 100, uid: Optional[str] = None):
+                 max_label_classes: int = 100, device: Optional[str] = None,
+                 uid: Optional[str] = None):
         super().__init__(operation_name="sanityCheck", output_type=OPVector,
                          uid=uid)
         if correlation_type not in ("pearson", "spearman"):
@@ -105,12 +112,16 @@ class SanityChecker(BinaryEstimator):
         self.max_cramers_v = max_cramers_v
         self.correlation_type = correlation_type
         self.remove_bad_features = remove_bad_features
+        #: taken and recorded (``get_params``), read nowhere: the JAX
+        #: package stores it and reads it nowhere either
+        self.remove_feature_group = remove_feature_group
         self.categorical_label = categorical_label
         self.max_label_classes = max_label_classes
+        self.device = device
 
     def fit_columns(self, data: ColumnarDataset, label_col: FeatureColumn,
                     features_col: FeatureColumn):
-        X = features_col.values
+        X = device_vector(features_col, self.device).values
         y = _label_tensor(label_col, X.device)
         n, d = X.shape
         if self.check_sample < 1.0:
@@ -204,6 +215,29 @@ class SanityChecker(BinaryEstimator):
         return _StreamState(np.random.default_rng(self.sample_seed)
                             if self.check_sample < 1.0 else None)
 
+    def export_fit_state(self, state: _StreamState) -> dict:
+        """The state as the checkpoint codec takes it (the JAX package's
+        keys; the generator is persisted by its bit generator's state)."""
+        return {"pearson": state.pearson,
+                "label_values": state.label_values,
+                "label_sums": state.label_sums,
+                "vmeta": state.vmeta,
+                "d": state.d,
+                "rng": state.rng}
+
+    def import_fit_state(self, payload: dict) -> _StreamState:
+        state = _StreamState(payload["rng"])
+        state.pearson = payload["pearson"]
+        state.label_values = np.asarray(payload["label_values"],
+                                        dtype=np.float64)
+        sums = payload["label_sums"]
+        state.label_sums = (None if sums is None
+                            else {float(k): np.asarray(v, np.float64)
+                                  for k, v in sums.items()})
+        state.vmeta = payload["vmeta"]
+        state.d = None if payload["d"] is None else int(payload["d"])
+        return state
+
     def update_chunk(self, state, data, label_col, features_col):
         X = _host_matrix(features_col)
         y = np.nan_to_num(np.asarray(label_col.values, dtype=np.float32))
@@ -296,7 +330,7 @@ class _KeepColumns:
             self.new_vmeta = VectorMetadata.from_json(state["new_vmeta"])
 
     def transform_columns(self, *cols: FeatureColumn) -> FeatureColumn:
-        features_col = cols[-1]
+        features_col = device_vector(cols[-1])
         X = features_col.values
         idx = torch.as_tensor(self.keep_indices, dtype=torch.long,
                               device=X.device)
@@ -329,13 +363,15 @@ class MinVarianceFilter(BinaryEstimator):
     label_input_positions = (0,)
     supports_streaming_fit = True
 
-    def __init__(self, min_variance: float = 1e-5, uid: Optional[str] = None):
+    def __init__(self, min_variance: float = 1e-5,
+                 device: Optional[str] = None, uid: Optional[str] = None):
         super().__init__(operation_name="minVariance", output_type=OPVector,
                          uid=uid)
         self.min_variance = min_variance
+        self.device = device
 
     def fit_columns(self, data: ColumnarDataset, *cols: FeatureColumn):
-        features_col = cols[-1]
+        features_col = device_vector(cols[-1], self.device)
         return self._keep(col_stats(features_col.values).variance,
                           features_col.vmeta)
 

@@ -3,8 +3,8 @@
 Ported: ``reader_for`` with the ``ColumnarDataset`` passthrough, the
 records reader (a list of dicts; ``key_fn`` adds a ``key`` ID column) and
 the in-memory pandas DataFrame reader (pandas imported only when a frame
-is given); the CSV and JSON-lines file readers are in ``readers/files.py``,
-the Avro readers in ``readers/avro.py``.  Every reader streams bounded
+is given); the CSV, JSON-lines and Parquet file readers are in
+``readers/files.py``, the Avro readers in ``readers/avro.py``.  Every reader streams bounded
 row chunks through ``iter_chunks`` (a ``ChunkStream`` with byte
 accounting; ``host_range`` windows it through ``window_gen``): the
 in-memory readers slice, the file readers parse chunk by chunk, and
@@ -12,8 +12,7 @@ every chunk passes the ``reader.chunk`` fault point (utils/faults.py).
 ``Reader.with_resilience`` attaches the retry and bad-record policies of
 ``readers/resilience.py``.  The event readers are in
 ``readers/aggregates.py`` and ``readers/events.py``, the micro-batch
-streaming readers in ``readers/streaming.py``; Parquet is not ported
-(ROADMAP Queue A item 6.3).
+streaming readers in ``readers/streaming.py``.
 """
 from __future__ import annotations
 

@@ -31,8 +31,8 @@ are the key-hash partition of the same state, host algebra only here
 Sources: the port's JSON-lines and CSV readers stream (their quarantine
 attribution intact; a CSV chunk's cells are typed as pandas types a
 chunk, ``readers/files.infer_cells``), in-memory frames, Avro readers and
-record lists slice.  A Parquet source cannot be built (``ParquetReader``
-raises, Queue A item 6.3).
+record lists slice, a Parquet source streams its record batches
+(typed as ``ParquetReader`` types them).
 
 Joins: :func:`stream_join` / :func:`stream_join_aggregate` run
 ``JoinedDataReader`` as a chunked sort-merge over key-sorted spill runs
@@ -100,7 +100,8 @@ def _source_desc(source) -> str:
 def _iter_record_chunks(source, chunk_rows: int) -> Iterator[List[Any]]:
     """Bounded record chunks from any event source: file readers stream
     (their own quarantine attribution intact), in-memory shapes slice."""
-    from .files import CSVReader, JSONLinesReader, infer_cells
+    from .files import (CSVReader, JSONLinesReader, ParquetReader,
+                        _arrow_column, _parquet, infer_cells)
 
     if isinstance(source, JSONLinesReader):
         def jsonl():
@@ -120,6 +121,15 @@ def _iter_record_chunks(source, chunk_rows: int) -> Iterator[List[Any]]:
                 if records:
                     yield records
         return jsonl()
+
+    if isinstance(source, ParquetReader):
+        def parquet():
+            pf = _parquet().ParquetFile(source.path)
+            for batch in pf.iter_batches(batch_size=chunk_rows):
+                columns = {k: _arrow_column(batch.column(k))
+                           for k in batch.column_names}
+                yield ParquetReader._records(columns, batch.num_rows)
+        return parquet()
 
     if isinstance(source, CSVReader):
         def csv():

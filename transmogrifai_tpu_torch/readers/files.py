@@ -36,9 +36,27 @@ policy goes to the sidecar as ``bad-line#k`` (its ordinal among the
 file's bad rows, as the JAX reader's pandas ``on_bad_lines`` callback
 numbers them); an invalid JSON line raises ``BadRecordError`` naming its
 line and byte offset, or goes to the sidecar under that location.
-``ParquetReader`` raises ``NotImplementedError`` (ROADMAP Queue A item
-6.3).  The JAX readers' ``key_col`` is not taken: it has no effect there
-either.
+
+Parquet (``ParquetReader``, over ``pyarrow.parquet``, imported when a
+Parquet file is read; without pyarrow the read raises ``ImportError``):
+the JAX reader reads the frame ``to_pandas()`` gives, so the port types
+each Arrow column as pandas does there (``_arrow_column``), a record
+batch at a time in ``iter_chunks``:
+ * an integer column with a null becomes float64 with NaN (a Text
+   feature then reads ``"1.0"``), without one it keeps its integer type;
+ * a boolean column with a null becomes objects (True/False/None);
+ * a timestamp column becomes datetimes: a text feature reads their
+   ``str`` (``"NaT"`` for a null), a numeric one raises ``TypeError``,
+   as pandas' ``float()`` of a ``Timestamp`` does in the JAX reader; a
+   record (a feature's ``extract_fn``, an event source) holds None where
+   pandas holds ``NaT``;
+ * a dictionary-encoded column becomes its decoded values (pandas'
+   category) and a string column its strings, with NaN where null;
+   every other type gives its Python values (None where null).
+
+The JAX CSV and JSON readers' ``key_col`` is not taken: it has no effect
+there either.  ``ParquetReader`` and ``DataReaders.Simple.parquet`` take
+it and keep it, as the JAX ones do.
 """
 from __future__ import annotations
 
@@ -57,6 +75,9 @@ from .resilience import BadRecordError
 
 __all__ = ["CSVReader", "CSVAutoReader", "ParquetReader", "JSONLinesReader",
            "DataReaders", "NA_STRINGS"]
+
+#: what ``to_pandas()`` gives a null timestamp (``NaT``) as a text value
+_NAT = "NaT"
 
 #: pandas' default NA strings (``pandas._libs.parsers.STR_NA_VALUES``)
 NA_STRINGS = frozenset({
@@ -100,18 +121,31 @@ def _record_values(cells: Sequence[str]) -> list:
 
 
 def _as_int(c: str) -> int:
-    if not c.lstrip("+-").isdigit():
+    """An integer cell as pandas' parser takes it: surrounding spaces and
+    a sign allowed, digits only (no underscores, which Python's ``int``
+    would take)."""
+    if not c.strip().lstrip("+-").isdigit():
         raise ValueError(c)
     return int(c)
 
 
+def _as_float(c: str) -> float:
+    """A number cell as pandas' parser takes it: Python's ``float`` less
+    the underscore separators (``"1_000"`` stays text in pandas)."""
+    if "_" in c:
+        raise ValueError(c)
+    return float(c)
+
+
 def infer_cells(cells: Sequence[str]) -> tuple:
     """(kind, values) of a column's cells typed as pandas' ``read_csv``
-    types a column: ``"i"`` Python ints when every cell is an integer,
-    ``"f"`` floats (NaN where missing) when every present cell is a
-    number, ``"b"`` bools when every cell is a boolean, else ``"O"`` the
-    text with NaN where missing (a boolean column with a missing cell is
-    text too, as pandas gives an object column of True/False/NaN)."""
+    types a column: ``"i"`` Python ints when every cell is an integer
+    (spaces around it allowed), ``"f"`` floats (NaN where missing) when
+    every present cell is a number, ``"b"`` bools when every cell is a
+    boolean, else ``"O"`` the text with NaN where missing.  A boolean
+    column with a missing cell is text too (pandas gives an object column
+    of True/False/NaN), and so is one that mixes booleans with numbers
+    (``True``, ``1``, ``0``) or holds numbers written with underscores."""
     present = [c for c in cells if c not in NA_STRINGS]
     nan = float("nan")
     if present and len(present) == len(cells):
@@ -123,7 +157,8 @@ def infer_cells(cells: Sequence[str]) -> tuple:
         vals = [nan if c in NA_STRINGS else bool(_BOOLS[c]) for c in cells]
         return ("b" if len(present) == len(cells) else "O"), vals
     try:
-        return "f", _parse_floats(cells, "").tolist()
+        return "f", [nan if c in NA_STRINGS else _as_float(c)
+                     for c in cells]
     except ValueError:
         pass
     return "O", [nan if c in NA_STRINGS else c for c in cells]
@@ -275,11 +310,135 @@ class CSVAutoReader(CSVReader):
     type the columns."""
 
 
+def _parquet():
+    """``pyarrow.parquet``, imported when a Parquet file is read."""
+    try:
+        import pyarrow.parquet as pq
+    except ImportError as exc:
+        raise ImportError(
+            "reading Parquet needs pyarrow (pyarrow.parquet), which is not "
+            "installed") from exc
+    return pq
+
+
+def _arrow_column(arr) -> tuple:
+    """(pandas dtype kind, values) of an Arrow column as ``to_pandas()``
+    gives it: a numpy array for the numeric and boolean kinds, a list of
+    Python values for ``"O"`` and ``"M"`` (module docstring)."""
+    import pyarrow.types as pat
+
+    t = arr.type
+    nulls = arr.null_count
+    if pat.is_dictionary(t) or pat.is_string(t) or pat.is_large_string(t):
+        # pandas' category and str columns hold NaN where a value is null
+        return "O", [float("nan") if v is None else v
+                     for v in arr.to_pylist()]
+    if pat.is_integer(t):
+        if nulls:
+            return "f", arr.cast("float64").to_numpy(zero_copy_only=False)
+        vals = arr.to_numpy(zero_copy_only=False)
+        return vals.dtype.kind, vals
+    if pat.is_floating(t):
+        return "f", arr.to_numpy(zero_copy_only=False)
+    if pat.is_boolean(t):
+        if nulls:
+            return "O", arr.to_pylist()
+        return "b", arr.to_numpy(zero_copy_only=False)
+    if pat.is_timestamp(t):
+        return "M", arr.to_pylist()
+    return "O", arr.to_pylist()
+
+
 class ParquetReader(Reader):
-    def __init__(self, path: str):
-        raise NotImplementedError(
-            "ParquetReader is not ported yet (ROADMAP Queue A item 6.3: "
-            "the rest of ingestion)")
+    """A Parquet file through ``pyarrow.parquet``: ``generate_dataset``
+    reads the table, ``iter_chunks`` its record batches of ``chunk_rows``
+    rows (``bytes_read`` the decoded batches' bytes), ``estimate_rows``
+    the footer's row count.  Columns are typed as the JAX reader's pandas
+    frame has them (module docstring)."""
+
+    def __init__(self, path: str, key_col: Optional[str] = None):
+        self.path = path
+        self.key_col = key_col
+
+    def estimate_rows(self) -> Optional[int]:
+        """The footer's row count: exact, nothing decoded (None when the
+        file cannot be opened)."""
+        pq = _parquet()
+        try:
+            return int(pq.ParquetFile(self.path).metadata.num_rows)
+        except Exception:
+            return None
+
+    def estimate_rows_exact(self) -> bool:
+        return self.estimate_rows() is not None
+
+    def generate_dataset(self, raw_features: Sequence[Feature]
+                         ) -> ColumnarDataset:
+        return self._dataset(_parquet().read_table(self.path), raw_features)
+
+    def iter_chunks(self, raw_features: Sequence[Feature], chunk_rows: int,
+                    host_range=None) -> ChunkStream:
+        _check_chunk_rows(chunk_rows)
+        pq = _parquet()
+        pos = {"bytes": 0}
+
+        def gen():
+            for batch in pq.ParquetFile(self.path).iter_batches(
+                    batch_size=chunk_rows):
+                pos["bytes"] += batch.nbytes
+                yield self._dataset(batch, raw_features)
+
+        return _stream(gen(), host_range, lambda: pos["bytes"])
+
+    def sample_columns(self) -> tuple:
+        """({column: (kind, values)}, rows) of the whole file, for the
+        CLI's schema inference (``cli/schema.py``)."""
+        table = _parquet().read_table(self.path)
+        out = {}
+        for name in table.column_names:
+            kind, vals = _arrow_column(table.column(name))
+            out[name] = ("i" if kind == "u" else kind, list(
+                vals.tolist() if isinstance(vals, np.ndarray) else vals))
+        return out, table.num_rows
+
+    @staticmethod
+    def _records(columns: Dict[str, tuple], n: int) -> List[dict]:
+        """The rows as ``to_dict("records")`` gives them (Python scalars
+        for the numeric kinds)."""
+        lists = {k: v.tolist() if isinstance(v, np.ndarray) else v
+                 for k, (_, v) in columns.items()}
+        return [{k: v[i] for k, v in lists.items()} for i in range(n)]
+
+    def _dataset(self, table, raw_features: Sequence[Feature]
+                 ) -> ColumnarDataset:
+        """One table or record batch as the raw features' columns."""
+        missing = [f.name for f in raw_features
+                   if f.origin_stage.extract_fn is None
+                   and f.name not in table.column_names]
+        if missing:
+            raise KeyError(
+                f"input data is missing raw feature column(s) {missing}")
+        columns = {name: _arrow_column(table.column(name))
+                   for name in table.column_names}
+        records = None
+        cols: Dict[str, FeatureColumn] = {}
+        for f in raw_features:
+            gen = f.origin_stage
+            if gen.extract_fn is not None:
+                if records is None:
+                    records = self._records(columns, table.num_rows)
+                cols[f.name] = gen.extract_column(records)
+                continue
+            kind, vals = columns[f.name]
+            if kind == "M":
+                if f.ftype.storage != "text":
+                    raise TypeError(
+                        f"{self.path}: column {f.name!r} holds timestamps, "
+                        f"which a {f.ftype.type_name()} feature cannot read "
+                        f"(pandas' datetime64 values are not numbers)")
+                vals = [_NAT if v is None else v for v in vals]
+            cols[f.name] = FeatureColumn.from_values(f.ftype, vals)
+        return ColumnarDataset(cols)
 
 
 class JSONLinesReader(Reader):
@@ -406,3 +565,8 @@ class DataReaders:
         @staticmethod
         def json_lines(path: str) -> JSONLinesReader:
             return JSONLinesReader(path)
+
+        @staticmethod
+        def parquet(path: str, key_col: Optional[str] = None
+                    ) -> ParquetReader:
+            return ParquetReader(path, key_col)

@@ -5,7 +5,7 @@ half of out-of-core ingestion (counterpart of
 ``IteratorStreamingReader`` wraps any iterable of batches (datasets,
 record lists, pandas frames), ``FileStreamingReader`` watches a directory
 and reads each new CSV or JSON file as one micro-batch (the port's own
-parsers, no pandas; a Parquet file raises like ``ParquetReader``), and
+parsers, no pandas; a Parquet file through ``ParquetReader``), and
 ``AsyncBatcher`` parses the next chunks on a background thread while the
 caller transforms or scores the current one.
 
@@ -62,7 +62,8 @@ class FileStreamingReader(StreamingReader):
     (FileStreamingAvroReader: a path filter and ``new_files_only``).
     ``poll_interval``/``max_polls`` bound the watch loop (a service passes
     ``max_polls=None`` and ends it with ``stop()``).  ``.json`` holds one
-    array of records, ``.jsonl`` one record a line, anything else is CSV
+    array of records, ``.jsonl`` one record a line, ``.parquet`` is read
+    by ``ParquetReader``, anything else is CSV
     (with a header, or ``column_names``)."""
 
     def __init__(self, directory: str,
@@ -95,7 +96,7 @@ class FileStreamingReader(StreamingReader):
         from .files import CSVReader, JSONLinesReader, ParquetReader
 
         if path.endswith(".parquet"):
-            ParquetReader(path)             # raises: not ported
+            return ParquetReader(path).generate_dataset(raw_features)
         if path.endswith(".jsonl"):
             return JSONLinesReader(path).generate_dataset(raw_features)
         if path.endswith(".json"):

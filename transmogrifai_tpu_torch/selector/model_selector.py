@@ -37,7 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import device_vector, resolve_device
 from ..evaluators.metrics import (MINIMIZE_METRICS, MULTICLASS_METRICS,
                                   aupr_device, auroc_device,
                                   binary_classification_metrics,
@@ -610,7 +610,7 @@ class ModelSelector(PredictorEstimator):
 
     def _fit_columns(self, label_col: FeatureColumn,
                      features_col: FeatureColumn):
-        X = features_col.values
+        X = device_vector(features_col, self.device).values
         dev = X.device
         y = np.nan_to_num(np.asarray(label_col.values, dtype=np.float32))
         n = len(y)

@@ -16,9 +16,10 @@ sketches over sampled traffic and compares per feature:
 A window is evaluated once ``min_rows`` sampled rows gathered, then every
 ``check_every`` rows; a feature past a threshold sets
 ``refresh_triggered`` and calls ``on_drift``.  Sampling is a seeded
-Bernoulli draw per request batch.  Not ported yet: the ``drift.window``
-fault point (``utils/faults.py``, ROADMAP Queue A item 6.5) and the
-flight recorder's drift events (item 6.6.7).
+Bernoulli draw per request batch.  The ``drift.window`` fault point
+(``utils/faults.py``) fires at each window's evaluation, ``index`` the
+windows evaluated before it.  Not ported yet: the flight recorder's drift
+events (ROADMAP Queue A item 6.6.7).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils import faults
 from ..utils.sketches import WelfordMoments
 from ..utils.streaming_histogram import StreamingHistogram
 
@@ -295,6 +297,7 @@ class DriftMonitor:
         """Score the current window against the baselines; rolls the
         window forward (trackers reset) and records the result."""
         with self._lock:
+            faults.fire("drift.window", index=self.windows_evaluated)
             features: Dict[str, Any] = {}
             for name, base in self.baselines.items():
                 tracker = self._trackers.get(name)

@@ -5,9 +5,11 @@ the extracted input columns and returns a model that answers for the
 estimator's output feature and uid, or is built chunk by chunk through
 the streaming-fit protocol (``begin_fit``/``update_chunk``/
 ``merge_states``/``finish_fit``, driven by ``fit_streaming`` and the
-out-of-core train, ``workflow/streaming.py``).  The JAX package's
-fault-injection hooks and the fit-state checkpoint hooks are not ported
-yet (ROADMAP Queue A item 6.5).
+out-of-core train, ``workflow/streaming.py``).  ``export_fit_state``/
+``import_fit_state`` carry a streaming state through a checkpoint
+(``workflow/checkpoint.py``), and every transform first fires the
+``stage.transform`` fault point, tagged with the stage's class name
+(``utils/faults.py``).
 The arity bases fix each stage's number of inputs: unary, binary,
 ternary, quaternary, sequence (one or more) and binary-sequence (two or
 more) transformers, models and estimators.
@@ -20,6 +22,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 from ..features.feature import Feature
 from ..types.columns import ColumnarDataset, FeatureColumn
 from ..types.feature_types import FeatureType
+from ..utils import faults
 from ..utils.uid import uid_for
 
 __all__ = [
@@ -164,6 +167,7 @@ class Transformer(PipelineStage):
     def transform(self, data: ColumnarDataset) -> ColumnarDataset:
         """Copy-on-write transform: a new dataset with this stage's output
         column added; ``data`` is never mutated."""
+        faults.fire("stage.transform", tag=type(self).__name__)
         out = self.transform_columns(*[data[n] for n in self.input_names])
         return data.with_columns({self.get_output().name: out})
 
@@ -215,6 +219,20 @@ class Estimator(PipelineStage):
 
     def finish_fit(self, state) -> Model:
         raise self._no_streaming()
+
+    # -- checkpoint hooks (workflow/checkpoint.py): the codec takes
+    # primitives, arrays, tensors, nested lists and dicts, a numpy
+    # generator and the sketches with to_state/from_state; an estimator
+    # whose state holds anything else translates it here.  The round trip
+    # must be exact: a resume is held to the uninterrupted fit.
+
+    def export_fit_state(self, state):
+        """A streaming-fit state as the checkpoint codec takes it."""
+        return state
+
+    def import_fit_state(self, payload):
+        """The inverse of ``export_fit_state``."""
+        return payload
 
     def fit_streaming(self, chunks) -> Model:
         """Fit from an iterable of ``ColumnarDataset`` chunks through the

@@ -23,10 +23,20 @@ global check when no plan is armed):
   ``sweep.checkpoint`` after each durable save of the sweep cursor
                       (workflow/checkpoint.py; ``index`` is the save
                       ordinal)
+  ``checkpoint.barrier`` after each durable save of a chunked train's
+                      checkpoint (workflow/checkpoint.py; ``index`` is
+                      the save ordinal); the kill-and-resume tests kill
+                      the process here
+  ``stage.transform`` before every stage transform (stages/base.py;
+                      ``tag`` is the stage's class name)
+  ``rff.pass``        before each RawFeatureFilter profile pass of a
+                      chunked train (index 0 ``train``, 1 ``score``)
+  ``drift.window``    at each drift-window evaluation (serving/drift.py;
+                      ``index`` is the windows evaluated before it)
 
-The JAX package's other points (stages, RawFeatureFilter, drift, the
-streaming checkpoints, serving, pods) wait for the features that own
-them (ROADMAP Queue A items 6.5 and 6.7).
+The JAX package's other points (the streaming workflow CV's
+``cv.fold``, serving, pods) wait for the features that own them (ROADMAP
+Queue A items 6.5, 6.6 and 6.7).
 
 Actions: ``io_error`` (raise OSError, the transient class the reader
 retry policy handles), ``raise`` (``FaultError``, non-transient),

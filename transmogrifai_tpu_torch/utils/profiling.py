@@ -3,8 +3,8 @@
 run (``OpStep``, ``StepMetrics``, ``AppMetrics``, ``MetricsCollector``,
 ``install_collector``, ``with_job_group``) and the chunked-ingestion
 counters of an out-of-core train (``IngestPass``, ``IngestProfiler``,
-with the reader retries and quarantined records).  The plan profiler and
-the checkpoint counters wait for ROADMAP Queue A item 6.5.
+with the reader retries, the quarantined records and the checkpoints'
+saves).  The plan profiler waits for ROADMAP Queue A item 6.5.
 """
 from __future__ import annotations
 
@@ -172,6 +172,8 @@ class IngestPass:
     #: reader's ``RetryingChunkStream``, readers/resilience.py)
     retries: int = 0
     retry_wait_s: float = 0.0
+    #: chunks a checkpoint resume read past without folding them again
+    chunks_skipped: int = 0
     #: the first _INGEST_CHUNK_DETAIL_CAP chunks as [rows, read_s,
     #: transform_s]
     chunk_detail: List[List[float]] = field(default_factory=list)
@@ -219,14 +221,18 @@ class IngestPass:
         if self.retries:
             out["retries"] = self.retries
             out["retryWaitSecs"] = round(self.retry_wait_s, 4)
+        if self.chunks_skipped:
+            out["chunksSkipped"] = self.chunks_skipped
         return out
 
 
 class IngestProfiler:
     """The counters of one out-of-core train: an ``IngestPass`` a pass,
     the chunk geometry, the retained bytes spilled to disk, the records
-    the quarantine policy dropped and the RawFeatureFilter's profile pass
-    (``rff``: its passes, rows and seconds; None without a filter)."""
+    the quarantine policy dropped, the RawFeatureFilter's profile pass
+    (``rff``: its passes, rows and seconds; None without a filter) and the
+    checkpoints (``workflow/checkpoint.py``): the saves, their seconds and
+    whether the train resumed."""
 
     def __init__(self, chunk_rows: int = 0):
         self.chunk_rows = chunk_rows
@@ -239,6 +245,9 @@ class IngestProfiler:
         self.quarantined_records: int = 0
         self.quarantined_rows: int = 0
         self.rff: Optional[Dict[str, Any]] = None
+        self.checkpoint_saves: int = 0
+        self.checkpoint_wall_s: float = 0.0
+        self.resumed: bool = False
         self._lock = threading.Lock()
 
     def begin_pass(self, label: str) -> IngestPass:
@@ -275,6 +284,9 @@ class IngestProfiler:
                 "quarantinedRecords": self.quarantined_records,
                 "quarantinedRows": self.quarantined_rows,
                 "rff": self.rff,
+                "checkpointSaves": self.checkpoint_saves,
+                "checkpointWallSecs": round(self.checkpoint_wall_s, 4),
+                "resumed": self.resumed,
                 "passes": [p.to_json() for p in self.passes],
             }
 
@@ -292,10 +304,17 @@ class IngestProfiler:
                 f"overlap {p.overlap_efficiency:.0%}"
                 + (f", {p.bytes_read} bytes" if p.bytes_read else "")
                 + (f", {p.retries} retries ({p.retry_wait_s:.2f}s backoff)"
-                   if p.retries else ""))
+                   if p.retries else "")
+                + (f", {p.chunks_skipped} chunks resumed-past"
+                   if p.chunks_skipped else ""))
         if self.quarantined_records:
             lines.append(f"  quarantined: {self.quarantined_records} "
                          f"record(s) / {self.quarantined_rows} row(s)")
         if self.spilled_bytes:
             lines.append(f"  spilled: {self.spilled_bytes} bytes")
+        if self.checkpoint_saves or self.resumed:
+            lines.append(
+                f"  checkpoints: {self.checkpoint_saves} save(s), "
+                f"{self.checkpoint_wall_s:.3f}s"
+                + (" (resumed run)" if self.resumed else ""))
         return "\n".join(lines)

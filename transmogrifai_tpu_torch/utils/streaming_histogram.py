@@ -158,6 +158,19 @@ class StreamingHistogram:
         h.counts = np.asarray(d["counts"], np.float64)
         return h
 
+    def to_state(self) -> dict:
+        """The checkpoint codec's snapshot: the centroids and counts as
+        float64 arrays, so a resumed fit's bins are the same bits."""
+        return {"max_bins": self.max_bins,
+                "centroids": self.centroids, "counts": self.counts}
+
+    @classmethod
+    def from_state(cls, state: dict) -> "StreamingHistogram":
+        h = cls(int(state["max_bins"]))
+        h.centroids = np.asarray(state["centroids"], np.float64)
+        h.counts = np.asarray(state["counts"], np.float64)
+        return h
+
     @classmethod
     def from_value_counts(cls, values, counts,
                           max_bins: int = 32) -> "StreamingHistogram":

@@ -18,3 +18,10 @@ def uid_for(cls_or_name) -> str:
         n = next(_counter)
     return f"{name}_{n:012x}"
 
+
+def reset_uids(start: int = 1) -> None:
+    """Restart the counter: a DAG built after it numbers its stages as a
+    fresh process would (a resumed train's fingerprint names them)."""
+    global _counter
+    with _lock:
+        _counter = itertools.count(start)

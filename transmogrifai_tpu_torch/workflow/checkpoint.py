@@ -1,21 +1,56 @@
-"""Mid-sweep checkpoint and resume of the model selector (counterpart of
-the sweep half of ``transmogrifai_tpu.workflow.checkpoint``).
+"""Checkpoint and resume (counterpart of
+``transmogrifai_tpu.workflow.checkpoint``): the chunked train's passes
+and the model selector's sweep.
 
-The durable unit is a finished sweep unit's fold metrics (host floats)
-and, for successive halving, the rung state.  ``sweep.json`` in the
-checkpoint directory holds the format version, the sweep's fingerprint
-and the records; every save goes through ``write_json_atomic`` (a temp
-file, then ``os.replace``), so a kill at any byte leaves the previous
-cursor whole.  The ``sweep.checkpoint`` fault point fires after each
-save; the kill-and-resume tests kill the process there.
+**The chunked train** (``StreamingCheckpointManager``, behind
+``OpWorkflow.train(chunk_rows=k, checkpoint_dir=d)``).  The streaming fit
+states are mergeable, so a pass's whole progress is {each estimator's
+state, the chunks consumed}.  ``d`` holds::
 
-A resume compares only the fingerprint's ``logical`` half (candidates,
-validator, metric, strategy, rows); a mismatch raises
-:class:`CheckpointMismatchError` with the differing keys.  The ``mesh``
-half is advisory and is None on one card.
+  checkpoint.json   the format version, the run's fingerprint, the
+                    completed passes (their fitted models as persistence
+                    stage records) and the pass in flight (its cursor and
+                    encoded states)
+  state-<seq>.npz   every array of the document, as persistence's
+                    arrays.npz keeps them
 
-The streaming train's checkpoints (``StreamingCheckpointManager``, the
-block stripes and the fit-state codec) are ROADMAP Queue A item 6.5.
+Each save writes a new ``state-<seq>.npz``, then the manifest through
+``write_json_atomic`` (a temp file, then ``os.replace``); the older npz
+generations go only after the rename lands, so a kill at any byte leaves
+the previous checkpoint whole.  The ``checkpoint.barrier`` fault point
+fires after each save; the kill-and-resume tests kill the process there.
+
+What resumes where: the fit passes before the fused one save every
+``every_chunks`` chunks, and a resume restores their states exactly and
+skips the chunks already folded (read, not transformed); a completed
+pass persists its models, and a resume adopts them
+(``adopt_restored_model``) and never reads that pass again; the fused
+fit-and-materialize pass writes full-length buffers and is not
+checkpointed, so a crash there resumes from the pass boundary.
+
+The state codec (``encode_fit_state``/``decode_fit_state``): arrays go to
+the npz store, a tensor as its host array (decoded back onto the
+estimator's device), the sketches through their ``to_state``/
+``from_state`` hooks, a numpy generator by its bit generator's state
+(the checker's sampled rows continue, they do not restart), dicts with
+other than string keys as ordered item lists.
+
+The fingerprint (``compute_fingerprint``) is the reader (path, size and
+mtime, or an in-memory source's shape), ``chunk_rows``, the raw features
+and the DAG's stages; a checkpoint of another run raises
+:class:`CheckpointMismatchError` naming the keys that differ.  Success
+removes the checkpoint (``finish``).
+
+**The selector's sweep** (``SweepCheckpointManager``): the durable unit is
+a finished sweep unit's fold metrics (host floats) and, for successive
+halving, the rung state, in ``sweep.json``, saved the same atomic way.
+The ``sweep.checkpoint`` fault point fires after each save.  A resume
+compares only the fingerprint's ``logical`` half (candidates, validator,
+metric, strategy, rows); the ``mesh`` half is advisory and None on one
+card.
+
+Not ported: the pod block plane's ``BlockStripeStore`` and the
+manifest's pod record (ROADMAP Queue A item 6.7).
 """
 from __future__ import annotations
 
@@ -23,13 +58,24 @@ import json
 import os
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..stages.base import Estimator, Model, PipelineStage
 from ..utils import faults
 from ..utils.jsonio import write_json_atomic
+from .persistence import _ArrayStore, _load_stage, _stage_record
 
 __all__ = ["CheckpointMismatchError", "fingerprint_diff",
            "logical_fingerprint", "mesh_record", "sweep_fingerprint",
-           "SweepCheckpointManager", "SWEEP_CHECKPOINT_JSON"]
+           "SweepCheckpointManager", "SWEEP_CHECKPOINT_JSON",
+           "StreamingCheckpointManager", "ResumeState",
+           "compute_fingerprint", "encode_fit_state", "decode_fit_state",
+           "adopt_restored_model", "CHECKPOINT_JSON", "CHECKPOINT_VERSION"]
 
+CHECKPOINT_JSON = "checkpoint.json"
+CHECKPOINT_VERSION = 1
 SWEEP_CHECKPOINT_JSON = "sweep.json"
 #: v2: the fingerprint in a compared ``logical`` half and an advisory
 #: ``mesh`` record (the JAX package's format)
@@ -222,12 +268,14 @@ class SweepCheckpointManager:
         return _ScopedSweepCheckpoint(self, f"{tag}:")
 
     def finish(self) -> None:
-        """The sweep completed: remove the cursor, so that a later sweep
-        in the same directory starts afresh."""
+        """The sweep completed: remove the cursor (and the directory,
+        where nothing else is left in it), so that a later sweep there
+        starts afresh."""
         try:
             os.unlink(os.path.join(self.directory, SWEEP_CHECKPOINT_JSON))
         except OSError:
             pass
+        _remove_if_empty(self.directory)
 
 
 class _ScopedSweepCheckpoint:
@@ -246,3 +294,353 @@ class _ScopedSweepCheckpoint:
 
     def flush(self) -> None:
         self._m.flush()
+
+
+# ---------------------------------------------------------------------------
+# the streaming-fit state codec
+# ---------------------------------------------------------------------------
+
+def _stateful_types() -> Dict[str, type]:
+    """The classes with ``to_state``/``from_state`` hooks, by name."""
+    from ..ops.vectorizers import TextStats
+    from ..utils.sketches import PearsonSketch, TopKSketch, WelfordMoments
+    from ..utils.streaming_histogram import StreamingHistogram
+
+    return {"WelfordMoments": WelfordMoments, "PearsonSketch": PearsonSketch,
+            "TopKSketch": TopKSketch, "TextStats": TextStats,
+            "StreamingHistogram": StreamingHistogram}
+
+
+def encode_fit_state(value: Any, key: str, store: _ArrayStore) -> Any:
+    """A streaming-fit state as JSON, its arrays put in ``store`` (an
+    exact round trip: the resume is held to the uninterrupted fit)."""
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return value
+    if isinstance(value, np.bool_):
+        return bool(value)
+    if isinstance(value, np.integer):
+        return int(value)
+    if isinstance(value, np.floating):
+        return float(value)
+    if isinstance(value, np.ndarray):
+        return store.put(key, value)
+    if isinstance(value, torch.Tensor):
+        return {"__tensor__": store.put(key, value.detach().cpu().numpy())}
+    types = _stateful_types()
+    name = type(value).__name__
+    if name in types and isinstance(value, types[name]):
+        return {"__state__": name,
+                "payload": encode_fit_state(value.to_state(),
+                                            f"{key}.{name}", store)}
+    if isinstance(value, np.random.Generator):
+        return {"__rng__": {"bg": type(value.bit_generator).__name__,
+                            "state": value.bit_generator.state}}
+    from ..ops.vector_metadata import VectorMetadata
+
+    if isinstance(value, VectorMetadata):
+        return {"__vmeta__": value.to_json()}
+    if isinstance(value, dict):
+        if all(isinstance(k, str) for k in value):
+            return {k: encode_fit_state(v, f"{key}.{k}", store)
+                    for k, v in value.items()}
+        return {"__items__": [
+            [encode_fit_state(k, f"{key}.k{i}", store),
+             encode_fit_state(v, f"{key}.v{i}", store)]
+            for i, (k, v) in enumerate(value.items())]}
+    if isinstance(value, (list, tuple)):
+        return [encode_fit_state(v, f"{key}[{i}]", store)
+                for i, v in enumerate(value)]
+    raise TypeError(
+        f"streaming-fit state at {key!r} holds a {type(value).__name__}, "
+        f"which the checkpoint codec cannot persist; give the estimator "
+        f"export_fit_state/import_fit_state hooks (stages/base.py) or the "
+        f"type to_state/from_state")
+
+
+def decode_fit_state(value: Any, arrays, device=None) -> Any:
+    """The inverse of ``encode_fit_state``; tensors land on ``device``
+    (resolved by ``device.py``'s rule)."""
+    if isinstance(value, dict):
+        if "__state__" in value:
+            cls = _stateful_types()[value["__state__"]]
+            return cls.from_state(decode_fit_state(value["payload"], arrays,
+                                                   device))
+        if "__rng__" in value:
+            spec = value["__rng__"]
+            bg = getattr(np.random, spec["bg"])()
+            bg.state = spec["state"]
+            return np.random.Generator(bg)
+        if "__tensor__" in value:
+            arr = np.array(arrays[value["__tensor__"]["__array__"]])
+            return torch.from_numpy(arr).to(resolve_device(device))
+        if "__vmeta__" in value:
+            from ..ops.vector_metadata import VectorMetadata
+
+            return VectorMetadata.from_json(value["__vmeta__"])
+        if "__array__" in value:
+            return arrays[value["__array__"]]
+        if "__items__" in value:
+            return {decode_fit_state(k, arrays, device):
+                    decode_fit_state(v, arrays, device)
+                    for k, v in value["__items__"]}
+        return {k: decode_fit_state(v, arrays, device)
+                for k, v in value.items()}
+    if isinstance(value, list):
+        return [decode_fit_state(v, arrays, device) for v in value]
+    return value
+
+
+# ---------------------------------------------------------------------------
+# the run's fingerprint
+# ---------------------------------------------------------------------------
+
+def _describe_reader(reader) -> Dict[str, Any]:
+    """A reader's identity: a file's path, size and mtime (CSV, JSON
+    lines, Avro, Parquet), an in-memory source's shape, an event reader's
+    cutoff and windows with its source's identity."""
+    out: Dict[str, Any] = {"class": type(reader).__name__}
+    if hasattr(reader, "key_fn") and hasattr(reader, "cutoff"):
+        cutoff = reader.cutoff
+        out["event"] = {
+            "cutoffKind": getattr(cutoff, "kind", None),
+            "cutoffMs": getattr(cutoff, "time_ms", None),
+            "predictorWindowMs": reader.predictor_window_ms,
+            "responseWindowMs": reader.response_window_ms,
+            "conditional": getattr(reader, "target_condition",
+                                   None) is not None,
+        }
+        source = getattr(reader, "source", None)
+        if source is not None:
+            from ..readers.base import Reader
+
+            if isinstance(source, Reader):
+                out["source"] = _describe_reader(source)
+            elif hasattr(source, "to_dict") and hasattr(source, "columns"):
+                out["source"] = {"rows": int(len(source)),
+                                 "columns": [str(c) for c in source.columns]}
+            elif isinstance(source, (list, tuple)):
+                out["source"] = {"rows": len(source)}
+        return out
+    for attr in ("path", "csv_path"):
+        path = getattr(reader, attr, None)
+        if isinstance(path, str):
+            out["path"] = path
+            try:
+                st = os.stat(path)
+                out["size"] = st.st_size
+                out["mtime"] = int(st.st_mtime)
+            except OSError:
+                pass
+            return out
+    df = getattr(reader, "df", None)
+    if df is not None:
+        out["rows"] = int(len(df))
+        out["columns"] = [str(c) for c in df.columns]
+    ds = getattr(reader, "ds", None)
+    if ds is not None:
+        out["rows"] = len(ds)
+        out["columns"] = list(ds.names())
+    recs = getattr(reader, "records", None)
+    if isinstance(recs, list):
+        out["rows"] = len(recs)
+    return out
+
+
+def compute_fingerprint(reader, raw_features, layers,
+                        chunk_rows: int) -> Dict[str, Any]:
+    """The identity of a chunked train: the same reader bytes, chunk
+    geometry and DAG give the same passes, chunks and states, so one
+    run's checkpoint is exact for the other."""
+    return {
+        "chunkRows": int(chunk_rows),
+        "reader": _describe_reader(reader),
+        "rawFeatures": sorted(f.name for f in raw_features),
+        "stages": [f"{s.uid}:{type(s).__name__}:{s.get_output().name}"
+                   for layer in layers for s in layer],
+    }
+
+
+# ---------------------------------------------------------------------------
+# resume state and the manager
+# ---------------------------------------------------------------------------
+
+class ResumeState:
+    """A loaded checkpoint, for the streaming fit: ``completed`` maps a
+    pass index to {"rows", "label", "models": {uid: model}};
+    ``current`` is the pass in flight ({"pass", "label", "chunks_done",
+    "rows_done", "states": {uid: encoded state}}) or None."""
+
+    def __init__(self):
+        self.completed: Dict[int, Dict[str, Any]] = {}
+        self.current: Optional[Dict[str, Any]] = None
+        self._arrays: Dict[str, np.ndarray] = {}
+
+    def states_for(self, ests: List[Estimator]) -> Dict[str, Any]:
+        """The pass in flight's states for ``ests``, each through its
+        estimator's ``import_fit_state``, tensors on its device."""
+        raw = (self.current or {}).get("states", {})
+        out = {}
+        for est in ests:
+            if est.uid not in raw:
+                raise CheckpointMismatchError(
+                    f"checkpoint mid-pass state is missing estimator "
+                    f"{est.uid}")
+            out[est.uid] = est.import_fit_state(decode_fit_state(
+                raw[est.uid], self._arrays, getattr(est, "device", None)))
+        return out
+
+
+class StreamingCheckpointManager:
+    """The checkpoint directory of one chunked train.
+
+    ``save_progress`` persists the pass in flight (its cursor and states),
+    ``complete_pass`` a finished pass's models (and clears the pass in
+    flight), ``finish`` removes the checkpoint once the train succeeded.
+    ``saves`` counts the saves that landed."""
+
+    def __init__(self, directory: str, fingerprint: Dict[str, Any],
+                 every_chunks: int = 16):
+        if every_chunks < 1:
+            raise ValueError("checkpoint every_chunks must be >= 1")
+        self.directory = directory
+        self.fingerprint = fingerprint
+        self.every_chunks = int(every_chunks)
+        self.saves = 0
+        self._seq = 0
+        self._completed: Dict[int, Dict[str, Any]] = {}
+        self._current: Optional[Dict[str, Any]] = None
+        os.makedirs(directory, exist_ok=True)
+
+    def load(self, device=None) -> Optional[ResumeState]:
+        """The previous run's checkpoint, or None in a fresh directory; the
+        restored models' tensors land on ``device``, and the restored
+        passes ride on this manager's later saves."""
+        path = os.path.join(self.directory, CHECKPOINT_JSON)
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            doc = json.load(f)
+        if doc.get("version") != CHECKPOINT_VERSION:
+            raise CheckpointMismatchError(
+                f"checkpoint format v{doc.get('version')} != "
+                f"v{CHECKPOINT_VERSION}")
+        saved_fp = doc.get("fingerprint")
+        if logical_fingerprint(saved_fp) != logical_fingerprint(
+                self.fingerprint):
+            raise CheckpointMismatchError(_mismatch_message(
+                "checkpoint", self.directory, logical_fingerprint(saved_fp),
+                logical_fingerprint(self.fingerprint),
+                "clear the directory or point checkpoint_dir elsewhere"))
+        arrays: Dict[str, np.ndarray] = {}
+        if doc.get("arrays"):
+            with np.load(os.path.join(self.directory, doc["arrays"]),
+                         allow_pickle=False) as z:
+                arrays = {k: z[k] for k in z.files}
+        state = ResumeState()
+        state._arrays = arrays
+        dev = resolve_device(device)
+        for rec in doc.get("completedPasses", []):
+            models = {uid: _load_stage(srec, arrays, dev)
+                      for uid, srec in rec["models"].items()}
+            pi = int(rec["pass"])
+            state.completed[pi] = {"rows": int(rec["rows"]),
+                                   "label": rec.get("label"),
+                                   "models": models}
+            self._completed[pi] = {"pass": pi, "rows": int(rec["rows"]),
+                                   "label": rec.get("label"),
+                                   "live_models": models}
+        state.current = doc.get("current")
+        self._seq = int(doc.get("seq", 0))
+        return state
+
+    def _write(self) -> None:
+        """Encode the manifest and its arrays and land them atomically."""
+        self._seq += 1
+        store = _ArrayStore()
+        doc: Dict[str, Any] = {
+            "version": CHECKPOINT_VERSION,
+            "fingerprint": self.fingerprint,
+            "seq": self._seq,
+            "completedPasses": [
+                {"pass": pi, "rows": rec["rows"], "label": rec.get("label"),
+                 "models": {uid: _stage_record(m, store)
+                            for uid, m in rec["live_models"].items()}}
+                for pi, rec in sorted(self._completed.items())],
+            "current": None,
+        }
+        if self._current is not None:
+            cur = dict(self._current)
+            cur["states"] = {
+                uid: encode_fit_state(payload, f"cur.{uid}", store)
+                for uid, payload in cur.pop("live_states").items()}
+            doc["current"] = cur
+        npz_name = f"state-{self._seq}.npz"
+        old = [n for n in sorted(os.listdir(self.directory))
+               if n.startswith("state-") and n.endswith(".npz")]
+        if store.arrays:
+            np.savez(os.path.join(self.directory, npz_name), **store.arrays)
+            doc["arrays"] = npz_name
+        write_json_atomic(os.path.join(self.directory, CHECKPOINT_JSON), doc,
+                          indent=None)
+        for n in old:   # the older generations, only after the rename
+            if n != npz_name:
+                try:
+                    os.unlink(os.path.join(self.directory, n))
+                except OSError:
+                    pass
+        self.saves += 1
+        faults.fire("checkpoint.barrier", index=self.saves - 1)
+
+    def save_progress(self, pass_index: int, label: str, chunks_done: int,
+                      rows_done: int, ests: List[Estimator],
+                      states: Dict[str, Any]) -> None:
+        """Persist the pass in flight: its cursor and each estimator's
+        state through its ``export_fit_state``."""
+        self._current = {
+            "pass": int(pass_index), "label": label,
+            "chunks_done": int(chunks_done), "rows_done": int(rows_done),
+            "live_states": {est.uid: est.export_fit_state(states[est.uid])
+                            for est in ests}}
+        self._write()
+
+    def complete_pass(self, pass_index: int, label: str, rows: int,
+                      models: Dict[str, Model]) -> None:
+        """Persist a finished pass's fitted models; the pass in flight is
+        cleared (its cursor means nothing once the pass is done)."""
+        self._completed[int(pass_index)] = {
+            "pass": int(pass_index), "label": label, "rows": int(rows),
+            "live_models": models}
+        self._current = None
+        self._write()
+
+    def finish(self) -> None:
+        """The train succeeded: remove the checkpoint (and the directory,
+        where nothing else is left in it), so that a later run there
+        starts afresh."""
+        for n in os.listdir(self.directory):
+            if n in (CHECKPOINT_JSON, CHECKPOINT_JSON + ".tmp") or (
+                    n.startswith("state-") and n.endswith(".npz")):
+                try:
+                    os.unlink(os.path.join(self.directory, n))
+                except OSError:
+                    pass
+        _remove_if_empty(self.directory)
+
+
+def _remove_if_empty(directory: str) -> None:
+    try:
+        os.rmdir(directory)
+    except OSError:     # not empty, or gone
+        pass
+
+
+def adopt_restored_model(est: Estimator, model: PipelineStage) -> Model:
+    """Wire a model restored from a checkpoint to answer for ``est``:
+    ``adopt_model``'s wiring, with the restored model's fitted metadata
+    kept (the estimator never ran in this process)."""
+    model.uid = est.uid
+    model.operation_name = est.operation_name
+    model.input_features = list(est.input_features)
+    model._output_feature = est._output_feature
+    est.metadata = model.metadata
+    return model

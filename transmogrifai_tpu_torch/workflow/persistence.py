@@ -151,6 +151,10 @@ CLASS_MAP.update({f"transmogrifai_tpu.ops.{mod}.{name}": getattr(m, name)
                   for mod, (m, names) in _FEATURE_STAGES.items()
                   for name in names})
 _JAX_PATH = {cls: path for path, cls in CLASS_MAP.items()}
+#: the reference's alias names load as well; saving writes the paths above
+CLASS_MAP["transmogrifai_tpu.ops.map_vectorizers."
+          "GeolocationMapVectorizerModel"] = \
+    map_vectorizers.GeolocationMapVectorizerModel
 
 #: the ROADMAP item that ports what the map lacks, by JAX module prefix
 _ROADMAP_ITEMS = (
@@ -159,8 +163,8 @@ _ROADMAP_ITEMS = (
     ("transmogrifai_tpu.models.gbdt",
      "ROADMAP Queue A item 3 (the rest of the tree family)"),
     ("transmogrifai_tpu.",
-     "ROADMAP Queue A item 6 (the rest of ingestion, the selector options, "
-     "streaming, serving and multi-device work)"),
+     "ROADMAP Queue A item 6 (streaming workflow CV, refresh, tuning, "
+     "observability, serving, static analysis and multi-device work)"),
 )
 
 

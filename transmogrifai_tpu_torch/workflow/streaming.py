@@ -42,8 +42,17 @@ readers/resilience.py) every pass's chunk stream is wrapped in a
 reader and skips exactly the chunks already delivered.  Retries, backoff
 seconds and quarantined records land in the ``IngestProfiler``.
 
-Not ported: checkpoints and warm-start refresh (ROADMAP Queue A item
-6.5), workflow CV (6.4), pods and meshes (6.7).
+With ``checkpoint_dir`` (``workflow/checkpoint.py``) the fit passes
+before the fused one save their states every ``checkpoint_every`` chunks
+and their models when they complete; a rerun against the same directory
+resumes: a completed pass's models are adopted and the pass is not read
+again, the pass in flight restores its states and skips the chunks it
+had folded (``chunks_skipped``).  The fused pass is not checkpointed (its
+progress is the output buffers): a crash there reruns it from its
+boundary.  Success removes the checkpoint.
+
+Not ported: warm-start refresh and the streaming workflow CV (ROADMAP
+Queue A item 6.5), pods and meshes (6.7).
 """
 from __future__ import annotations
 
@@ -317,7 +326,9 @@ def _liveness(ordered: List[PipelineStage],
 def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
                       keep: Optional[Sequence[str]] = None,
                       fitted_substitutes: Optional[Dict[str, Model]] = None,
-                      prefetch: int = 2, chunk_filter=None, on_stage=None
+                      prefetch: int = 2, chunk_filter=None, on_stage=None,
+                      checkpoint_dir: Optional[str] = None,
+                      checkpoint_every: int = 16, device=None
                       ) -> Tuple[List[PipelineStage], ColumnarDataset,
                                  IngestProfiler, Dict[str, object]]:
     """Fit ``dag`` from ``reader``'s chunks of ``chunk_rows`` rows: (the
@@ -326,7 +337,10 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
     final state by uid).  ``chunk_filter`` (dataset -> dataset) runs on
     every raw chunk before any transform (RawFeatureFilter's map-key
     cleaning); ``on_stage(stage, seconds)`` gets each prefix stage's
-    host seconds summed over the passes, and each tail stage's."""
+    host seconds summed over the passes, and each tail stage's.
+    ``checkpoint_dir`` checkpoints the fit passes every
+    ``checkpoint_every`` chunks and resumes from a checkpoint found
+    there (module docstring); restored models land on ``device``."""
     from .dag import StagesDAG, fit_and_transform_dag
 
     if chunk_rows <= 0:
@@ -336,6 +350,20 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
     split = _split_streamable(layers, subs)
     prefix, tail = layers[:split], layers[split:]
     ingest = IngestProfiler(chunk_rows)
+    manager = resume = None
+    if checkpoint_dir is not None:
+        from .checkpoint import StreamingCheckpointManager, compute_fingerprint
+
+        manager = StreamingCheckpointManager(
+            checkpoint_dir,
+            compute_fingerprint(reader, raw_features, layers, chunk_rows),
+            every_chunks=checkpoint_every)
+        resume = manager.load(device)
+        ingest.resumed = resume is not None
+
+    def note_checkpoint(t0: float) -> None:
+        ingest.checkpoint_saves = manager.saves
+        ingest.checkpoint_wall_s += time.perf_counter() - t0
 
     raw_names = {f.name for f in raw_features}
     out_stage: Dict[str, PipelineStage] = {
@@ -369,11 +397,14 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
 
     def run_reader_pass(label: str, ordered: List[PipelineStage],
                         final_needed: Set[str], per_chunk,
-                        keep_unknown: bool) -> int:
+                        keep_unknown: bool, skip_chunks: int = 0,
+                        on_chunk=None) -> int:
         """One prefetch-overlapped pass over the reader: each chunk goes
         through ``ordered`` (pruned by liveness) to ``per_chunk``; returns
         the rows.  Under a retry policy the reader's stream is wrapped in
-        a ``RetryingChunkStream``."""
+        a ``RetryingChunkStream``.  The first ``skip_chunks`` chunks (a
+        resume's folded ones) are read and counted, not transformed;
+        ``on_chunk(index, rows so far)`` runs after each chunk folded."""
         pass_stats = ingest.begin_pass(label)
         needed_after = _liveness(ordered, final_needed)
         rows = 0
@@ -393,6 +424,10 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
                                depth=prefetch)
         try:
             for idx, chunk in enumerate(batcher):
+                if idx < skip_chunks:
+                    rows += len(chunk)
+                    pass_stats.chunks_skipped += 1
+                    continue
                 t0 = time.perf_counter()
                 ds = chunk_filter(chunk) if chunk_filter is not None \
                     else chunk
@@ -408,6 +443,8 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
                 per_chunk(ds)
                 rows += len(chunk)
                 pass_stats.note_transform(idx, time.perf_counter() - t0)
+                if on_chunk is not None:
+                    on_chunk(idx, rows)
         finally:
             batcher.close()
         pass_stats.wall_s = time.perf_counter() - t_pass
@@ -608,8 +645,27 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
         # already computes the first layer's outputs, so the retained
         # blocks are derived, compact columns), else at the only one
         fuse_at = est_idxs[1] if len(est_idxs) >= 2 else est_idxs[0]
-        for li in [li for li in est_idxs if li < fuse_at]:
+        prefuse = [li for li in est_idxs if li < fuse_at]
+        for pass_idx, li in enumerate(prefuse):
             ests = layer_ests(li)
+            label = f"fit[layer {li}: {est_names(ests)}]"
+            if resume is not None and pass_idx in resume.completed:
+                # the pass completed before the crash: its models are
+                # adopted, its data is not read again
+                from .checkpoint import (CheckpointMismatchError,
+                                         adopt_restored_model)
+
+                done = resume.completed[pass_idx]
+                for est in ests:
+                    model = done["models"].get(est.uid)
+                    if model is None:
+                        raise CheckpointMismatchError(
+                            f"checkpoint pass {pass_idx} is missing a "
+                            f"model for estimator {est.uid}")
+                    fitted_by_uid[est.uid] = adopt_restored_model(est, model)
+                if total_rows is None:
+                    total_rows = done["rows"]
+                continue
             targets: Set[str] = set()
             for est in ests:
                 targets |= set(est.input_names)
@@ -617,11 +673,32 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
             ordered = [s for lj in range(li) for s in prefix[lj]
                        if s.uid in pass_uids]
             states = {est.uid: est.begin_fit() for est in ests}
+            skip = 0
+            if (resume is not None and resume.current is not None
+                    and int(resume.current["pass"]) == pass_idx):
+                # the pass in flight: its states exactly, its cursor
+                states = resume.states_for(ests)
+                skip = int(resume.current["chunks_done"])
+            on_chunk = None
+            if manager is not None:
+                def on_chunk(ci, rows_done, _pi=pass_idx, _lb=label,
+                             _e=ests, _st=states):
+                    if (ci + 1) % manager.every_chunks == 0:
+                        t0 = time.perf_counter()
+                        manager.save_progress(_pi, _lb, ci + 1, rows_done,
+                                              _e, _st)
+                        note_checkpoint(t0)
             total_rows = run_reader_pass(
-                f"fit[layer {li}: {est_names(ests)}]", ordered, targets,
+                label, ordered, targets,
                 lambda ds, e=ests, st=states: update_states(e, st, ds),
-                keep_unknown=False)
+                keep_unknown=False, skip_chunks=skip, on_chunk=on_chunk)
             finish_layer(ests, states)
+            if manager is not None:
+                t0 = time.perf_counter()
+                manager.complete_pass(
+                    pass_idx, label, total_rows,
+                    {est.uid: fitted_by_uid[est.uid] for est in ests})
+                note_checkpoint(t0)
         materialized = fused_pass_and_cascade(fuse_at, total_rows)
         total_rows = writer.offset
 
@@ -648,4 +725,7 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
     if sink is not None:
         ingest.quarantined_records = sink.count - q0_records
         ingest.quarantined_rows = sink.rows - q0_rows
+    if manager is not None:
+        # a finished train's checkpoint must not resume into the next run
+        manager.finish()
     return fitted, data, ingest, final_states

@@ -36,6 +36,7 @@ the tuner and the plan profiler (6.5), meshes and pods (6.7).
 from __future__ import annotations
 
 import json
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -271,8 +272,18 @@ class OpWorkflow(_WorkflowCore):
         host thread; the model then carries ``ingest_profile`` (its
         ``rff``: the filter's chunked pass) and ``fit_states`` (each
         streamed estimator's final state).  ``chunk_rows=None`` is the
-        in-core train.  ``profile``, ``checkpoint_dir`` and ``tuner`` are
-        not ported yet.
+        in-core train.  ``profile`` and ``tuner`` are not ported yet.
+
+        ``checkpoint_dir`` makes the train resumable.  Chunked: the fit
+        passes checkpoint every ``checkpoint_every_chunks`` chunks and at
+        their ends (``workflow/checkpoint.py``), and every model selector
+        without a sweep checkpoint of its own keeps its sweep's under
+        ``checkpoint_dir/sweep``; a rerun in the same directory resumes
+        (``ingest_profile.resumed``).  In-core: every model selector keeps
+        its sweep's checkpoint in ``checkpoint_dir``; a DAG without one
+        raises ``ValueError``.  A checkpoint of another run (other data,
+        DAG or chunk size) raises ``CheckpointMismatchError``.  Success
+        removes the checkpoint.
 
         The returned model's ``stage_seconds`` maps each stage's class name
         to its fit+transform wall seconds (synchronised with the device;
@@ -282,10 +293,6 @@ class OpWorkflow(_WorkflowCore):
             raise NotImplementedError(
                 "train(profile=True) needs the plan profiler, not ported "
                 "yet (ROADMAP Queue A item 6.5)")
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "train(checkpoint_dir=) is not ported yet (ROADMAP Queue A "
-                "item 6.5: checkpoints)")
         if tuner is not None:
             raise NotImplementedError(
                 "train(tuner=) is not ported yet (ROADMAP Queue A item 6.5: "
@@ -294,6 +301,38 @@ class OpWorkflow(_WorkflowCore):
             raise NotImplementedError(
                 "train(chunk_rows=) with workflow CV is not ported yet "
                 "(ROADMAP Queue A item 6.5: streaming_cv)")
+        routed = []
+        if checkpoint_dir is not None:
+            from ..selector.model_selector import ModelSelector
+
+            sels = [s for s in compute_dag(self.result_features).all_stages()
+                    if isinstance(s, ModelSelector)]
+            if chunk_rows is None and not sels:
+                raise ValueError(
+                    "checkpoint_dir requires the out-of-core path — pass "
+                    "chunk_rows=k as well (the in-core fit only "
+                    "checkpoints ModelSelector sweeps, and this DAG has "
+                    "none)")
+            for s in sels:
+                if chunk_rows is None:
+                    routed.append((s, s.sweep_checkpoint_dir))
+                    s.sweep_checkpoint_dir = checkpoint_dir
+                elif s.sweep_checkpoint_dir is None:
+                    routed.append((s, None))
+                    s.sweep_checkpoint_dir = os.path.join(checkpoint_dir,
+                                                          "sweep")
+        try:
+            return self._train(chunk_rows, prefetch_chunks, validate,
+                               checkpoint_dir, checkpoint_every_chunks)
+        finally:
+            for s, d in routed:
+                s.sweep_checkpoint_dir = d
+
+    def _train(self, chunk_rows: Optional[int], prefetch_chunks: int,
+               validate: bool, checkpoint_dir: Optional[str],
+               checkpoint_every: int) -> "OpWorkflowModel":
+        """``train``'s body, with the selectors' sweep checkpoints
+        routed."""
         dev = resolve_device(self.device)
         lint = (self._lint_dag(compute_dag(self.result_features))
                 if validate else None)
@@ -366,7 +405,9 @@ class OpWorkflow(_WorkflowCore):
                             chunk_rows, keep=self._train_keep_columns(),
                             fitted_substitutes=self._model_stages,
                             prefetch=prefetch_chunks,
-                            chunk_filter=chunk_filter, on_stage=on_stage)
+                            chunk_filter=chunk_filter, on_stage=on_stage,
+                            checkpoint_dir=checkpoint_dir,
+                            checkpoint_every=checkpoint_every, device=dev)
                     ingest.rff = rff_stats
         finally:
             for s in placed:
