@@ -80,7 +80,7 @@ to end at full width through the entry points a user calls:
     OpGeneralizedLinearRegression (poisson) -> fit_raw -> predict_batch;
     IsotonicRegressionCalibrator -> fit_raw -> predict_batch
 
-    OpXGBoostClassifier (the reference's defaults) -> fit_raw on 500k x 2000
+    OpXGBoostClassifier (the reference's defaults) -> fit_raw on 250k x 2000
     wide sparse rows (BASELINE.md config 5) -> predict_batch; the same
     with TMOG_SPARSE_HIST=1 (the CSR histogram) and with TMOG_EFB
 
@@ -150,7 +150,7 @@ card's aggregate shared-memory rate):
                 and a plain train of it: holdout AuPRs within
                 SO_CV_AUPR_GAP, launches of both
   5. regression  the first 1/MODEL_DEPTH_CUT of the slice's rows and
-                holdout (500k + 50k, cut from 1M + 100k to keep the
+                holdout (250k + 25k, cut from 1M + 100k to keep the
                 smoke within its time limit): the same 500 Real columns
                 plus one Integral column (30
                 values, 5% missing) and one PickList (5 values, 5% null), a
@@ -210,7 +210,7 @@ card's aggregate shared-memory rate):
                 int32 indices on PIVOT_CHECK_ROWS holdout rows, bitwise
                 against the host build of the same indices, both timed
   6b. validate_explain  the first 1/VE_DEPTH_CUT of the Titanic phase's
-                rows and holdout (500k + 50k, cut from 1M + 100k to keep
+                rows and holdout (250k + 25k, cut from 1M + 100k to keep
                 the smoke within its time limit) with two
                 planted raw features (seed VE_SEED): ``leak``, null exactly
                 where Survived is 1, and ``rare``, filled on VE_RARE_SHARE
@@ -238,8 +238,8 @@ card's aggregate shared-memory rate):
                 columns within 1e-5 of float64 numpy) and LOCO through the
                 slice's boosted model on VE_XGB_LOCO_ROWS holdout rows
   6c. feature_eng  the first 1/FE_DEPTH_CUT of the Titanic phase's rows
-                and holdout (250k + 25k, cut from 1M + 100k to pay for
-                the selector_options phase)
+                and holdout (125k + 12.5k, cut from 1M + 100k to pay for
+                the selector_options and refresh_cv phases)
                 with four more raw
                 columns from FE_SEED (``feature_eng_columns``: Email with
                 10% null and 5% malformed, EmailMap of it, Phone with US,
@@ -355,6 +355,30 @@ card's aggregate shared-memory rate):
                 and the checker's keep list equal, holdout probabilities
                 within OOC_CKPT_PROBA_TOL (bitwise said), the checkpoint
                 directories gone after success, launches of both trains
+  6e'. refresh_cv  in the out_of_core phase's process, after its leg d,
+                on leg d's rows and holdout, leg b's DAG with the filter.
+                Leg a: RCV_CV_ROWS rows under with_workflow_cv(), chunked
+                (RCV_CHUNK_ROWS: the streaming workflow CV) and in core:
+                each wall and launches; the fold ids the chunked train
+                assigned equal the in-core validator's, the same winner,
+                every fold metric within SanityChecker's
+                streaming_fit_tol, holdout AuPRs within SO_CV_AUPR_GAP.
+                Leg b: the first RCV_BASE_ROWS rows trained chunked,
+                saved and loaded (its fit_states equal), refreshed twice
+                with the rest of leg d's rows: the refresh report and
+                walls; every merged state within RCV_STATE_RTOL of leg
+                d's uninterrupted train's (the chunk boundaries
+                coincide), the second refresh's probabilities bitwise.
+                Leg c: RCV_TUNER_ROWS rows with
+                train(tuner=Tuner(strategy="halving", auto_plan=True,
+                host_budget_bytes=RCV_TUNER_BUDGET), profile=True): the
+                advice (streamed with its chunk rows), the profiler's top
+                stages, the profiled launches equal to the counter's, the
+                selector's strategy restored; then in-core trains with
+                TMOG_PLAN_WORKERS=1 and with the default pool, walls and
+                probabilities bitwise equal (an LR grid in the selector's
+                place: the pool runs host stages). Each wall beside
+                REFRESH_CV_PREDICTED
   6f. events    event-time AutoML: examples/bench_events.py's JSONL
                 clickstream (``make_clickstream``, drawn vectorised) of
                 EV_USERS users (~400 000 events, ~100 MB) and a holdout
@@ -391,7 +415,7 @@ card's aggregate shared-memory rate):
                 in a child, its scores equal to the evaluate run's within
                 APP_SCORE_TOL; the metrics JSON with the JAX runner's
                 keys; the train's launches
-  7. multiclass  the regression phase's rows (500k + 50k: the slice's
+  7. multiclass  the regression phase's rows (250k + 25k: the slice's
                 divided by MODEL_DEPTH_CUT) of the same 500 Real columns
                 with a K = 5 label from its
                 own seed (class logits: log priors 0.40 / 0.25 / 0.15 /
@@ -455,8 +479,8 @@ card's aggregate shared-memory rate):
  10. xgb_wide  BASELINE.md config 5: examples/bench_xgb_wide.py's
                 make_sparse_data recipe (seed 17, 5% density, 2000
                 columns; the smoke's rows and holdout divided by
-                MODEL_DEPTH_CUT, 550 000 rows made in one call, the first
-                500k to train, the last 50 000 held out: cut from 1M +
+                MODEL_DEPTH_CUT, 275 000 rows made in one call, the first
+                250k to train, the last 25 000 held out: cut from 1M +
                 100k to keep the smoke within its time limit), one
                 OpXGBoostClassifier
                 at the reference's defaults (200 rounds, eta 0.02, depth
@@ -473,7 +497,7 @@ card's aggregate shared-memory rate):
                 took through the CSR, trees equal up to exact ties,
                 holdout AuPR within 1e-3), 2 rounds of each leg's levels
                 held against the plain version; ``seg_hist`` lines with
-                ``path`` "xgb_wide" (d = 2000, M = 1, 32, 512 on 500k rows,
+                ``path`` "xgb_wide" (d = 2000, M = 1, 32, 512 on 250k rows,
                 and M = 32 on one GOSS sample)
  11. iris      the reference's Iris demo (examples/op_iris_simple.py's
                 DAG and grid: LR {0.01, 0.1}, MLP [5, 4] and [10], a
@@ -856,6 +880,28 @@ OOC_CKPT_PROBA_TOL = 1e-6
 OOC_CKPT_PREDICTED = {"uninterrupted_s": [8.0, 20.0],
                       "child_s": [12.0, 25.0], "resume_s": [7.0, 18.0],
                       "checkpoint_saves": 4, "checkpoint_s": [0.1, 2.0]}
+#: the refresh_cv phase (6e'), on leg d's CSV rows: leg a's rows (both
+#: workflow-CV trains; cut from leg d's 100 000 to keep the smoke within
+#: its time limit) and chunks; leg b's base train (3 chunks, so that the
+#: refresh's chunks fall where the 100 000-row train's fell) and the
+#: relative tolerance of its merged states against leg d's; leg c's rows
+#: (cut from 100 000 likewise) and the host budget its tuner plans against
+#: (below the projected in-core peak, so the planner streams)
+RCV_CV_ROWS, RCV_CHUNK_ROWS = 25_000, 16_384
+RCV_BASE_ROWS, RCV_STATE_RTOL = 49_152, 1e-9
+RCV_TUNER_ROWS, RCV_TUNER_BUDGET = 25_000, 1 << 20
+#: the phase's walls as predicted before its first run on the card
+#: (PERF.md section 6), for a host like the previous final proof run's:
+#: each leg's seconds; the whole smoke's there and on a host 1.6x slower
+#: on host work, revised after the first runs with the depth cuts they
+#: called for
+REFRESH_CV_PREDICTED = {"a_s": [20.0, 40.0], "b_s": [15.0, 30.0],
+                        "c_s": [18.0, 35.0], "phase_s": [55.0, 100.0],
+                        "smoke_s": [710.0, 760.0],
+                        "smoke_slow_host_s": [980.0, 1080.0]}
+#: the wall of the smoke's run before the refresh_cv phase was added
+#: (the H100 at 700 W), printed beside its total
+SMOKE_PREVIOUS_S = 699.8
 
 # the events phase (6f): examples/bench_events.py's clickstream (its
 # per-user distributions; seed 9 for the train log, 10 for the holdout
@@ -880,18 +926,20 @@ EV_PROBA_TOL, EV_RSS_RATIO = 1e-6, 0.5
 EV_AUROC_FLOOR = 0.9576739050423261 - 0.02
 # the app phase (6g): the generated Titanic project on a Titanic-shaped
 # CSV; its scores against the in-process ones (200 000 rows before the
-# selector_options phase, 100 000 before the out_of_core phase's leg d)
-APP_ROWS = 50_000
+# selector_options phase, 100 000 before the out_of_core phase's leg d,
+# 50 000 before the refresh_cv phase)
+APP_ROWS = 25_000
 APP_SCORE_TOL = 1e-6
 #: the selector_options phase: legs b-d's rows (the selector
-#: recipe and the Titanic demo's; cut from 200 000 + 20 000 to keep the
-#: smoke within its time limit on a slow host), the halving schedule of the default
+#: recipe and the Titanic demo's; cut from 200 000 + 20 000, and from
+#: 100 000 + 10 000 for the refresh_cv phase, to keep the smoke within
+#: its time limit on a slow host), the halving schedule of the default
 #: selector's 26 candidates on 1M rows (the JAX package's rung_schedule),
 #: the halving winner's holdout AuPR gap to the full sweep's, workflow CV's
 #: to the plain train's, the resume's fold-metric tolerance, the kill's
 #: save index, the watchdog's factor and the injected sleep in deadlines,
 #: leg c's forest size and the halving level check's trees
-SO_ROWS, SO_HOLDOUT = 100_000, 10_000
+SO_ROWS, SO_HOLDOUT = 50_000, 5_000
 SO_SCHEDULE = [(37_038, 26), (111_112, 9), (333_334, 3), (1_000_000, 1)]
 SO_AUPR_GAP = 0.01
 SO_CV_AUPR_GAP = 0.02
@@ -901,19 +949,22 @@ SO_WATCHDOG_FACTOR = 2.0
 SO_SLOW_FACTOR = 2.5
 SO_C_TREES = 20
 SO_CHECK_TREES = 10
-#: depth cuts that pay for the selector_options phase within
-#: the smoke's time limit: the feature_eng and avro_combined phases run on
-#: the Titanic rows and holdout divided by these (1M + 100k before it;
-#: avro_combined 4 before the out_of_core phase's leg d)
-FE_DEPTH_CUT = 4
+#: depth cuts that pay for the selector_options and refresh_cv phases
+#: within the smoke's time limit: the feature_eng and avro_combined phases
+#: run on the Titanic rows and holdout divided by these (1M + 100k before
+#: the selector_options phase; avro_combined 4 before the out_of_core
+#: phase's leg d, feature_eng 4 before the refresh_cv phase)
+FE_DEPTH_CUT = 8
 AVRO_DEPTH_CUT = 8
 #: the regression, multiclass, boosted_multi and xgb_wide phases run on
-#: the smoke's rows and holdout divided by this (1M + 100k before it), so
-#: that the smoke ends well within its time limit on a slow host
-MODEL_DEPTH_CUT = 2
+#: the smoke's rows and holdout divided by this (1M + 100k at first, 2
+#: before the refresh_cv phase), so that the smoke ends well
+#: within its time limit on a slow host
+MODEL_DEPTH_CUT = 4
 #: the validate_explain phase runs on the Titanic rows and holdout divided
-#: by this (1M + 100k before it)
-VE_DEPTH_CUT = 2
+#: by this (1M + 100k before the selector_options phase, 2 before the
+#: refresh_cv phase)
+VE_DEPTH_CUT = 4
 #: the pivot-block checks: rows (the first of a phase's dataset), timing
 #: repetitions, and the times predicted before the first chip run
 #: (PERF.md section 6): the card's build and the host's build with
@@ -3484,17 +3535,19 @@ def build_bench_ingest(extra=()):
     return OpNaiveBayes().set_input(survived, checked).get_output()
 
 
-def build_ooc_selector():
+def build_ooc_selector(models_and_parameters=None):
     """Leg b's DAG: the ten predictors and the two planted features ->
-    transmogrify -> SanityChecker() -> the default binary selector.
-    Returns (prediction, checked, selector)."""
+    transmogrify -> SanityChecker() -> the default binary selector (or
+    one over ``models_and_parameters``).  Returns (prediction, checked,
+    selector)."""
     survived = FeatureBuilder.RealNN("Survived").as_response()
     feats = transmogrify([getattr(FeatureBuilder, t)(n).as_predictor()
                           for t, n in OOC_PREDICTORS]
                          + [FeatureBuilder.Real(n).as_predictor()
                             for n in ("leak", "rare")])
     checked = SanityChecker().set_input(survived, feats).get_output()
-    sel = BinaryClassificationModelSelector.with_cross_validation()
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        models_and_parameters=models_and_parameters)
     return sel.set_input(survived, checked).get_output(), checked, sel
 
 
@@ -3732,6 +3785,9 @@ def _ooc_leg_d(cols: dict, rows: int, tmp: str) -> dict:
            "seg_hist_launches": {"uninterrupted": launches0,
                                  "resumed": launches1},
            "predicted": OOC_CKPT_PREDICTED}
+    ref = {"train_csv": train_csv, "hold_csv": hold_csv,
+           "fit_states": m0.fit_states,
+           "dropped": r0["dropped"]}
     check(leg["resumed"] and skipped > 0
           and skipped == saved["chunks_done"],
           f"out_of_core d: the resume skipped {skipped} chunks of the "
@@ -3749,7 +3805,7 @@ def _ooc_leg_d(cols: dict, rows: int, tmp: str) -> dict:
           f"{mismatch}")
     check(launches0 > 0 and launches1 > 0,
           f"out_of_core d: seg_hist launches {launches0}, {launches1}")
-    return leg
+    return leg, ref
 
 
 def _run_ooc_child(train_csv: str, hold_csv: str, mode: str,
@@ -4033,16 +4089,359 @@ def phase_out_of_core(rows: int, holdout: int, reps: int, bw: float,
         leg_c = _ooc_leg_c(model, cols, rows, tmp)
         del model
         torch.cuda.empty_cache()
-        leg_d = _ooc_leg_d(cols, rows, tmp)
+        leg_d, ref = _ooc_leg_d(cols, rows, tmp)
+        phase_s = time.perf_counter() - phase_t0
+        emit(kernel_row)
+        # the refresh_cv phase, on leg d's CSVs and its uninterrupted
+        # train's states (the out_of_core line follows it)
+        rcv_launches = phase_refresh_cv(cols, tmp, ref)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    out = {"phase": "out_of_core", "rows": rows, "holdout": holdout,
-           "data": data, "a": leg_a, "b": leg_b, "c": leg_c, "d": leg_d,
-           "phase_s": time.perf_counter() - phase_t0}
-    emit(out)
-    emit(kernel_row)
+    emit({"phase": "out_of_core", "rows": rows, "holdout": holdout,
+          "data": data, "a": leg_a, "b": leg_b, "c": leg_c, "d": leg_d,
+          "phase_s": phase_s})
     return {"seg_hist_launches": leg_b["seg_hist_launches"]
-            + sum(leg_d["seg_hist_launches"].values())}
+            + sum(leg_d["seg_hist_launches"].values()),
+            "refresh_cv_launches": rcv_launches}
+
+
+# ---------------------------------------------------------------------------
+# the refresh_cv phase: streaming workflow CV, warm-start refresh, the tuner
+# ---------------------------------------------------------------------------
+
+def _state_diffs(a, b, rtol: float, path: str = "", out=None) -> list:
+    """Where two exported fit states differ: structure, integers and
+    strings exactly, floats within ``rtol`` (NaNs equal), a sketch by its
+    ``to_state``; at most 10 paths."""
+    out = [] if out is None else out
+    if len(out) >= 10:
+        return out
+    if hasattr(a, "to_state") and hasattr(b, "to_state"):
+        return _state_diffs(a.to_state(), b.to_state(), rtol, path, out)
+    if isinstance(a, np.random.Generator):
+        if a.bit_generator.state != b.bit_generator.state:
+            out.append(f"{path}: generator state")
+        return out
+    if hasattr(a, "to_json") and hasattr(b, "to_json"):
+        return _state_diffs(a.to_json(), b.to_json(), rtol, path, out)
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    if isinstance(b, torch.Tensor):
+        b = b.cpu().numpy()
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            out.append(f"{path}: keys {sorted(map(str, set(a) ^ set(b)))}")
+            return out
+        for k in a:
+            _state_diffs(a[k], b[k], rtol, f"{path}.{k}", out)
+        return out
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            out.append(f"{path}: {len(a)} items against {len(b)}")
+            return out
+        for i, (x, y) in enumerate(zip(a, b)):
+            _state_diffs(x, y, rtol, f"{path}[{i}]", out)
+        return out
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape:
+            out.append(f"{path}: shapes {a.shape} and {b.shape}")
+        elif a.dtype.kind in "fc":
+            if not np.allclose(a, b, rtol=rtol, atol=0.0, equal_nan=True):
+                rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
+                out.append(f"{path}: max rel {float(np.nanmax(rel))}")
+        elif not np.array_equal(a, b):
+            out.append(f"{path}: arrays differ")
+        return out
+    if isinstance(a, float) and isinstance(b, float):
+        if not (a == b or (a != a and b != b)
+                or abs(a - b) <= rtol * abs(b)):
+            out.append(f"{path}: {a!r} against {b!r}")
+        return out
+    if a != b:
+        out.append(f"{path}: {a!r} against {b!r}")
+    return out
+
+
+def _rcv_train(train_csv: str, hold_csv: str, chunk_rows, cv: bool = False,
+               tuner=None, profile: bool = False,
+               models_and_parameters=None):
+    """Leg d's DAG (the filter, the ten predictors and the planted ones,
+    SanityChecker, the default binary selector, or one over
+    ``models_and_parameters``) from ``train_csv``, its stages numbered
+    from 1 as leg d's are: (workflow, model, prediction, selector, wall
+    seconds, seg_hist launches)."""
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+
+    reset_uids()
+    pred, _, sel = build_ooc_selector(models_and_parameters)
+    wf = (OpWorkflow().set_result_features(pred)
+          .set_reader(CSVReader(train_csv))
+          .with_raw_feature_filter(scoring_data=CSVReader(hold_csv)))
+    if cv:
+        wf.with_workflow_cv()
+    torch.cuda.synchronize()
+    gk.seg_level_hists.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train(chunk_rows=chunk_rows, tuner=tuner, profile=profile)
+    torch.cuda.synchronize()
+    return (wf, model, pred, sel, time.perf_counter() - t0,
+            gk.seg_level_hists.launches)
+
+
+def _rcv_holdout(model, pred, hold_csv: str):
+    """(holdout probabilities, AuPR) of a model."""
+    hold = CSVReader(hold_csv).generate_dataset(model.raw_features())
+    proba = model.score(hold)[pred.name].values.probability
+    y = torch.as_tensor(np.asarray(hold["Survived"].values, np.float32))
+    return proba, aupr(y.to(proba.device), proba[:, 1])
+
+
+def _rcv_leg_a(cols: dict, tmp: str, hold_csv: str) -> Tuple[dict, str]:
+    """Streaming workflow CV: RCV_CV_ROWS of leg d's rows under
+    with_workflow_cv(), chunked (RCV_CHUNK_ROWS) and in core; the fold ids
+    the chunked train assigned against those the in-core validator draws,
+    the winners, the fold metrics and the holdout AuPRs."""
+    from transmogrifai_tpu_torch.workflow import streaming_cv
+
+    csv_a = os.path.join(tmp, "rcv_a.csv")
+    write_ooc_csv(csv_a, cols, 0, RCV_CV_ROWS)
+    seen = {}
+    assign = streaming_cv.StreamingCVContext.assign_folds
+
+    def spy(ctx):
+        assign(ctx)
+        seen["folds"] = ctx._global_folds.copy()
+
+    streaming_cv.StreamingCVContext.assign_folds = spy
+    try:
+        _, mc, pred_c, sel_c, wall_c, launches_c = _rcv_train(
+            csv_a, hold_csv, RCV_CHUNK_ROWS, cv=True)
+    finally:
+        streaming_cv.StreamingCVContext.assign_folds = assign
+    _, mi, pred_i, sel_i, wall_i, launches_i = _rcv_train(
+        csv_a, hold_csv, None, cv=True)
+    # the in-core validator's folds over the same labels
+    y = np.nan_to_num(np.asarray(cols["Survived"][:RCV_CV_ROWS],
+                                 np.float64))
+    _, mask, _, _ = sel_i._split(y)
+    train_idx = np.flatnonzero(mask)
+    v = sel_i.validator
+    expected = np.full(len(y), -1, np.int32)
+    expected[train_idx] = make_folds(len(train_idx), v.num_folds,
+                                     y=y[train_idx], stratify=v.stratify,
+                                     seed=v.seed)
+    res_c = sel_c.metadata["workflow_cv_results"]
+    res_i = sel_i.metadata["workflow_cv_results"]
+    gaps = [abs(a - b) for rc, ri in zip(res_c, res_i)
+            for a, b in zip(rc["foldValues"], ri["foldValues"])]
+    tol = SanityChecker().streaming_fit_tol
+    p_c, aupr_c = _rcv_holdout(mc, pred_c, hold_csv)
+    p_i, aupr_i = _rcv_holdout(mi, pred_i, hold_csv)
+    win = {m: [s.metadata["model_selector_summary"]["bestModelType"],
+               s.metadata["model_selector_summary"]["bestModelParams"]]
+           for m, s in (("chunked", sel_c), ("in_core", sel_i))}
+    leg = {"rows": RCV_CV_ROWS, "chunk_rows": RCV_CHUNK_ROWS,
+           "wall_s": {"chunked": wall_c, "in_core": wall_i},
+           "seg_hist_launches": {"chunked": launches_c,
+                                 "in_core": launches_i},
+           "passes": [q.label for q in mc.ingest_profile.passes],
+           "fold_ids_equal": bool("folds" in seen
+                                  and np.array_equal(seen["folds"],
+                                                     expected)),
+           "fold_sizes": np.bincount(expected[expected >= 0]).tolist(),
+           "winner": win, "candidates": len(res_c),
+           "fold_metric_max_abs_gap": max(gaps) if gaps else None,
+           "fold_metric_tol": tol,
+           "holdout_aupr": {"chunked": aupr_c, "in_core": aupr_i},
+           "aupr_gap": abs(aupr_c - aupr_i), "aupr_gap_max": SO_CV_AUPR_GAP,
+           "elastic": sel_c.metadata.get("workflow_cv_elastic")}
+    check(leg["fold_ids_equal"],
+          "refresh_cv a: the chunked train's fold ids differ from the "
+          "in-core validator's")
+    check(win["chunked"] == win["in_core"],
+          f"refresh_cv a: winners {win['chunked']} and {win['in_core']}")
+    check(len(res_c) == len(res_i) and gaps and max(gaps) <= tol,
+          f"refresh_cv a: fold metrics part by "
+          f"{leg['fold_metric_max_abs_gap']} (tolerance {tol})")
+    check(bool(torch.isfinite(p_c).all() and torch.isfinite(p_i).all())
+          and leg["aupr_gap"] <= SO_CV_AUPR_GAP,
+          f"refresh_cv a: holdout AuPRs {aupr_c} and {aupr_i}")
+    check(launches_c > 0 and launches_i > 0,
+          f"refresh_cv a: seg_hist launches {launches_c}, {launches_i}")
+    return leg, csv_a
+
+
+def _rcv_leg_b(cols: dict, tmp: str, ref: dict) -> dict:
+    """Warm-start refresh: leg d's first RCV_BASE_ROWS rows trained
+    chunked, saved and loaded, refreshed with the rest of its rows; the
+    merged states against leg d's uninterrupted train's, and a second
+    refresh from the same base bitwise."""
+    hold_csv = ref["hold_csv"]
+    base_csv = os.path.join(tmp, "rcv_base.csv")
+    new_csv = os.path.join(tmp, "rcv_new.csv")
+    write_ooc_csv(base_csv, cols, 0, RCV_BASE_ROWS)
+    write_ooc_csv(new_csv, cols, RCV_BASE_ROWS, OOC_CKPT_ROWS)
+    wf, base, pred, _, wall_base, launches_base = _rcv_train(
+        base_csv, hold_csv, RCV_CHUNK_ROWS)
+    path = os.path.join(tmp, "rcv_model")
+    t0 = time.perf_counter()
+    base.save(path)
+    loaded = OpWorkflowModel.load(path)
+    save_load_s = time.perf_counter() - t0
+    loaded_diffs = [d for uid in base.fit_states for d in _state_diffs(
+        loaded.fit_states.get(uid), base.fit_states[uid], 0.0, uid)]
+    refreshes = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        gk.seg_level_hists.launches = 0
+        t0 = time.perf_counter()
+        r = wf.refresh(loaded, data=CSVReader(new_csv),
+                       chunk_rows=RCV_CHUNK_ROWS)
+        torch.cuda.synchronize()
+        refreshes.append((r, time.perf_counter() - t0,
+                          gk.seg_level_hists.launches))
+    (r1, wall1, launches1), (r2, wall2, launches2) = refreshes
+    report = r1.refresh_report
+    merged_diffs = {uid: _state_diffs(r1.fit_states[uid],
+                                      ref["fit_states"][uid],
+                                      RCV_STATE_RTOL, uid)
+                    for uid in report["merged"]}
+    p1, aupr1 = _rcv_holdout(r1, pred, hold_csv)
+    p2, _ = _rcv_holdout(r2, pred, hold_csv)
+    leg = {"base_rows": RCV_BASE_ROWS,
+           "new_rows": OOC_CKPT_ROWS - RCV_BASE_ROWS,
+           "chunk_rows": RCV_CHUNK_ROWS,
+           "base_train_s": wall_base, "save_load_s": save_load_s,
+           "fit_states": len(base.fit_states),
+           "loaded_states_equal": not loaded_diffs,
+           "refresh_s": [wall1, wall2], "report": report,
+           "dropped": base.raw_feature_filter_results.dropped_features,
+           "passes": [q.label for q in r1.ingest_profile.passes],
+           "merged_states_equal": {uid: not d
+                                   for uid, d in merged_diffs.items()},
+           "state_rtol": RCV_STATE_RTOL,
+           "second_refresh_bitwise": bool(torch.equal(p1, p2)),
+           "holdout_aupr": aupr1,
+           "seg_hist_launches": {"base": launches_base,
+                                 "refreshes": [launches1, launches2]}}
+    check(set(loaded.fit_states) == set(base.fit_states)
+          and not loaded_diffs,
+          f"refresh_cv b: fit states lost or changed in save and load: "
+          f"{loaded_diffs[:3]}")
+    check(leg["dropped"] == ref["dropped"],
+          f"refresh_cv b: the base train dropped {leg['dropped']}, leg d "
+          f"{ref['dropped']}")
+    check(report["merged"] and not report["refit"],
+          f"refresh_cv b: the refresh merged nothing: {report}")
+    bad = {uid: d for uid, d in merged_diffs.items() if d}
+    check(not bad, f"refresh_cv b: merged states differ from the "
+                   f"uninterrupted train's: {bad}")
+    check(leg["second_refresh_bitwise"] and bool(torch.isfinite(p1).all()),
+          "refresh_cv b: a second refresh from the same base differs")
+    check(launches1 > 0 and launches2 > 0,
+          f"refresh_cv b: seg_hist launches {launches1}, {launches2}")
+    return leg
+
+
+def _rcv_leg_c(cols: dict, tmp: str, hold_csv: str, csv_a: str) -> dict:
+    """The tuner and the profile: train(tuner=Tuner(strategy="halving",
+    auto_plan=True, host_budget_bytes=RCV_TUNER_BUDGET), profile=True) on
+    RCV_TUNER_ROWS rows; then the plan's host pool: in-core trains with
+    TMOG_PLAN_WORKERS=1 and with the default, bitwise equal (the DAG's
+    host stages are the pool's; its selector, serial on the card either
+    way, holds an LR grid, ``_lr_grid``)."""
+    from transmogrifai_tpu_torch.tuning import Tuner
+
+    csv_c = csv_a
+    if RCV_TUNER_ROWS != RCV_CV_ROWS:
+        csv_c = os.path.join(tmp, "rcv_c.csv")
+        write_ooc_csv(csv_c, cols, 0, RCV_TUNER_ROWS)
+    tuner = Tuner(strategy="halving", auto_plan=True,
+                  host_budget_bytes=RCV_TUNER_BUDGET)
+    wf, model, pred, sel, wall, launches = _rcv_train(
+        csv_c, hold_csv, None, tuner=tuner, profile=True)
+    advice = wf._plan_advice(tuner)
+    prof = model.train_profile
+    top = sorted(prof.stages, key=lambda s: -s.wall_s)[:8]
+    prof_launches = sum(s.launches for s in prof.stages)
+    _, aupr_t = _rcv_holdout(model, pred, hold_csv)
+    pool = {}
+    for mode, workers in (("serial", "1"), ("pool", None)):
+        prev = os.environ.pop("TMOG_PLAN_WORKERS", None)
+        if workers is not None:
+            os.environ["TMOG_PLAN_WORKERS"] = workers
+        try:
+            _, m, p, _, w, n = _rcv_train(
+                csv_c, hold_csv, None,
+                models_and_parameters=_lr_grid())
+        finally:
+            os.environ.pop("TMOG_PLAN_WORKERS", None)
+            if prev is not None:
+                os.environ["TMOG_PLAN_WORKERS"] = prev
+        pool[mode] = (w, n, _rcv_holdout(m, p, hold_csv)[0])
+    from transmogrifai_tpu_torch.workflow.plan import _plan_workers
+
+    ip = model.ingest_profile
+    leg = {"rows": RCV_TUNER_ROWS, "advice": advice.to_json(),
+           "streamed": ip is not None,
+           "chunk_rows": ip.chunk_rows if ip is not None else None,
+           "wall_s": wall, "seg_hist_launches": launches,
+           "profiled_launches": prof_launches,
+           "strategy_restored": sel.strategy == "full",
+           "halving_rungs": len(sel.metadata.get("halving_schedule", {})
+                                .get("rungs", [])),
+           "top_stages": [{"op": s.op, "kind": s.kind, "wall_s": s.wall_s,
+                           "launches": s.launches, "rows": s.rows,
+                           "cols": s.cols} for s in top],
+           "profiled_stages": len(prof.stages),
+           "holdout_aupr": aupr_t,
+           "pool_workers": _plan_workers(),
+           "pool_wall_s": {k: v[0] for k, v in pool.items()},
+           "pool_seg_hist_launches": {k: v[1] for k, v in pool.items()},
+           "pool_bitwise": bool(torch.equal(pool["serial"][2],
+                                            pool["pool"][2]))}
+    check(advice.mode == "stream" and leg["streamed"]
+          and leg["chunk_rows"] == advice.chunk_rows,
+          f"refresh_cv c: the planner's advice {advice.to_json()} was not "
+          f"taken")
+    check(leg["strategy_restored"] and leg["halving_rungs"] > 0,
+          "refresh_cv c: the tuner's halving did not run or was not "
+          "restored")
+    check(launches > 0 and prof_launches == launches,
+          f"refresh_cv c: the profile's launches {prof_launches} against "
+          f"the train's {launches}")
+    check(leg["pool_bitwise"],
+          "refresh_cv c: the pooled and serial plans' probabilities differ")
+    return leg
+
+
+def phase_refresh_cv(cols: dict, tmp: str, ref: dict) -> int:
+    """Streaming workflow CV, the warm-start refresh and the tuner on the
+    card (the module docstring's phase 6e'), in this process, on
+    out_of_core leg d's rows; returns the seg_hist launches of its
+    trains."""
+    phase_t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    leg_a, csv_a = _rcv_leg_a(cols, tmp, ref["hold_csv"])
+    a_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    leg_b = _rcv_leg_b(cols, tmp, ref)
+    b_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    leg_c = _rcv_leg_c(cols, tmp, ref["hold_csv"], csv_a)
+    c_s = time.perf_counter() - t0
+    emit({"phase": "refresh_cv", "a": leg_a, "b": leg_b, "c": leg_c,
+          "leg_s": {"a": a_s, "b": b_s, "c": c_s},
+          "phase_s": time.perf_counter() - phase_t0,
+          "predicted": REFRESH_CV_PREDICTED})
+    return (sum(leg_a["seg_hist_launches"].values())
+            + leg_b["seg_hist_launches"]["base"]
+            + sum(leg_b["seg_hist_launches"]["refreshes"])
+            + leg_c["seg_hist_launches"]
+            + sum(leg_c["pool_seg_hist_launches"].values()))
 
 
 # ---------------------------------------------------------------------------
@@ -6861,6 +7260,7 @@ def main() -> int:
                      + feature_eng["seg_hist_launches"]
                      + avro["seg_hist_launches"]
                      + ooc["seg_hist_launches"]
+                     + ooc["refresh_cv_launches"]
                      + events["seg_hist_launches"]
                      + app["seg_hist_launches"]
                      + multi["seg_hist_launches"]
@@ -6870,6 +7270,10 @@ def main() -> int:
         "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": levels[-1]["bound_by"],
         "library_ms": mean("library_ms")}]})
+    emit({"phase": "smoke_total", "s": time.perf_counter() - _T0,
+          "previous_s": SMOKE_PREVIOUS_S,
+          "predicted_s": REFRESH_CV_PREDICTED["smoke_s"],
+          "predicted_slow_host_s": REFRESH_CV_PREDICTED["smoke_slow_host_s"]})
     print(_smi("name,power.limit"), flush=True)
     faulthandler.cancel_dump_traceback_later()
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

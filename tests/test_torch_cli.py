@@ -260,7 +260,7 @@ def test_regression_template_and_the_module_entry(samples, tmp_path):
         assert "RegressionModelSelector" in fh.read()
 
 
-@pytest.mark.parametrize("command,item", [("lint", "6.8"), ("trace", "6.5"),
+@pytest.mark.parametrize("command,item", [("lint", "6.8"), ("trace", "6.5.5"),
                                           ("pod", "6.7")])
 def test_unported_subcommands_name_their_items(command, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):

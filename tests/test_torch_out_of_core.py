@@ -387,16 +387,11 @@ def test_not_ported_options_raise():
     train = ColumnarDataset({"Survived": FeatureColumn.from_values(
         ft.RealNN, [1.0])})
     wf = OpWorkflow().set_result_features(pred).set_input_data(train)
-    for kwargs, item in ((dict(profile=True), "6.5"),
-                         (dict(tuner=object()), "6.5")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            wf.train(**kwargs)
-    # checkpoints are ported: in-core, only a selector's sweep checkpoints
+    # profile=, tuner= and workflow CV under chunk_rows are ported
+    # (tests/test_torch_tuning.py, tests/test_torch_streaming_cv.py);
+    # checkpoints too: in-core, only a selector's sweep checkpoints
     with pytest.raises(ValueError, match="chunk_rows"):
         wf.train(checkpoint_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 6.5"):
-        OpWorkflow().set_result_features(pred).set_input_data(
-            train).with_workflow_cv().train(chunk_rows=8)
     with pytest.raises(NotImplementedError, match="item 6.7"):
         OpWorkflow().with_mesh(object())
     with pytest.raises(ValueError, match="chunk_rows"):

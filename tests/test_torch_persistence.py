@@ -478,3 +478,130 @@ def test_port_and_smoke_import_no_jax():
                     if m.split(".")[0] in ("jax", "jaxlib",
                                            "transmogrifai_tpu")]
     assert len(files) > 30 and not bad, bad
+
+
+def _chunked(pkg: str, data, nb: bool = False):
+    """A chunked train (64-row chunks) of the test's DAG ending in LR, or
+    in naive Bayes (whose state holds the card's sums in the port): the
+    model, its streamed fit states by uid."""
+    from transmogrifai_tpu.models.classification import OpNaiveBayes as JNB
+    from transmogrifai_tpu.utils.uid import reset_uids as jreset
+    from transmogrifai_tpu_torch.models.classification import OpNaiveBayes
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+
+    jax = pkg == "jax"
+    (jreset if jax else reset_uids)()
+    fb, trans, checker, wf, ds, col, types = (
+        (JFB, jtransmogrify, JSanityChecker, JWorkflow, JDataset, JColumn,
+         jft) if jax else
+        (FeatureBuilder, transmogrify, SanityChecker, OpWorkflow,
+         ColumnarDataset, FeatureColumn, ft))
+    label = fb.RealNN("label").as_response()
+    preds = ([fb.Real(f"x{j}").as_predictor() for j in range(N_REAL)]
+             + [fb.PickList("color").as_predictor()])
+    checked = label.transform_with(checker(max_correlation=0.99),
+                                   trans(preds))
+    est = ((JNB if jax else OpNaiveBayes)() if nb
+           else (JLR if jax else OpLogisticRegression)())
+    pred = label.transform_with(est, checked)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TMOG_COST_HISTORY", "0")
+        model = wf().set_result_features(pred).set_input_data(
+            _dataset(ds, col, types, *data)).train(chunk_rows=64)
+    return model
+
+
+def _encoded(fit_states, encode, store):
+    return {uid: encode(p, f"fitstate.{uid}", store)
+            for uid, p in fit_states.items()}
+
+
+class TestFitStates:
+    """A chunked model's ``fit_states`` through save and load, in either
+    direction between the packages: the same uids, the same JSON and the
+    same ``fitstate.<uid>...`` array keys in arrays.npz, the arrays
+    bitwise."""
+
+    @pytest.mark.parametrize("nb", [False, True], ids=["lr", "nb"])
+    def test_port_round_trip_keeps_fit_states(self, data, tmp_path, nb):
+        from transmogrifai_tpu_torch.workflow.checkpoint import \
+            encode_fit_state
+        from transmogrifai_tpu_torch.workflow.persistence import _ArrayStore
+
+        model = _chunked("port", data[0], nb=nb)
+        assert model.fit_states
+        path = str(tmp_path / "m")
+        model.save(path)
+        loaded = OpWorkflowModel.load(path, device="cpu")
+        assert set(loaded.fit_states) == set(model.fit_states)
+        a, b = _ArrayStore(), _ArrayStore()
+        assert (_encoded(model.fit_states, encode_fit_state, a)
+                == _encoded(loaded.fit_states, encode_fit_state, b))
+        assert sorted(a.arrays) == sorted(b.arrays)
+        for k in a.arrays:
+            np.testing.assert_array_equal(a.arrays[k], b.arrays[k])
+        with np.load(os.path.join(path, "arrays.npz")) as z:
+            keys = [k for k in z.files if k.startswith("fitstate.")]
+        assert sorted(keys) == sorted(a.arrays)
+
+    @pytest.mark.parametrize("nb", [False, True], ids=["lr", "nb"])
+    def test_jax_saved_fit_states_load_in_the_port(self, data, tmp_path,
+                                                   nb):
+        from transmogrifai_tpu.workflow.checkpoint import \
+            encode_fit_state as jencode
+        from transmogrifai_tpu.workflow.persistence import \
+            _ArrayStore as JStore
+        from transmogrifai_tpu_torch.workflow.checkpoint import \
+            encode_fit_state
+        from transmogrifai_tpu_torch.workflow.persistence import _ArrayStore
+
+        jmodel = _chunked("jax", data[0], nb=nb)
+        path = str(tmp_path / "m")
+        jmodel.save(path)
+        loaded = OpWorkflowModel.load(path, device="cpu")
+        assert set(loaded.fit_states) == set(jmodel.fit_states)
+        a, b = JStore(), _ArrayStore()
+        assert (_encoded(jmodel.fit_states, jencode, a)
+                == _encoded(loaded.fit_states, encode_fit_state, b))
+        assert sorted(a.arrays) == sorted(b.arrays)
+        for k in a.arrays:
+            np.testing.assert_array_equal(a.arrays[k], b.arrays[k])
+        # and the port's own chunked train writes the same keys
+        port = _chunked("port", data[0], nb=nb)
+        c = _ArrayStore()
+        _encoded(port.fit_states, encode_fit_state, c)
+        assert sorted(c.arrays) == sorted(a.arrays)
+
+    @pytest.mark.parametrize("nb", [False, True], ids=["lr", "nb"])
+    def test_port_saved_fit_states_load_in_jax(self, data, tmp_path, nb):
+        from transmogrifai_tpu.workflow.checkpoint import \
+            encode_fit_state as jencode
+        from transmogrifai_tpu.workflow.persistence import \
+            _ArrayStore as JStore
+        from transmogrifai_tpu.workflow.persistence import \
+            load_workflow_model as jload
+        from transmogrifai_tpu_torch.workflow.checkpoint import \
+            encode_fit_state
+        from transmogrifai_tpu_torch.workflow.persistence import _ArrayStore
+
+        model = _chunked("port", data[0], nb=nb)
+        path = str(tmp_path / "m")
+        model.save(path)
+        jloaded = jload(path)
+        assert set(jloaded.fit_states) == set(model.fit_states)
+        a, b = _ArrayStore(), JStore()
+        assert (_encoded(model.fit_states, encode_fit_state, a)
+                == _encoded(jloaded.fit_states, jencode, b))
+        for k in a.arrays:
+            np.testing.assert_array_equal(a.arrays[k], b.arrays[k])
+
+    def test_in_core_model_saves_no_fit_states(self, data, tmp_path):
+        import json
+
+        model, _ = _train("xgb", False, data[0])
+        assert model.fit_states is None
+        path = str(tmp_path / "m")
+        model.save(path)
+        with open(os.path.join(path, "op-model.json")) as fh:
+            assert "fitStates" not in json.load(fh)
+        assert OpWorkflowModel.load(path, device="cpu").fit_states is None

@@ -124,3 +124,198 @@ class TestPlanReuse:
         np.testing.assert_allclose(
             scored[_keep(model)[0]].values.probability[:, 1].numpy(),
             expected, atol=1e-5)
+
+
+def _pool_frame(n, seed=4):
+    """n numpy-seeded rows of three Reals, two PickLists, a Text and a
+    label: transmogrify makes several host vectorizers in one layer."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    return pd.DataFrame({
+        "label": (rng.random(n) > 0.5).astype(float),
+        "a": rng.normal(size=n), "b": rng.normal(size=n),
+        "c": np.where(rng.random(n) < 0.1, np.nan, rng.normal(size=n)),
+        "p": rng.choice(["x", "y", "z"], n),
+        "q": rng.choice(["u", "v"], n),
+        "t": rng.choice(["red fox", "blue dog", "green cat"], n)})
+
+
+def _pool_dag(pkg):
+    """(result feature, DAG) of transmogrify -> SanityChecker -> LR in
+    either package."""
+    if pkg == "jax":
+        from transmogrifai_tpu.features.builder import FeatureBuilder as fb
+        from transmogrifai_tpu.models.classification import \
+            OpLogisticRegression as lr
+        from transmogrifai_tpu.ops.transmogrify import transmogrify as trans
+        from transmogrifai_tpu.preparators.sanity_checker import \
+            SanityChecker as checker
+        from transmogrifai_tpu.utils.uid import reset_uids
+        from transmogrifai_tpu.workflow.dag import compute_dag
+    else:
+        from transmogrifai_tpu_torch.features.builder import \
+            FeatureBuilder as fb
+        from transmogrifai_tpu_torch.models.classification import \
+            OpLogisticRegression as lr
+        from transmogrifai_tpu_torch.ops.transmogrify import \
+            transmogrify as trans
+        from transmogrifai_tpu_torch.preparators.sanity_checker import \
+            SanityChecker as checker
+        from transmogrifai_tpu_torch.utils.uid import reset_uids
+        from transmogrifai_tpu_torch.workflow.dag import compute_dag
+    reset_uids()
+    label = fb.RealNN("label").as_response()
+    feats = trans([fb.Real("a").as_predictor(), fb.Real("b").as_predictor(),
+                   fb.Real("c").as_predictor(),
+                   fb.PickList("p").as_predictor(),
+                   fb.PickList("q").as_predictor(),
+                   fb.Text("t").as_predictor()])
+    checked = checker(max_correlation=0.99).set_input(label,
+                                                      feats).get_output()
+    pred = lr().set_input(label, checked).get_output()
+    return pred, compute_dag([pred])
+
+
+class TestLayerPool:
+    """The fit path's layer pool (``ExecutionPlan.fit_and_transform``): a
+    layer's host stages on threads where the host has cores and the data
+    rows, the device-heavy ones serial; bitwise the serial run."""
+
+    N = 5000
+
+    def _fit(self, monkeypatch, pool: bool):
+        from transmogrifai_tpu_torch.readers.base import reader_for
+        from transmogrifai_tpu_torch.utils.profiling import PlanProfiler
+        from transmogrifai_tpu_torch.workflow import plan as tplan
+
+        monkeypatch.setenv("TMOG_PLAN_WORKERS", "4" if pool else "1")
+        pred, dag = _pool_dag("port")
+        raw = reader_for(_pool_frame(self.N)).generate_dataset(
+            [f for f in pred.raw_features()])
+        prof = PlanProfiler()
+        fitted, out = tplan.ExecutionPlan(dag).fit_and_transform(
+            raw, profiler=prof)
+        return pred, fitted, out, prof
+
+    def test_pool_and_serial_runs_are_bitwise_equal(self, monkeypatch):
+        from transmogrifai_tpu_torch.workflow import plan as tplan
+
+        calls = []
+        real = tplan.ExecutionPlan._run_stage
+
+        def spy(stage, data, subs, li, n_rows, prof, coll, serial):
+            calls.append((type(stage).__name__, serial))
+            return real(stage, data, subs, li, n_rows, prof, coll, serial)
+
+        monkeypatch.setattr(tplan.ExecutionPlan, "_run_stage",
+                            staticmethod(spy))
+        _, _, serial, _ = self._fit(monkeypatch, pool=False)
+        assert all(s for _, s in calls)
+        calls.clear()
+        pred, fitted, pooled, prof = self._fit(monkeypatch, pool=True)
+        # the vectorizers went to the pool, the checker and the model not
+        assert any(not s for _, s in calls)
+        assert all(s for name, s in calls
+                   if name in ("SanityChecker", "OpLogisticRegression"))
+        assert pooled.names() == serial.names()
+        for name in serial.names():
+            a, b = serial[name].values, pooled[name].values
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a, b), name
+            elif hasattr(a, "probability"):
+                assert torch.equal(a.probability, b.probability)
+            else:
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert len(prof.stages) == len(fitted)
+
+    def test_small_data_stays_serial(self, monkeypatch):
+        from transmogrifai_tpu_torch.workflow import plan as tplan
+
+        seen = []
+        real = tplan.ExecutionPlan._run_stage
+
+        def spy(stage, data, subs, li, n_rows, prof, coll, serial):
+            seen.append(serial)
+            return real(stage, data, subs, li, n_rows, prof, coll, serial)
+
+        monkeypatch.setattr(tplan.ExecutionPlan, "_run_stage",
+                            staticmethod(spy))
+        monkeypatch.setenv("TMOG_PLAN_WORKERS", "4")
+        pred, dag = _pool_dag("port")
+        from transmogrifai_tpu_torch.readers.base import reader_for
+
+        raw = reader_for(_pool_frame(200)).generate_dataset(
+            list(pred.raw_features()))
+        tplan.ExecutionPlan(dag).fit_and_transform(raw)
+        assert seen and all(seen)
+
+    def test_profile_and_explain_match_jax(self):
+        """The stage profiles of one fit (op, kind, layer, rows, width,
+        device-heavy) and the plan's text are the JAX package's."""
+        from transmogrifai_tpu.readers.base import reader_for as jreader
+        from transmogrifai_tpu.utils.profiling import \
+            PlanProfiler as JProfiler
+        from transmogrifai_tpu.workflow.plan import \
+            ExecutionPlan as JPlan
+        from transmogrifai_tpu_torch.readers.base import reader_for
+        from transmogrifai_tpu_torch.utils.profiling import PlanProfiler
+        from transmogrifai_tpu_torch.workflow.plan import ExecutionPlan
+
+        df = _pool_frame(300)
+        rows = []
+        texts = []
+        for pkg, reader, plan_cls, prof_cls in (
+                ("port", reader_for, ExecutionPlan, PlanProfiler),
+                ("jax", jreader, JPlan, JProfiler)):
+            pred, dag = _pool_dag(pkg)
+            raw = reader(df).generate_dataset(list(pred.raw_features()))
+            prof = prof_cls()
+            plan = plan_cls(dag)
+            plan.fit_and_transform(raw, profiler=prof)
+            rows.append(sorted((s.uid, s.op, s.kind, s.layer, s.rows, s.cols,
+                                s.device_heavy, s.stage_kind, s.launches)
+                               for s in prof.stages))
+            texts.append(plan.explain())
+        assert rows[0] == rows[1]
+        assert texts[0] == texts[1]
+
+
+def test_profiler_and_refresh_counters_under_many_threads():
+    """The pool's threads record into one ``PlanProfiler`` and bump the
+    process's refresh counters: no record or count is lost with more
+    threads than cores and a short switch interval."""
+    import sys
+    import threading
+
+    from transmogrifai_tpu_torch.utils.profiling import (
+        PlanProfiler, StageProfile, count_refresh, refresh_snapshot)
+
+    prof = PlanProfiler()
+    before = refresh_snapshot()["merged"]
+    n_threads, per = 4 * (os.cpu_count() or 2), 200
+
+    def work(t):
+        for i in range(per):
+            prof.record_stage(StageProfile(
+                uid=f"{t}.{i}", op="Op", output="o", layer=0, kind="fit",
+                device_heavy=False, wall_s=1e-6, rows=1))
+            prof.note_columns(i)
+            count_refresh("merged")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert len(prof.stages) == n_threads * per
+    assert len({s.uid for s in prof.stages}) == n_threads * per
+    assert refresh_snapshot()["merged"] - before == n_threads * per
+    assert prof.peak_columns == per - 1

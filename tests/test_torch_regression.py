@@ -788,7 +788,9 @@ def test_selector_refuses_what_is_not_ported():
 
     with pytest.raises(NotImplementedError):
         ModelSelector([], problem_type="forecast")
-    for kw in (dict(parallel="auto"), dict(parallel=object())):
+    # parallel="auto" is accepted, and resolves at fit time
+    # (tests/test_torch_tuning.py)
+    for kw in (dict(parallel=object()),):
         with pytest.raises(NotImplementedError):
             MultiClassificationModelSelector.with_cross_validation(**kw)
         with pytest.raises(NotImplementedError):
@@ -798,7 +800,8 @@ def test_selector_refuses_what_is_not_ported():
         with pytest.raises(NotImplementedError):
             RegressionModelSelector.with_train_validation_split(**kw)
     for kw in (dict(parallelism=8), dict(max_wait=1.0), dict(parallel=1),
-               dict(strategy="halving"), dict(watchdog=2.0)):
+               dict(strategy="halving"), dict(watchdog=2.0),
+               dict(parallel="auto")):
         for make in (RegressionModelSelector.with_cross_validation,
                      RegressionModelSelector.with_train_validation_split,
                      MultiClassificationModelSelector.with_cross_validation):

@@ -21,7 +21,7 @@ __all__ = ["main", "build_parser"]
 
 #: subcommands of the JAX package's CLI that wait for their features
 _NOT_PORTED = {"lint": ("the pipeline static analyzer", "6.8"),
-               "trace": ("the trace summarizer", "6.5"),
+               "trace": ("the trace summarizer", "6.5.5"),
                "pod": ("the local pod launcher", "6.7")}
 
 

@@ -283,6 +283,21 @@ class OpNaiveBayes(PredictorEstimator):
                 ent[1] = ent[1] + sums
         return a
 
+    def export_fit_state(self, state):
+        """The state as the JAX package keeps it: each class's sums as a
+        host float64 array, so that a saved state reads in either
+        package."""
+        return {k: [cnt, sums.detach().cpu().numpy()]
+                for k, (cnt, sums) in state.items()}
+
+    def import_fit_state(self, payload):
+        """A JAX-form state (host arrays) with the sums back on this
+        estimator's device."""
+        dev = resolve_device(self.device)
+        return {float(k): [int(cnt), torch.as_tensor(
+                    np.asarray(sums, np.float64)).to(dev)]
+                for k, (cnt, sums) in payload.items()}
+
     def finish_fit(self, state) -> "NaiveBayesModel":
         if not state:
             raise ValueError("NaiveBayes streaming fit saw no rows")

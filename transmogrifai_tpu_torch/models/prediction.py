@@ -68,6 +68,7 @@ def _row_map(pred, raw, proba, i: int) -> Dict[str, float]:
 class PredictorEstimator(BinaryEstimator):
     """Base for model estimators: inputs (response RealNN, features OPVector)."""
 
+    device_heavy = True
     input_types = (OPNumeric, OPVector)
     label_input_positions = (0,)
 

@@ -81,6 +81,7 @@ class _StreamState:
 class SanityChecker(BinaryEstimator):
     """Inputs: (label RealNN, features OPVector) -> cleaned OPVector."""
 
+    device_heavy = True
     input_types = (OPNumeric, OPVector)
     label_input_positions = (0,)
     #: per-label column sums stop past this many label values when the

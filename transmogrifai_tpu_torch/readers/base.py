@@ -159,6 +159,12 @@ class RecordsReader(Reader):
         self.records = list(records)
         self.key_fn = key_fn
 
+    def estimate_rows(self) -> Optional[int]:
+        return len(self.records)
+
+    def estimate_rows_exact(self) -> bool:
+        return True
+
     def generate_dataset(self, raw_features: Sequence[Feature]
                          ) -> ColumnarDataset:
         cols = {f.name: f.origin_stage.extract_column(self.records)
@@ -191,6 +197,12 @@ class DataFrameReader(Reader):
     def __init__(self, df, key_col: Optional[str] = None):
         self.df = df
         self.key_col = key_col
+
+    def estimate_rows(self) -> Optional[int]:
+        return len(self.df)
+
+    def estimate_rows_exact(self) -> bool:
+        return True
 
     def generate_dataset(self, raw_features: Sequence[Feature]
                          ) -> ColumnarDataset:
@@ -231,6 +243,12 @@ class DataFrameReader(Reader):
 class _PassthroughReader(Reader):
     def __init__(self, ds: ColumnarDataset):
         self.ds = ds
+
+    def estimate_rows(self) -> Optional[int]:
+        return len(self.ds)
+
+    def estimate_rows_exact(self) -> bool:
+        return True
 
     def generate_dataset(self, raw_features: Sequence[Feature]
                          ) -> ColumnarDataset:

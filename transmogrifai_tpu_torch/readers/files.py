@@ -174,6 +174,20 @@ def _lines(fh):
         yield line
 
 
+def _count_lines(path: str) -> int:
+    """The newline count, by 1 MB blocks of raw bytes (no parse); a last
+    line without a newline counts."""
+    n, last = 0, b"\n"
+    with open(path, "rb") as fh:
+        while True:
+            block = fh.read(1 << 20)
+            if not block:
+                break
+            n += block.count(b"\n")
+            last = block[-1:]
+    return n + (last != b"\n")
+
+
 def _nonblank(row: List[str]) -> bool:
     return len(row) > 1 or bool(row and row[0].strip())
 
@@ -192,6 +206,16 @@ class CSVReader(Reader):
         self.path = path
         self.column_names = column_names
         self.has_header = has_header
+
+    def estimate_rows(self) -> Optional[int]:
+        """The line count less the header: an estimate (a quoted newline
+        counts a line, a quarantined line drops one), so it is never
+        exact."""
+        try:
+            n = _count_lines(self.path)
+        except OSError:
+            return None
+        return max(n - (1 if self.has_header else 0), 0)
 
     def _tables(self, chunk_rows: Optional[int], pos: Optional[dict] = None):
         """({column name: its cells}, rows) per ``chunk_rows`` data rows
@@ -448,6 +472,14 @@ class JSONLinesReader(Reader):
 
     def __init__(self, path: str):
         self.path = path
+
+    def estimate_rows(self) -> Optional[int]:
+        """The line count: an estimate (blank and quarantined lines yield
+        no record)."""
+        try:
+            return _count_lines(self.path)
+        except OSError:
+            return None
 
     def _parse_line(self, raw: bytes, line_no: int, offset: int):
         """One record, or None when the bad line went to the quarantine

@@ -18,12 +18,15 @@ with ``metadata["halving_schedule"]``), ``with_sweep_checkpoint`` (a
 mid-sweep cursor, ``workflow/checkpoint.py``), ``with_watchdog`` (the
 straggler watchdog over a fitted ``CostModel``), the device-loss retry
 ladder on every fit (``metadata["elastic"]``), ``parallel=1`` and
-``find_best_estimator`` (workflow-level CV).  A full sweep over a matrix
+``find_best_estimator`` (workflow-level CV; ``find_best_estimator_prefold``
+for the streaming workflow CV).  ``parallel="auto"`` asks the cost
+planner (``tuning/planner.py::advise_mesh``) and records its advice; on
+one card that is the single-card sweep.  A full sweep over a matrix
 of at least 2^24 elements builds the tree families' sketch and binning
 on a thread of its own, on its own CUDA stream, while the linear groups
 run (the sweep memo hands its result to the tree group).  Not ported
-yet: a sweep mesh (``parallel=k`` over several cards, ``with_mesh``:
-ROADMAP Queue A item 6.7) and ``parallel="auto"`` (item 6.5).
+yet: a sweep mesh (``parallel=k`` or advice over several cards,
+``with_mesh``: ROADMAP Queue A item 6.7).
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ from ..models.trees import (MEMO_STATS, OpGBTRegressor,
                             _RandomForestBase, prep_tree_inputs)
 from ..types.columns import ColumnarDataset, FeatureColumn
 from ..types.feature_types import Prediction, RealNN
+from ..utils.profiling import backend_name
 from .grid_groups import TreeGridGroup, make_grid_group
 from .splitters import DataBalancer, DataCutter, DataSplitter
 from .validators import (OpCrossValidation, OpTrainValidationSplit,
@@ -266,16 +270,35 @@ class ModelSelector(PredictorEstimator):
         self.sweep_checkpoint_every = int(every_units)
         return self
 
-    def _resolve_parallel(self) -> None:
-        """``parallel``: None, or a card count clamped to the visible
-        cards; one card (or none) is the single-card sweep.  More cards
-        need a sweep mesh (ROADMAP Queue A item 6.7), and "auto" the cost
-        planner (item 6.5)."""
+    def _resolve_parallel(self, n_rows: Optional[int] = None,
+                          n_cols: int = 0, queue_width: int = 0,
+                          device=None) -> None:
+        """``parallel``: None, a card count clamped to the visible cards,
+        or "auto"; one card (or none) is the single-card sweep, and more
+        need a sweep mesh (ROADMAP Queue A item 6.7).  "auto" asks the
+        cost planner (``tuning/planner.py::advise_mesh``) at fit time
+        (``n_rows`` given), over the cards of the fit's device, and
+        records its advice in ``metadata["mesh_advice"]``."""
         p = self.parallel
         if p is None:
             return
         if p == "auto":
-            raise _not_ported('parallel="auto" (the cost planner)', "6.5")
+            if n_rows is None:
+                return
+            from ..tuning.planner import advise_mesh
+
+            dev = torch.device(device) if device is not None \
+                else resolve_device()
+            adv = advise_mesh(
+                n_rows, n_cols, queue_width=queue_width,
+                devices_available=(torch.cuda.device_count()
+                                   if dev.type == "cuda" else 1))
+            self.metadata["mesh_advice"] = adv.to_json()
+            if adv.n_devices > 1:
+                raise _not_ported(
+                    f"a sweep over {adv.n_devices} cards (parallel="
+                    f"'auto' advised it)", "6.7")
+            return
         if not isinstance(p, int):
             raise _not_ported("a prebuilt sweep mesh (parallel=)", "6.7")
         n = min(int(p), torch.cuda.device_count())
@@ -286,7 +309,7 @@ class ModelSelector(PredictorEstimator):
     # -- elastic execution ---------------------------------------------------
 
     def _elastic_context(self, n_rows: int, n_cols: int, queue_width: int,
-                         backend: str = "cuda"):
+                         backend: str = "gpu"):
         """The fit's elastic policy: device-loss retries always, the
         watchdog where armed.  Its shrink hook joins the tree-prep
         prefetch thread and changes nothing else (one card, no mesh)."""
@@ -303,7 +326,7 @@ class ModelSelector(PredictorEstimator):
 
     def _watchdog_deadline(self, n_rows: int, n_cols: int,
                            queue_width: int,
-                           backend: str = "cuda") -> Optional[float]:
+                           backend: str = "gpu") -> Optional[float]:
         """``factor`` x the predicted sweep wall / the queue width, or None
         where the watchdog is off or every cost tier it reads is cold."""
         if not self.watchdog:
@@ -449,6 +472,14 @@ class ModelSelector(PredictorEstimator):
             return batch.raw_prediction[:, 1]   # a margin (linear SVC)
         return batch.prediction
 
+    def _capture_class_space(self, y: np.ndarray) -> None:
+        """Keep a multiclass problem's class count from the full labels,
+        before any split, so that a fold missing the top class never
+        shrinks the class space."""
+        self._n_classes = (max(int(y.max()) + 1, 2)
+                           if self.problem_type == "multiclass" and len(y)
+                           else 0)
+
     def _class_count(self, y=None, pred=None) -> int:
         """The class count: the one captured from the full labels at fit
         time, raised by ``y`` or ``pred`` where they hold a larger class,
@@ -543,9 +574,7 @@ class ModelSelector(PredictorEstimator):
                 f"CV cut — it must be produced by the before-DAG")
         y = np.nan_to_num(np.asarray(data[label_name].values,
                                      dtype=np.float32))
-        self._n_classes = (max(int(y.max()) + 1, 2)
-                           if self.problem_type == "multiclass" and len(y)
-                           else 0)
+        self._capture_class_space(y)
         _, train_mask, _, base_w = self._split(y)
         train_idx = np.flatnonzero(train_mask)
         self._seq_levels, self._seq_trees, self._seq_fits = 0, 0, []
@@ -558,6 +587,44 @@ class ModelSelector(PredictorEstimator):
             eval_fn=self._metric, metric_name=self.validation_metric,
             larger_better=self.larger_better,
             device=resolve_device(self.device))
+        best_name, best_params = candidates[best_i][:2]
+        self.best_estimator = (best_name, best_params, results)
+        self.metadata["workflow_cv_results"] = [r.to_json() for r in results]
+        return best_name, best_params
+
+    def find_best_estimator_prefold(self, per_fold, y=None, n_rows: int = 0
+                                    ) -> Tuple[str, Dict[str, Any]]:
+        """Workflow-level CV over prebuilt fold matrices, each context
+        ``(X_tr, y_tr, w_tr, X_ev, y_ev, w_ev)``: the streaming workflow
+        CV's ``find_best_estimator`` (``workflow/streaming_cv.py`` builds
+        the matrices from merged fold states).  The winner is kept for
+        the next fit and the results land in
+        ``metadata["workflow_cv_results"]``, as there; the sweep runs
+        through the work queue with ``parallel=`` resolved, the sweep
+        checkpoint (``with_sweep_checkpoint``) and the retry ladder, its
+        counters in ``metadata["workflow_cv_elastic"]``."""
+        if y is not None:
+            self._capture_class_space(np.asarray(y, np.float32))
+        n_cols = int(per_fold[0][0].shape[1]) if per_fold else 0
+        queue_width = sum(len(g) for _, g in self.models_and_params)
+        dev = resolve_device(self.device)
+        self._resolve_parallel(n_rows, n_cols, queue_width, dev)
+        self._seq_levels, self._seq_trees, self._seq_fits = 0, 0, []
+        try:
+            elastic = self._elastic_context(n_rows, n_cols, queue_width,
+                                            backend_name(dev))
+            candidates = self._candidates(with_groups=False)
+            ckpt = self._sweep_checkpoint(candidates, n_rows)
+            best_i, results = self.validator.validate_prefold(
+                candidates, per_fold, eval_fn=self._metric,
+                metric_name=self.validation_metric,
+                larger_better=self.larger_better, checkpoint=ckpt,
+                elastic=elastic)
+            if ckpt is not None:
+                ckpt.finish()
+            self.metadata["workflow_cv_elastic"] = elastic.counters.to_json()
+        finally:
+            self._drain_tree_prefetch()
         best_name, best_params = candidates[best_i][:2]
         self.best_estimator = (best_name, best_params, results)
         self.metadata["workflow_cv_results"] = [r.to_json() for r in results]
@@ -614,16 +681,15 @@ class ModelSelector(PredictorEstimator):
         dev = X.device
         y = np.nan_to_num(np.asarray(label_col.values, dtype=np.float32))
         n = len(y)
-        self._n_classes = (max(int(y.max()) + 1, 2)
-                           if self.problem_type == "multiclass" and n else 0)
-        self._resolve_parallel()
+        self._capture_class_space(y)
+        queue_width = sum(len(g) for _, g in self.models_and_params)
+        self._resolve_parallel(n, int(X.shape[1]), queue_width, dev)
         splitter, train_mask, holdout_idx, base_w = self._split(y)
 
         self._seq_levels, self._seq_trees, self._seq_fits = 0, 0, []
         memo0 = dict(MEMO_STATS)
-        elastic = self._elastic_context(
-            n, int(X.shape[1]),
-            sum(len(g) for _, g in self.models_and_params), dev.type)
+        elastic = self._elastic_context(n, int(X.shape[1]), queue_width,
+                                        backend_name(dev))
         t0 = time.perf_counter()
         best_name, best_params, best_group, results, groups = self._sweep(
             X, y, base_w, elastic)

@@ -20,7 +20,9 @@ the device until one stacked copy at the end (non-blocking, into pinned
 memory, then an event).  ``TMOG_SYNC_SWEEP=1`` (read at sweep time) runs
 the synchronous loop, which waits for each group and gives the same
 numbers.  ``validate_with_dag`` is workflow-level CV: the during-DAG is
-refit on each fold's train rows and applied to its eval rows.
+refit on each fold's train rows and applied to its eval rows;
+``validate_prefold`` sweeps over fold matrices built elsewhere (the
+streaming workflow CV's, from merged fold states).
 """
 from __future__ import annotations
 
@@ -117,15 +119,23 @@ class _ValidatorBase:
                           run_group=lambda group: group.run(X, y, fold_ctxs),
                           checkpoint=checkpoint, elastic=elastic, defer=defer)
 
-    def _dag_sweep(self, candidates, per_fold, eval_fn, metric_name,
-                   larger_better):
+    def validate_prefold(self, candidates, per_fold, eval_fn,
+                         metric_name: str, larger_better: bool = True,
+                         checkpoint=None, elastic=None, defer: bool = False):
+        """Validate over prebuilt fold matrices, each context
+        ``(X_tr, y_tr, w_tr, X_ev, y_ev, w_ev)``: the workflow CV's sweep
+        (in core, from the during-DAG refit a fold; streamed, from merged
+        fold states, ``workflow/streaming_cv.py``), through the same work
+        queue as ``validate`` (its checkpoint cursor and retry ladder)."""
         def run_fold(fitter, params, ctx):
             X_tr, y_tr, w_tr, X_ev, y_ev, w_ev = ctx
             return eval_fn(y_ev, fitter(X_tr, y_tr, w_tr, params)(X_ev),
                            w_ev)
 
-        return _run_sweep(candidates, per_fold, run_fold, metric_name,
-                          larger_better, self.max_wait)
+        return _run_sweep(candidates, list(per_fold), run_fold, metric_name,
+                          larger_better, self.max_wait,
+                          checkpoint=checkpoint, elastic=elastic,
+                          defer=defer)
 
     @staticmethod
     def _fold_matrices(data, during_dag, label_name: str,
@@ -206,8 +216,8 @@ class OpCrossValidation(_ValidatorBase):
             if w_tr.sum() == 0 or w_ev.sum() == 0:
                 continue
             per_fold.append((X_tr, y_tr, w_tr, X_ev, y_ev, w_ev))
-        return self._dag_sweep(candidates, per_fold, eval_fn, metric_name,
-                               larger_better)
+        return self.validate_prefold(candidates, per_fold, eval_fn,
+                                     metric_name, larger_better)
 
 
 class OpTrainValidationSplit(_ValidatorBase):
@@ -260,7 +270,7 @@ class OpTrainValidationSplit(_ValidatorBase):
         X_tr, y_tr, X_ev, y_ev = self._fold_matrices(
             data, during_dag, label_name, features_name, tr_idx, ev_idx,
             device)
-        return self._dag_sweep(
+        return self.validate_prefold(
             candidates, [(X_tr, y_tr, base_weights[tr_idx], X_ev, y_ev,
                           base_weights[ev_idx])],
             eval_fn, metric_name, larger_better)

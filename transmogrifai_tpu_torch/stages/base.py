@@ -53,6 +53,11 @@ class PipelineStage:
     #: of SanityChecker and every predictor): the label-leakage lint
     #: (TM006) lets response-derived features into these only
     label_input_positions: Tuple[int, ...] = ()
+    #: stages whose fit runs on the card (models, the selector's sweep,
+    #: SanityChecker's stats pass): the execution plan
+    #: (``workflow/plan.py``) runs them serially in stable layer order,
+    #: while a layer's host stages may share its thread pool
+    device_heavy: bool = False
 
     def __init__(self, operation_name: str, output_type: Type[FeatureType],
                  uid: Optional[str] = None):

@@ -9,14 +9,17 @@ unit's deadline is a factor times the fitted prediction, and a cold tier
 keeps the watchdog off.  Observations live in a JSON history at
 ``TMOG_COST_HISTORY`` (no path, no history); the port neither reads nor
 writes the JAX-era ``benchmarks/`` history, whose walls were taken on
-another backend.  Recording a train's stage observations needs the plan
-profiler (ROADMAP Queue A item 6.5); the serving cost lookup waits for
-item 6.6.5.
+another backend.  Every train records its plan profiler's stage
+observations there (``record_train_observations``), bucketed by the
+backend names the JAX package uses ("gpu", "cpu";
+``utils.profiling.backend_name``).  The serving cost lookup waits for
+ROADMAP Queue A item 6.6.5.
 """
 from __future__ import annotations
 
 import math
 import os
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -24,6 +27,7 @@ import numpy as np
 
 __all__ = ["StageObservation", "CostModel", "load_observations",
            "append_observations", "default_history_path",
+           "observations_from_profiler", "record_train_observations",
            "HISTORY_OBSERVATION_CAP"]
 
 #: FIFO cap on persisted stage observations
@@ -47,7 +51,7 @@ class StageObservation:
     rows: int
     cols: int
     dtype: str
-    backend: str             # the device type that ran it ("cuda", "cpu")
+    backend: str             # the platform that ran it ("gpu", "cpu")
     wall_s: float
     t: int = 0               # unix seconds (0 = unknown)
     n_devices: int = 1
@@ -235,3 +239,36 @@ def append_observations(path: Optional[str],
     except OSError:
         return False
     return True
+
+
+def observations_from_profiler(profiler,
+                               backend: str = "") -> List[StageObservation]:
+    """The stage observations of a ``PlanProfiler``'s records (those
+    with a positive wall)."""
+    now = int(time.time())
+    out: List[StageObservation] = []
+    for sp in getattr(profiler, "stages", []):
+        if sp.wall_s <= 0:
+            continue
+        out.append(StageObservation(
+            stage_kind=sp.stage_kind or f"{sp.op}:{sp.kind}",
+            rows=sp.rows, cols=max(sp.cols, 1), dtype=sp.dtype or "",
+            backend=sp.backend or backend, wall_s=sp.wall_s, t=now,
+            n_devices=max(int(sp.n_devices or 1), 1),
+            mesh_shape=sp.mesh_shape or ""))
+    return out
+
+
+def record_train_observations(profiler, path: Optional[str] = None,
+                              backend: str = "") -> bool:
+    """Append a train's stage observations to the cost history (``path``,
+    else ``TMOG_COST_HISTORY``; no path, no write).  Never raises: the
+    record must not break a train."""
+    try:
+        path = path if path is not None else default_history_path()
+        if not path or profiler is None:
+            return False
+        return append_observations(
+            path, observations_from_profiler(profiler, backend=backend))
+    except Exception:
+        return False

@@ -33,10 +33,12 @@ global check when no plan is armed):
                       chunked train (index 0 ``train``, 1 ``score``)
   ``drift.window``    at each drift-window evaluation (serving/drift.py;
                       ``index`` is the windows evaluated before it)
+  ``cv.fold``         as each streaming workflow-CV fold context builds
+                      its matrices (workflow/streaming_cv.py; ``index``
+                      is the context's ordinal)
 
-The JAX package's other points (the streaming workflow CV's
-``cv.fold``, serving, pods) wait for the features that own them (ROADMAP
-Queue A items 6.5, 6.6 and 6.7).
+The JAX package's other points (serving, pods) wait for the features
+that own them (ROADMAP Queue A items 6.6 and 6.7).
 
 Actions: ``io_error`` (raise OSError, the transient class the reader
 retry policy handles), ``raise`` (``FaultError``, non-transient),

@@ -4,7 +4,12 @@ run (``OpStep``, ``StepMetrics``, ``AppMetrics``, ``MetricsCollector``,
 ``install_collector``, ``with_job_group``) and the chunked-ingestion
 counters of an out-of-core train (``IngestPass``, ``IngestProfiler``,
 with the reader retries, the quarantined records and the checkpoints'
-saves).  The plan profiler waits for ROADMAP Queue A item 6.5.
+saves), the plan profiler of ``train(profile=True)`` (``StageProfile``,
+``PlanProfiler``: a stage's wall, rows, input width and, for a serial
+stage, its ``seg_hist`` launches) and the process-wide refresh counters
+(``count_refresh``, ``refresh_snapshot``).  A stage's compiled-program
+features (the JAX package's ``hlo`` field) wait for the trace layer,
+ROADMAP Queue A item 6.5.5.
 """
 from __future__ import annotations
 
@@ -15,9 +20,13 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
+import torch
+
 __all__ = ["OpStep", "StepMetrics", "AppMetrics", "MetricsCollector",
            "current_collector", "install_collector", "with_job_group",
-           "IngestPass", "IngestProfiler"]
+           "IngestPass", "IngestProfiler", "StageProfile", "PlanProfiler",
+           "backend_name", "kernel_launches", "count_refresh",
+           "refresh_snapshot"]
 
 
 class OpStep(enum.Enum):
@@ -317,4 +326,169 @@ class IngestProfiler:
                 f"  checkpoints: {self.checkpoint_saves} save(s), "
                 f"{self.checkpoint_wall_s:.3f}s"
                 + (" (resumed run)" if self.resumed else ""))
+        return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# the plan profiler and the refresh counters
+# ---------------------------------------------------------------------------
+
+_COUNTERS_LOCK = threading.Lock()
+_REFRESH: Dict[str, int] = {}
+
+
+def count_refresh(kind: str, n: int = 1) -> None:
+    """A warm-start refresh event (merged, refit, invalidated,
+    geometry_changed): the process-wide mirror of the per-run
+    ``workflow.refresh.RefreshReport``."""
+    with _COUNTERS_LOCK:
+        _REFRESH[kind] = _REFRESH.get(kind, 0) + n
+
+
+def refresh_snapshot() -> Dict[str, int]:
+    """The process's refresh counters with every key present (zeros
+    where no refresh ran)."""
+    base = {"merged": 0, "refit": 0, "invalidated": 0,
+            "geometry_changed": 0}
+    with _COUNTERS_LOCK:
+        base.update(_REFRESH)
+    return base
+
+
+def backend_name(device=None) -> str:
+    """The platform a run computes on (``device``, else the package's
+    default device), named as the JAX package names it
+    (``jax.default_backend()``): "gpu" for the card, "cpu" for the CPU,
+    so that one cost history buckets both packages' observations
+    alike."""
+    if device is None:
+        from .. import device as _device
+
+        device = _device._default
+    return "gpu" if torch.device(device).type == "cuda" else "cpu"
+
+
+def kernel_launches() -> int:
+    """The hand-written kernel launches so far in this process
+    (``seg_level_hists.launches``)."""
+    from ..models.gbdt_kernels import seg_level_hists
+
+    return int(seg_level_hists.launches)
+
+
+@dataclass
+class StageProfile:
+    """One executed DAG stage as the execution plan records it
+    (``workflow/plan.py``; the streaming prefix's stages as
+    ``workflow/streaming.py`` records them): its wall seconds, rows and
+    the columns it added, and, for a stage run serially, the kernel
+    launches made while it ran.  ``cols``/``dtype``/``backend``/
+    ``stage_kind`` are the cost model's feature fields
+    (``tuning/costmodel.py``)."""
+
+    uid: str
+    op: str
+    output: str
+    layer: int
+    kind: str            # "fit" | "transform" | "substitute" | streamed
+    device_heavy: bool
+    wall_s: float
+    rows: int
+    cols_added: int = 0
+    cols_dropped: int = 0
+    launches: int = 0
+    cols: int = 0
+    dtype: str = ""
+    backend: str = ""
+    stage_kind: str = ""
+    n_devices: int = 1
+    mesh_shape: str = ""
+
+    def to_json(self) -> Dict[str, Any]:
+        out = {"uid": self.uid, "op": self.op, "output": self.output,
+               "layer": self.layer, "kind": self.kind,
+               "deviceHeavy": self.device_heavy,
+               "wallSecs": round(self.wall_s, 4), "rows": self.rows,
+               "colsAdded": self.cols_added,
+               "colsDropped": self.cols_dropped, "launches": self.launches,
+               "cols": self.cols, "dtype": self.dtype,
+               "backend": self.backend,
+               "stageKind": self.stage_kind or f"{self.op}:{self.kind}"}
+        if self.n_devices != 1:
+            out["nDevices"] = self.n_devices
+        if self.mesh_shape:
+            out["meshShape"] = self.mesh_shape
+        return out
+
+
+class PlanProfiler:
+    """The stage profiles of one plan execution (thread-safe: the pool's
+    host stages record from their threads), the peak and final resident
+    column counts, and the run's ingest counters and lint snapshot where
+    it had them."""
+
+    def __init__(self):
+        self.stages: List[StageProfile] = []
+        self.peak_columns: int = 0
+        self.final_columns: int = 0
+        self.wall_s: float = 0.0
+        self.layer_drops: Dict[int, List[str]] = {}
+        #: the ``IngestProfiler`` of a chunked run, else None
+        self.ingest: Optional[IngestProfiler] = None
+        #: the ``LintSnapshot`` of a ``train(validate=True)``, else None
+        self.lint = None
+        self._lock = threading.Lock()
+
+    def record_stage(self, sp: StageProfile) -> None:
+        with self._lock:
+            self.stages.append(sp)
+
+    def note_columns(self, count: int) -> None:
+        with self._lock:
+            self.peak_columns = max(self.peak_columns, count)
+            self.final_columns = count
+
+    def note_drops(self, layer: int, names: List[str]) -> None:
+        with self._lock:
+            self.layer_drops.setdefault(layer, []).extend(names)
+
+    def to_json(self) -> Dict[str, Any]:
+        with self._lock:
+            stages = sorted(self.stages, key=lambda s: (s.layer, s.output))
+            out = {
+                "wallSecs": round(self.wall_s, 4),
+                "peakColumns": self.peak_columns,
+                "finalColumns": self.final_columns,
+                "layerDrops": {str(k): list(v) for k, v in
+                               sorted(self.layer_drops.items())},
+                "stages": [s.to_json() for s in stages],
+            }
+        if self.ingest is not None:
+            out["ingest"] = self.ingest.to_json()
+        if self.lint is not None:
+            out["lint"] = self.lint.to_json()
+        return out
+
+    def format(self, top_k: int = 20) -> str:
+        """The stages by wall, the costliest first (``top_k`` of them)."""
+        with self._lock:
+            stages = list(self.stages)
+            peak, final, wall = (self.peak_columns, self.final_columns,
+                                 self.wall_s)
+        backend = next((s.backend for s in stages if s.backend), "")
+        lines = [f"plan execution: {len(stages)} stages, "
+                 f"{wall:.3f}s wall, peak {peak} resident columns "
+                 f"(final {final})"
+                 + (f", backend={backend}" if backend else "")]
+        for s in sorted(stages, key=lambda s: -s.wall_s)[:top_k]:
+            lines.append(
+                f"  [{s.layer}] {s.kind:<9} {s.op:<24} {s.wall_s*1e3:8.1f} ms"
+                f"  rows={s.rows}  +{s.cols_added}/-{s.cols_dropped} cols"
+                + (f"  w={s.cols}" if s.cols else "")
+                + (f"  launches={s.launches}" if s.launches else "")
+                + ("  [device]" if s.device_heavy else ""))
+        if self.ingest is not None:
+            lines.append(self.ingest.format())
+        if self.lint is not None:
+            lines.append(self.lint.format())
         return "\n".join(lines)

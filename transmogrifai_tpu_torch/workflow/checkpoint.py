@@ -35,10 +35,20 @@ estimator's device), the sketches through their ``to_state``/
 (the checker's sampled rows continue, they do not restart), dicts with
 other than string keys as ordered item lists.
 
+A streaming workflow-CV train's fold-tagged states
+(``workflow/streaming_cv.py``) go through the same codec as a dict
+marked ``__fold_tagged__`` with the ``full`` state and a state a fold;
+its fold-tagged passes also keep their final states with their models
+(``complete_pass(state_payloads=)``), so that a kill after such a pass
+still resumes the fold validation.
+
 The fingerprint (``compute_fingerprint``) is the reader (path, size and
 mtime, or an in-memory source's shape), ``chunk_rows``, the raw features
-and the DAG's stages; a checkpoint of another run raises
-:class:`CheckpointMismatchError` naming the keys that differ.  Success
+and the DAG's stages, extended by the workflow CV's fold geometry
+(``StreamingCVContext.fingerprint``: ``cv``) and a refresh's base model
+(``RefreshContext.base_digest``: ``refresh``); a checkpoint of another
+run raises :class:`CheckpointMismatchError` naming the keys that differ,
+so a CV or refresh checkpoint never resumes into a plain train.  Success
 removes the checkpoint (``finish``).
 
 **The selector's sweep** (``SweepCheckpointManager``): the durable unit is
@@ -466,7 +476,9 @@ def compute_fingerprint(reader, raw_features, layers,
 
 class ResumeState:
     """A loaded checkpoint, for the streaming fit: ``completed`` maps a
-    pass index to {"rows", "label", "models": {uid: model}};
+    pass index to {"rows", "label", "models": {uid: model}, "states":
+    {uid: decoded final state payload}} (states only for fold-tagged
+    passes);
     ``current`` is the pass in flight ({"pass", "label", "chunks_done",
     "rows_done", "states": {uid: encoded state}}) or None."""
 
@@ -542,13 +554,18 @@ class StreamingCheckpointManager:
         for rec in doc.get("completedPasses", []):
             models = {uid: _load_stage(srec, arrays, dev)
                       for uid, srec in rec["models"].items()}
+            # final states (the fold-tagged passes'), decoded live: they
+            # ride the later saves as the models do
+            payloads = {uid: decode_fit_state(p, arrays, dev)
+                        for uid, p in (rec.get("states") or {}).items()}
             pi = int(rec["pass"])
             state.completed[pi] = {"rows": int(rec["rows"]),
                                    "label": rec.get("label"),
-                                   "models": models}
+                                   "models": models, "states": payloads}
             self._completed[pi] = {"pass": pi, "rows": int(rec["rows"]),
                                    "label": rec.get("label"),
-                                   "live_models": models}
+                                   "live_models": models,
+                                   "live_payloads": payloads}
         state.current = doc.get("current")
         self._seq = int(doc.get("seq", 0))
         return state
@@ -561,13 +578,19 @@ class StreamingCheckpointManager:
             "version": CHECKPOINT_VERSION,
             "fingerprint": self.fingerprint,
             "seq": self._seq,
-            "completedPasses": [
-                {"pass": pi, "rows": rec["rows"], "label": rec.get("label"),
-                 "models": {uid: _stage_record(m, store)
-                            for uid, m in rec["live_models"].items()}}
-                for pi, rec in sorted(self._completed.items())],
+            "completedPasses": [],
             "current": None,
         }
+        for pi, rec in sorted(self._completed.items()):
+            entry = {"pass": pi, "rows": rec["rows"],
+                     "label": rec.get("label"),
+                     "models": {uid: _stage_record(m, store)
+                                for uid, m in rec["live_models"].items()}}
+            if rec.get("live_payloads"):
+                entry["states"] = {
+                    uid: encode_fit_state(p, f"done{pi}.{uid}", store)
+                    for uid, p in rec["live_payloads"].items()}
+            doc["completedPasses"].append(entry)
         if self._current is not None:
             cur = dict(self._current)
             cur["states"] = {
@@ -604,12 +627,18 @@ class StreamingCheckpointManager:
         self._write()
 
     def complete_pass(self, pass_index: int, label: str, rows: int,
-                      models: Dict[str, Model]) -> None:
+                      models: Dict[str, Model],
+                      state_payloads: Optional[Dict[str, Any]] = None
+                      ) -> None:
         """Persist a finished pass's fitted models; the pass in flight is
-        cleared (its cursor means nothing once the pass is done)."""
+        cleared (its cursor means nothing once the pass is done).
+        ``state_payloads`` (uid -> ``export_fit_state`` payload) keeps the
+        final states still needed after the pass: the fold-tagged ones,
+        whose fold states the CV validation reads."""
         self._completed[int(pass_index)] = {
             "pass": int(pass_index), "label": label, "rows": int(rows),
-            "live_models": models}
+            "live_models": models,
+            "live_payloads": dict(state_payloads or {})}
         self._current = None
         self._write()
 

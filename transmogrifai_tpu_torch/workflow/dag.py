@@ -5,17 +5,15 @@
 ``fit_and_transform_dag`` walks the layers in order, fitting estimators and
 applying transformers; ``transform_dag`` applies a fitted DAG through the
 memoized execution plan (``workflow/plan.py``: column liveness);
-``cut_dag_cv`` splits a DAG for workflow-level CV.  The intra-layer host
-threads are not ported.
+``cut_dag_cv`` splits a DAG for workflow-level CV.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from ..features.feature import Feature, FeatureCycleError
-from ..stages.base import Estimator, Model, PipelineStage, Transformer
+from ..stages.base import Model, PipelineStage
 from ..stages.generator import FeatureGeneratorStage
 from ..types.columns import ColumnarDataset
 
@@ -78,31 +76,22 @@ def compute_dag(result_features: Sequence[Feature]) -> StagesDAG:
 
 def fit_and_transform_dag(
     dag: StagesDAG, train: ColumnarDataset, on_stage=None,
-    fitted_substitutes: Optional[Dict[str, Model]] = None,
+    fitted_substitutes: Optional[Dict[str, Model]] = None, profiler=None,
 ) -> Tuple[List[PipelineStage], ColumnarDataset]:
-    """Fit estimators layer by layer, transforming as we go.  Returns the
-    fitted stages in topological order and the transformed data.
-    ``on_stage(stage, seconds)`` is called after each stage.  An estimator
-    whose uid is a key of ``fitted_substitutes`` is not fitted: that
-    model stands for it (the warm start of
+    """Fit estimators layer by layer, transforming as we go, through the
+    DAG's memoized execution plan (``workflow/plan.py``: a layer's host
+    stages on its thread pool, the device-heavy ones serially).  Returns
+    the fitted stages in topological order and the transformed data.
+    ``on_stage(stage, seconds)`` is called after each stage's layer; a
+    ``profiler`` (``utils.profiling.PlanProfiler``) gets every stage's
+    profile.  An estimator whose uid is a key of ``fitted_substitutes``
+    is not fitted: that model stands for it (the warm start of
     ``OpWorkflow.with_model_stages``)."""
-    fitted_substitutes = fitted_substitutes or {}
-    fitted: List[PipelineStage] = []
-    data = train
-    for layer in dag.non_generator_layers():
-        for stage in layer:
-            t0 = time.perf_counter()
-            if isinstance(stage, Estimator):
-                model = fitted_substitutes.get(stage.uid) or stage.fit(data)
-            elif isinstance(stage, Transformer):
-                model = stage
-            else:
-                raise TypeError(f"cannot execute stage {stage!r}")
-            fitted.append(model)
-            data = model.transform(data)
-            if on_stage is not None:
-                on_stage(stage, time.perf_counter() - t0)
-    return fitted, data
+    from .plan import plan_for
+
+    return plan_for(dag).fit_and_transform(
+        train, fitted_substitutes=fitted_substitutes, profiler=profiler,
+        on_stage=on_stage)
 
 
 def transform_dag(dag: StagesDAG, data: ColumnarDataset,

@@ -16,6 +16,11 @@ naming the class and the ROADMAP item that ports it.  Tensors are saved
 as numpy arrays with their dtypes; ``device`` is placement, not state: it
 is never written, and loading places every tensor on the device
 ``load_workflow_model(path, device=None)`` resolves (``device.py``'s rule).
+A chunked train's final streaming states (``model.fit_states``) ride in
+the document as ``fitStates``, encoded by the checkpoint codec
+(``workflow/checkpoint.py``) with their arrays in arrays.npz under
+``fitstate.<uid>``, as the JAX package writes them; loading decodes their
+tensors onto the same device.
 """
 from __future__ import annotations
 
@@ -335,6 +340,16 @@ def save_workflow_model(model, path: str, overwrite: bool = True) -> None:
         "rawFeatureFilterResults": (rff.to_json() if hasattr(rff, "to_json")
                                     else rff),
     }
+    fit_states = getattr(model, "fit_states", None)
+    if fit_states:
+        # each streamed estimator's final state, the warm-start capital a
+        # refresh resumes from, through the checkpoint codec: its arrays
+        # in the same arrays.npz under "fitstate.<uid>..."
+        from .checkpoint import encode_fit_state
+
+        doc["fitStates"] = {
+            uid: encode_fit_state(payload, f"fitstate.{uid}", store)
+            for uid, payload in fit_states.items()}
     # the document first and atomically: a killed save never leaves a
     # truncated op-model.json beside a complete arrays.npz
     write_json_atomic(os.path.join(path, MODEL_JSON), doc, indent=2)
@@ -463,4 +478,9 @@ def load_workflow_model(path: str, device: DeviceLike = None):
     model = OpWorkflowModel([features[n] for n in doc["resultFeatures"]],
                             stages)
     model.raw_feature_filter_results = doc.get("rawFeatureFilterResults")
+    if doc.get("fitStates"):
+        from .checkpoint import decode_fit_state
+
+        model.fit_states = {uid: decode_fit_state(rec, arrays, dev)
+                            for uid, rec in doc["fitStates"].items()}
     return model

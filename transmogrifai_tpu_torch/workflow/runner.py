@@ -11,8 +11,8 @@ CLI; streaming score overlaps the host's parse of batch k+1 with the
 card's scoring of batch k through ``AsyncBatcher``.  Scores and features
 are written as CSV with the ``csv`` module (no pandas): a cell holds the
 value as pandas' ``to_csv`` writes it (a prediction its dict, a missing
-value nothing).  ``custom_params.profile`` needs the plan profiler
-(ROADMAP Queue A item 6.5) and raises there.
+value nothing).  ``custom_params.profile`` puts the plan profiler's
+per-stage profile in the train summary as ``executionProfile``.
 """
 from __future__ import annotations
 

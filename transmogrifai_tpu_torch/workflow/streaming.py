@@ -51,11 +51,16 @@ had folded (``chunks_skipped``).  The fused pass is not checkpointed (its
 progress is the output buffers): a crash there reruns it from its
 boundary.  Success removes the checkpoint.
 
-Not ported: warm-start refresh and the streaming workflow CV (ROADMAP
-Queue A item 6.5), pods and meshes (6.7).
+A refresh (``refresh_ctx``, ``workflow/refresh.py``) begins each
+estimator from its base model's restored state where still valid; a
+streaming workflow-CV train (``cv_ctx``, ``workflow/streaming_cv.py``)
+folds a state a fold as well and validates between the prefix and the
+tail; a ``profiler`` gets every stage's profile.  Not ported: the spans
+of the trace layer (ROADMAP Queue A item 6.5.5), pods and meshes (6.7).
 """
 from __future__ import annotations
 
+import copy
 import os
 import tempfile
 import time
@@ -68,7 +73,8 @@ from ..models.prediction import PredictionBatch
 from ..readers.streaming import AsyncBatcher
 from ..stages.base import Estimator, Model, PipelineStage
 from ..types.columns import ColumnarDataset, FeatureColumn
-from ..utils.profiling import IngestPass, IngestProfiler
+from ..utils.profiling import (IngestPass, IngestProfiler, PlanProfiler,
+                               StageProfile, backend_name)
 
 __all__ = ["fit_dag_streaming"]
 
@@ -323,24 +329,48 @@ def _liveness(ordered: List[PipelineStage],
     return needed_after
 
 
+def _est_name(est) -> str:
+    """An estimator's class name (the fold-tagged proxy's inner one)."""
+    return type(getattr(est, "inner", est)).__name__
+
+
 def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
                       keep: Optional[Sequence[str]] = None,
                       fitted_substitutes: Optional[Dict[str, Model]] = None,
                       prefetch: int = 2, chunk_filter=None, on_stage=None,
                       checkpoint_dir: Optional[str] = None,
-                      checkpoint_every: int = 16, device=None
+                      checkpoint_every: int = 16, device=None,
+                      profiler: Optional[PlanProfiler] = None,
+                      refresh_ctx=None,
+                      fingerprint_extra: Optional[Dict] = None,
+                      cv_ctx=None
                       ) -> Tuple[List[PipelineStage], ColumnarDataset,
                                  IngestProfiler, Dict[str, object]]:
     """Fit ``dag`` from ``reader``'s chunks of ``chunk_rows`` rows: (the
     fitted stages in layer order, the dataset of the ``keep`` columns and
     the tail's outputs, the ingest counters, each streamed estimator's
-    final state by uid).  ``chunk_filter`` (dataset -> dataset) runs on
+    final state by uid, through its ``export_fit_state``: the warm-start
+    capital of a refresh).  ``chunk_filter`` (dataset -> dataset) runs on
     every raw chunk before any transform (RawFeatureFilter's map-key
     cleaning); ``on_stage(stage, seconds)`` gets each prefix stage's
     host seconds summed over the passes, and each tail stage's.
     ``checkpoint_dir`` checkpoints the fit passes every
     ``checkpoint_every`` chunks and resumes from a checkpoint found
-    there (module docstring); restored models land on ``device``."""
+    there (module docstring); restored models land on ``device``.
+
+    ``refresh_ctx`` (``workflow.refresh.RefreshContext``) makes the run a
+    warm-start refresh: an estimator whose restored state is still valid
+    begins from it, and a geometry change invalidates the restored states
+    downstream.  ``cv_ctx`` (``workflow.streaming_cv.StreamingCVContext``)
+    makes it a streaming workflow-CV train: the during-DAG estimators fold
+    a state a fold as well (fold ids per global row, from the labels the
+    first pass collects), and between the prefix and the tail the
+    context validates the candidates on the merged fold states; with a
+    checkpoint, the fold-tagged layers run as passes of their own, so
+    that a kill mid-fold resumes exactly.  ``fingerprint_extra`` extends
+    the checkpoint fingerprint (the CV geometry, the refresh's base
+    model).  A ``profiler`` (``utils.profiling.PlanProfiler``) gets the
+    ingest counters and every stage's profile."""
     from .dag import StagesDAG, fit_and_transform_dag
 
     if chunk_rows <= 0:
@@ -350,14 +380,18 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
     split = _split_streamable(layers, subs)
     prefix, tail = layers[:split], layers[split:]
     ingest = IngestProfiler(chunk_rows)
+    if profiler is not None:
+        profiler.ingest = ingest
     manager = resume = None
     if checkpoint_dir is not None:
         from .checkpoint import StreamingCheckpointManager, compute_fingerprint
 
+        fingerprint = compute_fingerprint(reader, raw_features, layers,
+                                          chunk_rows)
+        if fingerprint_extra:
+            fingerprint = {**fingerprint, **fingerprint_extra}
         manager = StreamingCheckpointManager(
-            checkpoint_dir,
-            compute_fingerprint(reader, raw_features, layers, chunk_rows),
-            every_chunks=checkpoint_every)
+            checkpoint_dir, fingerprint, every_chunks=checkpoint_every)
         resume = manager.load(device)
         ingest.resumed = resume is not None
 
@@ -374,6 +408,7 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
     stage_wall: Dict[str, float] = {}
     stage_layer: Dict[str, int] = {
         s.uid: li for li, layer in enumerate(prefix) for s in layer}
+    stage_kind: Dict[str, str] = {}
     total_rows: Optional[int] = None
     extras: Set[str] = set()   # reader columns the DAG does not know (key)
     final_states: Dict[str, object] = {}
@@ -404,8 +439,13 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
         the rows.  Under a retry policy the reader's stream is wrapped in
         a ``RetryingChunkStream``.  The first ``skip_chunks`` chunks (a
         resume's folded ones) are read and counted, not transformed;
-        ``on_chunk(index, rows so far)`` runs after each chunk folded."""
+        ``on_chunk(index, rows so far)`` runs after each chunk folded.
+        Under workflow CV the first pass collects the label of every raw
+        chunk, the skipped ones too, and each chunk's global row window
+        is set before ``per_chunk``."""
         pass_stats = ingest.begin_pass(label)
+        if cv_ctx is not None:
+            cv_ctx.begin_label_pass()
         needed_after = _liveness(ordered, final_needed)
         rows = 0
         t_pass = time.perf_counter()
@@ -424,6 +464,8 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
                                depth=prefetch)
         try:
             for idx, chunk in enumerate(batcher):
+                if cv_ctx is not None and cv_ctx.collecting_labels:
+                    cv_ctx.collect_labels(chunk)
                 if idx < skip_chunks:
                     rows += len(chunk)
                     pass_stats.chunks_skipped += 1
@@ -440,6 +482,8 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
                                     if c in needed_after[i]
                                     or (keep_unknown
                                         and c not in known_universe)])
+                if cv_ctx is not None:
+                    cv_ctx.set_window(rows, len(chunk))
                 per_chunk(ds)
                 rows += len(chunk)
                 pass_stats.note_transform(idx, time.perf_counter() - t0)
@@ -450,6 +494,8 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
         pass_stats.wall_s = time.perf_counter() - t_pass
         if rows == 0:
             raise ValueError("chunked reader produced no rows")
+        if cv_ctx is not None:
+            cv_ctx.finish_label_pass(rows)
         return rows
 
     def update_states(ests, states, ds: ColumnarDataset) -> None:
@@ -460,27 +506,66 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
             stage_wall[est.uid] = (stage_wall.get(est.uid, 0.0)
                                    + time.perf_counter() - t0)
 
+    def init_states(ests) -> Dict[str, object]:
+        """Fresh states, or under a refresh the restored warm-start ones
+        where still valid."""
+        out: Dict[str, object] = {}
+        for est in ests:
+            state = (refresh_ctx.initial_state(est)
+                     if refresh_ctx is not None else None)
+            out[est.uid] = state if state is not None else est.begin_fit()
+        return out
+
     def finish_layer(ests, states) -> None:
         for est in ests:
             t0 = time.perf_counter()
-            fitted_by_uid[est.uid] = est.adopt_model(
-                est.finish_fit(states[est.uid]))
+            state = states[est.uid]
+            model = est.adopt_model(est.finish_fit(state))
+            fitted_by_uid[est.uid] = model
             stage_wall[est.uid] = (stage_wall.get(est.uid, 0.0)
                                    + time.perf_counter() - t0)
-            final_states[est.uid] = states[est.uid]
+            stage_kind[est.uid] = "fit-stream"
+            # the final state, exported: the warm-start capital of a
+            # refresh, saved with the model (a fold-tagged proxy's full
+            # state only: fold states are one train's scaffolding)
+            exporter = getattr(est, "export_full_state", None)
+            final_states[est.uid] = (exporter(state) if exporter is not None
+                                     else est.export_fit_state(state))
+            if refresh_ctx is not None:
+                refresh_ctx.note_finished(est, model)
 
     def layer_ests(li: int) -> List[Estimator]:
-        return [s for s in prefix[li]
-                if isinstance(s, Estimator) and s.uid not in subs]
+        out = [s for s in prefix[li]
+               if isinstance(s, Estimator) and s.uid not in subs]
+        if cv_ctx is not None:
+            out = [cv_ctx.wrap(s) for s in out]
+        return out
 
     def est_names(ests) -> str:
-        return ", ".join(type(e).__name__ for e in ests)
+        return ", ".join(_est_name(e) for e in ests)
+
+    def ensure_cv_folds(ests) -> None:
+        """The folds are assigned before any fold-tagged update: from the
+        labels of the first pass read, or, where the tagged layer fits on
+        the first pass (or a resume restored every earlier pass without
+        reading), from a pass of their own."""
+        if (cv_ctx is None or cv_ctx.folds_ready
+                or not cv_ctx.wraps_any(ests)):
+            return
+        if not cv_ctx.labels_ready:
+            run_reader_pass("cv-labels", [], set(), lambda ds: None,
+                            keep_unknown=False)
+        cv_ctx.assign_folds()
 
     # -- what must materialize: the keep set and the tail's inputs ----------
     available = raw_names | set(out_stage)
     mat_cols: Set[str] = {n for layer in tail for s in layer
                           for n in s.input_names if n in available}
     mat_cols |= available if keep is None else set(keep) & available
+    if cv_ctx is not None:
+        # the fold validation transforms the fold rows through the during
+        # DAG again: its upstream inputs and the label materialize too
+        mat_cols |= cv_ctx.extra_columns & available
     est_idxs = [li for li in range(len(prefix)) if layer_ests(li)]
     all_targets: Set[str] = set(mat_cols)
     for li in est_idxs:
@@ -488,6 +573,20 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
             all_targets |= set(est.input_names)
     needed_uids = _closure(sorted(all_targets), out_stage)
     writer = _ColumnWriter(None)
+
+    def materialize_only_pass() -> Dict[str, FeatureColumn]:
+        """One pass over the fitted prefix writing every materialized
+        column (no estimator to fit, or a checkpointed CV train whose
+        estimator layers all ran as passes of their own)."""
+        ordered = [s for layer in prefix for s in layer
+                   if s.uid in needed_uids]
+        rows = run_reader_pass(
+            "materialize", ordered, set(mat_cols),
+            lambda ds: writer.append(ds, [c for c in ds.names()
+                                          if c in mat_cols or c in extras]),
+            keep_unknown=True)
+        writer.offset = rows
+        return writer.finish()
 
     def fused_pass_and_cascade(fuse_at: int, total_rows: Optional[int]
                                ) -> Dict[str, FeatureColumn]:
@@ -510,7 +609,10 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
                 if s.uid in fuse_uids or s.uid not in needed_uids:
                     continue
                 if s.uid in pending or any(n in down for n in s.input_names):
-                    chain_tail.append(s)
+                    chain_tail.append(
+                        cv_ctx.wrap(s) if (cv_ctx is not None
+                                           and isinstance(s, Estimator))
+                        else s)
                     down.add(s.get_output().name)
         consumed = set(mat_cols) | {n for s in chain_tail
                                     for n in s.input_names}
@@ -523,7 +625,8 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
         run_stages = [s for layer in prefix for s in layer
                       if s.uid in needed_uids and s.uid not in chain_uids
                       and s.uid not in fuse_uids]
-        states = {est.uid: est.begin_fit() for est in fuse_ests}
+        ensure_cv_folds(fuse_ests)
+        states = init_states(fuse_ests)
         store = _BlockStore(_retain_budget_bytes())
         writer.total = total_rows
 
@@ -576,7 +679,8 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
                                              for s in segment}
                 needed_after = _liveness(segment,
                                          seg_inputs | retain_cols | seg_write)
-                seg_states = {est.uid: est.begin_fit() for est in seg_ests}
+                ensure_cv_folds(seg_ests)
+                seg_states = init_states(seg_ests)
                 apass = ingest.begin_pass(
                     "assemble" if not seg_ests else
                     f"fit-blocks[layer {stage_layer[seg_ests[0].uid]}: "
@@ -596,6 +700,8 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
                         ds_b = ds_b.select([c for c in ds_b.names()
                                             if c in needed_after[idx]])
                     if seg_ests:
+                        if cv_ctx is not None:
+                            cv_ctx.set_window(offset, n_b)
                         update_states(seg_ests, seg_states, ds_b)
                     writer.offset = offset
                     writer.append(ds_b, [c for c in ds_b.names()
@@ -632,20 +738,25 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
 
     if not est_idxs:
         # no estimator to fit: one pass writes every materialized column
-        ordered = [s for layer in prefix for s in layer
-                   if s.uid in needed_uids]
-        total_rows = run_reader_pass(
-            "materialize", ordered, set(mat_cols),
-            lambda ds: writer.append(ds, [c for c in ds.names()
-                                          if c in mat_cols or c in extras]),
-            keep_unknown=True)
-        materialized = writer.finish()
+        materialized = materialize_only_pass()
     else:
         # fuse at the second estimator layer when there is one (its pass
         # already computes the first layer's outputs, so the retained
-        # blocks are derived, compact columns), else at the only one
-        fuse_at = est_idxs[1] if len(est_idxs) >= 2 else est_idxs[0]
-        prefuse = [li for li in est_idxs if li < fuse_at]
+        # blocks are derived, compact columns), else at the only one.  A
+        # checkpointed CV train fuses past the last fold-tagged layer
+        # (the fused pass is not checkpointed mid-pass, so the tagged
+        # layers run as passes of their own, one more reader pass for an
+        # exact mid-fold resume); with no layer after it, fuse_at is None:
+        # every estimator layer a pass, then one materializing pass
+        fuse_at: Optional[int] = (est_idxs[1] if len(est_idxs) >= 2
+                                  else est_idxs[0])
+        if cv_ctx is not None and manager is not None:
+            tagged = [li for li in est_idxs
+                      if cv_ctx.wraps_any(layer_ests(li))]
+            if tagged:
+                later = [li for li in est_idxs if li > max(tagged)]
+                fuse_at = later[0] if later else None
+        prefuse = [li for li in est_idxs if fuse_at is None or li < fuse_at]
         for pass_idx, li in enumerate(prefuse):
             ests = layer_ests(li)
             label = f"fit[layer {li}: {est_names(ests)}]"
@@ -662,7 +773,22 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
                         raise CheckpointMismatchError(
                             f"checkpoint pass {pass_idx} is missing a "
                             f"model for estimator {est.uid}")
-                    fitted_by_uid[est.uid] = adopt_restored_model(est, model)
+                    inner = getattr(est, "inner", est)
+                    fitted_by_uid[est.uid] = adopt_restored_model(inner,
+                                                                  model)
+                    stage_kind[est.uid] = "fit-restored"
+                    payload = (done.get("states") or {}).get(est.uid)
+                    if payload is not None:
+                        # a fold-tagged layer: its final state again, so
+                        # that the CV validation has its fold states (a
+                        # copy: the manager re-encodes the payload later)
+                        st = est.import_fit_state(copy.deepcopy(payload))
+                        tagged_est = hasattr(est, "export_full_state")
+                        if cv_ctx is not None and tagged_est:
+                            cv_ctx.note_fold_states(inner, st.folds)
+                        final_states.setdefault(
+                            est.uid, inner.export_fit_state(st.full)
+                            if tagged_est else est.export_fit_state(st))
                 if total_rows is None:
                     total_rows = done["rows"]
                 continue
@@ -672,7 +798,8 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
             pass_uids = _closure(sorted(targets), out_stage)
             ordered = [s for lj in range(li) for s in prefix[lj]
                        if s.uid in pass_uids]
-            states = {est.uid: est.begin_fit() for est in ests}
+            ensure_cv_folds(ests)
+            states = init_states(ests)
             skip = 0
             if (resume is not None and resume.current is not None
                     and int(resume.current["pass"]) == pass_idx):
@@ -688,35 +815,57 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
                         manager.save_progress(_pi, _lb, ci + 1, rows_done,
                                               _e, _st)
                         note_checkpoint(t0)
-            total_rows = run_reader_pass(
+            rows = run_reader_pass(
                 label, ordered, targets,
                 lambda ds, e=ests, st=states: update_states(e, st, ds),
                 keep_unknown=False, skip_chunks=skip, on_chunk=on_chunk)
+            total_rows = rows if total_rows is None else total_rows
             finish_layer(ests, states)
             if manager is not None:
                 t0 = time.perf_counter()
                 manager.complete_pass(
-                    pass_idx, label, total_rows,
-                    {est.uid: fitted_by_uid[est.uid] for est in ests})
+                    pass_idx, label, rows,
+                    {est.uid: fitted_by_uid[est.uid] for est in ests},
+                    state_payloads={
+                        est.uid: est.export_fit_state(states[est.uid])
+                        for est in ests
+                        if hasattr(est, "export_full_state")})
                 note_checkpoint(t0)
-        materialized = fused_pass_and_cascade(fuse_at, total_rows)
+        if fuse_at is None:
+            writer.total = total_rows
+            materialized = materialize_only_pass()
+        else:
+            materialized = fused_pass_and_cascade(fuse_at, total_rows)
         total_rows = writer.offset
 
     data = ColumnarDataset(materialized, _validated=True)
-    fitted: List[PipelineStage] = [
-        fitted_by_uid.get(s.uid) or subs[s.uid]
-        if isinstance(s, Estimator) else s
-        for layer in prefix for s in layer]
+    # the workflow CV's validation, between the prefix and the tail: the
+    # fold models from merged fold states, the sweep over the fold
+    # matrices, the winner set for the tail's selector
+    if cv_ctx is not None:
+        cv_ctx.run_validation(data)
+    fitted: List[PipelineStage] = []
+    for layer in prefix:
+        for s in layer:
+            if isinstance(s, Estimator):
+                fitted.append(fitted_by_uid.get(s.uid) or subs[s.uid])
+                stage_kind.setdefault(s.uid, "substitute")
+            else:
+                fitted.append(s)
+                stage_kind.setdefault(s.uid, "transform-stream")
     if on_stage is not None:
         for layer in prefix:
             for s in layer:
                 on_stage(s, stage_wall.get(s.uid, 0.0))
+    if profiler is not None:
+        _profile_prefix(profiler, prefix, data, stage_wall, stage_layer,
+                        stage_kind, total_rows or len(data), device)
 
     # -- tail: the non-streamable suffix, in-core on the packed columns ----
     if tail:
         fitted_tail, data = fit_and_transform_dag(
             StagesDAG(tail), data, on_stage=on_stage,
-            fitted_substitutes=subs)
+            fitted_substitutes=subs, profiler=profiler)
         fitted.extend(fitted_tail)
     if keep is not None:
         keep_set = set(keep)
@@ -729,3 +878,34 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
         # a finished train's checkpoint must not resume into the next run
         manager.finish()
     return fitted, data, ingest, final_states
+
+
+def _profile_prefix(profiler: PlanProfiler, prefix, data: ColumnarDataset,
+                    stage_wall: Dict[str, float],
+                    stage_layer: Dict[str, int], stage_kind: Dict[str, str],
+                    rows: int, device) -> None:
+    """A ``StageProfile`` for each streamed prefix stage: its host seconds
+    over every pass, the run's rows, its inputs' width where they
+    materialized."""
+    backend = backend_name(device)
+    for s in (st for layer in prefix for st in layer):
+        op = type(s).__name__
+        kind = stage_kind.get(s.uid, "transform-stream")
+        width = sum(1 for _ in s.input_names) or 1
+        dtype = ""
+        for n in s.input_names:
+            if n in data:
+                v = data[n].values
+                shape = getattr(v, "shape", None)
+                if shape is not None and len(shape) >= 2:
+                    width += int(shape[1]) - 1
+                if not dtype:
+                    dtype = str(getattr(v, "dtype", "") or "")
+                    dtype = dtype.replace("torch.", "")
+        profiler.record_stage(StageProfile(
+            uid=s.uid, op=op, output=s.get_output().name,
+            layer=stage_layer.get(s.uid, 0), kind=kind,
+            device_heavy=s.device_heavy, wall_s=stage_wall.get(s.uid, 0.0),
+            rows=rows, cols_added=1, cols=width, dtype=dtype,
+            backend=backend, stage_kind=f"{op}:{kind}"))
+    profiler.note_columns(len(data.columns))

@@ -23,15 +23,28 @@ streamable estimators fit from mergeable states, RawFeatureFilter profiles
 chunk by chunk, and only the kept columns (the packed feature matrix,
 the response) are ever held whole; a model selector fits in-core on them.
 
-``with_workflow_cv()`` is workflow-level CV on the in-core train: the
-DAG is cut at the model selector (``workflow/dag.py::cut_dag_cv``), the
-before-DAG fits once, the selector validates with the during-DAG (the
-label-aware stages, such as SanityChecker) refit inside every fold, and
-the full DAG then fits with the before-DAG's models in place and the
-selector refitting its CV winner.
+``with_workflow_cv()`` is workflow-level CV: the DAG is cut at the
+model selector (``workflow/dag.py::cut_dag_cv``), and the selector
+validates with the during-DAG (the label-aware stages, such as
+SanityChecker) refit inside every fold; in core, the before-DAG fits
+once and the full DAG then fits with its models in place, the selector
+refitting its CV winner; under ``chunk_rows=k`` the during-DAG's
+estimators fold a state a fold as they stream
+(``workflow/streaming_cv.py``) and the fold models come from merged fold
+states, without another reader pass.
 
-Not ported yet (ROADMAP Queue A): the streaming workflow CV, checkpoints,
-the tuner and the plan profiler (6.5), meshes and pods (6.7).
+``refresh(model, data=...)`` is the warm-start refresh
+(``workflow/refresh.py``): a chunked model's saved ``fit_states`` fold
+in the new rows only.  ``train(profile=True)`` keeps the plan
+profiler's per-stage profile on the model (``train_profile``); every
+train records its stage observations in the cost history at
+``TMOG_COST_HISTORY``.  ``train(tuner=Tuner(...))`` runs every model
+selector under the tuner's strategy for that train, and with
+``auto_plan=True`` lets the cost planner choose stream or in-core
+(``tuning/``).
+
+Not ported yet (ROADMAP Queue A): spans and the trace exporters
+(6.5.5), meshes and pods (6.7).
 """
 from __future__ import annotations
 
@@ -52,7 +65,8 @@ from ..stages.base import Model, PipelineStage
 from ..stages.generator import FeatureGeneratorStage
 from ..types.columns import ColumnarDataset
 from ..types.feature_types import Prediction
-from ..utils.profiling import OpStep, with_job_group
+from ..utils.profiling import (OpStep, PlanProfiler, backend_name,
+                               with_job_group)
 from .dag import (compute_dag, cut_dag_cv, fit_and_transform_dag,
                   transform_dag)
 
@@ -271,8 +285,22 @@ class OpWorkflow(_WorkflowCore):
         the reader parsing up to ``prefetch_chunks`` chunks ahead on a
         host thread; the model then carries ``ingest_profile`` (its
         ``rff``: the filter's chunked pass) and ``fit_states`` (each
-        streamed estimator's final state).  ``chunk_rows=None`` is the
-        in-core train.  ``profile`` and ``tuner`` are not ported yet.
+        streamed estimator's final state, saved with the model: what
+        ``refresh`` resumes from).  ``chunk_rows=None`` is the in-core
+        train.  With ``with_workflow_cv()`` a chunked train validates on
+        fold states (``workflow/streaming_cv.py``).
+
+        ``profile=True`` keeps the plan profiler on the model as
+        ``train_profile`` (``.format()``, ``.to_json()``): each stage's
+        wall, rows, input width and, run serially, its kernel launches.
+        A profiler runs on every train, and its observations go to the
+        cost history at ``TMOG_COST_HISTORY`` where that names a file.
+
+        ``tuner`` (``tuning.Tuner``) sets its ``strategy`` (and
+        ``halving``) on every model selector for this train, restoring
+        theirs after it; with ``auto_plan=True``, no ``chunk_rows`` and a
+        reader that can estimate its rows, the cost planner chooses
+        stream or in-core and the chunk geometry.
 
         ``checkpoint_dir`` makes the train resumable.  Chunked: the fit
         passes checkpoint every ``checkpoint_every_chunks`` chunks and at
@@ -282,25 +310,23 @@ class OpWorkflow(_WorkflowCore):
         (``ingest_profile.resumed``).  In-core: every model selector keeps
         its sweep's checkpoint in ``checkpoint_dir``; a DAG without one
         raises ``ValueError``.  A checkpoint of another run (other data,
-        DAG or chunk size) raises ``CheckpointMismatchError``.  Success
-        removes the checkpoint.
+        DAG, chunk size or CV folds) raises ``CheckpointMismatchError``.
+        Success removes the checkpoint.
 
         The returned model's ``stage_seconds`` maps each stage's class name
         to its fit+transform wall seconds (synchronised with the device;
         out-of-core, a prefix stage's host seconds over every pass).  The
         tree fits' sweep memo is cleared at its end."""
-        if profile:
-            raise NotImplementedError(
-                "train(profile=True) needs the plan profiler, not ported "
-                "yet (ROADMAP Queue A item 6.5)")
-        if tuner is not None:
-            raise NotImplementedError(
-                "train(tuner=) is not ported yet (ROADMAP Queue A item 6.5: "
-                "tuning)")
-        if self._workflow_cv and chunk_rows is not None:
-            raise NotImplementedError(
-                "train(chunk_rows=) with workflow CV is not ported yet "
-                "(ROADMAP Queue A item 6.5: streaming_cv)")
+        if (tuner is not None and tuner.auto_plan and chunk_rows is None
+                and self.reader is not None):
+            advice = self._plan_advice(tuner)
+            if advice is not None and advice.mode == "stream":
+                # advice.retain_mb is a host budget: the port's retained
+                # blocks are device memory and keep TMOG_STREAM_RETAIN_MB;
+                # the number waits for the mesh's block store (ROADMAP
+                # Queue A item 6.7)
+                chunk_rows = advice.chunk_rows
+                prefetch_chunks = advice.prefetch_chunks
         routed = []
         if checkpoint_dir is not None:
             from ..selector.model_selector import ModelSelector
@@ -321,18 +347,93 @@ class OpWorkflow(_WorkflowCore):
                     routed.append((s, None))
                     s.sweep_checkpoint_dir = os.path.join(checkpoint_dir,
                                                           "sweep")
+        tuned = self._apply_tuner(tuner)
         try:
             return self._train(chunk_rows, prefetch_chunks, validate,
-                               checkpoint_dir, checkpoint_every_chunks)
+                               checkpoint_dir, checkpoint_every_chunks,
+                               profile)
         finally:
             for s, d in routed:
                 s.sweep_checkpoint_dir = d
+            for s, strategy, halving in tuned:
+                s.strategy, s.halving = strategy, halving
+
+    def _plan_advice(self, tuner):
+        """The cost planner's advice for an ``auto_plan`` train, or None
+        where the reader cannot estimate its rows."""
+        rows = self.reader.estimate_rows()
+        if not rows:
+            return None
+        from ..tuning.planner import advise_plan
+
+        return advise_plan(rows, max(len(self.raw_features()), 1),
+                           cost_model=tuner.resolved_cost_model(),
+                           host_budget_bytes=tuner.host_budget_bytes,
+                           backend=backend_name(self.device))
+
+    def _apply_tuner(self, tuner) -> list:
+        """Set the tuner's strategy (and halving) on every model selector
+        for this train: (stage, its strategy, its halving) records for
+        the caller to restore."""
+        if tuner is None:
+            return []
+        from ..selector.model_selector import ModelSelector
+
+        tuned = []
+        for s in compute_dag(self.result_features).all_stages():
+            if isinstance(s, ModelSelector):
+                tuned.append((s, s.strategy, s.halving))
+                s.strategy = tuner.strategy
+                if tuner.halving is not None:
+                    s.halving = tuner.halving
+        return tuned
+
+    def _streaming_cv_context(self, dag):
+        """The fold-tagged CV context of a chunked train or refresh, or
+        None where workflow CV is off (or the DAG has no CV cut).  A
+        during-DAG estimator that cannot stream raises, naming it."""
+        if not self._workflow_cv:
+            return None
+        from ..stages.base import Estimator
+        from .streaming_cv import StreamingCVContext
+
+        cut = cut_dag_cv(dag)
+        if cut.selector is None or not cut.during.layers:
+            return None
+        for s in cut.during.all_stages():
+            if (isinstance(s, Estimator) and s.uid not in self._model_stages
+                    and not s.supports_streaming_fit):
+                raise ValueError(
+                    f"chunk_rows with workflow-level CV requires every "
+                    f"fold-refit (during-DAG) estimator to support "
+                    f"streaming fit; stage {s.uid} ({type(s).__name__}) "
+                    f"does not — fit it in-core or make its state a "
+                    f"mergeable monoid (stages/base.py streaming-fit "
+                    f"protocol)")
+        return StreamingCVContext(cut.selector, cut.during,
+                                  dict(self._model_stages))
+
+    @staticmethod
+    def _stage_timer(dev: torch.device):
+        """(a {class name: seconds} dict, the ``on_stage`` callback that
+        fills it, synchronising with the card)."""
+        seconds: Dict[str, float] = {}
+
+        def on_stage(stage: PipelineStage, dt: float) -> None:
+            if dev.type == "cuda":
+                t0 = time.perf_counter()
+                torch.cuda.synchronize(dev)
+                dt += time.perf_counter() - t0
+            name = type(stage).__name__
+            seconds[name] = seconds.get(name, 0.0) + dt
+
+        return seconds, on_stage
 
     def _train(self, chunk_rows: Optional[int], prefetch_chunks: int,
                validate: bool, checkpoint_dir: Optional[str],
-               checkpoint_every: int) -> "OpWorkflowModel":
-        """``train``'s body, with the selectors' sweep checkpoints
-        routed."""
+               checkpoint_every: int, profile: bool) -> "OpWorkflowModel":
+        """``train``'s body, with the selectors' sweep checkpoints routed
+        and the tuner applied."""
         dev = resolve_device(self.device)
         lint = (self._lint_dag(compute_dag(self.result_features))
                 if validate else None)
@@ -366,28 +467,16 @@ class OpWorkflow(_WorkflowCore):
                 findings, wall = self._lint_dag(
                     compute_dag(self.result_features))
                 lint = (findings, lint[1] + wall)
-        dag = compute_dag(self.result_features)
-        _check_unique_uids(dag.all_stages())
-        self._inject_params(dag)
-        if not self._allow_non_serializable:
-            from .persistence import check_serializable
-
-            check_serializable(dag.all_stages())
-        seconds: Dict[str, float] = {}
-
-        def on_stage(stage: PipelineStage, dt: float) -> None:
-            if dev.type == "cuda":
-                t0 = time.perf_counter()
-                torch.cuda.synchronize(dev)
-                dt += time.perf_counter() - t0
-            name = type(stage).__name__
-            seconds[name] = seconds.get(name, 0.0) + dt
-
+        dag = self._prepared_dag()
+        seconds, on_stage = self._stage_timer(dev)
+        # a profiler runs on every train (its stage observations feed the
+        # cost history); it lands on the model only when asked for
+        profiler = PlanProfiler()
         placed = self._place(dag, dev)
         ingest = fit_states = None
         substitutes = dict(self._model_stages)
         try:
-            if self._workflow_cv:
+            if self._workflow_cv and chunk_rows is None:
                 with with_job_group(OpStep.CrossValidation):
                     substitutes.update(
                         self._workflow_cv_models(dag, data, substitutes))
@@ -395,10 +484,11 @@ class OpWorkflow(_WorkflowCore):
                 if chunk_rows is None:
                     fitted, transformed = fit_and_transform_dag(
                         dag, data, on_stage=on_stage,
-                        fitted_substitutes=substitutes)
+                        fitted_substitutes=substitutes, profiler=profiler)
                 else:
                     from .streaming import fit_dag_streaming
 
+                    cv_ctx = self._streaming_cv_context(dag)
                     fitted, transformed, ingest, fit_states = \
                         fit_dag_streaming(
                             dag, self.reader, self.raw_features(),
@@ -407,7 +497,11 @@ class OpWorkflow(_WorkflowCore):
                             prefetch=prefetch_chunks,
                             chunk_filter=chunk_filter, on_stage=on_stage,
                             checkpoint_dir=checkpoint_dir,
-                            checkpoint_every=checkpoint_every, device=dev)
+                            checkpoint_every=checkpoint_every, device=dev,
+                            profiler=profiler, cv_ctx=cv_ctx,
+                            fingerprint_extra=(cv_ctx.fingerprint()
+                                               if cv_ctx is not None
+                                               else None))
                     ingest.rff = rff_stats
         finally:
             for s in placed:
@@ -426,8 +520,130 @@ class OpWorkflow(_WorkflowCore):
         if lint is not None:
             from ..analysis.diagnostics import LintSnapshot
 
-            model.lint_snapshot = LintSnapshot.from_findings(*lint)
+            model.lint_snapshot = profiler.lint = \
+                LintSnapshot.from_findings(*lint)
+        model.train_profile = profiler if profile else None
+        from ..tuning.costmodel import record_train_observations
+
+        record_train_observations(profiler)
         return model
+
+    def refresh(self, model: "OpWorkflowModel", data=None,
+                chunk_rows: int = 512, prefetch_chunks: int = 2,
+                profile: bool = False, checkpoint_dir: Optional[str] = None,
+                checkpoint_every_chunks: int = 16) -> "OpWorkflowModel":
+        """Warm-start refresh: fit ``model`` further on new data only.
+
+        Every streamable estimator whose exported state rides on
+        ``model`` (``fit_states``: chunked trains and refreshes keep
+        them) resumes from that state and folds in the new chunks, so the
+        result matches a streaming train over old and new rows within
+        each stage's ``streaming_fit_tol`` while reading only the new
+        window.  Estimators without a state, or whose upstream geometry
+        changed (a vocabulary's set, a keep decision;
+        ``workflow/refresh.py``), refit on the new data alone, and the
+        tail that cannot stream refits in core on the window; the
+        returned model's ``refresh_report`` says which path each took.
+
+        ``data`` defaults to this workflow's reader.  A RawFeatureFilter
+        reuses the base model's recorded decisions (a trained model's
+        results or a loaded model's JSON form; profiling again would
+        change the geometry under the restored states).  Workflow CV
+        validates again on the window.  ``checkpoint_dir`` checkpoints as
+        a chunked train does, with the base model in the fingerprint: a
+        killed refresh resumes, and its checkpoint never resumes into a
+        plain train or a refresh of another model.  The refreshed model
+        carries its merged ``fit_states``, so refreshes chain."""
+        from .refresh import RefreshContext
+        from .streaming import fit_dag_streaming
+
+        if data is not None:
+            self.set_input_data(data)
+        if self.reader is None:
+            raise RuntimeError(
+                "no refresh data — pass data= or set a reader")
+        dev = resolve_device(self.device)
+        filter_results = chunk_filter = None
+        if self._raw_feature_filter is not None:
+            filter_results = getattr(model, "raw_feature_filter_results",
+                                     None)
+            if filter_results is None:
+                raise ValueError(
+                    "refresh with RawFeatureFilter requires the base "
+                    "model's recorded filter results "
+                    "(model.raw_feature_filter_results — train with the "
+                    "filter first); re-profiling inside a refresh would "
+                    "change the feature geometry under the warm-started "
+                    "states")
+            if isinstance(filter_results, dict):     # a loaded model's
+                dropped = list(filter_results.get("droppedFeatures", []))
+                keys = dict(filter_results.get("droppedMapKeys") or {})
+            else:
+                dropped = list(filter_results.dropped_features)
+                keys = dict(filter_results.dropped_map_keys)
+            self._apply_blocklist(dropped)
+            if keys:
+                rff = self._raw_feature_filter
+                chunk_filter = (lambda ds: rff.clean_chunk(ds, dropped,
+                                                           keys))
+        dag = self._prepared_dag()
+        lint = self._lint_dag(dag)
+        cv_ctx = self._streaming_cv_context(dag)
+        ctx = RefreshContext(model, dag)
+        fingerprint_extra = ctx.base_digest()
+        if cv_ctx is not None:
+            fingerprint_extra = {**fingerprint_extra, **cv_ctx.fingerprint()}
+        seconds, on_stage = self._stage_timer(dev)
+        profiler = PlanProfiler()
+        placed = self._place(dag, dev)
+        try:
+            with with_job_group(OpStep.FeatureEngineering):
+                fitted, transformed, ingest, fit_states = fit_dag_streaming(
+                    dag, self.reader, self.raw_features(), chunk_rows,
+                    keep=self._train_keep_columns(), prefetch=prefetch_chunks,
+                    chunk_filter=chunk_filter, on_stage=on_stage,
+                    checkpoint_dir=checkpoint_dir,
+                    checkpoint_every=checkpoint_every_chunks, device=dev,
+                    profiler=profiler, refresh_ctx=ctx,
+                    fingerprint_extra=fingerprint_extra, cv_ctx=cv_ctx)
+        finally:
+            for s in placed:
+                s.device = None
+            clear_sweep_caches()
+        refreshed = OpWorkflowModel(self.result_features, fitted, transformed)
+        refreshed.reader = self.reader
+        refreshed.stage_seconds = seconds
+        refreshed.blocklisted = list(self.blocklisted)
+        refreshed.raw_feature_filter_results = filter_results
+        refreshed.ingest_profile = ingest
+        refreshed.fit_states = fit_states
+        refreshed.refresh_report = ctx.report.to_json()
+        from ..analysis.diagnostics import LintSnapshot
+
+        refreshed.lint_snapshot = profiler.lint = \
+            LintSnapshot.from_findings(*lint)
+        refreshed.train_profile = profiler if profile else None
+        from ..tuning.costmodel import record_train_observations
+
+        record_train_observations(profiler)
+        return refreshed
+
+    def _prepared_dag(self):
+        """The DAG of the result features, its stage uids distinct, the
+        stage parameters set and (unless ``allow_non_serializable``) every
+        stage checked to be serializable."""
+        dag = compute_dag(self.result_features)
+        seen = set()
+        for s in dag.all_stages():
+            if s.uid in seen:
+                raise ValueError(f"duplicate stage uid {s.uid}")
+            seen.add(s.uid)
+        self._inject_params(dag)
+        if not self._allow_non_serializable:
+            from .persistence import check_serializable
+
+            check_serializable(dag.all_stages())
+        return dag
 
     def _train_keep_columns(self) -> List[str]:
         """The columns an out-of-core train keeps whole: the result
@@ -440,12 +656,6 @@ class OpWorkflow(_WorkflowCore):
         return sorted(keep)
 
 
-def _check_unique_uids(stages: Sequence[PipelineStage]) -> None:
-    seen = set()
-    for s in stages:
-        if s.uid in seen:
-            raise ValueError(f"duplicate stage uid {s.uid}")
-        seen.add(s.uid)
 
 
 class OpWorkflowModel(_WorkflowCore):
@@ -466,8 +676,14 @@ class OpWorkflowModel(_WorkflowCore):
         self.lint_snapshot = None
         #: ``IngestProfiler`` of an out-of-core train, else None
         self.ingest_profile = None
-        #: each streamed estimator's final state by uid (out-of-core)
+        #: each streamed estimator's exported final state by uid (chunked
+        #: trains and refreshes; saved with the model): what a refresh
+        #: resumes from
         self.fit_states = None
+        #: the ``PlanProfiler`` of ``train(profile=True)``, else None
+        self.train_profile = None
+        #: the ``RefreshReport`` JSON of a model made by ``refresh``
+        self.refresh_report: Optional[Dict[str, Any]] = None
         self._scoring_dag_memo = None
 
     def _scoring_dag(self):
