@@ -117,6 +117,28 @@ card's aggregate shared-memory rate):
                 tree-prep prefetch thread's seconds
                 (``prefetchTreePrepSecs``) and its state after the fit
                 (it must be joined)
+  4a. obs       observability, after the selector phase: the default
+                selector on the first OBS_ROWS (100 000) of its training
+                rows, untraced, then under obs.start_trace() with the
+                per-stage kernel mix (torch.profiler around each serial
+                stage), both in a child (``--obs-child``: kineto's clock,
+                started by a first profiler session, lets device events
+                of sessions many minutes later fall outside their
+                windows, and the seg_hist and profile phases' sessions
+                come later in this process); both walls and the traced
+                overhead; the Chrome export valid with no dropped span;
+                the span categories (workflow, plan, stage, sweep at
+                least); the selector stage's profiled seg_hist_groups
+                and seg_hist_reduce kernels (one of each a launch) equal
+                to its seg_hist launches, and its summed kernel time
+                against its wall; the transfer ledger (launches by tag
+                against the counter); the disabled hooks' cost
+                (estimate_disabled_overhead_s over the traced run's
+                spans and events) under OBS_FRAC_LIMIT of the untraced
+                wall; the same winner traced and untraced. Then
+                ``python -m transmogrifai_tpu_torch trace FILE`` in a
+                child beside the selector_options phase, whose summary
+                must name workflow.train (an ``obs_cli`` line)
   4b. selector_options  the selector's options, four legs, a
                 ``selector_options`` line each. Leg a: the default
                 selector with strategy="halving" on the same 1M + 100k
@@ -139,7 +161,10 @@ card's aggregate shared-memory rate):
                 b's checked matrix (an LR grid and one forest, one fit a
                 unit): one injected device loss (retries 1, quarantined
                 0, the reference's metrics), a persistent one on the
-                forest (it alone quarantined), the watchdog at
+                forest (it alone quarantined), both under a trace whose
+                flight kinds must run fault.fired ->
+                elastic.device_losses -> elastic.retries with every
+                elastic event on a sweep.unit[i] span, the watchdog at
                 SO_WATCHDOG_FACTOR over a CostModel fitted on leg b's
                 group walls with an injected sleep of SO_SLOW_FACTOR
                 deadlines (degraded, then ``failed: straggler``), and
@@ -180,7 +205,9 @@ card's aggregate shared-memory rate):
                 fit's GOSS chain and 2 trees of a regression forest
                 (depth 12, one-third subsets)
   6. titanic    the reference's headline demo, examples/op_titanic_simple.py
-                with this package's imports, on 1 000 000 + 100 000 rows
+                with this package's imports, on the first 1/TITANIC_DEPTH_CUT
+                (500 000 + 50 000, cut from 1 000 000 + 100 000 to pay for
+                the obs phase) of the Titanic rows
                 of examples/bench_pipeline.py's make_titanic_like recipe
                 (``make_titanic``: no pandas) with the label redrawn from a
                 logit of sex, class, fare and age: the train's split by
@@ -209,8 +236,8 @@ card's aggregate shared-memory rate):
                 SmartText model's pivot block built on the card from its
                 int32 indices on PIVOT_CHECK_ROWS holdout rows, bitwise
                 against the host build of the same indices, both timed
-  6b. validate_explain  the first 1/VE_DEPTH_CUT of the Titanic phase's
-                rows and holdout (250k + 25k, cut from 1M + 100k to keep
+  6b. validate_explain  the first 1/VE_DEPTH_CUT of the Titanic rows
+                and holdout (125k + 12.5k, cut from 1M + 100k to keep
                 the smoke within its time limit) with two
                 planted raw features (seed VE_SEED): ``leak``, null exactly
                 where Survived is 1, and ``rare``, filled on VE_RARE_SHARE
@@ -237,9 +264,9 @@ card's aggregate shared-memory rate):
                 SanityChecker on the slice's 1M x 500 matrix (seconds, 50
                 columns within 1e-5 of float64 numpy) and LOCO through the
                 slice's boosted model on VE_XGB_LOCO_ROWS holdout rows
-  6c. feature_eng  the first 1/FE_DEPTH_CUT of the Titanic phase's rows
-                and holdout (125k + 12.5k, cut from 1M + 100k to pay for
-                the selector_options and refresh_cv phases)
+  6c. feature_eng  the first 1/FE_DEPTH_CUT of the Titanic rows
+                and holdout (62.5k + 6.25k, cut from 1M + 100k to pay for
+                the selector_options, refresh_cv and obs phases)
                 with four more raw
                 columns from FE_SEED (``feature_eng_columns``: Email with
                 10% null and 5% malformed, EmailMap of it, Phone with US,
@@ -268,7 +295,8 @@ card's aggregate shared-memory rate):
                 ``path`` "dt_bucketizer_*": kernel, plain, library, bound);
                 save -> load -> FE_ROUNDTRIP_ROWS holdout rows bitwise.
                 Leg ``options`` (``build_fe_options`` on
-                FE_OPTIONS_ROWS + FE_OPTIONS_HOLDOUT of the phase's rows
+                the first FE_OPTIONS_ROWS + FE_OPTIONS_HOLDOUT of the
+                phase's rows (all of them where it has fewer)
                 with map, geolocation, integral and set columns made from
                 their own columns, ``fe_options_data``): every option of
                 the feature-engineering stages off its default (the map
@@ -284,9 +312,9 @@ card's aggregate shared-memory rate):
                 (examples/op_titanic_avro_combined.py's ``build`` with the
                 port's imports: ``build_avro_combined``): the Titanic
                 recipe's first rows / AVRO_DEPTH_CUT and holdout /
-                AVRO_DEPTH_CUT (125k + 12.5k, cut from 1M + 100k to pay
-                for the selector_options phase and the out_of_core
-                phase's leg d): their seven demo
+                AVRO_DEPTH_CUT (62.5k + 6.25k, cut from 1M + 100k to pay
+                for the selector_options phase, the out_of_core phase's
+                leg d and the obs phase): their seven demo
                 columns and label
                 written by the port's write_avro (deflate) as two files
                 (``avro_write_s``), read inside train() through
@@ -314,7 +342,8 @@ card's aggregate shared-memory rate):
                 CSV with the ``csv`` module (seconds, bytes). Leg a:
                 examples/bench_ingest.py's DAG (the ten predictors ->
                 transmogrify -> SanityChecker(max_correlation=0.99) ->
-                OpNaiveBayes) trained in-core and with
+                OpNaiveBayes) on the first 1/OOC_A_ROWS_CUT of those
+                training rows (250k) trained in-core and with
                 train(chunk_rows=OOC_CHUNK_ROWS), each in a child process
                 of its own (``--ooc-child``): wall, peak RSS sampled from
                 /proc/self/statm and its delta over the post-import
@@ -510,7 +539,7 @@ card's aggregate shared-memory rate):
   12. serve     both trained models (the slice's boosted model, the
                 selector's winner): save (seconds, bytes) and load on the
                 card (seconds); the holdout scored after the round trip
-                bitwise equal to the in-memory model; CSV_ROWS (5k) holdout rows
+                bitwise equal to the in-memory model; CSV_ROWS (2.5k) holdout rows
                 written as CSV (floats by repr) and read back by CSVReader
                 scoring equal to the in-memory model; single-row
                 requests through score_function_batch split by stage
@@ -521,8 +550,13 @@ card's aggregate shared-memory rate):
                 mean batch, padded share), BIG_REQUESTS (50) requests of
                 64 rows (p50/p99), served scores within 1e-6
                 of the in-memory model's (and the bitwise share), no shed,
-                device error or host fallback; /score, /healthz and
-                /metrics over HTTP on 127.0.0.1; and the committed
+                device error or host fallback; OBS_SERVE_REQUESTS (20)
+                single rows under a trace, whose serve.admit >
+                serve.batch > serve.execute spans must nest across the
+                dispatch thread, and the Prometheus text of a snapshot
+                parsed back to its request count; /score, /healthz,
+                /metrics and /metrics?format=prometheus (the same
+                request count) over HTTP on 127.0.0.1; and the committed
                 tests/fixtures/model_v1 scored on the card within 1e-5 of
                 its expected scores.  The phase must launch no kernel
                 (scoring is plain torch on the card)
@@ -652,6 +686,8 @@ from transmogrifai_tpu_torch.types import feature_types as ft
 from transmogrifai_tpu_torch.tuning.halving import (HalvingConfig,
                                                     nested_subsample_order)
 from transmogrifai_tpu_torch.types.columns import ColumnarDataset, FeatureColumn
+from transmogrifai_tpu_torch import obs
+from transmogrifai_tpu_torch.utils import profiling as tprof
 from transmogrifai_tpu_torch.utils.profiling import (MetricsCollector,
                                                      install_collector)
 from transmogrifai_tpu_torch.utils.streaming_histogram import \
@@ -674,8 +710,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 #: single-row requests, a burst of single rows from several threads,
 #: 64-row requests, rows over HTTP
 # the serve phase's depth, cut (from 500, 4096, 200 and 20 profiled
-# requests, and from 10k CSV rows) to keep the smoke within its time limit
-CSV_ROWS, SEQ_REQUESTS, BURST_REQUESTS, BURST_THREADS = 5_000, 200, 1024, 8
+# requests, and from 10k CSV rows, then 5k to pay for the obs phase) to
+# keep the smoke within its time limit
+CSV_ROWS, SEQ_REQUESTS, BURST_REQUESTS, BURST_THREADS = 2_500, 200, 1024, 8
 BIG_REQUESTS, HTTP_ROWS, SPLIT_REQUESTS = 50, 4, 20
 PROFILE_REQUESTS = 5
 #: boosting rounds of the profiled fit (one early-stopping chunk)
@@ -864,6 +901,11 @@ OOC_DRIFT_ROWS, OOC_LATENCY_REQUESTS = 2000, 200
 #: the smoke's time limit.  (At 4, 250k + 25k rows, leg c's clean rows
 #: drift on Cabin: its PSI sits at the 0.25 threshold, 0.248 at 500k.)
 OOC_DEPTH_CUT = 2
+#: leg a (bench_ingest's DAG, in-core and chunked, each a child) trains on
+#: the first 1/OOC_A_ROWS_CUT of the phase's training rows (all of them
+#: before the obs phase; it pays for that phase with the cuts marked
+#: "obs" below)
+OOC_A_ROWS_CUT = 2
 #: the out_of_core phase's leg d (kill and resume): the first
 #: OOC_CKPT_ROWS rows of the phase's train CSV and OOC_CKPT_HOLDOUT of its
 #: holdout rows, chunks of OOC_CKPT_CHUNK_ROWS (7 chunks), a checkpoint
@@ -899,16 +941,14 @@ REFRESH_CV_PREDICTED = {"a_s": [20.0, 40.0], "b_s": [15.0, 30.0],
                         "c_s": [18.0, 35.0], "phase_s": [55.0, 100.0],
                         "smoke_s": [710.0, 760.0],
                         "smoke_slow_host_s": [980.0, 1080.0]}
-#: the wall of the smoke's run before the refresh_cv phase was added
-#: (the H100 at 700 W), printed beside its total
-SMOKE_PREVIOUS_S = 699.8
 
 # the events phase (6f): examples/bench_events.py's clickstream (its
 # per-user distributions; seed 9 for the train log, 10 for the holdout
-# log), leg a's users and chunk rows, leg b's users, its corrupted lines
-# and its drift monitor's window
+# log), leg a's users (the holdout's cut from 5 000 to pay for the obs
+# phase) and chunk rows, leg b's users, its corrupted lines and its drift
+# monitor's window
 EV_SEED, EV_HOLD_SEED = 9, 10
-EV_USERS, EV_HOLD_USERS, EV_B_USERS = 25_000, 5_000, 2_000
+EV_USERS, EV_HOLD_USERS, EV_B_USERS = 25_000, 2_500, 2_000
 EV_CHUNK_ROWS, EV_B_CHUNK_ROWS = 4096, 256
 EV_BAD_LINES = 5
 EV_DRIFT_ROWS = 20
@@ -927,8 +967,8 @@ EV_AUROC_FLOOR = 0.9576739050423261 - 0.02
 # the app phase (6g): the generated Titanic project on a Titanic-shaped
 # CSV; its scores against the in-process ones (200 000 rows before the
 # selector_options phase, 100 000 before the out_of_core phase's leg d,
-# 50 000 before the refresh_cv phase)
-APP_ROWS = 25_000
+# 50 000 before the refresh_cv phase, 25 000 before the obs phase)
+APP_ROWS = 12_500
 APP_SCORE_TOL = 1e-6
 #: the selector_options phase: legs b-d's rows (the selector
 #: recipe and the Titanic demo's; cut from 200 000 + 20 000, and from
@@ -949,13 +989,14 @@ SO_WATCHDOG_FACTOR = 2.0
 SO_SLOW_FACTOR = 2.5
 SO_C_TREES = 20
 SO_CHECK_TREES = 10
-#: depth cuts that pay for the selector_options and refresh_cv phases
+#: depth cuts that pay for the selector_options, refresh_cv and obs phases
 #: within the smoke's time limit: the feature_eng and avro_combined phases
 #: run on the Titanic rows and holdout divided by these (1M + 100k before
 #: the selector_options phase; avro_combined 4 before the out_of_core
-#: phase's leg d, feature_eng 4 before the refresh_cv phase)
-FE_DEPTH_CUT = 8
-AVRO_DEPTH_CUT = 8
+#: phase's leg d and 8 before the obs phase, feature_eng 4 before the
+#: refresh_cv phase and 8 before the obs phase)
+FE_DEPTH_CUT = 16
+AVRO_DEPTH_CUT = 16
 #: the regression, multiclass, boosted_multi and xgb_wide phases run on
 #: the smoke's rows and holdout divided by this (1M + 100k at first, 2
 #: before the refresh_cv phase), so that the smoke ends well
@@ -963,8 +1004,11 @@ AVRO_DEPTH_CUT = 8
 MODEL_DEPTH_CUT = 4
 #: the validate_explain phase runs on the Titanic rows and holdout divided
 #: by this (1M + 100k before the selector_options phase, 2 before the
-#: refresh_cv phase)
-VE_DEPTH_CUT = 4
+#: refresh_cv phase, 4 before the obs phase)
+VE_DEPTH_CUT = 8
+#: the titanic phase (and its efb line) runs on the Titanic rows and
+#: holdout divided by this (1M + 100k before the obs phase)
+TITANIC_DEPTH_CUT = 2
 #: the pivot-block checks: rows (the first of a phase's dataset), timing
 #: repetitions, and the times predicted before the first chip run
 #: (PERF.md section 6): the card's build and the host's build with
@@ -977,6 +1021,22 @@ PIVOT_PREDICTED = {"card_ms": [0.1, 2.0], "host_ms": [15.0, 150.0]}
 FE_OPTIONS_ROWS, FE_OPTIONS_HOLDOUT = 100_000, 10_000
 FE_OPTIONS_FILL = 7
 FE_OPTIONS_PREDICTED = {"train_s": [4.0, 12.0]}
+#: the obs phase (4a): the selector's training rows it takes (the first of
+#: the selector phase's), the limit on the disabled hooks' cost as a share
+#: of the untraced train's wall, the single-row requests the serve phase
+#: traces, and the walls predicted (PERF.md section 6; revised after the
+#: first chip runs and before the final proof): the untraced and the
+#: traced train, the phase, and the whole smoke on a host like the
+#: previous final proof run's and on a host 1.6x slower on host work
+OBS_ROWS = 100_000
+OBS_FRAC_LIMIT = 0.01
+OBS_SERVE_REQUESTS = 20
+OBS_PREDICTED = {"untraced_s": [9.0, 12.5], "traced_s": [26.0, 44.0],
+                 "phase_s": [42.0, 70.0], "smoke_s": [740.0, 775.0],
+                 "smoke_slow_host_s": [1060.0, 1080.0]}
+#: the wall of the smoke's final proof run before the obs phase was added
+#: (the H100 at 700 W), printed beside its total
+SMOKE_PREVIOUS_S = 749.4
 #: seconds after which the script writes every thread's stack to stderr
 #: (it goes on running): what a run stopped at the 1 200 s limit was doing
 STACKS_AT_S = 1_100
@@ -1617,6 +1677,203 @@ def phase_selector(data, cols: int) -> dict:
           f"{meta['hist_levels']} histogram levels")
     check(0.6 < aupr <= 1.0, f"holdout AuPR {aupr} outside (0.6, 1]")
     return out, served
+
+
+def _obs_train(train, cols: int):
+    """(model, selector, seconds, seg_hist launches) of the default binary
+    selector's ``train(profile=True)`` on ``train``."""
+    selector = BinaryClassificationModelSelector.with_cross_validation()
+    pred, _ = _selector_pipeline(cols, selector)
+    wf = OpWorkflow().set_result_features(pred).set_input_data(train)
+    torch.cuda.synchronize()
+    launches0 = gk.seg_level_hists.launches
+    t0 = time.perf_counter()
+    model = wf.train(profile=True)
+    torch.cuda.synchronize()
+    return (model, selector, time.perf_counter() - t0,
+            gk.seg_level_hists.launches - launches0)
+
+
+def obs_child(tmp: str, cols: int) -> None:
+    """The obs phase's two trains, in a process of their own (``--obs-child
+    DIR``): the default selector on DIR's x.npy / y.npy, untraced, then
+    under ``obs.start_trace()`` with the kernel mix; writes the Chrome
+    trace (DIR/trace.json) and the readings (DIR/obs.json).  A process of
+    its own because the first torch.profiler session starts kineto's
+    clock, and device events of sessions many minutes later (the smoke's
+    seg_hist and profile phases) then fall outside their windows."""
+    X, y = np.load(os.path.join(tmp, "x.npy")), np.load(
+        os.path.join(tmp, "y.npy"))
+    train = _dataset(X, y)
+    del X
+    tprof.reset_counters()
+    m0, sel0, untraced_s, launches0 = _obs_train(train, cols)
+    tracer = obs.start_trace("chip_smoke.obs")
+    try:
+        m1, sel1, traced_s, launches1 = _obs_train(train, cols)
+    finally:
+        obs.stop_trace()
+    ledger = tprof.COUNTERS.to_json()
+    spans = tracer.snapshot()
+    events = tracer.flight.events()
+    doc = obs.to_chrome_trace(tracer)
+    path = os.path.join(tmp, "trace.json")
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+    stage, stage0 = (next(sp for sp in m.train_profile.stages
+                          if sp.op == "ModelSelector") for m in (m1, m0))
+    hooks = len(spans) + len(events)
+    disabled_s = obs.estimate_disabled_overhead_s(hooks)
+    summ0 = sel0.metadata["model_selector_summary"]
+    summ1 = sel1.metadata["model_selector_summary"]
+    res = {"untraced_s": untraced_s, "traced_s": traced_s,
+           "spans": len(spans), "events": len(events),
+           "categories": sorted({sp.cat for sp in spans}),
+           "dropped_spans": doc["otherData"]["droppedSpans"],
+           "chrome_problems": obs.validate_chrome_trace(doc),
+           "trace_bytes": os.path.getsize(path),
+           "stage_wall_s": stage.wall_s, "stage_launches": stage.launches,
+           "untraced_stage_wall_s": stage0.wall_s,
+           "stage_hlo": stage.hlo,
+           "stage_mix_fields": {sp.op: sorted(sp.hlo) for sp in
+                                m1.train_profile.stages},
+           "launches": [launches0, launches1], "ledger": ledger,
+           "disabled_hooks_s": disabled_s,
+           "winners": [[summ0["bestModelType"], summ0["bestModelParams"]],
+                       [summ1["bestModelType"], summ1["bestModelParams"]]],
+           "bench_meta": obs.bench_meta(wall_s=traced_s)}
+    with open(os.path.join(tmp, "obs.json"), "w") as fh:
+        json.dump(res, fh, default=str)
+
+
+def phase_obs(data, cols: int) -> Tuple[dict, dict]:
+    """Observability on the card (the module docstring's phase 4a): the
+    default selector on the first OBS_ROWS training rows, untraced, then
+    under ``obs.start_trace()`` with the kernel mix captured, both in a
+    child (``obs_child``); the Chrome export validated; the selector
+    stage's profiled ``seg_hist`` kernels against its launches; the
+    disabled hooks' cost against the untraced wall; the transfer ledger.
+    ``python -m transmogrifai_tpu_torch trace`` then summarizes the export
+    in a child that runs beside the next phase: returns the phase's line
+    and that child, for ``finish_obs_cli``."""
+    phase_t0 = time.perf_counter()
+    train = data[0]
+    tmp = tempfile.mkdtemp(prefix="tmog_obs_")
+    try:
+        np.save(os.path.join(tmp, "x.npy"), np.stack(
+            [np.asarray(train[f"f{j}"].values[:OBS_ROWS])
+             for j in range(cols)], axis=1))
+        np.save(os.path.join(tmp, "y.npy"),
+                np.asarray(train["label"].values[:OBS_ROWS]))
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--obs-child", tmp,
+             "--cols", str(cols)], capture_output=True, text=True,
+            timeout=900)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == 0, f"obs: the child failed (exit "
+              f"{child.returncode}): {child.stderr[-2000:]}")
+        with open(os.path.join(tmp, "obs.json")) as fh:
+            res = json.load(fh)
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "transmogrifai_tpu_torch", "trace",
+             os.path.join(tmp, "trace.json"), "--top", "5"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    mix = res["stage_hlo"]
+    ops = mix.get("ops", {})
+    groups = sum(n for k, n in ops.items() if "seg_hist_groups" in k)
+    reduces = sum(n for k, n in ops.items() if "seg_hist_reduce" in k)
+    launches0, launches1 = res["launches"]
+    untraced_s, traced_s = res["untraced_s"], res["traced_s"]
+    frac = res["disabled_hooks_s"] / untraced_s
+    stage_launches = res["stage_launches"]
+    out = {"phase": "obs", "rows": OBS_ROWS, "cols": cols,
+           "untraced_s": untraced_s, "traced_s": traced_s,
+           "traced_overhead_s": traced_s - untraced_s,
+           "traced_over_untraced": traced_s / untraced_s,
+           "child_s": child_s,
+           **{k: res[k] for k in ("spans", "events", "dropped_spans",
+                                  "categories", "trace_bytes",
+                                  "stage_mix_fields", "ledger",
+                                  "disabled_hooks_s", "winners",
+                                  "bench_meta")},
+           "chrome_problems": res["chrome_problems"][:5],
+           "selector_stage": {
+               "wall_s": res["stage_wall_s"], "launches": stage_launches,
+               "untraced_wall_s": res["untraced_stage_wall_s"],
+               "profiled_programs": mix.get("programs"),
+               "profiled_seg_hist_groups": groups,
+               "profiled_seg_hist_reduce": reduces,
+               "device_s": mix.get("deviceSecs"),
+               "kernel_time_share": (mix.get("deviceSecs", 0.0)
+                                     / res["stage_wall_s"]),
+               # the card's kernel time against the untraced stage's wall:
+               # the busy share of the selector stage as users run it
+               "kernel_time_share_untraced": (
+                   mix.get("deviceSecs", 0.0)
+                   / res["untraced_stage_wall_s"]),
+               "top_kernels": [(k[:80], n) for k, n in sorted(
+                   ops.items(), key=lambda kv: -kv[1])[:8]]},
+           "seg_hist_launches": launches0 + launches1,
+           "launches_untraced_traced": [launches0, launches1],
+           "obs_frac_of_train": frac, "obs_frac_limit": OBS_FRAC_LIMIT,
+           "predicted": OBS_PREDICTED,
+           "phase_s": time.perf_counter() - phase_t0}
+    emit(out)
+    pending = {"proc": cli, "tmp": tmp, "t0": time.perf_counter()}
+    try:
+        check(not res["chrome_problems"] and out["dropped_spans"] == 0,
+              f"obs: the Chrome trace is invalid "
+              f"({res['chrome_problems'][:3]}) or dropped "
+              f"{out['dropped_spans']} spans")
+        check({"workflow", "plan", "stage", "sweep"}
+              <= set(out["categories"]),
+              f"obs: span categories {out['categories']}")
+        check(stage_launches > 0 and stage_launches == launches1
+              and groups == stage_launches and reduces == stage_launches,
+              f"obs: the profiler saw {groups} seg_hist_groups and "
+              f"{reduces} seg_hist_reduce kernels in the selector stage, "
+              f"which launched seg_hist {stage_launches} times "
+              f"({launches1} in the train)")
+        check(out["ledger"]["launchTags"].get("seg_hist")
+              == launches0 + launches1,
+              f"obs: the ledger's seg_hist launches "
+              f"{out['ledger']['launchTags']} != {launches0 + launches1}")
+        check(frac < OBS_FRAC_LIMIT, f"obs: {res['spans'] + res['events']} "
+              f"disabled hooks cost {res['disabled_hooks_s']} s, {frac} of "
+              f"the untraced train")
+        check(res["winners"][0] == res["winners"][1],
+              f"obs: the traced train chose another winner: "
+              f"{res['winners']}")
+    except BaseException:
+        finish_obs_cli(pending, emit_line=False)
+        raise
+    return out, pending
+
+
+def finish_obs_cli(pending: dict, emit_line: bool = True) -> None:
+    """Wait for the obs phase's ``trace`` child, print its ``obs_cli``
+    line, remove the export, and check that its summary names
+    workflow.train."""
+    proc = pending["proc"]
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(pending["tmp"], ignore_errors=True)
+    if not emit_line:
+        return
+    emit({"phase": "obs_cli", "rc": proc.returncode,
+          "waited_s": time.perf_counter() - pending["t0"],
+          "summary_head": stdout.splitlines()[:8]})
+    check(proc.returncode == 0 and "workflow.train" in stdout,
+          f"obs: `trace` exited {proc.returncode}: {stderr[-500:]}")
 
 
 def make_regression_data(data):
@@ -3983,7 +4240,10 @@ def phase_out_of_core(rows: int, holdout: int, reps: int, bw: float,
         attainable = aupr(y_hold, torch.from_numpy(
             p[rows:rows + holdout].astype(np.float32)))
         base_rate = float(y_hold.mean())
-        leg_a = _ooc_leg_a(train_csv, hold_csv, base_rate, attainable)
+        train_a_csv = os.path.join(tmp, "train_a.csv")
+        write_ooc_csv(train_a_csv, cols, 0, rows // OOC_A_ROWS_CUT)
+        leg_a = _ooc_leg_a(train_a_csv, hold_csv, base_rate, attainable)
+        os.remove(train_a_csv)
 
         # -- leg b: the filter, the streamed prefix, the selector tail ----
         hold_reader = CSVReader(hold_csv)
@@ -5259,18 +5519,25 @@ def _so_leg_c(X: torch.Tensor, y: np.ndarray, sweep_seconds: dict):
     gk.seg_level_hists.launches = 0
     best0, ref, ref_s = _so_validate(selector(), X, y)
     runs = {}
-    for name, spec in (
-            ("one_loss", faults.FaultSpec(point="device.loss",
-                                          action="device_loss", at=1,
-                                          times=1)),
-            ("persistent_loss", faults.FaultSpec(
-                point="device.loss", action="device_loss", at=4,
-                times=None))):
-        sel = selector()
-        ctx = sel._elastic_context(n, d, 5, "cuda")
-        with faults.inject(spec):
-            best, res, secs = _so_validate(sel, X, y, ctx)
-        runs[name] = (best, res, ctx.counters.to_json(), secs)
+    # the ladder runs under a trace: its flight events must link to the
+    # sweep units they happened in
+    tracer = obs.start_trace("selector_options.c", capture_hlo=False)
+    try:
+        for name, spec in (
+                ("one_loss", faults.FaultSpec(point="device.loss",
+                                              action="device_loss", at=1,
+                                              times=1)),
+                ("persistent_loss", faults.FaultSpec(
+                    point="device.loss", action="device_loss", at=4,
+                    times=None))):
+            sel = selector()
+            ctx = sel._elastic_context(n, d, 5, "cuda")
+            with faults.inject(spec):
+                best, res, secs = _so_validate(sel, X, y, ctx)
+            runs[name] = (best, res, ctx.counters.to_json(), secs)
+    finally:
+        obs.stop_trace()
+    ladder = _ladder_trace(tracer)
     # the watchdog: a cost model fitted on leg b's group walls on this card
     cm = CostModel().fit([
         StageObservation("ModelSelector:fit", n, d, "float32", "cuda",
@@ -5315,7 +5582,7 @@ def _so_leg_c(X: torch.Tensor, y: np.ndarray, sweep_seconds: dict):
                    default=0.0)
 
     out = {"leg": "c", "units": 5, "reference_s": ref_s,
-           "watchdog_deadline_s": deadline,
+           "ladder_trace": ladder, "watchdog_deadline_s": deadline,
            "slow_delay_s": SO_SLOW_FACTOR * deadline,
            "prefetch": sel.metadata.get("tree_prefetch"),
            "prefetch_drains_joined": drains,
@@ -5329,6 +5596,9 @@ def _so_leg_c(X: torch.Tensor, y: np.ndarray, sweep_seconds: dict):
           and all(r.error is None for r in one[1]) and one[0] == best0
           and diff(one[1]) <= SO_METRIC_TOL,
           f"selector_options: one device loss {out['one_loss']}")
+    check(ladder["chain_in_order"] and ladder["elastic_events"] > 0
+          and ladder["elastic_off_units"] == 0,
+          f"selector_options: the traced ladder {ladder}")
     check(per[2]["quarantined"] == 1 and per[1][4].error.startswith(
         "failed: device_loss") and sum(r.error is not None
                                        for r in per[1]) == 1,
@@ -5344,6 +5614,25 @@ def _so_leg_c(X: torch.Tensor, y: np.ndarray, sweep_seconds: dict):
           f"selector_options: the prefetch thread after a loss: {drains}, "
           f"{sel.metadata.get('tree_prefetch')}")
     return out, launches
+
+
+def _ladder_trace(tracer) -> dict:
+    """The traced ladder's flight record: the kinds in causal order, the
+    fault -> loss -> retry chain, each elastic event's span."""
+    kinds = tracer.flight.kinds()
+    units = {sp.span_id: sp.name for sp in tracer.snapshot()
+             if sp.name.startswith("sweep.unit[")}
+    elastic = tracer.flight.events("elastic.")
+    it = iter(kinds)
+    chain = all(any(k == h for h in it) for k in (
+        "fault.fired", "elastic.device_losses", "elastic.retries"))
+    return {"kinds": kinds[:12], "events": len(kinds),
+            "elastic_events": len(elastic),
+            "elastic_spans": sorted({units.get(e["spanId"], "?")
+                                     for e in elastic}),
+            "elastic_off_units": sum(e["spanId"] not in units
+                                     for e in elastic),
+            "chain_in_order": chain}
 
 
 def _so_leg_d():
@@ -6836,6 +7125,7 @@ def _serve_model(m: dict, rows: list, tmp: str) -> dict:
             for j, o in enumerate(out):
                 served_p1.setdefault(64 * k + j, []).append(
                     o[pred.name]["probability_1"])
+        traced = _traced_requests(srv, rows[:OBS_SERVE_REQUESTS])
         http = _http_check(srv, rows[:HTTP_ROWS], pred.name)
         snap = srv.snapshot()
     finally:
@@ -6867,7 +7157,8 @@ def _serve_model(m: dict, rows: list, tmp: str) -> dict:
            "server_latency_ms": snap["latencyMs"],
            "batch_histogram": snap["batchSizeHistogram"],
            "shed": snap["shed"], "device_errors": snap["deviceErrors"],
-           "host_fallbacks": snap["hostFallbacks"], "http": http}
+           "host_fallbacks": snap["hostFallbacks"], "http": http,
+           "traced": traced}
     what = f"serve {name}"
     check(bitwise_holdout, f"{what}: holdout scores after save/load differ "
           f"from the in-memory model's")
@@ -6880,6 +7171,49 @@ def _serve_model(m: dict, rows: list, tmp: str) -> dict:
           f"{what}: shed {snap['shed']}, device errors "
           f"{snap['deviceErrors']}, host fallbacks {snap['hostFallbacks']}")
     return out, loaded
+
+
+def _traced_requests(srv, rows: list) -> dict:
+    """OBS_SERVE_REQUESTS single rows under a trace: each request's
+    serve.admit span must hold its batch's serve.batch span, which holds
+    the serve.execute span; then the Prometheus text of a snapshot must
+    parse and count the snapshot's requests."""
+    tracer = obs.start_trace("serve", capture_hlo=False)
+    t0 = time.perf_counter()
+    try:
+        for r in rows:
+            srv.score([r])
+    finally:
+        obs.stop_trace()
+    traced_s = time.perf_counter() - t0
+    spans = tracer.snapshot()
+    by_id = {sp.span_id: sp for sp in spans}
+
+    def parent(sp):
+        return by_id.get(sp.parent_id)
+
+    names = [sp.name for sp in spans]
+    nested = sum(1 for sp in spans if sp.name == "serve.execute"
+                 and parent(sp) is not None
+                 and parent(sp).name == "serve.batch"
+                 and parent(parent(sp)) is not None
+                 and parent(parent(sp)).name == "serve.admit")
+    snap = srv.snapshot()
+    text = obs.prometheus_text(snap)
+    samples = obs.parse_exposition(text)
+    out = {"requests": len(rows), "seconds": traced_s,
+           "admit": names.count("serve.admit"),
+           "batch": names.count("serve.batch"),
+           "execute": names.count("serve.execute"), "nested": nested,
+           "prometheus_requests": samples["tmog_serving_requests_total"],
+           "snapshot_requests": snap["requests"],
+           "prometheus_lines": len(text.splitlines())}
+    check(out["admit"] == out["nested"] == len(rows),
+          f"serve: traced spans do not nest admit > batch > execute: {out}")
+    check(out["prometheus_requests"] == snap["requests"],
+          f"serve: the Prometheus request count differs from the JSON "
+          f"snapshot's: {out}")
+    return out
 
 
 def _http_check(srv, rows: list, pred_name: str) -> dict:
@@ -6903,6 +7237,9 @@ def _http_check(srv, rows: list, pred_name: str) -> dict:
             health = json.loads(resp.read())
         with urlopen(base + "/metrics", timeout=60) as resp:
             metrics = json.loads(resp.read())
+        with urlopen(base + "/metrics?format=prometheus",
+                     timeout=60) as resp:
+            prom = obs.parse_exposition(resp.read().decode())
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -6911,11 +7248,16 @@ def _http_check(srv, rows: list, pred_name: str) -> dict:
     same = [s[pred_name] == d[pred_name] for s, d in zip(scores, direct)]
     out = {"rows": len(rows), "score_s": score_s,
            "healthz": health["status"], "metrics_requests":
-           metrics["requests"], "same_scores": all(same)}
+           metrics["requests"], "prometheus_requests":
+           prom["tmog_serving_requests_total"], "same_scores": all(same)}
     check(len(scores) == len(rows) and all(same),
           f"http: /score differs from the server's scores")
     check(health["status"] == "ok", f"http: /healthz {health}")
     check(metrics["requests"] > 0, "http: /metrics shows no request")
+    check(prom["tmog_serving_requests_total"] == metrics["requests"],
+          f"http: /metrics?format=prometheus counts "
+          f"{prom['tmog_serving_requests_total']} requests, the JSON "
+          f"{metrics['requests']}")
     return out
 
 
@@ -7116,6 +7458,8 @@ def main() -> int:
     # the out_of_core phase's leg d runs a checkpointed train in a child
     # it kills
     ap.add_argument("--ckpt-child", help=argparse.SUPPRESS)
+    # the obs phase runs its two trains in a child
+    ap.add_argument("--obs-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs one",
@@ -7133,6 +7477,10 @@ def main() -> int:
     if args.ckpt_child:
         torch.backends.cuda.matmul.allow_tf32 = False
         ckpt_child(args.ooc_train, args.ooc_holdout, args.ckpt_child)
+        return 0
+    if args.obs_child:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        obs_child(args.obs_child, args.cols)
         return 0
     if args.events_child:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -7172,13 +7520,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     sel, lr = phase_selector(data, args.cols)
     torch.cuda.empty_cache()
+    obs_line, obs_cli = phase_obs(data, args.cols)
+    torch.cuda.empty_cache()
     options, _ = phase_selector_options(data, sel["holdout_aupr"], args.cols,
                                         args.reps, bw, f32)
+    finish_obs_cli(obs_cli)
     torch.cuda.empty_cache()
     reg = phase_regression(_rows_cut(data, MODEL_DEPTH_CUT), args.cols)
     torch.cuda.empty_cache()
     tdata = titanic_data(args.rows, args.holdout)
-    titanic = phase_titanic(tdata, args.reps, bw, f32, smem_bw)
+    titanic = phase_titanic(_depth_cut(tdata, TITANIC_DEPTH_CUT), args.reps,
+                            bw, f32, smem_bw)
     torch.cuda.empty_cache()
     validate = phase_validate_explain(_depth_cut(tdata, VE_DEPTH_CUT), data,
                                       xgb, args.cols)
@@ -7252,6 +7604,7 @@ def main() -> int:
         "name": "seg_hist", "route": "cuda", "source": SEG_HIST_SOURCE,
         "replaces": SEG_HIST_REPLACES,
         "launches": (sl["seg_hist_launches"] + sel["seg_hist_launches"]
+                     + obs_line["seg_hist_launches"]
                      + options["seg_hist_launches"]
                      + reg["seg_hist_launches_total"]
                      + titanic["seg_hist_launches"]
@@ -7272,8 +7625,8 @@ def main() -> int:
         "library_ms": mean("library_ms")}]})
     emit({"phase": "smoke_total", "s": time.perf_counter() - _T0,
           "previous_s": SMOKE_PREVIOUS_S,
-          "predicted_s": REFRESH_CV_PREDICTED["smoke_s"],
-          "predicted_slow_host_s": REFRESH_CV_PREDICTED["smoke_slow_host_s"]})
+          "predicted_s": OBS_PREDICTED["smoke_s"],
+          "predicted_slow_host_s": OBS_PREDICTED["smoke_slow_host_s"]})
     print(_smi("name,power.limit"), flush=True)
     faulthandler.cancel_dump_traceback_later()
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

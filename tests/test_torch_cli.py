@@ -9,7 +9,8 @@ typing) for headed, headerless and JSON-lines samples and with type
 overrides; ``gen`` writes the same files under the same names; the
 generated app trains, evaluates and scores on the CPU in-process;
 ``serve --score-jsonl`` scores rows as the local scorer does (within
-1e-6); ``lint``, ``trace`` and ``pod`` raise naming their ROADMAP items.
+1e-6); ``trace FILE`` prints the JAX package's summary of the same
+file; ``lint`` and ``pod`` raise naming their ROADMAP items.
 """
 import ast
 import csv
@@ -260,13 +261,53 @@ def test_regression_template_and_the_module_entry(samples, tmp_path):
         assert "RegressionModelSelector" in fh.read()
 
 
-@pytest.mark.parametrize("command,item", [("lint", "6.8"), ("trace", "6.5.5"),
-                                          ("pod", "6.7")])
+@pytest.mark.parametrize("command,item", [("lint", "6.8"), ("pod", "6.7")])
 def test_unported_subcommands_name_their_items(command, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         pmain([command, "anything"])
     with pytest.raises(SystemExit):
         pmain(["nope"])
+
+
+def _trace_file(tmp_path) -> str:
+    """A traced run's Chrome trace, written by the port's exporter."""
+    from transmogrifai_tpu_torch import obs
+
+    tracer = obs.start_trace("cli")
+    try:
+        with obs.span("workflow.train", cat="workflow"):
+            for i in range(4):
+                with obs.span(f"stage:S{i}", cat="stage", i=i):
+                    obs.record_event("fault.fired", index=i)
+    finally:
+        obs.stop_trace()
+    path = str(tmp_path / "trace.json")
+    with open(path, "w") as fh:
+        json.dump(obs.to_chrome_trace(tracer), fh)
+    return path
+
+
+@pytest.mark.parametrize("top", [None, 2])
+def test_trace_prints_the_jax_summary(tmp_path, top):
+    from transmogrifai_tpu.obs.export import summarize_file
+
+    path = _trace_file(tmp_path)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    cmd = [sys.executable, "-m", "transmogrifai_tpu_torch", "trace", path]
+    if top is not None:
+        cmd += ["--top", str(top)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    expected = summarize_file(path, top_k=15 if top is None else top)
+    assert proc.stdout == expected + "\n"
+    assert "workflow.train" in proc.stdout
+    bad = tmp_path / "bad.json"
+    bad.write_text(json.dumps({"traceEvents": [{"ph": "?"}]}))
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        assert pmain(["trace", str(bad)]) == 1
+    assert buf.getvalue() == ""
 
 
 def _typing_samples(tmp_path, n=80):

@@ -1,8 +1,10 @@
 """CLI argument parsing and dispatch (counterpart of
 ``transmogrifai_tpu.cli.main``): ``gen`` writes a project, ``serve``
 serves a saved model on the port's ``ModelServer`` (over HTTP, or over a
-JSONL file of rows with ``--score-jsonl``).  ``lint``, ``trace`` and
-``pod`` raise ``NotImplementedError`` naming their ROADMAP Queue A items.
+JSONL file of rows with ``--score-jsonl``), ``trace FILE [--top K]``
+validates and summarizes an exported Chrome trace
+(``obs.export.summarize_file``).  ``lint`` and ``pod`` raise
+``NotImplementedError`` naming their ROADMAP Queue A items.
 
 Reference: ``cli/CommandParser.scala:82-124`` (gen: --input, --id,
 --response, --overwrite, the project name) and ``CliExec.scala``.
@@ -21,7 +23,6 @@ __all__ = ["main", "build_parser"]
 
 #: subcommands of the JAX package's CLI that wait for their features
 _NOT_PORTED = {"lint": ("the pipeline static analyzer", "6.8"),
-               "trace": ("the trace summarizer", "6.5.5"),
                "pod": ("the local pod launcher", "6.7")}
 
 
@@ -63,6 +64,14 @@ def build_parser() -> argparse.ArgumentParser:
         sub.add_parser(name, add_help=False,
                        help=f"{what} (not ported: ROADMAP Queue A item "
                             f"{item})")
+
+    trc = sub.add_parser(
+        "trace", help="validate + summarize an exported Chrome-trace "
+                      "JSON file (obs.to_chrome_trace; the file itself "
+                      "loads in chrome://tracing / Perfetto)")
+    trc.add_argument("file", help="trace JSON file to summarize")
+    trc.add_argument("--top", type=int, default=15,
+                     help="how many top-duration spans to list")
 
     srv = sub.add_parser(
         "serve", help="serve a persisted model (micro-batched scoring)")
@@ -148,6 +157,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 0
     if args.command == "serve":
         return _run_serve(args)
+    if args.command == "trace":
+        from ..obs.export import summarize_file
+
+        summary = summarize_file(args.file, top_k=args.top)
+        if summary is None:
+            return 1
+        try:
+            print(summary)
+        except BrokenPipeError:   # `... trace f.json | head` is fine
+            pass
+        return 0
     return 2
 
 

@@ -50,6 +50,8 @@ from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
+from ..utils.profiling import count_launch, upload_timed
+
 __all__ = ["TreeArrays", "quantile_bins", "quantile_bins_sparse_aware",
            "SPARSE_SKETCH_ZERO_FRAC", "apply_bins", "default_dir_mask",
            "route_right", "binned_empty", "SegPlan",
@@ -252,10 +254,11 @@ def binned_empty(n: int, d: int, device) -> torch.Tensor:
 def apply_bins(X: torch.Tensor, edges: np.ndarray) -> torch.Tensor:
     """Quantized (N, D) uint8 matrix on X's device: the count of edges below
     each value (+inf edges never count; NaN lands in bin 0).  Rows are
-    padded to a multiple of 16 bytes (``binned_empty``)."""
+    padded to a multiple of 16 bytes (``binned_empty``).  The edges go to
+    the device as a booked upload (``utils.profiling.upload_timed``)."""
     n, d = X.shape
-    e = torch.from_numpy(np.sort(np.asarray(edges, np.float32), axis=1))
-    e = e.to(X.device).contiguous()
+    e = upload_timed(np.sort(np.asarray(edges, np.float32), axis=1),
+                     X.device)
     out = binned_empty(n, d, X.device)
     for a in range(0, n, _BIN_ROW_BLOCK):
         xt = X[a:a + _BIN_ROW_BLOCK].to(torch.float32).T.contiguous()
@@ -875,7 +878,9 @@ def seg_level_hists(binned: torch.Tensor, slot: torch.Tensor,
     (``seg_channel_groups``: one launch for C <= 13 at 32 bins; past it,
     each group's columns are copied into rows of their own); CPU tensors
     take the plain version.  ``seg_level_hists.launches`` counts kernel
-    launches."""
+    launches, as does the run ledger under ``seg_hist``
+    (``utils.profiling.count_launch``); each launch runs two device
+    kernels, ``seg_hist_groups`` and ``seg_hist_reduce``."""
     n, d = binned.shape
     if binned.dtype != torch.uint8 or binned.dim() != 2:
         raise TypeError(f"binned must be (N, d) uint8, got "
@@ -937,6 +942,7 @@ def seg_level_hists(binned: torch.Tensor, slot: torch.Tensor,
         if err != 0:
             raise RuntimeError(f"seg_hist launch failed: CUDA error {err}")
         seg_level_hists.launches += 1
+        count_launch("seg_hist")
     return out
 
 

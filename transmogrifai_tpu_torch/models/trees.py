@@ -58,6 +58,7 @@ import torch
 from ..device import as_device_tensor, resolve_device
 from ..evaluators.metrics import aupr_es
 from ..types.columns import ColumnarDataset
+from ..utils.profiling import upload_timed
 from . import gbdt_kernels
 from .gbdt_kernels import (
     EFB_MIN_WIDTH_RATIO, FeatureBundles, FeatureCSR, HistFn, TreeArrays,
@@ -906,9 +907,9 @@ def maybe_bundle(binned: torch.Tensor, edges, max_bins: int
             return None
         dev = binned.device
         return EFBInputs(b, bundle_matrix(b, binned),
-                         torch.from_numpy(b.end_bin).to(dev),
-                         (torch.from_numpy(b.col_feat).to(dev),
-                          torch.from_numpy(b.col_thresh).to(dev)))
+                         upload_timed(b.end_bin, dev),
+                         (upload_timed(b.col_feat, dev),
+                          upload_timed(b.col_thresh, dev)))
 
     return memo_get(binned, "efb", _edges_key(edges) + (int(max_bins),
                                                         force), build)

@@ -95,7 +95,10 @@ def shrink_mesh(mesh, queue_width: int = 1):
 
 @dataclass
 class ElasticCounters:
-    """The elastic scoreboard of one sweep."""
+    """The elastic scoreboard of one sweep.  Every count is mirrored into
+    the process's ledger (``utils.profiling.count_elastic``) and recorded
+    as an ``elastic.<kind>`` flight event, at this one site, so that the
+    events keep the order the ladder ran in (loss, retry, quarantine)."""
 
     retries: int = 0            # unit re-runs (device loss or watchdog)
     mesh_shrinks: int = 0       # mesh rebuilt smaller
@@ -106,6 +109,11 @@ class ElasticCounters:
 
     def count(self, kind: str, n: int = 1) -> None:
         setattr(self, kind, getattr(self, kind) + n)
+        from ..obs.flight import record_event
+        from ..utils.profiling import count_elastic
+
+        count_elastic(kind, n)
+        record_event(f"elastic.{kind}")
 
     def to_json(self) -> Dict[str, int]:
         return {"retries": self.retries,
@@ -223,12 +231,18 @@ def run_with_deadline(fn: Callable[[], Any], deadline_s: float,
     kernels cannot be interrupted), its result is discarded, and the
     thread goes to ``abandoned`` for :meth:`ElasticContext.drain`.  An
     exception of ``fn`` re-raises here, so the caller's device-loss
-    routing sees it as without a deadline."""
+    routing sees it as without a deadline.  The worker adopts the
+    caller's current span (the sweep unit's), so that what it records
+    links to it."""
+    from ..obs.trace import adopt_span, current_span
+
     box: Dict[str, Any] = {}
+    parent = current_span()
 
     def work():
         try:
-            box["val"] = fn()
+            with adopt_span(parent):
+                box["val"] = fn()
         except BaseException as e:  # noqa: BLE001 - re-raised to caller
             box["err"] = e
 

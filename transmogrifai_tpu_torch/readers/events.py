@@ -42,7 +42,9 @@ secondary aggregation equals its in-core ``generate_dataset`` row for
 row.
 
 Fault points: ``event.window`` fires before each finalized key-window
-chunk, ``join.chunk`` before each joined chunk (utils/faults.py).
+chunk, ``join.chunk`` before each joined chunk (utils/faults.py).  Under
+a trace the key scan is an ``events.scan`` span and each fold an
+``events.fold`` span (``obs/trace.py``).
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ import numpy as np
 from ..aggregators import (AGGREGATOR_REGISTRY, CutOffTime, Event,
                            FeatureAggregator)
 from ..features.feature import Feature
+from ..obs.trace import begin_span, end_span
 from ..types.columns import ColumnarDataset, FeatureColumn
 from ..types.feature_types import ID
 from ..utils import faults
@@ -310,6 +313,9 @@ class StreamingAggregateReader(Reader):
         cond = getattr(self, "target_condition", None)
         drop = getattr(self, "drop_if_no_target", False)
         kind = self.cutoff.kind
+        sp = begin_span("events.scan", cat="ingest",
+                        reader=type(self).__name__,
+                        source=self._source_desc())
         seen: set = set()
         bad: set = set()
         fn_cut: Dict[Any, Optional[int]] = {}
@@ -354,6 +360,7 @@ class StreamingAggregateReader(Reader):
             cutoffs = {k: fn_cut.get(k) for k in keys}
         else:
             cutoffs = {k: None for k in keys}
+        end_span(sp, keys=len(keys), records=seq, bad_records=len(bad))
         return _KeyIndex(keys, cutoffs, seq, frozenset(bad))
 
     # -- estimates (exact: one row per key) -------------------------------
@@ -413,6 +420,8 @@ class StreamingAggregateReader(Reader):
                        (lambda r, _n=g.name: r.get(_n)) for g in gens]
         windows = self._feature_windows(raw_features)
         state = EventFoldState([f.name for f in raw_features])
+        sp = begin_span("events.fold", cat="ingest",
+                        reader=type(self).__name__, keys=stop - start)
         seq = 0
         for records in self._record_chunks():
             for r in records:
@@ -446,6 +455,7 @@ class StreamingAggregateReader(Reader):
                 if not self._in_any_window(t, index.cutoffs.get(k), windows):
                     continue
                 state.add(k, int(t), s, values)
+        end_span(sp, buffered_events=state.event_count())
         return state
 
     def _finalize_block(self, raw_features, aggs, index: _KeyIndex,

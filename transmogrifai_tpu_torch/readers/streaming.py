@@ -26,6 +26,7 @@ from typing import (Any, Callable, Iterable, Iterator, List, Optional,
                     Sequence)
 
 from ..features.feature import Feature
+from ..obs.trace import adopt_span, current_span
 from ..types.columns import ColumnarDataset
 from .base import DataFrameReader, RecordsReader
 
@@ -130,7 +131,9 @@ class AsyncBatcher:
     items that came before it; after the end (or the re-raise) every
     further ``__next__`` raises ``StopIteration``.  ``close()`` releases
     the pump when the consumer leaves early: its puts poll the closed flag,
-    so it never blocks forever on a full queue.
+    so it never blocks forever on a full queue.  The pump thread adopts
+    the span current where the batcher was made (a reader pass's), so
+    that the reader's own spans nest under it.
     """
 
     _DONE = object()
@@ -150,11 +153,14 @@ class AsyncBatcher:
                     continue
             return False
 
+        parent = current_span()
+
         def pump():
             try:
-                for item in source:
-                    if not put(item):
-                        return
+                with adopt_span(parent):
+                    for item in source:
+                        if not put(item):
+                            return
             except BaseException as e:  # re-raised on the consumer side
                 self._err = e
             finally:

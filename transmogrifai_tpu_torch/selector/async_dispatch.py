@@ -90,9 +90,14 @@ def device_promote(scores: torch.Tensor, survivors_out: int,
                    larger_better: bool) -> List[int]:
     """The positions of the top ``survivors_out`` of a (C,) score tensor,
     ascending; ties go to the lower position and NaN scores rank worst.
-    The rung's only host copy is those ``survivors_out`` int32s."""
+    The rung's only host copy is those ``survivors_out`` int32s, booked
+    as a drain under ``halving.promote`` (the next rung's candidates
+    depend on it: nothing can overlap it)."""
+    from ..utils.profiling import fetch_timed
+
     v = scores if larger_better else -scores
     v = torch.where(torch.isnan(v), torch.full_like(v, float("-inf")), v)
     order = torch.sort(v, descending=True, stable=True).indices
-    top = order[:int(survivors_out)].to(torch.int32).cpu()
+    top = fetch_timed(order[:int(survivors_out)].to(torch.int32),
+                      tag="halving.promote")
     return sorted(int(i) for i in top.tolist())

@@ -58,7 +58,7 @@ from ..models.trees import (MEMO_STATS, OpGBTRegressor,
                             _RandomForestBase, prep_tree_inputs)
 from ..types.columns import ColumnarDataset, FeatureColumn
 from ..types.feature_types import Prediction, RealNN
-from ..utils.profiling import backend_name
+from ..utils.profiling import backend_name, count_drain
 from .grid_groups import TreeGridGroup, make_grid_group
 from .splitters import DataBalancer, DataCutter, DataSplitter
 from .validators import (OpCrossValidation, OpTrainValidationSplit,
@@ -444,16 +444,21 @@ class ModelSelector(PredictorEstimator):
         called at the end of every fit and by the elastic shrink hook, so
         that no prep outlives the sweep that started it.  Records
         ``metadata["tree_prefetch"]``: its seconds and whether it was
-        joined."""
+        joined; a join that found the thread running books its wait as
+        a drain under ``tree_prefetch.join``."""
         t = self._prep_thread
         if t is None:
             return
         self._prep_cancel.set()
+        alive = t.is_alive()
         t0 = time.perf_counter()
         t.join(timeout_s)
+        wait = time.perf_counter() - t0
+        if alive:
+            count_drain(wait, tag="tree_prefetch.join")
         self.metadata["tree_prefetch"] = {
             "seconds": self._prep_box.get("seconds"),
-            "join_wait_seconds": time.perf_counter() - t0,
+            "join_wait_seconds": wait,
             "joined": not t.is_alive()}
         self._prep_thread = None
 

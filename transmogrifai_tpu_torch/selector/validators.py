@@ -16,13 +16,17 @@ one as the sweep advances.
 
 Dispatch is asynchronous by default: the next block is launched before
 the previous block's fold metrics are read, and every metric stays on
-the device until one stacked copy at the end (non-blocking, into pinned
-memory, then an event).  ``TMOG_SYNC_SWEEP=1`` (read at sweep time) runs
-the synchronous loop, which waits for each group and gives the same
-numbers.  ``validate_with_dag`` is workflow-level CV: the during-DAG is
-refit on each fold's train rows and applied to its eval rows;
-``validate_prefold`` sweeps over fold matrices built elsewhere (the
-streaming workflow CV's, from merged fold states).
+the device until one stacked copy at the end.  ``TMOG_SYNC_SWEEP=1``
+(read at sweep time) runs the synchronous loop, which waits for each
+group and gives the same numbers.  Every metric copy goes through
+``utils.profiling.fetch_timed`` (the wait booked as drain, or as overlap
+where the next block is already queued behind it, and the copy as
+fetch; tags ``sweep.checkpoint`` and ``sweep.final``).  Under a trace a
+sweep is a ``sweep.run`` span over ``sweep.group[i:j]`` and
+``sweep.unit[i]`` spans (``obs/trace.py``).  ``validate_with_dag`` is
+workflow-level CV: the during-DAG is refit on each fold's train rows and
+applied to its eval rows; ``validate_prefold`` sweeps over fold matrices
+built elsewhere (the streaming workflow CV's, from merged fold states).
 """
 from __future__ import annotations
 
@@ -33,6 +37,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..obs.trace import begin_span, end_span, span
+from ..utils.profiling import fetch_timed
 
 __all__ = ["ValidationResult", "OpCrossValidation", "OpTrainValidationSplit",
            "make_folds", "SweepUnit", "SweepWorkQueue"]
@@ -349,38 +356,49 @@ class SweepWorkQueue:
         ``failed: device_loss``; the straggler watchdog bounds each
         attempt at the context's deadline (timeout -> degraded re-run at
         twice the deadline -> ``failed: straggler``).  A workload failure
-        scores worst with its error."""
+        scores worst with its error.  Under a trace the unit is a
+        ``sweep.unit[i]`` span with its candidate, its retries and its
+        watchdog retries (``mesh``/``mesh_after``: "", one card)."""
         loss_attempt = 0
         slow_attempt = 0
-        while True:
-            try:
-                deadline = (elastic.unit_deadline_s
-                            if elastic is not None else None)
-                if deadline is None:
-                    return self._unit_attempt(unit), None
-                from ..parallel.elastic import run_with_deadline
+        sp = begin_span(f"sweep.unit[{unit.index}]", cat="sweep",
+                        candidate=unit.name, index=unit.index, mesh="")
+        try:
+            while True:
+                try:
+                    deadline = (elastic.unit_deadline_s
+                                if elastic is not None else None)
+                    if deadline is None:
+                        return self._unit_attempt(unit), None
+                    from ..parallel.elastic import run_with_deadline
 
-                fold_vals, timed_out = run_with_deadline(
-                    lambda: self._unit_attempt(unit),
-                    deadline * (2 ** slow_attempt),
-                    abandoned=elastic.abandoned)
-                if not timed_out:
-                    return fold_vals, None
-                if elastic.on_watchdog_timeout(unit.index, slow_attempt):
-                    slow_attempt += 1
-                    continue
-                return [], (f"failed: straggler (unit exceeded its "
-                            f"{deadline:.3f}s watchdog deadline "
-                            f"{slow_attempt + 1}x)")
-            except Exception as e:  # noqa: BLE001 - candidate isolation,
-                # routed through the shared device-loss classifier
-                if elastic is not None and elastic.classify(e):
-                    if elastic.on_device_loss(unit.index, e, loss_attempt):
-                        loss_attempt += 1
+                    fold_vals, timed_out = run_with_deadline(
+                        lambda: self._unit_attempt(unit),
+                        deadline * (2 ** slow_attempt),
+                        abandoned=elastic.abandoned)
+                    if not timed_out:
+                        return fold_vals, None
+                    if elastic.on_watchdog_timeout(unit.index,
+                                                   slow_attempt):
+                        slow_attempt += 1
                         continue
-                    return [], (f"failed: device_loss "
-                                f"({type(e).__name__}: {e})")
-                return [], f"{type(e).__name__}: {e}"
+                    return [], (f"failed: straggler (unit exceeded its "
+                                f"{deadline:.3f}s watchdog deadline "
+                                f"{slow_attempt + 1}x)")
+                except Exception as e:  # noqa: BLE001 - candidate
+                    # isolation, routed through the shared device-loss
+                    # classifier
+                    if elastic is not None and elastic.classify(e):
+                        if elastic.on_device_loss(unit.index, e,
+                                                  loss_attempt):
+                            loss_attempt += 1
+                            continue
+                        return [], (f"failed: device_loss "
+                                    f"({type(e).__name__}: {e})")
+                    return [], f"{type(e).__name__}: {e}"
+        finally:
+            end_span(sp, retries=loss_attempt,
+                     watchdog_retries=slow_attempt, mesh_after="")
 
     def group_span(self, i: int) -> int:
         """End (exclusive) of the run of units sharing units[i]'s group."""
@@ -418,7 +436,9 @@ class SweepWorkQueue:
             for k in range(i, j):
                 faults.fire("device.loss", index=self.units[k].index,
                             tag=self.units[k].name)
-            M = self._run_group(group)
+            with span(f"sweep.group[{i}:{j}]", cat="sweep",
+                      group=type(group).__name__, units=j - i, mesh=""):
+                M = self._run_group(group)
         except Exception as e:  # noqa: BLE001 - fall back per candidate,
             # routed through the shared device-loss classifier
             if elastic is not None and elastic.classify(e):
@@ -452,16 +472,27 @@ class SweepWorkQueue:
         durable and records each finished one; ``elastic`` arms the
         ladders; ``defer=True`` (asynchronous only) returns the raw
         ``(all_vals, errors)`` with device values still on the device.
-        Raises only when every candidate failed."""
+        Raises only when every candidate failed.  Under a trace the sweep
+        is a ``sweep.run`` span, its elastic counters set at the close."""
         from .async_dispatch import sync_sweep_forced
 
         if elastic is not None:
             elastic.checkpoint = checkpoint
-        if sync_sweep_forced() and not defer:
-            return self._run_all_inner(metric_name, larger_better, max_wait,
-                                       checkpoint, elastic)
-        return self._run_all_async(metric_name, larger_better, max_wait,
-                                   checkpoint, elastic, defer=defer)
+        sync = sync_sweep_forced() and not defer
+        sweep_span = begin_span(
+            "sweep.run", cat="sweep", units=len(self.units),
+            folds=len(self.fold_ctxs), mesh="",
+            mode=("sync" if sync else "async"))
+        try:
+            if sync:
+                return self._run_all_inner(metric_name, larger_better,
+                                           max_wait, checkpoint, elastic)
+            return self._run_all_async(metric_name, larger_better, max_wait,
+                                       checkpoint, elastic, defer=defer)
+        finally:
+            end_span(sweep_span,
+                     elastic=(elastic.counters.to_json()
+                              if elastic is not None else None))
 
     def _restored(self, checkpoint, unit):
         """A checkpoint's record of ``unit`` that fits this sweep's fold
@@ -518,7 +549,7 @@ class SweepWorkQueue:
                     continue
                 rows = [_GroupRow(M, base + r) for r in range(j - i)]
                 if checkpoint is not None:
-                    rows = _materialize(rows)
+                    rows = _materialize(rows, tag="sweep.checkpoint")
                     for r, vals in enumerate(rows):
                         checkpoint.record_unit(self.units[i + r].index,
                                                vals, None)
@@ -528,7 +559,8 @@ class SweepWorkQueue:
                 continue
             fold_vals, err = self.run_unit(unit, elastic=elastic)
             if checkpoint is not None:
-                fold_vals = _materialize([fold_vals])[0]
+                fold_vals = _materialize([fold_vals],
+                                         tag="sweep.checkpoint")[0]
                 checkpoint.record_unit(unit.index, fold_vals, err)
             all_vals.append(fold_vals)
             errors.append(err)
@@ -552,13 +584,18 @@ class SweepWorkQueue:
         #: positions launched but not yet durable (at most one block)
         pending: List[int] = []
 
-        def flush_pending() -> None:
+        def flush_pending(overlapped: bool) -> None:
             if checkpoint is None or not pending:
                 return
-            rows = _materialize([all_vals[p] for p in pending])
-            for p, vals in zip(pending, rows):
-                all_vals[p] = vals
-                checkpoint.record_unit(self.units[p].index, vals, errors[p])
+            with span("sweep.checkpoint.flush", cat="sweep",
+                      units=len(pending), overlapped=overlapped):
+                rows = _materialize([all_vals[p] for p in pending],
+                                    tag="sweep.checkpoint",
+                                    overlapped=overlapped)
+                for p, vals in zip(pending, rows):
+                    all_vals[p] = vals
+                    checkpoint.record_unit(self.units[p].index, vals,
+                                           errors[p])
             pending.clear()
 
         i = 0
@@ -591,23 +628,24 @@ class SweepWorkQueue:
                 errors.extend([None] * (j - i))
                 # this block is launched: the previous one's copy waits
                 # behind it, then this block is the lagged window
-                flush_pending()
+                flush_pending(overlapped=True)
                 pending.extend(block)
                 i = j
                 continue
             fold_vals, err = self.run_unit(unit, elastic=elastic)
             all_vals.append(fold_vals)
             errors.append(err)
-            flush_pending()
+            flush_pending(overlapped=True)
             pending.append(len(all_vals) - 1)
             i += 1
-        flush_pending()
+        flush_pending(overlapped=False)
         if elastic is not None:
             elastic.drain()
         if defer:
             return all_vals, errors
-        return self.collect(all_vals, errors, metric_name, larger_better,
-                            one_copy=True)
+        with span("sweep.drain", cat="sweep", units=len(all_vals)):
+            return self.collect(all_vals, errors, metric_name,
+                                larger_better, one_copy=True)
 
     # -- result assembly -----------------------------------------------------
 
@@ -618,7 +656,8 @@ class SweepWorkQueue:
         is over each unit's finite folds (one faulted fold does not sink
         the folds that completed)."""
         worst = float("-inf") if larger_better else float("inf")
-        host_vals = _materialize(all_vals, one_copy=one_copy)
+        host_vals = _materialize(all_vals, one_copy=one_copy,
+                                 tag="sweep.final" if one_copy else None)
         self.resolve_group_seconds()
         results: List[ValidationResult] = []
         for unit, fold_vals, err in zip(self.units, host_vals, errors):
@@ -685,35 +724,30 @@ def _host_float64(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float64).numpy()
 
 
-def _one_copy(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+def _one_copy(tensors: List[torch.Tensor], tag: Optional[str] = None,
+              overlapped: bool = False) -> List[np.ndarray]:
     """Every tensor in one float64 copy to the host: one stacked tensor,
-    copied without blocking into pinned memory, then an event waited
-    for."""
+    fetched once (``fetch_timed``)."""
     flat = torch.cat([t.detach().reshape(-1).to(torch.float64)
                       for t in tensors])
-    if flat.device.type == "cuda":
-        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-        host.copy_(flat, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        done.synchronize()
-    else:
-        host = flat
+    arr = fetch_timed(flat, tag=tag, overlapped=overlapped)
     out, off = [], 0
-    arr = host.numpy()
     for t in tensors:
         out.append(arr[off:off + t.numel()].reshape(tuple(t.shape)))
         off += t.numel()
     return out
 
 
-def _materialize(nested: List[Any], one_copy: bool = False
+def _materialize(nested: List[Any], one_copy: bool = False,
+                 tag: Optional[str] = None, overlapped: bool = False
                  ) -> List[List[float]]:
     """Every fold metric as host floats.  A group row resolves from its
     matrix and the scalars of sequential fits from one stacked copy;
-    ``one_copy`` copies the matrices and the scalars together in one.  A
-    copy that raises (an asynchronous fault in the work behind it) falls
-    back to one copy a value, NaN where a value cannot be read."""
+    ``one_copy`` copies the matrices and the scalars together in one.
+    Each copy is a ``fetch_timed`` under ``tag`` (``overlapped``: later
+    work is queued behind it).  A copy that raises (an asynchronous
+    fault in the work behind it) falls back to one copy a value, NaN
+    where a value cannot be read."""
     mats = []
     for v in nested:
         if isinstance(v, _GroupRow) and not any(m is v.matrix for m in mats):
@@ -725,8 +759,10 @@ def _materialize(nested: List[Any], one_copy: bool = False
         tensors.append(torch.stack([s.reshape(()).to(torch.float64)
                                     for s in scalars]))
     try:
-        parts = (_one_copy(tensors) if one_copy and tensors
-                 else [_host_float64(t) for t in tensors])
+        parts = (_one_copy(tensors, tag, overlapped)
+                 if one_copy and tensors else
+                 [fetch_timed(t, np.float64, tag=tag, overlapped=overlapped)
+                  for t in tensors])
     except Exception as e:  # noqa: BLE001 - isolate the faulted values
         warnings.warn(f"metric copy failed ({type(e).__name__}: "
                       f"{str(e)[:300]}); reading value by value",

@@ -19,10 +19,13 @@ the exception (counted in ``deviceErrors``), and while the breaker is open
 requests shed with ``ShedResult(reason="breaker_open")``.
 ``hostFallbacks`` stays in the snapshot and reads 0.  A drift monitor
 (``with_drift_monitor``, ``serving/drift.py``) sees every scored batch's
-rows and its snapshot joins ``snapshot()["drift"]`` (``/metrics``).  Not
+rows and its snapshot joins ``snapshot()["drift"]`` (``/metrics``, and
+``/metrics?format=prometheus`` in the Prometheus text format).  Under a
+trace a request is a ``serve.admit`` span, its batch a ``serve.batch``
+span under it and the scoring a ``serve.execute`` span under that.  Not
 ported yet (ROADMAP Queue A item 6.6): the host rung, per-bucket device
-programs and their AOT store, guarded swaps, tenancy, the serving fabric
-and spans.
+programs and their AOT store, guarded swaps, tenancy and the serving
+fabric.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Sequence
 
 from ..device import DeviceLike
+from ..obs.trace import begin_span, end_span
 from .admission import AdmissionController, CircuitBreaker, ShedResult
 from .batcher import MicroBatcher
 from .executor import BucketedExecutor, bucket_for, bucket_sizes
@@ -151,14 +155,17 @@ class ModelServer:
                 raise TypeError(
                     f"ModelServer expects dict rows (raw feature name -> "
                     f"value); row {i} is {type(r).__name__!r}")
+        admit = begin_span("serve.admit", cat="serve", rows=len(rows))
         reason = ("draining" if self._draining else "breaker_open"
                   if self.breaker.state == CircuitBreaker.OPEN else None)
         if reason is not None and rows:
             self.metrics.record_shed(len(rows), reason=reason)
+            end_span(admit, outcome=f"shed:{reason}")
             fut: "Future[List[Any]]" = Future()
             fut.set_result([ShedResult(reason=reason) for _ in rows])
             return fut
-        return self.batcher.submit(rows, timeout_ms=timeout_ms)
+        return self.batcher.submit(rows, timeout_ms=timeout_ms,
+                                   admit_span=admit)
 
     def score(self, rows: Sequence[Dict[str, Any]],
               timeout_ms: Optional[float] = None,
@@ -205,17 +212,21 @@ class ModelServer:
         if not self.breaker.allow_device():
             self.metrics.record_shed(len(rows), reason="breaker_open")
             return [ShedResult(reason="breaker_open") for _ in rows]
+        bucket = (bucket_for(len(rows), executor.buckets)
+                  if len(rows) <= executor.max_batch else executor.max_batch)
+        sp = begin_span("serve.execute", cat="serve", rows=len(rows),
+                        bucket=bucket, path="device", version=entry.version)
         try:
             out = executor.score(rows)
         except Exception as exc:
+            end_span(sp, error=f"device_error:{type(exc).__name__}")
             self.metrics.record_device_error(exc)
             if self.breaker.record_failure():
                 self.metrics.record_breaker_open()
             raise
+        end_span(sp)
         self.breaker.record_success()
-        self.metrics.record_batch(
-            len(rows), bucket_for(len(rows), executor.buckets)
-            if len(rows) <= executor.max_batch else executor.max_batch)
+        self.metrics.record_batch(len(rows), bucket)
         return out
 
     # -- introspection -------------------------------------------------------

@@ -11,7 +11,9 @@ The JAX package's fourth rung, the numpy host scorer, is not ported: a
 batch whose device scoring raises fails with that exception.
 
 The admission and breaker locks are leaf locks: every ``with self._lock``
-region is a few field reads and writes with no calls out.
+region is a few field reads and writes with no calls out.  The breaker's
+transitions are ``breaker.open``/``.half_open``/``.closed`` flight
+events, recorded after the lock is released.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import dataclasses
 import threading
 import time
 from typing import Any, Dict, Optional
+
+from ..obs.flight import record_event
 
 __all__ = ["ShedResult", "AdmissionController", "CircuitBreaker"]
 
@@ -109,36 +113,50 @@ class CircuitBreaker:
     @property
     def state(self) -> str:
         with self._lock:
-            self._maybe_half_open_locked()
-            return self._state
+            half = self._maybe_half_open_locked()
+            state = self._state
+        if half:
+            record_event("breaker.half_open")
+        return state
 
-    def _maybe_half_open_locked(self) -> None:
+    def _maybe_half_open_locked(self) -> bool:
+        """Move an expired OPEN to HALF_OPEN; True when it moved."""
         if (self._state == self.OPEN and self._opened_at is not None
                 and time.monotonic() - self._opened_at >= self.reset_after_s):
             self._state = self.HALF_OPEN
             self._trial_in_flight = False
+            return True
+        return False
 
     def allow_device(self) -> bool:
         """May the next batch use the device path?"""
         with self._lock:
-            self._maybe_half_open_locked()
+            half = self._maybe_half_open_locked()
             if self._state == self.CLOSED:
-                return True
-            if self._state == self.HALF_OPEN and not self._trial_in_flight:
+                allowed = True
+            elif self._state == self.HALF_OPEN and not self._trial_in_flight:
                 self._trial_in_flight = True   # exactly one trial batch
-                return True
-            return False
+                allowed = True
+            else:
+                allowed = False
+        if half:
+            record_event("breaker.half_open")
+        return allowed
 
     def record_success(self) -> None:
         with self._lock:
+            reclosed = self._state != self.CLOSED
             self._state = self.CLOSED
             self._consecutive_failures = 0
             self._opened_at = None
             self._trial_in_flight = False
+        if reclosed:
+            record_event("breaker.closed")
 
     def record_failure(self) -> bool:
         """Register a device-path failure; True when the breaker opened on
         this call."""
+        opened = False
         with self._lock:
             self._consecutive_failures += 1
             was_open = self._state == self.OPEN
@@ -147,5 +165,7 @@ class CircuitBreaker:
                 self._state = self.OPEN
                 self._opened_at = time.monotonic()
                 self._trial_in_flight = False
-                return not was_open
-            return False
+                opened = not was_open
+        if opened:
+            record_event("breaker.open", failures=self.failure_threshold)
+        return opened

@@ -22,8 +22,13 @@ A request is never split across batches.  Shed and expired requests
 resolve to ``ShedResult``s; a batch whose ``execute`` raises fails its
 requests' futures with the exception.  ``close(drain=True)`` sheds new
 submits as ``shutting_down`` and drains under the lock until the queue is
-observably empty.  The JAX package's spans and flight recorder are not
-ported.
+observably empty.
+
+Under a trace (``obs/trace.py``) a request's ``serve.admit`` span (opened
+by ``ModelServer.submit``, else none) rides on its pending entry, and the
+dispatch thread opens each batch's ``serve.batch`` span under the admit
+span of the batch's first request, so that admit, batch and execute nest
+across the two threads.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import time
 from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from ..obs.trace import begin_span, end_span
 from .admission import AdmissionController, ShedResult
 from .executor import bucket_for, bucket_sizes
 from .metrics import ServingMetrics
@@ -89,14 +95,16 @@ class BatchCostLookup:
 
 
 class _Pending:
-    __slots__ = ("rows", "future", "deadline", "enqueued_at")
+    __slots__ = ("rows", "future", "deadline", "enqueued_at", "span")
 
     def __init__(self, rows: List[Dict[str, Any]],
-                 deadline: Optional[float]):
+                 deadline: Optional[float], span=None):
         self.rows = rows
         self.future: "Future[List[Any]]" = Future()
         self.deadline = deadline
         self.enqueued_at = time.perf_counter()
+        #: the request's serve.admit span: the parent of its batch's span
+        self.span = span
 
 
 class MicroBatcher:
@@ -163,27 +171,34 @@ class MicroBatcher:
     # -- submission ---------------------------------------------------------
 
     def submit(self, rows: Sequence[Dict[str, Any]],
-               timeout_ms: Optional[float] = None) -> "Future[List[Any]]":
+               timeout_ms: Optional[float] = None,
+               admit_span=None) -> "Future[List[Any]]":
         """Enqueue ``rows``; the future resolves with their results, or a
-        ``ShedResult`` per row when the request is shed."""
+        ``ShedResult`` per row when the request is shed.  ``admit_span``
+        (the caller's ``serve.admit``) is closed here with the outcome
+        and parents the request's batch span."""
         rows = list(rows)
         fut: "Future[List[Any]]" = Future()
         if not rows:
+            end_span(admit_span, outcome="empty")
             fut.set_result([])
             return fut
         if self._closing or self._closed:
-            return self._shed(fut, rows, ShedResult(reason="shutting_down"))
+            return self._shed(fut, rows, ShedResult(reason="shutting_down"),
+                              admit_span)
         shed = self.admission.try_admit(len(rows),
                                         est_drain_ms=self._est_drain_ms())
         if shed is not None:
-            return self._shed(fut, rows, shed)
-        pending = _Pending(rows, self.admission.deadline_for(timeout_ms))
+            return self._shed(fut, rows, shed, admit_span)
+        pending = _Pending(rows, self.admission.deadline_for(timeout_ms),
+                           admit_span)
         with self._work:
             if self._closing or self._closed:
                 # the close raced the unlocked check: give the room back
                 self.admission.release(len(rows))
                 return self._shed(fut, rows,
-                                  ShedResult(reason="shutting_down"))
+                                  ShedResult(reason="shutting_down"),
+                                  admit_span)
             self.metrics.record_admitted(len(rows))
             self._queue.append(pending)
             self._arrivals.append((pending.enqueued_at, len(rows)))
@@ -192,11 +207,13 @@ class MicroBatcher:
             self.metrics.set_queue_depth(sum(len(p.rows)
                                              for p in self._queue))
             self._work.notify()
+        end_span(admit_span, outcome="admitted")
         return pending.future
 
     def _shed(self, fut: "Future[List[Any]]", rows: list,
-              shed: ShedResult) -> "Future[List[Any]]":
+              shed: ShedResult, admit_span=None) -> "Future[List[Any]]":
         self.metrics.record_shed(len(rows), reason=shed.reason)
+        end_span(admit_span, outcome=f"shed:{shed.reason}")
         fut.set_result([shed for _ in rows])
         return fut
 
@@ -326,6 +343,11 @@ class MicroBatcher:
 
     def _run_batch(self, batch: List[_Pending]) -> None:
         n_rows = sum(len(p.rows) for p in batch)
+        # the dispatch thread's parent is explicit: the first request's
+        # admit span, opened on the submitting thread
+        batch_span = begin_span("serve.batch", cat="serve",
+                                parent=batch[0].span, requests=len(batch),
+                                rows=n_rows, mode=self.mode)
         t0 = time.perf_counter()
         try:
             run_pending_batch(batch, self.execute, self.admission,
@@ -335,6 +357,7 @@ class MicroBatcher:
                 self.cost_lookup.observe(
                     bucket_for(min(n_rows, self.max_batch), self._buckets),
                     time.perf_counter() - t0)
+            end_span(batch_span)
             with self._work:   # wake a close(drain=True) waiting
                 self._work.notify_all()
 

@@ -18,8 +18,9 @@ A window is evaluated once ``min_rows`` sampled rows gathered, then every
 ``refresh_triggered`` and calls ``on_drift``.  Sampling is a seeded
 Bernoulli draw per request batch.  The ``drift.window`` fault point
 (``utils/faults.py``) fires at each window's evaluation, ``index`` the
-windows evaluated before it.  Not ported yet: the flight recorder's drift
-events (ROADMAP Queue A item 6.6.7).
+windows evaluated before it.  Each evaluation is a ``drift.window``
+flight event, and the one that trips the refresh a ``drift.trigger``
+(``obs/flight.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..obs.flight import record_event
 from ..utils import faults
 from ..utils.sketches import WelfordMoments
 from ..utils.streaming_histogram import StreamingHistogram
@@ -324,6 +326,11 @@ class DriftMonitor:
                 self.drift_fires += 1
                 self.refresh_triggered = True
             cb = self.on_drift if fired else None
+        record_event("drift.window", drifted=bool(drifted),
+                     features=list(drifted),
+                     windowRows=result["windowRows"])
+        if fired:
+            record_event("drift.trigger", features=list(drifted))
         if cb is not None:
             try:
                 cb(result)

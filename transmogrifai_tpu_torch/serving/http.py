@@ -6,7 +6,9 @@ Endpoints:
   POST /score    {"rows": [{...}, ...], "timeoutMs": 50} -> {"scores": [...]}
                  (shed rows come back as their ShedResult JSON and make the
                  response a 503; a batch whose scoring failed, a 500)
-  GET  /metrics  the serving metrics snapshot (JSON)
+  GET  /metrics  the serving metrics snapshot (JSON);
+                 ``?format=prometheus``: the Prometheus text exposition of
+                 the snapshot and the run ledger (``obs/prometheus.py``)
   GET  /healthz  {"status": "ok" | "degraded" | "draining" | "no_model",
                  "model": {...}, "breakerState": ..., "shedRate": ...,
                  "draining": ...}
@@ -22,6 +24,7 @@ import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional, Tuple
+from urllib.parse import parse_qs, urlsplit
 
 from .admission import ShedResult
 
@@ -68,9 +71,14 @@ def make_http_server(server, host: str = "127.0.0.1", port: int = 8080,
             pass
 
         def _reply(self, code: int, payload: Any) -> None:
-            body = json.dumps(payload, default=str).encode()
+            self._reply_text(code, json.dumps(payload, default=str),
+                             "application/json")
+
+        def _reply_text(self, code: int, text: str,
+                        content_type: str) -> None:
+            body = text.encode()
             self.send_response(code)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
@@ -83,12 +91,21 @@ def make_http_server(server, host: str = "127.0.0.1", port: int = 8080,
                 return None
 
         def do_GET(self):
-            path = self.path.split("?", 1)[0]
+            url = urlsplit(self.path)
+            path = url.path
             if path == "/healthz":
                 ok, doc = healthz_doc(server)
                 self._reply(200 if ok else 503, doc)
             elif path == "/metrics":
-                self._reply(200, server.snapshot())
+                fmt = (parse_qs(url.query).get("format") or ["json"])[0]
+                if fmt == "prometheus":
+                    from ..obs.prometheus import prometheus_text
+
+                    self._reply_text(
+                        200, prometheus_text(server.snapshot()),
+                        "text/plain; version=0.0.4; charset=utf-8")
+                else:
+                    self._reply(200, server.snapshot())
             else:
                 self._reply(404, {"error": f"unknown path {path}"})
 

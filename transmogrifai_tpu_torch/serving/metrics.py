@@ -13,6 +13,9 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from ..obs.flight import record_event
+from ..utils.profiling import count_launch
+
 __all__ = ["LatencyReservoir", "ServingMetrics"]
 
 
@@ -79,22 +82,25 @@ class ServingMetrics:
 
     def record_batch(self, n_rows: int, bucket: int) -> None:
         """One executed micro-batch: ``n_rows`` real rows padded to
-        ``bucket``."""
+        ``bucket``; counted in the run ledger under ``serving.batch``."""
         with self._lock:
             self.batches += 1
             self.padded_rows += max(0, bucket - n_rows)
             self._batch_hist[bucket] = self._batch_hist.get(bucket, 0) + 1
+        count_launch("serving.batch")
 
     def record_request_latency(self, seconds: float) -> None:
         with self._lock:
             self._latency.observe(seconds)
 
     def record_shed(self, n: int = 1, reason: Optional[str] = None) -> None:
+        """``n`` rows shed (a ``serve.shed`` flight event)."""
         with self._lock:
             self.shed += n
             if reason is not None:
                 self.shed_by_reason[reason] = \
                     self.shed_by_reason.get(reason, 0) + n
+        record_event("serve.shed", rows=n, reason=reason)
 
     def record_deadline_expired(self, n: int = 1) -> None:
         with self._lock:

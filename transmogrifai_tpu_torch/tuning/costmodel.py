@@ -20,7 +20,7 @@ from __future__ import annotations
 import math
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,6 +56,9 @@ class StageObservation:
     t: int = 0               # unix seconds (0 = unknown)
     n_devices: int = 1
     mesh_shape: str = ""
+    #: the stage's kernel mix from a traced run (``StageProfile.hlo``,
+    #: ``obs/kernel_mix.py``); empty untraced.  The ridge ignores it.
+    hlo: Dict[str, Any] = field(default_factory=dict)
 
     def to_json(self) -> Dict[str, Any]:
         out = {"stageKind": self.stage_kind, "rows": self.rows,
@@ -66,6 +69,8 @@ class StageObservation:
             out["nDevices"] = self.n_devices
         if self.mesh_shape:
             out["meshShape"] = self.mesh_shape
+        if self.hlo:
+            out["hlo"] = dict(self.hlo)
         return out
 
     @staticmethod
@@ -77,7 +82,8 @@ class StageObservation:
             backend=str(d.get("backend", "")),
             wall_s=float(d.get("wallSecs", 0.0)), t=int(d.get("t", 0)),
             n_devices=int(d.get("nDevices", 1)),
-            mesh_shape=str(d.get("meshShape", "")))
+            mesh_shape=str(d.get("meshShape", "")),
+            hlo=dict(d.get("hlo", {}) or {}))
 
 
 def _features(rows: int, cols: int, n_devices: int = 1) -> np.ndarray:
@@ -255,7 +261,7 @@ def observations_from_profiler(profiler,
             rows=sp.rows, cols=max(sp.cols, 1), dtype=sp.dtype or "",
             backend=sp.backend or backend, wall_s=sp.wall_s, t=now,
             n_devices=max(int(sp.n_devices or 1), 1),
-            mesh_shape=sp.mesh_shape or ""))
+            mesh_shape=sp.mesh_shape or "", hlo=dict(sp.hlo or {})))
     return out
 
 

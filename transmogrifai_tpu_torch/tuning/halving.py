@@ -20,7 +20,8 @@ draws, and promotion breaks ties toward the lower candidate index.  In
 the asynchronous sweep a rung's elimination is a device reduction of
 which only the survivors' indices are copied
 (``selector.async_dispatch``); with a checkpoint or ``TMOG_SYNC_SWEEP=1``
-each rung's metrics are copied and ranked on the host.
+each rung's metrics are copied and ranked on the host.  Under a trace
+each rung is a ``sweep.rung[i]`` span over its sweep.
 """
 from __future__ import annotations
 
@@ -31,6 +32,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..obs.trace import span
 
 __all__ = ["HalvingConfig", "Rung", "rung_schedule",
            "nested_subsample_order", "halving_validate"]
@@ -261,16 +264,19 @@ def halving_validate(
         rung_ckpt = (checkpoint.scoped(f"rung{rung.index}")
                      if checkpoint is not None else None)
         t0 = time.perf_counter()
-        if use_defer:
-            queue, all_vals, errs = validator.validate(
-                rung_cands, Xs, ys, ws, eval_fn, metric_name,
-                larger_better=larger_better, checkpoint=rung_ckpt,
-                elastic=elastic, defer=True)
-        else:
-            _, results = validator.validate(
-                rung_cands, Xs, ys, ws, eval_fn, metric_name,
-                larger_better=larger_better, checkpoint=rung_ckpt,
-                elastic=elastic)
+        with span(f"sweep.rung[{rung.index}]", cat="sweep",
+                  rows=rung.rows, candidates=len(rung_cands), full=full,
+                  deferred=use_defer):
+            if use_defer:
+                queue, all_vals, errs = validator.validate(
+                    rung_cands, Xs, ys, ws, eval_fn, metric_name,
+                    larger_better=larger_better, checkpoint=rung_ckpt,
+                    elastic=elastic, defer=True)
+            else:
+                _, results = validator.validate(
+                    rung_cands, Xs, ys, ws, eval_fn, metric_name,
+                    larger_better=larger_better, checkpoint=rung_ckpt,
+                    elastic=elastic)
         rung.wall_s = time.perf_counter() - t0
         rung.candidate_seconds = rung.wall_s
         total_cand_s += rung.wall_s
@@ -324,7 +330,7 @@ def halving_validate(
         combined: List[Any] = []
         for e in deferred_rungs:
             combined.extend(e[2])
-        host_all = _materialize(combined, one_copy=True)
+        host_all = _materialize(combined, one_copy=True, tag="sweep.final")
         off = 0
         for e in deferred_rungs:
             hv = host_all[off:off + len(e[2])]

@@ -49,7 +49,9 @@ tests only), ``device_loss`` (raise ``DeviceLossError``), ``skip`` (raise
 Determinism: a spec matches by explicit call index (``at``/``every``) or
 by a seeded per-point Bernoulli draw (``p`` + the plan's ``seed``) — the
 same plan over the same call sequence fires the same faults.  ``times``
-bounds how often a spec fires, so a retried chunk can succeed.
+bounds how often a spec fires, so a retried chunk can succeed.  Each
+firing is a ``fault.fired`` flight event (``obs/flight.py``) before its
+action.
 
 Arming: programmatic (``install_faults`` / the ``inject`` context
 manager) or the ``TMOG_FAULTS`` env var (JSON, read at the first
@@ -236,6 +238,10 @@ class FaultPlan:
                                  "action": hit.action})
         if hit is None:
             return
+        from ..obs.flight import record_event
+
+        record_event("fault.fired", point=point, index=index, tag=tag,
+                     action=hit.action)
         where = f"{point}[{index}]" + (f" tag={tag}" if tag else "")
         if hit.action == "slow":
             time.sleep(hit.delay_s)

@@ -1,20 +1,22 @@
-"""Run metrics and ingestion counters (counterpart of
-``transmogrifai_tpu.utils.profiling``): the app metrics of a runner's
-run (``OpStep``, ``StepMetrics``, ``AppMetrics``, ``MetricsCollector``,
-``install_collector``, ``with_job_group``) and the chunked-ingestion
-counters of an out-of-core train (``IngestPass``, ``IngestProfiler``,
-with the reader retries, the quarantined records and the checkpoints'
-saves), the plan profiler of ``train(profile=True)`` (``StageProfile``,
-``PlanProfiler``: a stage's wall, rows, input width and, for a serial
-stage, its ``seg_hist`` launches) and the process-wide refresh counters
-(``count_refresh``, ``refresh_snapshot``).  A stage's compiled-program
-features (the JAX package's ``hlo`` field) wait for the trace layer,
-ROADMAP Queue A item 6.5.5.
+"""Run metrics, the transfer ledger and the ingestion and plan profilers
+(counterpart of ``transmogrifai_tpu.utils.profiling``): the app metrics
+of a runner's run (``OpStep``, ``StepMetrics``, ``AppMetrics``,
+``MetricsCollector``, ``install_collector``, ``with_job_group``); the
+process-wide transfer and dispatch ledger (``RunCounters``/``COUNTERS``:
+uploads, fetches, drains, launches by tag, the elastic and refresh
+counts; ``fetch_timed``, ``upload_timed``); ``profile_to``, a
+``torch.profiler`` trace of a block that Perfetto loads; the
+chunked-ingestion counters of an out-of-core train (``IngestPass``,
+``IngestProfiler``) and the plan profiler of ``train(profile=True)``
+(``StageProfile``, ``PlanProfiler``: a stage's wall, rows, input width,
+for a serial stage its ``seg_hist`` launches and, under a trace, its
+kernel mix in ``hlo``: ``obs/kernel_mix.py``).
 """
 from __future__ import annotations
 
 import contextlib
 import enum
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -25,8 +27,11 @@ import torch
 __all__ = ["OpStep", "StepMetrics", "AppMetrics", "MetricsCollector",
            "current_collector", "install_collector", "with_job_group",
            "IngestPass", "IngestProfiler", "StageProfile", "PlanProfiler",
-           "backend_name", "kernel_launches", "count_refresh",
-           "refresh_snapshot"]
+           "backend_name", "kernel_launches", "RunCounters", "COUNTERS",
+           "reset_counters", "count_upload", "count_fetch", "count_drain",
+           "count_launch", "count_elastic", "count_refresh",
+           "elastic_snapshot", "refresh_snapshot", "fetch_timed",
+           "upload_timed", "profile_to"]
 
 
 class OpStep(enum.Enum):
@@ -330,11 +335,129 @@ class IngestProfiler:
 
 
 # ---------------------------------------------------------------------------
-# the plan profiler and the refresh counters
+# the transfer and dispatch ledger
 # ---------------------------------------------------------------------------
 
+@dataclass
+class RunCounters:
+    """Transfer and dispatch accounting for one run (the JAX package's
+    ``to_json`` keys).
+
+    Uploads and fetches are counted at the port's own transfer sites: the
+    tree memo's edges and bundling tables going to the card
+    (``upload_timed``), the sweep's metric copies, halving's promotion
+    (``fetch_timed``).  ``fetch_timed`` splits a fetch in two: the wait
+    for the stream's queued work (``drain_s``: compute to wait for) and
+    the copy itself (``fetch_s``: bytes on the wire).  A wait with later
+    work already queued behind it goes to ``overlap_s`` instead.
+    ``drain_tags`` attributes both kinds of wait to their site, keyed
+    ``tag`` or ``tag + "+overlap"``.  ``launches`` counts the hand-written
+    kernel launches and served batches at their call sites
+    (``launch_tags``: ``seg_hist``, ``serving.batch``): a design-level
+    count, not the profiler's (``obs/kernel_mix.py``).  ``elastic``
+    mirrors every sweep's ``ElasticCounters`` and ``refresh`` every
+    refresh's report."""
+
+    upload_bytes: int = 0
+    upload_s: float = 0.0
+    uploads: int = 0
+    fetch_bytes: int = 0
+    fetch_s: float = 0.0
+    fetches: int = 0
+    drain_s: float = 0.0
+    drains: int = 0
+    overlap_s: float = 0.0
+    overlaps: int = 0
+    drain_tags: Dict[str, float] = field(default_factory=dict)
+    launches: int = 0
+    launch_tags: Dict[str, int] = field(default_factory=dict)
+    #: retries / mesh_shrinks / mesh_repacks / quarantined /
+    #: watchdog_fires / device_losses (parallel/elastic.py)
+    elastic: Dict[str, int] = field(default_factory=dict)
+    #: merged / refit / invalidated / geometry_changed (workflow/refresh.py)
+    refresh: Dict[str, int] = field(default_factory=dict)
+
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "uploadBytes": self.upload_bytes,
+            "uploadSecs": round(self.upload_s, 3),
+            "uploads": self.uploads,
+            "fetchBytes": self.fetch_bytes,
+            "fetchSecs": round(self.fetch_s, 3),
+            "fetches": self.fetches,
+            "drainSecs": round(self.drain_s, 3),
+            "drains": self.drains,
+            "overlapSecs": round(self.overlap_s, 3),
+            "overlaps": self.overlaps,
+            "drainTags": {k: round(v, 3) for k, v in self.drain_tags.items()},
+            "launches": self.launches,
+            "launchTags": dict(self.launch_tags),
+            "elastic": dict(self.elastic),
+            "refresh": dict(self.refresh),
+        }
+
+
+COUNTERS = RunCounters()
+
+#: guards every change of ``COUNTERS``: the count sites run at once from
+#: the plan's pool, the serving dispatch thread and request threads
 _COUNTERS_LOCK = threading.Lock()
-_REFRESH: Dict[str, int] = {}
+
+
+def reset_counters() -> RunCounters:
+    """Zero the ledger; returns the new ``COUNTERS`` (read it as
+    ``profiling.COUNTERS``: a name imported before the reset keeps the
+    old object)."""
+    global COUNTERS
+    with _COUNTERS_LOCK:
+        COUNTERS = RunCounters()
+        return COUNTERS
+
+
+def count_upload(nbytes: int, seconds: float) -> None:
+    with _COUNTERS_LOCK:
+        COUNTERS.upload_bytes += int(nbytes)
+        COUNTERS.upload_s += seconds
+        COUNTERS.uploads += 1
+
+
+def count_fetch(nbytes: int, seconds: float) -> None:
+    with _COUNTERS_LOCK:
+        COUNTERS.fetch_bytes += int(nbytes)
+        COUNTERS.fetch_s += seconds
+        COUNTERS.fetches += 1
+
+
+def count_drain(seconds: float, tag: Optional[str] = None,
+                overlapped: bool = False) -> None:
+    """Book a wait for the card.  ``overlapped=True``: later work was
+    already queued when the wait began (the card stays busy), so the
+    time goes to ``overlap_s``, not ``drain_s``.  ``tag`` attributes it
+    in ``drain_tags`` (``+overlap`` appended for an overlapped wait)."""
+    with _COUNTERS_LOCK:
+        if overlapped:
+            COUNTERS.overlap_s += seconds
+            COUNTERS.overlaps += 1
+        else:
+            COUNTERS.drain_s += seconds
+            COUNTERS.drains += 1
+        if tag is not None:
+            key = tag + "+overlap" if overlapped else tag
+            COUNTERS.drain_tags[key] = (
+                COUNTERS.drain_tags.get(key, 0.0) + seconds)
+
+
+def count_launch(tag: str, n: int = 1) -> None:
+    with _COUNTERS_LOCK:
+        COUNTERS.launches += n
+        COUNTERS.launch_tags[tag] = COUNTERS.launch_tags.get(tag, 0) + n
+
+
+def count_elastic(kind: str, n: int = 1) -> None:
+    """An elastic-sweep event: the process-wide mirror of the per-sweep
+    ``parallel.elastic.ElasticCounters``."""
+    with _COUNTERS_LOCK:
+        COUNTERS.elastic[kind] = COUNTERS.elastic.get(kind, 0) + n
 
 
 def count_refresh(kind: str, n: int = 1) -> None:
@@ -342,7 +465,7 @@ def count_refresh(kind: str, n: int = 1) -> None:
     geometry_changed): the process-wide mirror of the per-run
     ``workflow.refresh.RefreshReport``."""
     with _COUNTERS_LOCK:
-        _REFRESH[kind] = _REFRESH.get(kind, 0) + n
+        COUNTERS.refresh[kind] = COUNTERS.refresh.get(kind, 0) + n
 
 
 def refresh_snapshot() -> Dict[str, int]:
@@ -351,9 +474,79 @@ def refresh_snapshot() -> Dict[str, int]:
     base = {"merged": 0, "refit": 0, "invalidated": 0,
             "geometry_changed": 0}
     with _COUNTERS_LOCK:
-        base.update(_REFRESH)
+        base.update(COUNTERS.refresh)
     return base
 
+
+def elastic_snapshot() -> Dict[str, int]:
+    """The process's elastic counters with every key present (zeros where
+    no sweep degraded)."""
+    base = {"retries": 0, "mesh_shrinks": 0, "mesh_repacks": 0,
+            "quarantined": 0, "watchdog_fires": 0, "device_losses": 0}
+    with _COUNTERS_LOCK:
+        base.update(COUNTERS.elastic)
+    return base
+
+
+def fetch_timed(x, dtype=None, tag: Optional[str] = None,
+                overlapped: bool = False):
+    """A device-to-host copy as a numpy array, booked in two parts.  On a
+    CUDA tensor the wait for the current stream
+    (``torch.cuda.current_stream().synchronize()``) is booked as drain
+    (``overlapped=True``: as overlap, for a wait with later work queued
+    behind it), and the copy itself as fetch, against the bytes fetched.
+    On a CPU tensor the drain is ~0.  ``tag`` names the site in
+    ``drain_tags``; ``dtype`` converts on the host."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+        torch.cuda.current_stream(x.device).synchronize()
+    t1 = time.perf_counter()
+    host = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+    out = np.asarray(host) if dtype is None else np.asarray(host, dtype)
+    t2 = time.perf_counter()
+    count_drain(t1 - t0, tag=tag, overlapped=overlapped)
+    count_fetch(out.nbytes, t2 - t1)
+    return out
+
+
+def upload_timed(a, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, booked as an upload (its
+    bytes and the seconds of the copy call; on the CPU a no-op copy)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    count_upload(out.numel() * out.element_size(), time.perf_counter() - t0)
+    return out
+
+
+@contextlib.contextmanager
+def profile_to(log_dir: str):
+    """``torch.profiler`` over the block, with the CPU activity and, where
+    a card is present, the CUDA one; writes ``log_dir/trace.json``, a
+    Chrome trace that Perfetto loads (the counterpart of the JAX
+    package's ``jax.profiler`` capture).  While it runs, the per-stage
+    kernel mix records nothing (one profiler at a time); it raises where
+    that capture holds the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..obs import kernel_mix
+
+    os.makedirs(log_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with kernel_mix.exclusive("profile_to"):
+        with profile(activities=acts) as prof:
+            yield prof
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# ---------------------------------------------------------------------------
+# the plan profiler
+# ---------------------------------------------------------------------------
 
 def backend_name(device=None) -> str:
     """The platform a run computes on (``device``, else the package's
@@ -382,8 +575,9 @@ class StageProfile:
     (``workflow/plan.py``; the streaming prefix's stages as
     ``workflow/streaming.py`` records them): its wall seconds, rows and
     the columns it added, and, for a stage run serially, the kernel
-    launches made while it ran.  ``cols``/``dtype``/``backend``/
-    ``stage_kind`` are the cost model's feature fields
+    launches made while it ran and, under a trace, its kernel mix
+    (``hlo``, serialised only when non-empty).  ``cols``/``dtype``/
+    ``backend``/``stage_kind`` are the cost model's feature fields
     (``tuning/costmodel.py``)."""
 
     uid: str
@@ -403,6 +597,9 @@ class StageProfile:
     stage_kind: str = ""
     n_devices: int = 1
     mesh_shape: str = ""
+    #: the stage's kernel mix under a trace (``obs/kernel_mix.py``):
+    #: {"programs", "ops", "deviceSecs"}; empty when untraced
+    hlo: Dict[str, Any] = field(default_factory=dict)
 
     def to_json(self) -> Dict[str, Any]:
         out = {"uid": self.uid, "op": self.op, "output": self.output,
@@ -418,6 +615,8 @@ class StageProfile:
             out["nDevices"] = self.n_devices
         if self.mesh_shape:
             out["meshShape"] = self.mesh_shape
+        if self.hlo:
+            out["hlo"] = dict(self.hlo)
         return out
 
 

@@ -19,6 +19,8 @@ Each save writes a new ``state-<seq>.npz``, then the manifest through
 generations go only after the rename lands, so a kill at any byte leaves
 the previous checkpoint whole.  The ``checkpoint.barrier`` fault point
 fires after each save; the kill-and-resume tests kill the process there.
+Each save and each resume, here and in the sweep's cursor, is a
+``checkpoint.save``/``checkpoint.resume`` flight event.
 
 What resumes where: the fit passes before the fused one save every
 ``every_chunks`` chunks, and a resume restores their states exactly and
@@ -72,6 +74,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.flight import record_event
 from ..stages.base import Estimator, Model, PipelineStage
 from ..utils import faults
 from ..utils.jsonio import write_json_atomic
@@ -226,6 +229,9 @@ class SweepCheckpointManager:
         self.mesh_changed = saved.get("mesh") != self.fingerprint.get("mesh")
         self._units = dict(doc.get("units", {}))
         self._rung = doc.get("rung")
+        record_event("checkpoint.resume", directory=self.directory,
+                     units=len(self._units),
+                     mesh_changed=self.mesh_changed, sweep=True)
         return True
 
     def restore(self, index: int, tag: str = ""):
@@ -268,6 +274,8 @@ class SweepCheckpointManager:
             self.export_doc())
         self._dirty = 0
         self.saves += 1
+        record_event("checkpoint.save", directory=self.directory,
+                     saves=self.saves, units=len(self._units), sweep=True)
         faults.fire("sweep.checkpoint", index=self.saves - 1)
 
     def flush(self) -> None:
@@ -568,6 +576,8 @@ class StreamingCheckpointManager:
                                    "live_payloads": payloads}
         state.current = doc.get("current")
         self._seq = int(doc.get("seq", 0))
+        record_event("checkpoint.resume", directory=self.directory,
+                     seq=self._seq, passes=len(state.completed))
         return state
 
     def _write(self) -> None:
@@ -612,6 +622,8 @@ class StreamingCheckpointManager:
                 except OSError:
                     pass
         self.saves += 1
+        record_event("checkpoint.save", directory=self.directory,
+                     seq=self._seq, saves=self.saves)
         faults.fire("checkpoint.barrier", index=self.saves - 1)
 
     def save_progress(self, pass_index: int, label: str, chunks_done: int,

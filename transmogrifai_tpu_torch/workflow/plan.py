@@ -19,18 +19,26 @@ parallelism and per-stage profiling (counterpart of
   bitwise the serial run's.
 * **Per-stage profiling**: a ``PlanProfiler`` gets every stage's wall,
   rows, input width and, for a serially run stage, its kernel launches
-  (``utils/profiling.py``), plus the resident column counts.
+  (``utils/profiling.py``), plus the resident column counts.  Under a
+  trace (``obs/trace.py``) each layer is a ``plan.layer[i]`` span and
+  each stage a ``stage:<OpClass>`` span under it (the pool's threads get
+  the layer span as their parent), and each serial stage runs under the
+  kernel-mix capture (``obs/kernel_mix.py``) into its profile's
+  ``hlo``.
 * **Advice** (``advise``, ``explain(advice=)``): the cost planner's
   stream-or-in-core choice for a workload (``tuning/planner.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
+from ..obs import kernel_mix
+from ..obs.trace import adopt_span, begin_span, current_tracer, end_span
 from ..stages.base import Estimator, Model, PipelineStage, Transformer
 from ..types.columns import ColumnarDataset, FeatureColumn
 from ..utils.profiling import (PlanProfiler, StageProfile, backend_name,
@@ -323,24 +331,32 @@ class ExecutionPlan:
                     and n_rows >= _PARALLEL_ROW_THRESHOLD)
         results = {}
         futures = []
-        if use_pool:
-            coll = current_collector()
-            pool = _pool(workers)
-            futures = [(s, pool.submit(self._run_stage, s, data, subs, li,
-                                       n_rows, prof, coll, False))
-                       for s in host]
-        else:
-            for s in host:
-                results[s.uid] = self._run_stage(s, data, subs, li, n_rows,
-                                                 prof, None, True)
+        layer_span = begin_span(f"plan.layer[{li}]", cat="plan",
+                                stages=len(layer), rows=n_rows)
         try:
-            for s in dev:
-                results[s.uid] = self._run_stage(s, data, subs, li, n_rows,
-                                                 prof, None, True)
+            if use_pool:
+                coll = current_collector()
+                pool = _pool(workers)
+                # a pool thread's stage span takes the layer's as its
+                # parent, handed over explicitly
+                futures = [(s, pool.submit(_under, layer_span,
+                                           self._run_stage, s, data, subs,
+                                           li, n_rows, prof, coll, False))
+                           for s in host]
+            else:
+                for s in host:
+                    results[s.uid] = self._run_stage(
+                        s, data, subs, li, n_rows, prof, None, True)
+            try:
+                for s in dev:
+                    results[s.uid] = self._run_stage(
+                        s, data, subs, li, n_rows, prof, None, True)
+            finally:
+                # no host stage outlives its layer, whether this raised
+                for s, fut in futures:
+                    results[s.uid] = fut.result()
         finally:
-            # no host stage outlives its layer, whether this raised or not
-            for s, fut in futures:
-                results[s.uid] = fut.result()
+            end_span(layer_span)
         return results
 
     @staticmethod
@@ -349,27 +365,38 @@ class ExecutionPlan:
                    serial: bool):
         """Fit (or take the substitute of) and transform one stage:
         (the fitted stage, its output name, its column, its seconds).  A
-        serial stage is charged the kernel launches made while it ran; a
-        pool thread runs under the caller's metrics collector."""
+        serial stage is charged the kernel launches made while it ran
+        and, under a trace, records its kernel mix; a pool thread runs
+        under the caller's metrics collector.  Its span's parent is the
+        thread's current span (the layer's)."""
         t0 = time.perf_counter()
         launches0 = kernel_launches() if serial else 0
+        name = stage.get_output().name
+        stage_span = begin_span(
+            f"stage:{type(stage).__name__}", cat="stage", uid=stage.uid,
+            layer=li, output=name, rows=n_rows, device=stage.device_heavy)
+        mix = (kernel_mix.capture(getattr(stage, "device", None))
+               if serial and current_tracer() is not None
+               else contextlib.nullcontext({}))
         ctx = install_collector(coll) if coll is not None else None
         if ctx is not None:
             ctx.__enter__()
         try:
-            if isinstance(stage, Estimator):
-                sub = subs.get(stage.uid)
-                kind = "fit" if sub is None else "substitute"
-                result_stage = sub if sub is not None else stage.fit(data)
-            elif isinstance(stage, Transformer):
-                kind, result_stage = "transform", stage
-            else:
-                raise TypeError(f"cannot execute stage {stage!r}")
-            name = stage.get_output().name
-            col = result_stage.transform(data)[name]
+            with mix as stage_mix:
+                if isinstance(stage, Estimator):
+                    sub = subs.get(stage.uid)
+                    kind = "fit" if sub is None else "substitute"
+                    result_stage = sub if sub is not None else \
+                        stage.fit(data)
+                elif isinstance(stage, Transformer):
+                    kind, result_stage = "transform", stage
+                else:
+                    raise TypeError(f"cannot execute stage {stage!r}")
+                col = result_stage.transform(data)[name]
         finally:
             if ctx is not None:
                 ctx.__exit__(None, None, None)
+            end_span(stage_span)
         dt = time.perf_counter() - t0
         width, dtype = _input_shape(stage, data)
         op = type(stage).__name__
@@ -382,8 +409,15 @@ class ExecutionPlan:
             launches=kernel_launches() - launches0 if serial else 0,
             cols=width, dtype=dtype,
             backend=backend_name(getattr(stage, "device", None)),
-            stage_kind=f"{op}:{cost_kind}"))
+            stage_kind=f"{op}:{cost_kind}", hlo=dict(stage_mix)))
         return result_stage, name, col, dt
+
+
+def _under(parent, fn, *args):
+    """``fn(*args)`` on a pool thread with ``parent`` as its current span
+    (``obs.trace.adopt_span``)."""
+    with adopt_span(parent):
+        return fn(*args)
 
 
 def _input_shape(stage: PipelineStage, data: ColumnarDataset):

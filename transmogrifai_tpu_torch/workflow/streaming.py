@@ -55,8 +55,10 @@ A refresh (``refresh_ctx``, ``workflow/refresh.py``) begins each
 estimator from its base model's restored state where still valid; a
 streaming workflow-CV train (``cv_ctx``, ``workflow/streaming_cv.py``)
 folds a state a fold as well and validates between the prefix and the
-tail; a ``profiler`` gets every stage's profile.  Not ported: the spans
-of the trace layer (ROADMAP Queue A item 6.5.5), pods and meshes (6.7).
+tail; a ``profiler`` gets every stage's profile.  Under a trace each
+reader pass is an ``ingest.pass:<label>`` span with an
+``ingest.chunk[i]`` span a chunk under it.  Not ported: pods and meshes
+(ROADMAP Queue A item 6.7).
 """
 from __future__ import annotations
 
@@ -70,6 +72,7 @@ import numpy as np
 import torch
 
 from ..models.prediction import PredictionBatch
+from ..obs.trace import begin_span, end_span
 from ..readers.streaming import AsyncBatcher
 from ..stages.base import Estimator, Model, PipelineStage
 from ..types.columns import ColumnarDataset, FeatureColumn
@@ -453,44 +456,57 @@ def fit_dag_streaming(dag, reader, raw_features, chunk_rows: int,
         def open_stream():
             return reader.iter_chunks(raw_features, chunk_rows)
 
-        if rcfg is not None and rcfg.retry is not None:
-            from ..readers.resilience import RetryingChunkStream
-
-            stream = RetryingChunkStream(open_stream, rcfg.retry,
-                                         on_retry=pass_stats.note_retry)
-        else:
-            stream = open_stream()
-        batcher = AsyncBatcher(_TimedChunks(stream, pass_stats),
-                               depth=prefetch)
+        pass_span = begin_span(f"ingest.pass:{label}", cat="ingest",
+                               stages=len(ordered), skip_chunks=skip_chunks)
+        chunks = 0
         try:
-            for idx, chunk in enumerate(batcher):
-                if cv_ctx is not None and cv_ctx.collecting_labels:
-                    cv_ctx.collect_labels(chunk)
-                if idx < skip_chunks:
+            if rcfg is not None and rcfg.retry is not None:
+                from ..readers.resilience import RetryingChunkStream
+
+                stream = RetryingChunkStream(open_stream, rcfg.retry,
+                                             on_retry=pass_stats.note_retry)
+            else:
+                stream = open_stream()
+            batcher = AsyncBatcher(_TimedChunks(stream, pass_stats),
+                                   depth=prefetch)
+            try:
+                for idx, chunk in enumerate(batcher):
+                    chunks = idx + 1
+                    if cv_ctx is not None and cv_ctx.collecting_labels:
+                        cv_ctx.collect_labels(chunk)
+                    if idx < skip_chunks:
+                        rows += len(chunk)
+                        pass_stats.chunks_skipped += 1
+                        continue
+                    t0 = time.perf_counter()
+                    chunk_span = begin_span(f"ingest.chunk[{idx}]",
+                                            cat="ingest", parent=pass_span,
+                                            rows=len(chunk))
+                    try:
+                        ds = chunk_filter(chunk) if chunk_filter is not None \
+                            else chunk
+                        if idx == 0 and keep_unknown:
+                            extras.update(c for c in ds.names()
+                                          if c not in known_universe)
+                        for i, st in enumerate(ordered):
+                            ds = timed_transform(st, ds)
+                            ds = ds.select([c for c in ds.names()
+                                            if c in needed_after[i]
+                                            or (keep_unknown
+                                                and c not in known_universe)])
+                        if cv_ctx is not None:
+                            cv_ctx.set_window(rows, len(chunk))
+                        per_chunk(ds)
+                    finally:
+                        end_span(chunk_span)
                     rows += len(chunk)
-                    pass_stats.chunks_skipped += 1
-                    continue
-                t0 = time.perf_counter()
-                ds = chunk_filter(chunk) if chunk_filter is not None \
-                    else chunk
-                if idx == 0 and keep_unknown:
-                    extras.update(c for c in ds.names()
-                                  if c not in known_universe)
-                for i, st in enumerate(ordered):
-                    ds = timed_transform(st, ds)
-                    ds = ds.select([c for c in ds.names()
-                                    if c in needed_after[i]
-                                    or (keep_unknown
-                                        and c not in known_universe)])
-                if cv_ctx is not None:
-                    cv_ctx.set_window(rows, len(chunk))
-                per_chunk(ds)
-                rows += len(chunk)
-                pass_stats.note_transform(idx, time.perf_counter() - t0)
-                if on_chunk is not None:
-                    on_chunk(idx, rows)
+                    pass_stats.note_transform(idx, time.perf_counter() - t0)
+                    if on_chunk is not None:
+                        on_chunk(idx, rows)
+            finally:
+                batcher.close()
         finally:
-            batcher.close()
+            end_span(pass_span, chunks=chunks, rows=rows)
         pass_stats.wall_s = time.perf_counter() - t_pass
         if rows == 0:
             raise ValueError("chunked reader produced no rows")

@@ -41,10 +41,11 @@ train records its stage observations in the cost history at
 ``TMOG_COST_HISTORY``.  ``train(tuner=Tuner(...))`` runs every model
 selector under the tuner's strategy for that train, and with
 ``auto_plan=True`` lets the cost planner choose stream or in-core
-(``tuning/``).
+(``tuning/``).  Under a trace (``obs/``) a train is one
+``workflow.train`` span and a refresh one ``workflow.refresh`` span,
+with a ``refresh.start`` flight event.
 
-Not ported yet (ROADMAP Queue A): spans and the trace exporters
-(6.5.5), meshes and pods (6.7).
+Not ported yet (ROADMAP Queue A): meshes and pods (6.7).
 """
 from __future__ import annotations
 
@@ -60,6 +61,8 @@ from ..device import DeviceLike, resolve_device
 from ..evaluators.evaluators import OpEvaluatorBase
 from ..features.feature import Feature
 from ..models.trees import clear_sweep_caches
+from ..obs.flight import record_event
+from ..obs.trace import begin_span, end_span
 from ..readers.base import Reader, reader_for
 from ..stages.base import Model, PipelineStage
 from ..stages.generator import FeatureGeneratorStage
@@ -348,11 +351,15 @@ class OpWorkflow(_WorkflowCore):
                     s.sweep_checkpoint_dir = os.path.join(checkpoint_dir,
                                                           "sweep")
         tuned = self._apply_tuner(tuner)
+        root = begin_span("workflow.train", cat="workflow",
+                          chunked=chunk_rows is not None,
+                          chunk_rows=chunk_rows)
         try:
             return self._train(chunk_rows, prefetch_chunks, validate,
                                checkpoint_dir, checkpoint_every_chunks,
                                profile)
         finally:
+            end_span(root)
             for s, d in routed:
                 s.sweep_checkpoint_dir = d
             for s, strategy, halving in tuned:
@@ -596,6 +603,9 @@ class OpWorkflow(_WorkflowCore):
         seconds, on_stage = self._stage_timer(dev)
         profiler = PlanProfiler()
         placed = self._place(dag, dev)
+        root = begin_span("workflow.refresh", cat="workflow",
+                          chunk_rows=chunk_rows)
+        record_event("refresh.start", chunk_rows=chunk_rows)
         try:
             with with_job_group(OpStep.FeatureEngineering):
                 fitted, transformed, ingest, fit_states = fit_dag_streaming(
@@ -607,6 +617,7 @@ class OpWorkflow(_WorkflowCore):
                     profiler=profiler, refresh_ctx=ctx,
                     fingerprint_extra=fingerprint_extra, cv_ctx=cv_ctx)
         finally:
+            end_span(root)
             for s in placed:
                 s.device = None
             clear_sweep_caches()
