@@ -91,6 +91,11 @@ to end at full width through the entry points a user calls:
     model.save -> OpWorkflowModel.load -> score (batch, CSVReader)
     -> ModelServer (batch 1, a burst, batch 64) -> HTTP
 
+    ModelServer(device_programs=True, aot_store=...) (a CUDA graph per
+    bucket; a fresh replica loads the store) -> the host rung after a
+    device fault -> GuardedSwap (shadow gates, pinned swap, bake,
+    rollback) -> MultiTenantServer (quotas, weighted-fair dequeue) -> HTTP
+
 Phases (one JSON line each, after a ``device`` line that also derives the
 card's aggregate shared-memory rate):
   1. build      nvcc for sm_90a of csrc/seg_hist.cu; the ptxas report, which
@@ -118,7 +123,7 @@ card's aggregate shared-memory rate):
                 (``prefetchTreePrepSecs``) and its state after the fit
                 (it must be joined)
   4a. obs       observability, after the selector phase: the default
-                selector on the first OBS_ROWS (100 000) of its training
+                selector on the first OBS_ROWS (50 000) of its training
                 rows, untraced, then under obs.start_trace() with the
                 per-stage kernel mix (torch.profiler around each serial
                 stage), both in a child (``--obs-child``: kineto's clock,
@@ -206,8 +211,9 @@ card's aggregate shared-memory rate):
                 (depth 12, one-third subsets)
   6. titanic    the reference's headline demo, examples/op_titanic_simple.py
                 with this package's imports, on the first 1/TITANIC_DEPTH_CUT
-                (500 000 + 50 000, cut from 1 000 000 + 100 000 to pay for
-                the obs phase) of the Titanic rows
+                (250 000 + 25 000, cut from 1 000 000 + 100 000 to pay for
+                the obs phase and the serving_plane phase) of the Titanic
+                rows
                 of examples/bench_pipeline.py's make_titanic_like recipe
                 (``make_titanic``: no pandas) with the label redrawn from a
                 logit of sex, class, fare and age: the train's split by
@@ -508,9 +514,10 @@ card's aggregate shared-memory rate):
  10. xgb_wide  BASELINE.md config 5: examples/bench_xgb_wide.py's
                 make_sparse_data recipe (seed 17, 5% density, 2000
                 columns; the smoke's rows and holdout divided by
-                MODEL_DEPTH_CUT, 275 000 rows made in one call, the first
-                250k to train, the last 25 000 held out: cut from 1M +
-                100k to keep the smoke within its time limit), one
+                WIDE_DEPTH_CUT, 137 500 rows made in one call, the first
+                125k to train, the last 12 500 held out: cut from 1M +
+                100k, then from 250k + 25k for the serving_plane phase,
+                to keep the smoke within its time limit), one
                 OpXGBoostClassifier
                 at the reference's defaults (200 rounds, eta 0.02, depth
                 10, gamma 0.8, early stopping 20, seed 13) through fit_raw:
@@ -526,7 +533,7 @@ card's aggregate shared-memory rate):
                 took through the CSR, trees equal up to exact ties,
                 holdout AuPR within 1e-3), 2 rounds of each leg's levels
                 held against the plain version; ``seg_hist`` lines with
-                ``path`` "xgb_wide" (d = 2000, M = 1, 32, 512 on 250k rows,
+                ``path`` "xgb_wide" (d = 2000, M = 1, 32, 512 on 125k rows,
                 and M = 32 on one GOSS sample)
  11. iris      the reference's Iris demo (examples/op_iris_simple.py's
                 DAG and grid: LR {0.01, 0.1}, MLP [5, 4] and [10], a
@@ -539,15 +546,15 @@ card's aggregate shared-memory rate):
   12. serve     both trained models (the slice's boosted model, the
                 selector's winner): save (seconds, bytes) and load on the
                 card (seconds); the holdout scored after the round trip
-                bitwise equal to the in-memory model; CSV_ROWS (2.5k) holdout rows
+                bitwise equal to the in-memory model; CSV_ROWS (1k) holdout rows
                 written as CSV (floats by repr) and read back by CSVReader
                 scoring equal to the in-memory model; single-row
                 requests through score_function_batch split by stage
                 (its per-stage hook, synchronised);
-                ModelServer.from_path(max_batch=64): SEQ_REQUESTS (200)
+                ModelServer.from_path(max_batch=64): SEQ_REQUESTS (100)
                 sequential single-row requests (p50/p99), a burst of
-                BURST_REQUESTS (1024) single rows from 8 threads (rows/s,
-                mean batch, padded share), BIG_REQUESTS (50) requests of
+                BURST_REQUESTS (512) single rows from 8 threads (rows/s,
+                mean batch, padded share), BIG_REQUESTS (25) requests of
                 64 rows (p50/p99), served scores within 1e-6
                 of the in-memory model's (and the bitwise share), no shed,
                 device error or host fallback; OBS_SERVE_REQUESTS (20)
@@ -560,6 +567,49 @@ card's aggregate shared-memory rate):
                 tests/fixtures/model_v1 scored on the card within 1e-5 of
                 its expected scores.  The phase must launch no kernel
                 (scoring is plain torch on the card)
+ 12b. serving_plane  the rest of one host's serving plane at the slice's
+                width, on the first 1/MODEL_DEPTH_CUT training rows and
+                the holdout's rows (with their label): (a) an
+                OpLogisticRegression alone on the 500 columns, saved and
+                served twice with max_batch=64, eagerly and with
+                device_programs=True (a CUDA graph per bucket, each
+                exported into a fresh AOTStore under smoke_out/):
+                SP_SEQ_REQUESTS (100) single rows and SP_BIG_REQUESTS
+                (20) 64-row requests each (p50/p99), every bucket "jit",
+                the graph-served scores bitwise equal to the eager
+                server's (else within 1e-6, written down), no compile
+                after warm-up and one hit and one replay a batch, each
+                bucket's export and capture seconds; a fresh replica in a
+                child (``--aot-child DIR``) over the same store: every
+                bucket "aot", no compile, its scores bitwise the parent's,
+                its cold start to the first score; model_v1 with graphs
+                within 1e-5 of its expected scores; (b) the host rung on
+                the graph server and on the slice's boosted model: the
+                executor's scoring made to raise, SP_HOST_REQUESTS single
+                rows and SP_HOST_BIG_REQUESTS 64-row requests answered by
+                the model's CPU copy within SP_HOST_TOL (1e-5) of the
+                card's, hostFallbacks counted, lastFallbackReason
+                "device_error:RuntimeError", the breaker open, /healthz
+                degraded, then a trial batch after SP_BREAKER_RESET_S
+                closing the breaker on the card; (c) the boosted model
+                served with a GuardedSwap (SP_REPLAY_ROWS live rows in
+                the replay window; the label's metric gate): (i) a
+                candidate retrained on the card (seed SP_CANDIDATE_SEED,
+                seg_hist launches) accepted, the outgoing generation
+                pinned and a clean bake keeping it, (ii) the LR with its
+                coefficients negated rejected by the prediction gate,
+                (iii) an accepted candidate rolled back to the pinned
+                generation by a swap.bake fault; shadow and bake seconds;
+                (d) a MultiTenantServer of gold (the boosted model, weight
+                3) and bronze (the LR, weight 1): routed scores within
+                1e-6 of each model's own server, a SP_FLOOD_S (1.5 s)
+                flood from SP_FLOOD_THREADS (8) threads at quotas of
+                SP_TENANT_QUEUE_ROWS (64): dispatched rows gold/bronze
+                within SP_WFQ_RATIO, only the flooding tenant shedding
+                when bronze alone floods, a device fault on bronze falling
+                back on bronze only, the per-tenant Prometheus text and
+                /tenants over HTTP.  Every clean server ends with no host
+                fallback, device error or shed
  13. seg_hist  kernel vs plain at the slice's level shapes (N=1M, d=500,
                 B=32, nchan=2, M=1..32, a level with empty slots), the level
                 shapes of depths 7 and 10 (M=64, 512), d=497 through
@@ -605,7 +655,8 @@ trains (the killed child stops before its selector), the events
 phase's two leg-a trains, the app phase's train, the
 multiclass phase's, the
 boosted_multi phase's train, xgb_defaults and count_and_subsample fits,
-and the xgb_wide phase's three fits), the card's name and power limit,
+the xgb_wide phase's three fits and the serving_plane phase's retrained
+candidate), the card's name and power limit,
 and the result line.  Any
 failed check exits non-zero.  Without a CUDA device the script exits with
 code 1 and prints no result.
@@ -679,14 +730,18 @@ from transmogrifai_tpu_torch.selector.model_selector import (
     MultiClassificationModelSelector, RegressionModelSelector, grid)
 from transmogrifai_tpu_torch.selector.validators import (OpCrossValidation,
                                                          make_folds)
-from transmogrifai_tpu_torch.serving import ModelServer
+from transmogrifai_tpu_torch.serving import (AOTStore, GuardedSwap,
+                                             ModelServer, MultiTenantServer,
+                                             SwapGateConfig, TenantConfig)
+from transmogrifai_tpu_torch.serving.aot import find_predictor
 from transmogrifai_tpu_torch.stages.base import Estimator
-from transmogrifai_tpu_torch.serving.http import make_http_server
+from transmogrifai_tpu_torch.serving.http import healthz_doc, make_http_server
 from transmogrifai_tpu_torch.types import feature_types as ft
 from transmogrifai_tpu_torch.tuning.halving import (HalvingConfig,
                                                     nested_subsample_order)
 from transmogrifai_tpu_torch.types.columns import ColumnarDataset, FeatureColumn
 from transmogrifai_tpu_torch import obs
+from transmogrifai_tpu_torch.utils import compile_cache, faults
 from transmogrifai_tpu_torch.utils import profiling as tprof
 from transmogrifai_tpu_torch.utils.profiling import (MetricsCollector,
                                                      install_collector)
@@ -710,11 +765,41 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 #: single-row requests, a burst of single rows from several threads,
 #: 64-row requests, rows over HTTP
 # the serve phase's depth, cut (from 500, 4096, 200 and 20 profiled
-# requests, and from 10k CSV rows, then 5k to pay for the obs phase) to
-# keep the smoke within its time limit
-CSV_ROWS, SEQ_REQUESTS, BURST_REQUESTS, BURST_THREADS = 2_500, 200, 1024, 8
-BIG_REQUESTS, HTTP_ROWS, SPLIT_REQUESTS = 50, 4, 20
+# requests, and from 10k CSV rows, then 5k to pay for the obs phase; then
+# from 200, 1024 and 50 requests and 2 500 CSV rows to pay for the
+# serving_plane phase) to keep the smoke within its time limit
+CSV_ROWS, SEQ_REQUESTS, BURST_REQUESTS, BURST_THREADS = 1_000, 100, 512, 8
+BIG_REQUESTS, HTTP_ROWS, SPLIT_REQUESTS = 25, 4, 20
 PROFILE_REQUESTS = 5
+#: the serving_plane phase (12b): single-row and 64-row requests each
+#: server answers; the single rows the fresh replica answers beside one
+#: 64-row request; the host rung's requests (single, 64-row) and its
+#: tolerance against the card (float32 sums on the CPU in another order);
+#: the breaker's reset; the guard's replay window (live 64-row requests);
+#: the retrained candidate's seed, the latency gate's factor (a p99 of 16
+#: shadow batches is their slowest, and one host stall has reached 8.5x
+#: the other model's on the card's host: it must not reject a candidate
+#: of the live model's family); each tenant's quota and largest batch (a quarter
+#: of the quota, so that a dispatch leaves its lane non-empty under a
+#: flood), the flood's seconds, threads and rows a request (enough that
+#: threads sharing the interpreter lock keep both lanes full) and the
+#: dispatched-rows ratio gold/bronze it must reach (weights 3:1)
+SP_SEQ_REQUESTS, SP_BIG_REQUESTS, SP_REPLICA_SINGLES = 50, 10, 8
+SP_HOST_REQUESTS, SP_HOST_BIG_REQUESTS, SP_HOST_TOL = 10, 4, 1e-5
+SP_BREAKER_RESET_S, SP_REPLAY_ROWS, SP_CANDIDATE_SEED = 1.5, 256, 7
+SP_P99_FACTOR = 100.0
+SP_TENANT_QUEUE_ROWS, SP_TENANT_MAX_BATCH = 64, 16
+SP_FLOOD_S, SP_FLOOD_THREADS, SP_FLOOD_ROWS = 1.5, 8, 8
+SP_WFQ_RATIO = (2.0, 4.5)
+#: the phase as predicted before its first run on the card (PERF.md
+#: section 6), for a host like the previous final proof run's: its
+#: seconds, the fresh replica's cold start (the server's construction to
+#: its first score, in the child) and its process wall, the graph
+#: server's batch-1 p50
+SERVING_PLANE_PREDICTED = {"phase_s": [40.0, 80.0],
+                           "replica_cold_start_s": [1.0, 5.0],
+                           "replica_process_s": [8.0, 20.0],
+                           "graphs_batch1_p50_ms": [3.0, 9.0]}
 #: boosting rounds of the profiled fit (one early-stopping chunk)
 PROFILE_ROUNDS = 8
 #: the regression phase's label: its seed, the variance of its linear
@@ -735,10 +820,10 @@ CHECK_ROUNDS, CHECK_TREES = 2, 2
 #: the titanic phase: the seed of its label's uniform draws; the share of
 #: the attainable holdout AuPR (that of the true probabilities) the
 #: trained demo must reach (stated before the first chip run); the
-#: single-row requests it serves
+#: single-row requests it serves (200 before the serving_plane phase)
 TITANIC_LABEL_SEED = 11
 TITANIC_AUPR_SHARE = 0.9
-TITANIC_SERVE_REQUESTS = 200
+TITANIC_SERVE_REQUESTS = 100
 #: demo forest trees grown on the checked matrix with every level held
 #: bitwise to the plain version: the demo's whole forest on one fold, so
 #: the check meets the deepest levels its trees reach
@@ -758,7 +843,9 @@ MC_PRIORS = (0.40, 0.25, 0.15, 0.12, 0.08)
 MC_LINEAR_SD, MC_GROUP_COLS = 2.0, 20
 MC_F1_SHARE = 0.9
 MC_CHECK_TREES = 10
-MC_SERVE_REQUESTS = 200
+#: single rows the multiclass phase serves (200 before the serving_plane
+#: phase)
+MC_SERVE_REQUESTS = 100
 #: the iris phase: the frame's seed and the share of the attainable
 #: holdout F1 (the Bayes argmax of the classes' Gaussian densities) the
 #: demo must reach (stated before the first chip run)
@@ -967,8 +1054,9 @@ EV_AUROC_FLOOR = 0.9576739050423261 - 0.02
 # the app phase (6g): the generated Titanic project on a Titanic-shaped
 # CSV; its scores against the in-process ones (200 000 rows before the
 # selector_options phase, 100 000 before the out_of_core phase's leg d,
-# 50 000 before the refresh_cv phase, 25 000 before the obs phase)
-APP_ROWS = 12_500
+# 50 000 before the refresh_cv phase, 25 000 before the obs phase,
+# 12 500 before the serving_plane phase)
+APP_ROWS = 6_250
 APP_SCORE_TOL = 1e-6
 #: the selector_options phase: legs b-d's rows (the selector
 #: recipe and the Titanic demo's; cut from 200 000 + 20 000, and from
@@ -1002,13 +1090,18 @@ AVRO_DEPTH_CUT = 16
 #: before the refresh_cv phase), so that the smoke ends well
 #: within its time limit on a slow host
 MODEL_DEPTH_CUT = 4
+#: the xgb_wide phase runs on the smoke's rows and holdout divided by this
+#: (MODEL_DEPTH_CUT before the serving_plane phase)
+WIDE_DEPTH_CUT = 8
 #: the validate_explain phase runs on the Titanic rows and holdout divided
 #: by this (1M + 100k before the selector_options phase, 2 before the
-#: refresh_cv phase, 4 before the obs phase)
+#: refresh_cv phase, 4 before the obs phase; its holdout must hold
+#: VE_LOCO_ROWS)
 VE_DEPTH_CUT = 8
 #: the titanic phase (and its efb line) runs on the Titanic rows and
-#: holdout divided by this (1M + 100k before the obs phase)
-TITANIC_DEPTH_CUT = 2
+#: holdout divided by this (1M + 100k before the obs phase, 2 before the
+#: serving_plane phase)
+TITANIC_DEPTH_CUT = 4
 #: the pivot-block checks: rows (the first of a phase's dataset), timing
 #: repetitions, and the times predicted before the first chip run
 #: (PERF.md section 6): the card's build and the host's build with
@@ -1022,21 +1115,25 @@ FE_OPTIONS_ROWS, FE_OPTIONS_HOLDOUT = 100_000, 10_000
 FE_OPTIONS_FILL = 7
 FE_OPTIONS_PREDICTED = {"train_s": [4.0, 12.0]}
 #: the obs phase (4a): the selector's training rows it takes (the first of
-#: the selector phase's), the limit on the disabled hooks' cost as a share
+#: the selector phase's; 100 000 before the serving_plane phase), the limit on the disabled hooks' cost as a share
 #: of the untraced train's wall, the single-row requests the serve phase
 #: traces, and the walls predicted (PERF.md section 6; revised after the
 #: first chip runs and before the final proof): the untraced and the
 #: traced train, the phase, and the whole smoke on a host like the
 #: previous final proof run's and on a host 1.6x slower on host work
-OBS_ROWS = 100_000
+OBS_ROWS = 50_000
 OBS_FRAC_LIMIT = 0.01
 OBS_SERVE_REQUESTS = 20
 OBS_PREDICTED = {"untraced_s": [9.0, 12.5], "traced_s": [26.0, 44.0],
                  "phase_s": [42.0, 70.0], "smoke_s": [740.0, 775.0],
                  "smoke_slow_host_s": [1060.0, 1080.0]}
-#: the wall of the smoke's final proof run before the obs phase was added
-#: (the H100 at 700 W), printed beside its total
-SMOKE_PREVIOUS_S = 749.4
+#: the wall of the smoke's final proof run before the serving_plane phase
+#: was added (the H100 at 700 W), printed beside its total, and the whole
+#: smoke as predicted before this version's final proof (PERF.md section
+#: 6): on a host like that run's, and on a host 1.6x slower on host work
+SMOKE_PREVIOUS_S = 701.3
+SMOKE_PREDICTED = {"smoke_s": [690.0, 760.0],
+                   "smoke_slow_host_s": [990.0, 1070.0]}
 #: seconds after which the script writes every thread's stack to stderr
 #: (it goes on running): what a run stopped at the 1 200 s limit was doing
 STACKS_AT_S = 1_100
@@ -7304,6 +7401,568 @@ def phase_serve(models: list, cols: int):
             rows[:SPLIT_REQUESTS])
 
 
+# ---------------------------------------------------------------------------
+# the serving_plane phase: per-bucket graphs, the host rung, the guarded
+# swap and tenancy on the card
+# ---------------------------------------------------------------------------
+
+def _sp_rows(hold, cols: int, n: int) -> list:
+    """The first ``n`` holdout rows as request dicts, each with its
+    label (a served row ignores it; the guard's metric gate reads it)."""
+    feats = [f"f{j}" for j in range(cols)]
+    X = np.stack([np.asarray(hold[f].values[:n]) for f in feats], axis=1)
+    y = np.asarray(hold["label"].values[:n], np.float64)
+    return [dict(zip(feats, r), label=float(lab))
+            for r, lab in zip(X.tolist(), y.tolist())]
+
+
+def _sp_p1(out: list, pred_name: str) -> list:
+    return [o[pred_name]["probability_1"] for o in out]
+
+
+def _sp_traffic(srv, rows: list, pred_name: str, seq: int,
+                big: int) -> dict:
+    """``seq`` single-row requests, then ``big`` requests of 64 rows:
+    latencies and each answered row's probability, in order."""
+    lat1, lat64, scores = [], [], []
+    for r in rows[:seq]:
+        t0 = time.perf_counter()
+        out = srv.score([r])
+        lat1.append(time.perf_counter() - t0)
+        scores += _sp_p1(out, pred_name)
+    for k in range(big):
+        t0 = time.perf_counter()
+        out = srv.score(rows[64 * k:64 * (k + 1)])
+        lat64.append(time.perf_counter() - t0)
+        scores += _sp_p1(out, pred_name)
+    return {"batch1": _pcts(lat1), "batch64": _pcts(lat64),
+            "scores": scores}
+
+
+def _sp_clean(srv, what: str) -> dict:
+    snap = srv.snapshot()
+    out = {k: snap[k] for k in ("hostFallbacks", "deviceErrors", "shed")}
+    check(out == {"hostFallbacks": 0, "deviceErrors": 0, "shed": 0},
+          f"serving_plane: the clean {what} server ended with {out}")
+    return out
+
+
+def _sp_cache(prefix: str) -> dict:
+    stats = compile_cache.cache_stats()
+    return {k: sum(v for key, v in stats[k].items()
+                   if key.startswith(prefix))
+            for k in ("compiles", "hits", "aotLoads", "aotMisses")}
+
+
+def _sp_compare_rows(rows: list) -> list:
+    """The rows a fresh replica answers: one 64-row request, then
+    SP_REPLICA_SINGLES single rows."""
+    return [rows[:64]] + [[r] for r in rows[:SP_REPLICA_SINGLES]]
+
+
+def aot_child(tmp: str) -> None:
+    """A fresh replica in this process: the LR served with
+    ``device_programs=True`` over the parent's store; prints one JSON
+    line (every bucket's mode, the compile ledger, its scores and its
+    cold start from the server's construction to the first score)."""
+    with open(os.path.join(tmp, "child_in.json")) as f:
+        spec = json.load(f)
+    t0 = time.perf_counter()
+    srv = ModelServer.from_path(spec["path"], name="replica", max_batch=64,
+                                warmup_row=spec["rows"][0],
+                                device_programs=True,
+                                aot_store=spec["store"])
+    srv.start()
+    first = srv.score(spec["rows"][:1])
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    try:
+        ex = srv._executor_for(srv.registry.get("replica"))
+        scores = [_sp_p1(srv.score(req), spec["pred"])
+                  for req in _sp_compare_rows(spec["rows"])]
+        snap = srv.snapshot()
+    finally:
+        srv.stop()
+    print(json.dumps({"cold_start_s": cold_s,
+                      "first": _sp_p1(first, spec["pred"]),
+                      "modes": {str(b): m for b, m in
+                                snap["aotPrograms"].items()},
+                      "seconds": {str(b): s for b, s in
+                                  ex.programs.seconds.items()},
+                      "cache": _sp_cache("serving.replica."),
+                      "scores": scores,
+                      "host_fallbacks": snap["hostFallbacks"],
+                      "device_errors": snap["deviceErrors"]}), flush=True)
+
+
+def _sp_graphs(train, rows: list, cols: int, tmp: str) -> Tuple[dict, dict]:
+    """Leg a: an LR alone on the slice's columns, served eagerly and with
+    a CUDA graph per bucket; a fresh replica loads the store; model_v1
+    with graphs."""
+    label = FeatureBuilder.RealNN("label").as_response()
+    preds = [FeatureBuilder.Real(f"f{j}").as_predictor() for j in range(cols)]
+    pred = label.transform_with(OpLogisticRegression(), transmogrify(preds))
+    t0 = time.perf_counter()
+    model = OpWorkflow().set_result_features(pred).set_input_data(
+        train).train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "lr")
+    model.save(path)
+    del model
+    store_dir = os.path.join(tmp, "aot")
+    out = {"rows": len(train), "cols": cols, "train_s": train_s}
+    servers = {}
+    for mode, kw in (("eager", {}),
+                     ("graphs", {"device_programs": True,
+                                 "aot_store": AOTStore(store_dir)})):
+        name = f"lr_{mode}"
+        t0 = time.perf_counter()
+        srv = ModelServer.from_path(path, name=name, max_batch=64,
+                                    warmup_row=rows[0], failure_threshold=1,
+                                    breaker_reset_s=SP_BREAKER_RESET_S, **kw)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srv.start()
+        warm_s = time.perf_counter() - t0
+        entry = srv.registry.get(name)
+        before = srv.snapshot()
+        cache0 = _sp_cache(f"serving.{name}.")
+        ps = srv._executor_for(entry).programs
+        replays0 = sum(ps.replays.values()) if ps is not None else 0
+        traffic = _sp_traffic(srv, rows, pred.name, SP_SEQ_REQUESTS,
+                              SP_BIG_REQUESTS)
+        after = srv.snapshot()
+        cache1 = _sp_cache(f"serving.{name}.")
+        batches = after["batches"] - before["batches"]
+        leg = {"load_s": load_s, "host_copy_load_s": entry.host_load_s,
+               "warmup_s": warm_s, "batch1": traffic["batch1"],
+               "batch64": traffic["batch64"], "batches": batches,
+               "compiles_after_warmup": cache1["compiles"]
+               - cache0["compiles"],
+               "hits_after_warmup": cache1["hits"] - cache0["hits"]}
+        if ps is not None:
+            leg.update(modes={str(b): m for b, m in ps.modes.items()},
+                       seconds={str(b): s for b, s in ps.seconds.items()},
+                       replays=sum(ps.replays.values()) - replays0,
+                       store=ps.store.stats()["entries"])
+            check(set(ps.modes.values()) == {"jit"}
+                  and len(ps.modes) == 7,
+                  f"serving_plane a: bucket modes {ps.modes}")
+            check(leg["compiles_after_warmup"] == 0
+                  and leg["hits_after_warmup"] == batches
+                  == leg["replays"],
+                  f"serving_plane a: after warm-up {leg}")
+        leg["clean"] = _sp_clean(srv, name)
+        servers[mode] = (srv, traffic["scores"])
+        out[mode] = leg
+    eager, graphs = servers["eager"][1], servers["graphs"][1]
+    diff = np.abs(np.asarray(eager) - np.asarray(graphs))
+    out["graphs_bitwise_equal"] = bool(eager == graphs)
+    out["graphs_max_abs_diff"] = float(diff.max())
+    check(out["graphs_max_abs_diff"] <= 1e-6,
+          f"serving_plane a: graph-served scores {out['graphs_max_abs_diff']}"
+          f" from the eager server's")
+    servers["eager"][0].stop()
+    gsrv = servers["graphs"][0]
+    compare = [_sp_p1(gsrv.score(req), pred.name)
+               for req in _sp_compare_rows(rows)]
+
+    # a fresh replica over the same store, in a child process that runs
+    # beside the rest of the phase (its wall and cold start are taken
+    # with this process busy on one core of the host's eight)
+    with open(os.path.join(tmp, "child_in.json"), "w") as f:
+        json.dump({"path": path, "store": store_dir, "pred": pred.name,
+                   "rows": rows[:64]}, f)
+    child_out = open(os.path.join(tmp, "child.out"), "w")
+    child_err = open(os.path.join(tmp, "child.err"), "w")
+    child = {"t0": time.perf_counter(), "compare": compare, "tmp": tmp,
+             "files": (child_out, child_err),
+             "proc": subprocess.Popen(
+                 [sys.executable, os.path.abspath(__file__), "--aot-child",
+                  tmp], stdout=child_out, stderr=child_err)}
+
+    # the committed model_v1 with graphs
+    v1 = os.path.join(REPO, "tests", "fixtures", "model_v1")
+    with open(os.path.join(v1 + "_input.csv")) as f:
+        v1_rows = [{"label": float(r["label"]), "x": float(r["x"]),
+                    "cat": r["cat"]} for r in csv.DictReader(f)]
+    expected = np.load(os.path.join(REPO, "tests", "fixtures",
+                                    "model_v1_expected.npy"))
+    with ModelServer.from_path(v1, name="v1_graphs", max_batch=64,
+                               warmup_row=v1_rows[0], device_programs=True
+                               ) as vsrv:
+        got = vsrv.score(v1_rows)
+        vsnap = vsrv.snapshot()
+    name = next(iter(got[0]))
+    v1_err = float(np.abs(np.asarray(_sp_p1(got, name)) - expected).max())
+    out["model_v1"] = {"rows": len(v1_rows), "max_abs_err": v1_err,
+                       "modes": sorted(set(vsnap["aotPrograms"].values()))}
+    check(v1_err <= 1e-5 and out["model_v1"]["modes"] == ["jit"],
+          f"serving_plane a: model_v1 with graphs: {out['model_v1']}")
+    return out, {"path": path, "pred": pred, "server": gsrv,
+                 "scores": servers["graphs"][1], "child": child}
+
+
+def _sp_replica(child: dict) -> dict:
+    """Wait for the fresh replica (``_sp_graphs``' child) and hold it:
+    every bucket "aot", no compile, its scores bitwise the parent's."""
+    proc = child["proc"]
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for f in child["files"]:
+            f.close()
+    wall = time.perf_counter() - child["t0"]
+    with open(os.path.join(child["tmp"], "child.out")) as f:
+        lines = [ln for ln in f.read().splitlines() if ln.startswith("{")]
+    with open(os.path.join(child["tmp"], "child.err")) as f:
+        err = f.read()
+    check(rc == 0 and lines, f"serving_plane a: the replica child failed "
+          f"(rc {rc}): {err[-2000:]}")
+    res = json.loads(lines[-1])
+    out = {k: res[k] for k in ("cold_start_s", "modes", "seconds", "cache",
+                               "host_fallbacks")}
+    out["process_wall_s"] = wall
+    out["bitwise_equal"] = res["scores"] == child["compare"]
+    check(set(res["modes"].values()) == {"aot"} and len(res["modes"]) == 7
+          and res["cache"]["compiles"] == 0,
+          f"serving_plane a: the replica's modes {res['modes']}, "
+          f"ledger {res['cache']}")
+    check(out["bitwise_equal"],
+          "serving_plane a: the replica's scores differ from the parent's")
+    return out
+
+
+def _sp_rung(srv, rows: list, pred_name: str, card: list) -> dict:
+    """Leg b on one server: its device scoring raises; the host rung
+    answers SP_HOST_REQUESTS single rows and 64-row requests within
+    SP_HOST_TOL of the card's ``card`` scores (those rows' answers at
+    the same request sizes); then the device path heals and a trial batch
+    after the breaker's reset closes it."""
+    ex = srv._executor_for(srv.registry.get(srv.name))
+    good = ex.score_fn
+
+    def boom(_rows):
+        raise RuntimeError("injected device failure")
+
+    ex.score_fn = boom
+    before = srv.snapshot()
+    first = _sp_p1(srv.score(rows[:1]), pred_name)   # the failing batch
+    after_first = srv.snapshot()
+    health = healthz_doc(srv)[1]
+    traffic = _sp_traffic(srv, rows, pred_name, SP_HOST_REQUESTS,
+                          SP_HOST_BIG_REQUESTS)
+    snap = srv.snapshot()
+    ex.score_fn = good
+    diff = np.abs(np.asarray(first + traffic["scores"])
+                  - np.asarray(card[:1] + card))
+    time.sleep(SP_BREAKER_RESET_S + 0.1)
+    trial = _sp_p1(srv.score(rows[:1]), pred_name)
+    out = {"host_batch1": traffic["batch1"],
+           "host_batch64": traffic["batch64"],
+           "max_abs_diff": float(diff.max()),
+           "host_fallbacks": snap["hostFallbacks"]
+           - before["hostFallbacks"],
+           "device_errors": snap["deviceErrors"] - before["deviceErrors"],
+           "breaker_opens": snap["breakerOpens"] - before["breakerOpens"],
+           "reason_after_first": after_first["lastFallbackReason"],
+           "breaker_after_first": after_first["breakerState"],
+           "last_fallback_reason": snap["lastFallbackReason"],
+           "healthz": health["status"],
+           "healthz_reason": health["lastFallbackReason"],
+           "breaker_after_trial": srv.breaker.state,
+           "trial_equal_card": trial == card[:1]}
+    check(out["max_abs_diff"] <= SP_HOST_TOL
+          and out["host_fallbacks"] == 1 + SP_HOST_REQUESTS
+          + SP_HOST_BIG_REQUESTS and out["breaker_opens"] >= 1
+          and out["reason_after_first"] == "device_error:RuntimeError"
+          and out["breaker_after_first"] == "open"
+          and out["healthz"] == "degraded"
+          and out["healthz_reason"] == "device_error:RuntimeError",
+          f"serving_plane b: {srv.name}'s host rung: {out}")
+    check(out["breaker_after_trial"] == "closed" and out["trial_equal_card"],
+          f"serving_plane b: {srv.name} did not recover on the card: {out}")
+    return out
+
+
+def _sp_guard(xgb_path: str, xgb_model, lr_path: str, train, rows: list,
+              cols: int, rounds: int) -> Tuple[dict, int]:
+    """Leg c: the boosted model served with a guard; an accepted
+    candidate retrained on the card, a rejected broken one, an accepted
+    one rolled back by a bake fault."""
+    srv = ModelServer.from_path(xgb_path, name="xgb_guard", max_batch=64,
+                                warmup_row=rows[0])
+    guard = GuardedSwap(srv.registry, "xgb_guard", gate=SwapGateConfig(
+        label_name="label", replay_capacity=SP_REPLAY_ROWS,
+        p99_factor=SP_P99_FACTOR))
+    srv.with_guard(guard)
+    out = {}
+    with srv:
+        for k in range(SP_REPLAY_ROWS // 64):
+            srv.score(rows[64 * k:64 * (k + 1)])
+        out["replay_rows"] = len(guard.replay_rows())
+
+        # (i) a candidate retrained on the card with another seed
+        label = FeatureBuilder.RealNN("label").as_response()
+        preds = [FeatureBuilder.Real(f"f{j}").as_predictor()
+                 for j in range(cols)]
+        checked = label.transform_with(SanityChecker(max_correlation=0.99),
+                                       transmogrify(preds))
+        cpred = label.transform_with(OpXGBoostClassifier(
+            max_depth=6, num_round=rounds, seed=SP_CANDIDATE_SEED), checked)
+        gk.seg_level_hists.launches = 0
+        t0 = time.perf_counter()
+        cand = OpWorkflow().set_result_features(cpred).set_input_data(
+            train).train()
+        torch.cuda.synchronize()
+        retrain_s = time.perf_counter() - t0
+        launches = gk.seg_level_hists.launches
+        t0 = time.perf_counter()
+        d1 = guard.propose(cand)
+        shadow_s = time.perf_counter() - t0
+        pinned = srv.registry.pinned("xgb_guard")
+        t0 = time.perf_counter()
+        k = 0
+        chunks = SP_REPLAY_ROWS // 64
+        while guard.baking and k < 4 * chunks:
+            srv.score(rows[64 * (k % chunks):64 * (k % chunks + 1)])
+            k += 1
+        bake_s = time.perf_counter() - t0
+        out["accepted"] = {
+            "retrain_rows": len(train), "retrain_s": retrain_s,
+            "seg_hist_launches": launches, "accepted": d1.accepted,
+            "reasons": d1.reasons, "checks": d1.checks,
+            "version": d1.version,
+            "pinned": pinned.version if pinned else None,
+            "shadow_s": shadow_s, "bake_s": bake_s, "bake_requests": k,
+            "baking_after": guard.baking,
+            "current": srv.registry.get("xgb_guard").version}
+        check(launches > 0 and d1.accepted and d1.version == 2
+              and out["accepted"]["pinned"] == 1
+              and not guard.baking and out["accepted"]["current"] == 2,
+              f"serving_plane c(i): {out['accepted']}")
+
+        # (ii) a broken candidate: the served LR, coefficients negated
+        broken = OpWorkflowModel.load(lr_path)
+        lr = find_predictor(broken)
+        lr.coef, lr.intercept = -lr.coef, -lr.intercept
+        t0 = time.perf_counter()
+        d2 = guard.propose(broken)
+        out["rejected"] = {"accepted": d2.accepted, "reasons": d2.reasons,
+                           "checks": d2.checks,
+                           "shadow_s": time.perf_counter() - t0,
+                           "current": srv.registry.get("xgb_guard").version}
+        check(not d2.accepted and out["rejected"]["current"] == 2
+              and any(r.startswith(("pred_distance:", "pred_psi:"))
+                      for r in d2.reasons),
+              f"serving_plane c(ii): {out['rejected']}")
+
+        # (iii) an accepted candidate with a swap.bake fault armed
+        with faults.inject(faults.FaultSpec(point="swap.bake",
+                                            action="raise")):
+            t0 = time.perf_counter()
+            d3 = guard.propose(xgb_model)
+            shadow3 = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            srv.score(rows[:64])   # a probe is due: it raises
+            bake3 = time.perf_counter() - t0
+        snap = srv.snapshot()
+        out["rolled_back"] = {
+            "accepted": d3.accepted, "reasons": d3.reasons,
+            "checks": d3.checks, "version": d3.version,
+            "shadow_s": shadow3, "bake_s": bake3,
+            "current": srv.registry.get("xgb_guard").version,
+            "rollbacks": snap["rollbacks"],
+            "last_rollback_reason": snap["lastRollbackReason"]}
+        check(d3.accepted and d3.version == 3
+              and out["rolled_back"]["current"] == 2
+              and snap["rollbacks"] == 1
+              and snap["lastRollbackReason"] == "probe_error:FaultError",
+              f"serving_plane c(iii): {out['rolled_back']}")
+        out["swaps"] = {k: snap[k] for k in ("swapsAccepted",
+                                             "swapsRejected", "hotSwaps")}
+        out["clean"] = _sp_clean(srv, "guarded")
+    return out, launches
+
+
+def _sp_tenancy(xgb_path: str, lr_path: str, rows: list, pred: dict,
+                own: dict) -> dict:
+    """Leg d: gold (the boosted model, weight 3) and bronze (the LR,
+    weight 1) behind one weighted-fair dispatcher."""
+    mts = MultiTenantServer()
+    for name, weight, path in (("gold", 3.0, xgb_path),
+                               ("bronze", 1.0, lr_path)):
+        mts.add_tenant(TenantConfig(name, weight=weight,
+                                    max_batch=SP_TENANT_MAX_BATCH,
+                                    max_queue_rows=SP_TENANT_QUEUE_ROWS,
+                                    warmup_row=rows[0]), path=path)
+    out = {}
+    with mts:
+        routed = {t: _sp_p1(mts.score(rows[:64], tenant=t), pred[t])
+                  for t in ("gold", "bronze")}
+        out["routed_max_abs_diff"] = {
+            t: float(np.abs(np.asarray(routed[t])
+                            - np.asarray(own[t])).max()) for t in routed}
+        check(all(v <= 1e-6 for v in out["routed_max_abs_diff"].values()),
+              f"serving_plane d: routed scores {out['routed_max_abs_diff']}")
+
+        def flood(tenants) -> dict:
+            snap0 = mts.snapshot()["tenants"]
+            stop = threading.Event()
+
+            def loop(t):
+                while not stop.is_set():
+                    mts.submit(rows[:SP_FLOOD_ROWS], tenant=t)
+                    time.sleep(0.0005)
+
+            threads = [threading.Thread(target=loop,
+                                        args=(tenants[i % len(tenants)],))
+                       for i in range(SP_FLOOD_THREADS)]
+            for th in threads:
+                th.start()
+            quiet = [t for t in ("gold", "bronze") if t not in tenants]
+            t_end = time.perf_counter() + SP_FLOOD_S
+            while time.perf_counter() < t_end:
+                if quiet:   # the quiet tenant's own steady requests
+                    mts.score(rows[:1], tenant=quiet[0])
+                else:
+                    time.sleep(0.01)
+            # the rows dispatched while both lanes were backlogged: the
+            # queues' drain after the flood is not a weighted share
+            snap1 = mts.snapshot()["tenants"]
+            stop.set()
+            for th in threads:
+                th.join(timeout=10)
+            while any(lane.queue for lane in list(mts._lanes.values())):
+                time.sleep(0.01)
+            return {t: {"dispatched_rows": snap1[t]["wfq"]["dispatchedRows"]
+                        - snap0[t]["wfq"]["dispatchedRows"],
+                        "shed": snap1[t]["shed"] - snap0[t]["shed"]}
+                    for t in ("gold", "bronze")}
+
+        both = flood(["gold", "bronze"])
+        ratio = (both["gold"]["dispatched_rows"]
+                 / max(both["bronze"]["dispatched_rows"], 1))
+        out["flood"] = {"seconds": SP_FLOOD_S, "threads": SP_FLOOD_THREADS,
+                        "tenants": both, "gold_over_bronze": ratio}
+        check(SP_WFQ_RATIO[0] <= ratio <= SP_WFQ_RATIO[1],
+              f"serving_plane d: dispatched rows gold/bronze {ratio}")
+        one = flood(["bronze"])
+        out["bronze_floods"] = one
+        check(one["gold"]["shed"] == 0 and one["bronze"]["shed"] > 0,
+              f"serving_plane d: with bronze flooding: {one}")
+
+        bronze = mts.tenant("bronze")
+        ex = bronze._executor_for(bronze.registry.get("bronze"))
+        good = ex.score_fn
+
+        def boom(_rows):
+            raise RuntimeError("injected device failure")
+
+        snap0 = mts.snapshot()["tenants"]
+        ex.score_fn = boom
+        try:
+            for r in rows[:4]:
+                mts.score([r], tenant="bronze")
+                mts.score([r], tenant="gold")
+        finally:
+            ex.score_fn = good
+        snap1 = mts.snapshot()["tenants"]
+        out["fault"] = {t: snap1[t]["hostFallbacks"]
+                        - snap0[t]["hostFallbacks"]
+                        for t in ("gold", "bronze")}
+        check(out["fault"]["bronze"] > 0 and out["fault"]["gold"] == 0,
+              f"serving_plane d: host fallbacks {out['fault']}")
+
+        from urllib.request import urlopen
+
+        httpd = make_http_server(mts, "127.0.0.1", 0)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            with urlopen(base + "/metrics?format=prometheus",
+                         timeout=60) as resp:
+                prom = obs.parse_exposition(resp.read().decode())
+            with urlopen(base + "/tenants", timeout=60) as resp:
+                listed = [t["name"] for t in json.loads(resp.read())[
+                    "tenants"]]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=10)
+        snap = mts.snapshot()["tenants"]
+        out["prometheus_requests"] = {
+            t: prom[f'tmog_serving_requests_total{{tenant="{t}"}}']
+            for t in ("gold", "bronze")}
+        out["tenants_listed"] = listed
+        check(all(out["prometheus_requests"][t] == snap[t]["requests"]
+                  for t in ("gold", "bronze"))
+              and listed == ["bronze", "gold"],
+              f"serving_plane d: Prometheus/tenants over HTTP: {out}")
+    return out
+
+
+def phase_serving_plane(data, xgb: dict, cols: int, rounds: int) -> dict:
+    """Per-bucket CUDA graphs with a persisted program store (and a fresh
+    replica), the host rung, the guarded swap and tenancy, at the slice's
+    width on the card."""
+    phase_t0 = time.perf_counter()
+    tmp = os.path.join(REPO, "smoke_out", "serving_plane")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    train, hold, _ = _rows_cut(data, MODEL_DEPTH_CUT)
+    rows = _sp_rows(xgb["hold"], cols, max(SP_REPLAY_ROWS,
+                                           64 * SP_BIG_REQUESTS,
+                                           SP_SEQ_REQUESTS))
+    lr = None
+    try:
+        leg_a, lr = _sp_graphs(train, rows, cols, tmp)
+        xgb_path = os.path.join(tmp, "xgb")
+        xgb["model"].save(xgb_path)
+        gsrv = lr["server"]
+        try:
+            card = (lr["scores"][:SP_HOST_REQUESTS]
+                    + lr["scores"][SP_SEQ_REQUESTS:SP_SEQ_REQUESTS
+                                   + 64 * SP_HOST_BIG_REQUESTS])
+            leg_b = {"lr": _sp_rung(gsrv, rows, lr["pred"].name, card)}
+        finally:
+            gsrv.stop()
+        xname = xgb["pred"].name
+        xsrv = ModelServer.from_path(xgb_path, name="xgb_rung", max_batch=64,
+                                     warmup_row=rows[0], failure_threshold=1,
+                                     breaker_reset_s=SP_BREAKER_RESET_S)
+        with xsrv:
+            card = _sp_traffic(xsrv, rows, xname, SP_HOST_REQUESTS,
+                               SP_HOST_BIG_REQUESTS)["scores"]
+            leg_b["xgb"] = _sp_rung(xsrv, rows, xname, card)
+            leg_b["xgb"]["host_copy_load_s"] = xsrv.registry.get(
+                "xgb_rung").host_load_s
+        leg_c, launches = _sp_guard(xgb_path, xgb["model"], lr["path"],
+                                    train, rows, cols, rounds)
+        leg_d = _sp_tenancy(
+            xgb_path, lr["path"], rows,
+            {"gold": xname, "bronze": lr["pred"].name},
+            {"gold": card[SP_HOST_REQUESTS:SP_HOST_REQUESTS + 64],
+             "bronze": lr["scores"][SP_SEQ_REQUESTS:SP_SEQ_REQUESTS + 64]})
+        leg_a["replica"] = _sp_replica(lr.pop("child"))
+    finally:
+        if lr is not None and "child" in lr:   # a leg failed: stop it
+            lr["child"]["proc"].kill()
+            lr["child"]["proc"].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"phase": "serving_plane", "a": leg_a, "b": leg_b, "c": leg_c,
+           "d": leg_d, "seg_hist_launches": launches,
+           "phase_s": time.perf_counter() - phase_t0,
+           "predicted": SERVING_PLANE_PREDICTED}
+    emit(out)
+    return out
+
+
 def phase_profile(dev, rows: int, cols: int, rounds: int) -> None:
     """One XGBoost fit of ``rounds`` rounds at the slice's width under
     torch.profiler, on data drawn on the card by the same recipe: for the
@@ -7460,6 +8119,8 @@ def main() -> int:
     ap.add_argument("--ckpt-child", help=argparse.SUPPRESS)
     # the obs phase runs its two trains in a child
     ap.add_argument("--obs-child", help=argparse.SUPPRESS)
+    # the serving_plane phase's fresh replica
+    ap.add_argument("--aot-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs one",
@@ -7481,6 +8142,10 @@ def main() -> int:
     if args.obs_child:
         torch.backends.cuda.matmul.allow_tf32 = False
         obs_child(args.obs_child, args.cols)
+        return 0
+    if args.aot_child:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        aot_child(args.aot_child)
         return 0
     if args.events_child:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -7560,13 +8225,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_glm_isotonic(data, xgb)
     torch.cuda.empty_cache()
-    wide = phase_xgb_wide(args.rows // MODEL_DEPTH_CUT,
-                          args.holdout // MODEL_DEPTH_CUT, args.reps, bw,
+    wide = phase_xgb_wide(args.rows // WIDE_DEPTH_CUT,
+                          args.holdout // WIDE_DEPTH_CUT, args.reps, bw,
                           f32, smem_bw)
     torch.cuda.empty_cache()
     phase_iris(args.rows, args.holdout)
     torch.cuda.empty_cache()
     served, request_rows = phase_serve([xgb, lr], args.cols)
+    torch.cuda.empty_cache()
+    plane = phase_serving_plane(data, xgb, args.cols, args.rounds)
     del xgb, lr, data
     torch.cuda.empty_cache()
     seg = phase_seg_hist(dev, args.rows, args.cols, reg["checked_cols"],
@@ -7618,15 +8285,16 @@ def main() -> int:
                      + app["seg_hist_launches"]
                      + multi["seg_hist_launches"]
                      + boosted["launches_total"]
-                     + wide["launches_total"]),
+                     + wide["launches_total"]
+                     + plane["seg_hist_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in seg),
         "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": levels[-1]["bound_by"],
         "library_ms": mean("library_ms")}]})
     emit({"phase": "smoke_total", "s": time.perf_counter() - _T0,
           "previous_s": SMOKE_PREVIOUS_S,
-          "predicted_s": OBS_PREDICTED["smoke_s"],
-          "predicted_slow_host_s": OBS_PREDICTED["smoke_slow_host_s"]})
+          "predicted_s": SMOKE_PREDICTED["smoke_s"],
+          "predicted_slow_host_s": SMOKE_PREDICTED["smoke_slow_host_s"]})
     print(_smi("name,power.limit"), flush=True)
     faulthandler.cancel_dump_traceback_later()
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,7 +3,9 @@ feeds them on the CPU.
 
 The ``cuda`` tests build ``csrc/seg_hist.cu`` with nvcc and compare it with
 its plain version on the card (rtol 1e-5, atol 1e-4: float32 sums in
-another order); they skip where there is no card.  This file imports no
+another order); they skip where there is no card.  The serving plane's
+card tests replay a CUDA graph per bucket against the eager scoring
+(bitwise) and answer a device fault from the host rung (within 1e-5).  This file imports no
 JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
@@ -961,3 +963,182 @@ def test_avro_combined_demo_levels_on_card(cuda_device, tmp_path):
     a = model.score(data)[combined.name].values.probability
     b = loaded.score(data)[combined.name].values.probability
     assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def _card_lr(cuda_device, d: int = 500, seed: int = 3):
+    from transmogrifai_tpu_torch.models.classification import \
+        LogisticRegressionModel
+
+    rng = np.random.default_rng(seed)
+    return LogisticRegressionModel(
+        torch.from_numpy(rng.normal(size=d).astype(np.float32) / 20).to(
+            cuda_device), float(rng.normal()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["binary", "softmax"])
+def test_graph_replay_equals_eager_on_card(cuda_device, family, tmp_path):
+    """One CUDA graph per bucket (``serving/aot.py``) replays the eager
+    scoring's own kernels: bitwise equal at every bucket of 64, and again
+    after the exported programs are read back from the store ("aot")."""
+    from transmogrifai_tpu_torch.models.classification import \
+        LogisticRegressionModel
+    from transmogrifai_tpu_torch.serving import AOTStore
+    from transmogrifai_tpu_torch.serving.aot import program_set_for
+
+    d = 500
+    if family == "binary":
+        make = lambda: _card_lr(cuda_device, d)   # noqa: E731
+    else:
+        rng = np.random.default_rng(4)
+        coef = rng.normal(size=(5, d)).astype(np.float32) / 20
+        icpt = rng.normal(size=5).astype(np.float32)
+        make = lambda: LogisticRegressionModel(   # noqa: E731
+            torch.from_numpy(coef).to(cuda_device), icpt)
+    store = AOTStore(str(tmp_path / "aot"))
+    X = torch.randn(64, d, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(5))
+    for want_mode in ("jit", "aot"):
+        model = make()
+        ps = program_set_for(model, store=store)
+        for b in (1, 2, 4, 8, 16, 32, 64):
+            assert ps.ensure_bucket(b) == want_mode
+            got = ps.predict(X[:b])
+            eager = model.predict_batch(X[:b])
+            assert torch.equal(got.prediction, eager.prediction)
+            assert torch.equal(got.raw_prediction, eager.raw_prediction)
+            assert torch.equal(got.probability, eager.probability)
+            assert ps.predict(X[:b]).probability.data_ptr() != \
+                got.probability.data_ptr()   # cloned, not the static output
+        assert all(n == 2 for n in ps.replays.values())
+        ps.release()
+
+
+def _card_workflow_lr(path: str, seed: int, n: int = 4000, d: int = 16):
+    """A workflow LR trained on the card and saved at ``path``: (path, its
+    prediction feature, 8 request rows)."""
+    from transmogrifai_tpu_torch.features.builder import FeatureBuilder
+    from transmogrifai_tpu_torch.models.classification import \
+        OpLogisticRegression
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.types import feature_types as ft
+    from transmogrifai_tpu_torch.types.columns import (ColumnarDataset,
+                                                       FeatureColumn)
+    from transmogrifai_tpu_torch.workflow.workflow import OpWorkflow
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d))
+    y = (X[:, 0] + 0.5 * rng.normal(size=n) > 0).astype(np.float64)
+    data = ColumnarDataset(
+        {**{f"x{j}": FeatureColumn.from_values(ft.Real, X[:, j])
+            for j in range(d)},
+         "label": FeatureColumn.from_values(ft.RealNN, y)})
+    label = FeatureBuilder.RealNN("label").as_response()
+    vec = transmogrify([FeatureBuilder.Real(f"x{j}").as_predictor()
+                        for j in range(d)])
+    pred = label.transform_with(OpLogisticRegression(), vec)
+    model = OpWorkflow(device="cuda").set_result_features(pred) \
+        .set_input_data(data).train()
+    model.save(path)
+    rows = [{f"x{j}": float(X[i, j]) for j in range(d)} for i in range(8)]
+    return path, pred, rows
+
+
+@pytest.mark.cuda
+def test_host_rung_answers_a_card_fault(cuda_device, tmp_path):
+    """A server on the card whose device scoring raises answers from the
+    model's CPU copy within 1e-5 of the card's scores, opens its breaker,
+    reads degraded, and closes it again on the card after the reset."""
+    import time
+
+    from transmogrifai_tpu_torch.serving import ModelServer
+    from transmogrifai_tpu_torch.serving.http import healthz_doc
+
+    path, pred, rows = _card_workflow_lr(str(tmp_path / "m"), seed=8)
+    srv = ModelServer.from_path(path, name="m", device="cuda", max_batch=8,
+                                failure_threshold=1, breaker_reset_s=0.2,
+                                warmup_row=rows[0], device_programs=True)
+    with srv:
+        card = srv.score(rows)
+        ex = srv._executor_for(srv.registry.get("m"))
+        good = ex.score_fn
+
+        def boom(_rows):
+            raise RuntimeError("injected device failure")
+
+        ex.score_fn = boom
+        host = srv.score(rows)
+        snap = srv.snapshot()
+        assert healthz_doc(srv)[1]["status"] == "degraded"
+        ex.score_fn = good
+        time.sleep(0.25)
+        again = srv.score(rows)
+        assert srv.breaker.state == "closed"
+    got = [h[pred.name]["probability_1"] for h in host]
+    want = [c[pred.name]["probability_1"] for c in card]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert again == card
+    assert snap["hostFallbacks"] == 1 and snap["deviceErrors"] == 1
+    assert snap["lastFallbackReason"] == "device_error:RuntimeError"
+    assert snap["breakerState"] == "open"
+    assert set(snap["aotPrograms"].values()) == {"jit"}
+
+
+@pytest.mark.cuda
+def test_graph_server_swaps_under_traffic_on_card(cuda_device, tmp_path):
+    """Hot swaps of a graph server while four threads keep scoring: the
+    incoming version's buckets are built and captured once each, whether
+    its warm-up or the dispatch thread reaches them first, and no batch
+    fails, falls back to the host rung or opens the breaker."""
+    import threading
+    import time
+
+    from transmogrifai_tpu_torch.local.scorer import score_function_batch
+    from transmogrifai_tpu_torch.serving import ModelServer
+    from transmogrifai_tpu_torch.workflow.persistence import \
+        load_workflow_model
+
+    paths, preds = [], []
+    for seed in (8, 9, 10):
+        path, pred, rows = _card_workflow_lr(str(tmp_path / f"m{seed}"),
+                                             seed=seed)
+        paths.append(path)
+        preds.append(pred.name)
+    srv = ModelServer.from_path(paths[0], name="m", device="cuda",
+                                max_batch=8, max_latency_ms=1.0,
+                                warmup_row=rows[0], device_programs=True)
+    stop = threading.Event()
+    errors = []
+
+    def traffic(k):
+        while not stop.is_set():
+            try:
+                srv.score(rows[:1 + k])
+            except Exception as exc:   # noqa: BLE001 - collected
+                errors.append(exc)
+
+    with srv:
+        threads = [threading.Thread(target=traffic, args=(k,))
+                   for k in (0, 1, 3, 7)]
+        for t in threads:
+            t.start()
+        for path in paths[1:] + paths[:1]:
+            srv.registry.load("m", path, device="cuda")
+            time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join()
+        final = srv.score(rows)
+        snap = srv.snapshot()
+    assert errors == []
+    assert (snap["deviceErrors"], snap["hostFallbacks"], snap["shed"]) == \
+        (0, 0, 0)
+    assert snap["breakerState"] == "closed"
+    assert set(snap["aotPrograms"].values()) == {"jit"}
+    want = score_function_batch(load_workflow_model(paths[0],
+                                                    device="cuda"))(rows)
+    # the last swap brought the first model back
+    got = [r[preds[0]]["probability_1"] for r in final]
+    np.testing.assert_allclose(
+        got, [r[preds[0]]["probability_1"] for r in want], rtol=0,
+        atol=1e-6)

@@ -7,9 +7,9 @@ Exact, with no tolerance:
   and event records, injected into both packages' tracers (the same
   names, parents, attributes, threads and timings);
 * ``validate_chrome_trace`` on the same malformed documents;
-* ``prometheus_text`` of the same serving snapshot and counters, less the
-  families the port leaves out (named in ``_LEFT_OUT``), and
-  ``parse_exposition`` of it;
+* ``prometheus_text`` of the same serving snapshot and counters (the
+  compile-cache family and the swap counters included; ``_LEFT_OUT``
+  names no family), and ``parse_exposition`` of it;
 * ``RunCounters.to_json``'s keys and the snapshots' keys;
 * the flight ring's order and bound, the JSON-lines round trip, the
   merge of dumps and the crash dump.
@@ -215,15 +215,12 @@ def test_validator_problems_equal_jax(doc):
 
 
 # ---------------------------------------------------------------------------
-# Prometheus: the JAX package's text, less the families left out
+# Prometheus: the JAX package's text
 # ---------------------------------------------------------------------------
 
-#: families of what the port does not count yet (ROADMAP Queue A 6.6.2,
-#: 6.6.4): the JAX package renders them, the port leaves them out
-_LEFT_OUT = {"tmog_compile_cache_events_total",
-             "tmog_serving_swaps_accepted_total",
-             "tmog_serving_swaps_rejected_total",
-             "tmog_serving_rollbacks_total"}
+#: families the JAX package renders and the port does not: none for a
+#: serving snapshot (the fabric section needs a fabric, ROADMAP 6.6.6)
+_LEFT_OUT: set = set()
 
 
 def _drop_families(text: str, names) -> str:
@@ -266,8 +263,8 @@ def _port_snapshot(populated: bool):
     m = ServingMetrics()
     if populated:
         m.record_admitted(4)
-        m.record_batch(4, 8)
-        m.record_batch(1, 1)
+        m.record_batch(4, 8, 0.002)
+        m.record_batch(1, 1, 0.001)
         for v in (0.010, 0.020, 0.030):
             m.record_request_latency(v)
         m.record_shed(2)

@@ -55,6 +55,12 @@ def one_thread():
     tt.set_device("cpu")
     yield
     torch.set_num_threads(threads)
+    # the JAX capstone compiled its programs in this worker: drop them, so
+    # that a later JAX test in the same worker that captures the HLO of its
+    # compilations (tests/test_obs_e2e.py's capstone) sees them compile
+    import jax
+
+    jax.clear_caches()
 
 
 @pytest.fixture(autouse=True)

@@ -6,12 +6,15 @@ queue-full sheds, deadlines, coalescing, requests never split, hot swaps,
 the registry's generations, pin and rollback, concurrent single-row
 requests, the snapshot's shape and HTTP on an ephemeral port.
 
-Where the port differs on purpose: a batch whose device scoring raises
-fails its requests with that exception (no host rung), counted in
-``deviceErrors`` and ``breakerOpens``; while the breaker is open requests
-shed with ``reason="breaker_open"``; ``hostFallbacks`` stays 0.  The JAX
-package's ``ModelServer`` and the port's serve one saved artifact to the
-same keys, values within 1e-6.
+The degradation ladder is the JAX package's: a batch whose device scoring
+raises is answered by the host rung (the model's CPU copy), counted in
+``deviceErrors``, ``hostFallbacks`` and ``breakerOpens`` with the reason
+in ``lastFallbackReason``, and while the breaker is open every batch goes
+to the host rung without a device attempt; a half-open trial closes it
+again.  The JAX package's ``ModelServer`` and the port's serve one saved
+artifact to the same keys, values within 1e-6.  The per-bucket programs,
+the guarded swap and tenancy are in ``test_torch_serving_aot.py``,
+``test_torch_guarded.py`` and ``test_torch_tenancy.py``.
 """
 import csv
 import json
@@ -22,11 +25,16 @@ from concurrent.futures import ThreadPoolExecutor
 from urllib.error import HTTPError
 from urllib.request import Request, urlopen
 
+import numpy as np
 import pytest
 
 import transmogrifai_tpu_torch as tt
+from transmogrifai_tpu_torch.features.builder import FeatureBuilder
 from transmogrifai_tpu_torch.local import load_model_local
 from transmogrifai_tpu_torch.local.scorer import score_function_batch
+from transmogrifai_tpu_torch.models.classification import OpLogisticRegression
+from transmogrifai_tpu_torch.ops.dsl_transformers import MathScalarTransformer
+from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
 from transmogrifai_tpu_torch.serving import (AdmissionController,
                                              CircuitBreaker, MicroBatcher,
                                              ModelRegistry, ModelServer,
@@ -34,6 +42,7 @@ from transmogrifai_tpu_torch.serving import (AdmissionController,
                                              bucket_sizes)
 from transmogrifai_tpu_torch.serving.executor import BucketedExecutor
 from transmogrifai_tpu_torch.serving.http import make_http_server
+from transmogrifai_tpu_torch.workflow.workflow import OpWorkflow
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 MODEL_V1 = os.path.join(FIXTURES, "model_v1")
@@ -125,8 +134,98 @@ class TestWarmBuckets:
         assert ex.warm_buckets == [] and ex.runs == {}
 
 
+class _Halver(MathScalarTransformer):
+    """A user's own stage: a class with no row in the persistence map."""
+
+    def __init__(self, uid=None):
+        super().__init__("divide", 2.0, uid=uid)
+
+
+def _small_model(stage_kind: str):
+    """A two-column LR trained on the CPU whose x0 comes through a lambda
+    extractor ("lambda") or a stage of a class with no persistence row
+    ("unmapped")."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(120, 2))
+    y = (x[:, 0] + 0.5 * x[:, 1] + rng.normal(scale=0.3, size=120)) > 0
+    data = [{"x0": float(a), "x1": float(b), "label": float(c)}
+            for (a, b), c in zip(x, y)]
+    label = FeatureBuilder.RealNN("label").as_response()
+    x1 = FeatureBuilder.Real("x1").as_predictor()
+    if stage_kind == "lambda":
+        x0 = FeatureBuilder.Real("x0").extract(
+            lambda r: r["x0"]).as_predictor()
+    else:
+        x0 = FeatureBuilder.Real("x0").as_predictor().transform_with(
+            _Halver())
+    pred = label.transform_with(OpLogisticRegression(),
+                                transmogrify([x0, x1]))
+    wf = OpWorkflow().set_result_features(pred).set_input_data(data)
+    if stage_kind == "lambda":
+        wf.allow_non_serializable()
+    return wf.train(), [{k: v for k, v in r.items() if k != "label"}
+                        for r in data[:4]]
+
+
+class TestHostCopy:
+    """Which model gets which host rung: the model itself on the CPU, no
+    rung for a model off the CPU that would not come back whole from a
+    save and load (it would be served a stubbed copy)."""
+
+    @pytest.mark.parametrize("kind", ["lambda", "unmapped"])
+    def test_model_on_the_cpu_is_its_own_host_copy(self, kind):
+        model, _ = _small_model(kind)
+        entry = ModelRegistry().register("m", model)
+        assert entry.host_scorer is entry.scorer
+        assert entry.host_unavailable is None
+
+    @pytest.mark.parametrize("kind,why", [
+        ("lambda", "extract_fn"), ("unmapped", "_Halver")])
+    def test_model_that_cannot_round_trip_gets_no_host_rung(
+            self, kind, why, monkeypatch):
+        from transmogrifai_tpu_torch.serving import registry as reg
+
+        model, req = _small_model(kind)
+        expected = score_function_batch(model)(req)
+        # as for a model on the card: its copy would take the round trip
+        monkeypatch.setattr(reg, "_on_cpu", lambda model, device: False)
+        with pytest.warns(UserWarning, match="no host rung"):
+            srv = ModelServer(ModelRegistry(), "m", max_batch=4,
+                              max_latency_ms=1.0, failure_threshold=1,
+                              breaker_reset_s=60.0)
+            entry = srv.registry.register("m", model)
+        assert entry.host_scorer is None
+        assert why in entry.host_unavailable
+        with srv:
+            assert srv.score(req) == expected   # it still serves
+            executor = srv._executor_for(entry)
+
+            def boom(_rows):
+                raise RuntimeError("injected device failure")
+
+            executor.score_fn = boom
+            # a device error fails the batch, as it did with no rung
+            with pytest.raises(RuntimeError, match="injected"):
+                srv.score(req)
+            with pytest.raises(RuntimeError, match="no host rung"):
+                srv.score(req)   # the breaker is open
+            snap = srv.snapshot()
+            assert snap["hostFallbacks"] == 0
+            assert snap["deviceErrors"] == 1
+
+    def test_in_memory_model_off_the_cpu_takes_the_round_trip(
+            self, monkeypatch):
+        from transmogrifai_tpu_torch.serving import registry as reg
+
+        model = load_model_local(MODEL_V1)
+        monkeypatch.setattr(reg, "_on_cpu", lambda model, device: False)
+        entry = ModelRegistry().register("m", model)
+        assert entry.host_scorer is not entry.scorer
+        assert entry.host_unavailable is None
+
+
 class TestDeviceErrors:
-    def test_device_failure_fails_the_batch_with_no_host_rung(self, rows):
+    def test_device_failure_falls_back_to_host_path(self, rows, expected):
         srv = ModelServer.from_path(MODEL_V1, name="deg", max_batch=4,
                                     max_latency_ms=1.0, failure_threshold=1,
                                     breaker_reset_s=60.0,
@@ -138,23 +237,23 @@ class TestDeviceErrors:
                 raise RuntimeError("injected device failure")
 
             executor.score_fn = boom
-            with pytest.raises(RuntimeError, match="injected"):
-                srv.score(rows[:4])
+            assert srv.score(rows[:4]) == expected[:4]   # answered
             snap = srv.snapshot()
             assert snap["deviceErrors"] == 1
+            assert snap["hostFallbacks"] == 1
             assert snap["breakerOpens"] == 1
             assert snap["breakerState"] == "open"
-            assert snap["hostFallbacks"] == 0
+            assert snap["lastFallbackReason"] == "device_error:RuntimeError"
             assert snap["lastDeviceError"] == (
                 "RuntimeError: injected device failure")
-            # while open: structured sheds, no device attempt
-            shed = srv.score(rows[:2])
-            assert all(isinstance(s, ShedResult) for s in shed)
-            assert shed[0].reason == "breaker_open"
+            # while open: no device attempt, the host rung answers; an
+            # open breaker degrades, it does not shed
+            assert srv.score(rows[:2]) == expected[:2]
             snap = srv.snapshot()
             assert snap["deviceErrors"] == 1
-            assert snap["shedByReason"] == {"breaker_open": 2}
-            assert snap["hostFallbacks"] == 0
+            assert snap["hostFallbacks"] == 2
+            assert snap["lastFallbackReason"] == "breaker_open"
+            assert snap["shed"] == 0
 
     def test_breaker_half_open_recovers(self, rows, expected):
         srv = ModelServer.from_path(MODEL_V1, name="rec", max_batch=4,
@@ -169,8 +268,7 @@ class TestDeviceErrors:
                 raise RuntimeError("injected")
 
             executor.score_fn = boom
-            with pytest.raises(RuntimeError):
-                srv.score(rows[:2])
+            assert srv.score(rows[:2]) == expected[:2]   # the host rung
             assert srv.breaker.state == "open"
             executor.score_fn = good
             time.sleep(0.06)   # cooldown -> half-open trial
@@ -410,31 +508,21 @@ class TestServingMetricsSnapshot:
                     "batchSizeHistogram", "latencyMs", "latencyObservations",
                     "shed", "shedByReason", "deadlineExpired",
                     "deviceErrors", "hostFallbacks", "breakerOpens",
-                    "hotSwaps", "model", "breakerState", "batchMode"):
+                    "hotSwaps", "lastFallbackReason", "lastFallbackAgeSecs",
+                    "swapsAccepted", "swapsRejected", "rollbacks",
+                    "compileCache", "model", "breakerState", "batchMode"):
             assert key in snap, key
         assert snap["model"]["name"] == "m"
         assert snap["hostFallbacks"] == 0
         json.dumps(snap, default=str)
 
 
-class TestNotPorted:
-    @pytest.mark.parametrize("kwargs", [{"device_programs": True},
-                                        {"aot_store": "/nonexistent"}])
-    def test_device_programs_raise(self, kwargs):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ModelServer(ModelRegistry(), "m", **kwargs)
-
-    @pytest.mark.parametrize("method", ["with_drift_monitor", "with_guard"])
-    def test_drift_and_guard_raise(self, method):
+class TestAttach:
+    def test_drift_monitor_attaches(self):
         srv = ModelServer(ModelRegistry(), "m")
-        if method == "with_drift_monitor":
-            # ported: the monitor attaches (tests/test_torch_drift.py)
-            monitor = object()
-            assert srv.with_drift_monitor(monitor) is srv
-            assert srv.drift_monitor is monitor
-            return
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(srv, method)(object())
+        monitor = object()   # its behaviour: tests/test_torch_drift.py
+        assert srv.with_drift_monitor(monitor) is srv
+        assert srv.drift_monitor is monitor
 
 
 class TestHTTP:
@@ -512,3 +600,12 @@ class TestAgainstJaxServer:
                 assert list(g[name]) == list(w[name])
                 for key in g[name]:
                     assert abs(g[name][key] - w[name][key]) <= 1e-6
+
+
+@pytest.mark.parametrize("name", ["ServingFabric", "HashRing",
+                                  "FleetSwapController"])
+def test_fabric_names_its_item(name):
+    import transmogrifai_tpu_torch.serving as serving
+
+    with pytest.raises(NotImplementedError, match="6.6.6"):
+        getattr(serving, name)

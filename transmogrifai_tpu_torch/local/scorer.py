@@ -4,9 +4,10 @@ reference's ``OpWorkflowModelLocal.scoreFunction``).
 
 The columnar stages run on a micro-batch of rows, the same code path as
 training and batch scoring, on the device the model was loaded to (or
-trained on): there is no host scoring path, and a batch is never moved to
-the CPU to finish.  Only the results come back to the host, one copy per
-prediction tensor.
+trained on); a batch is never moved to the CPU to finish.  Only the
+results come back to the host, one copy per prediction tensor.  The
+serving host rung is this scorer over a CPU copy of the model
+(``serving/registry.py``), not a second scoring path.
 """
 from __future__ import annotations
 

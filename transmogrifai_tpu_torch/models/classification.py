@@ -8,8 +8,11 @@ any Pallas kernel).
 Naive Bayes also fits streaming (``begin_fit``..``finish_fit``): its
 sufficient statistics, class counts and per-class feature sums, add up
 chunk by chunk on the card, so an out-of-core train never holds its
-matrix.  Not ported yet: the sharded fit (ROADMAP Queue A item 6.7) and
-the AOT scoring specs (item 6.6.2).
+matrix.  Each fitted model also gives its scoring as an
+``AOTScoringSpec`` (``aot_scoring_spec``), the program the serving plane
+exports and captures once per shape bucket: the helpers its
+``predict_batch`` calls, in the JAX package's output order.  Not ported
+yet: the sharded fit (ROADMAP Queue A item 6.7).
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from .linear import (fit_linear_svc, fit_logistic_regression,
                      fit_multinomial_logreg, fit_naive_bayes,
                      logreg_predict_proba, naive_bayes_predict_log_proba,
                      softmax_predict_proba, svc_decision)
-from .prediction import PredictionBatch, PredictorEstimator, PredictorModel
+from .prediction import (AOTScoringSpec, PredictionBatch, PredictorEstimator,
+                         PredictorModel)
 
 __all__ = ["OpLogisticRegression", "LogisticRegressionModel", "OpLinearSVC",
            "LinearSVCModel", "OpNaiveBayes", "NaiveBayesModel"]
@@ -37,6 +41,38 @@ def _labels(label_col) -> np.ndarray:
 def _weights(w, dev) -> Optional[torch.Tensor]:
     return None if w is None else torch.as_tensor(
         np.asarray(w, np.float32)).to(dev)
+
+
+# -- scoring programs (serving/aot.py) ---------------------------------------
+# Pure functions of (X, *params) at fixed shapes over the helpers that
+# predict_batch calls, so that a captured program scores as the eager path
+# does; they return the JAX package's outputs in its order, the prediction
+# float32 as in the JAX programs.
+
+def _aot_logreg_binary(X, coef, intercept):
+    proba, raw = logreg_predict_proba(coef, intercept, X)
+    return (proba[:, 1] >= 0.5).to(torch.float32), raw, proba
+
+
+def _aot_softmax(X, coef, intercept):
+    proba, raw = softmax_predict_proba(coef, intercept, X)
+    return proba.argmax(dim=1).to(torch.float32), raw, proba
+
+
+def _aot_svc(X, coef, intercept):
+    z = svc_decision(coef, intercept, X)
+    return (z >= 0).to(torch.float32), torch.stack([-z, z], 1)
+
+
+def _aot_naive_bayes(X, log_prior, log_lik):
+    logp = naive_bayes_predict_log_proba(log_prior, log_lik, X)
+    proba = torch.exp(logp)
+    return proba.argmax(dim=1).to(torch.float32), logp, proba
+
+
+def _scalar_param(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A float intercept as a 0-dim float32 parameter beside ``like``."""
+    return torch.tensor(np.float32(value), device=like.device)
 
 
 class OpLogisticRegression(PredictorEstimator):
@@ -154,6 +190,18 @@ class LogisticRegressionModel(PredictorModel):
             prediction=proba.argmax(dim=1).to(torch.float64),
             raw_prediction=raw, probability=proba)
 
+    def aot_scoring_spec(self) -> AOTScoringSpec:
+        outputs = ("prediction", "rawPrediction", "probability")
+        if self.coef.dim() == 1:
+            return AOTScoringSpec(
+                name="logreg.binary", fn=_aot_logreg_binary,
+                params=(self.coef, _scalar_param(self.intercept, self.coef)),
+                outputs=outputs, n_features=int(self.coef.shape[-1]))
+        return AOTScoringSpec(
+            name="logreg.softmax", fn=_aot_softmax,
+            params=(self.coef, self._intercept), outputs=outputs,
+            n_features=int(self.coef.shape[-1]))
+
 
 class OpLinearSVC(PredictorEstimator):
     """Squared-hinge linear SVM (Spark's regParam, maxIter, tol,
@@ -217,6 +265,13 @@ class LinearSVCModel(PredictorModel):
         z = svc_decision(self.coef, self.intercept, X)
         return PredictionBatch(prediction=(z >= 0).to(torch.float64),
                                raw_prediction=torch.stack([-z, z], 1))
+
+    def aot_scoring_spec(self) -> AOTScoringSpec:
+        return AOTScoringSpec(
+            name="linsvc", fn=_aot_svc,
+            params=(self.coef, _scalar_param(self.intercept, self.coef)),
+            outputs=("prediction", "rawPrediction"),
+            n_features=int(self.coef.shape[-1]))
 
 
 class OpNaiveBayes(PredictorEstimator):
@@ -337,3 +392,10 @@ class NaiveBayesModel(PredictorModel):
         return PredictionBatch(
             prediction=proba.argmax(dim=1).to(torch.float64),
             raw_prediction=logp, probability=proba)
+
+    def aot_scoring_spec(self) -> AOTScoringSpec:
+        return AOTScoringSpec(
+            name="naivebayes", fn=_aot_naive_bayes,
+            params=(self.log_prior, self.log_lik),
+            outputs=("prediction", "rawPrediction", "probability"),
+            n_features=int(self.log_lik.shape[-1]))

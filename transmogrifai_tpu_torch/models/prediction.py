@@ -6,11 +6,15 @@ model's device: prediction (N,), optional raw prediction and probability
 (N, K).  ``row(i)`` / ``rows()`` give the reference's per-row reserved-key
 map (``prediction``, ``rawPrediction_k``, ``probability_k``;
 Maps.scala:339-394) as Python floats.
+
+``AOTScoringSpec`` is a linear predictor's scoring as one pure torch
+function of a fixed-shape matrix and its parameters, the form the serving
+plane exports and captures once per shape bucket (``serving/aot.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -20,7 +24,28 @@ from ..stages.base import BinaryEstimator, BinaryModel
 from ..types.columns import FeatureColumn
 from ..types.feature_types import OPNumeric, OPVector, Prediction
 
-__all__ = ["PredictionBatch", "PredictorEstimator", "PredictorModel"]
+__all__ = ["PredictionBatch", "PredictorEstimator", "PredictorModel",
+           "AOTScoringSpec"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AOTScoringSpec:
+    """A model's scoring program in exportable form (the JAX package's
+    spec): ``fn(X, *params)`` is a pure torch function of a fixed-shape
+    ``(N, D)`` float32 matrix and the model's parameter tensors, returning
+    the tensors named by ``outputs`` in that order (of ``("prediction",
+    "rawPrediction", "probability")``, the JAX package's order).  The
+    parameters are runtime arguments, not constants baked into the
+    program, and live on the model's device; the program store keys a
+    program on a digest of their bytes anyway."""
+
+    name: str                 # program family, e.g. "logreg.binary"
+    fn: Any                   # callable (X, *params) -> tuple of tensors
+    params: tuple             # float32 tensors, fixed order
+    outputs: tuple            # names of fn's outputs, in order
+    #: the width D of the input matrix (NaiveBayes' params[0] is its (K,)
+    #: prior, so D cannot be read from the first parameter)
+    n_features: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -96,6 +121,23 @@ class PredictorModel(BinaryModel):
     def predict_batch(self, X: torch.Tensor) -> PredictionBatch:
         raise NotImplementedError
 
+    def aot_scoring_spec(self) -> Optional[AOTScoringSpec]:
+        """The scoring as an :class:`AOTScoringSpec`, or None where the
+        family has no single-program form (trees, isotonic, the MLP, GLM:
+        as in the JAX package); serving then keeps ``predict_batch``."""
+        return None
+
     def transform_columns(self, label_col, features_col) -> FeatureColumn:
-        return FeatureColumn(Prediction, self.predict_batch(
-            device_vector(features_col, getattr(self, "device", None)).values))
+        X = device_vector(features_col, getattr(self, "device", None)).values
+        # the serving executor's path: per-bucket programs installed on
+        # this stage (serving/aot.py) run only inside device_scoring(),
+        # which the host rung and offline scoring never enter
+        programs = getattr(self, "_serving_programs", None)
+        if programs is not None:
+            from ..serving.aot import device_scoring_active
+
+            if device_scoring_active():
+                batch = programs.predict(X)
+                if batch is not None:
+                    return FeatureColumn(Prediction, batch)
+        return FeatureColumn(Prediction, self.predict_batch(X))

@@ -4,8 +4,9 @@ fitted ``LinearRegressionModel``; ``OpGeneralizedLinearRegression`` (IRLS
 on the card) and ``GLMModel``; ``IsotonicRegressionCalibrator``
 (pool-adjacent-violators) and ``IsotonicRegressionModel`` (interpolation
 on the card).  The tree regressors live in ``models.trees``.
-
-Not ported yet (ROADMAP Queue A): the AOT scoring specs.
+``LinearRegressionModel.aot_scoring_spec`` gives its prediction as the
+serving plane's exportable program (``serving/aot.py``); GLM and
+isotonic have none, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -16,10 +17,11 @@ import torch
 
 from ..device import as_device_tensor, resolve_device
 from ..types.columns import ColumnarDataset, FeatureColumn
-from .classification import _standardize_stats
+from .classification import _scalar_param, _standardize_stats
 from .linear import (_damped_solve, _finite_or, fit_linear_regression,
                      linear_predict)
-from .prediction import PredictionBatch, PredictorEstimator, PredictorModel
+from .prediction import (AOTScoringSpec, PredictionBatch, PredictorEstimator,
+                         PredictorModel)
 
 __all__ = ["OpLinearRegression", "LinearRegressionModel",
            "OpGeneralizedLinearRegression", "GLMModel",
@@ -72,6 +74,11 @@ class OpLinearRegression(PredictorEstimator):
         return LinearRegressionModel(coef=coef, intercept=icpt)
 
 
+def _aot_linear(X, coef, intercept):
+    # the exportable scoring program: the prediction only
+    return (linear_predict(coef, intercept, X),)
+
+
 class LinearRegressionModel(PredictorModel):
     """``coef`` (D,) float32 tensor and ``intercept``; the batch holds the
     prediction only.  An array ``coef`` (a loaded artifact's) goes to
@@ -87,6 +94,13 @@ class LinearRegressionModel(PredictorModel):
     def predict_batch(self, X: torch.Tensor) -> PredictionBatch:
         pred = linear_predict(self.coef, float(np.float32(self.intercept)), X)
         return PredictionBatch(prediction=pred.to(torch.float64))
+
+    def aot_scoring_spec(self) -> AOTScoringSpec:
+        """The prediction-only program (``serving/aot.py``)."""
+        return AOTScoringSpec(
+            name="linreg", fn=_aot_linear,
+            params=(self.coef, _scalar_param(self.intercept, self.coef)),
+            outputs=("prediction",), n_features=int(self.coef.shape[-1]))
 
 
 #: each GLM family's canonical link (the JAX package's table)

@@ -1,20 +1,20 @@
 """Prometheus text exposition of the serving and run ledgers
 (counterpart of ``transmogrifai_tpu.obs.prometheus``).
 
-Renders a ``ServingMetrics`` snapshot (``serving/metrics.py``) and the
-process's ``RunCounters`` (``utils/profiling.py``) in the Prometheus text
-format 0.0.4: the payload of ``GET /metrics?format=prometheus``
-(``serving/http.py``), so that a stock scraper watches a replica with no
-exporter in between.
+Renders a ``ServingMetrics`` snapshot (``serving/metrics.py``), or one per
+tenant of a ``MultiTenantServer`` (every serving sample then labelled
+``tenant="<name>"``), and the process's ``RunCounters``
+(``utils/profiling.py``) in the Prometheus text format 0.0.4: the payload
+of ``GET /metrics?format=prometheus`` (``serving/http.py``), so that a
+stock scraper watches a replica with no exporter in between.
 
 The empty state renders cleanly: a fresh server's empty latency
 reservoir (quantiles None) and zero batches give each family's ``# TYPE``
 line with its samples absent, never a ``None`` or ``NaN`` literal;
-counters render ``0`` explicitly.  For the same snapshot and counters the
-text is the JAX package's, less the families of what the port does not
-count yet, which it leaves out rather than render zeros: the compile and
-AOT cache family (ROADMAP Queue A item 6.6.2), the guarded-swap counters
-(6.6.4), the per-tenant labels (6.6.5) and the fabric section (6.6.6).
+counters render ``0`` explicitly.  For the same snapshots and counters
+the text is the JAX package's, the compile-cache family and the swap
+counters included; only the fabric section (several hosts behind a
+router, ROADMAP Queue A item 6.6.6) is not rendered.
 """
 from __future__ import annotations
 
@@ -35,6 +35,9 @@ _SERVING_COUNTERS = (
     ("hostFallbacks", "batches served by the host fallback"),
     ("breakerOpens", "circuit breaker open transitions"),
     ("hotSwaps", "registry hot swaps"),
+    ("swapsAccepted", "guarded swaps accepted"),
+    ("swapsRejected", "guarded swap proposals rejected"),
+    ("rollbacks", "guarded-swap rollbacks"),
 )
 
 #: snapshot keys exposed as gauges
@@ -90,13 +93,22 @@ def _fmt(v: float) -> str:
 
 
 def prometheus_text(snapshot: Optional[Dict[str, Any]] = None,
-                    counters=None) -> str:
+                    counters=None,
+                    tenants: Optional[Dict[str, Dict[str, Any]]] = None
+                    ) -> str:
     """The full exposition.  ``snapshot`` is a ``ServingMetrics.snapshot()``
-    dict (None: no serving section); ``counters`` a ``RunCounters``
-    (None: the process's ``COUNTERS``)."""
+    dict (None: no serving section); ``tenants`` maps a tenant's name to
+    its snapshot (each family then has one sample per tenant, labelled
+    ``tenant="<name>"``); ``counters`` a ``RunCounters`` (None: the
+    process's ``COUNTERS``)."""
     doc = _Doc()
+    sections = []
     if snapshot is not None:
-        _serving_section(doc, snapshot)
+        sections.append((None, snapshot))
+    for name, snap in sorted((tenants or {}).items()):
+        sections.append(({"tenant": name}, snap))
+    if sections:
+        _serving_section(doc, sections)
     if counters is None:
         from ..utils import profiling
 
@@ -105,31 +117,60 @@ def prometheus_text(snapshot: Optional[Dict[str, Any]] = None,
     return doc.text()
 
 
-def _serving_section(doc: _Doc, snap: Dict[str, Any]) -> None:
+def _with_labels(base: Optional[Dict[str, str]],
+                 extra: Dict[str, str]) -> Dict[str, str]:
+    out = dict(base or {})
+    out.update(extra)
+    return out
+
+
+def _serving_section(doc: _Doc, sections) -> None:
+    """``sections`` = [(labels or None, snapshot)]: each family is emitted
+    once, with one sample a section."""
     for key, help_text in _SERVING_COUNTERS:
         doc.metric(f"tmog_serving_{_snake(key)}_total", "counter",
-                   help_text, [(None, _num(snap.get(key)) or 0.0)])
+                   help_text, [(labels, _num(snap.get(key)) or 0.0)
+                               for labels, snap in sections])
     for key, help_text in _SERVING_GAUGES:
         doc.metric(f"tmog_serving_{_snake(key)}", "gauge", help_text,
-                   [(None, _num(snap.get(key)) or 0.0)])
-    # latency quantiles: no samples while the reservoir is empty (a
-    # summary with no observations is a TYPE line, not a NaN)
-    lat = snap.get("latencyMs") or {}
+                   [(labels, _num(snap.get(key)) or 0.0)
+                    for labels, snap in sections])
+    # latency quantiles: no samples while a reservoir is empty (a summary
+    # with no observations is a TYPE line, not a NaN)
+    q_samples = []
+    for labels, snap in sections:
+        lat = snap.get("latencyMs") or {}
+        for q_key, q in (("p50", "0.5"), ("p95", "0.95"), ("p99", "0.99")):
+            v = _num(lat.get(q_key))
+            if v is not None:
+                q_samples.append((_with_labels(labels, {"quantile": q}),
+                                  v / 1000.0))
     doc.metric("tmog_serving_request_latency_seconds", "summary",
                "end-to-end request latency (reservoir quantiles)",
-               [({"quantile": q}, v / 1000.0)
-                for q_key, q in (("p50", "0.5"), ("p95", "0.95"),
-                                 ("p99", "0.99"))
-                for v in [_num(lat.get(q_key))] if v is not None])
-    hist = snap.get("batchSizeHistogram") or {}
+               q_samples)
+    h_samples = []
+    for labels, snap in sections:
+        hist = snap.get("batchSizeHistogram") or {}
+        h_samples.extend(
+            (_with_labels(labels, {"bucket": str(k)}), _num(v))
+            for k, v in sorted(hist.items(), key=lambda kv: int(kv[0])))
     doc.metric("tmog_serving_batches_by_bucket_total", "counter",
-               "executed micro-batches per shape bucket",
-               [({"bucket": str(k)}, _num(v))
-                for k, v in sorted(hist.items(), key=lambda kv: int(kv[0]))])
-    age = _num(snap.get("lastFallbackAgeSecs"))
+               "executed micro-batches per shape bucket", h_samples)
+    # the compile-cache ledger is the process's: once, never per tenant
+    cache = (sections[0][1].get("compileCache") or {}).get("totals") or {}
+    doc.metric("tmog_compile_cache_events_total", "counter",
+               "warm-program compiles vs hits vs AOT store loads/misses",
+               [({"event": "compile"}, _num(cache.get("compiles")) or 0.0),
+                ({"event": "hit"}, _num(cache.get("hits")) or 0.0),
+                ({"event": "aot_load"}, _num(cache.get("aotLoads")) or 0.0),
+                ({"event": "aot_miss"},
+                 _num(cache.get("aotMisses")) or 0.0)])
+    age_samples = [(labels, _num(snap.get("lastFallbackAgeSecs")))
+                   for labels, snap in sections
+                   if _num(snap.get("lastFallbackAgeSecs")) is not None]
     doc.metric("tmog_serving_last_fallback_age_seconds", "gauge",
                "seconds since the last host fallback (absent = never)",
-               [(None, age)] if age is not None else [])
+               age_samples)
 
 
 def _run_section(doc: _Doc, counters) -> None:

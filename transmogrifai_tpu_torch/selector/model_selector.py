@@ -835,6 +835,9 @@ class SelectedModel(PredictorModel):
     def predict_batch(self, X: torch.Tensor) -> PredictionBatch:
         return self.inner.predict_batch(X)
 
+    def aot_scoring_spec(self):
+        return self.inner.aot_scoring_spec()
+
 
 def _binary_defaults() -> List[Tuple[PredictorEstimator,
                                      List[Dict[str, Any]]]]:

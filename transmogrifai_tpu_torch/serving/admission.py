@@ -5,10 +5,10 @@ Degradation ladder of the port:
   1. coalesce   the micro-batcher amortizes dispatch overhead
   2. queue      bounded; absorbs bursts up to ``max_queue_rows``
   3. shed       over-capacity / past-deadline requests get ``ShedResult``
-  4. break      consecutive device failures open the breaker; while it is
-                open, requests shed with ``reason="breaker_open"``
-The JAX package's fourth rung, the numpy host scorer, is not ported: a
-batch whose device scoring raises fails with that exception.
+  4. degrade    a batch whose device scoring raises, and every batch while
+                consecutive failures hold the breaker open, is answered
+                by the host rung: the model's CPU copy at the exact batch
+                size (``ModelServer._execute``, ``hostFallbacks``)
 
 The admission and breaker locks are leaf locks: every ``with self._lock``
 region is a few field reads and writes with no calls out.  The breaker's
@@ -91,7 +91,8 @@ class CircuitBreaker:
 
     CLOSED    the device path in use; ``failure_threshold`` failures in a
               row open the breaker.
-    OPEN      no batch is scored for ``reset_after_s``.
+    OPEN      no batch reaches the device for ``reset_after_s`` (each
+              goes to the host rung).
     HALF_OPEN one trial batch goes through: success closes the breaker,
               failure re-opens it (a fresh cooldown).
     """

@@ -11,9 +11,11 @@ the thread that runs the scoring's torch ops.  Two formation modes:
     ``max_latency_ms``) the batch targets the full bucket and stays open
     for late arrivals up to the projected fill time, capped at
     ``max_latency_ms``; otherwise it dispatches now, at the bucket that
-    maximizes rows per predicted second (``BatchCostLookup``: an EWMA of
-    measured batch walls).  A near-full batch latches the burst mode; a
-    hold that expires nearly empty unlatches it.
+    maximizes rows per predicted second (``tuning.costmodel.
+    ServingCostLookup``: an EWMA of measured batch walls, else a fitted
+    ``Serving:batch`` cost model, else the analytic law; ``cost_lookup=``
+    takes one).  A near-full batch latches the burst mode; a hold that
+    expires nearly empty unlatches it.
 ``windowed``
     Coalesce up to ``max_batch`` rows or until the oldest waiting request
     has waited ``max_latency_ms``.
@@ -32,7 +34,6 @@ across the two threads.
 """
 from __future__ import annotations
 
-import math
 import threading
 import time
 from concurrent.futures import Future
@@ -43,55 +44,7 @@ from .admission import AdmissionController, ShedResult
 from .executor import bucket_for, bucket_sizes
 from .metrics import ServingMetrics
 
-__all__ = ["MicroBatcher", "BatchCostLookup", "run_pending_batch"]
-
-#: the analytic batch cost: a dispatch floor plus a per-row cost (seconds)
-_FLOOR_S, _ROW_S = 1e-4, 2e-5
-
-
-class BatchCostLookup:
-    """Predicted wall seconds of one batch per bucket: the EWMA of the
-    measured walls where a bucket was measured; else the nearest measured
-    bucket's level scaled by the analytic law's slope; else the analytic
-    law (the JAX package's ``ServingCostLookup`` without its fitted
-    cost-model tier)."""
-
-    def __init__(self, alpha: float = 0.3):
-        self.alpha = float(alpha)
-        self._ewma: Dict[int, float] = {}
-        self._counts: Dict[int, int] = {}
-        self._lock = threading.Lock()
-
-    @staticmethod
-    def _analytic(bucket: int) -> float:
-        return _FLOOR_S + bucket * _ROW_S
-
-    def observe(self, bucket: int, seconds: float) -> None:
-        if seconds <= 0:
-            return
-        with self._lock:
-            prev = self._ewma.get(bucket)
-            self._ewma[bucket] = seconds if prev is None else (
-                self.alpha * seconds + (1.0 - self.alpha) * prev)
-            self._counts[bucket] = self._counts.get(bucket, 0) + 1
-
-    def predict_s(self, bucket: int) -> float:
-        with self._lock:
-            ewma = dict(self._ewma)
-        if bucket in ewma:
-            return max(ewma[bucket], _FLOOR_S)
-        if ewma:
-            near = min(ewma, key=lambda b: abs(math.log(b / bucket)))
-            return max(ewma[near] * self._analytic(bucket)
-                       / self._analytic(near), _FLOOR_S)
-        return self._analytic(bucket)
-
-    def snapshot(self) -> Dict[str, Any]:
-        with self._lock:
-            return {"ewmaMs": {str(b): round(v * 1000.0, 4)
-                               for b, v in sorted(self._ewma.items())},
-                    "observedBatches": {str(b): c for b, c in
-                                        sorted(self._counts.items())}}
+__all__ = ["MicroBatcher", "run_pending_batch"]
 
 
 class _Pending:
@@ -112,7 +65,8 @@ class MicroBatcher:
                  max_batch: int = 64, max_latency_ms: float = 5.0,
                  admission: Optional[AdmissionController] = None,
                  metrics: Optional[ServingMetrics] = None,
-                 mode: str = "continuous"):
+                 mode: str = "continuous",
+                 cost_lookup: Any = None):
         if mode not in ("continuous", "windowed"):
             raise ValueError(
                 f"mode must be 'continuous' or 'windowed', got {mode!r}")
@@ -123,8 +77,11 @@ class MicroBatcher:
         self.metrics = metrics or ServingMetrics()
         self.mode = mode
         #: the continuous mode's per-bucket batch-cost estimates
-        self.cost_lookup = (BatchCostLookup() if mode == "continuous"
-                            else None)
+        if cost_lookup is None and mode == "continuous":
+            from ..tuning.costmodel import ServingCostLookup
+
+            cost_lookup = ServingCostLookup()
+        self.cost_lookup = cost_lookup
         self._buckets = bucket_sizes(self.max_batch)
         #: recent arrivals (perf_counter t, rows), for the burst probe
         self._arrivals: List[Tuple[float, int]] = []

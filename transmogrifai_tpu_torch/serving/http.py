@@ -1,22 +1,30 @@
-"""Minimal stdlib HTTP front end for a ``ModelServer`` (counterpart of
-``transmogrifai_tpu.serving.http``): every handler thread parks on a
-batcher future while the one dispatch thread scores.
+"""Minimal stdlib HTTP front end for a ``ModelServer`` or a
+``MultiTenantServer`` (counterpart of ``transmogrifai_tpu.serving.http``):
+every handler thread parks on a batcher future while one dispatch thread
+scores.
 
 Endpoints:
   POST /score    {"rows": [{...}, ...], "timeoutMs": 50} -> {"scores": [...]}
                  (shed rows come back as their ShedResult JSON and make the
-                 response a 503; a batch whose scoring failed, a 500)
+                 response a 503; a multi-tenant server also takes
+                 {"tenant": "<name>"}, and an unknown tenant is a 404)
   GET  /metrics  the serving metrics snapshot (JSON);
                  ``?format=prometheus``: the Prometheus text exposition of
-                 the snapshot and the run ledger (``obs/prometheus.py``)
+                 the snapshot and the run ledger (``obs/prometheus.py``),
+                 every serving sample labelled ``tenant="<name>"`` on a
+                 multi-tenant server
   GET  /healthz  {"status": "ok" | "degraded" | "draining" | "no_model",
-                 "model": {...}, "breakerState": ..., "shedRate": ...,
-                 "draining": ...}
+                 "model": {...}, "breakerState": ..., "lastFallbackReason":
+                 ..., "shedRate": ..., "draining": ...}; "degraded" while
+                 the breaker holds the device path closed (the host rung
+                 answers).  Multi-tenant: one such document per tenant,
+                 degraded if any tenant is
+  GET  /tenants  multi-tenant only: each tenant's configuration
   POST /swap     {"path": "/models/titanic_v2"} -> the new entry
+                 (multi-tenant: {"tenant": ..., "path": ...})
   POST /drain    stop admitting; in-flight work completes
-The multi-tenant ``/tenants`` route and the fabric's health document are
-not ported.  Connections carry a server-side socket timeout, so a stalled
-client releases its handler thread.
+Connections carry a server-side socket timeout, so a stalled client
+releases its handler thread.
 """
 from __future__ import annotations
 
@@ -31,13 +39,12 @@ from .admission import ShedResult
 __all__ = ["make_http_server", "serve_forever", "healthz_doc"]
 
 
-def healthz_doc(srv) -> Tuple[bool, dict]:
-    """(model present, the ``/healthz`` document) of a server."""
+def _healthz_single_doc(srv) -> Tuple[bool, dict]:
     entry = srv.registry.maybe_get(srv.name)
     breaker_state = srv.breaker.state
     status = "ok" if entry else "no_model"
     if entry and breaker_state != srv.breaker.CLOSED:
-        status = "degraded"
+        status = "degraded"   # serving, from the host rung
     if entry and srv.draining:
         status = "draining"
     snap = srv.metrics.snapshot()
@@ -46,16 +53,41 @@ def healthz_doc(srv) -> Tuple[bool, dict]:
         "status": status,
         "model": entry.describe() if entry else None,
         "breakerState": breaker_state,
+        "lastFallbackReason": snap["lastFallbackReason"],
         "lastDeviceError": snap["lastDeviceError"],
         "shedRate": round(snap["shed"] / offered, 4) if offered else 0.0,
         "draining": srv.draining,
     }
 
 
+def healthz_doc(server) -> Tuple[bool, dict]:
+    """(a model present, the ``/healthz`` document) of a single- or
+    multi-tenant server."""
+    if not getattr(server, "is_multi_tenant", False):
+        return _healthz_single_doc(server)
+    tenants = {}
+    any_model = degraded = False
+    for name in server.tenants():
+        ok, doc = _healthz_single_doc(server.tenant(name))
+        tenants[name] = doc
+        any_model = any_model or ok
+        degraded = degraded or doc["status"] not in ("ok", "draining")
+    status = "ok" if any_model else "no_model"
+    if any_model and degraded:
+        status = "degraded"
+    if any_model and server.draining:
+        status = "draining"
+    rates = [d["shedRate"] for d in tenants.values()]
+    return any_model, {"status": status, "tenants": tenants,
+                       "draining": server.draining,
+                       "shedRate": round(max(rates), 4) if rates else 0.0}
+
+
 def make_http_server(server, host: str = "127.0.0.1", port: int = 8080,
                      request_timeout_s: float = 30.0) -> ThreadingHTTPServer:
-    """Build (not start) an HTTP server around ``ModelServer`` ``server``;
-    port 0 binds an ephemeral port (``httpd.server_address[1]``)."""
+    """Build (not start) an HTTP server around ``server`` (a
+    ``ModelServer`` or a ``MultiTenantServer``); port 0 binds an
+    ephemeral port (``httpd.server_address[1]``)."""
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -93,6 +125,7 @@ def make_http_server(server, host: str = "127.0.0.1", port: int = 8080,
         def do_GET(self):
             url = urlsplit(self.path)
             path = url.path
+            multi = getattr(server, "is_multi_tenant", False)
             if path == "/healthz":
                 ok, doc = healthz_doc(server)
                 self._reply(200 if ok else 503, doc)
@@ -101,11 +134,18 @@ def make_http_server(server, host: str = "127.0.0.1", port: int = 8080,
                 if fmt == "prometheus":
                     from ..obs.prometheus import prometheus_text
 
+                    text = (prometheus_text(
+                        tenants=server.tenant_snapshots()) if multi
+                        else prometheus_text(server.snapshot()))
                     self._reply_text(
-                        200, prometheus_text(server.snapshot()),
-                        "text/plain; version=0.0.4; charset=utf-8")
+                        200, text, "text/plain; version=0.0.4; charset=utf-8")
                 else:
                     self._reply(200, server.snapshot())
+            elif path == "/tenants" and multi:
+                snap = server.snapshot()
+                self._reply(200, {"tenants": [
+                    t["tenantConfig"]
+                    for _, t in sorted(snap["tenants"].items())]})
             else:
                 self._reply(404, {"error": f"unknown path {path}"})
 
@@ -113,6 +153,8 @@ def make_http_server(server, host: str = "127.0.0.1", port: int = 8080,
             doc = self._read_json()
             if not isinstance(doc, dict):
                 return self._reply(400, {"error": "invalid JSON body"})
+            multi = getattr(server, "is_multi_tenant", False)
+            tenant = {"tenant": doc.get("tenant")} if multi else {}
             if self.path == "/score":
                 rows = doc.get("rows")
                 if not isinstance(rows, list):
@@ -120,7 +162,10 @@ def make_http_server(server, host: str = "127.0.0.1", port: int = 8080,
                         400, {"error": "body must be {'rows': [...]}"})
                 try:
                     results = server.score(rows,
-                                           timeout_ms=doc.get("timeoutMs"))
+                                           timeout_ms=doc.get("timeoutMs"),
+                                           **tenant)
+                except KeyError as exc:   # an unknown or missing tenant
+                    return self._reply(404, {"error": str(exc)})
                 except TypeError as exc:   # non-dict rows
                     return self._reply(400, {"error": str(exc)})
                 except Exception as exc:   # the batch's scoring failed
@@ -135,7 +180,10 @@ def make_http_server(server, host: str = "127.0.0.1", port: int = 8080,
                     return self._reply(
                         400, {"error": "body must be {'path': ...}"})
                 try:
-                    entry = server.swap(doc["path"])
+                    entry = (server.swap(doc.get("tenant"), doc["path"])
+                             if multi else server.swap(doc["path"]))
+                except KeyError as exc:
+                    return self._reply(404, {"error": str(exc)})
                 except Exception as exc:
                     return self._reply(500, {"error": str(exc)})
                 self._reply(200, {"swapped": entry.describe()})

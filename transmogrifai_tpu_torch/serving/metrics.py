@@ -1,11 +1,15 @@
 """Serving metrics — queue depth, batch-size histogram, latency quantiles
 (counterpart of ``transmogrifai_tpu.serving.metrics``).
 
-The snapshot keeps the JAX package's keys for what the port's server
-fills.  ``hostFallbacks`` stays and always reads 0 (the port has no host
-scoring rung); the guarded-swap and fallback-reason keys are left out
-with those features.  Latencies are ``time.perf_counter`` intervals that
-end once a batch's results are on the host.
+The snapshot has the JAX package's keys: the queue, the batch-size
+histogram, latency quantiles, sheds, device errors, the host rung's
+fallbacks and the reason of the last one, the guarded swap's decisions
+and rollbacks, and the process's compile-cache counters
+(``compileCache``), plus the port's ``lastDeviceError``.  Each executed
+batch's wall is also recorded under ``OpStep.Serving`` in the thread's
+``MetricsCollector``, if one is installed, and counted in the run ledger
+under ``serving.batch``.  Latencies are ``time.perf_counter`` intervals
+that end once a batch's results are on the host.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 from ..obs.flight import record_event
-from ..utils.profiling import count_launch
+from ..utils.profiling import OpStep, count_launch, current_collector
 
 __all__ = ["LatencyReservoir", "ServingMetrics"]
 
@@ -46,7 +50,10 @@ class LatencyReservoir:
 
 
 class ServingMetrics:
-    """Thread-safe counters and histograms of one model server."""
+    """Thread-safe counters and histograms of one model server: the
+    queue, the batches the coalescer forms, their padding, latency
+    quantiles, and each rung of the degradation ladder (sheds, device
+    errors, host fallbacks, the breaker) and of the guarded swap."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -63,12 +70,22 @@ class ServingMetrics:
         self.shed_by_reason: Dict[str, int] = {}
         self.deadline_expired = 0
         self.device_errors = 0
-        #: the port has no host scoring rung: this stays 0
         self.host_fallbacks = 0
         self.breaker_opens = 0
         self.hot_swaps = 0
-        #: "<ExceptionType>: message" of the last failed batch
+        #: "<ExceptionType>: message" of the last failed device batch
         self.last_device_error: Optional[str] = None
+        #: why the last host fallback engaged ("breaker_open" or
+        #: "device_error:<ExceptionType>") and when: why a replica is slow
+        self.last_fallback_reason: Optional[str] = None
+        self.last_fallback_at: Optional[float] = None
+        #: the guarded swap's gate outcomes and rollbacks, with reasons
+        self.swaps_accepted = 0
+        self.swaps_rejected = 0
+        self.rollbacks = 0
+        self.last_swap_decision: Optional[Dict[str, Any]] = None
+        self.last_rollback_reason: Optional[str] = None
+        self.last_rollback_at: Optional[float] = None
 
     def set_queue_depth(self, depth: int) -> None:
         with self._lock:
@@ -80,13 +97,17 @@ class ServingMetrics:
             self.requests += 1
             self.rows += n_rows
 
-    def record_batch(self, n_rows: int, bucket: int) -> None:
+    def record_batch(self, n_rows: int, bucket: int, seconds: float) -> None:
         """One executed micro-batch: ``n_rows`` real rows padded to
-        ``bucket``; counted in the run ledger under ``serving.batch``."""
+        ``bucket`` in ``seconds``, recorded under ``OpStep.Serving`` and
+        counted in the run ledger under ``serving.batch``."""
         with self._lock:
             self.batches += 1
             self.padded_rows += max(0, bucket - n_rows)
             self._batch_hist[bucket] = self._batch_hist.get(bucket, 0) + 1
+        coll = current_collector()
+        if coll is not None:
+            coll.record(OpStep.Serving, seconds)
         count_launch("serving.batch")
 
     def record_request_latency(self, seconds: float) -> None:
@@ -111,6 +132,15 @@ class ServingMetrics:
             self.device_errors += 1
             self.last_device_error = f"{type(exc).__name__}: {exc}"
 
+    def record_host_fallback(self, n_rows: int = 0,
+                             reason: Optional[str] = None) -> None:
+        """One batch of ``n_rows`` answered by the host rung."""
+        with self._lock:
+            self.host_fallbacks += 1
+            if reason is not None:
+                self.last_fallback_reason = reason
+                self.last_fallback_at = time.time()
+
     def record_breaker_open(self) -> None:
         with self._lock:
             self.breaker_opens += 1
@@ -119,11 +149,33 @@ class ServingMetrics:
         with self._lock:
             self.hot_swaps += 1
 
+    def record_swap_decision(self, decision: Dict[str, Any]) -> None:
+        """One guarded-swap gate outcome (``SwapDecision.to_json()``)."""
+        with self._lock:
+            if decision.get("accepted"):
+                self.swaps_accepted += 1
+            else:
+                self.swaps_rejected += 1
+            self.last_swap_decision = decision
+
+    def record_rollback(self, reason: str) -> None:
+        with self._lock:
+            self.rollbacks += 1
+            self.last_rollback_reason = reason
+            self.last_rollback_at = time.time()
+
     def snapshot(self) -> Dict[str, Any]:
         """Point-in-time JSON-able view (the ``/metrics`` payload)."""
+        from ..utils.compile_cache import cache_stats
+
+        now = time.time()
+
+        def age(at):
+            return None if at is None else round(now - at, 3)
+
         with self._lock:
-            return {
-                "uptimeSecs": round(time.time() - self.started_at, 3),
+            snap = {
+                "uptimeSecs": round(now - self.started_at, 3),
                 "queueDepth": self.queue_depth,
                 "queueDepthPeak": self.queue_depth_peak,
                 "requests": self.requests,
@@ -144,5 +196,15 @@ class ServingMetrics:
                 "hostFallbacks": self.host_fallbacks,
                 "breakerOpens": self.breaker_opens,
                 "hotSwaps": self.hot_swaps,
+                "lastFallbackReason": self.last_fallback_reason,
+                "lastFallbackAgeSecs": age(self.last_fallback_at),
+                "swapsAccepted": self.swaps_accepted,
+                "swapsRejected": self.swaps_rejected,
+                "rollbacks": self.rollbacks,
+                "lastSwapDecision": self.last_swap_decision,
+                "lastRollbackReason": self.last_rollback_reason,
+                "lastRollbackAgeSecs": age(self.last_rollback_at),
                 "lastDeviceError": self.last_device_error,
             }
+        snap["compileCache"] = cache_stats()
+        return snap

@@ -2,7 +2,11 @@
 (counterpart of ``transmogrifai_tpu.serving.registry``).
 
 Loads models through ``workflow/persistence.py`` onto a device, builds the
-score function once per load, and exposes an atomic get/swap surface:
+score function once per load, and a second one on a CPU copy of the model
+for the server's host rung (``ModelEntry.host_scorer``: the saved
+directory loaded again onto the CPU, or an in-memory model through a save
+and load round trip; the model itself when it is on the CPU already), and
+exposes an atomic get/swap surface:
 scoring threads resolve a ``ModelEntry`` by name and keep that immutable
 entry for the whole batch while a newer version is swapped in.  A bounded
 generation history per name backs ``pin`` and ``rollback``; eviction
@@ -12,20 +16,32 @@ before it is taken.
 """
 from __future__ import annotations
 
+import os
+import tempfile
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+import warnings
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from ..device import DeviceLike
+import torch
+
+from ..device import DeviceLike, resolve_device
 
 __all__ = ["ModelEntry", "ModelRegistry"]
 
 
 class ModelEntry:
-    """One immutable (name, version) of a servable model."""
+    """One immutable (name, version) of a servable model: its scorer on
+    the model's device and ``host_scorer``, the host rung's scorer on a
+    CPU copy built here, so that a device fault is answered without a
+    disk read (``host_load_s`` is what the copy took).  A model already
+    on the CPU is its own copy.  A model that cannot make the save and
+    load round trip (a callable the save would stub, a stage class with
+    no persistence row) gets no copy: ``host_scorer`` is None,
+    ``host_unavailable`` says why, and its device errors fail the batch."""
 
     def __init__(self, name: str, version: int, model: Any,
-                 path: Optional[str] = None):
+                 path: Optional[str] = None, device: DeviceLike = None):
         from ..local.scorer import score_function_batch
 
         self.name = name
@@ -35,6 +51,16 @@ class ModelEntry:
         self.loaded_at = time.time()
         #: rows -> score maps, built once per entry
         self.scorer = score_function_batch(model)
+        t0 = time.perf_counter()
+        host, self.host_unavailable = _cpu_copy(model, path, device)
+        #: the same on the CPU copy: the host rung of the degradation ladder
+        self.host_scorer = (self.scorer if host is model
+                            else None if host is None
+                            else score_function_batch(host))
+        self.host_load_s = time.perf_counter() - t0
+        if self.host_unavailable is not None:
+            warnings.warn(f"{name} v{version} has no host rung: "
+                          f"{self.host_unavailable}", stacklevel=3)
         self.result_features = [f.name for f in model.result_features]
 
     def describe(self) -> Dict[str, Any]:
@@ -44,6 +70,46 @@ class ModelEntry:
 
     def __repr__(self):
         return f"ModelEntry({self.name!r} v{self.version})"
+
+
+def _on_cpu(model: Any, device: DeviceLike) -> bool:
+    """Every stage of ``model`` places its work, and holds its tensors, on
+    the CPU (a stage with no device of its own runs on ``device``, else
+    the default device)."""
+    for stage in model.stages:
+        try:
+            dev = resolve_device(getattr(stage, "device", None) or device)
+        except RuntimeError:   # no card and no request: not the CPU
+            return False
+        if dev.type != "cpu" or any(
+                isinstance(v, torch.Tensor) and v.device.type != "cpu"
+                for v in vars(stage).values()):
+            return False
+    return True
+
+
+def _cpu_copy(model: Any, path: Optional[str], device: DeviceLike
+              ) -> Tuple[Any, Optional[str]]:
+    """(the model on the CPU, None), or (None, why there is no copy): the
+    model itself when it is already there, else loaded from its saved
+    directory or, for an in-memory model, through a save and load round
+    trip, which a model that would not come back whole does not take."""
+    from ..workflow.persistence import load_workflow_model, round_trip_problem
+
+    if _on_cpu(model, device):
+        return model, None
+    if path is not None:
+        return load_workflow_model(path, device="cpu"), None
+    problem = round_trip_problem(model)
+    if problem is not None:
+        return None, problem
+    with tempfile.TemporaryDirectory(prefix="tmog_host_") as tmp:
+        saved = os.path.join(tmp, "model")
+        try:
+            model.save(saved)
+        except NotImplementedError as exc:   # a nested stage with no row
+            return None, str(exc)
+        return load_workflow_model(saved, device="cpu"), None
 
 
 class ModelRegistry:
@@ -71,15 +137,16 @@ class ModelRegistry:
         from ..workflow.persistence import load_workflow_model
 
         return self.register(name, load_workflow_model(path, device=device),
-                             path=path)
+                             path=path, device=device)
 
-    def register(self, name: str, model: Any,
-                 path: Optional[str] = None) -> ModelEntry:
-        """Register an in-memory model (a freshly trained one, or tests)."""
+    def register(self, name: str, model: Any, path: Optional[str] = None,
+                 device: DeviceLike = None) -> ModelEntry:
+        """Register an in-memory model (a freshly trained one, or tests);
+        ``device`` is where its stages with no device of their own run."""
         with self._lock:
             version = self._versions.get(name, 0) + 1
             self._versions[name] = version
-        entry = ModelEntry(name, version, model, path=path)
+        entry = ModelEntry(name, version, model, path=path, device=device)
         with self._lock:
             current = self._entries.get(name)
             if current is not None and current.version > entry.version:

@@ -12,20 +12,24 @@ writes the JAX-era ``benchmarks/`` history, whose walls were taken on
 another backend.  Every train records its plan profiler's stage
 observations there (``record_train_observations``), bucketed by the
 backend names the JAX package uses ("gpu", "cpu";
-``utils.profiling.backend_name``).  The serving cost lookup waits for
-ROADMAP Queue A item 6.6.5.
+``utils.profiling.backend_name``).  ``ServingCostLookup`` predicts a
+serving batch's wall per shape bucket for the micro-batcher and the
+multi-tenant dispatcher: a measured EWMA, else the fitted
+``Serving:batch`` kind, else the analytic law.
 """
 from __future__ import annotations
 
 import math
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["StageObservation", "CostModel", "load_observations",
+__all__ = ["StageObservation", "CostModel", "ServingCostLookup",
+           "load_observations",
            "append_observations", "default_history_path",
            "observations_from_profiler", "record_train_observations",
            "HISTORY_OBSERVATION_CAP"]
@@ -245,6 +249,86 @@ def append_observations(path: Optional[str],
     except OSError:
         return False
     return True
+
+
+class ServingCostLookup:
+    """Per-bucket predicted wall seconds of one served batch, for the
+    continuous batch formation (``serving/batcher.py``) and the
+    multi-tenant dispatcher.  Three tiers, sharpest first: the EWMA of the
+    walls measured at that bucket (the batcher feeds every executed batch
+    back), else the nearest measured bucket's level scaled by the
+    analytic law's slope, else the fitted ``CostModel`` under the
+    ``Serving:batch`` kind, else the analytic per-row law.  Thread-safe:
+    read by the dispatch thread, written after every batch."""
+
+    STAGE_KIND = "Serving:batch"
+
+    def __init__(self, cost_model: Optional[CostModel] = None,
+                 cols: int = 0, alpha: float = 0.3):
+        self.cost_model = cost_model
+        self.cols = int(cols)
+        self.alpha = float(alpha)
+        self._ewma: Dict[int, float] = {}
+        self._counts: Dict[int, int] = {}
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_history(cls, cols: int = 0,
+                     path: Optional[str] = None) -> "ServingCostLookup":
+        return cls(cost_model=CostModel.from_history(path), cols=cols)
+
+    def observe(self, bucket: int, seconds: float) -> None:
+        if seconds <= 0:
+            return
+        with self._lock:
+            prev = self._ewma.get(bucket)
+            self._ewma[bucket] = seconds if prev is None else (
+                self.alpha * seconds + (1.0 - self.alpha) * prev)
+            self._counts[bucket] = self._counts.get(bucket, 0) + 1
+
+    @staticmethod
+    def _analytic(bucket: int) -> float:
+        # a dispatch floor plus a per-row cost
+        return PREDICTION_FLOOR_S + bucket * 2e-5
+
+    def predict_s(self, bucket: int) -> float:
+        """Predicted wall seconds of one batch at ``bucket``.  Once any
+        bucket is measured, an unmeasured one extrapolates from the
+        nearest measured (in log space): measured level, analytic slope,
+        so that it never looks spuriously cheap beside a measured one."""
+        with self._lock:
+            measured = self._ewma.get(bucket)
+            ewma = dict(self._ewma) if measured is None else None
+        if measured is not None:
+            return max(measured, PREDICTION_FLOOR_S)
+        if ewma:
+            near = min(ewma, key=lambda b: abs(
+                math.log(max(b, 1) / max(bucket, 1))))
+            scaled = ewma[near] * (self._analytic(bucket)
+                                   / self._analytic(near))
+            return max(scaled, PREDICTION_FLOOR_S)
+        if self.cost_model is not None:
+            return self.cost_model.predict(self.STAGE_KIND, rows=bucket,
+                                           cols=max(self.cols, 1))
+        return self._analytic(bucket)
+
+    def source(self, bucket: int) -> str:
+        """'measured', 'fitted' or 'analytic': the tier ``predict_s``
+        reads for ``bucket`` before any extrapolation."""
+        with self._lock:
+            if bucket in self._ewma:
+                return "measured"
+        if self.cost_model is not None and self.cost_model.source(
+                self.STAGE_KIND) == "fitted":
+            return "fitted"
+        return "analytic"
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"ewmaMs": {str(b): round(v * 1000.0, 4)
+                               for b, v in sorted(self._ewma.items())},
+                    "observedBatches": dict(sorted(
+                        (str(k), v) for k, v in self._counts.items()))}
 
 
 def observations_from_profiler(profiler,

@@ -36,9 +36,18 @@ global check when no plan is armed):
   ``cv.fold``         as each streaming workflow-CV fold context builds
                       its matrices (workflow/streaming_cv.py; ``index``
                       is the context's ordinal)
+  ``swap.shadow``     at every guarded-swap shadow evaluation
+                      (serving/guarded.py ``GuardedSwap.propose``;
+                      ``index`` is the proposal ordinal) — a ``raise``
+                      here lands as a structured gate rejection
+                      (``shadow_error:FaultError``), never a swap
+  ``swap.bake``       at every post-swap bake probe (serving/guarded.py
+                      ``GuardedSwap.bake_probe``; ``index`` is the probe
+                      ordinal) — a ``raise`` here rolls back to the
+                      pinned generation (``probe_error:FaultError``)
 
-The JAX package's other points (serving, pods) wait for the features
-that own them (ROADMAP Queue A items 6.6 and 6.7).
+The JAX package's other points (the fabric's, the pods') wait for the
+features that own them (ROADMAP Queue A items 6.6.6 and 6.7).
 
 Actions: ``io_error`` (raise OSError, the transient class the reader
 retry policy handles), ``raise`` (``FaultError``, non-transient),

@@ -59,6 +59,7 @@ from ..utils.jsonio import write_json_atomic
 from ..utils.version import version_info
 
 __all__ = ["save_workflow_model", "load_workflow_model", "check_serializable",
+           "round_trip_problem", "saved_stages",
            "CLASS_MAP", "MODEL_JSON", "ARRAYS_NPZ", "FORMAT_VERSION"]
 
 MODEL_JSON = "op-model.json"
@@ -307,9 +308,36 @@ def check_serializable(stages) -> None:
             "(saving will stub these values).")
 
 
+def round_trip_problem(model) -> Optional[str]:
+    """Why ``model`` would not come back whole from a save and load (a
+    callable the save would stub, a stage class with no row in
+    ``CLASS_MAP``), else None."""
+    stages = saved_stages(model)
+    try:
+        check_serializable(stages)
+    except ValueError as exc:
+        return str(exc)
+    unmapped = sorted({type(s).__name__ for s in stages
+                       if type(s) not in _JAX_PATH})
+    if unmapped:
+        return ("no row in the persistence class map for "
+                + ", ".join(unmapped))
+    return None
+
+
 # ---------------------------------------------------------------------------
 # save
 # ---------------------------------------------------------------------------
+
+def saved_stages(model) -> List[PipelineStage]:
+    """The stages a save writes, in its order: the raw generators, then
+    the fitted stages in scoring-DAG order."""
+    stages = [f.origin_stage for f in model.raw_features()
+              if isinstance(f.origin_stage, FeatureGeneratorStage)]
+    for layer in model._scoring_dag().non_generator_layers():
+        stages += layer
+    return stages
+
 
 def save_workflow_model(model, path: str, overwrite: bool = True) -> None:
     """Write ``model`` to the directory ``path`` (replaced when
@@ -323,12 +351,7 @@ def save_workflow_model(model, path: str, overwrite: bool = True) -> None:
             os.remove(path)
     os.makedirs(path)
     store = _ArrayStore()
-    # raw generators first, then the fitted stages in scoring-DAG order
-    records = [_stage_record(f.origin_stage, store)
-               for f in model.raw_features()
-               if isinstance(f.origin_stage, FeatureGeneratorStage)]
-    for layer in model._scoring_dag().non_generator_layers():
-        records += [_stage_record(s, store) for s in layer]
+    records = [_stage_record(s, store) for s in saved_stages(model)]
     rff = getattr(model, "raw_feature_filter_results", None)
     doc = {
         "version": FORMAT_VERSION,
